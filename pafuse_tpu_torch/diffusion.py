@@ -1,0 +1,224 @@
+"""D3DP conditional diffusion for 3D pose: eval-time multi-hypothesis DDIM
+with flip test-time augmentation.
+
+Counterpart of ``pafuse_tpu/diffusion.py`` (eval only).  Schedules are
+computed in float64 NumPy and stored as float32; the DDIM step coefficients
+are computed in NumPy exactly as the JAX sampler does.  ``ddim_sample`` is a
+Python loop over the S steps; the H hypotheses and the flipped twin ride the
+batch axis of one denoiser call per step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from pafuse_tpu_torch import geometry, skeleton as sk
+from pafuse_tpu_torch.models.parts import (PartModel, build_part_specs,
+                                           monolithic_spec)
+from pafuse_tpu_torch.utils.device import resolve_device
+
+
+def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
+    steps = timesteps + 1
+    x = np.linspace(0, timesteps, steps, dtype=np.float64)
+    alphas_cumprod = np.cos(((x / timesteps) + s) / (1 + s) * math.pi * 0.5) ** 2
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    betas = 1 - (alphas_cumprod[1:] / alphas_cumprod[:-1])
+    return np.clip(betas, 0, 0.999)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    betas: np.ndarray
+    alphas_cumprod: np.ndarray
+    alphas_cumprod_prev: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
+    sqrt_recip_alphas_cumprod: np.ndarray
+    sqrt_recipm1_alphas_cumprod: np.ndarray
+    posterior_variance: np.ndarray
+    posterior_log_variance_clipped: np.ndarray
+    posterior_mean_coef1: np.ndarray
+    posterior_mean_coef2: np.ndarray
+
+
+def make_schedule(timesteps: int) -> Schedule:
+    betas = cosine_beta_schedule(timesteps)
+    alphas = 1.0 - betas
+    ac = np.cumprod(alphas)
+    ac_prev = np.concatenate([[1.0], ac[:-1]])
+    post_var = betas * (1.0 - ac_prev) / (1.0 - ac)
+    return Schedule(
+        betas=betas.astype(np.float32),
+        alphas_cumprod=ac.astype(np.float32),
+        alphas_cumprod_prev=ac_prev.astype(np.float32),
+        sqrt_alphas_cumprod=np.sqrt(ac).astype(np.float32),
+        sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - ac).astype(np.float32),
+        sqrt_recip_alphas_cumprod=np.sqrt(1.0 / ac).astype(np.float32),
+        sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / ac - 1.0).astype(np.float32),
+        posterior_variance=post_var.astype(np.float32),
+        posterior_log_variance_clipped=np.log(
+            np.clip(post_var, 1e-20, None)).astype(np.float32),
+        posterior_mean_coef1=(betas * np.sqrt(ac_prev) / (1.0 - ac)).astype(np.float32),
+        posterior_mean_coef2=((1.0 - ac_prev) * np.sqrt(alphas)
+                              / (1.0 - ac)).astype(np.float32),
+    )
+
+
+def ddim_time_pairs(total_timesteps: int, sampling_timesteps: int
+                    ) -> List[Tuple[int, int]]:
+    """[(T-1, t_{S-1}), ..., (t_1, -1)]."""
+    times = np.linspace(-1, total_timesteps - 1, sampling_timesteps + 1)
+    times = list(reversed(times.astype(int).tolist()))
+    return list(zip(times[:-1], times[1:]))
+
+
+@dataclasses.dataclass(frozen=True)
+class D3DPConfig:
+    frames: int = 27
+    num_kps: int = 134
+    timesteps: int = 1000
+    sampling_timesteps: int = 5
+    num_proposals: int = 10
+    scale: float = 1.0
+    eta: float = 1.0
+    depth: int = 8
+    input_size: int = 5
+    cs: int = 288                   # monolithic channel size
+    part_based: bool = True
+    merge_hands: bool = True
+    test_time_augmentation: bool = True
+
+
+class D3DP(nn.Module):
+    """Eval-mode D3DP: schedule tables, the part router and the flip table.
+
+    ``pose_estimator`` is the :class:`PartModel`, so ``state_dict()`` keys
+    are the reference's ``pose_estimator.{part}.…`` names."""
+
+    def __init__(self, cfg: D3DPConfig, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.schedule = make_schedule(cfg.timesteps)
+        if cfg.part_based:
+            specs = build_part_specs(sk.parts_table(cfg.merge_hands),
+                                     cfg.frames, cfg.input_size, cfg.depth)
+        else:
+            specs = monolithic_spec(cfg.num_kps, cfg.frames, cfg.input_size,
+                                    cfg.cs, cfg.depth)
+        self.pose_estimator = PartModel(specs, self.device, generator)
+        if cfg.num_kps != sk.NUM_JOINTS:
+            raise ValueError(f"num_kps={cfg.num_kps}: only the "
+                             f"{sk.NUM_JOINTS}-joint H3WB layout is ported")
+        self.flip_permutation = sk.FLIP_PERMUTATION
+
+    def _clamp_scaled(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.cfg.scale
+        return x.clamp(-1.1 * s, 1.1 * s)
+
+    def _model_predictions(self, x: torch.Tensor, x2d_tiled: torch.Tensor,
+                           t: int, x2d_flip_tiled: Optional[torch.Tensor]):
+        """x: (B,H,F,N,3) noisy -> (pred_noise, x_start), same shape.
+
+        (B, H) fold into the batch; with flip-TTA the flipped twin is
+        appended to the batch, denoised in the same call, un-flipped and
+        averaged."""
+        cfg = self.cfg
+        B, H, F, N, C = x.shape
+        xt_flat = (self._clamp_scaled(x) / cfg.scale).reshape(B * H, F, N, C)
+        t_cond = torch.full((B * H,), t, dtype=torch.int32, device=x.device)
+        if x2d_flip_tiled is not None:
+            perm = self.flip_permutation
+            xt_flip = geometry.flip_pose(xt_flat, perm)
+            pred = self.pose_estimator(
+                torch.cat([x2d_tiled, x2d_flip_tiled]),
+                torch.cat([xt_flat, xt_flip]), torch.cat([t_cond, t_cond]))
+            pred_n, pred_f = pred[:B * H], pred[B * H:]
+            pred = 0.5 * (pred_n + geometry.flip_pose(pred_f, perm))
+        else:
+            pred = self.pose_estimator(x2d_tiled, xt_flat, t_cond)
+
+        x_start = self._clamp_scaled(pred.reshape(B, H, F, N, C) * cfg.scale)
+        sched = self.schedule
+        r = float(sched.sqrt_recip_alphas_cumprod[t])
+        rm1 = float(sched.sqrt_recipm1_alphas_cumprod[t])
+        pred_noise = (r * x - x_start) / rm1
+        return pred_noise, x_start
+
+    @torch.no_grad()
+    def ddim_sample(self, x2d: torch.Tensor,
+                    x2d_flip: Optional[torch.Tensor] = None,
+                    num_proposals: Optional[int] = None,
+                    sampling_timesteps: Optional[int] = None,
+                    init_noise: Optional[torch.Tensor] = None,
+                    step_noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """Multi-hypothesis DDIM sampling.
+
+        x2d: (B, F, N, 2) conditioning; x2d_flip: optional flipped twin.
+        init_noise: optional (B, H, F, N, 3) x_T; step_noise: optional
+        (S, B, H, F, N, 3) per-step noise.  Noise not given is drawn from
+        ``generator`` on the model's device.
+        Returns (B, S, H, F, N, 3) x0 predictions of every step."""
+        cfg = self.cfg
+        H = cfg.num_proposals if num_proposals is None else num_proposals
+        S = (cfg.sampling_timesteps if sampling_timesteps is None
+             else sampling_timesteps)
+        if H < 1 or S < 1:
+            raise ValueError(f"num_proposals/sampling_timesteps must be >=1, "
+                             f"got {H}/{S}")
+        B, F, N, _ = x2d.shape
+        sched = self.schedule
+        dev = x2d.device
+
+        pairs = ddim_time_pairs(cfg.timesteps, S)
+        times = np.array([p[0] for p in pairs], dtype=np.int32)
+        times_next = np.array([p[1] for p in pairs], dtype=np.int32)
+        alpha = sched.alphas_cumprod[times]
+        alpha_next = np.where(times_next >= 0,
+                              sched.alphas_cumprod[np.maximum(times_next, 0)], 1.0)
+        sigma = cfg.eta * np.sqrt(np.clip(
+            (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), 0, None))
+        coef_c = np.sqrt(np.clip(1 - alpha_next - sigma ** 2, 0, None))
+        alpha_next_sqrt = np.sqrt(alpha_next).astype(np.float32)
+        sigma = sigma.astype(np.float32)
+        coef_c = coef_c.astype(np.float32)
+
+        x2d_tiled = x2d.repeat_interleave(H, dim=0)
+        x2d_flip_tiled = (x2d_flip.repeat_interleave(H, dim=0)
+                          if x2d_flip is not None else None)
+
+        shape = (B, H, F, N, 3)
+        img = (init_noise.to(dev, torch.float32) if init_noise is not None
+               else torch.randn(shape, generator=generator, device=dev))
+        preds = []
+        for i in range(S):
+            pred_noise, x_start = self._model_predictions(
+                img, x2d_tiled, int(times[i]), x2d_flip_tiled)
+            preds.append(x_start)
+            if times_next[i] < 0:
+                img = x_start
+                continue
+            noise = (step_noise[i].to(dev, torch.float32)
+                     if step_noise is not None
+                     else torch.randn(shape, generator=generator, device=dev))
+            img = (x_start * float(alpha_next_sqrt[i])
+                   + float(coef_c[i]) * pred_noise + float(sigma[i]) * noise)
+        return torch.stack(preds, dim=1)
+
+    def eval_forward(self, x2d: torch.Tensor,
+                     x2d_flip: Optional[torch.Tensor] = None, **kw):
+        """Eval-mode forward: DDIM with flip-TTA when the config enables it
+        and a flipped twin is given."""
+        if self.cfg.test_time_augmentation and x2d_flip is not None:
+            return self.ddim_sample(x2d, x2d_flip, **kw)
+        return self.ddim_sample(x2d, None, **kw)

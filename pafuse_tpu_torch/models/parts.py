@@ -1,0 +1,96 @@
+"""Part-based denoiser routing: one MixSTE2 per body part.
+
+Counterpart of ``pafuse_tpu/models/parts.py`` (unpacked execution): each
+part network sees a static gather of its joints, and the outputs are
+concatenated back in whole-body joint order (an inverse permutation covers
+part tables that are not contiguous and ordered).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from pafuse_tpu_torch.models.mixste import MixSTE2, MixSTEConfig
+from pafuse_tpu_torch.utils.device import resolve_device
+
+#: per-part embedding widths
+PART_CHANNELS = {"body": 384, "face": 224, "hands": 256,
+                 "left_hand": 256, "right_hand": 256}
+
+
+@dataclasses.dataclass(frozen=True)
+class PartSpec:
+    name: str
+    joint_indices: np.ndarray       # indices into the whole-body joint axis
+    config: MixSTEConfig
+
+
+def build_part_specs(parts_joint_indices: Dict[str, List[int]],
+                     num_frames: int, in_chans: int,
+                     depth: int) -> List[PartSpec]:
+    return [PartSpec(name=name,
+                     joint_indices=np.asarray(idx, dtype=np.int32),
+                     config=MixSTEConfig(num_frames=num_frames,
+                                         num_joints=len(idx),
+                                         in_chans=in_chans,
+                                         embed_dim=PART_CHANNELS[name],
+                                         depth=depth))
+            for name, idx in parts_joint_indices.items()]
+
+
+def monolithic_spec(num_joints: int, num_frames: int, in_chans: int,
+                    embed_dim: int, depth: int) -> List[PartSpec]:
+    """A single whole-body network."""
+    return [PartSpec(name="whole_body",
+                     joint_indices=np.arange(num_joints, dtype=np.int32),
+                     config=MixSTEConfig(num_frames=num_frames,
+                                         num_joints=num_joints,
+                                         in_chans=in_chans,
+                                         embed_dim=embed_dim, depth=depth))]
+
+
+class PartModel(nn.ModuleDict):
+    """Applies one MixSTE2 per part and reassembles the whole body:
+    (B,F,N,2) x (B,F,N,3) x (B,) -> (B,F,N,3).
+
+    State-dict keys are ``{part}.<MixSTE2 key>``, the reference's names
+    under ``pose_estimator.``.  Part networks draw their weights from
+    ``generator`` in spec order."""
+
+    def __init__(self, specs: List[PartSpec], device="cuda",
+                 generator: torch.Generator | None = None):
+        dev = resolve_device(device)
+        gen = generator if generator is not None else (
+            torch.Generator().manual_seed(0))
+        super().__init__({s.name: MixSTE2(s.config, dev, gen)
+                          for s in specs})
+        self.specs = specs
+        concat_order = np.concatenate([s.joint_indices for s in specs])
+        self.num_joints = int(concat_order.max()) + 1
+        if len(concat_order) != self.num_joints:
+            raise ValueError("part tables must partition the joint set")
+        self._is_identity = bool(np.all(concat_order == np.arange(self.num_joints)))
+        self.register_buffer("_inverse", torch.as_tensor(
+            np.argsort(concat_order), dtype=torch.long, device=dev),
+            persistent=False)
+        for s in specs:
+            self.register_buffer(f"_idx_{s.name}", torch.as_tensor(
+                s.joint_indices, dtype=torch.long, device=dev),
+                persistent=False)
+
+    def forward(self, x2d: torch.Tensor, x3d: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+        outs = []
+        for s in self.specs:
+            idx = getattr(self, f"_idx_{s.name}")
+            outs.append(self[s.name](x2d.index_select(-2, idx),
+                                     x3d.index_select(-2, idx), t))
+        merged = torch.cat(outs, dim=-2)
+        if self._is_identity:
+            return merged
+        return merged.index_select(-2, self._inverse)

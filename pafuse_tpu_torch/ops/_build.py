@@ -1,0 +1,109 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes ``build/pafuse_tpu_torch/<hash>/lib<name>.so``
+next to the package, where ``<hash>`` keys the source text and the compiler
+flags, so an edited source rebuilds and an unchanged one is reused.  Nothing
+is built when the package is imported: the first CUDA call of a kernel
+wrapper calls :func:`load`, which builds every source at once (one ``nvcc``
+process per source, all started together) and then opens the library.
+
+The libraries have a plain C interface; ``KERNELS`` declares each exported
+function's ctypes signature (``c_void_p`` for pointers and streams).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
+                          "pafuse_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+
+#: source name -> {exported function: argtypes}; every function returns int
+#: (the cudaError_t of the first failed launch, 0 on success).
+KERNELS: Dict[str, Dict[str, list]] = {
+    "block": {
+        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, B, L, C, H,
+        # hidden, scale, stream
+        "pafuse_fused_block": [_I] + [_P] * 6 + [_P] * 14
+                              + [_LL, _I, _I, _I, _I, _F, _P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def _library_path(name: str) -> str:
+    h = hashlib.sha256()
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], f"lib{name}.so")
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source that has no library yet, all in parallel.
+
+    Returns {name: library path}; raises with nvcc's output on failure."""
+    paths = {name: _library_path(name) for name in KERNELS}
+    procs = {}
+    for name, path in paths.items():
+        if os.path.exists(path):
+            continue
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes library built from ``csrc/<name>.cu`` (built on first use)."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = build_all()[name]
+            lib = ctypes.CDLL(path)
+            for fn, argtypes in KERNELS[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib

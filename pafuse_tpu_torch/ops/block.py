@@ -1,0 +1,132 @@
+"""Fused MixSTE transformer block + outer LayerNorm (eval only).
+
+Counterpart of ``pafuse_tpu/ops/attention.py::pallas_block``: LN1 -> QKV ->
+per-head softmax(QK^T/sqrt(d))V -> proj -> +residual -> LN2 -> fc1 -> exact
+GELU -> fc2 -> +residual -> outer (Spatial/Temporal) LN, over sequences of L
+tokens.  Matmuls take their operands in the compute dtype (the dtype of
+``x``: float32 or bfloat16) and accumulate in float32; LayerNorm, softmax and
+GELU run in float32, with the rounding points of the TPU kernel.
+
+``fused_block`` launches the hand-written CUDA kernel chain
+(``csrc/block.cu``) for CUDA tensors and uses ``block_reference``, the same
+function in plain PyTorch ops, for CPU tensors.
+
+Parameters are passed as two tuples of float32 tensors in torch layout:
+``block_params = (norm1.weight, norm1.bias, qkv.weight, qkv.bias,
+proj.weight, proj.bias, norm2.weight, norm2.bias, fc1.weight, fc1.bias,
+fc2.weight, fc2.bias)`` with Linear weights as (out, in), and
+``outer_norm = (weight, bias)``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+_EPS = 1e-6
+
+
+def _layernorm(v: torch.Tensor, scale, bias) -> torch.Tensor:
+    v = v.float()
+    mean = v.mean(-1, keepdim=True)
+    var = (v - mean).square().mean(-1, keepdim=True)
+    return (v - mean) * torch.rsqrt(var + _EPS) * scale + bias
+
+
+def block_reference(x: torch.Tensor, block_params: Sequence[torch.Tensor],
+                    outer_norm: Sequence[torch.Tensor],
+                    num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the fused block.  x: (B, L, C)."""
+    (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2,
+     bfc2) = block_params
+    nos, nob = outer_norm
+    cd = x.dtype
+    B, L, C = x.shape
+    d = C // num_heads
+
+    def dot(a, w, b):
+        # weights rounded to the compute dtype, f32 accumulation
+        return F.linear(a.float(), w.to(cd).float(), b)
+
+    h = _layernorm(x, n1s, n1b).to(cd)
+    qkv = dot(h, wqkv, bqkv).to(cd).float()
+    q, k, v = qkv.view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    logits = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5
+    probs = torch.softmax(logits, dim=-1).to(cd).float()
+    ao = torch.matmul(probs, v).to(cd)                     # (B, H, L, d)
+    ao = ao.transpose(1, 2).reshape(B, L, C)
+    x1 = x + dot(ao, wproj, bproj).to(cd)
+
+    h = _layernorm(x1, n2s, n2b).to(cd)
+    hdn = F.gelu(dot(h, wfc1, bfc1)).to(cd)
+    x2 = x1 + dot(hdn, wfc2, bfc2).to(cd)
+    return _layernorm(x2, nos, nob).to(cd)
+
+
+def _check(x: torch.Tensor, params: Sequence[torch.Tensor],
+           num_heads: int) -> int:
+    if x.dim() != 3:
+        raise ValueError(f"fused_block: x must be (B, L, C); got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_block: x must be float32 or bfloat16; got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fused_block: x must be contiguous")
+    C = x.shape[2]
+    if C % num_heads:
+        raise ValueError(f"fused_block: C={C} not divisible by {num_heads} heads")
+    hidden = params[8].shape[0]
+    shapes = [(C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,), (C,), (C,),
+              (hidden, C), (hidden,), (C, hidden), (C,), (C,), (C,)]
+    for i, (p, shape) in enumerate(zip(params, shapes)):
+        if tuple(p.shape) != shape:
+            raise ValueError(f"fused_block: parameter {i} has shape "
+                             f"{tuple(p.shape)}, expected {shape}")
+        if p.dtype != torch.float32 or p.device != x.device:
+            raise ValueError(f"fused_block: parameter {i} must be float32 on "
+                             f"{x.device}; got {p.dtype} on {p.device}")
+        if not p.is_contiguous():
+            raise ValueError(f"fused_block: parameter {i} must be contiguous")
+    return hidden
+
+
+def fused_block(x: torch.Tensor, block_params: Sequence[torch.Tensor],
+                outer_norm: Sequence[torch.Tensor],
+                num_heads: int) -> torch.Tensor:
+    """The fused block on (B, L, C) sequences; returns (B, L, C) in x.dtype.
+
+    CUDA tensors go through the CUDA kernel chain (built on first use) or
+    raise; CPU tensors go through :func:`block_reference`."""
+    if x.device.type == "cpu":
+        return block_reference(x, block_params, outer_norm, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block: unsupported device {x.device}")
+    params = tuple(block_params) + tuple(outer_norm)
+    hidden = _check(x, params, num_heads)
+    from pafuse_tpu_torch.ops import _build
+    lib = _build.load("block")
+
+    B, L, C = x.shape
+    M = B * L
+    out = torch.empty_like(x)
+    qkv = x.new_empty((M, 3 * C))
+    attn = x.new_empty((M, C))
+    x1 = x.new_empty((M, C))
+    hid = x.new_empty((M, hidden))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.pafuse_fused_block(
+            int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
+            qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(), hid.data_ptr(),
+            *[p.data_ptr() for p in params],
+            B, L, C, num_heads, hidden, (C // num_heads) ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_block: CUDA kernel launch failed with "
+                           f"cudaError {err}")
+    fused_block.launches += 1
+    return out
+
+
+#: kernel launches through ``fused_block`` (CUDA path only)
+fused_block.launches = 0

@@ -1,0 +1,373 @@
+// Fused MixSTE transformer block + outer LayerNorm, eval only, for Hopper
+// (sm_90a).
+//
+// Replaces: pafuse_tpu/ops/attention.py::pallas_block (the TPU kernel
+// _block_kernel -> _block_body).  Computes, per sequence of L tokens:
+//
+//   h   = LN1(x)                        -> compute dtype T
+//   qkv = h @ Wqkv + bqkv               -> T
+//   a   = softmax(q k^T / sqrt(d)) v    per head; logits and softmax in f32,
+//                                       probabilities rounded to T, AV
+//                                       accumulated in f32 and rounded to T
+//   x1  = x + T(a @ Wproj + bproj)      residual add in T
+//   u   = T(gelu(LN2(x1) @ Wfc1 + bfc1)) exact (erf) GELU in f32
+//   x2  = x1 + T(u @ Wfc2 + bfc2)       residual add in T
+//   out = T(LN_outer(x2))               LayerNorm in f32, eps 1e-6
+//
+// Weights stay f32 in device memory in the torch (out, in) layout and are
+// rounded to T where a tile enters shared memory, so the products match the
+// TPU kernel's "weights cast to the compute dtype" rounding point.  All sums
+// accumulate in f32.
+//
+// What bounds it on this card: for the part widths (C = 224..384, L <= 68)
+// the work is ~16*B*L*C^2 + 4*B*L^2*C FLOPs against ~2*B*L*C*sizeof(T)
+// bytes of activations (+ 8*C^2*4 bytes of weights, which stay in the 50 MB
+// L2), i.e. hundreds of FLOPs per byte: the block is bound by arithmetic.
+// The TPU kernel keeps all of a block's weights in VMEM (up to 120 MB) and
+// runs the block in one pass; one QKV weight alone (384x1152 f32, 1.7 MB)
+// exceeds the 227 KB of shared memory an H100 block can use, so the design
+// here is a short chain of launches instead: four tiled GEMMs with fused
+// prologues (row LayerNorm on A) and epilogues (bias, GELU, residual), one
+// attention kernel with one CTA per (sequence, head) that keeps q, k and v
+// in shared memory (no token padding: only the L real keys enter a
+// softmax), and one row LayerNorm.  The intermediates (qkv, attention out,
+// x1, MLP hidden) round-trip through device memory.  The GEMMs use scalar
+// f32 FMAs, so the face head size d = 28 and N = 3*224 need no padding;
+// tensor cores (wgmma) and fusing the chain are later work.
+//
+// Plain C interface for ctypes: every function returns the cudaError_t of
+// the first launch that failed, or 0.  Nothing here allocates or
+// synchronises; everything launches on the caller's stream.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+
+namespace {
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Round an f32 value to T and back: the compute dtype's rounding point.
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f32<T>(from_f32<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+constexpr float kLnEps = 1e-6f;
+
+// ---------------------------------------------------------------------------
+// Tiled GEMM  Y[m, n] = epilogue(sum_k prologue(A)[m, k] * T(W[n, k]) + b[n])
+// A: (M, K) in T, W: (N, K) f32 (torch Linear layout), Y: (M, N) in T.
+// 64x64 output tile per CTA, 16-deep K slices through shared memory, 256
+// threads with a 4x4 register tile each.  M (up to ~10^6 rows) lies on
+// gridDim.x, the N tiles (at most 18) on gridDim.y.
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
+
+enum { PRO_NONE = 0, PRO_LAYERNORM = 1 };
+enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
+
+template <typename T, int PRO, int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_kernel(const T* __restrict__ A, const float* __restrict__ W,
+            const float* __restrict__ bias, const float* __restrict__ ln_scale,
+            const float* __restrict__ ln_bias, const T* __restrict__ R,
+            T* __restrict__ Y, long long M, int N, int K) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Ws[BK][BN + 4];
+  __shared__ float row_mean[BM];
+  __shared__ float row_rstd[BM];
+
+  const int tid = threadIdx.x;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+
+  if (PRO == PRO_LAYERNORM) {
+    // Row statistics of this CTA's 64 rows, two-pass in f32, one warp per
+    // row at a time.
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
+      const long long m = m0 + r;
+      float mean = 0.f, rstd = 0.f;
+      if (m < M) {
+        const T* row = A + m * K;
+        float s = 0.f;
+        for (int k = lane; k < K; k += 32) s += to_f32<T>(row[k]);
+        mean = warp_sum(s) / (float)K;
+        float v = 0.f;
+        for (int k = lane; k < K; k += 32) {
+          const float d = to_f32<T>(row[k]) - mean;
+          v += d * d;
+        }
+        rstd = rsqrtf(warp_sum(v) / (float)K + kLnEps);
+      }
+      if (lane == 0) {
+        row_mean[r] = mean;
+        row_rstd[r] = rstd;
+      }
+    }
+    __syncthreads();
+  }
+
+  // tile loads: thread -> (row lr, four consecutive k from lk)
+  const int lr = tid >> 2, lk = (tid & 3) * 4;
+  // compute: thread -> rows ty + 16 i, cols tx + 16 j
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  const long long am = m0 + lr;
+  const int wn = n0 + lr;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + lk + j;
+      float a = 0.f, w = 0.f;
+      if (am < M && k < K) {
+        a = to_f32<T>(A[am * K + k]);
+        if (PRO == PRO_LAYERNORM)
+          a = round_to<T>((a - row_mean[lr]) * row_rstd[lr] * ln_scale[k] + ln_bias[k]);
+      }
+      if (wn < N && k < K) w = round_to<T>(W[(long long)wn * K + k]);
+      As[lk + j][lr] = a;
+      Ws[lk + j][lr] = w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n >= N) continue;
+      float y = acc[i][j] + bias[n];
+      if (EPI == EPI_GELU) y = 0.5f * y * (1.f + erff(y * 0.7071067811865476f));
+      if (EPI == EPI_RESIDUAL) y = to_f32<T>(R[m * N + n]) + round_to<T>(y);
+      Y[m * N + n] = from_f32<T>(y);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention: one CTA per (sequence, head).  q, k, v of the head live in
+// shared memory as f32 (k and v rows padded to an odd stride so that lanes
+// reading different keys hit different banks).  One warp per query row:
+// lanes split the keys for the logits, then the head dims for AV.
+// qkv: (B*L, 3C) in T with [q | k | v] blocks of C; out: (B*L, C) in T.
+// ---------------------------------------------------------------------------
+
+constexpr int ATTN_THREADS = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(ATTN_THREADS)
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int C,
+                 int H, int d, float scale) {
+  extern __shared__ float smem[];
+  const int dp = d | 1;
+  float* q = smem;
+  float* k = q + L * dp;
+  float* v = k + L * dp;
+  float* p = v + L * dp;
+
+  const long long b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const T* base = qkv + b * L * 3LL * C + (long long)h * d;
+  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
+    const int l = idx / d, c = idx % d;
+    const T* row = base + (long long)l * 3 * C + c;
+    q[l * dp + c] = to_f32<T>(row[0]);
+    k[l * dp + c] = to_f32<T>(row[C]);
+    v[l * dp + c] = to_f32<T>(row[2 * C]);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  float* pw = p + warp * L;
+  for (int i = warp; i < L; i += nwarps) {
+    const float* qi = q + i * dp;
+    float mx = -INFINITY;
+    for (int j = lane; j < L; j += 32) {
+      const float* kj = k + j * dp;
+      float s = 0.f;
+      for (int c = 0; c < d; ++c) s = fmaf(qi[c], kj[c], s);
+      s *= scale;
+      pw[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(pw[j] - mx);
+      pw[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < L; j += 32) pw[j] = round_to<T>(pw[j] / sum);
+    __syncwarp();
+    T* orow = out + (b * L + i) * (long long)C + (long long)h * d;
+    for (int c = lane; c < d; c += 32) {
+      float o = 0.f;
+      for (int j = 0; j < L; ++j) o = fmaf(pw[j], v[j * dp + c], o);
+      orow[c] = from_f32<T>(o);
+    }
+    __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Row LayerNorm (the outer Spatial/Temporal norm): one warp per row.
+// ---------------------------------------------------------------------------
+
+constexpr int LN_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS)
+layernorm_kernel(const T* __restrict__ X, const float* __restrict__ scale,
+                 const float* __restrict__ bias, T* __restrict__ Y, long long M,
+                 int C) {
+  const int lane = threadIdx.x & 31;
+  const long long m = (long long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const T* row = X + m * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += to_f32<T>(row[c]);
+  const float mean = warp_sum(s) / (float)C;
+  float var = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float dv = to_f32<T>(row[c]) - mean;
+    var += dv * dv;
+  }
+  const float rstd = rsqrtf(warp_sum(var) / (float)C + kLnEps);
+  T* yrow = Y + m * C;
+  for (int c = lane; c < C; c += 32)
+    yrow[c] = from_f32<T>((to_f32<T>(row[c]) - mean) * rstd * scale[c] + bias[c]);
+}
+
+template <typename T, int PRO, int EPI>
+cudaError_t launch_gemm(const T* A, const float* W, const float* b,
+                        const float* ln_s, const float* ln_b, const T* R, T* Y,
+                        long long M, int N, int K, cudaStream_t stream) {
+  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
+  gemm_kernel<T, PRO, EPI><<<grid, GEMM_THREADS, 0, stream>>>(A, W, b, ln_s, ln_b, R,
+                                                              Y, M, N, K);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t fused_block(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
+                        const float* n1s, const float* n1b, const float* wqkv,
+                        const float* bqkv, const float* wproj, const float* bproj,
+                        const float* n2s, const float* n2b, const float* wfc1,
+                        const float* bfc1, const float* wfc2, const float* bfc2,
+                        const float* nos, const float* nob, long long B, int L,
+                        int C, int H, int hid, float scale, cudaStream_t stream) {
+  const long long M = B * L;
+  const int d = C / H;
+  cudaError_t err;
+
+  // 1. qkv = T(LN1(x) @ Wqkv + bqkv)
+  err = launch_gemm<T, PRO_LAYERNORM, EPI_STORE>(x, wqkv, bqkv, n1s, n1b, nullptr, qkv,
+                                                 M, 3 * C, C, stream);
+  if (err != cudaSuccess) return err;
+
+  // 2. per-head attention
+  const int dp = d | 1;
+  const size_t smem =
+      sizeof(float) * (3 * (size_t)L * dp + (size_t)(ATTN_THREADS / 32) * L);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(attention_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  attention_kernel<T><<<(unsigned)(B * H), ATTN_THREADS, smem, stream>>>(qkv, attn, L,
+                                                                         C, H, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // 3. x1 = x + T(attn @ Wproj + bproj)
+  err = launch_gemm<T, PRO_NONE, EPI_RESIDUAL>(attn, wproj, bproj, nullptr, nullptr, x,
+                                               x1, M, C, C, stream);
+  if (err != cudaSuccess) return err;
+
+  // 4. hidden = T(gelu(LN2(x1) @ Wfc1 + bfc1))
+  err = launch_gemm<T, PRO_LAYERNORM, EPI_GELU>(x1, wfc1, bfc1, n2s, n2b, nullptr,
+                                                hidden, M, hid, C, stream);
+  if (err != cudaSuccess) return err;
+
+  // 5. x2 = x1 + T(hidden @ Wfc2 + bfc2), written over the attention buffer
+  err = launch_gemm<T, PRO_NONE, EPI_RESIDUAL>(hidden, wfc2, bfc2, nullptr, nullptr, x1,
+                                               attn, M, C, hid, stream);
+  if (err != cudaSuccess) return err;
+
+  // 6. out = T(LN_outer(x2))
+  const unsigned ln_grid = (unsigned)((M + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
+  layernorm_kernel<T><<<ln_grid, LN_THREADS, 0, stream>>>(attn, nos, nob, out, M, C);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pafuse_fused_block(
+    int is_bf16, const void* x, void* out, void* qkv, void* attn, void* x1,
+    void* hidden, const float* n1s, const float* n1b, const float* wqkv,
+    const float* bqkv, const float* wproj, const float* bproj, const float* n2s,
+    const float* n2b, const float* wfc1, const float* bfc1, const float* wfc2,
+    const float* bfc2, const float* nos, const float* nob, long long B, int L, int C,
+    int H, int hid, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return (int)fused_block<T>(
+        static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(qkv),
+        static_cast<T*>(attn), static_cast<T*>(x1), static_cast<T*>(hidden), n1s, n1b,
+        wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2, nos, nob, B, L, C, H,
+        hid, scale, s);
+  }
+  return (int)fused_block<float>(
+      static_cast<const float*>(x), static_cast<float*>(out), static_cast<float*>(qkv),
+      static_cast<float*>(attn), static_cast<float*>(x1), static_cast<float*>(hidden),
+      n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2, nos, nob, B, L,
+      C, H, hid, scale, s);
+}

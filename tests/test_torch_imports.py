@@ -1,0 +1,82 @@
+"""The port stands alone: pafuse_tpu_torch and chip_smoke.py import neither
+jax nor any module of pafuse_tpu, and entry points never fall back to the
+CPU on their own."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "pafuse_tpu_torch")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "pafuse_tpu")
+
+
+def test_no_forbidden_imports_in_source():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path, a.name) for a in node.names if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                if node.level == 0 and _forbidden(node.module):
+                    bad.append((path, node.module))
+    assert not bad, bad
+
+
+def test_package_imports_without_jax_or_pafuse_tpu():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import pafuse_tpu_torch\n"
+        "for m in pkgutil.walk_packages(pafuse_tpu_torch.__path__,"
+        " 'pafuse_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [n for n, m in sys.modules.items() if m is not None and"
+        " (n == 'pafuse_tpu' or n.startswith(('pafuse_tpu.', 'jax')))]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([n for n in sys.modules"
+        " if n.startswith('pafuse_tpu_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+    assert int(r.stdout.split()[1]) >= 14
+
+
+def test_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the CPU-only refusal cannot be shown")
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.models.mixste import MixSTE2, MixSTEConfig
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MixSTE2(MixSTEConfig(depth=1, embed_dim=32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        D3DP(D3DPConfig(depth=1))
+
+
+def test_resolve_device_turns_tf32_off():
+    from pafuse_tpu_torch.utils.device import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    with pytest.raises(ValueError):
+        resolve_device("meta")
