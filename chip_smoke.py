@@ -19,6 +19,24 @@ Phases, one JSON line each:
                determinism and kernel-launch checks, and one request held
                against the same service with every block on the plain
                version.
+  5. train_kernel - the training block kernels (#5 forward, #6 backward)
+               against their plain PyTorch versions at every part's
+               spatial and temporal shape of a training step (37 sequences
+               of 27 frames), float32, plus one bfloat16-x forward per part,
+               with their times, the plain versions', one PyTorch library
+               composition's (layer_norm + linear + SDPA + gelu, and its
+               autograd backward; a yardstick only) and the bound.
+  6. train   - the trainer at full width (D3DPConfig defaults with
+               drop_path_rate 0.1; depth 8, float32, lr 6e-5, weighted MPJPE)
+               on synthetic H3WB (S1, S5, S6, S7) through ChunkedSampler
+               (augment) and PrefetchingLoader, 37 sequences a step: five
+               steps with finite losses, 48 launches of each kernel a step
+               and every parameter moved; two runs from one seed
+               bit-identical after two steps; one step against the same
+               step with every block on the plain versions; and the loss
+               falling over 16 steps on one repeated batch at lr 1e-3.
+               One more step runs under torch.profiler: device time by
+               kernel group and the device's idle share.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without CUDA it exits non-zero at once.
@@ -37,7 +55,20 @@ Tolerances (max abs, elementwise):
                    wrong index moves most elements.  A flat 5e-3 max cannot
                    hold: one output ulp at |y| >= 2 is 0.0156;
   serve            1e-3 on poses (O(1) values): 16 blocks per part network,
-                   5 DDIM steps feeding back, each block within ~1e-6.
+                   5 DDIM steps feeding back, each block within ~1e-6;
+  train kernels    forward 1e-4 max abs in float32 (float32 arithmetic on
+                   both sides, sums in another order; TF32 off); bfloat16 x:
+                   |diff| <= 2^-7 |y| + 1e-4 elementwise, one bfloat16 ulp
+                   of the value plus the float32 bound (both sides round
+                   float32 values that differ by ~1e-6, so a value near a
+                   rounding boundary flips one ulp, and a value near zero
+                   keeps the float32 difference); backward
+                   1e-4 x max|plain gradient| per tensor (dx and the 14
+                   parameter gradients);
+  train step       kernel path vs plain path from equal params and equal t,
+                   noise and masks: loss 1e-5 relative, gradients 1e-4 x
+                   max|plain gradient| per parameter (48 blocks deep, each
+                   within ~1e-6).
 """
 
 import argparse
@@ -54,6 +85,15 @@ KERNEL_TOL_BF16 = (2.0 ** -4, 1e-3)     # (max, mean)
 SERVE_TOL = 1e-3
 REPLACES = "pafuse_tpu/ops/attention.py:405"
 SOURCE = "pafuse_tpu_torch/ops/csrc/block.cu"
+TRAIN_SOURCE = "pafuse_tpu_torch/ops/csrc/block_train.cu"
+TRAIN_REPLACES = {"block_train_fwd": "pafuse_tpu/ops/block_grad.py:306",
+                  "block_train_bwd": "pafuse_tpu/ops/block_grad.py:344"}
+TRAIN_FWD_TOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_SEQS = 1024 // 27         # model.batch_size // number_of_frames
+TRAIN_STEPS = 5
+OVERFIT_STEPS = 16
 
 
 def emit(obj):
@@ -81,10 +121,11 @@ def cuda_time_ms(fn, reps: int = 5, warm: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def library_block(x, bp, on, num_heads):
+def library_block(x, bp, on, num_heads, m1=None, m2=None):
     """The same block as one composition of PyTorch library calls
-    (layer_norm, cuBLAS linear, scaled_dot_product_attention, gelu): the
-    yardstick ``library_ms``.  The port never calls it."""
+    (layer_norm, cuBLAS linear, scaled_dot_product_attention, gelu), with
+    optional per-sequence branch masks: the yardstick ``library_ms``.  The
+    port never calls it."""
     import torch.nn.functional as F
     (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2,
      bfc2) = bp
@@ -94,9 +135,11 @@ def library_block(x, bp, on, num_heads):
     q, k, v = F.linear(h, wqkv, bqkv).view(B, L, 3, num_heads, d).permute(
         2, 0, 3, 1, 4)
     a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B, L, C)
-    x = x + F.linear(a, wproj, bproj)
-    x = x + F.linear(F.gelu(F.linear(F.layer_norm(x, (C,), n2s, n2b, 1e-6),
-                                      wfc1, bfc1)), wfc2, bfc2)
+    a = F.linear(a, wproj, bproj)
+    x = x + (a if m1 is None else m1.to(x.dtype)[:, None, None] * a)
+    h = F.linear(F.gelu(F.linear(F.layer_norm(x, (C,), n2s, n2b, 1e-6),
+                                 wfc1, bfc1)), wfc2, bfc2)
+    x = x + (h if m2 is None else m2.to(x.dtype)[:, None, None] * h)
     return F.layer_norm(x, (C,), on[0], on[1], 1e-6)
 
 
@@ -111,6 +154,59 @@ def block_bound(B, L, C, dtype_name, param_bytes):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def train_bound(B, L, C, itemsize, param_bytes, backward: bool):
+    """Least time for one training-block call, all arithmetic in float32:
+    forward 16*M*C^2 + 4*B*L^2*C FLOPs and the backward twice that (no
+    recompute counted); bytes: x and y (forward) or x, g and dx (backward)
+    once each, plus the params (and their gradients)."""
+    M = B * L
+    flops = (16 * M * C * C + 4 * B * L * L * C) * (2 if backward else 1)
+    nbytes = ((3 if backward else 2) * M * C * itemsize
+              + (2 if backward else 1) * param_bytes + 2 * B * 4)
+    t_ops = flops / PEAK_FLOPS["float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def unported_bounds(windows: int, P: int, frames: int):
+    """Float32 bounds (ms, summed over their calls) of the TPU kernels not
+    yet ported, at the serving shapes of kernel #1 (bucket ``windows``, P
+    hypotheses, flip), with block_bound's formula: FLOPs over the float32
+    peak against input and output bytes (and params) once over HBM.
+      #2 pallas_attention: QKV, softmax attention, proj (8*M*C^2 +
+         4*B*L^2*C) at each part's spatial and temporal shape;
+      #3 pallas_block_temporal: the block at each part's temporal shape;
+      #4 pallas_layer: spatial block + temporal block of one part, reading
+         and writing the (B, F, N, C) activation once."""
+    from pafuse_tpu_torch.models.parts import PART_CHANNELS
+    from pafuse_tpu_torch.skeleton import parts_table
+
+    def ms(flops, nbytes):
+        return max(flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S) * 1e3
+
+    seqs = windows * P * 2
+    out = {"pallas_attention": 0.0, "pallas_block_temporal": 0.0,
+           "pallas_layer": 0.0}
+    for part, joints in parts_table(True).items():
+        N, C = len(joints), PART_CHANNELS[part]
+        block_bytes = 4 * (8 * C * C + 13 * C)          # 14 block tensors
+        act = 2 * seqs * frames * N * C * 4             # x in, y out
+        layer_flops = 0
+        for B, L in ((seqs * frames, N), (seqs * N, frames)):
+            M = B * L
+            out["pallas_attention"] += ms(8 * M * C * C + 4 * B * L * L * C,
+                                          act + 4 * (4 * C * C + 4 * C))
+            layer_flops += 16 * M * C * C + 4 * B * L * L * C
+        out["pallas_block_temporal"] += ms(
+            16 * M * C * C + 4 * B * L * L * C, act + block_bytes)
+        out["pallas_layer"] += ms(layer_flops,
+                                  act + 2 * block_bytes + 4 * frames * C)
+    emit({"phase": "bounds", "bucket": windows, "P": P, "dtype": "float32",
+          "bound_ms": out})
+    return out
 
 
 def kernel_phase(seed: int, windows: int, P: int, frames: int):
@@ -132,18 +228,8 @@ def kernel_phase(seed: int, windows: int, P: int, frames: int):
     results = []
     for i, (part, kind, B, L, C) in enumerate(cases):
         g = torch.Generator().manual_seed(seed * 100 + i)
-
-        def u(*shape, scale):
-            return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev)
-
-        hid = 2 * C
-        bp = (1 + u(C, scale=0.1), u(C, scale=0.1),
-              u(3 * C, C, scale=C ** -0.5), u(3 * C, scale=C ** -0.5),
-              u(C, C, scale=C ** -0.5), u(C, scale=C ** -0.5),
-              1 + u(C, scale=0.1), u(C, scale=0.1),
-              u(hid, C, scale=C ** -0.5), u(hid, scale=C ** -0.5),
-              u(C, hid, scale=hid ** -0.5), u(C, scale=hid ** -0.5))
-        on = (1 + u(C, scale=0.1), u(C, scale=0.1))
+        params = _random_block_params(C, g, dev)
+        bp, on = params[:12], params[12:]
         param_bytes = 4 * sum(t.numel() for t in bp + on)
         x32 = torch.randn(B, L, C, generator=g).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -274,6 +360,357 @@ def serve_phase(seed: int):
     return main_path_launches
 
 
+def _random_block_params(C, g, dev):
+    """The 14 block tensors (torch layout) from generator ``g``."""
+    import torch
+
+    def u(*shape, scale):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev)
+
+    hid = 2 * C
+    return (1 + u(C, scale=0.1), u(C, scale=0.1),
+            u(3 * C, C, scale=C ** -0.5), u(3 * C, scale=C ** -0.5),
+            u(C, C, scale=C ** -0.5), u(C, scale=C ** -0.5),
+            1 + u(C, scale=0.1), u(C, scale=0.1),
+            u(hid, C, scale=C ** -0.5), u(hid, scale=C ** -0.5),
+            u(C, hid, scale=hid ** -0.5), u(C, scale=hid ** -0.5),
+            1 + u(C, scale=0.1), u(C, scale=0.1))
+
+
+def _rel_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-30))
+
+
+GRAD_NAMES = ("dx", "norm1.weight", "norm1.bias", "qkv.weight", "qkv.bias",
+              "proj.weight", "proj.bias", "norm2.weight", "norm2.bias",
+              "fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias",
+              "outer.weight", "outer.bias")
+
+
+def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
+    """Kernels #5 and #6 against their plain versions at each part's
+    spatial (B = seqs*frames, L = joints) and temporal (B = seqs*joints,
+    L = frames) training shape; masks drawn per sample and repeated like
+    MixSTE2 repeats them."""
+    import torch
+    from pafuse_tpu_torch.models.parts import PART_CHANNELS
+    from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
+                                                  block_train_fwd,
+                                                  train_bwd_reference,
+                                                  train_fwd_reference)
+    from pafuse_tpu_torch.skeleton import parts_table
+    from pafuse_tpu_torch.utils.device import sync
+
+    dev = torch.device("cuda")
+    heads = 8
+    cases = []
+    for part, joints in parts_table(True).items():
+        N, C = len(joints), PART_CHANNELS[part]
+        cases.append((part, "spatial", frames, N, C))
+        cases.append((part, "temporal", N, frames, C))
+
+    results = []
+    for i, (part, kind, reps, L, C) in enumerate(cases):
+        g = torch.Generator().manual_seed(seed * 100 + 50 + i)
+        params = _random_block_params(C, g, dev)
+        param_bytes = 4 * sum(t.numel() for t in params)
+        B = seqs * reps
+        masks = [((torch.rand(seqs, generator=g) < keep).float() / keep)
+                 .repeat_interleave(reps).to(dev) for _ in range(2)]
+        m1, m2 = masks
+        x32 = torch.randn(B, L, C, generator=g).to(dev)
+        g32 = torch.randn(B, L, C, generator=g).to(dev)
+        dtypes = ((torch.float32, torch.bfloat16) if kind == "spatial"
+                  else (torch.float32,))
+        for dtype in dtypes:
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            x = x32.to(dtype)
+            y, saved = block_train_fwd(x, m1, m2, params, heads)
+            sync(dev)           # a fault inside a kernel surfaces here
+            want = train_fwd_reference(x, m1, m2, params, heads)
+            diff = (y.float() - want.float()).abs()
+            if dtype == torch.float32:
+                ok = bool(diff.max() <= TRAIN_FWD_TOL)
+            else:
+                ok = bool(torch.all(diff <= 2.0 ** -7 * want.float().abs()
+                                    + TRAIN_FWD_TOL))
+            # the library composition runs in x's dtype throughout
+            lib_p = [t.detach().to(dtype).requires_grad_() for t in params]
+            lib_x = x.detach().requires_grad_()
+
+            def lib_fwd():
+                return library_block(lib_x, lib_p[:12], lib_p[12:], heads,
+                                     m1, m2)
+
+            ms = cuda_time_ms(lambda: block_train_fwd(x, m1, m2, params,
+                                                      heads))
+            plain_ms = cuda_time_ms(lambda: train_fwd_reference(
+                x, m1, m2, params, heads))
+            with torch.no_grad():
+                lib_ms = cuda_time_ms(lib_fwd)
+            bound_ms, bound_by = train_bound(B, L, C, x.element_size(),
+                                             param_bytes, backward=False)
+            r = {"phase": "train_kernel", "name": "block_train_fwd",
+                 "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
+                 "C": C, "max_abs_err": float(diff.max()), "ok": ok,
+                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by}
+            emit(r)
+            results.append(r)
+            if dtype != torch.float32:
+                continue
+
+            gr = g32
+            dx, grads = block_train_bwd(saved, gr)
+            sync(dev)
+            want_dx, want_grads = train_bwd_reference(x, gr, m1, m2, params,
+                                                      heads)
+            got_all, want_all = (dx,) + grads, (want_dx,) + want_grads
+            rel = {n: _rel_err(a, b)
+                   for n, a, b in zip(GRAD_NAMES, got_all, want_all)}
+            max_abs = max(float((a - b).abs().max())
+                          for a, b in zip(got_all, want_all))
+            dx2, grads2 = block_train_bwd(saved, gr)
+            deterministic = all(torch.equal(a, b) for a, b in
+                                zip(got_all, (dx2,) + grads2))
+            ms = cuda_time_ms(lambda: block_train_bwd(saved, gr))
+            plain_ms = cuda_time_ms(lambda: train_bwd_reference(
+                x, gr, m1, m2, params, heads))
+            y_lib = lib_fwd()
+            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                y_lib, [lib_x] + lib_p, gr, retain_graph=True))
+            bound_ms, bound_by = train_bound(B, L, C, x.element_size(),
+                                             param_bytes, backward=True)
+            r = {"phase": "train_kernel", "name": "block_train_bwd",
+                 "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
+                 "C": C, "max_abs_err": max_abs,
+                 "max_rel_grad_err": max(rel.values()), "rel_grad_err": rel,
+                 "deterministic": deterministic,
+                 "ok": max(rel.values()) <= TRAIN_GRAD_RTOL and deterministic,
+                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by}
+            emit(r)
+            results.append(r)
+            del y_lib, dx, grads, dx2, grads2, want_dx, want_grads
+        del x32, g32, x, y, saved, want, diff, lib_x, lib_p
+        torch.cuda.empty_cache()
+    return results
+
+
+def _synthetic_batches(seed: int, seqs: int, frames: int):
+    """Synthetic H3WB (S1, S5, S6, S7) through fetch, ChunkedSampler
+    (shuffle, flip augmentation) and PrefetchingLoader, as the H3WB CLI
+    wires them; returns (loader, sampler)."""
+    from pafuse_tpu_torch.data import h3wb
+    from pafuse_tpu_torch.data.prefetch import PrefetchingLoader
+    from pafuse_tpu_torch.data.sampling import ChunkedSampler
+
+    subjects = ["S1", "S5", "S6", "S7"]
+    dataset = h3wb.load_dataset(synthetic=True, subjects=tuple(subjects),
+                                seed=seed)
+    keypoints = h3wb.prepare_data(dataset)
+    cams, poses_3d, poses_2d = h3wb.fetch(subjects, keypoints, dataset)
+    sampler = ChunkedSampler(seqs, cams, poses_3d, poses_2d, frames,
+                             shuffle=True, augment=True,
+                             flip_permutation=dataset.flip_permutation)
+    return PrefetchingLoader(sampler, depth=2), sampler
+
+
+def train_phase(seed: int, device: str = "cuda", depth: int = 8,
+                seqs: int = TRAIN_SEQS, steps: int = TRAIN_STEPS):
+    """The trainer at full width (the defaults; a CPU rehearsal passes
+    device="cpu" and a smaller depth and batch).  Returns the kernel
+    launches of the main-path run."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.models.mixste import MixSTE2
+    from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
+                                                  block_train_fwd,
+                                                  block_train_plain)
+    from pafuse_tpu_torch.utils.device import sync
+
+    dev = torch.device(device)
+    cfg = D3DPConfig(depth=depth, drop_path_rate=0.1)
+    lr, lr_decay = 6e-5, 0.993
+    weights = tr.mixste_weight_table(cfg.num_kps)
+
+    def fresh():
+        model = D3DP(cfg, device=dev,
+                     generator=torch.Generator().manual_seed(seed))
+        state = tr.create_train_state(model, seed=seed, device=dev)
+        return model, state, tr.build_train_step(model, state.optimizer,
+                                                 weights=weights)
+
+    loader, sampler = _synthetic_batches(seed, seqs, cfg.frames)
+    model, state, step = fresh()
+    part_names = [spec.name for spec in model.pose_estimator.specs]
+    per_step = 2 * len(part_names) * cfg.depth if dev.type == "cuda" else 0
+    before = [p.detach().clone() for p in model.parameters()]
+
+    # main path: steps through the loader, lr decayed per epoch as the CLI
+    block_train_fwd.launches = block_train_bwd.launches = 0
+    losses, step_s, batches = [], [], []
+    while len(losses) < steps:
+        for _, b3d, b2d in loader.next_epoch():
+            b2d, _ = tr.pad_batch(b2d, seqs)
+            b3d, _ = tr.pad_batch(b3d, seqs)
+            batches.append((b2d, b3d))
+            t0 = time.time()
+            loss = float(step(state, lr, b2d, b3d))    # waits for the step
+            step_s.append(time.time() - t0)
+            losses.append(loss)
+            if len(losses) == steps:
+                break
+        else:
+            lr *= lr_decay
+    launches = (block_train_fwd.launches, block_train_bwd.launches)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if launches != (per_step * steps, per_step * steps):
+        raise AssertionError(f"train: launches {launches}, expected "
+                             f"{per_step * steps} of each")
+    still = [n for (n, p), b in zip(model.named_parameters(), before)
+             if torch.equal(p.detach(), b)]
+    if still:
+        raise AssertionError(f"train: parameters did not move: {still[:5]}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2] if steps > 1 else step_s[0]
+    emit({"phase": "train", "steps": steps, "seqs_per_step": seqs,
+          "frames": cfg.frames, "depth": cfg.depth, "losses": losses,
+          "launches_fwd": launches[0], "launches_bwd": launches[1],
+          "step_s": step_s, "ms_per_step": steady * 1e3,
+          "frames_per_s": seqs * cfg.frames / steady,
+          "batches_per_epoch": sampler.batch_num(),
+          "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                            if dev.type == "cuda" else None)})
+    if dev.type == "cuda":
+        profile_step(lambda: step(state, lr, *batches[-1]))
+    del model, state, step, before
+
+    # two runs from one seed: bit-identical losses and params after 2 steps
+    runs = []
+    for _ in range(2):
+        model, state, step = fresh()
+        run_losses = [float(step(state, lr, *batches[i])) for i in range(2)]
+        runs.append((run_losses, [p.detach().clone()
+                                  for p in model.parameters()]))
+        del model, state, step
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    emit({"phase": "train_determinism", "losses": [r[0] for r in runs],
+          "bit_identical": same})
+    if not same:
+        raise AssertionError("train: two runs from one seed differ")
+    del runs
+
+    # one step through the kernels vs the same step on the plain versions,
+    # from equal params with equal t, noise and masks
+    g = torch.Generator().manual_seed(seed + 1)
+    b2d, b3d = batches[0]
+    t = torch.randint(0, cfg.timesteps, (seqs,), generator=g)
+    noise = torch.randn(b3d.shape, generator=g)
+    masks = {part: [tuple((torch.rand(seqs, generator=g) < 0.9).float()
+                          / 0.9 for _ in range(2))
+                    for _ in range(2 * cfg.depth)]
+             for part in part_names}
+    out = []
+    for plain in (False, True):
+        model, state, step = fresh()
+        if plain:
+            for m in model.modules():
+                if isinstance(m, MixSTE2):
+                    m.train_block_fn = block_train_plain
+        loss = float(step(state, lr, b2d, b3d, t=t.to(dev),
+                          noise=noise.to(dev), masks=masks))
+        sync(dev)
+        out.append((loss, {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}))
+        del model, state, step
+    (k_loss, k_grads), (p_loss, p_grads) = out
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    grad_err = max(_rel_err(k_grads[n], p_grads[n]) for n in p_grads)
+    emit({"phase": "train_vs_plain", "loss": k_loss, "plain_loss": p_loss,
+          "loss_rel_err": loss_err, "max_rel_grad_err": grad_err})
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"train: kernel path vs plain path: loss "
+                             f"{loss_err:.2e}, grads {grad_err:.2e}")
+    del out, k_grads, p_grads
+
+    # one repeated batch (equal t, noise and masks every step) at lr 1e-3:
+    # Adam's first steps overshoot (the loss jumps, then falls), so the
+    # check is the mean of the last four losses against the first
+    model, state, step = fresh()
+    fit = [float(step(state, 1e-3, b2d, b3d, t=t.to(dev), noise=noise.to(dev),
+                      masks=masks)) for _ in range(OVERFIT_STEPS)]
+    emit({"phase": "train_overfit", "lr": 1e-3, "losses": fit})
+    if not np.mean(fit[-4:]) < fit[0]:
+        raise AssertionError(f"train: loss did not fall on one batch: {fit}")
+    del model, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+#: kernel-name patterns of the port's CUDA sources, for the step profile
+KERNEL_GROUPS = (("gemm_kernel<0", "forward GEMMs"),
+                 ("gemm_kernel<1", "data-gradient GEMMs"),
+                 ("wgrad_kernel", "weight-gradient GEMMs"),
+                 ("attn_bwd_kernel", "attention backward"),
+                 ("attention_kernel", "attention forward"),
+                 ("ln_bwd_kernel", "LayerNorm backward"),
+                 ("ln_fwd_kernel", "LayerNorm forward"),
+                 ("colsum_kernel", "bias-gradient sums"),
+                 ("reduce_partials_kernel", "ordered partial sums"))
+
+
+def profile_step(run_step):
+    """One training step under torch.profiler: device time by kernel group
+    (the port's kernels by source pattern, the rest as PyTorch) and the
+    device's idle share of the step's wall time (host clock, profiler
+    overhead included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        float(run_step())                   # waits for the step
+        wall_ms = (time.time() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    groups = {}
+    for e in kernels:
+        group = next((g for pat, g in KERNEL_GROUPS if pat in e.key),
+                     "PyTorch (embedding, head, loss, AdamW, copies)")
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+    device_ms = sum(groups.values())
+    emit({"phase": "train_profile", "wall_ms": wall_ms,
+          "device_ms": device_ms if kernels else "not measured",
+          "idle_share": 1 - device_ms / wall_ms if kernels else "not measured",
+          "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+          "kernel_launches": sum(e.count for e in kernels)})
+
+
+def _kernel_entry(name, route, source, replaces, launches, cases, **extra):
+    """One entry of the kernels line: float32 numbers summed over the
+    main-path shapes."""
+    f32 = [c for c in cases if c["dtype"] == "float32"]
+    bound_by = max(("operations", "bytes"), key=lambda b: sum(
+        c["bound_ms"] for c in f32 if c["bound_by"] == b))
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in f32),
+            "ms": sum(c["ms"] for c in f32),
+            "plain_ms": sum(c["plain_ms"] for c in f32),
+            "bound_ms": sum(c["bound_ms"] for c in f32),
+            "bound_by": bound_by,
+            "library_ms": sum(c["library_ms"] for c in f32), **extra}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -300,33 +737,41 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0,
           "libraries": sorted(libs)})
 
+    unported_bounds(windows=16, P=10, frames=27)
     cases = kernel_phase(args.seed, windows=16, P=10, frames=27)
     launches = serve_phase(args.seed)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"fused_block disagrees with block_reference: {bad}")
+    train_cases = train_kernel_phase(args.seed, TRAIN_SEQS, frames=27)
+    bad = [c for c in train_cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"a training kernel disagrees with its plain "
+                             f"version: {bad}")
+    train_launches = train_phase(args.seed)
 
-    f32 = [c for c in cases if c["dtype"] == "float32"]
-    bf16 = [c for c in cases if c["dtype"] == "bfloat16"]
-    bound_by = max(("operations", "bytes"), key=lambda b: sum(
-        c["bound_ms"] for c in f32 if c["bound_by"] == b))
-    emit({"kernels": [{
-        "name": "fused_block", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        # float32 (the served dtype): summed over the six main-path shapes
-        # (one spatial + one temporal block of each part at bucket 16)
-        "max_abs_err": max(c["max_abs_err"] for c in f32),
-        "ms": sum(c["ms"] for c in f32),
-        "plain_ms": sum(c["plain_ms"] for c in f32),
-        "bound_ms": sum(c["bound_ms"] for c in f32),
-        "bound_by": bound_by,
-        "library_ms": sum(c["library_ms"] for c in f32),
-        "max_abs_err_bf16": max(c["max_abs_err"] for c in bf16),
-        "ms_bf16": sum(c["ms"] for c in bf16),
-        "plain_ms_bf16": sum(c["plain_ms"] for c in bf16),
-        "bound_ms_bf16": sum(c["bound_ms"] for c in bf16),
-        "library_ms_bf16": sum(c["library_ms"] for c in bf16),
-    }]})
+    def bf16(cs):
+        cs = [c for c in cs if c["dtype"] == "bfloat16"]
+        return {f"{k}_bf16": (max if k == "max_abs_err" else sum)(
+            c[k] for c in cs) for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "library_ms")}
+
+    fwd = [c for c in train_cases if c["name"] == "block_train_fwd"]
+    bwd = [c for c in train_cases if c["name"] == "block_train_bwd"]
+    # float32 numbers summed over each kernel's main-path shapes: for
+    # fused_block one spatial + one temporal block of each part at bucket
+    # 16, for the training kernels each part's two blocks of a step
+    emit({"kernels": [
+        _kernel_entry("fused_block", "cuda", SOURCE, REPLACES, launches,
+                      cases, **bf16(cases)),
+        _kernel_entry("block_train_fwd", "cuda", TRAIN_SOURCE,
+                      TRAIN_REPLACES["block_train_fwd"], train_launches[0],
+                      fwd, **bf16(fwd)),
+        _kernel_entry("block_train_bwd", "cuda", TRAIN_SOURCE,
+                      TRAIN_REPLACES["block_train_bwd"], train_launches[1],
+                      bwd, max_rel_grad_err=max(
+                          c["max_rel_grad_err"] for c in bwd)),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

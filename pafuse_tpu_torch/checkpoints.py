@@ -1,5 +1,6 @@
-"""Weights into the port: from a JAX parameter tree, a JAX ``save_state``
-npz, or a reference-named torch ``.bin``.
+"""Weights into and out of the port: a JAX parameter tree, a JAX
+``save_state`` npz, a reference-named torch ``.bin``, and the port's own
+training checkpoints.
 
 Each loader returns a state dict of float32 CPU tensors in the port's (and
 the reference's) naming.  A tree of part networks ``{part: mixste_tree}``
@@ -10,11 +11,22 @@ MixSTE2 names.  Load the result with ``load_state_dict(..., strict=True)``.
 JAX layout -> torch layout: Linear ``kernel`` (in, out) becomes ``weight``
 (out, in); LayerNorm ``scale`` becomes ``weight``; ``time_mlp.fc1/fc2``
 become ``time_mlp.1/3`` and ``head.norm/fc`` become ``head.0/1``.
+:func:`params_to_jax` goes the other way.
+
+:func:`save_state` writes ``{folder}/{tag}.npz`` in the layout of the JAX
+``save_state``: ``params/...`` in the JAX tree layout (so the JAX
+``load_state`` reads the port's weights), ``__meta__`` (epoch, lr, extra as
+JSON) and ``__random_state__`` (the sampler's pickled NumPy RandomState),
+plus the port's own ``opt/{parameter}/{exp_avg,exp_avg_sq,step}`` (torch
+AdamW state) and ``__torch_rng__`` (the training generator's state).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import json
+import os
+import pickle
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -66,6 +78,53 @@ def _state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
+_TO_JAX = {v: k for k, v in _RENAME.items()}
+
+
+def _jax_entry(key: str, value: torch.Tensor):
+    """One torch MixSTE2 entry -> (JAX path parts, array)."""
+    parts = key.split(".")
+    if tuple(parts[:2]) in _TO_JAX:
+        parts[:2] = _TO_JAX[tuple(parts[:2])]
+    value = value.detach().cpu().float().numpy()
+    if parts[-1] == "weight":
+        if value.ndim == 2:
+            parts[-1], value = "kernel", value.T
+        else:
+            parts[-1] = "scale"
+    return parts, np.ascontiguousarray(value)
+
+
+def _lists(tree):
+    """Dicts keyed 0..n-1 -> lists, as the JAX tree holds the blocks."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: a port state dict
+    (``{part}.<key>`` or plain MixSTE2 names) -> a JAX parameter tree of
+    float32 NumPy arrays."""
+    single = any(k.startswith("STEblocks.") for k in state)
+    tree: Dict[str, Any] = {}
+    for key, value in state.items():
+        if single:
+            path, array = _jax_entry(key, value)
+        else:
+            part, _, rest = key.partition(".")
+            path, array = _jax_entry(rest, value)
+            path = [part] + path
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = array
+    return _lists(tree)
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict from a JAX parameter tree held as NumPy arrays (the
     ``PartModel.init_params`` / ``load_state`` layout, or one MixSTE tree)."""
@@ -98,4 +157,79 @@ def load_reference_bin(path: str) -> Dict[str, torch.Tensor]:
             out[key[len("pose_estimator."):]] = value.float()
     if not out:
         raise ValueError(f"{path}: no pose_estimator.* entries")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training checkpoints
+# ---------------------------------------------------------------------------
+
+def _part_model(model: torch.nn.Module) -> torch.nn.Module:
+    """The module whose state dict has the ``params/`` naming (a D3DP's
+    part router, or the module itself)."""
+    return getattr(model, "pose_estimator", model)
+
+
+def save_state(folder: str, tag: str, *, model: torch.nn.Module,
+               optimizer: Optional[torch.optim.Optimizer] = None,
+               epoch: int = 0, lr: float = 0.0, random_state=None,
+               generator: Optional[torch.Generator] = None,
+               extra: Optional[dict] = None) -> str:
+    """Write ``{folder}/{tag}.npz`` (layout in the module docstring) and
+    return its path.  ``model``: a D3DP, PartModel or MixSTE2."""
+    net = _part_model(model)
+    arrays = {f"params/{k}": v for k, v in _flatten(
+        params_to_jax(net.state_dict())).items()}
+    if optimizer is not None:
+        names = {id(p): n for n, p in net.named_parameters()}
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                for k, v in optimizer.state.get(p, {}).items():
+                    arrays[f"opt/{names[id(p)]}/{k}"] = (
+                        torch.as_tensor(v).detach().cpu().numpy())
+    meta = {"epoch": int(epoch), "lr": float(lr), "extra": extra or {}}
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    if random_state is not None:
+        arrays["__random_state__"] = np.frombuffer(pickle.dumps(random_state),
+                                                   np.uint8)
+    if generator is not None:
+        arrays["__torch_rng__"] = generator.get_state().numpy()
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, f"{tag}.npz")
+    np.savez(path, **arrays)
+    return path
+
+
+def load_state(path: str, model: Optional[torch.nn.Module] = None,
+               optimizer: Optional[torch.optim.Optimizer] = None,
+               generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    """Restore a :func:`save_state` checkpoint (or a JAX one, for the
+    params): loads the params into ``model`` (strict), the AdamW state into
+    ``optimizer`` and the generator state into ``generator`` when given.
+    Returns {"params", "epoch", "lr", "extra"} and "random_state" when the
+    file has one."""
+    out: Dict[str, Any] = {"params": load_state_npz(path)}
+    with np.load(path, allow_pickle=False) as raw:
+        out.update(json.loads(bytes(raw["__meta__"]).decode()))
+        if "__random_state__" in raw.files:
+            out["random_state"] = pickle.loads(bytes(raw["__random_state__"]))
+        if generator is not None:
+            generator.set_state(torch.from_numpy(raw["__torch_rng__"].copy()))
+        opt = {k[len("opt/"):]: raw[k] for k in raw.files
+               if k.startswith("opt/")}
+    if model is not None:
+        _part_model(model).load_state_dict(out["params"], strict=True)
+    if optimizer is not None:
+        names = {id(p): n for n, p in _part_model(model).named_parameters()}
+        sd = optimizer.state_dict()
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        for i, p in enumerate(params):
+            prefix = f"{names[id(p)]}/"
+            state = {k[len(prefix):]: torch.from_numpy(v.copy())
+                     for k, v in opt.items() if k.startswith(prefix)}
+            if state:
+                sd["state"][i] = state
+        optimizer.load_state_dict(sd)
+        for g in optimizer.param_groups:
+            g["lr"] = out["lr"]
     return out

@@ -1,18 +1,20 @@
-"""D3DP conditional diffusion for 3D pose: eval-time multi-hypothesis DDIM
-with flip test-time augmentation.
+"""D3DP conditional diffusion for 3D pose: multi-hypothesis DDIM with flip
+test-time augmentation, and the training-time noising.
 
-Counterpart of ``pafuse_tpu/diffusion.py`` (eval only).  Schedules are
-computed in float64 NumPy and stored as float32; the DDIM step coefficients
-are computed in NumPy exactly as the JAX sampler does.  ``ddim_sample`` is a
-Python loop over the S steps; the H hypotheses and the flipped twin ride the
-batch axis of one denoiser call per step.
+Counterpart of ``pafuse_tpu/diffusion.py``.  Schedules are computed in
+float64 NumPy and stored as float32; the DDIM step coefficients are computed
+in NumPy exactly as the JAX sampler does.  ``ddim_sample`` is a Python loop
+over the S steps; the H hypotheses and the flipped twin ride the batch axis
+of one denoiser call per step.  ``train_forward`` noises the ground truth
+with one vectorised draw per batch (``t`` and the noise may be injected) and
+denoises it in train mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,14 +95,19 @@ class D3DPConfig:
     cs: int = 288                   # monolithic channel size
     part_based: bool = True
     merge_hands: bool = True
+    drop_path_rate: float = 0.0     # 0.1 for training
+    dropout: float = 0.0            # training with dropout > 0 is not ported
+    attn_dropout: float = 0.0
     test_time_augmentation: bool = True
+    mm_scale: bool = False          # 3DHP variant: model works in mm / 1000
 
 
 class D3DP(nn.Module):
-    """Eval-mode D3DP: schedule tables, the part router and the flip table.
+    """D3DP: schedule tables, the part router and the flip table.
 
     ``pose_estimator`` is the :class:`PartModel`, so ``state_dict()`` keys
-    are the reference's ``pose_estimator.{part}.…`` names."""
+    are the reference's ``pose_estimator.{part}.…`` names.  The module
+    starts in eval mode; :meth:`train_forward` needs ``.train()``."""
 
     def __init__(self, cfg: D3DPConfig, device="cuda",
                  generator: torch.Generator | None = None):
@@ -108,21 +115,76 @@ class D3DP(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.schedule = make_schedule(cfg.timesteps)
+        rates = dict(drop_path_rate=cfg.drop_path_rate, drop_rate=cfg.dropout,
+                     attn_drop_rate=cfg.attn_dropout)
         if cfg.part_based:
             specs = build_part_specs(sk.parts_table(cfg.merge_hands),
-                                     cfg.frames, cfg.input_size, cfg.depth)
+                                     cfg.frames, cfg.input_size, cfg.depth,
+                                     **rates)
         else:
             specs = monolithic_spec(cfg.num_kps, cfg.frames, cfg.input_size,
-                                    cfg.cs, cfg.depth)
+                                    cfg.cs, cfg.depth, **rates)
         self.pose_estimator = PartModel(specs, self.device, generator)
         if cfg.num_kps != sk.NUM_JOINTS:
             raise ValueError(f"num_kps={cfg.num_kps}: only the "
                              f"{sk.NUM_JOINTS}-joint H3WB layout is ported")
         self.flip_permutation = sk.FLIP_PERMUTATION
+        for name in ("sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod"):
+            self.register_buffer(f"_{name}", torch.as_tensor(
+                getattr(self.schedule, name), device=self.device),
+                persistent=False)
+        self.eval()
 
     def _clamp_scaled(self, x: torch.Tensor) -> torch.Tensor:
         s = self.cfg.scale
         return x.clamp(-1.1 * s, 1.1 * s)
+
+    # -- training ------------------------------------------------------------
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        shape = (-1,) + (1,) * (x_start.dim() - 1)
+        a = self._sqrt_alphas_cumprod[t].reshape(shape)
+        b = self._sqrt_one_minus_alphas_cumprod[t].reshape(shape)
+        return a * x_start + b * noise
+
+    def prepare_targets(self, x3d_gt: torch.Tensor,
+                        t: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None):
+        """Noise the ground truth: (x_t, noise, t).  ``t`` (B,) and
+        ``noise`` (like x3d_gt) are drawn from ``generator`` unless given."""
+        dev = x3d_gt.device
+        if t is None:
+            t = torch.randint(0, self.cfg.timesteps, (x3d_gt.shape[0],),
+                              generator=generator, device=dev)
+        t = torch.as_tensor(t, device=dev).long()
+        if noise is None:
+            noise = torch.randn(x3d_gt.shape, generator=generator, device=dev)
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+        x = self.q_sample(x3d_gt * self.cfg.scale, t, noise)
+        return self._clamp_scaled(x) / self.cfg.scale, noise, t
+
+    def train_forward(self, x2d: torch.Tensor, x3d_gt: torch.Tensor, *,
+                      t: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      masks: Optional[Dict[str, Sequence]] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """Training pass: noise the ground truth, denoise it in train mode,
+        return the x0 prediction (B, F, N, 3).  ``t``, ``noise`` and the
+        stochastic-depth ``masks`` ({part: [(m1, m2), ...]}) may be
+        injected; the rest is drawn from ``generator``, in that order.  With
+        ``mm_scale`` the ground truth arrives in millimetres and the
+        prediction is returned in millimetres."""
+        if not self.training:
+            raise RuntimeError("D3DP.train_forward needs train mode "
+                               "(call .train() first)")
+        if self.cfg.mm_scale:
+            x3d_gt = x3d_gt / 1000.0
+        x_t, _, t = self.prepare_targets(x3d_gt, t, noise, generator)
+        pred = self.pose_estimator(x2d, x_t, t, masks=masks,
+                                   generator=generator)
+        return pred * 1000.0 if self.cfg.mm_scale else pred
 
     def _model_predictions(self, x: torch.Tensor, x2d_tiled: torch.Tensor,
                            t: int, x2d_flip_tiled: Optional[torch.Tensor]):

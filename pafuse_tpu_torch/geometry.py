@@ -1,9 +1,11 @@
-"""Pose geometry on the lifting path: screen normalisation, flip, quaternion
-rotation and whole-body assembly from part-centred poses.
+"""Pose geometry: screen normalisation, flip, quaternion rotation, camera
+projection, part centring and whole-body assembly from part-centred poses.
 
 Counterpart of ``pafuse_tpu/geometry.py``.  Tensor functions take the joint
 axis at -2 and the coordinate axis at -1; the ``_np`` variants are NumPy
-twins for host-side request preparation.
+twins for host-side request preparation.  The camera functions
+(``world_to_camera``, ``project_to_2d``, ``image_coordinates``) are NumPy
+only: they serve host-side data synthesis.
 """
 
 from __future__ import annotations
@@ -19,6 +21,12 @@ def normalize_screen_coordinates(x: np.ndarray, w, h) -> np.ndarray:
     ratio."""
     assert x.shape[-1] == 2
     return x / w * 2 - np.array([1, h / w], dtype=x.dtype)
+
+
+def image_coordinates(x: np.ndarray, w, h) -> np.ndarray:
+    """Inverse of :func:`normalize_screen_coordinates`."""
+    assert x.shape[-1] == 2
+    return (x + np.array([1, h / w], dtype=x.dtype)) * w / 2
 
 
 def flip_pose(pose: torch.Tensor, flip_permutation) -> torch.Tensor:
@@ -47,11 +55,66 @@ def qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + 2.0 * (q[..., :1] * uv + uuv)
 
 
+def qrot_np(q: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """NumPy twin of :func:`qrot`; q broadcasts over v's leading axes."""
+    assert q.shape[-1] == 4 and v.shape[-1] == 3
+    qvec = q[..., 1:]
+    uv = np.cross(qvec, v)
+    uuv = np.cross(qvec, uv)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def qinverse(q: np.ndarray) -> np.ndarray:
+    """Conjugate of a unit quaternion (w, x, y, z)."""
+    return np.concatenate([q[..., :1], -q[..., 1:]], axis=-1)
+
+
 def camera_to_world(x: torch.Tensor, rotation, translation) -> torch.Tensor:
     """Camera -> world frame."""
     r = torch.as_tensor(rotation, dtype=x.dtype, device=x.device)
     t = torch.as_tensor(translation, dtype=x.dtype, device=x.device)
     return qrot(r, x) + t
+
+
+def world_to_camera(x: np.ndarray, rotation: np.ndarray,
+                    translation: np.ndarray) -> np.ndarray:
+    """World -> camera frame (NumPy)."""
+    return qrot_np(qinverse(rotation), x - translation)
+
+
+def project_to_2d(x: np.ndarray, camera_params: np.ndarray) -> np.ndarray:
+    """Project camera-space points (N, ..., 3) to normalised screen space
+    with the H36M radial + tangential distortion model; camera_params
+    (N, 9) = [fx fy cx cy k1 k2 k3 p1 p2] (NumPy)."""
+    assert x.shape[-1] == 3 and camera_params.shape[-1] == 9
+    while camera_params.ndim < x.ndim:
+        camera_params = camera_params[:, None]
+    f = camera_params[..., :2]
+    c = camera_params[..., 2:4]
+    k = camera_params[..., 4:7]
+    p = camera_params[..., 7:]
+    xx = np.clip(x[..., :2] / x[..., 2:], -1.0, 1.0)
+    r2 = np.sum(xx ** 2, axis=-1, keepdims=True)
+    radial = 1 + np.sum(k * np.concatenate([r2, r2 ** 2, r2 ** 3], axis=-1),
+                        axis=-1, keepdims=True)
+    tan = np.sum(p * xx, axis=-1, keepdims=True)
+    return f * (xx * (radial + tan) + p * r2) + c
+
+
+def center_pose_at_root(pose: torch.Tensor, root_idx: int = 0) -> torch.Tensor:
+    """Translate poses so that the root joint sits at the origin."""
+    return pose - pose[..., root_idx:root_idx + 1, :]
+
+
+def center_pose_parts(pose: torch.Tensor,
+                      part_root_of_joint=None) -> torch.Tensor:
+    """Centre each part (body, face, hands) at its own root:
+    ``out[..., j, :] = pose[..., j, :] - pose[..., root_of(j), :]``."""
+    table = (sk.PART_ROOT_OF_JOINT if part_root_of_joint is None
+             else part_root_of_joint)
+    idx = torch.as_tensor(np.asarray(table), dtype=torch.long,
+                          device=pose.device)
+    return pose - pose.index_select(-2, idx)
 
 
 def wb_pose_from_parts(part_pose: torch.Tensor,

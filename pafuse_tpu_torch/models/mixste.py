@@ -1,4 +1,4 @@
-"""MixSTE2 spatio-temporal transformer denoiser (eval forward).
+"""MixSTE2 spatio-temporal transformer denoiser.
 
 Counterpart of ``pafuse_tpu/models/mixste.py``.  Submodules carry the
 reference PAFUSE names (``STEblocks.3.attn.qkv``, ``time_mlp.1``,
@@ -6,8 +6,13 @@ reference PAFUSE names (``STEblocks.3.attn.qkv``, ``time_mlp.1``,
 ``pose_estimator.{part}.`` prefix, loads with ``strict=True``.
 
 Every spatial and temporal block, together with its outer Spatial/Temporal
-LayerNorm, goes through ``block_fn`` (``ops.block.fused_block`` by default:
-the CUDA kernel on the GPU, the plain version on the CPU).
+LayerNorm, goes through one fused function.  In eval mode (the default
+after construction) that is ``block_fn``, ``ops.block.fused_block``; in
+train mode (``.train()``) it is ``train_block_fn``,
+``ops.block_train.block_train``, the differentiable block with
+stochastic-depth branch masks (rates ``linspace(0, drop_path_rate,
+depth)``).  Both are the CUDA kernels on the GPU and the plain versions on
+the CPU.
 
 Numerics (float32): block, Spatial and Temporal norms use eps 1e-6, the
 head norm torch's default 1e-5; GELU is exact.
@@ -17,12 +22,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from pafuse_tpu_torch.ops.block import fused_block
+from pafuse_tpu_torch.ops.block_train import block_train
 from pafuse_tpu_torch.utils.device import resolve_device
+
+#: per block, the (attention, MLP) branch masks, one value per sample
+BranchMasks = Tuple[torch.Tensor, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +46,28 @@ class MixSTEConfig:
     num_heads: int = 8
     mlp_ratio: float = 2.0
     out_dim: int = 3
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
+
+    @property
+    def drop_path_rates(self) -> np.ndarray:
+        return np.linspace(0.0, self.drop_path_rate, self.depth)
+
+
+def branch_masks(rate: float, batch: int, device,
+                 generator: Optional[torch.Generator] = None) -> BranchMasks:
+    """Stochastic-depth scale factors of one block's two residual branches:
+    per sample Bernoulli(1 - rate) / (1 - rate); all ones, with no draw,
+    when the rate is 0 (the semantics of ``mixste.py:264-277``, with torch's
+    generator instead of a JAX key)."""
+    if rate <= 0.0:
+        ones = torch.ones(batch, dtype=torch.float32, device=device)
+        return ones, ones
+    keep = 1.0 - rate
+    m1 = (torch.rand(batch, generator=generator, device=device) < keep).float()
+    m2 = (torch.rand(batch, generator=generator, device=device) < keep).float()
+    return m1 / keep, m2 / keep
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -83,7 +116,7 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def params(self):
-        """The 12 tensors ``fused_block`` takes, in its order."""
+        """The 12 block tensors the fused block functions take, in order."""
         return (self.norm1.weight, self.norm1.bias,
                 self.attn.qkv.weight, self.attn.qkv.bias,
                 self.attn.proj.weight, self.attn.proj.bias,
@@ -106,14 +139,16 @@ class MixSTE2(nn.Module):
 
     Weights are drawn on the CPU from ``generator`` (seed 0 when omitted),
     so a seed gives the same weights on every device, then moved to
-    ``device`` once."""
+    ``device`` once.  The module starts in eval mode."""
 
     def __init__(self, cfg: MixSTEConfig, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
-        # every block goes through this; a check may swap in block_reference
+        # every block goes through these (eval, train); a check may swap in
+        # block_reference / block_train_plain
         self.block_fn = fused_block
+        self.train_block_fn = block_train
         C = cfg.embed_dim
         self.Spatial_patch_to_embedding = nn.Linear(cfg.in_chans, C)
         self.Spatial_pos_embed = nn.Parameter(torch.zeros(1, cfg.num_joints, C))
@@ -134,29 +169,62 @@ class MixSTE2(nn.Module):
             if isinstance(m, nn.Linear):
                 init_linear_(m, gen)
         self.to(resolve_device(device))
+        self.eval()
 
-    def _block(self, block: Block, norm: nn.LayerNorm,
-               x: torch.Tensor) -> torch.Tensor:
-        """One block + outer norm over the -2 axis of (B, S, L, C)."""
+    def _block(self, block: Block, norm: nn.LayerNorm, x: torch.Tensor,
+               masks: Optional[BranchMasks]) -> torch.Tensor:
+        """One block + outer norm over the -2 axis of (B, S, L, C); in train
+        mode with the per-sample branch masks, repeated over S (the frames of
+        a spatial block, the joints of a temporal one) like
+        ``mixste.py:350, 380``."""
         B, S, L, C = x.shape
-        y = self.block_fn(x.reshape(B * S, L, C), block.params(),
-                          (norm.weight, norm.bias), self.cfg.num_heads)
+        xf = x.reshape(B * S, L, C)
+        if self.training:
+            m1, m2 = (m.repeat_interleave(S) for m in masks)
+            y = self.train_block_fn(xf, m1, m2, block.params()
+                                    + (norm.weight, norm.bias),
+                                    self.cfg.num_heads)
+        else:
+            y = self.block_fn(xf, block.params(), (norm.weight, norm.bias),
+                              self.cfg.num_heads)
         return y.view(B, S, L, C)
 
-    def forward(self, x2d: torch.Tensor, x3d: torch.Tensor,
-                t: torch.Tensor) -> torch.Tensor:
+    def forward(self, x2d: torch.Tensor, x3d: torch.Tensor, t: torch.Tensor,
+                masks: Optional[Sequence[BranchMasks]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """In train mode, ``masks`` gives each block's branch masks (2·depth
+        pairs of (B,) tensors: layer i's spatial block at 2i, its temporal
+        block at 2i+1); masks not given are drawn from ``generator``."""
+        cfg = self.cfg
+        if self.training:
+            if cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0:
+                raise NotImplementedError(
+                    "MixSTE2: training with dropout > 0 is not ported (the "
+                    "fused train block has no dropout; the JAX package then "
+                    "runs XLA)")
+            if masks is None:
+                masks = [branch_masks(float(rate), x2d.shape[0], x2d.device,
+                                      generator)
+                         for rate in np.repeat(cfg.drop_path_rates, 2)]
+            if len(masks) != 2 * cfg.depth:
+                raise ValueError(f"MixSTE2: {len(masks)} mask pairs for "
+                                 f"{2 * cfg.depth} blocks")
+        else:
+            masks = [None] * (2 * cfg.depth)
         x = self.Spatial_patch_to_embedding(torch.cat([x2d, x3d], dim=-1))
         x = x + self.Spatial_pos_embed[None]
         x = (x + self.time_mlp(t)[:, None, None, :]).contiguous()
 
-        for i in range(self.cfg.depth):
+        for i in range(cfg.depth):
             # spatial: tokens = joints
-            x = self._block(self.STEblocks[i], self.Spatial_norm, x)
+            x = self._block(self.STEblocks[i], self.Spatial_norm, x,
+                            masks[2 * i])
             if i == 0:
                 x = x + self.Temporal_pos_embed[:, :, None, :]
             # temporal: tokens = frames
             x = x.transpose(1, 2).contiguous()
-            x = self._block(self.TTEblocks[i], self.Temporal_norm, x)
+            x = self._block(self.TTEblocks[i], self.Temporal_norm, x,
+                            masks[2 * i + 1])
             x = x.transpose(1, 2).contiguous()
 
         return self.head(x)

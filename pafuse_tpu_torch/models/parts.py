@@ -3,13 +3,15 @@
 Counterpart of ``pafuse_tpu/models/parts.py`` (unpacked execution): each
 part network sees a static gather of its joints, and the outputs are
 concatenated back in whole-body joint order (an inverse permutation covers
-part tables that are not contiguous and ordered).
+part tables that are not contiguous and ordered).  In train mode each part
+network takes its own stochastic-depth masks, as the JAX router gives each
+part its own key.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,27 +33,35 @@ class PartSpec:
 
 
 def build_part_specs(parts_joint_indices: Dict[str, List[int]],
-                     num_frames: int, in_chans: int,
-                     depth: int) -> List[PartSpec]:
+                     num_frames: int, in_chans: int, depth: int,
+                     drop_path_rate: float = 0.0, drop_rate: float = 0.0,
+                     attn_drop_rate: float = 0.0) -> List[PartSpec]:
     return [PartSpec(name=name,
                      joint_indices=np.asarray(idx, dtype=np.int32),
                      config=MixSTEConfig(num_frames=num_frames,
                                          num_joints=len(idx),
                                          in_chans=in_chans,
                                          embed_dim=PART_CHANNELS[name],
-                                         depth=depth))
+                                         depth=depth, drop_rate=drop_rate,
+                                         attn_drop_rate=attn_drop_rate,
+                                         drop_path_rate=drop_path_rate))
             for name, idx in parts_joint_indices.items()]
 
 
 def monolithic_spec(num_joints: int, num_frames: int, in_chans: int,
-                    embed_dim: int, depth: int) -> List[PartSpec]:
+                    embed_dim: int, depth: int, drop_path_rate: float = 0.0,
+                    drop_rate: float = 0.0,
+                    attn_drop_rate: float = 0.0) -> List[PartSpec]:
     """A single whole-body network."""
     return [PartSpec(name="whole_body",
                      joint_indices=np.arange(num_joints, dtype=np.int32),
                      config=MixSTEConfig(num_frames=num_frames,
                                          num_joints=num_joints,
                                          in_chans=in_chans,
-                                         embed_dim=embed_dim, depth=depth))]
+                                         embed_dim=embed_dim, depth=depth,
+                                         drop_rate=drop_rate,
+                                         attn_drop_rate=attn_drop_rate,
+                                         drop_path_rate=drop_path_rate))]
 
 
 class PartModel(nn.ModuleDict):
@@ -83,13 +93,23 @@ class PartModel(nn.ModuleDict):
                 s.joint_indices, dtype=torch.long, device=dev),
                 persistent=False)
 
-    def forward(self, x2d: torch.Tensor, x3d: torch.Tensor,
-                t: torch.Tensor) -> torch.Tensor:
+    def forward(self, x2d: torch.Tensor, x3d: torch.Tensor, t: torch.Tensor,
+                masks: Optional[Dict[str, Sequence]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """In train mode, ``masks`` maps each part to its network's branch
+        masks (see :meth:`MixSTE2.forward`); parts without them draw their
+        own from ``generator``, in spec order."""
         outs = []
         for s in self.specs:
             idx = getattr(self, f"_idx_{s.name}")
+            part_masks = None
+            if masks is not None and s.name in masks:
+                part_masks = [tuple(torch.as_tensor(m, dtype=torch.float32,
+                                                    device=x2d.device)
+                                    for m in pair) for pair in masks[s.name]]
             outs.append(self[s.name](x2d.index_select(-2, idx),
-                                     x3d.index_select(-2, idx), t))
+                                     x3d.index_select(-2, idx), t,
+                                     masks=part_masks, generator=generator))
         merged = torch.cat(outs, dim=-2)
         if self._is_identity:
             return merged

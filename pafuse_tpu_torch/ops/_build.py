@@ -8,7 +8,8 @@ wrapper calls :func:`load`, which builds every source at once (one ``nvcc``
 process per source, all started together) and then opens the library.
 
 The libraries have a plain C interface; ``KERNELS`` declares each exported
-function's ctypes signature (``c_void_p`` for pointers and streams).
+function's ctypes signature (``c_void_p`` for pointers and streams).  The
+hash also keys the shared headers ``csrc/*.cuh``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -31,14 +32,31 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 
-#: source name -> {exported function: argtypes}; every function returns int
-#: (the cudaError_t of the first failed launch, 0 on success).
-KERNELS: Dict[str, Dict[str, list]] = {
+#: source name -> {exported function: (argtypes, restype)}.  Kernel
+#: functions return int: the cudaError_t of the first failed launch, 0 on
+#: success.
+KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
     "block": {
         # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, B, L, C, H,
         # hidden, scale, stream
-        "pafuse_fused_block": [_I] + [_P] * 6 + [_P] * 14
-                              + [_LL, _I, _I, _I, _I, _F, _P],
+        "pafuse_fused_block": ([_I] + [_P] * 6 + [_P] * 14
+                               + [_LL, _I, _I, _I, _I, _F, _P], _I),
+    },
+    "block_train": {
+        # float counts of the forward's saved workspace and the backward's
+        # scratch: B, L, C, hidden
+        "pafuse_block_train_saved_floats": ([_LL, _I, _I, _I], _LL),
+        "pafuse_block_train_scratch_floats": ([_LL, _I, _I, _I], _LL),
+        # attention-backward shared memory in bytes: L, head size
+        "pafuse_block_train_smem_bytes": ([_I, _I], _LL),
+        # is_bf16, x, m1, m2, 14 params, y, saved, B, L, C, H, hidden,
+        # scale, stream
+        "pafuse_block_train_fwd": ([_I] + [_P] * 3 + [_P] * 14 + [_P] * 2
+                                   + [_LL, _I, _I, _I, _I, _F, _P], _I),
+        # is_bf16, x, g, m1, m2, 14 params, saved, dx, grads, scratch, B, L,
+        # C, H, hidden, scale, stream
+        "pafuse_block_train_bwd": ([_I] + [_P] * 4 + [_P] * 14 + [_P] * 4
+                                   + [_LL, _I, _I, _I, _I, _F, _P], _I),
     },
 }
 
@@ -61,8 +79,10 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], f"lib{name}.so")
 
@@ -102,8 +122,8 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build_all()[name]
             lib = ctypes.CDLL(path)
-            for fn, argtypes in KERNELS[name].items():
+            for fn, (argtypes, restype) in KERNELS[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = restype
             _LIBS[name] = lib
         return lib

@@ -65,29 +65,31 @@ def block_reference(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     return _layernorm(x2, nos, nob).to(cd)
 
 
-def _check(x: torch.Tensor, params: Sequence[torch.Tensor],
-           num_heads: int) -> int:
+def _check(x: torch.Tensor, params: Sequence[torch.Tensor], num_heads: int,
+           what: str = "fused_block") -> int:
+    """Validate x and the 14 parameters of a block kernel; returns the MLP
+    hidden width."""
     if x.dim() != 3:
-        raise ValueError(f"fused_block: x must be (B, L, C); got {tuple(x.shape)}")
+        raise ValueError(f"{what}: x must be (B, L, C); got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_block: x must be float32 or bfloat16; got {x.dtype}")
+        raise TypeError(f"{what}: x must be float32 or bfloat16; got {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("fused_block: x must be contiguous")
+        raise ValueError(f"{what}: x must be contiguous")
     C = x.shape[2]
     if C % num_heads:
-        raise ValueError(f"fused_block: C={C} not divisible by {num_heads} heads")
+        raise ValueError(f"{what}: C={C} not divisible by {num_heads} heads")
     hidden = params[8].shape[0]
     shapes = [(C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,), (C,), (C,),
               (hidden, C), (hidden,), (C, hidden), (C,), (C,), (C,)]
     for i, (p, shape) in enumerate(zip(params, shapes)):
         if tuple(p.shape) != shape:
-            raise ValueError(f"fused_block: parameter {i} has shape "
+            raise ValueError(f"{what}: parameter {i} has shape "
                              f"{tuple(p.shape)}, expected {shape}")
         if p.dtype != torch.float32 or p.device != x.device:
-            raise ValueError(f"fused_block: parameter {i} must be float32 on "
+            raise ValueError(f"{what}: parameter {i} must be float32 on "
                              f"{x.device}; got {p.dtype} on {p.device}")
         if not p.is_contiguous():
-            raise ValueError(f"fused_block: parameter {i} must be contiguous")
+            raise ValueError(f"{what}: parameter {i} must be contiguous")
     return hidden
 
 

@@ -1,0 +1,306 @@
+"""Trainable MixSTE block + outer LayerNorm with stochastic-depth masks.
+
+Counterpart of ``pafuse_tpu/ops/block_grad.py::block_train_apply`` (the TPU
+kernels ``_train_fwd_kernel`` and ``_train_bwd_kernel`` behind a custom VJP):
+per sequence b of L tokens,
+
+    x1 = x0 + m1[b] * Attn(LN1(x0));  x2 = x1 + m2[b] * MLP(LN2(x1));
+    y  = LN_outer(x2)
+
+with all arithmetic in float32 whatever the dtype of x; y and dx come back in
+x's dtype.  LayerNorm eps is 1e-6 and GELU is exact (erf).  m1, m2 are the
+stochastic-depth scale factors of the two residual branches, one per
+sequence (0 or 1/keep).
+
+``block_train_fwd`` and ``block_train_bwd`` launch the hand-written CUDA
+kernels (``csrc/block_train.cu``) for CUDA tensors and use the plain
+versions, ``train_fwd_reference`` and ``train_bwd_reference`` (the math of
+``block_grad.py:47-124, 165-238`` in PyTorch ops), for CPU tensors.  The CUDA
+forward saves the block's intermediates for the backward; the plain backward
+recomputes them from the inputs.  ``block_train`` wraps the pair as a
+``torch.autograd.Function`` that returns dx, the 14 parameter gradients and
+zero gradients for the masks.
+
+Parameters are the 14 float32 tensors of ``ops.block`` in torch layout:
+``(norm1.weight, norm1.bias, qkv.weight, qkv.bias, proj.weight, proj.bias,
+norm2.weight, norm2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
+outer.weight, outer.bias)``, Linear weights as (out, in).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from pafuse_tpu_torch.ops.block import _check as _check_block
+
+_EPS = 1e-6
+_INV_SQRT2 = 0.7071067811865476
+_INV_SQRT2PI = 0.3989422804014327
+#: shared memory an H100 block can take (bytes)
+_MAX_SMEM = 232448
+
+
+def _ln_fwd(x, s, b):
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + _EPS)
+    xhat = (x - mu) * inv
+    return xhat * s + b, xhat, inv
+
+
+def _ln_bwd(dy, xhat, inv, s):
+    """(dx, dscale, dbias); parameter gradients summed over all rows."""
+    g = dy * s
+    dx = inv * (g - g.mean(-1, keepdim=True)
+                - xhat * (g * xhat).mean(-1, keepdim=True))
+    rows = tuple(range(dy.dim() - 1))
+    return dx, (dy * xhat).sum(rows), dy.sum(rows)
+
+
+def _gelu(u):
+    return 0.5 * u * (1.0 + torch.erf(u * _INV_SQRT2))
+
+
+def _gelu_grad(u):
+    phi = _INV_SQRT2PI * torch.exp(-0.5 * u * u)
+    return 0.5 * (1.0 + torch.erf(u * _INV_SQRT2)) + u * phi
+
+
+def _fwd_core(x0, m1, m2, params, num_heads):
+    """The forward on float32 (B, L, C) with masks (B, 1, 1); returns y and
+    the intermediates the backward needs."""
+    (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
+     nos, nob) = params
+    B, L, C = x0.shape
+    d = C // num_heads
+    h1, xhat1, inv1 = _ln_fwd(x0, n1s, n1b)
+    qkv = h1 @ wqkv.t() + bqkv
+    q, k, v = qkv.view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    P = torch.softmax(q @ k.transpose(-1, -2) * d ** -0.5, dim=-1)
+    o = (P @ v).transpose(1, 2).reshape(B, L, C)
+    x1 = x0 + m1 * (o @ wproj.t() + bproj)
+    h2, xhat2, inv2 = _ln_fwd(x1, n2s, n2b)
+    u = h2 @ wfc1.t() + bfc1
+    gu = _gelu(u)
+    x2 = x1 + m2 * (gu @ wfc2.t() + bfc2)
+    y, xhato, invo = _ln_fwd(x2, nos, nob)
+    return y, (h1, xhat1, inv1, q, k, v, P, o, xhat2, inv2, h2, u, gu, xhato,
+               invo)
+
+
+def _masks(m: torch.Tensor) -> torch.Tensor:
+    return m.float().reshape(-1, 1, 1)
+
+
+def train_fwd_reference(x: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+                        params: Sequence[torch.Tensor],
+                        num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel #5.  x: (B, L, C); m1, m2: (B,)."""
+    y, _ = _fwd_core(x.float(), _masks(m1), _masks(m2),
+                     [p.float() for p in params], num_heads)
+    return y.to(x.dtype)
+
+
+def train_bwd_reference(x: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
+                        m2: torch.Tensor, params: Sequence[torch.Tensor],
+                        num_heads: int
+                        ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Plain PyTorch version of kernel #6: recomputes the forward, then
+    returns (dx in x.dtype, the 14 parameter gradients in float32)."""
+    params = [p.float() for p in params]
+    (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
+     nos, nob) = params
+    m1, m2 = _masks(m1), _masks(m2)
+    B, L, C = x.shape
+    d = C // num_heads
+    scale = d ** -0.5
+    (_, (h1, xhat1, inv1, q, k, v, P, o, xhat2, inv2, h2, u, gu, xhato,
+         invo)) = _fwd_core(x.float(), m1, m2, params, num_heads)
+    M = B * L
+
+    dx2, dnos, dnob = _ln_bwd(g.float(), xhato, invo, nos)
+    # MLP branch
+    dm = (m2 * dx2).reshape(M, C)
+    gu, u, h2 = gu.reshape(M, -1), u.reshape(M, -1), h2.reshape(M, C)
+    du = (dm @ wfc2) * _gelu_grad(u)
+    dwfc2, dbfc2 = dm.t() @ gu, dm.sum(0)
+    dwfc1, dbfc1 = du.t() @ h2, du.sum(0)
+    dh2 = (du @ wfc1).reshape(B, L, C)
+    dx1_ln2, dn2s, dn2b = _ln_bwd(dh2, xhat2, inv2, n2s)
+    dx1 = dx2 + dx1_ln2
+    # attention branch
+    da = (m1 * dx1).reshape(M, C)
+    dwproj, dbproj = da.t() @ o.reshape(M, C), da.sum(0)
+    do = (da @ wproj).view(B, L, num_heads, d).transpose(1, 2)   # (B, H, L, d)
+    dP = do @ v.transpose(-1, -2)
+    dv = P.transpose(-1, -2) @ do
+    dS = P * (dP - (dP * P).sum(-1, keepdim=True))
+    dq = (dS @ k) * scale
+    dk = (dS.transpose(-1, -2) @ q) * scale
+    dqkv = torch.stack([dq, dk, dv], dim=2)                      # (B, H, 3, L, d)
+    dqkv = dqkv.permute(0, 3, 2, 1, 4).reshape(M, 3 * C)
+    dwqkv, dbqkv = dqkv.t() @ h1.reshape(M, C), dqkv.sum(0)
+    dh1 = (dqkv @ wqkv).reshape(B, L, C)
+    dx0_ln1, dn1s, dn1b = _ln_bwd(dh1, xhat1, inv1, n1s)
+    dx0 = dx1 + dx0_ln1
+    return dx0.to(x.dtype), (dn1s, dn1b, dwqkv, dbqkv, dwproj, dbproj, dn2s,
+                             dn2b, dwfc1, dbfc1, dwfc2, dbfc2, dnos, dnob)
+
+
+class TrainSaved(NamedTuple):
+    """What the forward hands to the backward: its inputs and, on the CUDA
+    path, the kernel's workspace of saved intermediates."""
+    x: torch.Tensor
+    m1: torch.Tensor
+    m2: torch.Tensor
+    params: Tuple[torch.Tensor, ...]
+    num_heads: int
+    workspace: Optional[torch.Tensor]
+
+
+def _check(x, m1, m2, params, num_heads) -> None:
+    _check_block(x, params, num_heads, "block_train")
+    B = x.shape[0]
+    for name, m in (("m1", m1), ("m2", m2)):
+        if (tuple(m.shape) != (B,) or m.dtype != torch.float32
+                or m.device != x.device or not m.is_contiguous()):
+            raise ValueError(f"block_train: {name} must be a contiguous float32 "
+                             f"({B},) tensor on {x.device}; got {m.dtype} "
+                             f"{tuple(m.shape)} on {m.device}")
+    if x.shape[2] > 512:
+        raise ValueError(f"block_train: C={x.shape[2]} > 512 is not supported")
+
+
+def _lib_and_dims(x, params, num_heads):
+    from pafuse_tpu_torch.ops import _build
+    lib = _build.load("block_train")
+    B, L, C = x.shape
+    smem = lib.pafuse_block_train_smem_bytes(L, C // num_heads)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"block_train: L={L} needs {smem} bytes of shared "
+                         f"memory in the attention backward (> {_MAX_SMEM})")
+    return lib, (B, L, C, num_heads, params[8].shape[0],
+                 (C // num_heads) ** -0.5)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA kernel launch failed with "
+                           f"cudaError {err}")
+
+
+def block_train_fwd(x: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+                    params: Sequence[torch.Tensor], num_heads: int
+                    ) -> Tuple[torch.Tensor, TrainSaved]:
+    """Kernel #5 on (B, L, C): returns (y in x.dtype, what the backward
+    takes).  CUDA tensors go through the CUDA kernels (built on first use)
+    or raise; CPU tensors go through :func:`train_fwd_reference`."""
+    params = tuple(params)
+    if x.device.type == "cpu":
+        y = train_fwd_reference(x, m1, m2, params, num_heads)
+        return y, TrainSaved(x, m1, m2, params, num_heads, None)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_train_fwd: unsupported device {x.device}")
+    _check(x, m1, m2, params, num_heads)
+    lib, (B, L, C, H, hid, scale) = _lib_and_dims(x, params, num_heads)
+    workspace = torch.empty(lib.pafuse_block_train_saved_floats(B, L, C, hid),
+                            dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.pafuse_block_train_fwd(
+            int(x.dtype == torch.bfloat16), x.data_ptr(), m1.data_ptr(),
+            m2.data_ptr(), *[p.data_ptr() for p in params], y.data_ptr(),
+            workspace.data_ptr(), B, L, C, H, hid, scale, _stream(x))
+    _raise_on(err, "block_train_fwd")
+    block_train_fwd.launches += 1
+    return y, TrainSaved(x, m1, m2, params, num_heads, workspace)
+
+
+def block_train_bwd(ctx: TrainSaved, g: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Kernel #6: (dx in x.dtype, the 14 float32 parameter gradients summed
+    over all rows).  CUDA tensors go through the CUDA kernels or raise; CPU
+    tensors go through :func:`train_bwd_reference`."""
+    x, m1, m2, params, num_heads, workspace = ctx
+    if x.device.type == "cpu":
+        return train_bwd_reference(x, g, m1, m2, params, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_train_bwd: unsupported device {x.device}")
+    if workspace is None:
+        raise ValueError("block_train_bwd: no saved workspace; the forward "
+                         "did not run block_train_fwd on CUDA")
+    if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
+            or not g.is_contiguous()):
+        raise ValueError(f"block_train_bwd: g must be a contiguous "
+                         f"{x.dtype} {tuple(x.shape)} tensor on {x.device}")
+    lib, (B, L, C, H, hid, scale) = _lib_and_dims(x, params, num_heads)
+    flat = torch.empty(sum(p.numel() for p in params), dtype=torch.float32,
+                       device=x.device)
+    grads = tuple(t.view(p.shape) for t, p in zip(
+        flat.split([p.numel() for p in params]), params))
+    dx = torch.empty_like(x)
+    scratch = torch.empty(lib.pafuse_block_train_scratch_floats(B, L, C, hid),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.pafuse_block_train_bwd(
+            int(x.dtype == torch.bfloat16), x.data_ptr(), g.data_ptr(),
+            m1.data_ptr(), m2.data_ptr(), *[p.data_ptr() for p in params],
+            workspace.data_ptr(), dx.data_ptr(), flat.data_ptr(),
+            scratch.data_ptr(), B, L, C, H, hid, scale, _stream(x))
+    _raise_on(err, "block_train_bwd")
+    block_train_bwd.launches += 1
+    return dx, grads
+
+
+#: kernel launches through the wrappers (CUDA path only)
+block_train_fwd.launches = 0
+block_train_bwd.launches = 0
+
+
+class BlockTrainFn(torch.autograd.Function):
+    """Autograd for the trainable block: forward kernel #5, backward kernel
+    #6 (``plain=True``: their plain versions, on any device)."""
+
+    @staticmethod
+    def forward(ctx, x, m1, m2, num_heads, plain, *params):
+        if plain:
+            y = train_fwd_reference(x, m1, m2, params, num_heads)
+            ctx.train_saved = TrainSaved(x, m1, m2, params, num_heads, None)
+        else:
+            y, ctx.train_saved = block_train_fwd(x, m1, m2, params, num_heads)
+        ctx.plain = plain
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        saved, ctx.train_saved = ctx.train_saved, None
+        if ctx.plain:
+            x, m1, m2, params, num_heads, _ = saved
+            dx, grads = train_bwd_reference(x, g, m1, m2, params, num_heads)
+        else:
+            dx, grads = block_train_bwd(saved, g.contiguous())
+        dm1 = torch.zeros_like(saved.m1) if ctx.needs_input_grad[1] else None
+        dm2 = torch.zeros_like(saved.m2) if ctx.needs_input_grad[2] else None
+        return (dx, dm1, dm2, None, None) + tuple(grads)
+
+
+def block_train(x: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+                params: Sequence[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """Differentiable block through kernels #5 and #6 (plain versions on
+    the CPU)."""
+    return BlockTrainFn.apply(x, m1, m2, num_heads, False, *params)
+
+
+def block_train_plain(x: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+                      params: Sequence[torch.Tensor],
+                      num_heads: int) -> torch.Tensor:
+    """The same block through the plain versions on any device: the
+    comparison path of checks on the card."""
+    return BlockTrainFn.apply(x, m1, m2, num_heads, True, *params)
+

@@ -39,42 +39,9 @@
 // the first launch that failed, or 0.  Nothing here allocates or
 // synchronises; everything launches on the caller's stream.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round an f32 value to T and back: the compute dtype's rounding point.
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32<T>(from_f32<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-constexpr float kLnEps = 1e-6f;
 
 // ---------------------------------------------------------------------------
 // Tiled GEMM  Y[m, n] = epilogue(sum_k prologue(A)[m, k] * T(W[n, k]) + b[n])
@@ -190,73 +157,6 @@ gemm_kernel(const T* __restrict__ A, const float* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
-// Attention: one CTA per (sequence, head).  q, k, v of the head live in
-// shared memory as f32 (k and v rows padded to an odd stride so that lanes
-// reading different keys hit different banks).  One warp per query row:
-// lanes split the keys for the logits, then the head dims for AV.
-// qkv: (B*L, 3C) in T with [q | k | v] blocks of C; out: (B*L, C) in T.
-// ---------------------------------------------------------------------------
-
-constexpr int ATTN_THREADS = 128;
-
-template <typename T>
-__global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int C,
-                 int H, int d, float scale) {
-  extern __shared__ float smem[];
-  const int dp = d | 1;
-  float* q = smem;
-  float* k = q + L * dp;
-  float* v = k + L * dp;
-  float* p = v + L * dp;
-
-  const long long b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const T* base = qkv + b * L * 3LL * C + (long long)h * d;
-  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
-    const int l = idx / d, c = idx % d;
-    const T* row = base + (long long)l * 3 * C + c;
-    q[l * dp + c] = to_f32<T>(row[0]);
-    k[l * dp + c] = to_f32<T>(row[C]);
-    v[l * dp + c] = to_f32<T>(row[2 * C]);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  float* pw = p + warp * L;
-  for (int i = warp; i < L; i += nwarps) {
-    const float* qi = q + i * dp;
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      const float* kj = k + j * dp;
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) s = fmaf(qi[c], kj[c], s);
-      s *= scale;
-      pw[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(pw[j] - mx);
-      pw[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) pw[j] = round_to<T>(pw[j] / sum);
-    __syncwarp();
-    T* orow = out + (b * L + i) * (long long)C + (long long)h * d;
-    for (int c = lane; c < d; c += 32) {
-      float o = 0.f;
-      for (int j = 0; j < L; ++j) o = fmaf(pw[j], v[j * dp + c], o);
-      orow[c] = from_f32<T>(o);
-    }
-    __syncwarp();
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Row LayerNorm (the outer Spatial/Temporal norm): one warp per row.
 // ---------------------------------------------------------------------------
 
@@ -304,7 +204,6 @@ cudaError_t fused_block(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
                         const float* nos, const float* nob, long long B, int L,
                         int C, int H, int hid, float scale, cudaStream_t stream) {
   const long long M = B * L;
-  const int d = C / H;
   cudaError_t err;
 
   // 1. qkv = T(LN1(x) @ Wqkv + bqkv)
@@ -313,17 +212,7 @@ cudaError_t fused_block(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
   if (err != cudaSuccess) return err;
 
   // 2. per-head attention
-  const int dp = d | 1;
-  const size_t smem =
-      sizeof(float) * (3 * (size_t)L * dp + (size_t)(ATTN_THREADS / 32) * L);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(attention_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  attention_kernel<T><<<(unsigned)(B * H), ATTN_THREADS, smem, stream>>>(qkv, attn, L,
-                                                                         C, H, d, scale);
-  err = cudaGetLastError();
+  err = launch_attention<T>(qkv, attn, B, L, C, H, scale, stream);
   if (err != cudaSuccess) return err;
 
   // 3. x1 = x + T(attn @ Wproj + bproj)

@@ -1,0 +1,776 @@
+// Trainable MixSTE transformer block + outer LayerNorm with stochastic-depth
+// branch masks: forward and backward, for Hopper (sm_90a).
+//
+// Replaces: pafuse_tpu/ops/block_grad.py::block_train_apply, whose forward
+// runs the TPU kernel _train_fwd_kernel and whose custom VJP runs
+// _train_bwd_kernel.  Per sequence b of L tokens, all arithmetic in f32
+// whatever the dtype T of x (the TPU train kernel keeps no bf16 rounding
+// points); only the block output y and the input gradient dx are in T:
+//
+//   x1 = x0 + m1[b] * (Attn(LN1(x0)) @ Wproj^T + bproj)
+//   x2 = x1 + m2[b] * (gelu(LN2(x1) @ Wfc1^T + bfc1) @ Wfc2^T + bfc2)
+//   y  = T(LN_outer(x2))                     LayerNorm eps 1e-6, exact GELU
+//
+// The backward follows block_grad.py:165-238: outer-LN backward; fc2 dgrad
+// with the GELU' epilogue; fc1 dgrad; LN2 backward plus the residual; proj
+// dgrad; attention backward per (sequence, head); qkv dgrad; LN1 backward
+// plus the residual; and the 14 parameter gradients, summed over all B*L
+// rows.
+//
+// What bounds it on this card: the forward is ~16*M*C^2 + 4*B*L^2*C FLOPs
+// and the backward twice that, against ~2-3*M*C*sizeof(T) bytes of block
+// input and output: hundreds of FLOPs per byte, so both are bound by
+// arithmetic.  The design:
+//   * Saved, not recomputed.  The TPU kernel recomputes the forward inside
+//     the backward because VMEM holds one tile's intermediates only.  Here
+//     the forward writes what the backward needs (LN outputs and row
+//     statistics, qkv, attention output, x1, fc1 pre-activation and GELU
+//     output, x2: 8C + 2*hidden + 6 floats a row) to one device workspace.
+//     At the training batch that is about 27 GB for the 48 blocks of a step,
+//     a third of the card's 80 GB, and it saves the third of the backward's
+//     FLOPs that a recompute would add.
+//   * A chain of launches, as block.cu: tiled f32 GEMMs (64x64 tile, scalar
+//     FMAs, no tensor cores) with fused epilogues (bias, GELU, mask-scaled
+//     residual, GELU'), the row LayerNorms, one attention CTA per
+//     (sequence, head) forward and backward with q, k, v, dO, P and dS in
+//     shared memory (L <= 68 fits), and LayerNorm-backward row kernels.
+//   * Deterministic parameter gradients.  The TPU grid runs in order and
+//     accumulates into revisited output blocks; CTAs here run concurrently.
+//     Each weight gradient dW = dY^T X is computed per fixed chunk of
+//     RED_ROWS rows into its own partial (a 64x64-tiled GEMM over the
+//     chunk's rows in order), and a second kernel sums the partials in
+//     chunk order; bias and LayerNorm-parameter gradients go the same way
+//     (column sums per chunk, then the ordered sum).  No float atomics: two
+//     identical calls give bit-identical gradients.
+//   * No padding: L and B are taken as they are (the TPU pads L to 8 and B
+//     to the tile, and masks the pad), so nothing from a pad row enters a
+//     sum.
+//
+// Plain C interface for ctypes: the kernel functions return the cudaError_t
+// of the first launch that failed, or 0; the size functions return float
+// counts.  Nothing here allocates or synchronises; everything launches on
+// the caller's stream.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr float kInvSqrt2 = 0.7071067811865476f;
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+
+__device__ __forceinline__ float gelu(float u) {
+  return 0.5f * u * (1.f + erff(u * kInvSqrt2));
+}
+
+__device__ __forceinline__ float gelu_grad(float u) {
+  return 0.5f * (1.f + erff(u * kInvSqrt2)) + u * (kInvSqrt2Pi * expf(-0.5f * u * u));
+}
+
+// rows per partial sum of a weight or bias gradient, and of a LayerNorm
+// parameter gradient
+constexpr int RED_ROWS = 1024;
+constexpr int LNB_ROWS = 64;
+
+struct Params {
+  const float *n1s, *n1b, *wqkv, *bqkv, *wproj, *bproj, *n2s, *n2b, *wfc1, *bfc1,
+      *wfc2, *bfc2, *nos, *nob;
+};
+
+// The 14 gradients, carved in parameter order from one f32 buffer, so that
+// each LayerNorm's (scale, bias) pair is adjacent.
+struct Grads {
+  float *n1s, *n1b, *wqkv, *bqkv, *wproj, *bproj, *n2s, *n2b, *wfc1, *bfc1, *wfc2,
+      *bfc2, *nos, *nob;
+};
+
+Grads carve_grads(float* p, int C, int hid) {
+  Grads g;
+  const long long c = C, h = hid;
+  g.n1s = p; p += c;
+  g.n1b = p; p += c;
+  g.wqkv = p; p += 3 * c * c;
+  g.bqkv = p; p += 3 * c;
+  g.wproj = p; p += c * c;
+  g.bproj = p; p += c;
+  g.n2s = p; p += c;
+  g.n2b = p; p += c;
+  g.wfc1 = p; p += h * c;
+  g.bfc1 = p; p += h;
+  g.wfc2 = p; p += c * h;
+  g.bfc2 = p; p += c;
+  g.nos = p; p += c;
+  g.nob = p;
+  return g;
+}
+
+// What the forward saves for the backward (f32, row-major, M = B*L rows).
+struct Saved {
+  float *h1, *qkv, *o, *x1, *h2, *u, *gu, *x2;
+  float *mean1, *rstd1, *mean2, *rstd2, *meano, *rstdo;
+};
+
+long long saved_floats(long long M, int C, int hid) {
+  return M * (8LL * C + 2LL * hid + 6);
+}
+
+Saved carve_saved(float* p, long long M, int C, int hid) {
+  Saved s;
+  s.h1 = p; p += M * C;
+  s.qkv = p; p += M * 3 * C;
+  s.o = p; p += M * C;
+  s.x1 = p; p += M * C;
+  s.h2 = p; p += M * C;
+  s.u = p; p += M * hid;
+  s.gu = p; p += M * hid;
+  s.x2 = p; p += M * C;
+  s.mean1 = p; p += M;
+  s.rstd1 = p; p += M;
+  s.mean2 = p; p += M;
+  s.rstd2 = p; p += M;
+  s.meano = p; p += M;
+  s.rstdo = p;
+  return s;
+}
+
+// Backward scratch: the activation gradients and one buffer of partial sums
+// that the reductions use in turn (stream order keeps them apart).
+struct Scratch {
+  float *dx2, *dm, *du, *dh2, *dx1, *da, *dO, *dqkv, *dh1, *part;
+};
+
+long long n_chunks(long long M, int rows) { return (M + rows - 1) / rows; }
+
+long long part_floats(long long M, int C, int hid) {
+  const long long c = C, h = hid;
+  const long long w = n_chunks(M, RED_ROWS) * (3 * c * c > h * c ? 3 * c * c : h * c);
+  const long long b = n_chunks(M, RED_ROWS) * (3 * c > h ? 3 * c : h);
+  const long long l = n_chunks(M, LNB_ROWS) * 2 * c;
+  return w > b ? (w > l ? w : l) : (b > l ? b : l);
+}
+
+long long scratch_floats(long long M, int C, int hid) {
+  return M * (10LL * C + hid) + part_floats(M, C, hid);
+}
+
+Scratch carve_scratch(float* p, long long M, int C, int hid) {
+  Scratch s;
+  s.dx2 = p; p += M * C;
+  s.dm = p; p += M * C;
+  s.du = p; p += M * hid;
+  s.dh2 = p; p += M * C;
+  s.dx1 = p; p += M * C;
+  s.da = p; p += M * C;
+  s.dO = p; p += M * C;
+  s.dqkv = p; p += M * 3 * C;
+  s.dh1 = p; p += M * C;
+  s.part = p;
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// Row LayerNorm forward, one warp per row: Y = T(LN(X)), and the row mean
+// and reciprocal standard deviation for the backward.
+// ---------------------------------------------------------------------------
+
+constexpr int LN_THREADS = 256;
+
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(LN_THREADS)
+ln_fwd_kernel(const TIn* __restrict__ X, const float* __restrict__ scale,
+              const float* __restrict__ bias, TOut* __restrict__ Y,
+              float* __restrict__ mean_out, float* __restrict__ rstd_out, long long M,
+              int C) {
+  const int lane = threadIdx.x & 31;
+  const long long m = (long long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const TIn* row = X + m * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += to_f32<TIn>(row[c]);
+  const float mean = warp_sum(s) / (float)C;
+  float var = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float dv = to_f32<TIn>(row[c]) - mean;
+    var += dv * dv;
+  }
+  const float rstd = rsqrtf(warp_sum(var) / (float)C + kLnEps);
+  TOut* yrow = Y + m * C;
+  for (int c = lane; c < C; c += 32)
+    yrow[c] = from_f32<TOut>((to_f32<TIn>(row[c]) - mean) * rstd * scale[c] + bias[c]);
+  if (lane == 0) {
+    mean_out[m] = mean;
+    rstd_out[m] = rstd;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tiled f32 GEMM  Y[m, n] = epilogue(sum_k A[m, k] * B[k, n]), A (M, K)
+// row-major; B[k, n] = W[n, k] for a torch Linear weight W (N, K) in the
+// forward (Y = A W^T), B[k, n] = W[k, n] for the data gradients (Y = A W).
+// 64x64 output tile per CTA, 16-deep K slices through shared memory, 256
+// threads with a 4x4 register tile each; M on gridDim.x, N tiles on
+// gridDim.y.
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
+
+enum { W_NK = 0, W_KN = 1 };
+enum {
+  EPI_NONE = 0,           // Y = acc
+  EPI_BIAS = 1,           // Y = acc + b
+  EPI_BIAS_GELU = 2,      // Y = acc + b, Y2 = gelu(Y)
+  EPI_MASK_RESIDUAL = 3,  // Y = R + mask[m / L] * (acc + b)
+  EPI_GELU_GRAD = 4,      // Y = acc * gelu'(aux)
+};
+
+template <int WL, int EPI, typename TR>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
+            const float* __restrict__ bias, const TR* __restrict__ R,
+            const float* __restrict__ mask, const float* __restrict__ aux,
+            float* __restrict__ Y, float* __restrict__ Y2, long long M, int N, int K,
+            int L) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Ws[BK][BN + 4];
+
+  const int tid = threadIdx.x;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  // A and (N, K) weight tile loads: thread -> row lr, four consecutive k
+  const int lr = tid >> 2, lk = (tid & 3) * 4;
+  // (K, N) weight tile loads: thread -> k row wk, four consecutive n
+  const int wk = tid >> 4, wn = (tid & 15) * 4;
+  // compute: thread -> rows ty + 16 i, cols tx + 16 j
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  const long long am = m0 + lr;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + lk + j;
+      As[lk + j][lr] = (am < M && k < K) ? A[am * K + k] : 0.f;
+      if (WL == W_NK) {
+        const int n = n0 + lr;
+        Ws[lk + j][lr] = (n < N && k < K) ? W[(long long)n * K + k] : 0.f;
+      } else {
+        const int kk = k0 + wk, n = n0 + wn + j;
+        Ws[wk][wn + j] = (kk < K && n < N) ? W[(long long)kk * N + n] : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n >= N) continue;
+      const long long idx = m * N + n;
+      float y = acc[i][j];
+      if (EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_MASK_RESIDUAL)
+        y += bias[n];
+      if (EPI == EPI_BIAS_GELU) Y2[idx] = gelu(y);
+      if (EPI == EPI_MASK_RESIDUAL) y = to_f32<TR>(R[idx]) + mask[m / L] * y;
+      if (EPI == EPI_GELU_GRAD) y *= gelu_grad(aux[idx]);
+      Y[idx] = y;
+    }
+  }
+}
+
+template <int WL, int EPI, typename TR = float>
+cudaError_t launch_gemm(const float* A, const float* W, const float* bias, const TR* R,
+                        const float* mask, const float* aux, float* Y, float* Y2,
+                        long long M, int N, int K, int L, cudaStream_t stream) {
+  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
+  gemm_kernel<WL, EPI, TR><<<grid, GEMM_THREADS, 0, stream>>>(A, W, bias, R, mask, aux, Y,
+                                                              Y2, M, N, K, L);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradient partials  P[p, n, k] = sum over the rows m of chunk p (in
+// order) of D[m, n] * X[m, k]; D (M, N), X (M, K) row-major.  Grid: k tiles
+// on x, n tiles on y, row chunks of RED_ROWS on z.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(GEMM_THREADS)
+wgrad_kernel(const float* __restrict__ D, const float* __restrict__ X,
+             float* __restrict__ P, long long M, int N, int K) {
+  __shared__ float Ds[BK][BM + 4];
+  __shared__ float Xs[BK][BN + 4];
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BN;
+  const int n0 = blockIdx.y * BM;
+  const long long r0 = (long long)blockIdx.z * RED_ROWS;
+  const long long r1 = r0 + RED_ROWS < M ? r0 + RED_ROWS : M;
+  // loads: thread -> row lr of the 16-row slice, four consecutive columns
+  const int lr = tid >> 4, lc = (tid & 15) * 4;
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (long long m = r0; m < r1; m += BK) {
+    const long long row = m + lr;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + lc + j, k = k0 + lc + j;
+      Ds[lr][lc + j] = (row < r1 && n < N) ? D[row * N + n] : 0.f;
+      Xs[lr][lc + j] = (row < r1 && k < K) ? X[row * K + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Ds[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Xs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* out = P + (long long)blockIdx.z * N * K;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + ty + 16 * i;
+    if (n >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + tx + 16 * j;
+      if (k < K) out[(long long)n * K + k] = acc[i][j];
+    }
+  }
+}
+
+// Column-sum partials  P[p, n] = sum over the rows m of chunk p of D[m, n].
+constexpr int COL_THREADS = 256;
+
+__global__ void __launch_bounds__(COL_THREADS)
+colsum_kernel(const float* __restrict__ D, float* __restrict__ P, long long M, int N) {
+  const int n = blockIdx.x * COL_THREADS + threadIdx.x;
+  if (n >= N) return;
+  const long long r0 = (long long)blockIdx.y * RED_ROWS;
+  const long long r1 = r0 + RED_ROWS < M ? r0 + RED_ROWS : M;
+  float s = 0.f;
+  for (long long m = r0; m < r1; ++m) s += D[m * N + n];
+  P[(long long)blockIdx.y * N + n] = s;
+}
+
+// out[e] = sum over p = 0, 1, ... of P[p, e]: the second, ordered pass.
+__global__ void __launch_bounds__(COL_THREADS)
+reduce_partials_kernel(const float* __restrict__ P, long long nparts, long long E,
+                       float* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * COL_THREADS + threadIdx.x;
+  if (e >= E) return;
+  float s = 0.f;
+  for (long long p = 0; p < nparts; ++p) s += P[p * E + e];
+  out[e] = s;
+}
+
+cudaError_t reduce_partials(const float* P, long long nparts, long long E, float* out,
+                            cudaStream_t stream) {
+  reduce_partials_kernel<<<(unsigned)((E + COL_THREADS - 1) / COL_THREADS), COL_THREADS,
+                           0, stream>>>(P, nparts, E, out);
+  return cudaGetLastError();
+}
+
+// dW (N, K) = D^T X and db (N) = column sums of D, both in fixed order.
+cudaError_t weight_grads(const float* D, const float* X, float* part, float* dW,
+                         float* db, long long M, int N, int K, cudaStream_t stream) {
+  const long long nch = n_chunks(M, RED_ROWS);
+  const dim3 grid((unsigned)((K + BN - 1) / BN), (unsigned)((N + BM - 1) / BM),
+                  (unsigned)nch);
+  wgrad_kernel<<<grid, GEMM_THREADS, 0, stream>>>(D, X, part, M, N, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = reduce_partials(part, nch, (long long)N * K, dW, stream);
+  if (err != cudaSuccess) return err;
+  colsum_kernel<<<dim3((unsigned)((N + COL_THREADS - 1) / COL_THREADS), (unsigned)nch),
+                  COL_THREADS, 0, stream>>>(D, part, M, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_partials(part, nch, N, db, stream);
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm backward, LNB_ROWS rows per CTA, one warp per row at a time:
+//   DX = R + rstd * (g*s - mean_C(g*s) - xhat * mean_C(g*s*xhat)),
+//   DXM = mask[m / L] * DX (the masked branch gradient, when asked for),
+// and per-CTA partials P[p, 0, c] = sum of g*xhat, P[p, 1, c] = sum of g
+// over the CTA's rows (warps in fixed order), for the scale and bias
+// gradients.  xhat is recomputed from X and the saved row statistics.
+// ---------------------------------------------------------------------------
+
+constexpr int LNB_THREADS = 256, LNB_WARPS = LNB_THREADS / 32;
+constexpr int LNB_MAXJ = 16;          // C <= 32 * LNB_MAXJ = 512
+constexpr int LNB_MAXC = 32 * LNB_MAXJ;
+
+template <typename TG, typename TX, typename TO>
+__global__ void __launch_bounds__(LNB_THREADS)
+ln_bwd_kernel(const TG* __restrict__ G, const TX* __restrict__ X,
+              const float* __restrict__ mean, const float* __restrict__ rstd,
+              const float* __restrict__ scale, const float* __restrict__ R,
+              const float* __restrict__ mask, int L, TO* __restrict__ DX,
+              float* __restrict__ DXM, float* __restrict__ P, long long M, int C) {
+  __shared__ float red[LNB_WARPS][2][LNB_MAXC];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r0 = (long long)blockIdx.x * LNB_ROWS;
+  float ps[LNB_MAXJ], pb[LNB_MAXJ];
+#pragma unroll
+  for (int j = 0; j < LNB_MAXJ; ++j) ps[j] = pb[j] = 0.f;
+
+  for (int r = warp; r < LNB_ROWS; r += LNB_WARPS) {
+    const long long m = r0 + r;
+    if (m >= M) break;
+    const float mu = mean[m], inv = rstd[m];
+    float gv[LNB_MAXJ], xh[LNB_MAXJ];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < LNB_MAXJ; ++j) {
+      const int c = lane + 32 * j;
+      gv[j] = xh[j] = 0.f;
+      if (c < C) {
+        const float dy = to_f32<TG>(G[m * C + c]);
+        const float xhat = (to_f32<TX>(X[m * C + c]) - mu) * inv;
+        const float gs = dy * scale[c];
+        gv[j] = dy;
+        xh[j] = xhat;
+        s1 += gs;
+        s2 += gs * xhat;
+        ps[j] += dy * xhat;
+        pb[j] += dy;
+      }
+    }
+    s1 = warp_sum(s1) / (float)C;
+    s2 = warp_sum(s2) / (float)C;
+    const float mk = DXM != nullptr ? mask[m / L] : 0.f;
+#pragma unroll
+    for (int j = 0; j < LNB_MAXJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < C) {
+        float dx = inv * (gv[j] * scale[c] - s1 - xh[j] * s2);
+        if (R != nullptr) dx += R[m * C + c];
+        DX[m * C + c] = from_f32<TO>(dx);
+        if (DXM != nullptr) DXM[m * C + c] = mk * dx;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < LNB_MAXJ; ++j) {
+    const int c = lane + 32 * j;
+    if (c < C) {
+      red[warp][0][c] = ps[j];
+      red[warp][1][c] = pb[j];
+    }
+  }
+  __syncthreads();
+  float* out = P + (long long)blockIdx.x * 2 * C;
+  for (int c = threadIdx.x; c < C; c += LNB_THREADS) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < LNB_WARPS; ++w) {
+      a += red[w][0][c];
+      b += red[w][1][c];
+    }
+    out[c] = a;
+    out[C + c] = b;
+  }
+}
+
+// LayerNorm backward over all rows, then (dscale, dbias) into ds_db (2C
+// adjacent floats) by the ordered second pass.
+template <typename TG, typename TX, typename TO>
+cudaError_t ln_backward(const TG* G, const TX* X, const float* mean, const float* rstd,
+                        const float* scale, const float* R, const float* mask, int L,
+                        TO* DX, float* DXM, float* part, float* ds_db, long long M,
+                        int C, cudaStream_t stream) {
+  const long long nch = n_chunks(M, LNB_ROWS);
+  ln_bwd_kernel<TG, TX, TO><<<(unsigned)nch, LNB_THREADS, 0, stream>>>(
+      G, X, mean, rstd, scale, R, mask, L, DX, DXM, part, M, C);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_partials(part, nch, 2LL * C, ds_db, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Attention backward: one CTA per (sequence, head).  q, k, v and the
+// head's output gradient g = dO live in shared memory (odd row stride); one
+// warp per query row recomputes P = softmax(q k^T * scale) and forms
+// dS = P * (dP - rowsum(dP * P)) with dP = g v^T; then every thread takes
+// (token, dim) elements of dq = scale * dS k, dk = scale * dS^T q and
+// dv = P^T g, written to dqkv in the [q | k | v] layout of qkv.
+// ---------------------------------------------------------------------------
+
+constexpr int ATTN_BWD_THREADS = 256;
+
+size_t attn_bwd_smem(int L, int d) {
+  return sizeof(float) * (4 * (size_t)L * (d | 1) + 2 * (size_t)L * (L | 1));
+}
+
+__global__ void __launch_bounds__(ATTN_BWD_THREADS)
+attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
+                float* __restrict__ dqkv, int L, int C, int H, int d, float scale) {
+  extern __shared__ float smem[];
+  const int dp = d | 1, lp = L | 1;
+  float* q = smem;
+  float* k = q + L * dp;
+  float* v = k + L * dp;
+  float* g = v + L * dp;
+  float* P = g + L * dp;
+  float* dS = P + L * lp;
+
+  const long long b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const float* base = qkv + b * L * 3LL * C + (long long)h * d;
+  const float* gbase = dO + b * L * (long long)C + (long long)h * d;
+  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
+    const int l = idx / d, c = idx % d;
+    const float* row = base + (long long)l * 3 * C + c;
+    q[l * dp + c] = row[0];
+    k[l * dp + c] = row[C];
+    v[l * dp + c] = row[2 * C];
+    g[l * dp + c] = gbase[(long long)l * C + c];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < L; i += ATTN_BWD_THREADS / 32) {
+    const float* qi = q + i * dp;
+    const float* gi = g + i * dp;
+    float* Pi = P + i * lp;
+    float* dSi = dS + i * lp;
+    float mx = -INFINITY;
+    for (int j = lane; j < L; j += 32) {
+      const float* kj = k + j * dp;
+      float s = 0.f;
+      for (int c = 0; c < d; ++c) s = fmaf(qi[c], kj[c], s);
+      s *= scale;
+      Pi[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(Pi[j] - mx);
+      Pi[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    float rs = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float p = Pi[j] / sum;
+      const float* vj = v + j * dp;
+      float dpij = 0.f;
+      for (int c = 0; c < d; ++c) dpij = fmaf(gi[c], vj[c], dpij);
+      Pi[j] = p;
+      dSi[j] = dpij;
+      rs += dpij * p;
+    }
+    rs = warp_sum(rs);
+    for (int j = lane; j < L; j += 32) dSi[j] = Pi[j] * (dSi[j] - rs);
+  }
+  __syncthreads();
+
+  float* obase = dqkv + b * L * 3LL * C + (long long)h * d;
+  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
+    const int l = idx / d, c = idx % d;
+    float dq = 0.f, dk = 0.f, dv = 0.f;
+    for (int j = 0; j < L; ++j) {
+      dq = fmaf(dS[l * lp + j], k[j * dp + c], dq);
+      dk = fmaf(dS[j * lp + l], q[j * dp + c], dk);
+      dv = fmaf(P[j * lp + l], g[j * dp + c], dv);
+    }
+    float* row = obase + (long long)l * 3 * C + c;
+    row[0] = dq * scale;
+    row[C] = dk * scale;
+    row[2 * C] = dv;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The two chains.
+// ---------------------------------------------------------------------------
+
+#define RETURN_IF_ERROR(expr)               \
+  do {                                      \
+    const cudaError_t err_ = (expr);        \
+    if (err_ != cudaSuccess) return err_;   \
+  } while (0)
+
+template <typename T>
+cudaError_t train_fwd(const T* x, const float* m1, const float* m2, const Params& p,
+                      T* y, float* ws, long long B, int L, int C, int H, int hid,
+                      float scale, cudaStream_t st) {
+  const long long M = B * L;
+  const Saved s = carve_saved(ws, M, C, hid);
+  const unsigned ln_grid = (unsigned)((M + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
+
+  // 1. h1 = LN1(x0)
+  ln_fwd_kernel<T, float><<<ln_grid, LN_THREADS, 0, st>>>(x, p.n1s, p.n1b, s.h1,
+                                                          s.mean1, s.rstd1, M, C);
+  RETURN_IF_ERROR(cudaGetLastError());
+  // 2. qkv = h1 Wqkv^T + bqkv
+  RETURN_IF_ERROR((launch_gemm<W_NK, EPI_BIAS>(s.h1, p.wqkv, p.bqkv, (const float*)nullptr,
+                                               nullptr, nullptr, s.qkv, nullptr, M,
+                                               3 * C, C, L, st)));
+  // 3. o = per-head softmax(q k^T * scale) v
+  RETURN_IF_ERROR(launch_attention<float>(s.qkv, s.o, B, L, C, H, scale, st));
+  // 4. x1 = x0 + m1 * (o Wproj^T + bproj)
+  RETURN_IF_ERROR((launch_gemm<W_NK, EPI_MASK_RESIDUAL, T>(
+      s.o, p.wproj, p.bproj, x, m1, nullptr, s.x1, nullptr, M, C, C, L, st)));
+  // 5. h2 = LN2(x1)
+  ln_fwd_kernel<float, float><<<ln_grid, LN_THREADS, 0, st>>>(s.x1, p.n2s, p.n2b, s.h2,
+                                                              s.mean2, s.rstd2, M, C);
+  RETURN_IF_ERROR(cudaGetLastError());
+  // 6. u = h2 Wfc1^T + bfc1, gu = gelu(u)
+  RETURN_IF_ERROR((launch_gemm<W_NK, EPI_BIAS_GELU>(s.h2, p.wfc1, p.bfc1,
+                                                    (const float*)nullptr, nullptr,
+                                                    nullptr, s.u, s.gu, M, hid, C, L,
+                                                    st)));
+  // 7. x2 = x1 + m2 * (gu Wfc2^T + bfc2)
+  RETURN_IF_ERROR((launch_gemm<W_NK, EPI_MASK_RESIDUAL, float>(
+      s.gu, p.wfc2, p.bfc2, s.x1, m2, nullptr, s.x2, nullptr, M, C, hid, L, st)));
+  // 8. y = T(LN_outer(x2))
+  ln_fwd_kernel<float, T><<<ln_grid, LN_THREADS, 0, st>>>(s.x2, p.nos, p.nob, y, s.meano,
+                                                          s.rstdo, M, C);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
+                      const Params& p, float* ws, T* dx, float* grads, float* scratch,
+                      long long B, int L, int C, int H, int hid, float scale,
+                      cudaStream_t st) {
+  const long long M = B * L;
+  const Saved s = carve_saved(ws, M, C, hid);
+  const Grads gr = carve_grads(grads, C, hid);
+  const Scratch t = carve_scratch(scratch, M, C, hid);
+  const float* none = nullptr;
+
+  // 1. outer LN: dx2 = LNo'(g), dm = m2 * dx2; dnos, dnob
+  RETURN_IF_ERROR((ln_backward<T, float, float>(g, s.x2, s.meano, s.rstdo, p.nos, none,
+                                                m2, L, t.dx2, t.dm, t.part, gr.nos, M,
+                                                C, st)));
+  // 2. du = (dm Wfc2) * gelu'(u)
+  RETURN_IF_ERROR((launch_gemm<W_KN, EPI_GELU_GRAD>(t.dm, p.wfc2, none, none, none, s.u,
+                                                    t.du, nullptr, M, hid, C, L, st)));
+  // 3. dWfc2 = dm^T gu, dbfc2 = sum of dm
+  RETURN_IF_ERROR(weight_grads(t.dm, s.gu, t.part, gr.wfc2, gr.bfc2, M, C, hid, st));
+  // 4. dh2 = du Wfc1
+  RETURN_IF_ERROR((launch_gemm<W_KN, EPI_NONE>(t.du, p.wfc1, none, none, none, none,
+                                               t.dh2, nullptr, M, C, hid, L, st)));
+  // 5. dWfc1 = du^T h2, dbfc1 = sum of du
+  RETURN_IF_ERROR(weight_grads(t.du, s.h2, t.part, gr.wfc1, gr.bfc1, M, hid, C, st));
+  // 6. LN2: dx1 = dx2 + LN2'(dh2), da = m1 * dx1; dn2s, dn2b
+  RETURN_IF_ERROR((ln_backward<float, float, float>(t.dh2, s.x1, s.mean2, s.rstd2, p.n2s,
+                                                    t.dx2, m1, L, t.dx1, t.da, t.part,
+                                                    gr.n2s, M, C, st)));
+  // 7. dO = da Wproj
+  RETURN_IF_ERROR((launch_gemm<W_KN, EPI_NONE>(t.da, p.wproj, none, none, none, none,
+                                               t.dO, nullptr, M, C, C, L, st)));
+  // 8. dWproj = da^T o, dbproj = sum of da
+  RETURN_IF_ERROR(weight_grads(t.da, s.o, t.part, gr.wproj, gr.bproj, M, C, C, st));
+  // 9. attention backward -> dqkv
+  const int d = C / H;
+  const size_t smem = attn_bwd_smem(L, d);
+  if (smem > 48 * 1024)
+    RETURN_IF_ERROR(cudaFuncSetAttribute(
+        attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  attn_bwd_kernel<<<(unsigned)(B * H), ATTN_BWD_THREADS, smem, st>>>(s.qkv, t.dO, t.dqkv,
+                                                                     L, C, H, d, scale);
+  RETURN_IF_ERROR(cudaGetLastError());
+  // 10. dh1 = dqkv Wqkv
+  RETURN_IF_ERROR((launch_gemm<W_KN, EPI_NONE>(t.dqkv, p.wqkv, none, none, none, none,
+                                               t.dh1, nullptr, M, C, 3 * C, L, st)));
+  // 11. dWqkv = dqkv^T h1, dbqkv = sum of dqkv
+  RETURN_IF_ERROR(
+      weight_grads(t.dqkv, s.h1, t.part, gr.wqkv, gr.bqkv, M, 3 * C, C, st));
+  // 12. LN1: dx0 = dx1 + LN1'(dh1); dn1s, dn1b
+  return ln_backward<float, T, T>(t.dh1, x, s.mean1, s.rstd1, p.n1s, t.dx1, none, L, dx,
+                                  nullptr, t.part, gr.n1s, M, C, st);
+}
+
+}  // namespace
+
+extern "C" long long pafuse_block_train_saved_floats(long long B, int L, int C, int hid) {
+  return saved_floats(B * L, C, hid);
+}
+
+extern "C" long long pafuse_block_train_scratch_floats(long long B, int L, int C,
+                                                       int hid) {
+  return scratch_floats(B * L, C, hid);
+}
+
+// Dynamic shared memory of the attention backward at L tokens, head size d.
+extern "C" long long pafuse_block_train_smem_bytes(int L, int d) {
+  return (long long)attn_bwd_smem(L, d);
+}
+
+extern "C" int pafuse_block_train_fwd(
+    int is_bf16, const void* x, const float* m1, const float* m2, const float* n1s,
+    const float* n1b, const float* wqkv, const float* bqkv, const float* wproj,
+    const float* bproj, const float* n2s, const float* n2b, const float* wfc1,
+    const float* bfc1, const float* wfc2, const float* bfc2, const float* nos,
+    const float* nob, void* y, float* ws, long long B, int L, int C, int H, int hid,
+    float scale, void* stream) {
+  const Params p{n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b,
+                 wfc1, bfc1, wfc2, bfc2, nos, nob};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return (int)train_fwd<T>(static_cast<const T*>(x), m1, m2, p, static_cast<T*>(y), ws,
+                             B, L, C, H, hid, scale, st);
+  }
+  return (int)train_fwd<float>(static_cast<const float*>(x), m1, m2, p,
+                               static_cast<float*>(y), ws, B, L, C, H, hid, scale, st);
+}
+
+extern "C" int pafuse_block_train_bwd(
+    int is_bf16, const void* x, const void* g, const float* m1, const float* m2,
+    const float* n1s, const float* n1b, const float* wqkv, const float* bqkv,
+    const float* wproj, const float* bproj, const float* n2s, const float* n2b,
+    const float* wfc1, const float* bfc1, const float* wfc2, const float* bfc2,
+    const float* nos, const float* nob, float* ws, void* dx, float* grads,
+    float* scratch, long long B, int L, int C, int H, int hid, float scale,
+    void* stream) {
+  const Params p{n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b,
+                 wfc1, bfc1, wfc2, bfc2, nos, nob};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return (int)train_bwd<T>(static_cast<const T*>(x), static_cast<const T*>(g), m1, m2,
+                             p, ws, static_cast<T*>(dx), grads, scratch, B, L, C, H, hid,
+                             scale, st);
+  }
+  return (int)train_bwd<float>(static_cast<const float*>(x), static_cast<const float*>(g),
+                               m1, m2, p, ws, static_cast<float*>(dx), grads, scratch, B,
+                               L, C, H, hid, scale, st);
+}

@@ -41,6 +41,15 @@ PARTS_JOINT_INDICES: Dict[str, List[int]] = {
     "right_hand": list(_RIGHT_HAND),                            # 21 joints
 }
 
+#: per-part root joint: the mid-hip root, the nose tip (face landmark #30)
+#: and the wrist of each hand.
+ROOT_INDICES: Dict[str, int] = {
+    "body": 0,
+    "face": 54,
+    "left_hand": 92,
+    "right_hand": 113,
+}
+
 #: body joints the other parts re-attach to: nose (1), left wrist (10),
 #: right wrist (11).
 PARTS_CONNECTION_INDICES: Dict[str, int] = {
@@ -73,6 +82,17 @@ def _build_connection_of_joint() -> np.ndarray:
 #: CONNECTION_OF_JOINT[j] = body joint that part-local joint j re-attaches
 #: to (body joints attach to the root, which attaches to itself).
 CONNECTION_OF_JOINT: np.ndarray = _build_connection_of_joint()
+
+
+def _build_root_of_joint() -> np.ndarray:
+    table = np.zeros(NUM_JOINTS, dtype=np.int32)
+    for part, joints in PARTS_JOINT_INDICES.items():
+        table[joints] = ROOT_INDICES[part]
+    return table
+
+
+#: PART_ROOT_OF_JOINT[j] = root joint of the part that owns joint j.
+PART_ROOT_OF_JOINT: np.ndarray = _build_root_of_joint()
 
 
 def _build_symmetry() -> Tuple[List[int], List[int]]:
@@ -115,6 +135,20 @@ def flip_permutation_from_symmetry(joints_left, joints_right,
     perm[np.asarray(joints_left)] = np.asarray(joints_right, dtype=np.int32)
     perm[np.asarray(joints_right)] = np.asarray(joints_left, dtype=np.int32)
     return perm
+
+
+def symmetry_from_metadata(metadata, add_root: bool = True):
+    """``joints_left/right`` from an H3WB npz metadata record: keypoints
+    listed on both sides (the midline) are dropped from both lists, then
+    every index moves up by one for the synthetic root at joint 0.  The
+    pairing left[i] <-> right[i] is the metadata's own order."""
+    joints_left = list(metadata["left_side"])
+    joints_right = list(metadata["right_side"])
+    dups = [kp for kp in joints_left if kp in joints_right]
+    offset = 1 if add_root else 0
+    left = [int(e) + offset for e in joints_left if e not in dups]
+    right = [int(e) + offset for e in joints_right if e not in dups]
+    return left, right
 
 
 FLIP_PERMUTATION: np.ndarray = flip_permutation_from_symmetry(

@@ -126,34 +126,3 @@ def test_fused_block_rejects_bad_input():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_block(torch.empty(2, 5, 32, device="meta"), bp, on, HEADS)
 
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (run: python -m pytest -m cuda)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,L,C", [(16, 24, 384), (16, 68, 224),
-                                   (16, 42, 256), (16, 27, 256)])
-def test_fused_block_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L, C):
-    p, outer = _jax_block(C, seed=C + L)
-    bp, on = _port_params(p, outer)
-    bp = tuple(t.to(cuda_device) for t in bp)
-    on = tuple(t.to(cuda_device) for t in on)
-    x = torch.from_numpy(np.random.RandomState(1).randn(B, L, C).astype(
-        np.float32)).to(cuda_device, dtype)
-    launches = fused_block.launches
-    got = fused_block(x, bp, on, HEADS)
-    torch.cuda.synchronize()
-    assert fused_block.launches == launches + 1
-    want = block_reference(x, bp, on, HEADS)
-    diff = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
-        assert diff.max() <= 1e-4
-    else:
-        # the bound of chip_smoke.py: max 2^-4 and mean 1e-3 (same rounding
-        # points on both sides; flips of single bf16 ulps only)
-        assert diff.max() <= 2.0 ** -4 and diff.mean() <= 1e-3

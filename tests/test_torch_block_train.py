@@ -1,0 +1,254 @@
+"""Port trainable block (pafuse_tpu_torch.ops.block_train) against the JAX
+package.
+
+The same seeded inputs, weights, branch masks and output gradient go through
+the port's plain versions (``train_fwd_reference`` / ``train_bwd_reference``,
+which the kernel wrappers use for CPU tensors) and through two JAX
+references: the TPU kernels ``_train_fwd_kernel`` / ``_train_bwd_kernel``
+themselves, run by ``pl.pallas_call`` in interpret mode over a grid of two
+batch tiles with L padded to a multiple of 8 as ``block_grad._pad_tiles``
+pads it (so the cross-tile gradient accumulation and the pad masking are
+exercised), and the XLA block (``mixste._attention``/``_mlp`` with the masks
+applied, then the outer LayerNorm) with ``jax.grad``.  Weights cross through
+``checkpoints.params_from_jax``.
+
+Tolerances (float32): forward 2e-5 max abs (sums differ only in order; the
+TPU kernel's A&S erf differs from the exact erf by <= ~1e-7); gradients
+1e-4 x max|reference gradient| per tensor (dx and each of the 14 parameter
+gradients).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+
+from pafuse_tpu.models import mixste
+from pafuse_tpu.ops import block_grad
+from pafuse_tpu_torch import checkpoints
+from pafuse_tpu_torch.models.mixste import Block
+from pafuse_tpu_torch.ops.block_train import (block_train, block_train_bwd,
+                                              block_train_fwd,
+                                              train_bwd_reference,
+                                              train_fwd_reference)
+
+torch.set_num_threads(2)
+
+HEADS = 8
+FWD_TOL = 2e-5
+GRAD_RTOL = 1e-4
+KEEP = 0.9
+
+
+def _jax_block(C, seed):
+    """Random block params (LayerNorm affine included) + outer norm."""
+    r = np.random.RandomState(seed)
+    hid = 2 * C
+
+    def lin(i, o):
+        b = 1.0 / np.sqrt(i)
+        return {"kernel": r.uniform(-b, b, (i, o)).astype(np.float32),
+                "bias": r.uniform(-b, b, (o,)).astype(np.float32)}
+
+    def ln():
+        return {"scale": (1 + 0.1 * r.randn(C)).astype(np.float32),
+                "bias": (0.1 * r.randn(C)).astype(np.float32)}
+
+    p = {"norm1": ln(), "attn": {"qkv": lin(C, 3 * C), "proj": lin(C, C)},
+         "norm2": ln(), "mlp": {"fc1": lin(C, hid), "fc2": lin(hid, C)}}
+    return p, ln()
+
+
+def _port_params(p, outer):
+    """The 14 port tensors (torch layout) of a JAX block + outer norm."""
+    C = p["norm1"]["scale"].shape[0]
+    blk = Block(C, 2.0)
+    blk.load_state_dict(checkpoints.params_from_jax(p), strict=True)
+    return tuple(t.detach() for t in blk.params()) + tuple(
+        torch.tensor(np.asarray(outer[k])) for k in ("scale", "bias"))
+
+
+def _inputs(B, L, C, seed):
+    """x, g and masks that mix 0, 1/keep and 1."""
+    r = np.random.RandomState(seed)
+    x = r.randn(B, L, C).astype(np.float32)
+    g = r.randn(B, L, C).astype(np.float32)
+    pattern = np.array([0.0, 1.0 / KEEP, 1.0], np.float32)
+    m1 = pattern[np.arange(B) % 3]
+    m2 = pattern[(np.arange(B) + 1) % 3]
+    return x, g, m1, m2
+
+
+def _tiled(x, m1, m2, g=None):
+    """Pad L to a multiple of 8 and lay out two batch tiles."""
+    B, L, C = x.shape
+    Lp = -(-L // 8) * 8
+    pad = ((0, 0), (0, Lp - L), (0, 0))
+    out = [jnp.asarray(np.pad(x, pad)), jnp.asarray(m1.reshape(B, 1, 1)),
+           jnp.asarray(m2.reshape(B, 1, 1))]
+    if g is not None:
+        out.insert(1, jnp.asarray(np.pad(g, pad)))
+    return out, B // 2, Lp
+
+
+def _specs(flat, TB, Lp, C):
+    full = lambda a: pl.BlockSpec(a.shape, lambda i, n=a.ndim: (0,) * n)  # noqa: E731
+    xspec = pl.BlockSpec((TB, Lp, C), lambda i: (i, 0, 0))
+    mspec = pl.BlockSpec((TB, 1, 1), lambda i: (i, 0, 0))
+    return xspec, mspec, [full(a) for a in flat]
+
+
+def _kernel_fwd(p, outer, x, m1, m2):
+    """The TPU forward kernel through pallas_call in interpret mode."""
+    B, L, C = x.shape
+    (xf, mf1, mf2), TB, Lp = _tiled(x, m1, m2)
+    flat = [jnp.asarray(a) for a in block_grad._flat_params(p, outer)]
+    xspec, mspec, pspecs = _specs(flat, TB, Lp, C)
+    kernel = functools.partial(block_grad._train_fwd_kernel, num_heads=HEADS,
+                               seq_len=L, head_dim=C // HEADS)
+    out = pl.pallas_call(
+        kernel, grid=(B // TB,), in_specs=[xspec, mspec, mspec] + pspecs,
+        out_specs=xspec, out_shape=jax.ShapeDtypeStruct((B, Lp, C), jnp.float32),
+        interpret=True)(xf, mf1, mf2, *flat)
+    return np.asarray(out)[:, :L]
+
+
+def _kernel_bwd(p, outer, x, g, m1, m2):
+    """The TPU backward kernel in interpret mode: (dx, JAX-layout grads)."""
+    B, L, C = x.shape
+    (xf, gf, mf1, mf2), TB, Lp = _tiled(x, m1, m2, g)
+    flat = [jnp.asarray(a) for a in block_grad._flat_params(p, outer)]
+    xspec, mspec, pspecs = _specs(flat, TB, Lp, C)
+    kernel = functools.partial(block_grad._train_bwd_kernel, num_heads=HEADS,
+                               seq_len=L, head_dim=C // HEADS)
+    outs = pl.pallas_call(
+        kernel, grid=(B // TB,),
+        in_specs=[xspec, xspec, mspec, mspec] + pspecs,
+        out_specs=[xspec] + pspecs,
+        out_shape=[jax.ShapeDtypeStruct((B, Lp, C), jnp.float32)]
+        + [jax.ShapeDtypeStruct(a.shape, jnp.float32) for a in flat],
+        interpret=True)(xf, gf, mf1, mf2, *flat)
+    return np.asarray(outs[0])[:, :L], [np.asarray(o) for o in outs[1:]]
+
+
+def _xla_block(bp, on, x, m1, m2):
+    h = mixste._attention(bp["attn"], mixste._layernorm(bp["norm1"], x),
+                          HEADS, jnp.float32)
+    x = x + h * m1[:, None, None]
+    h = mixste._mlp(bp["mlp"], mixste._layernorm(bp["norm2"], x), jnp.float32)
+    x = x + h * m2[:, None, None]
+    return mixste._layernorm(on, x)
+
+
+def _xla_grads(p, outer, x, g, m1, m2):
+    """jax.grad of the XLA block: (dx, 14 grads in torch layout)."""
+    m1, m2 = jnp.asarray(m1), jnp.asarray(m2)
+
+    def loss(bp, on, xx):
+        return jnp.vdot(_xla_block(bp, on, xx, m1, m2), jnp.asarray(g))
+
+    gb, go, gx = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        p, outer, jnp.asarray(x))
+    return np.asarray(gx), _port_params(jax.device_get(gb),
+                                        jax.device_get(go))
+
+
+def _to_torch_layout(jax_grads):
+    """The TPU kernel's 14 gradients (JAX layout) -> torch layout."""
+    names = ["norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1", "mlp.fc2"]
+    tree = {}
+    for i, name in enumerate(names):
+        node = tree
+        for part in name.split(".")[:-1]:
+            node = node.setdefault(part, {})
+        key = "scale" if name.startswith("norm") else "kernel"
+        node[name.split(".")[-1]] = {key: jax_grads[2 * i],
+                                     "bias": jax_grads[2 * i + 1]}
+    return _port_params(tree, {"scale": jax_grads[12], "bias": jax_grads[13]})
+
+
+def _assert_grads(got_dx, got, want_dx, want, what):
+    pairs = [("dx", got_dx, want_dx)] + [
+        (f"grad {i}", a, b) for i, (a, b) in enumerate(zip(got, want))]
+    for name, a, b in pairs:
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b, np.float64)
+        err = np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+        assert err <= GRAD_RTOL, f"{what}: {name} rel err {err:.2e}"
+
+
+CASES = [(4, L, C) for L in (24, 68, 42, 27) for C in (32, 64)] + [
+    (2, 68, 224)]
+
+
+@pytest.mark.parametrize("B,L,C", CASES)
+def test_train_fwd_reference_matches_jax(B, L, C):
+    p, outer = _jax_block(C, seed=L * 1000 + C)
+    x, _, m1, m2 = _inputs(B, L, C, seed=L + C)
+    params = _port_params(p, outer)
+    got = train_fwd_reference(torch.from_numpy(x), torch.from_numpy(m1),
+                              torch.from_numpy(m2), params, HEADS).numpy()
+    np.testing.assert_allclose(got, _kernel_fwd(p, outer, x, m1, m2),
+                               rtol=0, atol=FWD_TOL)
+    want = _xla_block(p, outer, jnp.asarray(x), jnp.asarray(m1),
+                      jnp.asarray(m2))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=FWD_TOL)
+    # on a CPU tensor the wrapper is the plain version and launches nothing
+    launches = block_train_fwd.launches
+    y, _ = block_train_fwd(torch.from_numpy(x), torch.from_numpy(m1),
+                           torch.from_numpy(m2), params, HEADS)
+    np.testing.assert_array_equal(y.numpy(), got)
+    assert block_train_fwd.launches == launches
+
+
+@pytest.mark.parametrize("B,L,C", CASES)
+def test_train_bwd_reference_matches_jax(B, L, C):
+    p, outer = _jax_block(C, seed=L * 1000 + C + 1)
+    x, g, m1, m2 = _inputs(B, L, C, seed=L + C + 1)
+    params = _port_params(p, outer)
+    dx, grads = train_bwd_reference(
+        torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(m1),
+        torch.from_numpy(m2), params, HEADS)
+    k_dx, k_grads = _kernel_bwd(p, outer, x, g, m1, m2)
+    _assert_grads(dx, grads, k_dx, _to_torch_layout(k_grads),
+                  "vs TPU kernel")
+    x_dx, x_grads = _xla_grads(p, outer, x, g, m1, m2)
+    _assert_grads(dx, grads, x_dx, x_grads, "vs jax.grad")
+
+
+@pytest.mark.parametrize("B,L,C", [(4, 24, 32), (3, 27, 64)])
+def test_block_train_autograd_equals_plain_backward(B, L, C):
+    p, outer = _jax_block(C, seed=B + L + C)
+    x, g, m1, m2 = _inputs(B, L, C, seed=C)
+    params = [t.clone().requires_grad_() for t in _port_params(p, outer)]
+    xt = torch.from_numpy(x).requires_grad_()
+    m1t, m2t = torch.from_numpy(m1), torch.from_numpy(m2)
+    launches = (block_train_fwd.launches, block_train_bwd.launches)
+    y = block_train(xt, m1t, m2t, params, HEADS)
+    got = torch.autograd.grad(y, [xt] + params, torch.from_numpy(g))
+    dx, grads = train_bwd_reference(torch.from_numpy(x), torch.from_numpy(g),
+                                    m1t, m2t, [t.detach() for t in params],
+                                    HEADS)
+    for a, b in zip(got, (dx,) + tuple(grads)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (block_train_fwd.launches, block_train_bwd.launches) == launches
+    # the masks get zero gradients when asked for, as in the JAX VJP
+    m1r = m1t.clone().requires_grad_()
+    y = block_train(xt, m1r, m2t, params, HEADS)
+    (dm1,) = torch.autograd.grad(y, [m1r], torch.from_numpy(g))
+    assert torch.count_nonzero(dm1) == 0
+
+
+def test_block_train_rejects_bad_input():
+    p, outer = _jax_block(32, seed=0)
+    params = _port_params(p, outer)
+    m = torch.ones(2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        block_train_fwd(torch.empty(2, 5, 32, device="meta"), m, m, params,
+                        HEADS)
+

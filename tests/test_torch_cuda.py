@@ -1,0 +1,131 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The
+file imports torch and numpy only (no JAX), so it runs on a machine that has
+just the port's dependencies:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+Bounds (those of chip_smoke.py; TF32 off on both sides):
+  fused_block float32    1e-4 max abs (same rounding points, sums in another
+                         order);
+  fused_block bfloat16   max 2^-4 and mean 1e-3 (flips of single bf16 ulps);
+  block_train forward    1e-4 max abs (float32 arithmetic for either dtype;
+                         a bfloat16 output is compared after both round);
+  block_train backward   1e-4 x max|plain gradient| per tensor (dx and the 14
+                         parameter gradients).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pafuse_tpu_torch.ops.block import block_reference, fused_block
+from pafuse_tpu_torch.ops.block_train import (block_train_bwd, block_train_fwd,
+                                              train_bwd_reference,
+                                              train_fwd_reference)
+
+HEADS = 8
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run: python -m pytest -m cuda)")
+    from pafuse_tpu_torch.utils.device import resolve_device
+    return resolve_device("cuda")
+
+
+def _params(C, seed, device):
+    """The 14 block tensors (torch layout): Linear weights U(+-1/sqrt(in)),
+    LayerNorm affines near (1, 0)."""
+    r = np.random.RandomState(seed)
+    hid = 2 * C
+
+    def u(shape, fan_in):
+        b = 1.0 / np.sqrt(fan_in)
+        return r.uniform(-b, b, shape)
+
+    def ln():
+        return [1 + 0.1 * r.randn(C), 0.1 * r.randn(C)]
+
+    arrays = (ln() + [u((3 * C, C), C), u((3 * C,), C), u((C, C), C),
+                      u((C,), C)] + ln()
+              + [u((hid, C), C), u((hid,), C), u((C, hid), hid), u((C,), hid)]
+              + ln())
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in arrays)
+
+
+def _inputs(B, L, C, seed, device):
+    """x, g and masks that mix 0, 1/keep and 1 (keep = 0.9)."""
+    r = np.random.RandomState(seed)
+    pattern = np.array([0.0, 1.0 / 0.9, 1.0], np.float32)
+    arrays = (r.randn(B, L, C), r.randn(B, L, C), pattern[np.arange(B) % 3],
+              pattern[(np.arange(B) + 1) % 3])
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in arrays)
+
+
+def _rel_errs(got, want):
+    return [float((a.double() - b.double()).abs().max()
+                  / b.double().abs().max().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,C", [(16, 24, 384), (16, 68, 224),
+                                   (16, 42, 256), (16, 27, 256)])
+def test_fused_block_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L, C):
+    params = _params(C, seed=C + L, device=cuda_device)
+    bp, on = params[:12], params[12:]
+    x = _inputs(B, L, C, seed=1, device=cuda_device)[0].to(dtype)
+    launches = fused_block.launches
+    got = fused_block(x, bp, on, HEADS)
+    torch.cuda.synchronize()
+    assert fused_block.launches == launches + 1
+    diff = (got.float() - block_reference(x, bp, on, HEADS).float()).abs()
+    if dtype == torch.float32:
+        assert diff.max() <= 1e-4
+    else:
+        assert diff.max() <= 2.0 ** -4 and diff.mean() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,C", [(64, 24, 384), (64, 27, 384),
+                                   (64, 68, 224), (64, 27, 224),
+                                   (64, 42, 256), (64, 27, 256)])
+def test_block_train_kernels_match_plain_on_gpu(cuda_device, B, L, C):
+    """Kernels #5 and #6 at each part's spatial and temporal (L, C)."""
+    params = _params(C, seed=C + L, device=cuda_device)
+    x, g, m1, m2 = _inputs(B, L, C, seed=1, device=cuda_device)
+    launches = (block_train_fwd.launches, block_train_bwd.launches)
+    y, saved = block_train_fwd(x, m1, m2, params, HEADS)
+    dx, grads = block_train_bwd(saved, g)
+    torch.cuda.synchronize()
+    assert (block_train_fwd.launches, block_train_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert (y - train_fwd_reference(x, m1, m2, params, HEADS)).abs().max() <= 1e-4
+    want_dx, want = train_bwd_reference(x, g, m1, m2, params, HEADS)
+    assert max(_rel_errs((dx,) + grads, (want_dx,) + want)) <= 1e-4
+    # deterministic: a second backward gives the same bits
+    dx2, grads2 = block_train_bwd(saved, g)
+    assert all(torch.equal(a, b) for a, b in zip((dx,) + grads, (dx2,) + grads2))
+
+
+@pytest.mark.cuda
+def test_block_train_bf16_input_on_gpu(cuda_device):
+    """bfloat16 x: float32 arithmetic inside, y and dx in bfloat16."""
+    B, L, C = 32, 27, 256
+    params = _params(C, seed=5, device=cuda_device)
+    x, g, m1, m2 = _inputs(B, L, C, seed=2, device=cuda_device)
+    x, g = x.bfloat16(), g.bfloat16()
+    y, saved = block_train_fwd(x, m1, m2, params, HEADS)
+    dx, grads = block_train_bwd(saved, g)
+    assert y.dtype == dx.dtype == torch.bfloat16
+    want = train_fwd_reference(x, m1, m2, params, HEADS)
+    assert (y.float() - want.float()).abs().max() <= 2.0 ** -5
+    want_dx, want_grads = train_bwd_reference(x, g, m1, m2, params, HEADS)
+    assert max(_rel_errs(grads, want_grads)) <= 1e-4
+    assert max(_rel_errs((dx.float(),), (want_dx.float(),))) <= 2.0 ** -7

@@ -59,7 +59,7 @@ def test_package_imports_without_jax_or_pafuse_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
-    assert int(r.stdout.split()[1]) >= 14
+    assert int(r.stdout.split()[1]) >= 24
 
 
 def test_entry_points_refuse_missing_cuda():
@@ -67,10 +67,31 @@ def test_entry_points_refuse_missing_cuda():
         pytest.skip("a GPU is present; the CPU-only refusal cannot be shown")
     from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
     from pafuse_tpu_torch.models.mixste import MixSTE2, MixSTEConfig
+    from pafuse_tpu_torch.train import create_train_state
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MixSTE2(MixSTEConfig(depth=1, embed_dim=32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         D3DP(D3DPConfig(depth=1))
+    # the trainer moves the model to CUDA unless the CPU is asked for
+    model = D3DP(D3DPConfig(depth=1, frames=9), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(model)
+    assert next(model.parameters()).device.type == "cpu"
+
+
+def test_kernel_wrappers_refuse_cuda_tensors_without_a_kernel():
+    """On a CUDA tensor a wrapper launches its kernel or raises; it never
+    takes the plain version.  Without a card the CUDA path cannot be
+    reached, so this checks the device dispatch on a device that is neither
+    (it must raise, not fall back)."""
+    from pafuse_tpu_torch.ops.block_train import (TrainSaved, block_train_bwd,
+                                                  block_train_fwd)
+    x = torch.empty(2, 5, 32, device="meta")
+    m = torch.ones(2, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        block_train_fwd(x, m, m, [], 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        block_train_bwd(TrainSaved(x, m, m, (), 8, None), x)
 
 
 def test_resolve_device_turns_tf32_off():
