@@ -37,6 +37,29 @@ Phases, one JSON line each:
                falling over 16 steps on one repeated batch at lr 1e-3.
                One more step runs under torch.profiler: device time by
                kernel group and the device's idle share.
+  7. attention_kernel - the attention kernel (#2) against its plain PyTorch
+               version at every part's spatial and temporal shape of the
+               evaluation path (window batch 64, P=10, flip on), in float32
+               and bfloat16, with its time, the plain version's, one PyTorch
+               library composition's (linear + SDPA + linear, a yardstick
+               only) and the bound; and in float32 at the serving shapes of
+               bucket 16, the shapes of the kernel phase.
+  8. eval    - the H3WB CLI (cli.main_h3wb) evaluating a checkpoint of
+               seeded full-width weights saved with checkpoints.save_state
+               on synthetic H3WB (test subject S8; 2 actions x 4 cameras x
+               1000 frames, so each action dispatches two full window
+               batches of 64 rows and a 24-row tail) at
+               gpu.use_pallas=true, P=10, T=5, float32: the batches and
+               rows dispatched, 48*T launches of kernel #2 for every window
+               batch and none of kernel #1, finite metrics, the report file
+               with the reference's lines; wall seconds, windows/s and
+               frames/s.  Then one action's evaluate_sequences (the same
+               three batches) with injected noise at
+               use_pallas=true against the same call with every attention on
+               the plain version and against use_pallas=auto (kernel #1);
+               one DDIM step of that action under torch.profiler; and a
+               short CLI run that trains one step (kernels #5/#6) and
+               evaluates (ft2d.debug=true, P=2, T=2).
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without CUDA it exits non-zero at once.
@@ -68,11 +91,30 @@ Tolerances (max abs, elementwise):
   train step       kernel path vs plain path from equal params and equal t,
                    noise and masks: loss 1e-5 relative, gradients 1e-4 x
                    max|plain gradient| per parameter (48 blocks deep, each
-                   within ~1e-6).
+                   within ~1e-6);
+  attention kernel float32 1e-5 max abs (float32 arithmetic on both sides,
+                   only the order of sums differs; outputs are O(1));
+                   bfloat16 x: |diff| <= 2^-7 |y| + 1e-5 elementwise, one
+                   bfloat16 ulp of the value plus the float32 bound (both
+                   sides round only the output, from float32 values that
+                   differ by ~1e-6);
+  eval             every metric (mm, means over ~10^6 joint errors) within
+                   1e-4 relative of the same evaluation with every attention
+                   on the plain version, and of the same evaluation on
+                   kernel #1: all three compute the same float32 function
+                   (each block within ~1e-6, 16 blocks a part network, 5
+                   DDIM steps feeding back), so the metrics agree to ~1e-6
+                   relative; the argmin selections of P_Best and J_Agg are
+                   made on errors that agree as closely, and a selection
+                   that flips at a near-tie moves a mean by its gap over
+                   ~10^5 selections.
 """
 
 import argparse
+import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -94,6 +136,12 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_SEQS = 1024 // 27         # model.batch_size // number_of_frames
 TRAIN_STEPS = 5
 OVERFIT_STEPS = 16
+ATTN_SOURCE = "pafuse_tpu_torch/ops/csrc/attention.cu"
+ATTN_REPLACES = "pafuse_tpu/ops/attention.py:158"
+ATTN_TOL_F32 = 1e-5
+ATTN_TOL_BF16 = (2.0 ** -7, 1e-5)       # (relative, absolute)
+EVAL_WINDOWS = 64               # pinned window batch of the eval path
+EVAL_RTOL = 1e-4
 
 
 def emit(obj):
@@ -586,7 +634,7 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
           "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if dev.type == "cuda" else None)})
     if dev.type == "cuda":
-        profile_step(lambda: step(state, lr, *batches[-1]))
+        profile_step(lambda: float(step(state, lr, *batches[-1])))
     del model, state, step, before
 
     # two runs from one seed: bit-identical losses and params after 2 steps
@@ -653,23 +701,27 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
     return launches
 
 
-#: kernel-name patterns of the port's CUDA sources, for the step profile
+#: kernel-name patterns of the port's CUDA sources (and cuBLAS), for the
+#: profiles; the first pattern found in a kernel's name names its group
 KERNEL_GROUPS = (("gemm_kernel<0", "forward GEMMs"),
                  ("gemm_kernel<1", "data-gradient GEMMs"),
                  ("wgrad_kernel", "weight-gradient GEMMs"),
                  ("attn_bwd_kernel", "attention backward"),
                  ("attention_kernel", "attention forward"),
+                 ("linear_kernel", "kernel #2 GEMMs (qkv, proj)"),
                  ("ln_bwd_kernel", "LayerNorm backward"),
                  ("ln_fwd_kernel", "LayerNorm forward"),
                  ("colsum_kernel", "bias-gradient sums"),
-                 ("reduce_partials_kernel", "ordered partial sums"))
+                 ("reduce_partials_kernel", "ordered partial sums"),
+                 ("gemm", "cuBLAS GEMMs"))
 
 
-def profile_step(run_step):
-    """One training step under torch.profiler: device time by kernel group
-    (the port's kernels by source pattern, the rest as PyTorch) and the
-    device's idle share of the step's wall time (host clock, profiler
-    overhead included)."""
+def profile_step(run_step, phase="train_profile",
+                 rest="PyTorch (embedding, head, loss, AdamW, copies)"):
+    """``run_step`` under torch.profiler: device time by kernel group (the
+    port's kernels by source pattern, cuBLAS, the rest as ``rest``) and the
+    device's idle share of its wall time (host clock, profiler overhead
+    included).  ``run_step`` ends by reading a result from the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -677,22 +729,311 @@ def profile_step(run_step):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        float(run_step())                   # waits for the step
+        run_step()
         wall_ms = (time.time() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     groups = {}
     for e in kernels:
-        group = next((g for pat, g in KERNEL_GROUPS if pat in e.key),
-                     "PyTorch (embedding, head, loss, AdamW, copies)")
+        group = next((g for pat, g in KERNEL_GROUPS if pat in e.key), rest)
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     device_ms = sum(groups.values())
-    emit({"phase": "train_profile", "wall_ms": wall_ms,
+    emit({"phase": phase, "wall_ms": wall_ms,
           "device_ms": device_ms if kernels else "not measured",
           "idle_share": 1 - device_ms / wall_ms if kernels else "not measured",
           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
           "kernel_launches": sum(e.count for e in kernels)})
+
+
+#: sequences per scaled_dot_product_attention call: its bf16 kernels put the
+#: batch on gridDim.y, which holds at most 65535 blocks
+SDPA_CHUNK = 32768
+
+
+def library_attention(x, wqkv, bqkv, wproj, bproj, num_heads):
+    """The attention as PyTorch library calls in x's dtype (cuBLAS linear,
+    scaled_dot_product_attention over chunks of SDPA_CHUNK sequences,
+    linear): the yardstick ``library_ms`` of kernel #2.  The port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+    B, L, C = x.shape
+    d = C // num_heads
+    q, k, v = F.linear(x, wqkv, bqkv).view(B, L, 3, num_heads, d).permute(
+        2, 0, 3, 1, 4)
+    a = torch.cat([F.scaled_dot_product_attention(
+        q[i:i + SDPA_CHUNK], k[i:i + SDPA_CHUNK], v[i:i + SDPA_CHUNK])
+        for i in range(0, B, SDPA_CHUNK)])
+    return F.linear(a.transpose(1, 2).reshape(B, L, C), wproj, bproj)
+
+
+def attention_bound(B, L, C, itemsize):
+    """Least time for one call of kernel #2: 8*M*C^2 + 4*B*L^2*C FLOPs over
+    the float32 peak (the kernel computes in float32 for either dtype of x)
+    against x read once, the output written once and the four float32
+    parameters over HBM."""
+    M = B * L
+    t_ops = (8 * M * C * C + 4 * B * L * L * C) / PEAK_FLOPS["float32"]
+    t_bytes = (2 * M * C * itemsize + 4 * (4 * C * C + 4 * C)) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
+                           dtypes=("float32", "bfloat16"), shapes="eval"):
+    """Kernel #2 against its plain version at each part's spatial (B =
+    windows*P*2*frames sequences of the part's joints) and temporal (B =
+    windows*P*2*joints sequences of the frames) shape."""
+    import torch
+    from pafuse_tpu_torch.models.parts import PART_CHANNELS
+    from pafuse_tpu_torch.ops.attention import (attention_reference,
+                                                fused_attention)
+    from pafuse_tpu_torch.skeleton import parts_table
+    from pafuse_tpu_torch.utils.device import sync
+
+    dev = torch.device("cuda")
+    heads = 8
+    seqs = windows * P * 2                  # windows x hypotheses x flip
+    cases = []
+    for part, joints in parts_table(True).items():
+        C = PART_CHANNELS[part]
+        cases.append((part, "spatial", seqs * frames, len(joints), C))
+        cases.append((part, "temporal", seqs * len(joints), frames, C))
+
+    results = []
+    for i, (part, kind, B, L, C) in enumerate(cases):
+        g = torch.Generator().manual_seed(seed * 100 + 80 + i)
+        attn = _random_block_params(C, g, dev)[2:6]
+        x32 = torch.randn(B, L, C, generator=g).to(dev)
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            x = x32.to(dtype)
+            got = fused_attention(x, *attn, heads)
+            sync(dev)           # a fault inside a kernel surfaces here
+            want = attention_reference(x, *attn, heads).float()
+            diff = (got.float() - want).abs()
+            if dtype == torch.float32:
+                ok = bool(diff.max() <= ATTN_TOL_F32)
+            else:
+                rel, atol = ATTN_TOL_BF16
+                ok = bool(torch.all(diff <= rel * want.abs() + atol))
+            del got, want
+            lib = tuple(t.to(dtype) for t in attn)
+            ms = cuda_time_ms(lambda: fused_attention(x, *attn, heads))
+            plain_ms = cuda_time_ms(lambda: attention_reference(x, *attn,
+                                                                heads))
+            lib_ms = cuda_time_ms(lambda: library_attention(x, *lib, heads))
+            bound_ms, bound_by = attention_bound(B, L, C, x.element_size())
+            r = {"phase": "attention_kernel", "name": "fused_attention",
+                 "shapes": shapes, "part": part, "kind": kind, "dtype": name,
+                 "B": B, "L": L, "C": C, "max_abs_err": float(diff.max()),
+                 "ok": ok, "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by}
+            emit(r)
+            results.append(r)
+            del diff
+        del x32, x
+        torch.cuda.empty_cache()
+    return results
+
+
+#: the eval phase's synthetic test set (data.synthetic_actions and
+#: data.synthetic_frames): subject S8, 2 actions x 4 cameras x 1000 frames,
+#: so that each action dispatches two full batches of the pinned 64 windows
+#: and a 24-row tail bucket (152 windows), as evaluations of real sequences
+#: of thousands of frames are mostly full batches
+EVAL_ACTIONS, EVAL_CAMERAS, EVAL_FRAMES = 2, 4, 1000
+
+#: every line of a report file starts with one of these
+REPORT_VOCABULARY = ("----", "step ", "-----------------> Part-Based", " ")
+
+
+def _set_block_fn(model, use_pallas):
+    from pafuse_tpu_torch.models.mixste import MixSTE2, select_block_fn
+    for m in model.modules():
+        if isinstance(m, MixSTE2):
+            m.block_fn = select_block_fn(use_pallas)
+
+
+def _cli(argv, log_path):
+    """cli.main_h3wb.main(argv) with its printed reports appended to
+    ``log_path``."""
+    from pafuse_tpu_torch.cli import main_h3wb
+    with open(log_path, "a") as f, contextlib.redirect_stdout(f):
+        return main_h3wb.main(argv)
+
+
+def _max_rel(a, b):
+    import numpy as np
+    return max(float(np.max(np.abs(a[k] - b[k]) / np.abs(b[k]))) for k in b)
+
+
+def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
+               P: int = 10, T: int = 5):
+    """The evaluation path through the CLI at full width (see the module
+    docstring; a CPU rehearsal passes device="cpu" and a smaller depth, P
+    and T, and expects no launches).  Returns the kernel launches of the
+    main-path run."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import checkpoints, evaluate as ev
+    from pafuse_tpu_torch.cli import main_h3wb
+    from pafuse_tpu_torch.data import h3wb
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.evaluate import _tail_rows
+    from pafuse_tpu_torch.ops.attention import fused_attention
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
+                                                  block_train_fwd)
+    from pafuse_tpu_torch.skeleton import parts_table
+
+    def counts():
+        return {"fused_attention": fused_attention.launches,
+                "fused_block": fused_block.launches,
+                "block_train_fwd": block_train_fwd.launches,
+                "block_train_bwd": block_train_bwd.launches}
+
+    def reset():
+        fused_attention.launches = fused_block.launches = 0
+        block_train_fwd.launches = block_train_bwd.launches = 0
+
+    # full width (the D3DPConfig defaults), the CLI's defaults beside
+    cfg = D3DPConfig(depth=depth, num_proposals=P, sampling_timesteps=T)
+    rf = cfg.frames
+    cli = ["data.synthetic=true", "gpu.use_pallas=true", "general.nolog=true",
+           f"gpu.device={device}", f"model.dep={depth}", f"gpu.seed={seed}"]
+    on_card = torch.device(device).type == "cuda"
+    model = D3DP(cfg, device=device,
+                 generator=torch.Generator().manual_seed(seed),
+                 use_pallas="true")
+    ckpt = checkpoints.save_state(workdir, "seeded", model=model)
+    del model
+    synthetic = [f"data.synthetic_actions={EVAL_ACTIONS}",
+                 f"data.synthetic_frames={EVAL_FRAMES}"]
+    per_action = EVAL_CAMERAS * -(-EVAL_FRAMES // rf)
+    bs = min(EVAL_WINDOWS, 1 << (EVAL_ACTIONS * per_action - 1).bit_length())
+    full, rest = divmod(per_action, bs)         # per action
+    tail = _tail_rows(rest, bs) if rest else 0
+    batches = EVAL_ACTIONS * (full + (rest > 0))
+    blocks = len(parts_table(True)) * depth * 2 if on_card else 0
+    per_batch = blocks * T
+
+    # main path: the CLI evaluating the checkpoint at use_pallas=true
+    out_dir = os.path.join(workdir, "eval")
+    cli_log = os.path.join(workdir, "cli.log")
+    reset()
+    t0 = time.time()
+    out = _cli(cli + synthetic + [
+        f"ft2d.num_proposals={P}", f"ft2d.sampling_timesteps={T}",
+        f"general.evaluate={ckpt}", f"general.checkpoint={out_dir}"], cli_log)
+    wall_s = time.time() - t0
+    launches = counts()
+    if launches != {"fused_attention": per_batch * batches, "fused_block": 0,
+                    "block_train_fwd": 0, "block_train_bwd": 0}:
+        raise AssertionError(f"eval: launches {launches}, expected "
+                             f"{per_batch} x {batches} batches of kernel #2")
+    rows = out["batches"] * out["window_batch"] - out["tail_rows_saved"]
+    if ((out["batches"], out["windows"], out["window_batch"], rows)
+            != (batches, EVAL_ACTIONS * per_action, bs,
+                EVAL_ACTIONS * (full * bs + tail))):
+        raise AssertionError(
+            f"eval: {out['batches']} batches of {out['window_batch']} rows, "
+            f"{rows} rows dispatched for {out['windows']} windows; expected "
+            f"{EVAL_ACTIONS} x ({full} x {bs} + one of {tail}) rows")
+    avg = out["final"]["all"]
+    if not all(np.all(np.isfinite(v)) for v in avg.values()):
+        raise AssertionError(f"eval: non-finite metrics {avg}")
+    report = os.path.join(out_dir, f"h36m_test_log_H{P}_K{T}.txt")
+    with open(report) as f:
+        lines = f.read().splitlines()
+    bad = [ln for ln in lines if not ln.startswith(REPORT_VOCABULARY)]
+    need = [f"step {T - 1} : Protocol #1 Error (MPJPE) J_Agg: ",
+            f"step {T - 1} Protocol #1   (MPJPE) action-wise average P_Agg "
+            "(Part-Based) RIGHT HAND: "]
+    if bad or not all(any(ln.startswith(n) for ln in lines) for n in need):
+        raise AssertionError(f"eval: report {report} lacks the reference "
+                             f"lines or has others: {bad[:3]}")
+    eval_s = out["eval_seconds"]
+    emit({"phase": "eval", "P": P, "T": T, "depth": cfg.depth,
+          "windows": out["windows"], "batches": out["batches"],
+          "window_batch": bs, "full_batches": EVAL_ACTIONS * full,
+          "tail_rows": tail, "rows": rows,
+          "launches": launches, "cli_wall_s": wall_s,
+          "eval_s": eval_s, "windows_per_s": out["windows"] / eval_s,
+          "frames_per_s": out["windows"] * rf / eval_s,
+          "report_lines": len(lines),
+          "final_step": {k: float(np.atleast_1d(v)[-1])
+                         for k, v in sorted(avg.items())}})
+
+    # one action with injected noise: kernel #2 vs plain attention vs kernel #1
+    dataset = h3wb.load_dataset(synthetic=True,
+                                actions_per_subject=EVAL_ACTIONS,
+                                frames_per_action=EVAL_FRAMES)
+    keypoints = h3wb.prepare_data(dataset)
+    action = sorted(main_h3wb.collect_actions(dataset, ["S8"])[0].items())[0]
+    seqs = list(zip(*h3wb.fetch_actions(action[1], keypoints, dataset)))
+    r = np.random.RandomState(seed)
+    table = (r.randn(per_action, P, rf, cfg.num_kps, 3).astype(np.float32),
+             r.randn(per_action, T, P, rf, cfg.num_kps, 3).astype(np.float32))
+    model = D3DP(cfg, device=device, use_pallas="true")
+    checkpoints.load_state(ckpt, model)
+    means, seconds = {}, {}
+    for use_pallas in ("true", "false", "auto"):
+        _set_block_fn(model, use_pallas)
+        t0 = time.time()
+        acc, _ = ev.evaluate_sequences(model, seqs, receptive_field=rf,
+                                       num_proposals=P, sampling_timesteps=T,
+                                       window_batch=bs, noise_table=table)
+        seconds[use_pallas] = time.time() - t0
+        means[use_pallas] = acc.means_mm()
+    errs = {"vs_plain": _max_rel(means["true"], means["false"]),
+            "vs_kernel_1": _max_rel(means["true"], means["auto"])}
+    emit({"phase": "eval_vs_plain", "action": action[0],
+          "windows": per_action, "max_rel_err": errs, "rtol": EVAL_RTOL,
+          "seconds": seconds})
+    if not max(errs.values()) <= EVAL_RTOL:
+        raise AssertionError(f"eval: kernel #2 path disagrees: {errs}")
+
+    # where the time goes: one DDIM step of that action at use_pallas=true
+    _set_block_fn(model, "true")
+    if on_card:
+        profile_step(lambda: ev.evaluate_sequences(
+            model, seqs, receptive_field=rf, num_proposals=P,
+            sampling_timesteps=1, window_batch=bs),
+            phase="eval_profile",
+            rest="PyTorch (LayerNorm, GELU, residuals, embedding, head, "
+                 "sampler, metrics)")
+    del model
+
+    # the trainer through the CLI: one step, then the evaluations
+    train_dir = os.path.join(workdir, "train")
+    reset()
+    t0 = time.time()
+    _cli(cli + ["ft2d.debug=true", "model.epochs=1", "ft2d.num_proposals=2",
+                "ft2d.sampling_timesteps=2", f"general.checkpoint={train_dir}"],
+         cli_log)
+    train_launches = counts()
+    # one step; the per-epoch eval (P=1, T=1) and each action's final eval
+    # (T=2) dispatch one batch each in quick-debug mode
+    want = {"fused_attention": blocks * (1 + EVAL_ACTIONS * 2),
+            "fused_block": 0, "block_train_fwd": blocks,
+            "block_train_bwd": blocks}
+    for name in ("best_epoch.npz", "training_log.txt",
+                 "h36m_test_log_H2_K2.txt"):
+        if not os.path.exists(os.path.join(train_dir, name)):
+            raise AssertionError(f"eval_cli_train: no {name}")
+    if train_launches != want:
+        raise AssertionError(f"eval_cli_train: launches {train_launches}, "
+                             f"expected {want}")
+    with open(os.path.join(train_dir, "training_log.txt")) as f:
+        log = f.readline().strip()
+    emit({"phase": "eval_cli_train", "seconds": time.time() - t0,
+          "launches": train_launches, "training_log": log})
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
 
 
 def _kernel_entry(name, route, source, replaces, launches, cases, **extra):
@@ -749,6 +1090,20 @@ def main() -> int:
         raise AssertionError(f"a training kernel disagrees with its plain "
                              f"version: {bad}")
     train_launches = train_phase(args.seed)
+    attn_cases = attention_kernel_phase(args.seed, EVAL_WINDOWS, P=10,
+                                        frames=27)
+    serve_attn = attention_kernel_phase(args.seed, windows=16, P=10,
+                                        frames=27, dtypes=("float32",),
+                                        shapes="serve")
+    bad = [c for c in attn_cases + serve_attn if not c["ok"]]
+    if bad:
+        raise AssertionError(f"fused_attention disagrees with "
+                             f"attention_reference: {bad}")
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    eval_launches = eval_phase(args.seed, workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
 
     def bf16(cs):
         cs = [c for c in cs if c["dtype"] == "bfloat16"]
@@ -771,6 +1126,13 @@ def main() -> int:
                       TRAIN_REPLACES["block_train_bwd"], train_launches[1],
                       bwd, max_rel_grad_err=max(
                           c["max_rel_grad_err"] for c in bwd)),
+        # eval shapes (window batch 64); the serve bucket-16 shapes beside
+        _kernel_entry("fused_attention", "cuda", ATTN_SOURCE, ATTN_REPLACES,
+                      eval_launches["fused_attention"], attn_cases,
+                      **bf16(attn_cases),
+                      **{f"serve_bucket16_{k}": sum(c[k] for c in serve_attn)
+                         for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms")}),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,6 +26,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -205,15 +206,15 @@ def load_state(path: str, model: Optional[torch.nn.Module] = None,
                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
     """Restore a :func:`save_state` checkpoint (or a JAX one, for the
     params): loads the params into ``model`` (strict), the AdamW state into
-    ``optimizer`` and the generator state into ``generator`` when given.
-    Returns {"params", "epoch", "lr", "extra"} and "random_state" when the
-    file has one."""
+    ``optimizer`` and the generator state into ``generator`` when given and
+    the file has them (a JAX checkpoint holds neither).  Returns {"params",
+    "epoch", "lr", "extra"} and "random_state" when the file has one."""
     out: Dict[str, Any] = {"params": load_state_npz(path)}
     with np.load(path, allow_pickle=False) as raw:
         out.update(json.loads(bytes(raw["__meta__"]).decode()))
         if "__random_state__" in raw.files:
             out["random_state"] = pickle.loads(bytes(raw["__random_state__"]))
-        if generator is not None:
+        if generator is not None and "__torch_rng__" in raw.files:
             generator.set_state(torch.from_numpy(raw["__torch_rng__"].copy()))
         opt = {k[len("opt/"):]: raw[k] for k in raw.files
                if k.startswith("opt/")}
@@ -233,3 +234,17 @@ def load_state(path: str, model: Optional[torch.nn.Module] = None,
         for g in optimizer.param_groups:
             g["lr"] = out["lr"]
     return out
+
+
+def latest_checkpoint(folder: str) -> Optional[str]:
+    """The ``epoch_N.npz`` of ``folder`` with the largest N (for
+    ``general.resume=auto``), or None."""
+    best, best_epoch = None, -1
+    if not os.path.isdir(folder):
+        return None
+    for name in os.listdir(folder):
+        m = re.fullmatch(r"epoch_(\d+)\.npz", name)
+        if m and int(m.group(1)) > best_epoch:
+            best_epoch = int(m.group(1))
+            best = os.path.join(folder, name)
+    return best

@@ -1,0 +1,380 @@
+"""H3WB train/eval entry point, with the override syntax of the JAX CLI:
+
+    python -m pafuse_tpu_torch.cli.main_h3wb ft2d.num_proposals=10 \\
+        ft2d.sampling_timesteps=5 general.evaluate=best_epoch.npz
+
+Counterpart of ``pafuse_tpu/cli/main_h3wb.py``.  Without
+``general.evaluate`` it trains (AdamW, the training block kernels) for
+``model.epochs`` epochs with an evaluation at P=1, T=1 after each, saves
+``epoch_N`` and ``best_epoch`` checkpoints, then evaluates every test
+action at the config's P and T and appends the reports to
+``{general.checkpoint}/h36m_test_log_H{P}_K{T}.txt``.  With
+``general.evaluate=<checkpoint>`` (a port or JAX ``.npz``, or a reference
+``.bin``) it only evaluates.  It runs on ``gpu.device`` (CUDA by default;
+it raises without CUDA unless ``gpu.device=cpu``); ``gpu.use_pallas``
+selects the evaluation block.  It logs to ``logging.log`` and
+``training_log.txt``; MLflow and TensorBoard are not ported.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from datetime import datetime
+from time import time
+from typing import Dict, List
+
+import numpy as np
+
+from pafuse_tpu_torch import config as cfg_mod
+from pafuse_tpu_torch.utils.misc import Logger, Timer
+
+
+def build_model(args, device, flip_permutation=None):
+    """The D3DP of the config: part-based unless
+    ``general.part_based_model=false``, stochastic depth 0.1 in training,
+    the evaluation block of ``gpu.use_pallas``, weights from ``gpu.seed``.
+    One module serves training (``.train()``, the training kernels) and
+    evaluation (``.eval()``)."""
+    import torch
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+
+    if args.model.diff_model != "MixSTE2":
+        raise ValueError(
+            f"The model {args.model.diff_model!r} does not exist "
+            "(model.diff_model supports only 'MixSTE2')")
+    if args.gpu.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"gpu.compute_dtype={args.gpu.compute_dtype}: only float32 is "
+            "ported (ROADMAP.md)")
+    if str(args.gpu.train_kernel).lower() not in ("auto", "true"):
+        raise NotImplementedError(
+            f"gpu.train_kernel={args.gpu.train_kernel}: training runs the "
+            "training block kernels (auto | true); the autodiff path is not "
+            "ported (ROADMAP.md)")
+    cfg = D3DPConfig(
+        frames=args.model.number_of_frames,
+        num_kps=args.data.num_kps,
+        timesteps=args.ft2d.timestep,
+        sampling_timesteps=args.ft2d.sampling_timesteps,
+        num_proposals=args.ft2d.num_proposals,
+        scale=args.ft2d.scale,
+        depth=args.model.dep,
+        input_size=args.model.input_size,
+        cs=args.model.cs,
+        part_based=args.general.part_based_model,
+        merge_hands=args.data.merge_hands,
+        drop_path_rate=0.1,
+        dropout=float(args.model.dropout),
+        test_time_augmentation=args.model.test_time_augmentation,
+    )
+    model = D3DP(cfg, device=device,
+                 generator=torch.Generator().manual_seed(int(args.gpu.seed)),
+                 use_pallas=args.gpu.use_pallas)
+    if flip_permutation is not None:
+        model.flip_permutation = np.asarray(flip_permutation)
+    return model
+
+
+def collect_actions(dataset, subjects_test):
+    """Test actions grouped by base name, overall and per subject."""
+    all_actions: Dict[str, List] = {}
+    by_subject: Dict[str, Dict[str, List]] = {}
+    for subject in subjects_test:
+        by_subject.setdefault(subject, {})
+        for action in dataset[subject].keys():
+            name = action.split(" ")[0]
+            all_actions.setdefault(name, []).append((subject, action))
+            by_subject[subject].setdefault(name, []).append((subject, action))
+    return all_actions, by_subject
+
+
+def main(argv=None):
+    """Parse the overrides and run.  Returns, of the final evaluation,
+    {"final": {tag: action-wise average (mm)}, "eval_seconds": s,
+    "windows": n, "batches": n, "window_batch": rows, "tail_rows_saved": n}
+    (tag "all", or each subject with ``general.by_subject``; a batch
+    dispatches ``window_batch`` rows less those its tail bucket saved)."""
+    args = cfg_mod.parse_cli(argv if argv is not None else sys.argv[1:])
+    if args.mlflow.mlflow_on:
+        raise NotImplementedError("mlflow.mlflow_on=true: MLflow logging is "
+                                  "not ported (ROADMAP.md)")
+    if int(args.experiment.warmup) != 1:
+        # the reference's hydra entry point reads it nowhere
+        raise ValueError("experiment.warmup is not implemented (the "
+                         "reference's hydra entry point ignores it); remove "
+                         "the override")
+    from pafuse_tpu_torch.utils.device import resolve_device
+    device = resolve_device(args.gpu.device)
+
+    timestamp = datetime.now().strftime("%Y%m%dT%H-%M-%S")
+    stdout, logger = sys.stdout, None
+    if not args.general.nolog:
+        logdir = f"{args.general.log}_{timestamp}"
+        logger = Logger(os.path.join(logdir, "logging.log"))
+        sys.stdout = logger
+    try:
+        return _run(args, device, timestamp)
+    finally:
+        if logger is not None:
+            sys.stdout = stdout
+            logger.close()
+
+
+def _run(args, device, timestamp):
+    import torch
+    from pafuse_tpu_torch import checkpoints, evaluate as ev, train as tr
+    from pafuse_tpu_torch.data import h3wb
+
+    print("Evaluate!" if args.general.evaluate else "Train!")
+    print("==> Using settings:")
+    print(cfg_mod.to_yaml(args))
+    if not args.general.checkpoint:
+        args.general.checkpoint = f"{args.general.log}_{timestamp}"
+    os.makedirs(args.general.checkpoint, exist_ok=True)
+    print(f"Torch device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+
+    # ---- data ------------------------------------------------------------
+    print("Loading dataset...")
+    dataset = h3wb.load_dataset(
+        args.data.data_dir, args.data.synthetic,
+        actions_per_subject=int(args.data.synthetic_actions),
+        frames_per_action=int(args.data.synthetic_frames))
+    keypoints = h3wb.prepare_data(dataset)
+    subjects_train = args.data.subjects_train.split(",")
+    subjects_test = ([args.viz.viz_subject] if args.general.render
+                     else args.data.subjects_test.split(","))
+    action_filter = (None if args.data.actions == "*"
+                     else args.data.actions.split(","))
+    receptive_field = args.model.number_of_frames
+    print(f"INFO: Receptive field: {receptive_field} frames")
+
+    # ---- model -------------------------------------------------------------
+    model = build_model(args, device,
+                        flip_permutation=dataset.flip_permutation)
+    state = tr.create_train_state(model, seed=int(args.gpu.seed),
+                                  device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"INFO: Trainable parameter count: {n_params / 1e6} Million")
+
+    # ---- resume / evaluate checkpoint --------------------------------------
+    epoch = 0
+    lr = args.model.learning_rate
+    resume_ckpt = None
+    chk = args.general.resume or args.general.evaluate
+    if chk == "auto":
+        chk = checkpoints.latest_checkpoint(args.general.checkpoint) or ""
+        if chk:
+            print(f"Auto-resume from {chk}")
+    if chk:
+        chk_path = os.path.join(args.general.checkpoint, chk)
+        if not os.path.exists(chk_path):
+            chk_path = chk
+        print("Loading checkpoint", chk_path)
+        if chk_path.endswith(".bin"):
+            model.pose_estimator.load_state_dict(
+                checkpoints.load_reference_bin(chk_path), strict=True)
+            restored = {"epoch": 0}
+        elif args.general.resume:
+            restored = checkpoints.load_state(chk_path, model, state.optimizer,
+                                              state.generator)
+        else:
+            restored = checkpoints.load_state(chk_path, model)
+        if args.general.resume:
+            epoch = restored.get("epoch", 0)
+            if not args.model.coverlr:
+                lr = restored.get("lr", lr)
+            resume_ckpt = restored
+        print(f"This model was trained for {restored.get('epoch', 0)} epochs")
+
+    # ---- validation data ---------------------------------------------------
+    cams_valid, poses_valid, poses_valid_2d = h3wb.fetch(
+        subjects_test, keypoints, dataset, stride=args.experiment.downsample,
+        action_filter=action_filter)
+    print(f"INFO: Testing on {sum(p.shape[0] for p in poses_valid_2d)} frames")
+    # one window-batch size for every evaluation of this run
+    pin_bs = ev.pinned_window_batch(poses_valid_2d, receptive_field)
+
+    if not args.general.evaluate:
+        _train(args, model, state, epoch, lr, resume_ckpt, dataset, keypoints,
+               subjects_train, action_filter, pin_bs,
+               (cams_valid, poses_valid, poses_valid_2d))
+
+    # ---- final evaluation --------------------------------------------------
+    print("Evaluating...")
+    model.eval()
+    all_actions, by_subject = collect_actions(dataset, subjects_test)
+    timings = {}
+
+    def run_evaluation(actions):
+        per_action, per_action_p2 = {}, {}
+        for action_key in sorted(actions.keys()):
+            if action_filter is not None and not any(
+                    action_key.startswith(a) for a in action_filter):
+                continue
+            cams_act, poses_act, poses_2d_act = h3wb.fetch_actions(
+                actions[action_key], keypoints, dataset,
+                stride=args.experiment.downsample)
+            acc, p2 = ev.evaluate_sequences(
+                model, zip(cams_act, poses_act, poses_2d_act),
+                receptive_field=receptive_field,
+                num_proposals=args.ft2d.num_proposals,
+                sampling_timesteps=args.ft2d.sampling_timesteps,
+                window_batch=pin_bs, quickdebug=args.ft2d.debug,
+                collect_p2=args.ft2d.p2, timings=timings)
+            means = acc.means_mm()
+            p2m = p2.means_mm() if (p2 is not None and p2.n > 0) else None
+            report = ev.format_report(means, action_key, p2m)
+            print(report)
+            ev.write_report(args.general.checkpoint, args.ft2d.num_proposals,
+                            args.ft2d.sampling_timesteps, report)
+            per_action[action_key] = means
+            if p2m is not None:
+                per_action_p2[action_key] = p2m
+        if not per_action:
+            return None
+
+        def avg_of(dicts):
+            keys = next(iter(dicts.values())).keys()
+            return {k: np.mean([m[k] for m in dicts.values()], axis=0)
+                    for k in keys}
+        avg = avg_of(per_action)
+        text = ev.format_actionwise_average(
+            avg, avg_of(per_action_p2) if per_action_p2 else None)
+        print(text)
+        ev.write_report(args.general.checkpoint, args.ft2d.num_proposals,
+                        args.ft2d.sampling_timesteps, text)
+        return avg
+
+    final = {}
+    with Timer("Evaluation took") as timer:
+        if not args.general.by_subject:
+            final["all"] = run_evaluation(all_actions)
+        else:
+            for subject, actions in by_subject.items():
+                print("Evaluating on subject", subject)
+                final[subject] = run_evaluation(actions)
+    return {"final": final, "eval_seconds": timer.elapsed,
+            "windows": timings.get("windows", 0),
+            "batches": timings.get("batches", 0), "window_batch": pin_bs,
+            "tail_rows_saved": timings.get("tail_rows_saved", 0)}
+
+
+def _train(args, model, state, epoch, lr, resume_ckpt, dataset, keypoints,
+           subjects_train, action_filter, pin_bs, valid):
+    """Epochs of training, each followed by an evaluation at P=1, T=1 and
+    the checkpoints; the model ends in train mode."""
+    from pafuse_tpu_torch import checkpoints, evaluate as ev, train as tr
+    from pafuse_tpu_torch.data import h3wb
+    from pafuse_tpu_torch.data.prefetch import PrefetchingLoader
+    from pafuse_tpu_torch.data.sampling import ChunkedSampler
+
+    receptive_field = args.model.number_of_frames
+    cams_train, poses_train, poses_train_2d = h3wb.fetch(
+        subjects_train, keypoints, dataset, stride=args.experiment.downsample,
+        action_filter=action_filter, subset=args.experiment.subset)
+    seqs_per_batch = max(1, args.model.batch_size // receptive_field)
+    train_gen = ChunkedSampler(
+        seqs_per_batch, cams_train, poses_train, poses_train_2d,
+        receptive_field, shuffle=True, augment=args.model.data_augmentation,
+        flip_permutation=dataset.flip_permutation)
+    # background-thread prefetch: batch assembly overlaps the device step
+    train_loader = PrefetchingLoader(train_gen, depth=2)
+    print(f"INFO: Training on {train_gen.num_frames() * receptive_field} "
+          "frames")
+    if resume_ckpt is not None and "random_state" in resume_ckpt:
+        train_gen.set_random_state(resume_ckpt["random_state"])
+
+    weights = (tr.mixste_weight_table(args.data.num_kps)
+               if args.model.weighted_loss else None)
+    step_fn = tr.build_train_step(
+        model, state.optimizer, weights=weights, mse_loss=args.model.mse_loss,
+        wb_loss=args.model.wb_loss, part_based=args.general.part_based_model)
+
+    log_path = os.path.join(args.general.checkpoint, "training_log.txt")
+    quickdebug = args.ft2d.debug
+    min_loss = args.model.min_loss
+    train_curve, valid_curve = [], []
+    while epoch < args.model.epochs:
+        start_time = time()
+        model.train()
+        epoch_loss, n_seen = 0.0, 0
+        num_batches = train_gen.batch_num()
+        # one-deep loss pipeline: step N's loss is read while step N+1 runs
+        pending = None
+        for it, (_, b3d, b2d) in enumerate(train_loader.next_epoch()):
+            if it % 10 == 0:
+                print(f"{it}/{num_batches}")
+            b2d, real = tr.pad_batch(b2d, seqs_per_batch)
+            b3d, _ = tr.pad_batch(b3d, seqs_per_batch)
+            loss = step_fn(state, lr, b2d, b3d)
+            if pending is not None:
+                epoch_loss += pending[1] * float(pending[0])
+            pending = (loss, real * receptive_field)
+            n_seen += real * receptive_field
+            if quickdebug:
+                break
+        if pending is not None:
+            epoch_loss += pending[1] * float(pending[0])
+        epoch_loss_mm = epoch_loss / max(n_seen, 1) * 1000
+
+        # per-epoch evaluation at P=1, T=1 with flip-TTA
+        val_mm, val_pb_mm = float("nan"), float("nan")
+        if not args.experiment.no_eval:
+            model.eval()
+            acc, _ = ev.evaluate_sequences(
+                model, zip(*valid), receptive_field=receptive_field,
+                num_proposals=1, sampling_timesteps=1, window_batch=pin_bs,
+                quickdebug=quickdebug)
+            model.train()
+            means = acc.means_mm()
+            val_mm = float(np.atleast_1d(means["P_Best"])[0])
+            val_pb_mm = float(np.atleast_1d(means["P_Best_PB"])[0])
+
+        elapsed = (time() - start_time) / 60
+        log = (f"[{epoch + 1}] time {elapsed:.2f} lr {lr:f} "
+               f"3d_train {epoch_loss_mm:f} 3d_pos_valid {val_mm:f} "
+               f"3d_pb_pos_valid {val_pb_mm:f}")
+        print(log)
+        with open(log_path, "a") as f:
+            f.write(log + "\n")
+
+        lr *= args.model.lr_decay
+        epoch += 1
+        ckpt = dict(model=model, optimizer=state.optimizer, epoch=epoch, lr=lr,
+                    random_state=train_gen.random_state(),
+                    generator=state.generator)
+        if epoch % args.general.checkpoint_frequency == 0:
+            checkpoints.save_state(args.general.checkpoint, f"epoch_{epoch}",
+                                   **ckpt)
+        if val_mm < min_loss:
+            min_loss = val_mm
+            checkpoints.save_state(args.general.checkpoint, "best_epoch",
+                                   **ckpt)
+            with open(log_path, "a") as f:
+                f.write("best epoch\n")
+
+        train_curve.append(epoch_loss_mm)
+        valid_curve.append(val_mm)
+        if args.general.export_training_curves and epoch > 3:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            plt.figure()
+            epoch_x = np.arange(3, len(train_curve)) + 1
+            plt.plot(epoch_x, train_curve[3:], "--", color="C0")
+            plt.plot(epoch_x, valid_curve[3:], color="C1")
+            plt.legend(["3d train", "3d valid (eval)"])
+            plt.ylabel("MPJPE (mm)")
+            plt.xlabel("Epoch")
+            plt.xlim((3, epoch))
+            plt.savefig(os.path.join(args.general.checkpoint, "loss_3d.png"))
+            plt.close("all")
+        if quickdebug and epoch >= 1:
+            break
+
+
+if __name__ == "__main__":
+    main()

@@ -159,8 +159,8 @@ def make_synthetic(subjects=("S1", "S5", "S6", "S7", "S8"),
                 cam3d_m = geometry.world_to_camera(
                     world_mm / 1000.0, cam["orientation"],
                     cam["translation"]).astype(np.float32)
-                proj = geometry.project_to_2d(cam3d_m[None],
-                                              cam["intrinsic"][None])[0]
+                proj = geometry.project_to_2d_np(cam3d_m[None],
+                                                 cam["intrinsic"][None])[0]
                 px = geometry.image_coordinates(proj.astype(np.float32),
                                                 w=cam["res_w"], h=cam["res_h"])
                 positions_3d.append(cam3d_m * 1000.0)   # mm, like the npz

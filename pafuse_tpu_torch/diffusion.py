@@ -107,10 +107,14 @@ class D3DP(nn.Module):
 
     ``pose_estimator`` is the :class:`PartModel`, so ``state_dict()`` keys
     are the reference's ``pose_estimator.{part}.…`` names.  The module
-    starts in eval mode; :meth:`train_forward` needs ``.train()``."""
+    starts in eval mode; :meth:`train_forward` needs ``.train()``.
+    ``use_pallas`` selects the eval-mode block of every part network
+    (``models.mixste.select_block_fn``); training always runs the training
+    block kernels."""
 
     def __init__(self, cfg: D3DPConfig, device="cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 use_pallas="auto"):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -124,7 +128,8 @@ class D3DP(nn.Module):
         else:
             specs = monolithic_spec(cfg.num_kps, cfg.frames, cfg.input_size,
                                     cfg.cs, cfg.depth, **rates)
-        self.pose_estimator = PartModel(specs, self.device, generator)
+        self.pose_estimator = PartModel(specs, self.device, generator,
+                                        use_pallas)
         if cfg.num_kps != sk.NUM_JOINTS:
             raise ValueError(f"num_kps={cfg.num_kps}: only the "
                              f"{sk.NUM_JOINTS}-joint H3WB layout is ported")

@@ -3,9 +3,9 @@ projection, part centring and whole-body assembly from part-centred poses.
 
 Counterpart of ``pafuse_tpu/geometry.py``.  Tensor functions take the joint
 axis at -2 and the coordinate axis at -1; the ``_np`` variants are NumPy
-twins for host-side request preparation.  The camera functions
-(``world_to_camera``, ``project_to_2d``, ``image_coordinates``) are NumPy
-only: they serve host-side data synthesis.
+twins for host-side data preparation.  ``world_to_camera``, ``qinverse``
+and ``image_coordinates`` are NumPy only: they serve host-side data
+synthesis.
 """
 
 from __future__ import annotations
@@ -82,10 +82,63 @@ def world_to_camera(x: np.ndarray, rotation: np.ndarray,
     return qrot_np(qinverse(rotation), x - translation)
 
 
-def project_to_2d(x: np.ndarray, camera_params: np.ndarray) -> np.ndarray:
+def _broadcast_camera(camera_params: torch.Tensor, x: torch.Tensor):
+    cam = torch.as_tensor(camera_params, dtype=x.dtype, device=x.device)
+    assert x.shape[-1] == 3 and cam.shape[-1] == 9
+    while cam.dim() < x.dim():
+        cam = cam[:, None]
+    return cam
+
+
+def project_to_2d(x: torch.Tensor, camera_params: torch.Tensor) -> torch.Tensor:
     """Project camera-space points (N, ..., 3) to normalised screen space
     with the H36M radial + tangential distortion model; camera_params
-    (N, 9) = [fx fy cx cy k1 k2 k3 p1 p2] (NumPy)."""
+    (N, 9) = [fx fy cx cy k1 k2 k3 p1 p2], broadcast over x's middle axes."""
+    cam = _broadcast_camera(camera_params, x)
+    f, c, k, p = cam[..., :2], cam[..., 2:4], cam[..., 4:7], cam[..., 7:]
+    xx = (x[..., :2] / x[..., 2:]).clamp(-1.0, 1.0)
+    r2 = xx.square().sum(-1, keepdim=True)
+    radial = 1 + (k * torch.cat([r2, r2 ** 2, r2 ** 3], dim=-1)).sum(
+        -1, keepdim=True)
+    tan = (p * xx).sum(-1, keepdim=True)
+    return f * (xx * (radial + tan) + p * r2) + c
+
+
+def project_to_2d_linear(x: torch.Tensor,
+                         camera_params: torch.Tensor) -> torch.Tensor:
+    """Pinhole-only projection (no distortion) of camera-space points."""
+    cam = _broadcast_camera(camera_params, x)
+    xx = (x[..., :2] / x[..., 2:]).clamp(-1.0, 1.0)
+    return cam[..., :2] * xx + cam[..., 2:4]
+
+
+def uvd2xyz(uvd: torch.Tensor, gt_3d: torch.Tensor,
+            cam: torch.Tensor) -> torch.Tensor:
+    """Lift (u, v, depth) predictions (N, T, V, 3) to root-relative
+    camera-space XYZ with the pinhole intrinsics; joint 0 of ``gt_3d``
+    carries the absolute root depth; cam (..., >=4) = [fx fy cx cy ...]."""
+    cam = torch.as_tensor(cam, dtype=uvd.dtype, device=uvd.device)
+    f = cam[..., :2].reshape(-1, 1, 1, 2)
+    c = cam[..., 2:4].reshape(-1, 1, 1, 2)
+    root_z = gt_3d[:, :, 0:1, 2]                                  # (N,T,1)
+    z_global = torch.cat([root_z, uvd[:, :, 1:, 2] + root_z],
+                         dim=2)[..., None]                        # (N,T,V,1)
+    xy = (uvd[..., :2] - c) * z_global / f
+    xyz = torch.cat([xy, z_global], dim=-1)
+    return xyz - xyz[:, :, 0:1, :]
+
+
+def flip_intrinsics_np(cam: np.ndarray) -> np.ndarray:
+    """Mirror camera intrinsics: negate the horizontal centre and the
+    tangential distortion p1 (NumPy)."""
+    out = cam.copy()
+    out[..., 2] *= -1
+    out[..., 7] *= -1
+    return out
+
+
+def project_to_2d_np(x: np.ndarray, camera_params: np.ndarray) -> np.ndarray:
+    """NumPy twin of :func:`project_to_2d`."""
     assert x.shape[-1] == 3 and camera_params.shape[-1] == 9
     while camera_params.ndim < x.ndim:
         camera_params = camera_params[:, None]

@@ -6,13 +6,15 @@ reference PAFUSE names (``STEblocks.3.attn.qkv``, ``time_mlp.1``,
 ``pose_estimator.{part}.`` prefix, loads with ``strict=True``.
 
 Every spatial and temporal block, together with its outer Spatial/Temporal
-LayerNorm, goes through one fused function.  In eval mode (the default
-after construction) that is ``block_fn``, ``ops.block.fused_block``; in
-train mode (``.train()``) it is ``train_block_fn``,
-``ops.block_train.block_train``, the differentiable block with
-stochastic-depth branch masks (rates ``linspace(0, drop_path_rate,
-depth)``).  Both are the CUDA kernels on the GPU and the plain versions on
-the CPU.
+LayerNorm, goes through one function.  In eval mode (the default after
+construction) that is ``block_fn``, chosen by ``use_pallas`` as the JAX
+package chooses ``block_fn``/``attention_fn`` (:func:`select_block_fn`):
+``ops.block.fused_block`` (kernel #1) or :func:`unfused_block` with
+``ops.attention.fused_attention`` (kernel #2) as its attention.  In train
+mode (``.train()``) it is ``train_block_fn``, ``ops.block_train.block_train``,
+the differentiable block with stochastic-depth branch masks (rates
+``linspace(0, drop_path_rate, depth)``), whatever ``use_pallas`` says.  The
+kernels run on the GPU and their plain versions on the CPU.
 
 Numerics (float32): block, Spatial and Temporal norms use eps 1e-6, the
 head norm torch's default 1e-5; GELU is exact.
@@ -21,13 +23,16 @@ head norm torch's default 1e-5; GELU is exact.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from pafuse_tpu_torch.ops.attention import attention_reference, fused_attention
 from pafuse_tpu_torch.ops.block import fused_block
 from pafuse_tpu_torch.ops.block_train import block_train
 from pafuse_tpu_torch.utils.device import resolve_device
@@ -125,6 +130,53 @@ class Block(nn.Module):
                 self.mlp.fc2.weight, self.mlp.fc2.bias)
 
 
+def unfused_block(x: torch.Tensor, block_params: Sequence[torch.Tensor],
+                  outer_norm: Sequence[torch.Tensor], num_heads: int,
+                  attention_fn) -> torch.Tensor:
+    """The block with the fused-block kernel off, as the JAX package runs it
+    (``mixste.py:_block`` followed by the outer ``_layernorm``): LN1 ->
+    ``attention_fn`` -> +residual -> LN2 -> fc1 -> exact GELU -> fc2 ->
+    +residual -> outer Spatial/Temporal LN, LayerNorms with eps 1e-6.
+    Float32; x: (B, L, C), parameters as ``fused_block`` takes them."""
+    (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2,
+     bfc2) = block_params
+    C = x.shape[-1]
+    h = F.layer_norm(x, (C,), n1s, n1b, 1e-6)
+    x = x + attention_fn(h, wqkv, bqkv, wproj, bproj, num_heads)
+    h = F.layer_norm(x, (C,), n2s, n2b, 1e-6)
+    x = x + F.linear(F.gelu(F.linear(h, wfc1, bfc1)), wfc2, bfc2)
+    return F.layer_norm(x, (C,), outer_norm[0], outer_norm[1], 1e-6)
+
+
+def select_block_fn(use_pallas="auto"):
+    """The eval-mode block function for ``use_pallas`` (the JAX package's
+    ``tpu.use_pallas`` values; booleans as a config parser gives them):
+
+    * ``auto``/``block``: ``fused_block``, kernel #1;
+    * ``true``: :func:`unfused_block` with ``fused_attention``, kernel #2;
+    * ``false``: :func:`unfused_block` with ``attention_reference``, the
+      plain block that mirrors the JAX package's XLA path.
+
+    ``block_t`` and ``layer`` select kernels #3 and #4, which are not ported
+    yet, and raise ``NotImplementedError``."""
+    mode = str(use_pallas).lower()
+    if mode in ("auto", "block"):
+        return fused_block
+    if mode == "true":
+        return functools.partial(unfused_block, attention_fn=fused_attention)
+    if mode == "false":
+        return functools.partial(unfused_block,
+                                 attention_fn=attention_reference)
+    if mode in ("block_t", "layer"):
+        kernel = ("#3 pallas_block_temporal" if mode == "block_t"
+                  else "#4 pallas_layer")
+        raise NotImplementedError(
+            f"use_pallas={mode} selects TPU kernel {kernel}, which is not "
+            "ported yet (ROADMAP.md, TPU kernels still to port)")
+    raise ValueError(f"use_pallas={use_pallas!r}: expected auto, block, "
+                     "true or false")
+
+
 def init_linear_(lin: nn.Linear, generator: torch.Generator) -> None:
     """torch's default Linear init, U(-1/sqrt(in), 1/sqrt(in)), drawn from
     ``generator``."""
@@ -139,15 +191,17 @@ class MixSTE2(nn.Module):
 
     Weights are drawn on the CPU from ``generator`` (seed 0 when omitted),
     so a seed gives the same weights on every device, then moved to
-    ``device`` once.  The module starts in eval mode."""
+    ``device`` once.  The module starts in eval mode; ``use_pallas``
+    selects the eval-mode block (:func:`select_block_fn`)."""
 
     def __init__(self, cfg: MixSTEConfig, device="cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 use_pallas="auto"):
         super().__init__()
         self.cfg = cfg
         # every block goes through these (eval, train); a check may swap in
-        # block_reference / block_train_plain
-        self.block_fn = fused_block
+        # another select_block_fn choice / block_train_plain
+        self.block_fn = select_block_fn(use_pallas)
         self.train_block_fn = block_train
         C = cfg.embed_dim
         self.Spatial_patch_to_embedding = nn.Linear(cfg.in_chans, C)

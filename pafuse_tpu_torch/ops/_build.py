@@ -58,6 +58,12 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         "pafuse_block_train_bwd": ([_I] + [_P] * 4 + [_P] * 14 + [_P] * 4
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
     },
+    "attention": {
+        # is_bf16, x, out, qkv scratch, attention scratch, wqkv, bqkv,
+        # wproj, bproj, B, L, C, H, scale, stream
+        "pafuse_fused_attention": ([_I] + [_P] * 4 + [_P] * 4
+                                   + [_LL, _I, _I, _I, _F, _P], _I),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

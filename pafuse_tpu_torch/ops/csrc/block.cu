@@ -31,7 +31,8 @@
 // attention kernel with one CTA per (sequence, head) that keeps q, k and v
 // in shared memory (no token padding: only the L real keys enter a
 // softmax), and one row LayerNorm.  The intermediates (qkv, attention out,
-// x1, MLP hidden) round-trip through device memory.  The GEMMs use scalar
+// x1, MLP hidden) round-trip through device memory.  The GEMMs are
+// common.cuh's linear_kernel with the weights rounded to T; they use scalar
 // f32 FMAs, so the face head size d = 28 and N = 3*224 need no padding;
 // tensor cores (wgmma) and fusing the chain are later work.
 //
@@ -42,119 +43,6 @@
 #include "common.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// Tiled GEMM  Y[m, n] = epilogue(sum_k prologue(A)[m, k] * T(W[n, k]) + b[n])
-// A: (M, K) in T, W: (N, K) f32 (torch Linear layout), Y: (M, N) in T.
-// 64x64 output tile per CTA, 16-deep K slices through shared memory, 256
-// threads with a 4x4 register tile each.  M (up to ~10^6 rows) lies on
-// gridDim.x, the N tiles (at most 18) on gridDim.y.
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
-
-enum { PRO_NONE = 0, PRO_LAYERNORM = 1 };
-enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
-
-template <typename T, int PRO, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const T* __restrict__ A, const float* __restrict__ W,
-            const float* __restrict__ bias, const float* __restrict__ ln_scale,
-            const float* __restrict__ ln_bias, const T* __restrict__ R,
-            T* __restrict__ Y, long long M, int N, int K) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN + 4];
-  __shared__ float row_mean[BM];
-  __shared__ float row_rstd[BM];
-
-  const int tid = threadIdx.x;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  if (PRO == PRO_LAYERNORM) {
-    // Row statistics of this CTA's 64 rows, two-pass in f32, one warp per
-    // row at a time.
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      const long long m = m0 + r;
-      float mean = 0.f, rstd = 0.f;
-      if (m < M) {
-        const T* row = A + m * K;
-        float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += to_f32<T>(row[k]);
-        mean = warp_sum(s) / (float)K;
-        float v = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          const float d = to_f32<T>(row[k]) - mean;
-          v += d * d;
-        }
-        rstd = rsqrtf(warp_sum(v) / (float)K + kLnEps);
-      }
-      if (lane == 0) {
-        row_mean[r] = mean;
-        row_rstd[r] = rstd;
-      }
-    }
-    __syncthreads();
-  }
-
-  // tile loads: thread -> (row lr, four consecutive k from lk)
-  const int lr = tid >> 2, lk = (tid & 3) * 4;
-  // compute: thread -> rows ty + 16 i, cols tx + 16 j
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const long long am = m0 + lr;
-  const int wn = n0 + lr;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + lk + j;
-      float a = 0.f, w = 0.f;
-      if (am < M && k < K) {
-        a = to_f32<T>(A[am * K + k]);
-        if (PRO == PRO_LAYERNORM)
-          a = round_to<T>((a - row_mean[lr]) * row_rstd[lr] * ln_scale[k] + ln_bias[k]);
-      }
-      if (wn < N && k < K) w = round_to<T>(W[(long long)wn * K + k]);
-      As[lk + j][lr] = a;
-      Ws[lk + j][lr] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      float y = acc[i][j] + bias[n];
-      if (EPI == EPI_GELU) y = 0.5f * y * (1.f + erff(y * 0.7071067811865476f));
-      if (EPI == EPI_RESIDUAL) y = to_f32<T>(R[m * N + n]) + round_to<T>(y);
-      Y[m * N + n] = from_f32<T>(y);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Row LayerNorm (the outer Spatial/Temporal norm): one warp per row.
@@ -185,16 +73,6 @@ layernorm_kernel(const T* __restrict__ X, const float* __restrict__ scale,
     yrow[c] = from_f32<T>((to_f32<T>(row[c]) - mean) * rstd * scale[c] + bias[c]);
 }
 
-template <typename T, int PRO, int EPI>
-cudaError_t launch_gemm(const T* A, const float* W, const float* b,
-                        const float* ln_s, const float* ln_b, const T* R, T* Y,
-                        long long M, int N, int K, cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  gemm_kernel<T, PRO, EPI><<<grid, GEMM_THREADS, 0, stream>>>(A, W, b, ln_s, ln_b, R,
-                                                              Y, M, N, K);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t fused_block(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
                         const float* n1s, const float* n1b, const float* wqkv,
@@ -207,8 +85,8 @@ cudaError_t fused_block(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
   cudaError_t err;
 
   // 1. qkv = T(LN1(x) @ Wqkv + bqkv)
-  err = launch_gemm<T, PRO_LAYERNORM, EPI_STORE>(x, wqkv, bqkv, n1s, n1b, nullptr, qkv,
-                                                 M, 3 * C, C, stream);
+  err = launch_linear<T, T, true, PRO_LAYERNORM, EPI_STORE>(
+      x, wqkv, bqkv, n1s, n1b, nullptr, qkv, M, 3 * C, C, stream);
   if (err != cudaSuccess) return err;
 
   // 2. per-head attention
@@ -216,18 +94,18 @@ cudaError_t fused_block(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
   if (err != cudaSuccess) return err;
 
   // 3. x1 = x + T(attn @ Wproj + bproj)
-  err = launch_gemm<T, PRO_NONE, EPI_RESIDUAL>(attn, wproj, bproj, nullptr, nullptr, x,
-                                               x1, M, C, C, stream);
+  err = launch_linear<T, T, true, PRO_NONE, EPI_RESIDUAL>(
+      attn, wproj, bproj, nullptr, nullptr, x, x1, M, C, C, stream);
   if (err != cudaSuccess) return err;
 
   // 4. hidden = T(gelu(LN2(x1) @ Wfc1 + bfc1))
-  err = launch_gemm<T, PRO_LAYERNORM, EPI_GELU>(x1, wfc1, bfc1, n2s, n2b, nullptr,
-                                                hidden, M, hid, C, stream);
+  err = launch_linear<T, T, true, PRO_LAYERNORM, EPI_GELU>(
+      x1, wfc1, bfc1, n2s, n2b, nullptr, hidden, M, hid, C, stream);
   if (err != cudaSuccess) return err;
 
   // 5. x2 = x1 + T(hidden @ Wfc2 + bfc2), written over the attention buffer
-  err = launch_gemm<T, PRO_NONE, EPI_RESIDUAL>(hidden, wfc2, bfc2, nullptr, nullptr, x1,
-                                               attn, M, C, hid, stream);
+  err = launch_linear<T, T, true, PRO_NONE, EPI_RESIDUAL>(
+      hidden, wfc2, bfc2, nullptr, nullptr, x1, attn, M, C, hid, stream);
   if (err != cudaSuccess) return err;
 
   // 6. out = T(LN_outer(x2))

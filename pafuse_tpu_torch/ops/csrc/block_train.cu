@@ -211,8 +211,6 @@ ln_fwd_kernel(const TIn* __restrict__ X, const float* __restrict__ scale,
 // gridDim.y.
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
-
 enum { W_NK = 0, W_KN = 1 };
 enum {
   EPI_NONE = 0,           // Y = acc

@@ -1,0 +1,166 @@
+"""The port's H3WB CLI (pafuse_tpu_torch.cli.main_h3wb) and its config, on
+the CPU at a tiny size (depth 1, 9 frames, 20 diffusion steps, one
+hypothesis and one DDIM step) on synthetic H3WB in quick-debug mode, as
+tests/test_e2e.py drives the JAX CLI; and the config against the JAX
+package's (same reference groups and defaults, same value parsing)."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from pafuse_tpu import config as jcfg
+from pafuse_tpu_torch import config as tcfg
+from pafuse_tpu_torch.cli import main_h3wb
+
+torch.set_num_threads(2)
+
+TINY = ["gpu.device=cpu", "data.synthetic=true", "data.synthetic_actions=1",
+        "data.synthetic_frames=30", "model.number_of_frames=9",
+        "model.batch_size=36", "model.dep=1", "ft2d.timestep=20",
+        "ft2d.sampling_timesteps=1", "ft2d.num_proposals=1",
+        "ft2d.debug=true", "general.nolog=true"]
+REPORT = "h36m_test_log_H1_K1.txt"
+
+
+def _report_lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def test_train_then_evaluate_from_checkpoint(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / "ckpt")
+    out = main_h3wb.main(TINY + ["model.epochs=1", "gpu.use_pallas=true",
+                                 f"general.checkpoint={ckpt}",
+                                 "general.checkpoint_frequency=1"])
+    for name in ("best_epoch.npz", "epoch_1.npz", "training_log.txt", REPORT):
+        assert os.path.exists(os.path.join(ckpt, name)), name
+    log = _report_lines(os.path.join(ckpt, "training_log.txt"))
+    assert log[0].startswith("[1] time ") and "3d_pos_valid" in log[0]
+    assert log[1] == "best epoch"
+    lines = _report_lines(os.path.join(ckpt, REPORT))
+    assert lines[0] == "----Walking----"
+    assert lines[1].startswith("step 0 : Protocol #1 Error (MPJPE) J_Best: ")
+    assert any(line.startswith("step 0 Protocol #1   (MPJPE) action-wise "
+                               "average P_Agg (Part-Based) RIGHT HAND: ")
+               for line in lines)
+    avg = out["final"]["all"]
+    assert all(np.all(np.isfinite(v)) for v in avg.values())
+    assert out["windows"] > 0 and out["eval_seconds"] > 0
+
+    # evaluate only, from the saved best epoch: the same weights give the
+    # same report as the evaluation after training
+    again = main_h3wb.main(TINY + ["gpu.use_pallas=true",
+                                   f"general.checkpoint={ckpt}",
+                                   "general.evaluate=best_epoch.npz"])
+    for k, v in avg.items():
+        np.testing.assert_array_equal(again["final"]["all"][k], v, err_msg=k)
+    assert len(_report_lines(os.path.join(ckpt, REPORT))) == 2 * len(lines)
+
+    # resume=auto continues from epoch_1 and trains epoch 2
+    main_h3wb.main(TINY + ["model.epochs=2", "general.resume=auto",
+                           "general.checkpoint_frequency=1",
+                           f"general.checkpoint={ckpt}"])
+    assert _report_lines(os.path.join(ckpt, "training_log.txt"))[2].startswith(
+        "[2] time ")
+    assert os.path.exists(os.path.join(ckpt, "epoch_2.npz"))
+
+
+def test_evaluate_reference_bin(tmp_path, monkeypatch):
+    """A reference-named torch checkpoint (``model_pos`` with
+    ``module.pose_estimator.`` keys) evaluates through ``.bin`` loading, at
+    use_pallas=auto and per subject."""
+    monkeypatch.chdir(tmp_path)
+    args = tcfg.load_config(overrides=TINY)
+    model = main_h3wb.build_model(args, "cpu")
+    sd = {f"module.pose_estimator.{k}": v
+          for k, v in model.pose_estimator.state_dict().items()}
+    torch.save({"model_pos": sd}, tmp_path / "ref.bin")
+    out = main_h3wb.main(TINY + [f"general.evaluate={tmp_path}/ref.bin",
+                                 f"general.checkpoint={tmp_path}/ck",
+                                 "general.by_subject=true"])
+    assert set(out["final"]) == {"S8"}
+    assert os.path.exists(tmp_path / "ck" / REPORT)
+
+
+def test_logging_tee_is_restored(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    import sys
+    stdout = sys.stdout
+    main_h3wb.main([a for a in TINY if a != "general.nolog=true"]
+                   + ["model.epochs=1", f"general.log={tmp_path}/log",
+                      f"general.checkpoint={tmp_path}/ck"])
+    assert sys.stdout is stdout
+    logs = [d for d in os.listdir(tmp_path) if d.startswith("log_")]
+    assert len(logs) == 1
+    with open(tmp_path / logs[0] / "logging.log") as f:
+        assert "Train!" in f.read()
+
+
+@pytest.mark.parametrize("override,error", [
+    ("ft2d.sampling_timestep=5", KeyError),        # a typo
+    ("tpu.use_pallas=true", KeyError),            # the TPU group is gone
+    ("gpu.mesh_shape=[-1]", KeyError),            # TPU-only keys are absent
+    ("gpu.remat=true", KeyError),
+    ("experiment.warmup=5", ValueError),
+    ("model.diff_model=X", ValueError),
+    ("gpu.use_pallas=block_t", NotImplementedError),
+    ("gpu.use_pallas=layer", NotImplementedError),
+    ("gpu.compute_dtype=bfloat16", NotImplementedError),
+    ("gpu.train_kernel=false", NotImplementedError),
+    ("mlflow.mlflow_on=true", NotImplementedError),
+])
+def test_cli_rejects(tmp_path, monkeypatch, override, error):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(error):
+        main_h3wb.main(TINY + [override, f"general.checkpoint={tmp_path}/ck"])
+
+
+def test_cli_refuses_missing_cuda(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the CPU-only refusal cannot be shown")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main_h3wb.main([a for a in TINY if a != "gpu.device=cpu"])
+    assert not os.listdir(tmp_path)
+
+
+def test_defaults_match_the_jax_config():
+    """The reference groups keep the JAX package's keys and defaults; the
+    TPU group becomes ``gpu``."""
+    want = jcfg.load_config().to_dict()
+    got = tcfg.load_config().to_dict()
+    for group in ("general", "mlflow", "data", "model", "experiment", "viz",
+                  "ft2d", "in_the_wild"):
+        assert got[group] == want[group], group
+    assert set(got) - set(want) == {"gpu"}
+    assert set(want) - set(got) == {"tpu", "serve"}
+    assert set(got["gpu"]) == {"device", "use_pallas", "train_kernel",
+                               "compute_dtype", "seed"}
+    assert got["gpu"]["use_pallas"] == want["tpu"]["use_pallas"]
+
+
+@pytest.mark.parametrize("raw", [
+    "true", "True", "FALSE", "yes", "off", "1", "-3", "0.00006", "1.5",
+    "[1, 2, 4]", "['5x2', '1x1']", "[]", "'S8'", '"0"', "S1,S5,S6,S7",
+    "auto", "", "null", "~", "best_epoch.npz", "log/default"])
+def test_override_values_parse_as_the_jax_config(raw):
+    assert tcfg._parse_value(raw) == jcfg._parse_value(raw)
+
+
+def test_overrides_and_printer():
+    cfg = tcfg.load_config(overrides=["model.dep=2", "+extra.key=[1, 'a']",
+                                      "general.evaluate="])
+    assert cfg.model.dep == 2 and cfg.extra.key == [1, "a"]
+    assert cfg.general.evaluate is None
+    with pytest.raises(KeyError, match="already exists"):
+        tcfg.apply_overrides(cfg, ["+model.dep=3"])
+    with pytest.raises(KeyError, match="is a value"):
+        tcfg.apply_overrides(cfg, ["+model.dep.x=3"])
+    text = tcfg.to_yaml(cfg)
+    assert "model:\n  diff_model: MixSTE2\n" in text
+    assert "  subjects_train: S1,S5,S6,S7\n" in text
+    assert "  gpu: '0'\n" in text and "  checkpoint: ''\n" in text
+    assert cfg.to_dict()["gpu"]["use_pallas"] == "auto"

@@ -13,13 +13,18 @@ Bounds (those of chip_smoke.py; TF32 off on both sides):
   block_train forward    1e-4 max abs (float32 arithmetic for either dtype;
                          a bfloat16 output is compared after both round);
   block_train backward   1e-4 x max|plain gradient| per tensor (dx and the 14
-                         parameter gradients).
+                         parameter gradients);
+  fused_attention        float32 1e-5 max abs (float32 throughout, sums in
+                         another order); bfloat16 x: 2^-7 |y| + 1e-5
+                         elementwise (one bf16 ulp of the one rounded
+                         output, plus the float32 bound).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pafuse_tpu_torch.ops.attention import attention_reference, fused_attention
 from pafuse_tpu_torch.ops.block import block_reference, fused_block
 from pafuse_tpu_torch.ops.block_train import (block_train_bwd, block_train_fwd,
                                               train_bwd_reference,
@@ -129,3 +134,63 @@ def test_block_train_bf16_input_on_gpu(cuda_device):
     want_dx, want_grads = train_bwd_reference(x, g, m1, m2, params, HEADS)
     assert max(_rel_errs(grads, want_grads)) <= 1e-4
     assert max(_rel_errs((dx.float(),), (want_dx.float(),))) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,C", [(40, 24, 384), (40, 27, 384),
+                                   (40, 68, 224), (40, 27, 224),
+                                   (40, 42, 256), (40, 21, 256)])
+def test_fused_attention_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L,
+                                                      C):
+    """Kernel #2 at each part's spatial and temporal (L, C) and one unmerged
+    hand; 40 sequences leave ragged GEMM row tiles."""
+    params = _params(C, seed=C + L, device=cuda_device)
+    attn = (params[2], params[3], params[4], params[5])
+    x = _inputs(B, L, C, seed=3, device=cuda_device)[0].to(dtype)
+    launches = fused_attention.launches
+    got = fused_attention(x, *attn, HEADS)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == launches + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = attention_reference(x, *attn, HEADS).float()
+    diff = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert diff.max() <= 1e-5
+    else:
+        assert torch.all(diff <= 2.0 ** -7 * want.abs() + 1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_attention_keeps_leading_dims_on_gpu(cuda_device):
+    params = _params(256, seed=9, device=cuda_device)
+    attn = (params[2], params[3], params[4], params[5])
+    x = _inputs(12, 27, 256, seed=4, device=cuda_device)[0].reshape(3, 4, 27, 256)
+    got = fused_attention(x, *attn, HEADS)
+    assert got.shape == x.shape
+    assert (got - attention_reference(x, *attn, HEADS)).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_unfused_model_runs_kernel_2_on_gpu(cuda_device):
+    """One part network at use_pallas=true: every block's attention is a
+    launch of kernel #2 and none of kernel #1; the output agrees with the
+    plain block (use_pallas=false) within 1e-4 (two blocks deep, each
+    within ~1e-6)."""
+    from pafuse_tpu_torch.models.mixste import (MixSTE2, MixSTEConfig,
+                                                select_block_fn)
+    net = MixSTE2(MixSTEConfig(num_frames=27, num_joints=24, depth=2),
+                  device=cuda_device, use_pallas="true")
+    r = np.random.RandomState(5)
+    x2d, x3d = (torch.tensor(r.randn(4, 27, 24, c), dtype=torch.float32,
+                             device=cuda_device) for c in (2, 3))
+    t = torch.tensor([1, 5, 200, 999], device=cuda_device)
+    launches = (fused_attention.launches, fused_block.launches)
+    with torch.no_grad():
+        got = net(x2d, x3d, t)
+        torch.cuda.synchronize()
+        assert (fused_attention.launches - launches[0],
+                fused_block.launches - launches[1]) == (4, 0)
+        net.block_fn = select_block_fn("false")
+        want = net(x2d, x3d, t)
+    assert (got - want).abs().max() <= 1e-4
