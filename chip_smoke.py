@@ -60,6 +60,32 @@ Phases, one JSON line each:
                one DDIM step of that action under torch.profiler; and a
                short CLI run that trains one step (kernels #5/#6) and
                evaluates (ft2d.debug=true, P=2, T=2).
+  9. block_temporal_kernel - the temporal block kernel (#3) against its
+               plain PyTorch version on (B, 27, N, C) at every part's
+               temporal shape, at the evaluation window batch 64 (B = 1280)
+               in float32 and at serve bucket 16 (B = 320) in float32 and
+               bfloat16, with its time, the plain version's, the path it
+               replaces (transpose, kernel #1, transpose), one PyTorch
+               library composition's (the same transposes around
+               layer_norm + linear + SDPA + gelu, a yardstick only) and
+               the bound.
+ 10. layer_kernel - the layer kernel (#4) the same way for each part, with
+               the temporal position embedding (layer 0) and without, the
+               replaced path being kernel #1 spatial, + tpe, transpose,
+               kernel #1 temporal, transpose.
+ 11. eval_experimental - the CLI evaluating a checkpoint of the eval
+               phase's seeded weights at gpu.use_pallas=block_t and at
+               layer (gpu.experimental_kernels=true), P=10, T=5, float32, on
+               synthetic S8 at data.synthetic_actions=1,
+               data.synthetic_frames=500 (76 windows: one 64-row batch and
+               a 12-row tail): 24*T launches of #3 and 24*T of #1 a window
+               batch at block_t, 24*T of #4 at layer, none of the other
+               kernels; finite metrics, the report's lines; wall seconds,
+               windows/s and frames/s.  Then that action's
+               evaluate_sequences with one injected noise table at block_t,
+               layer, auto and false, and one DDIM step of the 64-row batch
+               at layer and at block_t under torch.profiler (device time by
+               kernel group, copies included, and the idle share).
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without CUDA it exits non-zero at once.
@@ -98,6 +124,13 @@ Tolerances (max abs, elementwise):
                    bfloat16 ulp of the value plus the float32 bound (both
                    sides round only the output, from float32 values that
                    differ by ~1e-6);
+  block_temporal   kernel #3: kernel's bounds (the same block and rounding
+                   points on the transposed rows);
+  layer kernel     kernel #4: float32 1e-4 (two blocks, each within ~1e-6);
+                   bfloat16 max 2^-3 and mean 2e-3, twice kernel's: the
+                   spatial block's output, with its flipped ulps, and the
+                   tpe sum, rounded once more, are the temporal block's
+                   input, so the output carries the flips of two blocks;
   eval             every metric (mm, means over ~10^6 joint errors) within
                    1e-4 relative of the same evaluation with every attention
                    on the plain version, and of the same evaluation on
@@ -107,7 +140,9 @@ Tolerances (max abs, elementwise):
                    relative; the argmin selections of P_Best and J_Agg are
                    made on errors that agree as closely, and a selection
                    that flips at a near-tie moves a mean by its gap over
-                   ~10^5 selections.
+                   ~10^5 selections;
+  eval_experimental block_t and layer within EVAL_RTOL (1e-4) relative of
+                   auto and of false, for the same reasons.
 """
 
 import argparse
@@ -142,6 +177,11 @@ ATTN_TOL_F32 = 1e-5
 ATTN_TOL_BF16 = (2.0 ** -7, 1e-5)       # (relative, absolute)
 EVAL_WINDOWS = 64               # pinned window batch of the eval path
 EVAL_RTOL = 1e-4
+BT_SOURCE = "pafuse_tpu_torch/ops/csrc/block_temporal.cu"
+BT_REPLACES = "pafuse_tpu/ops/attention.py:525"
+LAYER_SOURCE = "pafuse_tpu_torch/ops/csrc/layer.cu"
+LAYER_REPLACES = "pafuse_tpu/ops/attention.py:646"
+LAYER_TOL_BF16 = (2.0 ** -3, 2e-3)      # (max, mean)
 
 
 def emit(obj):
@@ -169,6 +209,23 @@ def cuda_time_ms(fn, reps: int = 5, warm: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+#: sequences per scaled_dot_product_attention call: its bf16 kernels put the
+#: batch on gridDim.y, which holds at most 65535 blocks
+SDPA_CHUNK = 32768
+
+
+def library_sdpa(q, k, v):
+    """scaled_dot_product_attention over (B, H, L, d), in chunks of
+    SDPA_CHUNK sequences where B is larger."""
+    import torch
+    import torch.nn.functional as F
+    if q.shape[0] <= SDPA_CHUNK:
+        return F.scaled_dot_product_attention(q, k, v)
+    return torch.cat([F.scaled_dot_product_attention(
+        q[i:i + SDPA_CHUNK], k[i:i + SDPA_CHUNK], v[i:i + SDPA_CHUNK])
+        for i in range(0, q.shape[0], SDPA_CHUNK)])
+
+
 def library_block(x, bp, on, num_heads, m1=None, m2=None):
     """The same block as one composition of PyTorch library calls
     (layer_norm, cuBLAS linear, scaled_dot_product_attention, gelu), with
@@ -182,7 +239,7 @@ def library_block(x, bp, on, num_heads, m1=None, m2=None):
     h = F.layer_norm(x, (C,), n1s, n1b, 1e-6)
     q, k, v = F.linear(h, wqkv, bqkv).view(B, L, 3, num_heads, d).permute(
         2, 0, 3, 1, 4)
-    a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B, L, C)
+    a = library_sdpa(q, k, v).transpose(1, 2).reshape(B, L, C)
     a = F.linear(a, wproj, bproj)
     x = x + (a if m1 is None else m1.to(x.dtype)[:, None, None] * a)
     h = F.linear(F.gelu(F.linear(F.layer_norm(x, (C,), n2s, n2b, 1e-6),
@@ -219,42 +276,29 @@ def train_bound(B, L, C, itemsize, param_bytes, backward: bool):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def unported_bounds(windows: int, P: int, frames: int):
-    """Float32 bounds (ms, summed over their calls) of the TPU kernels not
-    yet ported, at the serving shapes of kernel #1 (bucket ``windows``, P
-    hypotheses, flip), with block_bound's formula: FLOPs over the float32
-    peak against input and output bytes (and params) once over HBM.
-      #2 pallas_attention: QKV, softmax attention, proj (8*M*C^2 +
-         4*B*L^2*C) at each part's spatial and temporal shape;
-      #3 pallas_block_temporal: the block at each part's temporal shape;
-      #4 pallas_layer: spatial block + temporal block of one part, reading
-         and writing the (B, F, N, C) activation once."""
-    from pafuse_tpu_torch.models.parts import PART_CHANNELS
-    from pafuse_tpu_torch.skeleton import parts_table
+def layer_bound(B, F, N, C, dtype_name, param_bytes):
+    """Least time for one call of kernel #4 (B, F, N, C): both blocks'
+    operations, 16*M*C^2 + 4*B*F*N^2*C spatial and 16*M*C^2 +
+    4*B*N*F^2*C temporal (M = B*F*N), over the peak for the operand type,
+    against x read once, the output written once and the params (both
+    blocks', and tpe) over HBM."""
+    M = B * F * N
+    flops = 32 * M * C * C + 4 * B * F * N * N * C + 4 * B * N * F * F * C
+    itemsize = 4 if dtype_name == "float32" else 2
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = (2 * M * C * itemsize + param_bytes) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
-    def ms(flops, nbytes):
-        return max(flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S) * 1e3
 
-    seqs = windows * P * 2
-    out = {"pallas_attention": 0.0, "pallas_block_temporal": 0.0,
-           "pallas_layer": 0.0}
-    for part, joints in parts_table(True).items():
-        N, C = len(joints), PART_CHANNELS[part]
-        block_bytes = 4 * (8 * C * C + 13 * C)          # 14 block tensors
-        act = 2 * seqs * frames * N * C * 4             # x in, y out
-        layer_flops = 0
-        for B, L in ((seqs * frames, N), (seqs * N, frames)):
-            M = B * L
-            out["pallas_attention"] += ms(8 * M * C * C + 4 * B * L * L * C,
-                                          act + 4 * (4 * C * C + 4 * C))
-            layer_flops += 16 * M * C * C + 4 * B * L * L * C
-        out["pallas_block_temporal"] += ms(
-            16 * M * C * C + 4 * B * L * L * C, act + block_bytes)
-        out["pallas_layer"] += ms(layer_flops,
-                                  act + 2 * block_bytes + 4 * frames * C)
-    emit({"phase": "bounds", "bucket": windows, "P": P, "dtype": "float32",
-          "bound_ms": out})
-    return out
+def _within(diff, dtype, bf16_tol) -> bool:
+    """A block kernel's bound: KERNEL_TOL_F32 max abs in float32,
+    ``bf16_tol`` = (max, mean) abs in bfloat16."""
+    import torch
+    if dtype == torch.float32:
+        return bool(diff.max() <= KERNEL_TOL_F32)
+    max_tol, mean_tol = bf16_tol
+    return bool(diff.max() <= max_tol and diff.mean() <= mean_tol)
 
 
 def kernel_phase(seed: int, windows: int, P: int, frames: int):
@@ -287,11 +331,7 @@ def kernel_phase(seed: int, windows: int, P: int, frames: int):
             sync(dev)           # a fault inside the kernel surfaces here
             want = block_reference(x, bp, on, heads)
             diff = (got.float() - want.float()).abs()
-            if dtype == torch.float32:
-                ok = bool(diff.max() <= KERNEL_TOL_F32)
-            else:
-                max_tol, mean_tol = KERNEL_TOL_BF16
-                ok = bool(diff.max() <= max_tol and diff.mean() <= mean_tol)
+            ok = _within(diff, dtype, KERNEL_TOL_BF16)
             lib_bp = tuple(t.to(dtype) for t in bp)
             lib_on = tuple(t.to(dtype) for t in on)
             ms = cuda_time_ms(lambda: fused_block(x, bp, on, heads))
@@ -701,14 +741,21 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
     return launches
 
 
-#: kernel-name patterns of the port's CUDA sources (and cuBLAS), for the
-#: profiles; the first pattern found in a kernel's name names its group
-KERNEL_GROUPS = (("gemm_kernel<0", "forward GEMMs"),
+#: the profiles' group of PyTorch's copy kernels (.contiguous() of a
+#: transposed tensor, dtype and device copies)
+COPY_GROUP = "copies (transposes, .contiguous())"
+
+#: kernel-name patterns of the port's CUDA sources (and PyTorch's copies and
+#: cuBLAS), for the profiles; the first pattern found in a kernel's name
+#: names its group
+KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
+                 ("gemm_kernel<0", "forward GEMMs"),
                  ("gemm_kernel<1", "data-gradient GEMMs"),
                  ("wgrad_kernel", "weight-gradient GEMMs"),
                  ("attn_bwd_kernel", "attention backward"),
                  ("attention_kernel", "attention forward"),
-                 ("linear_kernel", "kernel #2 GEMMs (qkv, proj)"),
+                 ("linear_kernel", "tiled GEMMs (linear_kernel: #1-#4)"),
+                 ("layernorm_kernel", "outer LayerNorm (#1, #3, #4)"),
                  ("ln_bwd_kernel", "LayerNorm backward"),
                  ("ln_fwd_kernel", "LayerNorm forward"),
                  ("colsum_kernel", "bias-gradient sums"),
@@ -717,11 +764,12 @@ KERNEL_GROUPS = (("gemm_kernel<0", "forward GEMMs"),
 
 
 def profile_step(run_step, phase="train_profile",
-                 rest="PyTorch (embedding, head, loss, AdamW, copies)"):
+                 rest="PyTorch (embedding, head, loss, AdamW)", **fields):
     """``run_step`` under torch.profiler: device time by kernel group (the
-    port's kernels by source pattern, cuBLAS, the rest as ``rest``) and the
-    device's idle share of its wall time (host clock, profiler overhead
-    included).  ``run_step`` ends by reading a result from the device."""
+    port's kernels by source pattern, PyTorch's copy kernels, cuBLAS, the
+    rest as ``rest``), the copies' device time and the device's idle share
+    of its wall time (host clock, profiler overhead included), emitted with
+    ``fields``.  ``run_step`` ends by reading a result from the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -739,32 +787,25 @@ def profile_step(run_step, phase="train_profile",
         group = next((g for pat, g in KERNEL_GROUPS if pat in e.key), rest)
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     device_ms = sum(groups.values())
-    emit({"phase": phase, "wall_ms": wall_ms,
+    emit({"phase": phase, **fields, "wall_ms": wall_ms,
           "device_ms": device_ms if kernels else "not measured",
+          "copies_ms": groups.get(COPY_GROUP, 0.0) if kernels
+          else "not measured",
           "idle_share": 1 - device_ms / wall_ms if kernels else "not measured",
           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
           "kernel_launches": sum(e.count for e in kernels)})
 
 
-#: sequences per scaled_dot_product_attention call: its bf16 kernels put the
-#: batch on gridDim.y, which holds at most 65535 blocks
-SDPA_CHUNK = 32768
-
-
 def library_attention(x, wqkv, bqkv, wproj, bproj, num_heads):
     """The attention as PyTorch library calls in x's dtype (cuBLAS linear,
-    scaled_dot_product_attention over chunks of SDPA_CHUNK sequences,
-    linear): the yardstick ``library_ms`` of kernel #2.  The port never
-    calls it."""
-    import torch
+    library_sdpa, linear): the yardstick ``library_ms`` of kernel #2.  The
+    port never calls it."""
     import torch.nn.functional as F
     B, L, C = x.shape
     d = C // num_heads
     q, k, v = F.linear(x, wqkv, bqkv).view(B, L, 3, num_heads, d).permute(
         2, 0, 3, 1, 4)
-    a = torch.cat([F.scaled_dot_product_attention(
-        q[i:i + SDPA_CHUNK], k[i:i + SDPA_CHUNK], v[i:i + SDPA_CHUNK])
-        for i in range(0, B, SDPA_CHUNK)])
+    a = library_sdpa(q, k, v)
     return F.linear(a.transpose(1, 2).reshape(B, L, C), wproj, bproj)
 
 
@@ -839,6 +880,155 @@ def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
     return results
 
 
+def frames_as_tokens(block, x, *args):
+    """A (B, L, C) block function on the (B*N, F, C) frame sequences of x
+    (B, F, N, C), transposed back: the temporal block as the layer runs it
+    without kernel #3, two device-memory transposes around the block."""
+    B, F, N, C = x.shape
+    y = block(x.transpose(1, 2).reshape(B * N, F, C), *args)
+    return y.view(B, N, F, C).transpose(1, 2).contiguous()
+
+
+def layer_of_blocks(block, x, spatial, temporal, num_heads, tpe=None):
+    """One layer as two calls of a (B, L, C) block function: the spatial
+    block on (B*F, N, C), + tpe, and the temporal block through
+    frames_as_tokens; with fused_block it is the path kernel #4 replaces,
+    with library_block its yardstick."""
+    B, F, N, C = x.shape
+    ys = block(x.reshape(B * F, N, C), *spatial, num_heads).view(B, F, N, C)
+    if tpe is not None:
+        ys = ys + tpe.to(x.dtype)[None, :, None, :]
+    return frames_as_tokens(block, ys, *temporal, num_heads)
+
+
+def block_temporal_kernel_phase(seed: int, windows: int, P: int, frames: int,
+                                dtypes=("float32", "bfloat16"),
+                                shapes="serve"):
+    """Kernel #3 against its plain version at each part's temporal shape,
+    x (windows*P*2, frames, N, C): its time, the plain version's, the path
+    it replaces (transpose, kernel #1, transpose), the library yardstick
+    (the same transposes around library_block) and the bound."""
+    import torch
+    from pafuse_tpu_torch.models.parts import PART_CHANNELS
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.ops.block_temporal import (block_temporal_reference,
+                                                     fused_block_temporal)
+    from pafuse_tpu_torch.skeleton import parts_table
+    from pafuse_tpu_torch.utils.device import sync
+
+    dev = torch.device("cuda")
+    heads = 8
+    B = windows * P * 2                     # windows x hypotheses x flip
+    results = []
+    for i, (part, joints) in enumerate(parts_table(True).items()):
+        N, C = len(joints), PART_CHANNELS[part]
+        g = torch.Generator().manual_seed(seed * 100 + 110 + i)
+        params = _random_block_params(C, g, dev)
+        bp, on = params[:12], params[12:]
+        param_bytes = 4 * sum(t.numel() for t in params)
+        x32 = torch.randn(B, frames, N, C, generator=g).to(dev)
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            x = x32.to(dtype)
+            got = fused_block_temporal(x, bp, on, heads)
+            sync(dev)           # a fault inside a kernel surfaces here
+            want = block_temporal_reference(x, bp, on, heads)
+            diff = (got.float() - want.float()).abs()
+            ok = _within(diff, dtype, KERNEL_TOL_BF16)
+            del got, want
+            lib_bp = tuple(t.to(dtype) for t in bp)
+            lib_on = tuple(t.to(dtype) for t in on)
+            ms = cuda_time_ms(lambda: fused_block_temporal(x, bp, on, heads))
+            plain_ms = cuda_time_ms(lambda: block_temporal_reference(
+                x, bp, on, heads))
+            replaced_ms = cuda_time_ms(lambda: frames_as_tokens(
+                fused_block, x, bp, on, heads))
+            lib_ms = cuda_time_ms(lambda: frames_as_tokens(
+                library_block, x, lib_bp, lib_on, heads))
+            bound_ms, bound_by = block_bound(B * N, frames, C, name,
+                                             param_bytes)
+            r = {"phase": "block_temporal_kernel",
+                 "name": "fused_block_temporal", "shapes": shapes,
+                 "part": part, "dtype": name, "B": B, "F": frames, "N": N,
+                 "C": C, "max_abs_err": float(diff.max()),
+                 "mean_abs_err": float(diff.mean()), "ok": ok, "ms": ms,
+                 "plain_ms": plain_ms, "replaced_ms": replaced_ms,
+                 "library_ms": lib_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by}
+            emit(r)
+            results.append(r)
+            del diff
+        del x32, x
+        torch.cuda.empty_cache()
+    return results
+
+
+def layer_kernel_phase(seed: int, windows: int, P: int, frames: int,
+                       dtypes=("float32", "bfloat16"), shapes="serve"):
+    """Kernel #4 against its plain version for each part, x
+    (windows*P*2, frames, N, C), with the temporal position embedding
+    (layer 0) and without (layers 1-7): its time, the plain version's, the
+    path it replaces (kernel #1 spatial, + tpe, transpose, kernel #1
+    temporal, transpose), the library yardstick (the same path on
+    library_block) and the bound."""
+    import torch
+    from pafuse_tpu_torch.models.parts import PART_CHANNELS
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.ops.layer import fused_layer, layer_reference
+    from pafuse_tpu_torch.skeleton import parts_table
+    from pafuse_tpu_torch.utils.device import sync
+
+    dev = torch.device("cuda")
+    heads = 8
+    B = windows * P * 2
+    results = []
+    for i, (part, joints) in enumerate(parts_table(True).items()):
+        N, C = len(joints), PART_CHANNELS[part]
+        g = torch.Generator().manual_seed(seed * 100 + 130 + i)
+        sparams = _random_block_params(C, g, dev)
+        tparams = _random_block_params(C, g, dev)
+        tpe = torch.randn(frames, C, generator=g).to(dev)
+        blocks = (sparams[:12], sparams[12:], tparams[:12], tparams[12:])
+        param_bytes = 4 * sum(t.numel() for t in sparams + tparams)
+        x32 = torch.randn(B, frames, N, C, generator=g).to(dev)
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            x = x32.to(dtype)
+            lib = [tuple(t.to(dtype) for t in ts) for ts in blocks]
+            for t in (tpe, None):
+                got = fused_layer(x, *blocks, heads, tpe=t)
+                sync(dev)
+                want = layer_reference(x, *blocks, heads, tpe=t)
+                diff = (got.float() - want.float()).abs()
+                ok = _within(diff, dtype, LAYER_TOL_BF16)
+                del got, want
+                ms = cuda_time_ms(lambda: fused_layer(x, *blocks, heads,
+                                                      tpe=t))
+                plain_ms = cuda_time_ms(lambda: layer_reference(
+                    x, *blocks, heads, tpe=t))
+                replaced_ms = cuda_time_ms(lambda: layer_of_blocks(
+                    fused_block, x, blocks[:2], blocks[2:], heads, t))
+                lib_ms = cuda_time_ms(lambda: layer_of_blocks(
+                    library_block, x, lib[:2], lib[2:], heads, t))
+                bound_ms, bound_by = layer_bound(
+                    B, frames, N, C, name,
+                    param_bytes + (0 if t is None else 4 * t.numel()))
+                r = {"phase": "layer_kernel", "name": "fused_layer",
+                     "shapes": shapes, "part": part, "dtype": name,
+                     "tpe": t is not None, "B": B, "F": frames, "N": N,
+                     "C": C, "max_abs_err": float(diff.max()),
+                     "mean_abs_err": float(diff.mean()), "ok": ok, "ms": ms,
+                     "plain_ms": plain_ms, "replaced_ms": replaced_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+                emit(r)
+                results.append(r)
+                del diff
+        del x32, x
+        torch.cuda.empty_cache()
+    return results
+
+
 #: the eval phase's synthetic test set (data.synthetic_actions and
 #: data.synthetic_frames): subject S8, 2 actions x 4 cameras x 1000 frames,
 #: so that each action dispatches two full batches of the pinned 64 windows
@@ -850,11 +1040,58 @@ EVAL_ACTIONS, EVAL_CAMERAS, EVAL_FRAMES = 2, 4, 1000
 REPORT_VOCABULARY = ("----", "step ", "-----------------> Part-Based", " ")
 
 
-def _set_block_fn(model, use_pallas):
-    from pafuse_tpu_torch.models.mixste import MixSTE2, select_block_fn
+def _set_use_pallas(model, use_pallas):
+    """Every part network of ``model`` on the eval functions of
+    ``use_pallas``, the experimental gate open."""
+    from pafuse_tpu_torch.models.mixste import MixSTE2
     for m in model.modules():
         if isinstance(m, MixSTE2):
-            m.block_fn = select_block_fn(use_pallas)
+            m.set_use_pallas(use_pallas, experimental_kernels=True)
+
+
+def _wrappers():
+    """name -> the kernel wrapper whose ``launches`` counts its launches."""
+    from pafuse_tpu_torch.ops.attention import fused_attention
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.ops.block_temporal import fused_block_temporal
+    from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
+                                                  block_train_fwd)
+    from pafuse_tpu_torch.ops.layer import fused_layer
+    return {"fused_block": fused_block, "fused_attention": fused_attention,
+            "fused_block_temporal": fused_block_temporal,
+            "fused_layer": fused_layer, "block_train_fwd": block_train_fwd,
+            "block_train_bwd": block_train_bwd}
+
+
+def _launch_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _expect(**launches):
+    """Launch counts with every wrapper not named at 0."""
+    return {name: launches.get(name, 0) for name in _wrappers()}
+
+
+def _check_report(out_dir, P, T, what):
+    """The CLI's report file holds only lines of the reference's vocabulary,
+    with its last step's J_Agg and part-based RIGHT HAND lines; returns its
+    line count."""
+    report = os.path.join(out_dir, f"h36m_test_log_H{P}_K{T}.txt")
+    with open(report) as f:
+        lines = f.read().splitlines()
+    bad = [ln for ln in lines if not ln.startswith(REPORT_VOCABULARY)]
+    need = [f"step {T - 1} : Protocol #1 Error (MPJPE) J_Agg: ",
+            f"step {T - 1} Protocol #1   (MPJPE) action-wise average P_Agg "
+            "(Part-Based) RIGHT HAND: "]
+    if bad or not all(any(ln.startswith(n) for ln in lines) for n in need):
+        raise AssertionError(f"{what}: report {report} lacks the reference "
+                             f"lines or has others: {bad[:3]}")
+    return len(lines)
 
 
 def _cli(argv, log_path):
@@ -883,21 +1120,7 @@ def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
     from pafuse_tpu_torch.data import h3wb
     from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
     from pafuse_tpu_torch.evaluate import _tail_rows
-    from pafuse_tpu_torch.ops.attention import fused_attention
-    from pafuse_tpu_torch.ops.block import fused_block
-    from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
-                                                  block_train_fwd)
     from pafuse_tpu_torch.skeleton import parts_table
-
-    def counts():
-        return {"fused_attention": fused_attention.launches,
-                "fused_block": fused_block.launches,
-                "block_train_fwd": block_train_fwd.launches,
-                "block_train_bwd": block_train_bwd.launches}
-
-    def reset():
-        fused_attention.launches = fused_block.launches = 0
-        block_train_fwd.launches = block_train_bwd.launches = 0
 
     # full width (the D3DPConfig defaults), the CLI's defaults beside
     cfg = D3DPConfig(depth=depth, num_proposals=P, sampling_timesteps=T)
@@ -923,15 +1146,14 @@ def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
     # main path: the CLI evaluating the checkpoint at use_pallas=true
     out_dir = os.path.join(workdir, "eval")
     cli_log = os.path.join(workdir, "cli.log")
-    reset()
+    _reset_launches()
     t0 = time.time()
     out = _cli(cli + synthetic + [
         f"ft2d.num_proposals={P}", f"ft2d.sampling_timesteps={T}",
         f"general.evaluate={ckpt}", f"general.checkpoint={out_dir}"], cli_log)
     wall_s = time.time() - t0
-    launches = counts()
-    if launches != {"fused_attention": per_batch * batches, "fused_block": 0,
-                    "block_train_fwd": 0, "block_train_bwd": 0}:
+    launches = _launch_counts()
+    if launches != _expect(fused_attention=per_batch * batches):
         raise AssertionError(f"eval: launches {launches}, expected "
                              f"{per_batch} x {batches} batches of kernel #2")
     rows = out["batches"] * out["window_batch"] - out["tail_rows_saved"]
@@ -945,16 +1167,7 @@ def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
     avg = out["final"]["all"]
     if not all(np.all(np.isfinite(v)) for v in avg.values()):
         raise AssertionError(f"eval: non-finite metrics {avg}")
-    report = os.path.join(out_dir, f"h36m_test_log_H{P}_K{T}.txt")
-    with open(report) as f:
-        lines = f.read().splitlines()
-    bad = [ln for ln in lines if not ln.startswith(REPORT_VOCABULARY)]
-    need = [f"step {T - 1} : Protocol #1 Error (MPJPE) J_Agg: ",
-            f"step {T - 1} Protocol #1   (MPJPE) action-wise average P_Agg "
-            "(Part-Based) RIGHT HAND: "]
-    if bad or not all(any(ln.startswith(n) for ln in lines) for n in need):
-        raise AssertionError(f"eval: report {report} lacks the reference "
-                             f"lines or has others: {bad[:3]}")
+    report_lines = _check_report(out_dir, P, T, "eval")
     eval_s = out["eval_seconds"]
     emit({"phase": "eval", "P": P, "T": T, "depth": cfg.depth,
           "windows": out["windows"], "batches": out["batches"],
@@ -963,7 +1176,7 @@ def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
           "launches": launches, "cli_wall_s": wall_s,
           "eval_s": eval_s, "windows_per_s": out["windows"] / eval_s,
           "frames_per_s": out["windows"] * rf / eval_s,
-          "report_lines": len(lines),
+          "report_lines": report_lines,
           "final_step": {k: float(np.atleast_1d(v)[-1])
                          for k, v in sorted(avg.items())}})
 
@@ -981,7 +1194,7 @@ def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
     checkpoints.load_state(ckpt, model)
     means, seconds = {}, {}
     for use_pallas in ("true", "false", "auto"):
-        _set_block_fn(model, use_pallas)
+        _set_use_pallas(model, use_pallas)
         t0 = time.time()
         acc, _ = ev.evaluate_sequences(model, seqs, receptive_field=rf,
                                        num_proposals=P, sampling_timesteps=T,
@@ -997,7 +1210,7 @@ def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
         raise AssertionError(f"eval: kernel #2 path disagrees: {errs}")
 
     # where the time goes: one DDIM step of that action at use_pallas=true
-    _set_block_fn(model, "true")
+    _set_use_pallas(model, "true")
     if on_card:
         profile_step(lambda: ev.evaluate_sequences(
             model, seqs, receptive_field=rf, num_proposals=P,
@@ -1009,17 +1222,16 @@ def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
 
     # the trainer through the CLI: one step, then the evaluations
     train_dir = os.path.join(workdir, "train")
-    reset()
+    _reset_launches()
     t0 = time.time()
     _cli(cli + ["ft2d.debug=true", "model.epochs=1", "ft2d.num_proposals=2",
                 "ft2d.sampling_timesteps=2", f"general.checkpoint={train_dir}"],
          cli_log)
-    train_launches = counts()
+    train_launches = _launch_counts()
     # one step; the per-epoch eval (P=1, T=1) and each action's final eval
     # (T=2) dispatch one batch each in quick-debug mode
-    want = {"fused_attention": blocks * (1 + EVAL_ACTIONS * 2),
-            "fused_block": 0, "block_train_fwd": blocks,
-            "block_train_bwd": blocks}
+    want = _expect(fused_attention=blocks * (1 + EVAL_ACTIONS * 2),
+                   block_train_fwd=blocks, block_train_bwd=blocks)
     for name in ("best_epoch.npz", "training_log.txt",
                  "h36m_test_log_H2_K2.txt"):
         if not os.path.exists(os.path.join(train_dir, name)):
@@ -1031,6 +1243,130 @@ def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
         log = f.readline().strip()
     emit({"phase": "eval_cli_train", "seconds": time.time() - t0,
           "launches": train_launches, "training_log": log})
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+#: the eval_experimental phase's synthetic test set: S8, one action x 4
+#: cameras x 500 frames = 76 windows, one full 64-row batch and a tail
+EXP_FRAMES = 500
+
+
+def eval_experimental_phase(seed: int, workdir: str, device: str = "cuda",
+                            depth: int = 8, P: int = 10, T: int = 5):
+    """The evaluation path at use_pallas=block_t and layer (behind
+    gpu.experimental_kernels=true) through the CLI at full width, from a
+    checkpoint of the eval phase's seeded weights (see the module
+    docstring; a CPU rehearsal passes device="cpu" and a smaller depth, P
+    and T, and expects no launches).  Returns {mode: the kernel launches
+    of its CLI run}."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import checkpoints, evaluate as ev
+    from pafuse_tpu_torch.cli import main_h3wb
+    from pafuse_tpu_torch.data import h3wb
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.evaluate import _tail_rows
+    from pafuse_tpu_torch.skeleton import parts_table
+
+    cfg = D3DPConfig(depth=depth, num_proposals=P, sampling_timesteps=T)
+    rf = cfg.frames
+    on_card = torch.device(device).type == "cuda"
+    model = D3DP(cfg, device=device,
+                 generator=torch.Generator().manual_seed(seed))
+    ckpt = checkpoints.save_state(workdir, "seeded", model=model)
+    del model
+    windows = EVAL_CAMERAS * -(-EXP_FRAMES // rf)
+    bs = min(EVAL_WINDOWS, 1 << (windows - 1).bit_length())
+    full, rest = divmod(windows, bs)
+    tail = _tail_rows(rest, bs) if rest else 0
+    batches = full + (rest > 0)
+    # per DDIM step: one layer call of each part network per layer
+    layers = len(parts_table(True)) * depth if on_card else 0
+    want = {"block_t": _expect(fused_block=layers * T * batches,
+                               fused_block_temporal=layers * T * batches),
+            "layer": _expect(fused_layer=layers * T * batches)}
+    cli = ["data.synthetic=true", "general.nolog=true",
+           "data.synthetic_actions=1", f"data.synthetic_frames={EXP_FRAMES}",
+           f"gpu.device={device}", f"model.dep={depth}", f"gpu.seed={seed}",
+           "gpu.experimental_kernels=true", f"ft2d.num_proposals={P}",
+           f"ft2d.sampling_timesteps={T}", f"general.evaluate={ckpt}"]
+    cli_log = os.path.join(workdir, "cli.log")
+    launches = {}
+    for mode in ("block_t", "layer"):
+        out_dir = os.path.join(workdir, f"eval_{mode}")
+        _reset_launches()
+        t0 = time.time()
+        out = _cli(cli + [f"gpu.use_pallas={mode}",
+                          f"general.checkpoint={out_dir}"], cli_log)
+        wall_s = time.time() - t0
+        launches[mode] = _launch_counts()
+        if launches[mode] != want[mode]:
+            raise AssertionError(f"eval_experimental {mode}: launches "
+                                 f"{launches[mode]}, expected {want[mode]}")
+        rows = out["batches"] * out["window_batch"] - out["tail_rows_saved"]
+        if ((out["batches"], out["windows"], out["window_batch"], rows)
+                != (batches, windows, bs, full * bs + tail)):
+            raise AssertionError(
+                f"eval_experimental {mode}: {out['batches']} batches of "
+                f"{out['window_batch']} rows, {rows} rows for "
+                f"{out['windows']} windows")
+        avg = out["final"]["all"]
+        if not all(np.all(np.isfinite(v)) for v in avg.values()):
+            raise AssertionError(f"eval_experimental {mode}: non-finite "
+                                 f"metrics {avg}")
+        eval_s = out["eval_seconds"]
+        emit({"phase": "eval_experimental", "use_pallas": mode, "P": P,
+              "T": T, "depth": depth, "windows": out["windows"],
+              "batches": out["batches"], "window_batch": bs,
+              "tail_rows": tail, "rows": rows, "launches": launches[mode],
+              "cli_wall_s": wall_s, "eval_s": eval_s,
+              "windows_per_s": out["windows"] / eval_s,
+              "frames_per_s": out["windows"] * rf / eval_s,
+              "report_lines": _check_report(out_dir, P, T,
+                                            f"eval_experimental {mode}"),
+              "final_step": {k: float(np.atleast_1d(v)[-1])
+                             for k, v in sorted(avg.items())}})
+
+    # the action with one injected noise table at every mode
+    dataset = h3wb.load_dataset(synthetic=True, actions_per_subject=1,
+                                frames_per_action=EXP_FRAMES)
+    keypoints = h3wb.prepare_data(dataset)
+    action = sorted(main_h3wb.collect_actions(dataset, ["S8"])[0].items())[0]
+    seqs = list(zip(*h3wb.fetch_actions(action[1], keypoints, dataset)))
+    r = np.random.RandomState(seed)
+    table = (r.randn(windows, P, rf, cfg.num_kps, 3).astype(np.float32),
+             r.randn(windows, T, P, rf, cfg.num_kps, 3).astype(np.float32))
+    model = D3DP(cfg, device=device)
+    checkpoints.load_state(ckpt, model)
+    means, seconds = {}, {}
+    for mode in ("block_t", "layer", "auto", "false"):
+        _set_use_pallas(model, mode)
+        t0 = time.time()
+        acc, _ = ev.evaluate_sequences(model, seqs, receptive_field=rf,
+                                       num_proposals=P, sampling_timesteps=T,
+                                       window_batch=bs, noise_table=table)
+        seconds[mode] = time.time() - t0
+        means[mode] = acc.means_mm()
+    errs = {f"{m}_vs_{ref}": _max_rel(means[m], means[ref])
+            for m in ("block_t", "layer") for ref in ("auto", "false")}
+    emit({"phase": "eval_experimental_vs", "action": action[0],
+          "windows": windows, "max_rel_err": errs, "rtol": EVAL_RTOL,
+          "seconds": seconds})
+    if not max(errs.values()) <= EVAL_RTOL:
+        raise AssertionError(f"eval_experimental: modes disagree: {errs}")
+
+    # where the time goes: one DDIM step of the 64-row batch at each mode
+    if on_card:
+        for mode in ("layer", "block_t"):
+            _set_use_pallas(model, mode)
+            profile_step(lambda: ev.evaluate_sequences(
+                model, seqs, receptive_field=rf, num_proposals=P,
+                sampling_timesteps=1, window_batch=bs, quickdebug=True),
+                phase="eval_experimental_profile", use_pallas=mode, rows=bs,
+                rest="PyTorch (embedding, head, sampler, metrics)")
+    del model
     if on_card:
         torch.cuda.empty_cache()
     return launches
@@ -1078,7 +1414,6 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0,
           "libraries": sorted(libs)})
 
-    unported_bounds(windows=16, P=10, frames=27)
     cases = kernel_phase(args.seed, windows=16, P=10, frames=27)
     launches = serve_phase(args.seed)
     bad = [c for c in cases if not c["ok"]]
@@ -1099,10 +1434,25 @@ def main() -> int:
     if bad:
         raise AssertionError(f"fused_attention disagrees with "
                              f"attention_reference: {bad}")
+    bt_cases = block_temporal_kernel_phase(args.seed, EVAL_WINDOWS, P=10,
+                                           frames=27, dtypes=("float32",),
+                                           shapes="eval")
+    serve_bt = block_temporal_kernel_phase(args.seed, windows=16, P=10,
+                                           frames=27)
+    layer_cases = layer_kernel_phase(args.seed, EVAL_WINDOWS, P=10,
+                                     frames=27, dtypes=("float32",),
+                                     shapes="eval")
+    serve_layer = layer_kernel_phase(args.seed, windows=16, P=10, frames=27)
+    bad = [c for c in bt_cases + serve_bt + layer_cases + serve_layer
+           if not c["ok"]]
+    if bad:
+        raise AssertionError(f"a kernel disagrees with its plain version: "
+                             f"{bad}")
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     eval_launches = eval_phase(args.seed, workdir)
+    exp_launches = eval_experimental_phase(args.seed, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
 
     def bf16(cs):
@@ -1110,6 +1460,16 @@ def main() -> int:
         return {f"{k}_bf16": (max if k == "max_abs_err" else sum)(
             c[k] for c in cs) for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "library_ms")}
+
+    def serve16(cs, keys=("ms", "plain_ms", "library_ms", "bound_ms")):
+        cs = [c for c in cs if c["dtype"] == "float32"]
+        return {f"serve_bucket16_{k}": sum(c[k] for c in cs) for k in keys}
+
+    def replaced(cs):
+        return sum(c["replaced_ms"] for c in cs if c["dtype"] == "float32")
+
+    def tpe(cs, with_tpe):
+        return [c for c in cs if c["tpe"] == with_tpe]
 
     fwd = [c for c in train_cases if c["name"] == "block_train_fwd"]
     bwd = [c for c in train_cases if c["name"] == "block_train_bwd"]
@@ -1129,10 +1489,27 @@ def main() -> int:
         # eval shapes (window batch 64); the serve bucket-16 shapes beside
         _kernel_entry("fused_attention", "cuda", ATTN_SOURCE, ATTN_REPLACES,
                       eval_launches["fused_attention"], attn_cases,
-                      **bf16(attn_cases),
-                      **{f"serve_bucket16_{k}": sum(c[k] for c in serve_attn)
-                         for k in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms")}),
+                      **bf16(attn_cases), **serve16(serve_attn)),
+        # eval shapes, the serve bucket-16 shapes beside; replaced_ms is the
+        # path each kernel replaces (kernel #1 and the transposes)
+        _kernel_entry("fused_block_temporal", "cuda", BT_SOURCE, BT_REPLACES,
+                      exp_launches["block_t"]["fused_block_temporal"],
+                      bt_cases, replaced_ms=replaced(bt_cases),
+                      **bf16(serve_bt),
+                      **serve16(serve_bt, ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "replaced_ms"))),
+        # layers 1-7 (no tpe); layer 0's times (with tpe) beside
+        _kernel_entry("fused_layer", "cuda", LAYER_SOURCE, LAYER_REPLACES,
+                      exp_launches["layer"]["fused_layer"],
+                      tpe(layer_cases, False),
+                      replaced_ms=replaced(tpe(layer_cases, False)),
+                      tpe_ms=sum(c["ms"] for c in tpe(layer_cases, True)),
+                      max_abs_err_tpe=max(c["max_abs_err"]
+                                          for c in tpe(layer_cases, True)),
+                      **bf16(tpe(serve_layer, False)),
+                      **serve16(tpe(serve_layer, False),
+                                ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "replaced_ms"))),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,7 +12,8 @@ action at the config's P and T and appends the reports to
 ``general.evaluate=<checkpoint>`` (a port or JAX ``.npz``, or a reference
 ``.bin``) it only evaluates.  It runs on ``gpu.device`` (CUDA by default;
 it raises without CUDA unless ``gpu.device=cpu``); ``gpu.use_pallas``
-selects the evaluation block.  It logs to ``logging.log`` and
+selects the evaluation block (``block_t`` and ``layer`` only with
+``gpu.experimental_kernels=true``).  It logs to ``logging.log`` and
 ``training_log.txt``; MLflow and TensorBoard are not ported.
 """
 
@@ -33,7 +34,9 @@ from pafuse_tpu_torch.utils.misc import Logger, Timer
 def build_model(args, device, flip_permutation=None):
     """The D3DP of the config: part-based unless
     ``general.part_based_model=false``, stochastic depth 0.1 in training,
-    the evaluation block of ``gpu.use_pallas``, weights from ``gpu.seed``.
+    the evaluation functions of ``gpu.use_pallas`` behind the
+    ``gpu.experimental_kernels`` gate (read per build, as the JAX CLI
+    does), weights from ``gpu.seed``.
     One module serves training (``.train()``, the training kernels) and
     evaluation (``.eval()``)."""
     import torch
@@ -70,7 +73,9 @@ def build_model(args, device, flip_permutation=None):
     )
     model = D3DP(cfg, device=device,
                  generator=torch.Generator().manual_seed(int(args.gpu.seed)),
-                 use_pallas=args.gpu.use_pallas)
+                 use_pallas=args.gpu.use_pallas,
+                 experimental_kernels=str(args.gpu.experimental_kernels).lower()
+                 in ("true", "1", "on", "yes"))
     if flip_permutation is not None:
         model.flip_permutation = np.asarray(flip_permutation)
     return model

@@ -92,9 +92,13 @@ DEFAULTS: Dict[str, Dict[str, Any]] = {
     "in_the_wild": {"video_path": ""},
     "gpu": {
         "device": "cuda",               # cuda | cuda:N | cpu
-        "use_pallas": "auto",           # auto | block: kernel #1; true:
-                                        # kernel #2 in the unfused block;
-                                        # false: the plain block
+        # auto | block: kernel #1; true: kernel #2 in the unfused block;
+        # false: the plain block; block_t: kernel #3 on temporal blocks and
+        # #1 on spatial ones; layer: kernel #4 on every layer (block_t and
+        # layer need experimental_kernels=true)
+        "use_pallas": "auto",
+        "experimental_kernels": False,  # unlock the JAX package's retained
+                                        # negative-result A/B paths
         # parse-compatible keys of the JAX config: a user's override carries
         # over, and the values whose path is not ported raise in build_model
         "train_kernel": "auto",         # auto | true: kernels #5/#6

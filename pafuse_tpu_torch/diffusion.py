@@ -108,13 +108,13 @@ class D3DP(nn.Module):
     ``pose_estimator`` is the :class:`PartModel`, so ``state_dict()`` keys
     are the reference's ``pose_estimator.{part}.…`` names.  The module
     starts in eval mode; :meth:`train_forward` needs ``.train()``.
-    ``use_pallas`` selects the eval-mode block of every part network
-    (``models.mixste.select_block_fn``); training always runs the training
-    block kernels."""
+    ``use_pallas`` and ``experimental_kernels`` select the eval-mode
+    functions of every part network (``models.mixste.MixSTE2.
+    set_use_pallas``); training always runs the training block kernels."""
 
     def __init__(self, cfg: D3DPConfig, device="cuda",
                  generator: torch.Generator | None = None,
-                 use_pallas="auto"):
+                 use_pallas="auto", experimental_kernels: bool = False):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -129,7 +129,7 @@ class D3DP(nn.Module):
             specs = monolithic_spec(cfg.num_kps, cfg.frames, cfg.input_size,
                                     cfg.cs, cfg.depth, **rates)
         self.pose_estimator = PartModel(specs, self.device, generator,
-                                        use_pallas)
+                                        use_pallas, experimental_kernels)
         if cfg.num_kps != sk.NUM_JOINTS:
             raise ValueError(f"num_kps={cfg.num_kps}: only the "
                              f"{sk.NUM_JOINTS}-joint H3WB layout is ported")

@@ -10,11 +10,17 @@ LayerNorm, goes through one function.  In eval mode (the default after
 construction) that is ``block_fn``, chosen by ``use_pallas`` as the JAX
 package chooses ``block_fn``/``attention_fn`` (:func:`select_block_fn`):
 ``ops.block.fused_block`` (kernel #1) or :func:`unfused_block` with
-``ops.attention.fused_attention`` (kernel #2) as its attention.  In train
-mode (``.train()``) it is ``train_block_fn``, ``ops.block_train.block_train``,
-the differentiable block with stochastic-depth branch masks (rates
-``linspace(0, drop_path_rate, depth)``), whatever ``use_pallas`` says.  The
-kernels run on the GPU and their plain versions on the CPU.
+``ops.attention.fused_attention`` (kernel #2) as its attention.  Two
+experimental values, behind the ``experimental_kernels`` gate as in the JAX
+package, take blocks off ``block_fn``: ``block_t`` runs every temporal block
+through ``block_t_fn``, ``ops.block_temporal.fused_block_temporal`` (kernel
+#3), on the (B, F, N, C) activation without a transpose, and ``layer`` runs
+every layer through ``layer_fn``, ``ops.layer.fused_layer`` (kernel #4).
+In train mode (``.train()``) every block goes through ``train_block_fn``,
+``ops.block_train.block_train``, the differentiable block with
+stochastic-depth branch masks (rates ``linspace(0, drop_path_rate,
+depth)``), whatever ``use_pallas`` says.  The kernels run on the GPU and
+their plain versions on the CPU.
 
 Numerics (float32): block, Spatial and Temporal norms use eps 1e-6, the
 head norm torch's default 1e-5; GELU is exact.
@@ -34,7 +40,9 @@ import torch.nn.functional as F
 
 from pafuse_tpu_torch.ops.attention import attention_reference, fused_attention
 from pafuse_tpu_torch.ops.block import fused_block
+from pafuse_tpu_torch.ops.block_temporal import fused_block_temporal
 from pafuse_tpu_torch.ops.block_train import block_train
+from pafuse_tpu_torch.ops.layer import fused_layer
 from pafuse_tpu_torch.utils.device import resolve_device
 
 #: per block, the (attention, MLP) branch masks, one value per sample
@@ -148,33 +156,64 @@ def unfused_block(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     return F.layer_norm(x, (C,), outer_norm[0], outer_norm[1], 1e-6)
 
 
-def select_block_fn(use_pallas="auto"):
+def _require_experimental(mode: str, experimental_kernels: bool) -> None:
+    """The counterpart of the JAX package's ``require_experimental``."""
+    if not experimental_kernels:
+        raise ValueError(
+            f"use_pallas={mode} is an EXPERIMENTAL path (a retained "
+            "negative-result A/B variant of the JAX package), not a supported "
+            "execution path. Set gpu.experimental_kernels=true (CLI) or pass "
+            "experimental_kernels=True to run it anyway.")
+
+
+def select_block_fn(use_pallas="auto", experimental_kernels: bool = False):
     """The eval-mode block function for ``use_pallas`` (the JAX package's
     ``tpu.use_pallas`` values; booleans as a config parser gives them):
 
     * ``auto``/``block``: ``fused_block``, kernel #1;
     * ``true``: :func:`unfused_block` with ``fused_attention``, kernel #2;
     * ``false``: :func:`unfused_block` with ``attention_reference``, the
-      plain block that mirrors the JAX package's XLA path.
+      plain block that mirrors the JAX package's XLA path;
+    * ``block_t``: ``fused_block``, which then runs the spatial blocks (the
+      temporal ones go to :func:`select_block_t_fn`'s kernel #3);
+    * ``layer``: :func:`unfused_block` with ``fused_attention``, the JAX
+      package's ``block_fn``/``attention_fn`` pair for ``layer``, which
+      :func:`select_layer_fn`'s kernel #4 leaves no block to run.
 
-    ``block_t`` and ``layer`` select kernels #3 and #4, which are not ported
-    yet, and raise ``NotImplementedError``."""
+    ``block_t`` and ``layer`` raise ``ValueError`` unless
+    ``experimental_kernels`` opens the gate."""
     mode = str(use_pallas).lower()
-    if mode in ("auto", "block"):
+    if mode in ("block_t", "layer"):
+        _require_experimental(mode, experimental_kernels)
+    if mode in ("auto", "block", "block_t"):
         return fused_block
-    if mode == "true":
+    if mode in ("true", "layer"):
         return functools.partial(unfused_block, attention_fn=fused_attention)
     if mode == "false":
         return functools.partial(unfused_block,
                                  attention_fn=attention_reference)
-    if mode in ("block_t", "layer"):
-        kernel = ("#3 pallas_block_temporal" if mode == "block_t"
-                  else "#4 pallas_layer")
-        raise NotImplementedError(
-            f"use_pallas={mode} selects TPU kernel {kernel}, which is not "
-            "ported yet (ROADMAP.md, TPU kernels still to port)")
     raise ValueError(f"use_pallas={use_pallas!r}: expected auto, block, "
-                     "true or false")
+                     "true, false, block_t or layer")
+
+
+def select_block_t_fn(use_pallas="auto", experimental_kernels: bool = False):
+    """``fused_block_temporal`` (kernel #3) for every temporal block at
+    ``use_pallas=block_t`` (behind the gate), else None."""
+    mode = str(use_pallas).lower()
+    if mode != "block_t":
+        return None
+    _require_experimental(mode, experimental_kernels)
+    return fused_block_temporal
+
+
+def select_layer_fn(use_pallas="auto", experimental_kernels: bool = False):
+    """``fused_layer`` (kernel #4) for every layer at ``use_pallas=layer``
+    (behind the gate), else None."""
+    mode = str(use_pallas).lower()
+    if mode != "layer":
+        return None
+    _require_experimental(mode, experimental_kernels)
+    return fused_layer
 
 
 def init_linear_(lin: nn.Linear, generator: torch.Generator) -> None:
@@ -191,17 +230,18 @@ class MixSTE2(nn.Module):
 
     Weights are drawn on the CPU from ``generator`` (seed 0 when omitted),
     so a seed gives the same weights on every device, then moved to
-    ``device`` once.  The module starts in eval mode; ``use_pallas``
-    selects the eval-mode block (:func:`select_block_fn`)."""
+    ``device`` once.  The module starts in eval mode; ``use_pallas`` and
+    ``experimental_kernels`` select the eval-mode functions
+    (:meth:`set_use_pallas`)."""
 
     def __init__(self, cfg: MixSTEConfig, device="cuda",
                  generator: torch.Generator | None = None,
-                 use_pallas="auto"):
+                 use_pallas="auto", experimental_kernels: bool = False):
         super().__init__()
         self.cfg = cfg
-        # every block goes through these (eval, train); a check may swap in
-        # another select_block_fn choice / block_train_plain
-        self.block_fn = select_block_fn(use_pallas)
+        self.set_use_pallas(use_pallas, experimental_kernels)
+        # every block goes through this in train mode; a check may swap in
+        # block_train_plain
         self.train_block_fn = block_train
         C = cfg.embed_dim
         self.Spatial_patch_to_embedding = nn.Linear(cfg.in_chans, C)
@@ -224,6 +264,15 @@ class MixSTE2(nn.Module):
                 init_linear_(m, gen)
         self.to(resolve_device(device))
         self.eval()
+
+    def set_use_pallas(self, use_pallas, experimental_kernels: bool = False):
+        """Select the eval-mode functions as the JAX CLI selects them:
+        ``block_fn`` (:func:`select_block_fn`), ``block_t_fn`` (kernel #3 at
+        ``block_t``, else None) and ``layer_fn`` (kernel #4 at ``layer``,
+        else None).  A check may also set the three attributes itself."""
+        self.block_fn = select_block_fn(use_pallas, experimental_kernels)
+        self.block_t_fn = select_block_t_fn(use_pallas, experimental_kernels)
+        self.layer_fn = select_layer_fn(use_pallas, experimental_kernels)
 
     def _block(self, block: Block, norm: nn.LayerNorm, x: torch.Tensor,
                masks: Optional[BranchMasks]) -> torch.Tensor:
@@ -270,15 +319,33 @@ class MixSTE2(nn.Module):
         x = (x + self.time_mlp(t)[:, None, None, :]).contiguous()
 
         for i in range(cfg.depth):
-            # spatial: tokens = joints
-            x = self._block(self.STEblocks[i], self.Spatial_norm, x,
-                            masks[2 * i])
-            if i == 0:
-                x = x + self.Temporal_pos_embed[:, :, None, :]
-            # temporal: tokens = frames
-            x = x.transpose(1, 2).contiguous()
-            x = self._block(self.TTEblocks[i], self.Temporal_norm, x,
-                            masks[2 * i + 1])
-            x = x.transpose(1, 2).contiguous()
-
+            x = self._layer(i, x, masks[2 * i], masks[2 * i + 1])
         return self.head(x)
+
+    def _layer(self, i: int, x: torch.Tensor,
+               spatial_masks: Optional[BranchMasks],
+               temporal_masks: Optional[BranchMasks]) -> torch.Tensor:
+        """Layer i on (B, F, N, C): the spatial block, the temporal position
+        embedding on layer 0, the temporal block (``mixste.py:342-413``).
+        In eval mode ``layer_fn`` takes the whole layer and ``block_t_fn``
+        the temporal block in place; otherwise the temporal block runs on
+        the transposed (B, N, F, C) activation."""
+        ste, tte = self.STEblocks[i], self.TTEblocks[i]
+        heads = self.cfg.num_heads
+        temporal_norm = (self.Temporal_norm.weight, self.Temporal_norm.bias)
+        if self.layer_fn is not None and not self.training:
+            return self.layer_fn(
+                x, ste.params(),
+                (self.Spatial_norm.weight, self.Spatial_norm.bias),
+                tte.params(), temporal_norm, heads,
+                tpe=self.Temporal_pos_embed[0] if i == 0 else None)
+        # spatial: tokens = joints
+        x = self._block(ste, self.Spatial_norm, x, spatial_masks)
+        if i == 0:
+            x = x + self.Temporal_pos_embed[:, :, None, :]
+        # temporal: tokens = frames
+        if self.block_t_fn is not None and not self.training:
+            return self.block_t_fn(x, tte.params(), temporal_norm, heads)
+        x = x.transpose(1, 2).contiguous()
+        x = self._block(tte, self.Temporal_norm, x, temporal_masks)
+        return x.transpose(1, 2).contiguous()

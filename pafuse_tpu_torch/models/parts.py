@@ -70,16 +70,18 @@ class PartModel(nn.ModuleDict):
 
     State-dict keys are ``{part}.<MixSTE2 key>``, the reference's names
     under ``pose_estimator.``.  Part networks draw their weights from
-    ``generator`` in spec order; ``use_pallas`` selects their eval-mode
-    block (``mixste.select_block_fn``)."""
+    ``generator`` in spec order; ``use_pallas`` and
+    ``experimental_kernels`` select their eval-mode functions
+    (``MixSTE2.set_use_pallas``)."""
 
     def __init__(self, specs: List[PartSpec], device="cuda",
                  generator: torch.Generator | None = None,
-                 use_pallas="auto"):
+                 use_pallas="auto", experimental_kernels: bool = False):
         dev = resolve_device(device)
         gen = generator if generator is not None else (
             torch.Generator().manual_seed(0))
-        super().__init__({s.name: MixSTE2(s.config, dev, gen, use_pallas)
+        super().__init__({s.name: MixSTE2(s.config, dev, gen, use_pallas,
+                                          experimental_kernels)
                           for s in specs})
         self.specs = specs
         concat_order = np.concatenate([s.joint_indices for s in specs])

@@ -58,6 +58,20 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         "pafuse_block_train_bwd": ([_I] + [_P] * 4 + [_P] * 14 + [_P] * 4
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
     },
+    "block_temporal": {
+        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, B, F, N, C, H,
+        # hidden, scale, stream
+        "pafuse_fused_block_temporal": ([_I] + [_P] * 6 + [_P] * 14
+                                        + [_LL, _I, _I, _I, _I, _I, _F, _P],
+                                        _I),
+    },
+    "layer": {
+        # is_bf16, x, out, ys, qkv, attn, x1, hidden, 14 spatial + 14
+        # temporal params, tpe (or NULL), B, F, N, C, H, hidden, scale,
+        # stream
+        "pafuse_fused_layer": ([_I] + [_P] * 7 + [_P] * 28 + [_P]
+                               + [_LL, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
     "attention": {
         # is_bf16, x, out, qkv scratch, attention scratch, wqkv, bqkv,
         # wproj, bproj, B, L, C, H, scale, stream

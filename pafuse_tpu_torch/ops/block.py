@@ -65,17 +65,21 @@ def block_reference(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     return _layernorm(x2, nos, nob).to(cd)
 
 
+_LAYOUTS = {3: "(B, L, C)", 4: "(B, F, N, C)"}
+
+
 def _check(x: torch.Tensor, params: Sequence[torch.Tensor], num_heads: int,
-           what: str = "fused_block") -> int:
-    """Validate x and the 14 parameters of a block kernel; returns the MLP
-    hidden width."""
-    if x.dim() != 3:
-        raise ValueError(f"{what}: x must be (B, L, C); got {tuple(x.shape)}")
+           what: str = "fused_block", ndim: int = 3) -> int:
+    """Validate x (``ndim`` dims, channels last) and the 14 parameters of a
+    block kernel; returns the MLP hidden width."""
+    if x.dim() != ndim:
+        raise ValueError(f"{what}: x must be {_LAYOUTS[ndim]}; got "
+                         f"{tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: x must be float32 or bfloat16; got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: x must be contiguous")
-    C = x.shape[2]
+    C = x.shape[-1]
     if C % num_heads:
         raise ValueError(f"{what}: C={C} not divisible by {num_heads} heads")
     hidden = params[8].shape[0]

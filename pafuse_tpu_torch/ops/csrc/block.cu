@@ -36,85 +36,14 @@
 // f32 FMAs, so the face head size d = 28 and N = 3*224 need no padding;
 // tensor cores (wgmma) and fusing the chain are later work.
 //
+// The chain is common.cuh's block_chain (shared with kernels #3 and #4),
+// here over contiguous sequences (S = 1).
+//
 // Plain C interface for ctypes: every function returns the cudaError_t of
 // the first launch that failed, or 0.  Nothing here allocates or
 // synchronises; everything launches on the caller's stream.
 
 #include "common.cuh"
-
-namespace {
-
-// ---------------------------------------------------------------------------
-// Row LayerNorm (the outer Spatial/Temporal norm): one warp per row.
-// ---------------------------------------------------------------------------
-
-constexpr int LN_THREADS = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(LN_THREADS)
-layernorm_kernel(const T* __restrict__ X, const float* __restrict__ scale,
-                 const float* __restrict__ bias, T* __restrict__ Y, long long M,
-                 int C) {
-  const int lane = threadIdx.x & 31;
-  const long long m = (long long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
-  if (m >= M) return;
-  const T* row = X + m * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += to_f32<T>(row[c]);
-  const float mean = warp_sum(s) / (float)C;
-  float var = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float dv = to_f32<T>(row[c]) - mean;
-    var += dv * dv;
-  }
-  const float rstd = rsqrtf(warp_sum(var) / (float)C + kLnEps);
-  T* yrow = Y + m * C;
-  for (int c = lane; c < C; c += 32)
-    yrow[c] = from_f32<T>((to_f32<T>(row[c]) - mean) * rstd * scale[c] + bias[c]);
-}
-
-template <typename T>
-cudaError_t fused_block(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
-                        const float* n1s, const float* n1b, const float* wqkv,
-                        const float* bqkv, const float* wproj, const float* bproj,
-                        const float* n2s, const float* n2b, const float* wfc1,
-                        const float* bfc1, const float* wfc2, const float* bfc2,
-                        const float* nos, const float* nob, long long B, int L,
-                        int C, int H, int hid, float scale, cudaStream_t stream) {
-  const long long M = B * L;
-  cudaError_t err;
-
-  // 1. qkv = T(LN1(x) @ Wqkv + bqkv)
-  err = launch_linear<T, T, true, PRO_LAYERNORM, EPI_STORE>(
-      x, wqkv, bqkv, n1s, n1b, nullptr, qkv, M, 3 * C, C, stream);
-  if (err != cudaSuccess) return err;
-
-  // 2. per-head attention
-  err = launch_attention<T>(qkv, attn, B, L, C, H, scale, stream);
-  if (err != cudaSuccess) return err;
-
-  // 3. x1 = x + T(attn @ Wproj + bproj)
-  err = launch_linear<T, T, true, PRO_NONE, EPI_RESIDUAL>(
-      attn, wproj, bproj, nullptr, nullptr, x, x1, M, C, C, stream);
-  if (err != cudaSuccess) return err;
-
-  // 4. hidden = T(gelu(LN2(x1) @ Wfc1 + bfc1))
-  err = launch_linear<T, T, true, PRO_LAYERNORM, EPI_GELU>(
-      x1, wfc1, bfc1, n2s, n2b, nullptr, hidden, M, hid, C, stream);
-  if (err != cudaSuccess) return err;
-
-  // 5. x2 = x1 + T(hidden @ Wfc2 + bfc2), written over the attention buffer
-  err = launch_linear<T, T, true, PRO_NONE, EPI_RESIDUAL>(
-      hidden, wfc2, bfc2, nullptr, nullptr, x1, attn, M, C, hid, stream);
-  if (err != cudaSuccess) return err;
-
-  // 6. out = T(LN_outer(x2))
-  const unsigned ln_grid = (unsigned)((M + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
-  layernorm_kernel<T><<<ln_grid, LN_THREADS, 0, stream>>>(attn, nos, nob, out, M, C);
-  return cudaGetLastError();
-}
-
-}  // namespace
 
 extern "C" int pafuse_fused_block(
     int is_bf16, const void* x, void* out, void* qkv, void* attn, void* x1,
@@ -124,17 +53,17 @@ extern "C" int pafuse_fused_block(
     const float* bfc2, const float* nos, const float* nob, long long B, int L, int C,
     int H, int hid, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p[14] = {n1s, n1b, wqkv, bqkv, wproj, bproj, n2s,
+                        n2b, wfc1, bfc1, wfc2, bfc2, nos, nob};
   if (is_bf16) {
     using T = __nv_bfloat16;
-    return (int)fused_block<T>(
-        static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(qkv),
-        static_cast<T*>(attn), static_cast<T*>(x1), static_cast<T*>(hidden), n1s, n1b,
-        wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2, nos, nob, B, L, C, H,
-        hid, scale, s);
+    return (int)block_chain<T>(static_cast<const T*>(x), static_cast<T*>(out),
+                               static_cast<T*>(qkv), static_cast<T*>(attn),
+                               static_cast<T*>(x1), static_cast<T*>(hidden), p, B, L, 1,
+                               C, H, hid, scale, nullptr, 1, 1, s);
   }
-  return (int)fused_block<float>(
-      static_cast<const float*>(x), static_cast<float*>(out), static_cast<float*>(qkv),
-      static_cast<float*>(attn), static_cast<float*>(x1), static_cast<float*>(hidden),
-      n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2, nos, nob, B, L,
-      C, H, hid, scale, s);
+  return (int)block_chain<float>(static_cast<const float*>(x), static_cast<float*>(out),
+                                 static_cast<float*>(qkv), static_cast<float*>(attn),
+                                 static_cast<float*>(x1), static_cast<float*>(hidden), p,
+                                 B, L, 1, C, H, hid, scale, nullptr, 1, 1, s);
 }

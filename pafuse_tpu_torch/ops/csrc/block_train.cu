@@ -170,9 +170,8 @@ Scratch carve_scratch(float* p, long long M, int C, int hid) {
 // ---------------------------------------------------------------------------
 // Row LayerNorm forward, one warp per row: Y = T(LN(X)), and the row mean
 // and reciprocal standard deviation for the backward.
+// (LN_THREADS threads a CTA, from common.cuh.)
 // ---------------------------------------------------------------------------
-
-constexpr int LN_THREADS = 256;
 
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(LN_THREADS)

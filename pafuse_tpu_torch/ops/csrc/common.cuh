@@ -1,8 +1,9 @@
-// Device helpers shared by the kernels (block.cu, block_train.cu,
-// attention.cu): dtype conversion, warp reductions, the GEMM tile sizes, the
-// tiled linear GEMM of the eval kernels and the per-(sequence, head)
-// attention kernel, in an anonymous namespace of each source that includes
-// them.
+// Device helpers shared by the kernels (block.cu, block_temporal.cu,
+// layer.cu, attention.cu, block_train.cu): dtype conversion, warp
+// reductions, the GEMM tile sizes, the tiled linear GEMM of the eval
+// kernels, the per-(sequence, head) attention kernel, the row LayerNorm and
+// the launch chain of one eval block (block_chain), in an anonymous
+// namespace of each source that includes them.
 
 #pragma once
 
@@ -181,15 +182,21 @@ cudaError_t launch_linear(const TA* A, const float* W, const float* b, const flo
 // reading different keys hit different banks).  One warp per query row:
 // lanes split the keys for the logits, then the head dims for AV.  The
 // probabilities and the output are rounded to T (no-ops for T = float).
-// qkv: (B*L, 3C) in T with [q | k | v] blocks of C; out: (B*L, C) in T.
+// qkv: (rows, 3C) in T with [q | k | v] blocks of C; out: (rows, C) in T.
+//
+// Token l of sequence s lives at row (s / S) * L * S + l * S + s % S: S = 1
+// is the contiguous (seqs, L, C) layout (kernels #1, #2, the spatial half of
+// #4); S = N reads the frames of each (b, joint) sequence straight from a
+// (B, F, N, C) activation (the temporal block of #3 and #4), so no
+// transpose is needed.  Either way a token's d head values are contiguous.
 // ---------------------------------------------------------------------------
 
 constexpr int ATTN_THREADS = 128;
 
 template <typename T>
 __global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int C,
-                 int H, int d, float scale) {
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int S,
+                 int C, int H, int d, float scale) {
   extern __shared__ float smem[];
   const int dp = d | 1;
   float* q = smem;
@@ -197,12 +204,13 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int C,
   float* v = k + L * dp;
   float* p = v + L * dp;
 
-  const long long b = blockIdx.x / H;
+  const long long s = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  const T* base = qkv + b * L * 3LL * C + (long long)h * d;
+  const long long row0 = (s / S) * L * S + s % S;    // row of token 0
+  const T* base = qkv + row0 * 3LL * C + (long long)h * d;
   for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
     const int l = idx / d, c = idx % d;
-    const T* row = base + (long long)l * 3 * C + c;
+    const T* row = base + (long long)l * S * 3 * C + c;
     q[l * dp + c] = to_f32<T>(row[0]);
     k[l * dp + c] = to_f32<T>(row[C]);
     v[l * dp + c] = to_f32<T>(row[2 * C]);
@@ -217,11 +225,11 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int C,
     float mx = -INFINITY;
     for (int j = lane; j < L; j += 32) {
       const float* kj = k + j * dp;
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) s = fmaf(qi[c], kj[c], s);
-      s *= scale;
-      pw[j] = s;
-      mx = fmaxf(mx, s);
+      float sc = 0.f;
+      for (int c = 0; c < d; ++c) sc = fmaf(qi[c], kj[c], sc);
+      sc *= scale;
+      pw[j] = sc;
+      mx = fmaxf(mx, sc);
     }
     mx = warp_max(mx);
     float sum = 0.f;
@@ -233,7 +241,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int C,
     sum = warp_sum(sum);
     for (int j = lane; j < L; j += 32) pw[j] = round_to<T>(pw[j] / sum);
     __syncwarp();
-    T* orow = out + (b * L + i) * (long long)C + (long long)h * d;
+    T* orow = out + (row0 + (long long)i * S) * C + (long long)h * d;
     for (int c = lane; c < d; c += 32) {
       float o = 0.f;
       for (int j = 0; j < L; ++j) o = fmaf(pw[j], v[j * dp + c], o);
@@ -243,9 +251,10 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int C,
   }
 }
 
+// seqs sequences of L tokens, laid out with S as above (S = 1: contiguous)
 template <typename T>
-cudaError_t launch_attention(const T* qkv, T* out, long long B, int L, int C, int H,
-                             float scale, cudaStream_t stream) {
+cudaError_t launch_attention(const T* qkv, T* out, long long seqs, int L, int C, int H,
+                             float scale, cudaStream_t stream, int S = 1) {
   const int d = C / H;
   const size_t smem =
       sizeof(float) * (3 * (size_t)L * (d | 1) + (size_t)(ATTN_THREADS / 32) * L);
@@ -254,8 +263,88 @@ cudaError_t launch_attention(const T* qkv, T* out, long long B, int L, int C, in
         attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  attention_kernel<T><<<(unsigned)(B * H), ATTN_THREADS, smem, stream>>>(qkv, out, L, C,
-                                                                         H, d, scale);
+  attention_kernel<T><<<(unsigned)(seqs * H), ATTN_THREADS, smem, stream>>>(
+      qkv, out, L, S, C, H, d, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Row LayerNorm (the outer Spatial/Temporal norm): one warp per row,
+// Y = T(LN(X)) in f32 with eps 1e-6.  With tpe (F, C) f32 it adds the
+// temporal position embedding of the row's frame, Y = T(T(LN(X)) + T(tpe[f]))
+// (kernel #4's layer 0, _layer_kernel's `ys + tpe.astype(cd)`), where row m
+// of a (B, F, N, C) activation is frame (m / N) % F.
+// ---------------------------------------------------------------------------
+
+constexpr int LN_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS)
+layernorm_kernel(const T* __restrict__ X, const float* __restrict__ scale,
+                 const float* __restrict__ bias, T* __restrict__ Y, long long M,
+                 int C, const float* __restrict__ tpe, int F, int N) {
+  const int lane = threadIdx.x & 31;
+  const long long m = (long long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const T* row = X + m * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += to_f32<T>(row[c]);
+  const float mean = warp_sum(s) / (float)C;
+  float var = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float dv = to_f32<T>(row[c]) - mean;
+    var += dv * dv;
+  }
+  const float rstd = rsqrtf(warp_sum(var) / (float)C + kLnEps);
+  const float* trow = tpe == nullptr ? nullptr : tpe + ((m / N) % F) * C;
+  T* yrow = Y + m * C;
+  for (int c = lane; c < C; c += 32) {
+    float y = (to_f32<T>(row[c]) - mean) * rstd * scale[c] + bias[c];
+    if (trow != nullptr) y = round_to<T>(y) + round_to<T>(trow[c]);
+    yrow[c] = from_f32<T>(y);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One eval block + outer LayerNorm as a chain of launches (kernels #1, #3
+// and both halves of #4; the computation is described in block.cu):
+//   1. qkv    = T(LN1(x) @ Wqkv + bqkv)          linear_kernel, LN prologue
+//   2. attn   = per-head softmax attention        attention_kernel (S)
+//   3. x1     = x + T(attn @ Wproj + bproj)       linear_kernel, residual
+//   4. hidden = T(gelu(LN2(x1) @ Wfc1 + bfc1))    linear_kernel, LN + GELU
+//   5. x2     = x1 + T(hidden @ Wfc2 + bfc2)      into the attn buffer
+//   6. out    = T(LN_outer(x2)) [+ tpe]           layernorm_kernel
+// x, out: rows = seqs * L, laid out with S as attention_kernel says; every
+// stage but the attention is row-wise, so the layout reaches only step 2.
+// p: the 14 block tensors in block.py's order.  Scratch: qkv (rows, 3C),
+// attn, x1 (rows, C), hidden (rows, hid), all in T.  tpe: nullptr, or (F, C)
+// added by step 6 with rows in (B, F, N, C) order.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+cudaError_t block_chain(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
+                        const float* const* p, long long seqs, int L, int S, int C,
+                        int H, int hid, float scale, const float* tpe, int F, int N,
+                        cudaStream_t stream) {
+  const long long M = seqs * L;
+  cudaError_t err;
+  err = launch_linear<T, T, true, PRO_LAYERNORM, EPI_STORE>(
+      x, p[2], p[3], p[0], p[1], nullptr, qkv, M, 3 * C, C, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_attention<T>(qkv, attn, seqs, L, C, H, scale, stream, S);
+  if (err != cudaSuccess) return err;
+  err = launch_linear<T, T, true, PRO_NONE, EPI_RESIDUAL>(
+      attn, p[4], p[5], nullptr, nullptr, x, x1, M, C, C, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_linear<T, T, true, PRO_LAYERNORM, EPI_GELU>(
+      x1, p[8], p[9], p[6], p[7], nullptr, hidden, M, hid, C, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_linear<T, T, true, PRO_NONE, EPI_RESIDUAL>(
+      hidden, p[10], p[11], nullptr, nullptr, x1, attn, M, C, hid, stream);
+  if (err != cudaSuccess) return err;
+  const unsigned ln_grid = (unsigned)((M + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
+  layernorm_kernel<T><<<ln_grid, LN_THREADS, 0, stream>>>(attn, p[12], p[13], out, M,
+                                                          C, tpe, F, N);
   return cudaGetLastError();
 }
 

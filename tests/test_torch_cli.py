@@ -106,8 +106,8 @@ def test_logging_tee_is_restored(tmp_path, monkeypatch, capsys):
     ("gpu.remat=true", KeyError),
     ("experiment.warmup=5", ValueError),
     ("model.diff_model=X", ValueError),
-    ("gpu.use_pallas=block_t", NotImplementedError),
-    ("gpu.use_pallas=layer", NotImplementedError),
+    ("gpu.use_pallas=block_t", ValueError),       # without the gate
+    ("gpu.use_pallas=layer", ValueError),
     ("gpu.compute_dtype=bfloat16", NotImplementedError),
     ("gpu.train_kernel=false", NotImplementedError),
     ("mlflow.mlflow_on=true", NotImplementedError),
@@ -116,6 +116,29 @@ def test_cli_rejects(tmp_path, monkeypatch, override, error):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(error):
         main_h3wb.main(TINY + [override, f"general.checkpoint={tmp_path}/ck"])
+
+
+def test_experimental_modes_evaluate_as_the_plain_block(tmp_path, monkeypatch):
+    """Behind gpu.experimental_kernels=true, use_pallas=block_t and layer
+    evaluate a checkpoint as use_pallas=false does: the same weights and
+    noise give metrics within 1e-5 relative (the blocks agree to ~1e-6)."""
+    monkeypatch.chdir(tmp_path)
+    args = tcfg.load_config(overrides=TINY)
+    model = main_h3wb.build_model(args, "cpu")
+    sd = {f"module.pose_estimator.{k}": v
+          for k, v in model.pose_estimator.state_dict().items()}
+    torch.save({"model_pos": sd}, tmp_path / "ref.bin")
+    run = TINY + [f"general.evaluate={tmp_path}/ref.bin",
+                  "gpu.experimental_kernels=true"]
+    want = main_h3wb.main(run + ["gpu.use_pallas=false",
+                                 f"general.checkpoint={tmp_path}/false"])
+    for mode in ("block_t", "layer"):
+        got = main_h3wb.main(run + [f"gpu.use_pallas={mode}",
+                                    f"general.checkpoint={tmp_path}/{mode}"])
+        assert os.path.exists(tmp_path / mode / REPORT)
+        for k, v in want["final"]["all"].items():
+            np.testing.assert_allclose(got["final"]["all"][k], v, rtol=1e-5,
+                                       atol=0, err_msg=f"{mode} {k}")
 
 
 def test_cli_refuses_missing_cuda(tmp_path, monkeypatch):
@@ -137,9 +160,10 @@ def test_defaults_match_the_jax_config():
         assert got[group] == want[group], group
     assert set(got) - set(want) == {"gpu"}
     assert set(want) - set(got) == {"tpu", "serve"}
-    assert set(got["gpu"]) == {"device", "use_pallas", "train_kernel",
-                               "compute_dtype", "seed"}
-    assert got["gpu"]["use_pallas"] == want["tpu"]["use_pallas"]
+    assert set(got["gpu"]) == {"device", "use_pallas", "experimental_kernels",
+                               "train_kernel", "compute_dtype", "seed"}
+    for key in ("use_pallas", "experimental_kernels"):
+        assert got["gpu"][key] == want["tpu"][key], key
 
 
 @pytest.mark.parametrize("raw", [

@@ -17,7 +17,12 @@ Bounds (those of chip_smoke.py; TF32 off on both sides):
   fused_attention        float32 1e-5 max abs (float32 throughout, sums in
                          another order); bfloat16 x: 2^-7 |y| + 1e-5
                          elementwise (one bf16 ulp of the one rounded
-                         output, plus the float32 bound).
+                         output, plus the float32 bound);
+  fused_block_temporal   fused_block's bounds (the same block and rounding
+                         points, the frames as tokens);
+  fused_layer            float32 1e-4 max abs; bfloat16 max 2^-3 and mean
+                         2e-3 (two blocks deep plus one tpe rounding:
+                         chip_smoke.py states why).
 """
 
 import numpy as np
@@ -26,9 +31,12 @@ import torch
 
 from pafuse_tpu_torch.ops.attention import attention_reference, fused_attention
 from pafuse_tpu_torch.ops.block import block_reference, fused_block
+from pafuse_tpu_torch.ops.block_temporal import (block_temporal_reference,
+                                                 fused_block_temporal)
 from pafuse_tpu_torch.ops.block_train import (block_train_bwd, block_train_fwd,
                                               train_bwd_reference,
                                               train_fwd_reference)
+from pafuse_tpu_torch.ops.layer import fused_layer, layer_reference
 
 HEADS = 8
 
@@ -192,5 +200,93 @@ def test_unfused_model_runs_kernel_2_on_gpu(cuda_device):
         assert (fused_attention.launches - launches[0],
                 fused_block.launches - launches[1]) == (4, 0)
         net.block_fn = select_block_fn("false")
+        want = net(x2d, x3d, t)
+    assert (got - want).abs().max() <= 1e-4
+
+
+def _bf16_ok(diff, max_tol, mean_tol):
+    return bool(diff.max() <= max_tol and diff.mean() <= mean_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,C", [(24, 384), (68, 224), (42, 256), (21, 256)])
+def test_fused_block_temporal_kernel_matches_plain_on_gpu(cuda_device, dtype,
+                                                          N, C):
+    """Kernel #3 at each part's temporal shape (27 frames, N joints) and one
+    unmerged hand, on (B, F, N, C)."""
+    params = _params(C, seed=C + N, device=cuda_device)
+    bp, on = params[:12], params[12:]
+    x = _inputs(6 * 27, N, C, seed=6, device=cuda_device)[0]
+    x = x.reshape(6, 27, N, C).to(dtype)
+    launches = fused_block_temporal.launches
+    got = fused_block_temporal(x, bp, on, HEADS)
+    torch.cuda.synchronize()
+    assert fused_block_temporal.launches == launches + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    diff = (got.float()
+            - block_temporal_reference(x, bp, on, HEADS).float()).abs()
+    if dtype == torch.float32:
+        assert diff.max() <= 1e-4
+    else:
+        assert _bf16_ok(diff, 2.0 ** -4, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_tpe", [True, False])
+@pytest.mark.parametrize("N,C", [(24, 384), (68, 224), (21, 256)])
+def test_fused_layer_kernel_matches_plain_on_gpu(cuda_device, dtype, with_tpe,
+                                                 N, C):
+    """Kernel #4 for the body, the face and one unmerged hand, with the
+    temporal position embedding (layer 0) and without."""
+    sp = _params(C, seed=C + N, device=cuda_device)
+    tp = _params(C, seed=C + N + 1, device=cuda_device)
+    blocks = (sp[:12], sp[12:], tp[:12], tp[12:])
+    tpe = (torch.tensor(np.random.RandomState(N).randn(27, C),
+                        dtype=torch.float32, device=cuda_device)
+           if with_tpe else None)
+    x = _inputs(5 * 27, N, C, seed=7, device=cuda_device)[0]
+    x = x.reshape(5, 27, N, C).to(dtype)
+    launches = fused_layer.launches
+    got = fused_layer(x, *blocks, HEADS, tpe=tpe)
+    torch.cuda.synchronize()
+    assert fused_layer.launches == launches + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    diff = (got.float()
+            - layer_reference(x, *blocks, HEADS, tpe=tpe).float()).abs()
+    if dtype == torch.float32:
+        assert diff.max() <= 1e-4
+    else:
+        assert _bf16_ok(diff, 2.0 ** -3, 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["block_t", "layer"])
+def test_experimental_model_runs_kernels_3_and_4_on_gpu(cuda_device, mode):
+    """One part network at use_pallas=block_t (every temporal block on
+    kernel #3, every spatial one on #1) and at layer (every layer on #4);
+    the output agrees with the plain block (use_pallas=false) within 1e-4
+    (four blocks deep, each within ~1e-6)."""
+    from pafuse_tpu_torch.models.mixste import MixSTE2, MixSTEConfig
+    net = MixSTE2(MixSTEConfig(num_frames=27, num_joints=24, depth=2),
+                  device=cuda_device, use_pallas=mode,
+                  experimental_kernels=True)
+    with torch.no_grad():
+        net.Temporal_pos_embed.normal_()
+    r = np.random.RandomState(8)
+    x2d, x3d = (torch.tensor(r.randn(4, 27, 24, c), dtype=torch.float32,
+                             device=cuda_device) for c in (2, 3))
+    t = torch.tensor([1, 5, 200, 999], device=cuda_device)
+    before = (fused_block.launches, fused_block_temporal.launches,
+              fused_layer.launches, fused_attention.launches)
+    with torch.no_grad():
+        got = net(x2d, x3d, t)
+        torch.cuda.synchronize()
+        after = (fused_block.launches, fused_block_temporal.launches,
+                 fused_layer.launches, fused_attention.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (2, 2, 0, 0) if mode == "block_t" else (0, 0, 2, 0))
+        net.set_use_pallas("false")
         want = net(x2d, x3d, t)
     assert (got - want).abs().max() <= 1e-4

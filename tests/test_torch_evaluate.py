@@ -6,7 +6,10 @@ flip-TTA, on sequences of the synthetic H3WB test subject S8.
 
 Both sides run ``use_pallas=true``: the JAX package's unfused block with
 ``pallas_attention`` (which runs its XLA path on the CPU), the port's
-unfused block with ``fused_attention`` (its plain version on the CPU).
+unfused block with ``fused_attention`` (its plain version on the CPU); and,
+behind the experimental gate, ``block_t`` and ``layer``: the JAX package's
+selection for each (its Pallas kernels decline on the CPU, so it runs XLA),
+the port's kernels #1/#3 and #4 (their plain versions on the CPU).
 Weights cross through ``checkpoints.params_from_jax``; one numpy-seeded
 ``noise_table`` feeds both samplers.  Batching is exercised pooled with a
 tail bucket (3 windows dispatched at 3 rows of a 4-row batch), pooled
@@ -27,6 +30,7 @@ import torch
 import jax
 
 from pafuse_tpu import diffusion as jdiff, evaluate as jev
+from pafuse_tpu.ops import attention as jatt
 from pafuse_tpu.ops.attention import select_attention_fn, select_block_fn
 from pafuse_tpu_torch import checkpoints, evaluate as tev
 from pafuse_tpu_torch.data import h3wb
@@ -99,6 +103,35 @@ def test_evaluate_sequences_matches_jax(setup, mode):
     assert all(np.all(np.isfinite(v)) for v in means.values())
 
 
+def _set_mode(model, mode):
+    for m in model.modules():
+        if isinstance(m, MixSTE2):
+            m.set_use_pallas(mode, experimental_kernels=True)
+
+
+@pytest.mark.parametrize("mode", ["block_t", "layer"])
+def test_experimental_modes_match_jax(setup, mode):
+    _, params, pm, seqs, table = setup
+    jatt.set_experimental_kernels(True)
+    try:
+        jm = jdiff.D3DP(jdiff.D3DPConfig(**KW),
+                        attention_fn=jatt.select_attention_fn(mode),
+                        block_fn=jatt.select_block_fn(mode),
+                        block_t_fn=jatt.select_block_t_fn(mode),
+                        layer_fn=jatt.select_layer_fn(mode))
+    finally:
+        jatt.set_experimental_kernels(None)
+    assert (jm.block_t_fn is not None) == (mode == "block_t")
+    assert (jm.layer_fn is not None) == (mode == "layer")
+    _set_mode(pm, mode)
+    try:
+        (ja, _), (ta, _) = _both((jm, params, pm, seqs, table),
+                                 window_batch=4)
+    finally:
+        _set_mode(pm, "true")
+    _assert_means(ta.means_mm(), ja.means_mm())
+
+
 def test_protocol2_and_predictions_match_jax(setup):
     (ja, jp2), (ta, tp2) = _both(setup, window_batch=4, collect_p2=True)
     _assert_means(ta.means_mm(), ja.means_mm())
@@ -161,13 +194,32 @@ def test_unfused_block_matches_fused_block():
 
 
 def test_block_selection():
+    from pafuse_tpu_torch.models.mixste import MixSTEConfig
     from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.ops.block_temporal import fused_block_temporal
+    from pafuse_tpu_torch.ops.layer import fused_layer
     assert port_block("auto") is fused_block and port_block("block") is fused_block
     for mode in (True, "true", "TRUE", False, "false"):
         assert port_block(mode).func.__name__ == "unfused_block"
     for mode in ("block_t", "layer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # the experimental gate, as the JAX package's require_experimental
+        with pytest.raises(ValueError, match="experimental_kernels"):
             port_block(mode)
+        with pytest.raises(ValueError, match="experimental_kernels"):
+            MixSTE2(MixSTEConfig(num_frames=F, num_joints=5, embed_dim=32,
+                                 depth=1), device="cpu", use_pallas=mode)
+    assert port_block("block_t", experimental_kernels=True) is fused_block
+    assert port_block("layer", experimental_kernels=True).func.__name__ == (
+        "unfused_block")
+    net = MixSTE2(MixSTEConfig(num_frames=F, num_joints=5, embed_dim=32,
+                               depth=1), device="cpu", use_pallas="layer",
+                  experimental_kernels=True)
+    assert net.layer_fn is fused_layer and net.block_t_fn is None
+    net.set_use_pallas("block_t", experimental_kernels=True)
+    assert net.block_t_fn is fused_block_temporal and net.layer_fn is None
+    assert net.block_fn is fused_block
+    net.set_use_pallas("auto")
+    assert net.block_t_fn is None and net.layer_fn is None
     with pytest.raises(ValueError):
         port_block("heads")
 

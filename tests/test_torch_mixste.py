@@ -81,6 +81,33 @@ def test_mixste2_matches_mixste_forward(jax_params):
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("mode", ["block_t", "layer"])
+def test_mixste2_experimental_modes_match_mixste_forward(jax_params, mode):
+    """use_pallas=block_t (kernel #1 on spatial blocks, #3 on temporal ones)
+    and layer (kernel #4 on every layer) against mixste_forward with the
+    JAX package's kernels for that mode run in Pallas interpret mode, and
+    against the port's plain block (use_pallas=false)."""
+    from pafuse_tpu.ops import attention
+    from test_torch_block_temporal import interpret_kernels
+    x2d, x3d, t = _inputs()
+    hooks = ({"block_fn": attention.pallas_block,
+              "block_t_fn": attention.pallas_block_temporal}
+             if mode == "block_t" else {"layer_fn": attention.pallas_layer})
+    with interpret_kernels():
+        want = np.asarray(mixste.mixste_forward(
+            jax_params, mixste.MixSTEConfig(**CFG), jnp.asarray(x2d),
+            jnp.asarray(x3d), jnp.asarray(t), **hooks))
+    m = _port(checkpoints.params_from_jax(jax_params))
+    with pytest.raises(ValueError, match="experimental_kernels"):
+        m.set_use_pallas(mode)
+    m.set_use_pallas(mode, experimental_kernels=True)
+    got = _run_port(m, x2d, x3d, t)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+    m.set_use_pallas("false")
+    np.testing.assert_allclose(got, _run_port(m, x2d, x3d, t), rtol=0,
+                               atol=TOL)
+
+
 def test_exported_reference_state_dict_loads_strict(jax_params):
     """A reference-named dict (JAX export) loads once the
     pose_estimator.{part}. prefix is stripped, and equals the
