@@ -6,6 +6,12 @@
 Phases, one JSON line each:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA.
   2. build   - nvcc builds every kernel from the repository's sources.
+  2b. gemm_kernel - the block chain's Hopper GEMM alone (ops.gemm,
+               csrc/gemm.cu) against its plain version at every stage
+               (qkv, proj, fc1, fc2) x part shape of one block call at
+               bucket 16 and at the evaluation window batch 64, float32 and
+               bfloat16, with its time, TFLOP/s and F.linear's (cuBLAS, a
+               yardstick only); then one "gemm" line of sums.
   3. kernel  - the fused block kernel against its plain PyTorch version on
                the same seeded inputs, at every part's spatial and temporal
                shape as the serving path gives it at bucket 16 (P=10, flip
@@ -90,7 +96,20 @@ Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without CUDA it exits non-zero at once.
 
+Bounds: bound_ms = max(operations over the peak, bytes over 3.35 TB/s),
+float32 work at 165 TFLOP/s (three TF32 tensor-core products per
+float32-accurate product, 495 / 3), bfloat16 at 989; simt_bound_ms counts
+float32 at the 67 TFLOP/s scalar rate, as PRs 1-4 did.
+
 Tolerances (max abs, elementwise):
+  gemm float32     1e-5 (outputs O(1); three TF32 products drop only
+                   a_lo*w_lo, ~2^-22 relative, and sum in another order);
+                   bfloat16 the kernel bound below (max 2^-4, mean 1e-3):
+                   single-ulp flips of the rounded output, of the product
+                   rounded before a residual add (an ulp of the product
+                   and one of the sum, which can be the larger), and of
+                   normalised A elements rounded on ~1e-7 differences of
+                   the row statistics;
   kernel float32   1e-4: same rounding points, only the order of f32 sums
                    differs (TF32 off on both sides);
   kernel bfloat16  max 2^-4 and mean 1e-3: both sides round the output and
@@ -154,9 +173,14 @@ import subprocess
 import sys
 import time
 
-# published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense)
+# published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense).
+# float32 work counts at the rate of float32-accurate tensor-core products:
+# three TF32 products make one (495 / 3 TFLOP/s), as the block chain's GEMM
+# computes them; SIMT_FLOPS, the scalar float32 rate that bounded PRs 1-4's
+# kernels, gives each row's simt_bound_ms beside it (bfloat16 keeps 989).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+SIMT_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 KERNEL_TOL_F32 = 1e-4
 KERNEL_TOL_BF16 = (2.0 ** -4, 1e-3)     # (max, mean)
 SERVE_TOL = 1e-3
@@ -182,6 +206,8 @@ BT_REPLACES = "pafuse_tpu/ops/attention.py:525"
 LAYER_SOURCE = "pafuse_tpu_torch/ops/csrc/layer.cu"
 LAYER_REPLACES = "pafuse_tpu/ops/attention.py:646"
 LAYER_TOL_BF16 = (2.0 ** -3, 2e-3)      # (max, mean)
+GEMM_SOURCE = "pafuse_tpu_torch/ops/csrc/gemm.cu"
+GEMM_TOL_F32 = 1e-5
 
 
 def emit(obj):
@@ -248,47 +274,48 @@ def library_block(x, bp, on, num_heads, m1=None, m2=None):
     return F.layer_norm(x, (C,), on[0], on[1], 1e-6)
 
 
-def block_bound(B, L, C, dtype_name, param_bytes):
-    """Least time for one block call: operations over the peak for the
-    operand type, bytes (x read once, out written once, params) over HBM."""
-    M = B * L
-    flops = 16 * M * C * C + 4 * B * L * L * C
-    itemsize = 4 if dtype_name == "float32" else 2
-    nbytes = 2 * M * C * itemsize + param_bytes
+def bound(flops, nbytes, dtype_name):
+    """The least time of a call, max(operations over the peak for
+    ``dtype_name``, bytes over HBM), what bounds it, and the same with the
+    scalar float32 rate (SIMT_FLOPS) as PRs 1-4 counted it."""
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "simt_bound_ms": max(flops / SIMT_FLOPS[dtype_name],
+                                 t_bytes) * 1e3}
+
+
+def block_bound(B, L, C, dtype_name, param_bytes):
+    """Bound of one block call: 16*M*C^2 + 4*B*L^2*C operations; bytes: x
+    read once, out written once, params."""
+    M = B * L
+    itemsize = 4 if dtype_name == "float32" else 2
+    return bound(16 * M * C * C + 4 * B * L * L * C,
+                 2 * M * C * itemsize + param_bytes, dtype_name)
 
 
 def train_bound(B, L, C, itemsize, param_bytes, backward: bool):
-    """Least time for one training-block call, all arithmetic in float32:
-    forward 16*M*C^2 + 4*B*L^2*C FLOPs and the backward twice that (no
-    recompute counted); bytes: x and y (forward) or x, g and dx (backward)
-    once each, plus the params (and their gradients)."""
+    """Bound of one training-block call, all arithmetic float32: forward
+    16*M*C^2 + 4*B*L^2*C FLOPs and the backward twice that (no recompute
+    counted); bytes: x and y (forward) or x, g and dx (backward) once each,
+    plus the params (and their gradients)."""
     M = B * L
     flops = (16 * M * C * C + 4 * B * L * L * C) * (2 if backward else 1)
     nbytes = ((3 if backward else 2) * M * C * itemsize
               + (2 if backward else 1) * param_bytes + 2 * B * 4)
-    t_ops = flops / PEAK_FLOPS["float32"]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return bound(flops, nbytes, "float32")
 
 
 def layer_bound(B, F, N, C, dtype_name, param_bytes):
-    """Least time for one call of kernel #4 (B, F, N, C): both blocks'
+    """Bound of one call of kernel #4 (B, F, N, C): both blocks'
     operations, 16*M*C^2 + 4*B*F*N^2*C spatial and 16*M*C^2 +
-    4*B*N*F^2*C temporal (M = B*F*N), over the peak for the operand type,
-    against x read once, the output written once and the params (both
-    blocks', and tpe) over HBM."""
+    4*B*N*F^2*C temporal (M = B*F*N), against x read once, the output
+    written once and the params (both blocks', and tpe)."""
     M = B * F * N
-    flops = 32 * M * C * C + 4 * B * F * N * N * C + 4 * B * N * F * F * C
     itemsize = 4 if dtype_name == "float32" else 2
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = (2 * M * C * itemsize + param_bytes) / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return bound(32 * M * C * C + 4 * B * F * N * N * C + 4 * B * N * F * F * C,
+                 2 * M * C * itemsize + param_bytes, dtype_name)
 
 
 def _within(diff, dtype, bf16_tol) -> bool:
@@ -338,17 +365,80 @@ def kernel_phase(seed: int, windows: int, P: int, frames: int):
             plain_ms = cuda_time_ms(lambda: block_reference(x, bp, on, heads))
             lib_ms = cuda_time_ms(
                 lambda: library_block(x, lib_bp, lib_on, heads))
-            bound_ms, bound_by = block_bound(B, L, C, name, param_bytes)
             r = {"phase": "kernel", "name": "fused_block", "part": part,
                  "kind": kind, "dtype": name, "B": B, "L": L, "C": C,
                  "max_abs_err": float(diff.max()),
                  "mean_abs_err": float(diff.mean()), "ok": ok, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
-                 "bound_ms": bound_ms, "bound_by": bound_by}
+                 **block_bound(B, L, C, name, param_bytes)}
             emit(r)
             results.append(r)
             del got, want, diff
         del x32, x
+        torch.cuda.empty_cache()
+    return results
+
+
+def gemm_kernel_phase(seed: int, windows: int, P: int, frames: int,
+                      shapes: str):
+    """The chain's Hopper GEMM alone (ops.gemm.fused_linear) against its
+    plain version at each stage x part shape of one block call (M =
+    windows*P*2*frames*N rows, the same for the spatial and the temporal
+    block), in float32 and bfloat16: its time, TFLOP/s (2*M*N*K over the
+    time, three TF32 products counted once) and F.linear's time in the same
+    dtype (cuBLAS, the yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from pafuse_tpu_torch.models.parts import PART_CHANNELS
+    from pafuse_tpu_torch.ops.gemm import fused_linear, linear_reference
+    from pafuse_tpu_torch.skeleton import parts_table
+    from pafuse_tpu_torch.utils.device import sync
+
+    dev = torch.device("cuda")
+    results = []
+    for i, (part, joints) in enumerate(parts_table(True).items()):
+        C = PART_CHANNELS[part]
+        M = windows * P * 2 * frames * len(joints)
+        g = torch.Generator().manual_seed(seed * 100 + 150 + i)
+        gd = torch.Generator(device=dev).manual_seed(seed * 100 + 150 + i)
+        p = _random_block_params(C, g, dev)
+        # stage: (W, b, LayerNorm, epilogue)
+        stages = {"qkv": (p[2], p[3], p[0:2], "store"),
+                  "proj": (p[4], p[5], None, "residual"),
+                  "fc1": (p[8], p[9], p[6:8], "gelu"),
+                  "fc2": (p[10], p[11], None, "residual")}
+        a32 = {K: torch.randn(M, K, generator=gd, device=dev)
+               for K in (C, 2 * C)}
+        r32 = torch.randn(M, C, generator=gd, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            for stage, (w, b, ln, epi) in stages.items():
+                N, K = w.shape
+                a = a32[K].to(dtype)
+                res = r32.to(dtype) if epi == "residual" else None
+                got = fused_linear(a, w, b, ln, epi, res)
+                sync(dev)       # a fault inside the kernel surfaces here
+                want = linear_reference(a, w, b, ln, epi, res).float()
+                diff = (got.float() - want).abs()
+                ok = (bool(diff.max() <= GEMM_TOL_F32)
+                      if dtype == torch.float32
+                      else _within(diff, dtype, KERNEL_TOL_BF16))
+                err = float(diff.max())
+                del got, want, diff
+                wl, bl = w.to(dtype), b.to(dtype)
+                ms = cuda_time_ms(lambda: fused_linear(a, w, b, ln, epi, res))
+                lib_ms = cuda_time_ms(lambda: F.linear(a, wl, bl))
+                r = {"phase": "gemm_kernel", "name": "fused_linear",
+                     "shapes": shapes, "part": part, "stage": stage,
+                     "dtype": name, "M": M, "N": N, "K": K,
+                     "max_abs_err": err, "ok": ok, "ms": ms,
+                     "tflops": 2 * M * N * K / ms / 1e9,
+                     "library_ms": lib_ms,
+                     "library_tflops": 2 * M * N * K / lib_ms / 1e9}
+                emit(r)
+                results.append(r)
+                del a, res
+        del a32, r32
         torch.cuda.empty_cache()
     return results
 
@@ -537,13 +627,12 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
                 x, m1, m2, params, heads))
             with torch.no_grad():
                 lib_ms = cuda_time_ms(lib_fwd)
-            bound_ms, bound_by = train_bound(B, L, C, x.element_size(),
-                                             param_bytes, backward=False)
             r = {"phase": "train_kernel", "name": "block_train_fwd",
                  "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
                  "C": C, "max_abs_err": float(diff.max()), "ok": ok,
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                 "bound_ms": bound_ms, "bound_by": bound_by}
+                 **train_bound(B, L, C, x.element_size(), param_bytes,
+                               backward=False)}
             emit(r)
             results.append(r)
             if dtype != torch.float32:
@@ -568,8 +657,6 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
             y_lib = lib_fwd()
             lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
                 y_lib, [lib_x] + lib_p, gr, retain_graph=True))
-            bound_ms, bound_by = train_bound(B, L, C, x.element_size(),
-                                             param_bytes, backward=True)
             r = {"phase": "train_kernel", "name": "block_train_bwd",
                  "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
                  "C": C, "max_abs_err": max_abs,
@@ -577,7 +664,8 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
                  "deterministic": deterministic,
                  "ok": max(rel.values()) <= TRAIN_GRAD_RTOL and deterministic,
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                 "bound_ms": bound_ms, "bound_by": bound_by}
+                 **train_bound(B, L, C, x.element_size(), param_bytes,
+                               backward=True)}
             emit(r)
             results.append(r)
             del y_lib, dx, grads, dx2, grads2, want_dx, want_grads
@@ -749,12 +837,15 @@ COPY_GROUP = "copies (transposes, .contiguous())"
 #: cuBLAS), for the profiles; the first pattern found in a kernel's name
 #: names its group
 KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
+                 ("sm90::gemm_kernel", "wgmma GEMMs (#1, #3, #4)"),
+                 ("sm90::split_weights", "weight splits (#1, #3, #4)"),
+                 ("sm90::row_stats", "row statistics (#1, #3, #4)"),
                  ("gemm_kernel<0", "forward GEMMs"),
                  ("gemm_kernel<1", "data-gradient GEMMs"),
                  ("wgrad_kernel", "weight-gradient GEMMs"),
                  ("attn_bwd_kernel", "attention backward"),
                  ("attention_kernel", "attention forward"),
-                 ("linear_kernel", "tiled GEMMs (linear_kernel: #1-#4)"),
+                 ("linear_kernel", "tiled GEMMs (linear_kernel: #2)"),
                  ("layernorm_kernel", "outer LayerNorm (#1, #3, #4)"),
                  ("ln_bwd_kernel", "LayerNorm backward"),
                  ("ln_fwd_kernel", "LayerNorm forward"),
@@ -810,15 +901,12 @@ def library_attention(x, wqkv, bqkv, wproj, bproj, num_heads):
 
 
 def attention_bound(B, L, C, itemsize):
-    """Least time for one call of kernel #2: 8*M*C^2 + 4*B*L^2*C FLOPs over
-    the float32 peak (the kernel computes in float32 for either dtype of x)
-    against x read once, the output written once and the four float32
-    parameters over HBM."""
+    """Bound of one call of kernel #2: 8*M*C^2 + 4*B*L^2*C FLOPs of float32
+    work (the kernel computes in float32 for either dtype of x) against x
+    read once, the output written once and the four float32 parameters."""
     M = B * L
-    t_ops = (8 * M * C * C + 4 * B * L * L * C) / PEAK_FLOPS["float32"]
-    t_bytes = (2 * M * C * itemsize + 4 * (4 * C * C + 4 * C)) / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return bound(8 * M * C * C + 4 * B * L * L * C,
+                 2 * M * C * itemsize + 4 * (4 * C * C + 4 * C), "float32")
 
 
 def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
@@ -865,13 +953,12 @@ def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
             plain_ms = cuda_time_ms(lambda: attention_reference(x, *attn,
                                                                 heads))
             lib_ms = cuda_time_ms(lambda: library_attention(x, *lib, heads))
-            bound_ms, bound_by = attention_bound(B, L, C, x.element_size())
             r = {"phase": "attention_kernel", "name": "fused_attention",
                  "shapes": shapes, "part": part, "kind": kind, "dtype": name,
                  "B": B, "L": L, "C": C, "max_abs_err": float(diff.max()),
                  "ok": ok, "ms": ms, "plain_ms": plain_ms,
-                 "library_ms": lib_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by}
+                 "library_ms": lib_ms,
+                 **attention_bound(B, L, C, x.element_size())}
             emit(r)
             results.append(r)
             del diff
@@ -945,16 +1032,14 @@ def block_temporal_kernel_phase(seed: int, windows: int, P: int, frames: int,
                 fused_block, x, bp, on, heads))
             lib_ms = cuda_time_ms(lambda: frames_as_tokens(
                 library_block, x, lib_bp, lib_on, heads))
-            bound_ms, bound_by = block_bound(B * N, frames, C, name,
-                                             param_bytes)
             r = {"phase": "block_temporal_kernel",
                  "name": "fused_block_temporal", "shapes": shapes,
                  "part": part, "dtype": name, "B": B, "F": frames, "N": N,
                  "C": C, "max_abs_err": float(diff.max()),
                  "mean_abs_err": float(diff.mean()), "ok": ok, "ms": ms,
                  "plain_ms": plain_ms, "replaced_ms": replaced_ms,
-                 "library_ms": lib_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by}
+                 "library_ms": lib_ms,
+                 **block_bound(B * N, frames, C, name, param_bytes)}
             emit(r)
             results.append(r)
             del diff
@@ -1010,17 +1095,15 @@ def layer_kernel_phase(seed: int, windows: int, P: int, frames: int,
                     fused_block, x, blocks[:2], blocks[2:], heads, t))
                 lib_ms = cuda_time_ms(lambda: layer_of_blocks(
                     library_block, x, lib[:2], lib[2:], heads, t))
-                bound_ms, bound_by = layer_bound(
-                    B, frames, N, C, name,
-                    param_bytes + (0 if t is None else 4 * t.numel()))
                 r = {"phase": "layer_kernel", "name": "fused_layer",
                      "shapes": shapes, "part": part, "dtype": name,
                      "tpe": t is not None, "B": B, "F": frames, "N": N,
                      "C": C, "max_abs_err": float(diff.max()),
                      "mean_abs_err": float(diff.mean()), "ok": ok, "ms": ms,
                      "plain_ms": plain_ms, "replaced_ms": replaced_ms,
-                     "library_ms": lib_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+                     "library_ms": lib_ms,
+                     **layer_bound(B, frames, N, C, name, param_bytes + (
+                         0 if t is None else 4 * t.numel()))}
                 emit(r)
                 results.append(r)
                 del diff
@@ -1385,6 +1468,7 @@ def _kernel_entry(name, route, source, replaces, launches, cases, **extra):
             "plain_ms": sum(c["plain_ms"] for c in f32),
             "bound_ms": sum(c["bound_ms"] for c in f32),
             "bound_by": bound_by,
+            "simt_bound_ms": sum(c["simt_bound_ms"] for c in f32),
             "library_ms": sum(c["library_ms"] for c in f32), **extra}
 
 
@@ -1414,6 +1498,26 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0,
           "libraries": sorted(libs)})
 
+    gemm_cases = (gemm_kernel_phase(args.seed, 16, P=10, frames=27,
+                                    shapes="serve")
+                  + gemm_kernel_phase(args.seed, EVAL_WINDOWS, P=10,
+                                      frames=27, shapes="eval"))
+    bad = [c for c in gemm_cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"fused_linear disagrees with linear_reference: "
+                             f"{bad}")
+    gemm_sums = {}
+    for c in gemm_cases:
+        key = f'{c["shapes"]}_{c["dtype"]}'
+        tot = gemm_sums.setdefault(key, {"ms": 0.0, "library_ms": 0.0,
+                                         "flop": 0})
+        tot["ms"] += c["ms"]
+        tot["library_ms"] += c["library_ms"]
+        tot["flop"] += 2 * c["M"] * c["N"] * c["K"]
+    emit({"phase": "gemm", "source": GEMM_SOURCE, "sums": {
+        k: {**v, "tflops": v["flop"] / v["ms"] / 1e9,
+            "library_tflops": v["flop"] / v["library_ms"] / 1e9}
+        for k, v in gemm_sums.items()}})
     cases = kernel_phase(args.seed, windows=16, P=10, frames=27)
     launches = serve_phase(args.seed)
     bad = [c for c in cases if not c["ok"]]

@@ -37,9 +37,9 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: success.
 KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
     "block": {
-        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, B, L, C, H,
-        # hidden, scale, stream
-        "pafuse_fused_block": ([_I] + [_P] * 6 + [_P] * 14
+        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, workspace and
+        # its bytes, B, L, C, H, hidden, scale, stream
+        "pafuse_fused_block": ([_I] + [_P] * 6 + [_P] * 14 + [_P, _LL]
                                + [_LL, _I, _I, _I, _I, _F, _P], _I),
     },
     "block_train": {
@@ -59,18 +59,24 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
     },
     "block_temporal": {
-        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, B, F, N, C, H,
-        # hidden, scale, stream
-        "pafuse_fused_block_temporal": ([_I] + [_P] * 6 + [_P] * 14
+        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, workspace and
+        # its bytes, B, F, N, C, H, hidden, scale, stream
+        "pafuse_fused_block_temporal": ([_I] + [_P] * 6 + [_P] * 14 + [_P, _LL]
                                         + [_LL, _I, _I, _I, _I, _I, _F, _P],
                                         _I),
     },
     "layer": {
         # is_bf16, x, out, ys, qkv, attn, x1, hidden, 14 spatial + 14
-        # temporal params, tpe (or NULL), B, F, N, C, H, hidden, scale,
-        # stream
-        "pafuse_fused_layer": ([_I] + [_P] * 7 + [_P] * 28 + [_P]
+        # temporal params, tpe (or NULL), workspace and its bytes, B, F, N,
+        # C, H, hidden, scale, stream
+        "pafuse_fused_layer": ([_I] + [_P] * 7 + [_P] * 28 + [_P] + [_P, _LL]
                                + [_LL, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    "gemm": {
+        # is_bf16, prologue, epilogue, A, W, bias, ln scale, ln bias, R, Y,
+        # workspace and its bytes, M, N, K, stream
+        "pafuse_linear_sm90": ([_I, _I, _I] + [_P] * 8 + [_LL, _LL, _I, _I,
+                                                           _P], _I),
     },
     "attention": {
         # is_bf16, x, out, qkv scratch, attention scratch, wqkv, bqkv,

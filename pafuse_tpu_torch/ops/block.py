@@ -8,7 +8,9 @@ tokens.  Matmuls take their operands in the compute dtype (the dtype of
 GELU run in float32, with the rounding points of the TPU kernel.
 
 ``fused_block`` launches the hand-written CUDA kernel chain
-(``csrc/block.cu``) for CUDA tensors and uses ``block_reference``, the same
+(``csrc/block.cu`` on ``csrc/block_chain.cuh``: the four products on the
+Hopper GEMM of ``ops.gemm``, in float32 as three TF32 products per product)
+for CUDA tensors and uses ``block_reference``, the same
 function in plain PyTorch ops, for CPU tensors.
 
 Parameters are passed as two tuples of float32 tensors in torch layout:
@@ -23,22 +25,18 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 
-_EPS = 1e-6
-
-
-def _layernorm(v: torch.Tensor, scale, bias) -> torch.Tensor:
-    v = v.float()
-    mean = v.mean(-1, keepdim=True)
-    var = (v - mean).square().mean(-1, keepdim=True)
-    return (v - mean) * torch.rsqrt(var + _EPS) * scale + bias
+from pafuse_tpu_torch.ops.gemm import (_layernorm, chain_workspace_bytes,
+                                       linear_reference)
 
 
 def block_reference(x: torch.Tensor, block_params: Sequence[torch.Tensor],
                     outer_norm: Sequence[torch.Tensor],
                     num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the fused block.  x: (B, L, C)."""
+    """Plain PyTorch version of the fused block.  x: (B, L, C).
+
+    The four products are ``ops.gemm.linear_reference`` stages (weights
+    rounded to the compute dtype, float32 accumulation)."""
     (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2,
      bfc2) = block_params
     nos, nob = outer_norm
@@ -46,22 +44,15 @@ def block_reference(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     B, L, C = x.shape
     d = C // num_heads
 
-    def dot(a, w, b):
-        # weights rounded to the compute dtype, f32 accumulation
-        return F.linear(a.float(), w.to(cd).float(), b)
-
-    h = _layernorm(x, n1s, n1b).to(cd)
-    qkv = dot(h, wqkv, bqkv).to(cd).float()
+    qkv = linear_reference(x, wqkv, bqkv, (n1s, n1b)).float()
     q, k, v = qkv.view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
     logits = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5
     probs = torch.softmax(logits, dim=-1).to(cd).float()
     ao = torch.matmul(probs, v).to(cd)                     # (B, H, L, d)
     ao = ao.transpose(1, 2).reshape(B, L, C)
-    x1 = x + dot(ao, wproj, bproj).to(cd)
-
-    h = _layernorm(x1, n2s, n2b).to(cd)
-    hdn = F.gelu(dot(h, wfc1, bfc1)).to(cd)
-    x2 = x1 + dot(hdn, wfc2, bfc2).to(cd)
+    x1 = linear_reference(ao, wproj, bproj, epilogue="residual", residual=x)
+    hdn = linear_reference(x1, wfc1, bfc1, (n2s, n2b), "gelu")
+    x2 = linear_reference(hdn, wfc2, bfc2, epilogue="residual", residual=x1)
     return _layernorm(x2, nos, nob).to(cd)
 
 
@@ -120,12 +111,14 @@ def fused_block(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     attn = x.new_empty((M, C))
     x1 = x.new_empty((M, C))
     hid = x.new_empty((M, hidden))
+    ws_bytes = chain_workspace_bytes(M, C, hidden)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.pafuse_fused_block(
             int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
             qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(), hid.data_ptr(),
-            *[p.data_ptr() for p in params],
+            *[p.data_ptr() for p in params], ws.data_ptr(), ws_bytes,
             B, L, C, num_heads, hidden, (C // num_heads) ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"fused_block: CUDA kernel launch failed with "

@@ -20,6 +20,7 @@ from typing import Sequence
 import torch
 
 from pafuse_tpu_torch.ops.block import _check, block_reference
+from pafuse_tpu_torch.ops.gemm import chain_workspace_bytes
 
 
 def block_temporal_reference(x: torch.Tensor,
@@ -59,12 +60,14 @@ def fused_block_temporal(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     attn = x.new_empty((M, C))
     x1 = x.new_empty((M, C))
     hid = x.new_empty((M, hidden))
+    ws_bytes = chain_workspace_bytes(M, C, hidden)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.pafuse_fused_block_temporal(
             int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
             qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(), hid.data_ptr(),
-            *[p.data_ptr() for p in params],
+            *[p.data_ptr() for p in params], ws.data_ptr(), ws_bytes,
             B, F, N, C, num_heads, hidden, (C // num_heads) ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"fused_block_temporal: CUDA kernel launch failed "

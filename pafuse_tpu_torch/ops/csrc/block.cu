@@ -14,44 +14,45 @@
 //   x2  = x1 + T(u @ Wfc2 + bfc2)       residual add in T
 //   out = T(LN_outer(x2))               LayerNorm in f32, eps 1e-6
 //
-// Weights stay f32 in device memory in the torch (out, in) layout and are
-// rounded to T where a tile enters shared memory, so the products match the
-// TPU kernel's "weights cast to the compute dtype" rounding point.  All sums
-// accumulate in f32.
+// Weights stay f32 in device memory in the torch (out, in) layout; the
+// products take them in the compute dtype (the TPU kernel's "weights cast
+// to the compute dtype" rounding point) and accumulate in f32.
 //
-// What bounds it on this card: for the part widths (C = 224..384, L <= 68)
+// What bounds it on an H100: for the part widths (C = 224..384, L <= 68)
 // the work is ~16*B*L*C^2 + 4*B*L^2*C FLOPs against ~2*B*L*C*sizeof(T)
 // bytes of activations (+ 8*C^2*4 bytes of weights, which stay in the 50 MB
-// L2), i.e. hundreds of FLOPs per byte: the block is bound by arithmetic.
-// The TPU kernel keeps all of a block's weights in VMEM (up to 120 MB) and
-// runs the block in one pass; one QKV weight alone (384x1152 f32, 1.7 MB)
-// exceeds the 227 KB of shared memory an H100 block can use, so the design
-// here is a short chain of launches instead: four tiled GEMMs with fused
-// prologues (row LayerNorm on A) and epilogues (bias, GELU, residual), one
-// attention kernel with one CTA per (sequence, head) that keeps q, k and v
-// in shared memory (no token padding: only the L real keys enter a
-// softmax), and one row LayerNorm.  The intermediates (qkv, attention out,
-// x1, MLP hidden) round-trip through device memory.  The GEMMs are
-// common.cuh's linear_kernel with the weights rounded to T; they use scalar
-// f32 FMAs, so the face head size d = 28 and N = 3*224 need no padding;
-// tensor cores (wgmma) and fusing the chain are later work.
+// L2), hundreds of FLOPs per byte: the block is bound by arithmetic, and
+// 92-98% of it is the four GEMMs.  The TPU kernel keeps all of a block's
+// weights in VMEM and runs the block in one pass; one QKV weight alone
+// (384x1152 f32, 1.7 MB) exceeds the 227 KB of shared memory an H100 CTA
+// can use, so the design is a short chain of launches (block_chain.cuh):
+// four GEMMs on the tensor cores (gemm_sm90.cuh: TMA-fed wgmma, the
+// LayerNorm prologue and the bias, GELU and residual epilogues fused; in
+// float32 three TF32 products per product, which keep float32 accuracy at
+// up to 165 TFLOP/s against the 67 TFLOP/s of scalar f32 FMAs (H100 SXM
+// data-sheet peaks at 700 W); in bfloat16 one bf16 product), one attention
+// kernel with one CTA per (sequence, head) that keeps q, k and v in shared
+// memory (no token padding: only the L real keys enter a softmax), and one
+// row LayerNorm.
+// The intermediates (qkv, attention out, x1, MLP hidden) round-trip
+// through device memory; the attention stage, on scalar FMAs, is the next
+// part to move onto the tensor cores.
 //
-// The chain is common.cuh's block_chain (shared with kernels #3 and #4),
-// here over contiguous sequences (S = 1).
+// Here the chain runs over contiguous sequences (S = 1).
 //
 // Plain C interface for ctypes: every function returns the cudaError_t of
 // the first launch that failed, or 0.  Nothing here allocates or
 // synchronises; everything launches on the caller's stream.
 
-#include "common.cuh"
+#include "block_chain.cuh"
 
 extern "C" int pafuse_fused_block(
     int is_bf16, const void* x, void* out, void* qkv, void* attn, void* x1,
     void* hidden, const float* n1s, const float* n1b, const float* wqkv,
     const float* bqkv, const float* wproj, const float* bproj, const float* n2s,
     const float* n2b, const float* wfc1, const float* bfc1, const float* wfc2,
-    const float* bfc2, const float* nos, const float* nob, long long B, int L, int C,
-    int H, int hid, float scale, void* stream) {
+    const float* bfc2, const float* nos, const float* nob, void* ws, long long ws_bytes,
+    long long B, int L, int C, int H, int hid, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p[14] = {n1s, n1b, wqkv, bqkv, wproj, bproj, n2s,
                         n2b, wfc1, bfc1, wfc2, bfc2, nos, nob};
@@ -60,10 +61,10 @@ extern "C" int pafuse_fused_block(
     return (int)block_chain<T>(static_cast<const T*>(x), static_cast<T*>(out),
                                static_cast<T*>(qkv), static_cast<T*>(attn),
                                static_cast<T*>(x1), static_cast<T*>(hidden), p, B, L, 1,
-                               C, H, hid, scale, nullptr, 1, 1, s);
+                               C, H, hid, scale, nullptr, 1, 1, ws, ws_bytes, s);
   }
   return (int)block_chain<float>(static_cast<const float*>(x), static_cast<float*>(out),
                                  static_cast<float*>(qkv), static_cast<float*>(attn),
                                  static_cast<float*>(x1), static_cast<float*>(hidden), p,
-                                 B, L, 1, C, H, hid, scale, nullptr, 1, 1, s);
+                                 B, L, 1, C, H, hid, scale, nullptr, 1, 1, ws, ws_bytes, s);
 }

@@ -18,29 +18,30 @@
 // b*F*N + l*N + n (common.cuh's strided attention, S = N).  Each
 // (sequence, head) CTA still reads d contiguous floats per token, so the
 // gather coalesces as well as the contiguous case.  This is block.cu's
-// launch chain (common.cuh's block_chain) on those rows: nothing is padded
+// launch chain (block_chain.cuh) on those rows: nothing is padded
 // or masked, only the F real keys enter a softmax, and no CTA reads past
 // the N joints, so the TPU kernel's zeroing of an overhanging joint tile
 // has no counterpart.
 //
-// What bounds it on this card: the same work as kernel #1 at the temporal
+// What bounds it on an H100: the same work as kernel #1 at the temporal
 // shape, ~16*M*C^2 + 4*B*N*F^2*C FLOPs against ~2*M*C*sizeof(T) bytes of
-// activations: arithmetic.  The GEMMs use scalar f32 FMAs; tensor cores
-// are later work.
+// activations: arithmetic.  The four GEMMs run on the tensor cores
+// (gemm_sm90.cuh: TMA-fed wgmma, three TF32 products per float32 product,
+// one bf16 product for bfloat16), as kernel #1's do.
 //
 // Plain C interface for ctypes: returns the cudaError_t of the first launch
 // that failed, or 0.  Nothing here allocates or synchronises; everything
 // launches on the caller's stream.
 
-#include "common.cuh"
+#include "block_chain.cuh"
 
 extern "C" int pafuse_fused_block_temporal(
     int is_bf16, const void* x, void* out, void* qkv, void* attn, void* x1,
     void* hidden, const float* n1s, const float* n1b, const float* wqkv,
     const float* bqkv, const float* wproj, const float* bproj, const float* n2s,
     const float* n2b, const float* wfc1, const float* bfc1, const float* wfc2,
-    const float* bfc2, const float* nos, const float* nob, long long B, int F, int N,
-    int C, int H, int hid, float scale, void* stream) {
+    const float* bfc2, const float* nos, const float* nob, void* ws, long long ws_bytes,
+    long long B, int F, int N, int C, int H, int hid, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p[14] = {n1s, n1b, wqkv, bqkv, wproj, bproj, n2s,
                         n2b, wfc1, bfc1, wfc2, bfc2, nos, nob};
@@ -49,10 +50,11 @@ extern "C" int pafuse_fused_block_temporal(
     return (int)block_chain<T>(static_cast<const T*>(x), static_cast<T*>(out),
                                static_cast<T*>(qkv), static_cast<T*>(attn),
                                static_cast<T*>(x1), static_cast<T*>(hidden), p, B * N,
-                               F, N, C, H, hid, scale, nullptr, 1, 1, s);
+                               F, N, C, H, hid, scale, nullptr, 1, 1, ws, ws_bytes, s);
   }
   return (int)block_chain<float>(static_cast<const float*>(x), static_cast<float*>(out),
                                  static_cast<float*>(qkv), static_cast<float*>(attn),
                                  static_cast<float*>(x1), static_cast<float*>(hidden), p,
-                                 B * N, F, N, C, H, hid, scale, nullptr, 1, 1, s);
+                                 B * N, F, N, C, H, hid, scale, nullptr, 1, 1, ws, ws_bytes,
+                                 s);
 }

@@ -1,9 +1,10 @@
 // Device helpers shared by the kernels (block.cu, block_temporal.cu,
-// layer.cu, attention.cu, block_train.cu): dtype conversion, warp
-// reductions, the GEMM tile sizes, the tiled linear GEMM of the eval
-// kernels, the per-(sequence, head) attention kernel, the row LayerNorm and
-// the launch chain of one eval block (block_chain), in an anonymous
-// namespace of each source that includes them.
+// layer.cu, attention.cu, block_train.cu, gemm.cu): dtype conversion, warp
+// reductions, the GEMM tile sizes of linear_kernel and block_train.cu, the
+// tiled scalar-FMA linear GEMM of kernel #2, the per-(sequence, head)
+// attention kernel and the row LayerNorm, in an anonymous namespace of each
+// source that includes them.  The eval block chain (block_chain.cuh) runs
+// its GEMMs on gemm_sm90.cuh.
 
 #pragma once
 
@@ -45,7 +46,7 @@ __device__ __forceinline__ float warp_max(float v) {
 constexpr float kLnEps = 1e-6f;
 
 // ---------------------------------------------------------------------------
-// Tiled GEMM of the eval kernels (block.cu, attention.cu):
+// Tiled GEMM of kernel #2 (attention.cu):
 //   Y[m, n] = TY(epilogue(sum_k prologue(A)[m, k] * w(W[n, k]) + b[n]))
 // A: (M, K) in TA, W: (N, K) f32 (torch Linear layout), Y and R: (M, N) in
 // TY.  w rounds W to TA where a tile enters shared memory when ROUND_W (the
@@ -303,49 +304,6 @@ layernorm_kernel(const T* __restrict__ X, const float* __restrict__ scale,
     if (trow != nullptr) y = round_to<T>(y) + round_to<T>(trow[c]);
     yrow[c] = from_f32<T>(y);
   }
-}
-
-// ---------------------------------------------------------------------------
-// One eval block + outer LayerNorm as a chain of launches (kernels #1, #3
-// and both halves of #4; the computation is described in block.cu):
-//   1. qkv    = T(LN1(x) @ Wqkv + bqkv)          linear_kernel, LN prologue
-//   2. attn   = per-head softmax attention        attention_kernel (S)
-//   3. x1     = x + T(attn @ Wproj + bproj)       linear_kernel, residual
-//   4. hidden = T(gelu(LN2(x1) @ Wfc1 + bfc1))    linear_kernel, LN + GELU
-//   5. x2     = x1 + T(hidden @ Wfc2 + bfc2)      into the attn buffer
-//   6. out    = T(LN_outer(x2)) [+ tpe]           layernorm_kernel
-// x, out: rows = seqs * L, laid out with S as attention_kernel says; every
-// stage but the attention is row-wise, so the layout reaches only step 2.
-// p: the 14 block tensors in block.py's order.  Scratch: qkv (rows, 3C),
-// attn, x1 (rows, C), hidden (rows, hid), all in T.  tpe: nullptr, or (F, C)
-// added by step 6 with rows in (B, F, N, C) order.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-cudaError_t block_chain(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
-                        const float* const* p, long long seqs, int L, int S, int C,
-                        int H, int hid, float scale, const float* tpe, int F, int N,
-                        cudaStream_t stream) {
-  const long long M = seqs * L;
-  cudaError_t err;
-  err = launch_linear<T, T, true, PRO_LAYERNORM, EPI_STORE>(
-      x, p[2], p[3], p[0], p[1], nullptr, qkv, M, 3 * C, C, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_attention<T>(qkv, attn, seqs, L, C, H, scale, stream, S);
-  if (err != cudaSuccess) return err;
-  err = launch_linear<T, T, true, PRO_NONE, EPI_RESIDUAL>(
-      attn, p[4], p[5], nullptr, nullptr, x, x1, M, C, C, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_linear<T, T, true, PRO_LAYERNORM, EPI_GELU>(
-      x1, p[8], p[9], p[6], p[7], nullptr, hidden, M, hid, C, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_linear<T, T, true, PRO_NONE, EPI_RESIDUAL>(
-      hidden, p[10], p[11], nullptr, nullptr, x1, attn, M, C, hid, stream);
-  if (err != cudaSuccess) return err;
-  const unsigned ln_grid = (unsigned)((M + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
-  layernorm_kernel<T><<<ln_grid, LN_THREADS, 0, stream>>>(attn, p[12], p[13], out, M,
-                                                          C, tpe, F, N);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -14,7 +14,7 @@
 // sample's (F, N, C) tile in VMEM and exposes the two token axes by an
 // in-VMEM transpose.  Here one QKV weight alone (384x1152 f32, 1.7 MB) is
 // beyond the 227 KB of shared memory a CTA can use, let alone a layer's two
-// blocks, so the layer is two of common.cuh's block chains back to back,
+// blocks, so the layer is two block chains (block_chain.cuh) back to back,
 // with the activation kept in (B, F, N, C) throughout: the spatial chain
 // attends over contiguous rows (S = 1) and its outer LayerNorm adds the
 // temporal position embedding of each row's frame; the temporal chain
@@ -23,16 +23,22 @@
 // besides the intermediates, and one set of scratch (qkv, attn, x1, hidden)
 // serves both halves, with ys (M, C) between them.
 //
-// What bounds it on this card: two blocks of ~16*M*C^2 FLOPs plus the
+// What bounds it on an H100: two blocks of ~16*M*C^2 FLOPs plus the
 // attention (4*B*F*N^2*C spatial, 4*B*N*F^2*C temporal) against
-// ~2*M*C*sizeof(T) bytes of activations: arithmetic.  The GEMMs use scalar
-// f32 FMAs; tensor cores are later work.
+// ~2*M*C*sizeof(T) bytes of activations: arithmetic, 92-98% of it in the
+// eight GEMMs.  They run on the tensor cores (gemm_sm90.cuh: TMA-fed wgmma
+// with the LayerNorm prologues and the bias, GELU and residual epilogues
+// fused; three TF32 products per float32 product, which keep float32
+// accuracy at up to 165 TFLOP/s against the 67 TFLOP/s of scalar f32 FMAs,
+// H100 SXM data-sheet peaks at 700 W; one bf16 product for bfloat16).
+// Each half splits its own weights into the one workspace ws before its
+// GEMMs.
 //
 // Plain C interface for ctypes: returns the cudaError_t of the first launch
 // that failed, or 0.  Nothing here allocates or synchronises; everything
 // launches on the caller's stream.
 
-#include "common.cuh"
+#include "block_chain.cuh"
 
 namespace {
 
@@ -40,14 +46,16 @@ template <typename T>
 cudaError_t fused_layer(const T* x, T* out, T* ys, T* qkv, T* attn, T* x1, T* hidden,
                         const float* const* sp, const float* const* tp,
                         const float* tpe, long long B, int F, int N, int C, int H,
-                        int hid, float scale, cudaStream_t stream) {
+                        int hid, float scale, void* ws, long long ws_bytes,
+                        cudaStream_t stream) {
   // spatial block + Spatial_norm (+ tpe): B*F sequences of N joints
   const cudaError_t err = block_chain<T>(x, ys, qkv, attn, x1, hidden, sp, B * F, N, 1,
-                                         C, H, hid, scale, tpe, F, N, stream);
+                                         C, H, hid, scale, tpe, F, N, ws, ws_bytes,
+                                         stream);
   if (err != cudaSuccess) return err;
   // temporal block + Temporal_norm: B*N sequences of F frames, stride N
   return block_chain<T>(ys, out, qkv, attn, x1, hidden, tp, B * N, F, N, C, H, hid,
-                        scale, nullptr, 1, 1, stream);
+                        scale, nullptr, 1, 1, ws, ws_bytes, stream);
 }
 
 }  // namespace
@@ -61,8 +69,8 @@ extern "C" int pafuse_fused_layer(
     const float* t2, const float* t3, const float* t4, const float* t5,
     const float* t6, const float* t7, const float* t8, const float* t9,
     const float* t10, const float* t11, const float* t12, const float* t13,
-    const float* tpe, long long B, int F, int N, int C, int H, int hid, float scale,
-    void* stream) {
+    const float* tpe, void* ws, long long ws_bytes, long long B, int F, int N, int C, int H,
+    int hid, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sp[14] = {s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13};
   const float* tp[14] = {t0, t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, t11, t12, t13};
@@ -72,11 +80,11 @@ extern "C" int pafuse_fused_layer(
                                static_cast<T*>(ys), static_cast<T*>(qkv),
                                static_cast<T*>(attn), static_cast<T*>(x1),
                                static_cast<T*>(hidden), sp, tp, tpe, B, F, N, C, H, hid,
-                               scale, s);
+                               scale, ws, ws_bytes, s);
   }
   return (int)fused_layer<float>(static_cast<const float*>(x), static_cast<float*>(out),
                                  static_cast<float*>(ys), static_cast<float*>(qkv),
                                  static_cast<float*>(attn), static_cast<float*>(x1),
                                  static_cast<float*>(hidden), sp, tp, tpe, B, F, N, C, H,
-                                 hid, scale, s);
+                                 hid, scale, ws, ws_bytes, s);
 }

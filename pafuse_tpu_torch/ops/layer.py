@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import torch
 
 from pafuse_tpu_torch.ops.block import _check, block_reference
+from pafuse_tpu_torch.ops.gemm import chain_workspace_bytes
 from pafuse_tpu_torch.ops.block_temporal import block_temporal_reference
 
 
@@ -75,13 +76,15 @@ def fused_layer(x: torch.Tensor, spatial_params: Sequence[torch.Tensor],
     attn = x.new_empty((M, C))
     x1 = x.new_empty((M, C))
     hid = x.new_empty((M, hidden))
+    ws_bytes = chain_workspace_bytes(M, C, hidden)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.pafuse_fused_layer(
             int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
             ys.data_ptr(), qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(),
             hid.data_ptr(), *[p.data_ptr() for p in sp + tp],
-            None if tpe is None else tpe.data_ptr(),
+            None if tpe is None else tpe.data_ptr(), ws.data_ptr(), ws_bytes,
             B, F, N, C, num_heads, hidden, (C // num_heads) ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"fused_layer: CUDA kernel launch failed with "

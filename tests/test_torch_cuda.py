@@ -22,7 +22,15 @@ Bounds (those of chip_smoke.py; TF32 off on both sides):
                          points, the frames as tokens);
   fused_layer            float32 1e-4 max abs; bfloat16 max 2^-3 and mean
                          2e-3 (two blocks deep plus one tpe rounding:
-                         chip_smoke.py states why).
+                         chip_smoke.py states why);
+  fused_linear           float32 1e-5 max abs (outputs O(1); three TF32
+                         products per product drop only a_lo*w_lo, ~2^-22
+                         relative, and sum in another order); bfloat16
+                         fused_block's bound, max 2^-4 and mean 1e-3:
+                         single-ulp flips of the rounded output, of the
+                         product rounded before a residual add, and of
+                         normalised A elements rounded on ~1e-7
+                         differences of the row statistics.
 """
 
 import numpy as np
@@ -33,6 +41,7 @@ from pafuse_tpu_torch.ops.attention import attention_reference, fused_attention
 from pafuse_tpu_torch.ops.block import block_reference, fused_block
 from pafuse_tpu_torch.ops.block_temporal import (block_temporal_reference,
                                                  fused_block_temporal)
+from pafuse_tpu_torch.ops.gemm import fused_linear, linear_reference
 from pafuse_tpu_torch.ops.block_train import (block_train_bwd, block_train_fwd,
                                               train_bwd_reference,
                                               train_fwd_reference)
@@ -290,3 +299,56 @@ def test_experimental_model_runs_kernels_3_and_4_on_gpu(cuda_device, mode):
         net.set_use_pallas("false")
         want = net(x2d, x3d, t)
     assert (got - want).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [384, 224, 256])
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("epilogue", ["store", "gelu", "residual"])
+def test_fused_linear_matches_plain_on_gpu(cuda_device, dtype, C, ln,
+                                           epilogue):
+    """The chain's Hopper GEMM alone: every prologue x epilogue pair at each
+    part's widths (N, K = 3C, C for a store, 2C, C for GELU, C, C or C, 2C
+    for a residual), on 64*5 + 37 rows (a ragged last row tile)."""
+    N, K = {"store": (3 * C, C), "gelu": (2 * C, C),
+            "residual": (C, C if ln else 2 * C)}[epilogue]
+    M = 64 * 5 + 37
+    r = np.random.RandomState(C + 2 * ln + len(epilogue))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    a = t(r.randn(M, K)).to(dtype)
+    w, b = t(r.uniform(-1, 1, (N, K)) / np.sqrt(K)), t(r.uniform(-1, 1, N) / np.sqrt(K))
+    norm = (t(1 + 0.1 * r.randn(K)), t(0.1 * r.randn(K))) if ln else None
+    res = t(r.randn(M, N)).to(dtype) if epilogue == "residual" else None
+    launches = fused_linear.launches
+    got = fused_linear(a, w, b, norm, epilogue, res)
+    torch.cuda.synchronize()
+    assert fused_linear.launches == launches + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    want = linear_reference(a, w, b, norm, epilogue, res).float()
+    diff = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert diff.max() <= 1e-5
+    else:
+        assert _bf16_ok(diff, 2.0 ** -4, 1e-3)
+
+
+@pytest.mark.cuda
+def test_block_chain_runs_only_its_own_kernels_on_gpu(cuda_device):
+    """Kernel #1's launches under torch.profiler: the Hopper GEMM, its
+    weight split and row statistics, the attention and the LayerNorm, and
+    no linear_kernel, cuBLAS or other PyTorch kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    params = _params(224, seed=3, device=cuda_device)
+    x = _inputs(8, 68, 224, seed=2, device=cuda_device)[0]
+    fused_block(x, params[:12], params[12:], HEADS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_block(x, params[:12], params[12:], HEADS)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    ours = ("sm90::gemm_kernel", "sm90::split_weights_kernel",
+            "sm90::row_stats_kernel", "attention_kernel", "layernorm_kernel")
+    assert names and all(any(k in n for k in ours) for n in names), names
+    assert any("sm90::gemm_kernel" in n for n in names)
