@@ -31,7 +31,11 @@ Phases, one JSON line each:
                of 27 frames), float32, plus one bfloat16-x forward per part,
                with their times, the plain versions', one PyTorch library
                composition's (layer_norm + linear + SDPA + gelu, and its
-               autograd backward; a yardstick only) and the bound.
+               autograd backward; a yardstick only) and the bound; and the
+               backward's tensor-core GEMMs alone at each shape (its four
+               data gradients on wgmma, its four weight gradients on
+               mma.sync), their time and TFLOP/s beside cuBLAS's (a @ w,
+               d^T @ x; a yardstick only).
   6. train   - the trainer at full width (D3DPConfig defaults with
                drop_path_rate 0.1; depth 8, float32, lr 6e-5, weighted MPJPE)
                on synthetic H3WB (S1, S5, S6, S7) through ChunkedSampler
@@ -48,8 +52,11 @@ Phases, one JSON line each:
                evaluation path (window batch 64, P=10, flip on), in float32
                and bfloat16, with its time, the plain version's, one PyTorch
                library composition's (linear + SDPA + linear, a yardstick
-               only) and the bound; and in float32 at the serving shapes of
-               bucket 16, the shapes of the kernel phase.
+               only) and the bound, and in float32 its two wgmma GEMMs
+               alone (ops.gemm.fused_linear, the same GEMM on the same
+               split weights), their time and TFLOP/s beside F.linear's; and
+               in float32 at the serving shapes of bucket 16, the shapes of
+               the kernel phase.
   8. eval    - the H3WB CLI (cli.main_h3wb) evaluating a checkpoint of
                seeded full-width weights saved with checkpoints.save_state
                on synthetic H3WB (test subject S8; 2 actions x 4 cameras x
@@ -664,6 +671,7 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
                  "deterministic": deterministic,
                  "ok": max(rel.values()) <= TRAIN_GRAD_RTOL and deterministic,
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 **backward_gemm_times(B * L, params),
                  **train_bound(B, L, C, x.element_size(), param_bytes,
                                backward=True)}
             emit(r)
@@ -672,6 +680,38 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
         del x32, g32, x, y, saved, want, diff, lib_x, lib_p
         torch.cuda.empty_cache()
     return results
+
+
+def backward_gemm_times(M, params):
+    """Kernel #6's GEMMs alone on M rows of random float32 operands, as its
+    backward runs them: the four data gradients (ops.block_train.data_grad,
+    wgmma; fc2 with the GELU' epilogue) and the four weight gradients
+    (weight_grad, mma.sync, with the ordered pass), each group's ms and
+    TFLOP/s (2*M*N*K per product) beside cuBLAS's a @ w and d^T @ x."""
+    import torch
+    from pafuse_tpu_torch.ops.block_train import data_grad, weight_grad
+    wqkv, wproj, wfc1, wfc2 = params[2], params[4], params[8], params[10]
+    g = torch.Generator(device=wqkv.device).manual_seed(M)
+    rows = lambda n: torch.randn(M, n, generator=g, device=wqkv.device)  # noqa: E731
+    # (weight, aux width or None): du = dm wfc2 * gelu'(u), dh2 = du wfc1,
+    # dO = da wproj, dh1 = dqkv wqkv; the weight gradients pair each
+    # gradient with the activation of the other side
+    dgrad = [(rows(w.shape[0]), w, rows(w.shape[1]) if w is wfc2 else None)
+             for w in (wfc2, wfc1, wproj, wqkv)]
+    wgrad = [(rows(w.shape[0]), rows(w.shape[1]))
+             for w in (wfc2, wfc1, wproj, wqkv)]
+    flop = sum(2 * M * w.numel() for w in (wfc2, wfc1, wproj, wqkv))
+    times = {
+        "dgrad_ms": cuda_time_ms(lambda: [data_grad(*a) for a in dgrad]),
+        "dgrad_library_ms": cuda_time_ms(
+            lambda: [a @ w for a, w, _ in dgrad]),
+        "wgrad_ms": cuda_time_ms(lambda: [weight_grad(*a) for a in wgrad]),
+        "wgrad_library_ms": cuda_time_ms(
+            lambda: [d.t() @ x for d, x in wgrad]),
+    }
+    del dgrad, wgrad
+    return {**times, **{k.replace("_ms", "_tflops"): flop / v / 1e9
+                        for k, v in times.items()}}
 
 
 def _synthetic_batches(seed: int, seqs: int, frames: int):
@@ -762,7 +802,8 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
           "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if dev.type == "cuda" else None)})
     if dev.type == "cuda":
-        profile_step(lambda: float(step(state, lr, *batches[-1])))
+        profile_step(lambda: float(step(state, lr, *batches[-1])),
+                     names=TRAIN_GROUPS)
     del model, state, step, before
 
     # two runs from one seed: bit-identical losses and params after 2 steps
@@ -838,14 +879,14 @@ COPY_GROUP = "copies (transposes, .contiguous())"
 #: names its group
 KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("sm90::gemm_kernel", "wgmma GEMMs (#1, #3, #4)"),
+                 ("sm90::split_weights_t", "transposed weight splits (#6)"),
                  ("sm90::split_weights", "weight splits (#1, #3, #4)"),
                  ("sm90::row_stats", "row statistics (#1, #3, #4)"),
-                 ("gemm_kernel<0", "forward GEMMs"),
-                 ("gemm_kernel<1", "data-gradient GEMMs"),
-                 ("wgrad_kernel", "weight-gradient GEMMs"),
+                 ("fwd_gemm_kernel", "forward GEMMs (#5, scalar FMAs)"),
+                 ("wgrad_mma_kernel", "weight-gradient GEMMs (#6, mma.sync)"),
                  ("attn_bwd_kernel", "attention backward"),
                  ("attention_kernel", "attention forward"),
-                 ("linear_kernel", "tiled GEMMs (linear_kernel: #2)"),
+                 ("bf16_to_f32_kernel", "bfloat16 x to float32 (#2)"),
                  ("layernorm_kernel", "outer LayerNorm (#1, #3, #4)"),
                  ("ln_bwd_kernel", "LayerNorm backward"),
                  ("ln_fwd_kernel", "LayerNorm forward"),
@@ -854,13 +895,22 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("gemm", "cuBLAS GEMMs"))
 
 
+#: the training step's wgmma GEMMs are #6's data gradients
+TRAIN_GROUPS = (("sm90::gemm_kernel", "data-gradient GEMMs (#6, wgmma)"),)
+#: a use_pallas=true step's wgmma GEMMs and weight splits are #2's
+EVAL_TRUE_GROUPS = (("sm90::gemm_kernel", "#2's GEMMs (wgmma)"),
+                    ("sm90::split_weights", "#2's weight splits"))
+
+
 def profile_step(run_step, phase="train_profile",
-                 rest="PyTorch (embedding, head, loss, AdamW)", **fields):
+                 rest="PyTorch (embedding, head, loss, AdamW)", names=(),
+                 **fields):
     """``run_step`` under torch.profiler: device time by kernel group (the
-    port's kernels by source pattern, PyTorch's copy kernels, cuBLAS, the
-    rest as ``rest``), the copies' device time and the device's idle share
-    of its wall time (host clock, profiler overhead included), emitted with
-    ``fields``.  ``run_step`` ends by reading a result from the device."""
+    port's kernels by source pattern, ``names`` before KERNEL_GROUPS,
+    PyTorch's copy kernels, cuBLAS, the rest as ``rest``), the copies'
+    device time and the device's idle share of its wall time (host clock,
+    profiler overhead included), emitted with ``fields``.  ``run_step``
+    ends by reading a result from the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -875,7 +925,8 @@ def profile_step(run_step, phase="train_profile",
                and e.self_device_time_total > 0]
     groups = {}
     for e in kernels:
-        group = next((g for pat, g in KERNEL_GROUPS if pat in e.key), rest)
+        group = next((g for pat, g in tuple(names) + KERNEL_GROUPS
+                      if pat in e.key), rest)
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     device_ms = sum(groups.values())
     emit({"phase": phase, **fields, "wall_ms": wall_ms,
@@ -907,6 +958,27 @@ def attention_bound(B, L, C, itemsize):
     M = B * L
     return bound(8 * M * C * C + 4 * B * L * L * C,
                  2 * M * C * itemsize + 4 * (4 * C * C + 4 * C), "float32")
+
+
+def attention_gemm_times(x, attn):
+    """Kernel #2's two GEMMs alone on float32 x (B, L, C): the QKV and the
+    projection product as it runs them (ops.gemm.fused_linear: the same
+    wgmma GEMM, float32 in and out, on the weights split per call), their
+    ms and TFLOP/s (8*M*C^2 FLOPs) beside F.linear's (cuBLAS SGEMM)."""
+    import torch.nn.functional as F
+    from pafuse_tpu_torch.ops.gemm import fused_linear
+    wqkv, bqkv, wproj, bproj = attn
+    C = x.shape[-1]
+    a = x.reshape(-1, C)
+    o = a.flip(0)                       # any float32 (M, C) operand
+    flop = 8 * a.shape[0] * C * C
+    times = {
+        "gemm_ms": cuda_time_ms(lambda: (fused_linear(a, wqkv, bqkv),
+                                         fused_linear(o, wproj, bproj))),
+        "gemm_library_ms": cuda_time_ms(lambda: (F.linear(a, wqkv, bqkv),
+                                                 F.linear(o, wproj, bproj)))}
+    return {**times, **{k.replace("_ms", "_tflops"): flop / v / 1e9
+                        for k, v in times.items()}}
 
 
 def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
@@ -958,6 +1030,8 @@ def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
                  "B": B, "L": L, "C": C, "max_abs_err": float(diff.max()),
                  "ok": ok, "ms": ms, "plain_ms": plain_ms,
                  "library_ms": lib_ms,
+                 **(attention_gemm_times(x, attn) if name == "float32"
+                    else {}),
                  **attention_bound(B, L, C, x.element_size())}
             emit(r)
             results.append(r)
@@ -1298,7 +1372,7 @@ def eval_phase(seed: int, workdir: str, device: str = "cuda", depth: int = 8,
         profile_step(lambda: ev.evaluate_sequences(
             model, seqs, receptive_field=rf, num_proposals=P,
             sampling_timesteps=1, window_batch=bs),
-            phase="eval_profile",
+            phase="eval_profile", names=EVAL_TRUE_GROUPS,
             rest="PyTorch (LayerNorm, GELU, residuals, embedding, head, "
                  "sampler, metrics)")
     del model
@@ -1569,6 +1643,10 @@ def main() -> int:
         cs = [c for c in cs if c["dtype"] == "float32"]
         return {f"serve_bucket16_{k}": sum(c[k] for c in cs) for k in keys}
 
+    def f32_sums(cs, keys):
+        cs = [c for c in cs if c["dtype"] == "float32"]
+        return {k: sum(c[k] for c in cs) for k in keys}
+
     def replaced(cs):
         return sum(c["replaced_ms"] for c in cs if c["dtype"] == "float32")
 
@@ -1586,14 +1664,20 @@ def main() -> int:
         _kernel_entry("block_train_fwd", "cuda", TRAIN_SOURCE,
                       TRAIN_REPLACES["block_train_fwd"], train_launches[0],
                       fwd, **bf16(fwd)),
+        # with its GEMMs alone: data gradients (wgmma) and weight
+        # gradients (mma.sync), and cuBLAS's for the same products
         _kernel_entry("block_train_bwd", "cuda", TRAIN_SOURCE,
                       TRAIN_REPLACES["block_train_bwd"], train_launches[1],
                       bwd, max_rel_grad_err=max(
-                          c["max_rel_grad_err"] for c in bwd)),
-        # eval shapes (window batch 64); the serve bucket-16 shapes beside
+                          c["max_rel_grad_err"] for c in bwd),
+                      **f32_sums(bwd, ("dgrad_ms", "dgrad_library_ms",
+                                       "wgrad_ms", "wgrad_library_ms"))),
+        # eval shapes (window batch 64); the serve bucket-16 shapes beside;
+        # its two GEMMs alone and F.linear's
         _kernel_entry("fused_attention", "cuda", ATTN_SOURCE, ATTN_REPLACES,
                       eval_launches["fused_attention"], attn_cases,
-                      **bf16(attn_cases), **serve16(serve_attn)),
+                      **bf16(attn_cases), **serve16(serve_attn),
+                      **f32_sums(attn_cases, ("gemm_ms", "gemm_library_ms"))),
         # eval shapes, the serve bucket-16 shapes beside; replaced_ms is the
         # path each kernel replaces (kernel #1 and the transposes)
         _kernel_entry("fused_block_temporal", "cuda", BT_SOURCE, BT_REPLACES,

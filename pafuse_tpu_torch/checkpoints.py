@@ -27,7 +27,7 @@ import json
 import os
 import pickle
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -143,11 +143,18 @@ def load_state_npz(path: str) -> Dict[str, torch.Tensor]:
     return _state_dict(flat)
 
 
-def load_reference_bin(path: str) -> Dict[str, torch.Tensor]:
+def load_reference_bin(path: str, parts: Sequence[str] = ()
+                       ) -> Dict[str, torch.Tensor]:
     """State dict of the part networks from a reference-named torch
     checkpoint: a state dict, or a dict holding one under ``model_pos`` or
     ``state_dict``.  ``module.`` and ``pose_estimator.`` prefixes are
-    stripped and the diffusion schedule buffers are dropped."""
+    stripped and the diffusion schedule buffers are dropped.
+
+    ``parts``: the part names of the model to load into.  A model with one
+    part (``general.part_based_model=false``: ``whole_body``) takes the
+    reference's monolithic keys (``pose_estimator.STEblocks...``, no part
+    name) under that part's name, as the JAX loader maps them into its one
+    tree."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model_pos", ckpt.get("state_dict", ckpt))
     out = {}
@@ -158,6 +165,8 @@ def load_reference_bin(path: str) -> Dict[str, torch.Tensor]:
             out[key[len("pose_estimator."):]] = value.float()
     if not out:
         raise ValueError(f"{path}: no pose_estimator.* entries")
+    if len(parts) == 1 and not any(k.startswith(f"{parts[0]}.") for k in out):
+        out = {f"{parts[0]}.{k}": v for k, v in out.items()}
     return out
 
 

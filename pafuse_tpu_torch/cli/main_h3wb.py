@@ -180,7 +180,9 @@ def _run(args, device, timestamp):
         print("Loading checkpoint", chk_path)
         if chk_path.endswith(".bin"):
             model.pose_estimator.load_state_dict(
-                checkpoints.load_reference_bin(chk_path), strict=True)
+                checkpoints.load_reference_bin(
+                    chk_path, [s.name for s in model.pose_estimator.specs]),
+                strict=True)
             restored = {"epoch": 0}
         elif args.general.resume:
             restored = checkpoints.load_state(chk_path, model, state.optimizer,

@@ -57,6 +57,12 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         # C, H, hidden, scale, stream
         "pafuse_block_train_bwd": ([_I] + [_P] * 4 + [_P] * 14 + [_P] * 4
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
+        # the backward's GEMMs alone: A, W, aux (or NULL), Y, workspace, M,
+        # N, K, stream; the partials' float count: M, N, K; D, X, partials,
+        # dW, M, N, K, stream
+        "pafuse_data_grad": ([_P] * 5 + [_LL, _I, _I, _P], _I),
+        "pafuse_weight_grad_part_floats": ([_LL, _I, _I], _LL),
+        "pafuse_weight_grad": ([_P] * 4 + [_LL, _I, _I, _P], _I),
     },
     "block_temporal": {
         # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, workspace and
@@ -79,9 +85,9 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
                                                            _P], _I),
     },
     "attention": {
-        # is_bf16, x, out, qkv scratch, attention scratch, wqkv, bqkv,
-        # wproj, bproj, B, L, C, H, scale, stream
-        "pafuse_fused_attention": ([_I] + [_P] * 4 + [_P] * 4
+        # is_bf16, x, out, qkv scratch, attention scratch, workspace and its
+        # bytes, wqkv, bqkv, wproj, bproj, B, L, C, H, scale, stream
+        "pafuse_fused_attention": ([_I] + [_P] * 5 + [_LL] + [_P] * 4
                                    + [_LL, _I, _I, _I, _F, _P], _I),
     },
 }

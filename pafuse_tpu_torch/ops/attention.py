@@ -9,8 +9,12 @@ float32 whatever the dtype of ``x``, qkv, the probabilities and the head
 outputs stay in float32, and only the output is rounded to ``x.dtype``.
 
 ``fused_attention`` launches the hand-written CUDA kernel chain
-(``csrc/attention.cu``) for CUDA tensors and uses ``attention_reference``,
-the same function in plain PyTorch ops, for CPU tensors.
+(``csrc/attention.cu``: the two GEMMs on ``csrc/gemm_sm90.cuh``, TMA-fed
+``wgmma`` with each float32 product as three TF32 products, see
+``ops.gemm.split_tf32``; a bfloat16 ``x`` is converted to float32 first,
+which TF32 holds exactly) for CUDA tensors and uses
+``attention_reference``, the same function in plain PyTorch ops, for CPU
+tensors.
 
 Parameters are float32 in torch layout: ``qkv_w`` (3C, C), ``qkv_b`` (3C,),
 ``proj_w`` (C, C), ``proj_b`` (C,).  ``x`` is (..., L, C): the leading dims
@@ -37,6 +41,13 @@ def attention_reference(x: torch.Tensor, qkv_w: torch.Tensor,
     return F.linear(ao, proj_w, proj_b).to(x.dtype).reshape(*lead, L, C)
 
 
+def attention_workspace_bytes(M: int, C: int, bf16: bool) -> int:
+    """Workspace of one ``fused_attention`` call on M = B*L rows
+    (``csrc/attention.cu`` checks it): the TF32 hi and lo halves of the two
+    weights and, for bfloat16 x, a float32 copy of x."""
+    return 4 * (8 * C * C + (M * C if bf16 else 0))
+
+
 def _check(x: torch.Tensor, params, num_heads: int) -> None:
     if x.dim() < 2:
         raise ValueError(f"fused_attention: x must be (..., L, C); got "
@@ -47,9 +58,9 @@ def _check(x: torch.Tensor, params, num_heads: int) -> None:
     if not x.is_contiguous():
         raise ValueError("fused_attention: x must be contiguous")
     C = x.shape[-1]
-    if C % num_heads:
-        raise ValueError(f"fused_attention: C={C} not divisible by "
-                         f"{num_heads} heads")
+    if C % num_heads or C % 8:
+        raise ValueError(f"fused_attention: C={C} must be a multiple of 8 "
+                         f"and divisible by {num_heads} heads")
     shapes = [(3 * C, C), (3 * C,), (C, C), (C,)]
     for i, (p, shape) in enumerate(zip(params, shapes)):
         if tuple(p.shape) != shape:
@@ -83,17 +94,22 @@ def fused_attention(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
     L, C = x.shape[-2:]
     B = x.numel() // (L * C)
     out = torch.empty_like(x)
+    bf16 = x.dtype == torch.bfloat16
     qkv = torch.empty((B * L, 3 * C), dtype=torch.float32, device=x.device)
     attn = torch.empty((B * L, C), dtype=torch.float32, device=x.device)
+    ws_bytes = attention_workspace_bytes(B * L, C, bf16)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.pafuse_fused_attention(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
-            qkv.data_ptr(), attn.data_ptr(), *[p.data_ptr() for p in params],
+            int(bf16), x.data_ptr(), out.data_ptr(), qkv.data_ptr(),
+            attn.data_ptr(), ws.data_ptr(), ws_bytes,
+            *[p.data_ptr() for p in params],
             B, L, C, num_heads, (C // num_heads) ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"fused_attention: CUDA kernel launch failed with "
-                           f"cudaError {err}")
+                           f"cudaError {err} (1: a shape the GEMM does not "
+                           f"take, or a failed TMA tensor-map encode)")
     fused_attention.launches += 1
     return out
 

@@ -21,6 +21,13 @@ recomputes them from the inputs.  ``block_train`` wraps the pair as a
 ``torch.autograd.Function`` that returns dx, the 14 parameter gradients and
 zero gradients for the masks.
 
+The backward's GEMMs run on the tensor cores, each float32 product as three
+TF32 products (``ops.gemm.split_tf32``): the data gradients on the TMA +
+``wgmma`` GEMM of ``csrc/gemm_sm90.cuh``, the weight gradients on
+``mma.sync`` per chunk of ``RED_ROWS`` rows, summed in chunk order.
+``data_grad`` and ``weight_grad`` run each alone (plain versions
+``data_grad_reference`` and ``weight_grad_reference``).
+
 Parameters are the 14 float32 tensors of ``ops.block`` in torch layout:
 ``(norm1.weight, norm1.bias, qkv.weight, qkv.bias, proj.weight, proj.bias,
 norm2.weight, norm2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
@@ -40,6 +47,8 @@ _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 #: shared memory an H100 block can take (bytes)
 _MAX_SMEM = 232448
+#: rows per partial sum of a weight gradient (``csrc/block_train.cu``)
+RED_ROWS = 1024
 
 
 def _ln_fwd(x, s, b):
@@ -103,6 +112,18 @@ def train_fwd_reference(x: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
     return y.to(x.dtype)
 
 
+def data_grad_reference(a: torch.Tensor, w: torch.Tensor,
+                        aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`data_grad`: ``(a @ w) * gelu'(aux)``."""
+    y = a @ w
+    return y if aux is None else y * _gelu_grad(aux)
+
+
+def weight_grad_reference(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`weight_grad`: ``d^T x``."""
+    return d.t() @ x
+
+
 def train_bwd_reference(x: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
                         m2: torch.Tensor, params: Sequence[torch.Tensor],
                         num_heads: int
@@ -124,16 +145,17 @@ def train_bwd_reference(x: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
     # MLP branch
     dm = (m2 * dx2).reshape(M, C)
     gu, u, h2 = gu.reshape(M, -1), u.reshape(M, -1), h2.reshape(M, C)
-    du = (dm @ wfc2) * _gelu_grad(u)
-    dwfc2, dbfc2 = dm.t() @ gu, dm.sum(0)
-    dwfc1, dbfc1 = du.t() @ h2, du.sum(0)
-    dh2 = (du @ wfc1).reshape(B, L, C)
+    du = data_grad_reference(dm, wfc2, u)
+    dwfc2, dbfc2 = weight_grad_reference(dm, gu), dm.sum(0)
+    dwfc1, dbfc1 = weight_grad_reference(du, h2), du.sum(0)
+    dh2 = data_grad_reference(du, wfc1).reshape(B, L, C)
     dx1_ln2, dn2s, dn2b = _ln_bwd(dh2, xhat2, inv2, n2s)
     dx1 = dx2 + dx1_ln2
     # attention branch
     da = (m1 * dx1).reshape(M, C)
-    dwproj, dbproj = da.t() @ o.reshape(M, C), da.sum(0)
-    do = (da @ wproj).view(B, L, num_heads, d).transpose(1, 2)   # (B, H, L, d)
+    dwproj, dbproj = weight_grad_reference(da, o.reshape(M, C)), da.sum(0)
+    do = data_grad_reference(da, wproj).view(B, L, num_heads, d)
+    do = do.transpose(1, 2)                                      # (B, H, L, d)
     dP = do @ v.transpose(-1, -2)
     dv = P.transpose(-1, -2) @ do
     dS = P * (dP - (dP * P).sum(-1, keepdim=True))
@@ -141,8 +163,8 @@ def train_bwd_reference(x: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
     dk = (dS.transpose(-1, -2) @ q) * scale
     dqkv = torch.stack([dq, dk, dv], dim=2)                      # (B, H, 3, L, d)
     dqkv = dqkv.permute(0, 3, 2, 1, 4).reshape(M, 3 * C)
-    dwqkv, dbqkv = dqkv.t() @ h1.reshape(M, C), dqkv.sum(0)
-    dh1 = (dqkv @ wqkv).reshape(B, L, C)
+    dwqkv, dbqkv = weight_grad_reference(dqkv, h1.reshape(M, C)), dqkv.sum(0)
+    dh1 = data_grad_reference(dqkv, wqkv).reshape(B, L, C)
     dx0_ln1, dn1s, dn1b = _ln_bwd(dh1, xhat1, inv1, n1s)
     dx0 = dx1 + dx0_ln1
     return dx0.to(x.dtype), (dn1s, dn1b, dwqkv, dbqkv, dwproj, dbproj, dn2s,
@@ -171,6 +193,9 @@ def _check(x, m1, m2, params, num_heads) -> None:
                              f"{tuple(m.shape)} on {m.device}")
     if x.shape[2] > 512:
         raise ValueError(f"block_train: C={x.shape[2]} > 512 is not supported")
+    if x.shape[2] % 8 or params[8].shape[0] % 8:
+        raise ValueError("block_train: C and the hidden width must be "
+                         "multiples of 8 (the tensor-core GEMMs' tiles)")
 
 
 def _lib_and_dims(x, params, num_heads):
@@ -261,6 +286,80 @@ def block_train_bwd(ctx: TrainSaved, g: torch.Tensor
 #: kernel launches through the wrappers (CUDA path only)
 block_train_fwd.launches = 0
 block_train_bwd.launches = 0
+
+
+def _check_2d(what, *tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if (t.dim() != 2 or t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: expected contiguous 2-D float32 "
+                             f"tensors on {dev}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if t.shape[1] % 8:
+            raise ValueError(f"{what}: widths must be multiples of 8; got "
+                             f"{tuple(t.shape)}")
+
+
+def data_grad(a: torch.Tensor, w: torch.Tensor,
+              aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The backward's data-gradient GEMM alone: a (M, K) @ w (K, N), times
+    gelu'(aux (M, N)) when given, on the tensor cores for CUDA tensors (or
+    raise); :func:`data_grad_reference` for CPU tensors."""
+    if a.device.type == "cpu":
+        return data_grad_reference(a, w, aux)
+    if a.device.type != "cuda":
+        raise ValueError(f"data_grad: unsupported device {a.device}")
+    (M, K), N = a.shape, w.shape[1]
+    _check_2d("data_grad", a, w, *([] if aux is None else [aux]))
+    if w.shape[0] != K or (aux is not None and tuple(aux.shape) != (M, N)):
+        raise ValueError(f"data_grad: a {tuple(a.shape)}, w {tuple(w.shape)} "
+                         f"and aux {None if aux is None else tuple(aux.shape)} "
+                         f"do not fit")
+    from pafuse_tpu_torch.ops import _build
+    lib = _build.load("block_train")
+    y = a.new_empty((M, N))
+    ws = a.new_empty(2 * N * K)
+    with torch.cuda.device(a.device):
+        err = lib.pafuse_data_grad(a.data_ptr(), w.data_ptr(),
+                                   None if aux is None else aux.data_ptr(),
+                                   y.data_ptr(), ws.data_ptr(), M, N, K,
+                                   _stream(a))
+    _raise_on(err, "data_grad")
+    data_grad.launches += 1
+    return y
+
+
+def weight_grad(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The backward's weight-gradient GEMM alone: d (M, N)^T x (M, K) ->
+    (N, K), summed per chunk of RED_ROWS rows and then in chunk order, on
+    the tensor cores for CUDA tensors (or raise);
+    :func:`weight_grad_reference` for CPU tensors."""
+    if d.device.type == "cpu":
+        return weight_grad_reference(d, x)
+    if d.device.type != "cuda":
+        raise ValueError(f"weight_grad: unsupported device {d.device}")
+    _check_2d("weight_grad", d, x)
+    (M, N), K = d.shape, x.shape[1]
+    if x.shape[0] != M:
+        raise ValueError(f"weight_grad: {tuple(d.shape)} and "
+                         f"{tuple(x.shape)} differ in rows")
+    from pafuse_tpu_torch.ops import _build
+    lib = _build.load("block_train")
+    dw = d.new_empty((N, K))
+    part = d.new_empty(lib.pafuse_weight_grad_part_floats(M, N, K))
+    with torch.cuda.device(d.device):
+        err = lib.pafuse_weight_grad(d.data_ptr(), x.data_ptr(),
+                                     part.data_ptr(), dw.data_ptr(), M, N, K,
+                                     _stream(d))
+    _raise_on(err, "weight_grad")
+    weight_grad.launches += 1
+    return dw
+
+
+#: kernel launches through the GEMM wrappers (CUDA path only)
+data_grad.launches = 0
+weight_grad.launches = 0
 
 
 class BlockTrainFn(torch.autograd.Function):

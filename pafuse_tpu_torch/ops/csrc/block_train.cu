@@ -29,19 +29,35 @@
 //     At the training batch that is about 27 GB for the 48 blocks of a step,
 //     a third of the card's 80 GB, and it saves the third of the backward's
 //     FLOPs that a recompute would add.
-//   * A chain of launches, as block.cu: tiled f32 GEMMs (64x64 tile, scalar
-//     FMAs, no tensor cores) with fused epilogues (bias, GELU, mask-scaled
-//     residual, GELU'), the row LayerNorms, one attention CTA per
-//     (sequence, head) forward and backward with q, k, v, dO, P and dS in
-//     shared memory (L <= 68 fits), and LayerNorm-backward row kernels.
+//   * A chain of launches, as block.cu, with the row LayerNorms, one
+//     attention CTA per (sequence, head) forward and backward with q, k, v,
+//     dO, P and dS in shared memory (L <= 68 fits), and LayerNorm-backward
+//     row kernels.  The forward's GEMMs (kernel #5) are tiled f32 GEMMs
+//     (64x64 tile, scalar FMAs) with fused epilogues (bias, GELU,
+//     mask-scaled residual).  The backward's (kernel #6) run on the tensor
+//     cores, every float32 product as three TF32 products a_lo*b_hi +
+//     a_hi*b_lo + a_hi*b_hi (x_hi = tf32(x), x_lo = tf32(x - x_hi); the
+//     dropped a_lo*b_lo is ~2^-22 relative), with partial sums over at most
+//     two 32-deep K slices added in f32 FADDs (the tensor cores' own f32
+//     accumulation truncates):
+//       - the data gradients Y = dY W (fc2 with the GELU' epilogue, fc1,
+//         proj, qkv) on gemm_sm90.cuh's TMA + wgmma GEMM.  TF32 wgmma takes
+//         K-major operands only, and W is stored (K, N), so each call first
+//         splits the four weights transposed (split_weights_t_kernel) into
+//         its scratch;
+//       - the weight gradients dW = dY^T X on wgrad_mma_kernel, mma.sync
+//         m16n8k8 TF32: both of its operands have the summed row index m as
+//         their row, so neither is K-major for wgmma, while mma.sync takes
+//         fragments that threads load from shared memory in any layout (the
+//         slices arrive by cp.async as stored, 32 rows of m by 128 columns).
 //   * Deterministic parameter gradients.  The TPU grid runs in order and
 //     accumulates into revisited output blocks; CTAs here run concurrently.
 //     Each weight gradient dW = dY^T X is computed per fixed chunk of
-//     RED_ROWS rows into its own partial (a 64x64-tiled GEMM over the
-//     chunk's rows in order), and a second kernel sums the partials in
-//     chunk order; bias and LayerNorm-parameter gradients go the same way
-//     (column sums per chunk, then the ordered sum).  No float atomics: two
-//     identical calls give bit-identical gradients.
+//     RED_ROWS rows into its own partial (the chunk's rows in order), and a
+//     second kernel sums the partials in chunk order; bias and
+//     LayerNorm-parameter gradients go the same way (column sums per chunk,
+//     then the ordered sum).  No float atomics and no split-K whose order
+//     varies: two identical calls give bit-identical gradients.
 //   * No padding: L and B are taken as they are (the TPU pads L to 8 and B
 //     to the tile, and masks the pad), so nothing from a pad row enters a
 //     sum.
@@ -51,19 +67,12 @@
 // counts.  Nothing here allocates or synchronises; everything launches on
 // the caller's stream.
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr float kInvSqrt2 = 0.7071067811865476f;
-constexpr float kInvSqrt2Pi = 0.3989422804014327f;
-
 __device__ __forceinline__ float gelu(float u) {
   return 0.5f * u * (1.f + erff(u * kInvSqrt2));
-}
-
-__device__ __forceinline__ float gelu_grad(float u) {
-  return 0.5f * (1.f + erff(u * kInvSqrt2)) + u * (kInvSqrt2Pi * expf(-0.5f * u * u));
 }
 
 // rows per partial sum of a weight or bias gradient, and of a LayerNorm
@@ -132,10 +141,12 @@ Saved carve_saved(float* p, long long M, int C, int hid) {
   return s;
 }
 
-// Backward scratch: the activation gradients and one buffer of partial sums
-// that the reductions use in turn (stream order keeps them apart).
+// Backward scratch: the activation gradients, one buffer of partial sums
+// that the reductions use in turn (stream order keeps them apart), and the
+// TF32 hi and lo halves of the four weights, transposed, for the data
+// gradients (wt: fc2, fc1, proj, qkv in turn, each hi then lo).
 struct Scratch {
-  float *dx2, *dm, *du, *dh2, *dx1, *da, *dO, *dqkv, *dh1, *part;
+  float *dx2, *dm, *du, *dh2, *dx1, *da, *dO, *dqkv, *dh1, *part, *wt;
 };
 
 long long n_chunks(long long M, int rows) { return (M + rows - 1) / rows; }
@@ -148,8 +159,12 @@ long long part_floats(long long M, int C, int hid) {
   return w > b ? (w > l ? w : l) : (b > l ? b : l);
 }
 
+long long split_t_floats(int C, int hid) {
+  return 2LL * (4LL * C * C + 2LL * hid * C);
+}
+
 long long scratch_floats(long long M, int C, int hid) {
-  return M * (10LL * C + hid) + part_floats(M, C, hid);
+  return M * (10LL * C + hid) + part_floats(M, C, hid) + split_t_floats(C, hid);
 }
 
 Scratch carve_scratch(float* p, long long M, int C, int hid) {
@@ -163,7 +178,8 @@ Scratch carve_scratch(float* p, long long M, int C, int hid) {
   s.dO = p; p += M * C;
   s.dqkv = p; p += M * 3 * C;
   s.dh1 = p; p += M * C;
-  s.part = p;
+  s.part = p; p += part_floats(M, C, hid);
+  s.wt = p;
   return s;
 }
 
@@ -202,40 +218,34 @@ ln_fwd_kernel(const TIn* __restrict__ X, const float* __restrict__ scale,
 }
 
 // ---------------------------------------------------------------------------
-// Tiled f32 GEMM  Y[m, n] = epilogue(sum_k A[m, k] * B[k, n]), A (M, K)
-// row-major; B[k, n] = W[n, k] for a torch Linear weight W (N, K) in the
-// forward (Y = A W^T), B[k, n] = W[k, n] for the data gradients (Y = A W).
-// 64x64 output tile per CTA, 16-deep K slices through shared memory, 256
-// threads with a 4x4 register tile each; M on gridDim.x, N tiles on
-// gridDim.y.
+// The forward's tiled f32 GEMM  Y[m, n] = epilogue(sum_k A[m, k] * W[n, k])
+// for a torch Linear weight W (N, K): 64x64 output tile per CTA, 16-deep K
+// slices through shared memory, 256 threads with a 4x4 register tile each;
+// M on gridDim.x, N tiles on gridDim.y.
 // ---------------------------------------------------------------------------
 
-enum { W_NK = 0, W_KN = 1 };
+constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
+
 enum {
-  EPI_NONE = 0,           // Y = acc
-  EPI_BIAS = 1,           // Y = acc + b
-  EPI_BIAS_GELU = 2,      // Y = acc + b, Y2 = gelu(Y)
-  EPI_MASK_RESIDUAL = 3,  // Y = R + mask[m / L] * (acc + b)
-  EPI_GELU_GRAD = 4,      // Y = acc * gelu'(aux)
+  FWD_BIAS = 0,           // Y = acc + b
+  FWD_BIAS_GELU = 1,      // Y = acc + b, Y2 = gelu(Y)
+  FWD_MASK_RESIDUAL = 2,  // Y = R + mask[m / L] * (acc + b)
 };
 
-template <int WL, int EPI, typename TR>
+template <int EPI, typename TR>
 __global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-            const float* __restrict__ bias, const TR* __restrict__ R,
-            const float* __restrict__ mask, const float* __restrict__ aux,
-            float* __restrict__ Y, float* __restrict__ Y2, long long M, int N, int K,
-            int L) {
+fwd_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                const float* __restrict__ bias, const TR* __restrict__ R,
+                const float* __restrict__ mask, float* __restrict__ Y,
+                float* __restrict__ Y2, long long M, int N, int K, int L) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Ws[BK][BN + 4];
 
   const int tid = threadIdx.x;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  // A and (N, K) weight tile loads: thread -> row lr, four consecutive k
+  // A and weight tile loads: thread -> row lr, four consecutive k
   const int lr = tid >> 2, lk = (tid & 3) * 4;
-  // (K, N) weight tile loads: thread -> k row wk, four consecutive n
-  const int wk = tid >> 4, wn = (tid & 15) * 4;
   // compute: thread -> rows ty + 16 i, cols tx + 16 j
   const int ty = tid >> 4, tx = tid & 15;
   float acc[4][4];
@@ -245,18 +255,13 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   const long long am = m0 + lr;
+  const int wn = n0 + lr;
   for (int k0 = 0; k0 < K; k0 += BK) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int k = k0 + lk + j;
       As[lk + j][lr] = (am < M && k < K) ? A[am * K + k] : 0.f;
-      if (WL == W_NK) {
-        const int n = n0 + lr;
-        Ws[lk + j][lr] = (n < N && k < K) ? W[(long long)n * K + k] : 0.f;
-      } else {
-        const int kk = k0 + wk, n = n0 + wn + j;
-        Ws[wk][wn + j] = (kk < K && n < N) ? W[(long long)kk * N + n] : 0.f;
-      }
+      Ws[lk + j][lr] = (wn < N && k < K) ? W[(long long)wn * K + k] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -283,88 +288,198 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
       const long long idx = m * N + n;
-      float y = acc[i][j];
-      if (EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_MASK_RESIDUAL)
-        y += bias[n];
-      if (EPI == EPI_BIAS_GELU) Y2[idx] = gelu(y);
-      if (EPI == EPI_MASK_RESIDUAL) y = to_f32<TR>(R[idx]) + mask[m / L] * y;
-      if (EPI == EPI_GELU_GRAD) y *= gelu_grad(aux[idx]);
+      float y = acc[i][j] + bias[n];
+      if (EPI == FWD_BIAS_GELU) Y2[idx] = gelu(y);
+      if (EPI == FWD_MASK_RESIDUAL) y = to_f32<TR>(R[idx]) + mask[m / L] * y;
       Y[idx] = y;
     }
   }
 }
 
-template <int WL, int EPI, typename TR = float>
-cudaError_t launch_gemm(const float* A, const float* W, const float* bias, const TR* R,
-                        const float* mask, const float* aux, float* Y, float* Y2,
-                        long long M, int N, int K, int L, cudaStream_t stream) {
+template <int EPI, typename TR = float>
+cudaError_t launch_fwd_gemm(const float* A, const float* W, const float* bias, const TR* R,
+                            const float* mask, float* Y, float* Y2, long long M, int N, int K,
+                            int L, cudaStream_t stream) {
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  gemm_kernel<WL, EPI, TR><<<grid, GEMM_THREADS, 0, stream>>>(A, W, bias, R, mask, aux, Y,
-                                                              Y2, M, N, K, L);
+  fwd_gemm_kernel<EPI, TR><<<grid, GEMM_THREADS, 0, stream>>>(A, W, bias, R, mask, Y, Y2, M,
+                                                              N, K, L);
   return cudaGetLastError();
 }
 
+// The data-gradient GEMM  Y (M, N) = A (M, K) W [* gelu'(aux)] for a weight
+// W stored (K, N), on gemm_sm90.cuh's GEMM, with W^T already split into
+// wt_hi and wt_lo (N, K) by split_weights_t.
+template <int EPI>
+cudaError_t data_grad(const float* A, const float* wt_hi, const float* wt_lo,
+                      const float* aux, float* Y, long long M, int N, int K,
+                      cudaStream_t stream) {
+  return sm90::launch_gemm<float, PRO_NONE, EPI>(A, wt_hi, wt_lo, nullptr, nullptr, nullptr,
+                                                  nullptr, aux, Y, M, N, K, stream);
+}
+
 // ---------------------------------------------------------------------------
-// Weight gradient partials  P[p, n, k] = sum over the rows m of chunk p (in
-// order) of D[m, n] * X[m, k]; D (M, N), X (M, K) row-major.  Grid: k tiles
-// on x, n tiles on y, row chunks of RED_ROWS on z.
+// Weight-gradient partials on the tensor cores:
+//   P[p, n, k] = sum over the rows m of chunk p (RED_ROWS rows, in order)
+//                of D[m, n] * X[m, k];  D (M, N), X (M, K) row-major.
+// A CTA of 8 warps takes a 128 (n) x 128 (k) tile of one chunk; grid: k
+// tiles on x, n tiles on y, chunks on z.  The chunk's rows go through a
+// ring of WG_STAGES shared-memory slices of 32 rows of D and of X each,
+// loaded by cp.async as stored (16 bytes a thread, zero-filled past the
+// chunk, N and K).  mma.sync.m16n8k8 (TF32) takes A = D^T and B = X: a
+// thread's fragment elements are single floats that it reads from the
+// slices (row stride WG_LD = 8 mod 32 banks, so a warp's 32 reads hit 32
+// banks) and splits into TF32 halves in registers.  Warp w owns rows
+// 64 (w / 4) and columns 32 (w % 4) of the tile: 4 x 4 fragments of 16 x 8,
+// three products each per 8 rows of m, summed in `part` over two slices and
+// then added to `acc` in f32.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(GEMM_THREADS)
-wgrad_kernel(const float* __restrict__ D, const float* __restrict__ X,
-             float* __restrict__ P, long long M, int N, int K) {
-  __shared__ float Ds[BK][BM + 4];
-  __shared__ float Xs[BK][BN + 4];
+constexpr int WG_TILE = 128;                      // n and k per CTA
+constexpr int WG_ROWS = 32;                       // rows m per slice
+constexpr int WG_LD = WG_TILE + 8;                // shared row stride (floats)
+constexpr int WG_SLICE = WG_ROWS * WG_LD;         // floats per operand slice
+constexpr int WG_STAGES = 3;
+constexpr int WG_THREADS = 256;
+constexpr int WG_SMEM = WG_STAGES * 2 * WG_SLICE * 4;
+static_assert(RED_ROWS % (2 * WG_ROWS) == 0, "a chunk is whole pairs of slices");
 
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BN;
-  const int n0 = blockIdx.y * BM;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(sm90::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// The TF32 halves of v as mma.sync operands.
+__device__ __forceinline__ void split_bits(float v, uint32_t& hi, uint32_t& lo) {
+  hi = sm90::tf32_bits(v);
+  lo = sm90::tf32_bits(v - __uint_as_float(hi));
+}
+
+// d += a * b, one m16n8k8 TF32 product with f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Slice rows m0.. (< r1) of D's columns n0.. and X's columns k0.. into ds
+// and xs: 32 rows x 32 chunks of 16 bytes each, four chunks a thread.
+__device__ __forceinline__ void wgrad_load(float* ds, float* xs, const float* D, const float* X,
+                                           long long m0, long long r1, int n0, int k0, int N,
+                                           int K) {
+#pragma unroll
+  for (int j = 0; j < WG_ROWS * WG_TILE / 4 / WG_THREADS; ++j) {
+    const int c = threadIdx.x + WG_THREADS * j, row = c >> 5, col = (c & 31) * 4;
+    const long long m = m0 + row;
+    const bool vd = m < r1 && n0 + col < N, vx = m < r1 && k0 + col < K;
+    cp_async16(ds + row * WG_LD + col, vd ? D + m * N + n0 + col : D, vd);
+    cp_async16(xs + row * WG_LD + col, vx ? X + m * K + k0 + col : X, vx);
+  }
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgrad_mma_kernel(const float* __restrict__ D, const float* __restrict__ X,
+                 float* __restrict__ P, long long M, int N, int K) {
+  extern __shared__ __align__(16) float wg_smem[];
+  const int k0 = blockIdx.x * WG_TILE, n0 = blockIdx.y * WG_TILE;
   const long long r0 = (long long)blockIdx.z * RED_ROWS;
   const long long r1 = r0 + RED_ROWS < M ? r0 + RED_ROWS : M;
-  // loads: thread -> row lr of the 16-row slice, four consecutive columns
-  const int lr = tid >> 4, lc = (tid & 15) * 4;
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[4][4];
+  const int slices = (int)((r1 - r0 + WG_ROWS - 1) / WG_ROWS);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;            // fragment row group, column
+  const int wn = (warp >> 2) * 64, wk = (warp & 3) * 32;
+  auto ds_of = [&](int s) { return wg_smem + (s % WG_STAGES) * 2 * WG_SLICE; };
+
+  float acc[4][4][4], part[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
 
-  for (long long m = r0; m < r1; m += BK) {
-    const long long row = m + lr;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + lc + j, k = k0 + lc + j;
-      Ds[lr][lc + j] = (row < r1 && n < N) ? D[row * N + n] : 0.f;
-      Xs[lr][lc + j] = (row < r1 && k < K) ? X[row * K + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Ds[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Xs[kk][tx + 16 * j];
+  for (int s = 0; s < WG_STAGES - 1; ++s) {
+    if (s < slices)
+      wgrad_load(ds_of(s), ds_of(s) + WG_SLICE, D, X, r0 + s * WG_ROWS, r1, n0, k0, N, K);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+#pragma unroll 1
+  for (int s = 0; s < slices; ++s) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(WG_STAGES - 2) : "memory");
+    __syncthreads();      // slice s is in; every warp is done with slice s - 1
+    const int next = s + WG_STAGES - 1;
+    if (next < slices)
+      wgrad_load(ds_of(next), ds_of(next) + WG_SLICE, D, X, r0 + next * WG_ROWS, r1, n0, k0,
+                 N, K);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+
+    if (s % 2 == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
     }
-    __syncthreads();
+    const float* ds = ds_of(s);
+    const float* xs = ds + WG_SLICE;
+#pragma unroll
+    for (int kk = 0; kk < WG_ROWS / 8; ++kk) {
+      // fragment rows m = 8 kk + t and 8 kk + t + 4 of the slice
+      const float* d0 = ds + (8 * kk + t) * WG_LD + wn + g;
+      const float* x0 = xs + (8 * kk + t) * WG_LD + wk + g;
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split_bits(x0[8 * j], bh[j][0], bl[j][0]);
+        split_bits(x0[8 * j + 4 * WG_LD], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t ah[4], al[4];
+        split_bits(d0[16 * i], ah[0], al[0]);
+        split_bits(d0[16 * i + 8], ah[1], al[1]);
+        split_bits(d0[16 * i + 4 * WG_LD], ah[2], al[2]);
+        split_bits(d0[16 * i + 8 + 4 * WG_LD], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {     // smallest products first
+          mma_tf32(part[i][j], al, bh[j]);
+          mma_tf32(part[i][j], ah, bl[j]);
+          mma_tf32(part[i][j], ah, bh[j]);
+        }
+      }
+    }
+    if (s % 2 == 1 || s == slices - 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
+    }
   }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 
+  // fragment (i, j): element 2h + {0, 1} is (row 16 i + g + 8 h, col 8 j + 2 t + {0, 1})
   float* out = P + (long long)blockIdx.z * N * K;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= N) continue;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + tx + 16 * j;
-      if (k < K) out[(long long)n * K + k] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + wn + 16 * i + g + 8 * h;
+      if (n >= N) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + wk + 8 * j + 2 * t;
+        if (k < K)      // K % 8 == 0, so k + 1 < K as well
+          *reinterpret_cast<float2*>(out + (long long)n * K + k) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
     }
-  }
 }
 
 // Column-sum partials  P[p, n] = sum over the rows m of chunk p of D[m, n].
@@ -399,17 +514,28 @@ cudaError_t reduce_partials(const float* P, long long nparts, long long E, float
   return cudaGetLastError();
 }
 
+// dW (N, K) = D^T X in fixed order: the partials, then the ordered pass.
+// N and K multiples of 8 (the 8-byte stores of the partials).
+cudaError_t weight_grad(const float* D, const float* X, float* part, float* dW, long long M,
+                        int N, int K, cudaStream_t stream) {
+  if (M < 1 || N % 8 || K % 8) return cudaErrorInvalidValue;
+  const long long nch = n_chunks(M, RED_ROWS);
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((K + WG_TILE - 1) / WG_TILE), (unsigned)((N + WG_TILE - 1) / WG_TILE),
+                  (unsigned)nch);
+  wgrad_mma_kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(D, X, part, M, N, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return reduce_partials(part, nch, (long long)N * K, dW, stream);
+}
+
 // dW (N, K) = D^T X and db (N) = column sums of D, both in fixed order.
 cudaError_t weight_grads(const float* D, const float* X, float* part, float* dW,
                          float* db, long long M, int N, int K, cudaStream_t stream) {
+  cudaError_t err = weight_grad(D, X, part, dW, M, N, K, stream);
+  if (err != cudaSuccess) return err;
   const long long nch = n_chunks(M, RED_ROWS);
-  const dim3 grid((unsigned)((K + BN - 1) / BN), (unsigned)((N + BM - 1) / BM),
-                  (unsigned)nch);
-  wgrad_kernel<<<grid, GEMM_THREADS, 0, stream>>>(D, X, part, M, N, K);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = reduce_partials(part, nch, (long long)N * K, dW, stream);
-  if (err != cudaSuccess) return err;
   colsum_kernel<<<dim3((unsigned)((N + COL_THREADS - 1) / COL_THREADS), (unsigned)nch),
                   COL_THREADS, 0, stream>>>(D, part, M, N);
   err = cudaGetLastError();
@@ -635,26 +761,24 @@ cudaError_t train_fwd(const T* x, const float* m1, const float* m2, const Params
                                                           s.mean1, s.rstd1, M, C);
   RETURN_IF_ERROR(cudaGetLastError());
   // 2. qkv = h1 Wqkv^T + bqkv
-  RETURN_IF_ERROR((launch_gemm<W_NK, EPI_BIAS>(s.h1, p.wqkv, p.bqkv, (const float*)nullptr,
-                                               nullptr, nullptr, s.qkv, nullptr, M,
-                                               3 * C, C, L, st)));
+  RETURN_IF_ERROR((launch_fwd_gemm<FWD_BIAS>(s.h1, p.wqkv, p.bqkv, (const float*)nullptr,
+                                             nullptr, s.qkv, nullptr, M, 3 * C, C, L, st)));
   // 3. o = per-head softmax(q k^T * scale) v
   RETURN_IF_ERROR(launch_attention<float>(s.qkv, s.o, B, L, C, H, scale, st));
   // 4. x1 = x0 + m1 * (o Wproj^T + bproj)
-  RETURN_IF_ERROR((launch_gemm<W_NK, EPI_MASK_RESIDUAL, T>(
-      s.o, p.wproj, p.bproj, x, m1, nullptr, s.x1, nullptr, M, C, C, L, st)));
+  RETURN_IF_ERROR((launch_fwd_gemm<FWD_MASK_RESIDUAL, T>(s.o, p.wproj, p.bproj, x, m1, s.x1,
+                                                        nullptr, M, C, C, L, st)));
   // 5. h2 = LN2(x1)
   ln_fwd_kernel<float, float><<<ln_grid, LN_THREADS, 0, st>>>(s.x1, p.n2s, p.n2b, s.h2,
                                                               s.mean2, s.rstd2, M, C);
   RETURN_IF_ERROR(cudaGetLastError());
   // 6. u = h2 Wfc1^T + bfc1, gu = gelu(u)
-  RETURN_IF_ERROR((launch_gemm<W_NK, EPI_BIAS_GELU>(s.h2, p.wfc1, p.bfc1,
-                                                    (const float*)nullptr, nullptr,
-                                                    nullptr, s.u, s.gu, M, hid, C, L,
-                                                    st)));
+  RETURN_IF_ERROR((launch_fwd_gemm<FWD_BIAS_GELU>(s.h2, p.wfc1, p.bfc1, (const float*)nullptr,
+                                                  nullptr, s.u, s.gu, M, hid, C, L, st)));
   // 7. x2 = x1 + m2 * (gu Wfc2^T + bfc2)
-  RETURN_IF_ERROR((launch_gemm<W_NK, EPI_MASK_RESIDUAL, float>(
-      s.gu, p.wfc2, p.bfc2, s.x1, m2, nullptr, s.x2, nullptr, M, C, hid, L, st)));
+  RETURN_IF_ERROR((launch_fwd_gemm<FWD_MASK_RESIDUAL, float>(s.gu, p.wfc2, p.bfc2, s.x1, m2,
+                                                            s.x2, nullptr, M, C, hid, L,
+                                                            st)));
   // 8. y = T(LN_outer(x2))
   ln_fwd_kernel<float, T><<<ln_grid, LN_THREADS, 0, st>>>(s.x2, p.nos, p.nob, y, s.meano,
                                                           s.rstdo, M, C);
@@ -672,18 +796,30 @@ cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
   const Scratch t = carve_scratch(scratch, M, C, hid);
   const float* none = nullptr;
 
+  // 0. the four weights W (K, N) -> the TF32 halves of W^T (N, K)
+  const float* w[4] = {p.wfc2, p.wfc1, p.wproj, p.wqkv};
+  const int rows[4] = {C, hid, C, 3 * C}, cols[4] = {hid, C, C, C};
+  const float* hi[4];
+  const float* lo[4];
+  float* wt = t.wt;
+  for (int i = 0; i < 4; ++i) {
+    const long long n = (long long)rows[i] * cols[i];
+    RETURN_IF_ERROR(sm90::split_weights_t(w[i], wt, wt + n, rows[i], cols[i], st));
+    hi[i] = wt;
+    lo[i] = wt + n;
+    wt += 2 * n;
+  }
+
   // 1. outer LN: dx2 = LNo'(g), dm = m2 * dx2; dnos, dnob
   RETURN_IF_ERROR((ln_backward<T, float, float>(g, s.x2, s.meano, s.rstdo, p.nos, none,
                                                 m2, L, t.dx2, t.dm, t.part, gr.nos, M,
                                                 C, st)));
   // 2. du = (dm Wfc2) * gelu'(u)
-  RETURN_IF_ERROR((launch_gemm<W_KN, EPI_GELU_GRAD>(t.dm, p.wfc2, none, none, none, s.u,
-                                                    t.du, nullptr, M, hid, C, L, st)));
+  RETURN_IF_ERROR(data_grad<EPI_GELU_GRAD>(t.dm, hi[0], lo[0], s.u, t.du, M, hid, C, st));
   // 3. dWfc2 = dm^T gu, dbfc2 = sum of dm
   RETURN_IF_ERROR(weight_grads(t.dm, s.gu, t.part, gr.wfc2, gr.bfc2, M, C, hid, st));
   // 4. dh2 = du Wfc1
-  RETURN_IF_ERROR((launch_gemm<W_KN, EPI_NONE>(t.du, p.wfc1, none, none, none, none,
-                                               t.dh2, nullptr, M, C, hid, L, st)));
+  RETURN_IF_ERROR(data_grad<EPI_NONE>(t.du, hi[1], lo[1], none, t.dh2, M, C, hid, st));
   // 5. dWfc1 = du^T h2, dbfc1 = sum of du
   RETURN_IF_ERROR(weight_grads(t.du, s.h2, t.part, gr.wfc1, gr.bfc1, M, hid, C, st));
   // 6. LN2: dx1 = dx2 + LN2'(dh2), da = m1 * dx1; dn2s, dn2b
@@ -691,8 +827,7 @@ cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
                                                     t.dx2, m1, L, t.dx1, t.da, t.part,
                                                     gr.n2s, M, C, st)));
   // 7. dO = da Wproj
-  RETURN_IF_ERROR((launch_gemm<W_KN, EPI_NONE>(t.da, p.wproj, none, none, none, none,
-                                               t.dO, nullptr, M, C, C, L, st)));
+  RETURN_IF_ERROR(data_grad<EPI_NONE>(t.da, hi[2], lo[2], none, t.dO, M, C, C, st));
   // 8. dWproj = da^T o, dbproj = sum of da
   RETURN_IF_ERROR(weight_grads(t.da, s.o, t.part, gr.wproj, gr.bproj, M, C, C, st));
   // 9. attention backward -> dqkv
@@ -705,8 +840,7 @@ cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
                                                                      L, C, H, d, scale);
   RETURN_IF_ERROR(cudaGetLastError());
   // 10. dh1 = dqkv Wqkv
-  RETURN_IF_ERROR((launch_gemm<W_KN, EPI_NONE>(t.dqkv, p.wqkv, none, none, none, none,
-                                               t.dh1, nullptr, M, C, 3 * C, L, st)));
+  RETURN_IF_ERROR(data_grad<EPI_NONE>(t.dqkv, hi[3], lo[3], none, t.dh1, M, C, 3 * C, st));
   // 11. dWqkv = dqkv^T h1, dbqkv = sum of dqkv
   RETURN_IF_ERROR(
       weight_grads(t.dqkv, s.h1, t.part, gr.wqkv, gr.bqkv, M, 3 * C, C, st));
@@ -729,6 +863,30 @@ extern "C" long long pafuse_block_train_scratch_floats(long long B, int L, int C
 // Dynamic shared memory of the attention backward at L tokens, head size d.
 extern "C" long long pafuse_block_train_smem_bytes(int L, int d) {
   return (long long)attn_bwd_smem(L, d);
+}
+
+// The backward's two GEMMs alone (for their tests and timings):
+// Y (M, N) = A (M, K) W for W stored (K, N), times gelu'(aux) when aux is
+// not NULL, with ws (8 N K bytes) taking the split of W^T; and dW (N, K) =
+// D^T X summed in the backward's fixed order through part
+// (pafuse_weight_grad_part_floats floats).
+extern "C" int pafuse_data_grad(const float* A, const float* W, const float* aux, float* Y,
+                                float* ws, long long M, int N, int K, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)N * K;
+  RETURN_IF_ERROR(sm90::split_weights_t(W, ws, ws + n, K, N, st));
+  if (aux != nullptr)
+    return (int)data_grad<EPI_GELU_GRAD>(A, ws, ws + n, aux, Y, M, N, K, st);
+  return (int)data_grad<EPI_NONE>(A, ws, ws + n, nullptr, Y, M, N, K, st);
+}
+
+extern "C" long long pafuse_weight_grad_part_floats(long long M, int N, int K) {
+  return n_chunks(M, RED_ROWS) * N * K;
+}
+
+extern "C" int pafuse_weight_grad(const float* D, const float* X, float* part, float* dW,
+                                  long long M, int N, int K, void* stream) {
+  return (int)weight_grad(D, X, part, dW, M, N, K, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pafuse_block_train_fwd(

@@ -1,10 +1,8 @@
 // Device helpers shared by the kernels (block.cu, block_temporal.cu,
 // layer.cu, attention.cu, block_train.cu, gemm.cu): dtype conversion, warp
-// reductions, the GEMM tile sizes of linear_kernel and block_train.cu, the
-// tiled scalar-FMA linear GEMM of kernel #2, the per-(sequence, head)
-// attention kernel and the row LayerNorm, in an anonymous namespace of each
-// source that includes them.  The eval block chain (block_chain.cuh) runs
-// its GEMMs on gemm_sm90.cuh.
+// reductions, the prologue and epilogue codes of gemm_sm90.cuh's GEMM, the
+// per-(sequence, head) attention kernel and the row LayerNorm, in an
+// anonymous namespace of each source that includes them.
 
 #pragma once
 
@@ -46,135 +44,24 @@ __device__ __forceinline__ float warp_max(float v) {
 constexpr float kLnEps = 1e-6f;
 
 // ---------------------------------------------------------------------------
-// Tiled GEMM of kernel #2 (attention.cu):
-//   Y[m, n] = TY(epilogue(sum_k prologue(A)[m, k] * w(W[n, k]) + b[n]))
-// A: (M, K) in TA, W: (N, K) f32 (torch Linear layout), Y and R: (M, N) in
-// TY.  w rounds W to TA where a tile enters shared memory when ROUND_W (the
-// fused block's "weights in the compute dtype"), else W is used unrounded
-// (kernel #2 keeps f32 weights).  The LayerNorm prologue normalises each row
-// of A in f32 and rounds it to TA; the residual epilogue adds R to the
-// product rounded to TY.  64x64 output tile per CTA, 16-deep K slices
-// through shared memory, 256 threads with a 4x4 register tile each.  M (up
-// to a few 10^6 rows) lies on gridDim.x, the N tiles (at most 18) on
-// gridDim.y.  block_train.cu's GEMMs share the tile sizes.
+// The epilogues of gemm_sm90.cuh's GEMM:
+//   EPI_STORE      Y = acc + b
+//   EPI_GELU       Y = gelu(acc + b)                      exact (erf) GELU
+//   EPI_RESIDUAL   Y = R + T(acc + b)
+//   EPI_NONE       Y = acc                                no bias
+//   EPI_GELU_GRAD  Y = acc * gelu'(R)                     R: the f32 pre-activation
+// and its A-operand prologues (none, or the row LayerNorm rounded to T).
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
-
 enum { PRO_NONE = 0, PRO_LAYERNORM = 1 };
-enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
+enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_NONE = 3, EPI_GELU_GRAD = 4 };
 
-template <typename TA, typename TY, bool ROUND_W, int PRO, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-linear_kernel(const TA* __restrict__ A, const float* __restrict__ W,
-              const float* __restrict__ bias, const float* __restrict__ ln_scale,
-              const float* __restrict__ ln_bias, const TY* __restrict__ R,
-              TY* __restrict__ Y, long long M, int N, int K) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN + 4];
-  __shared__ float row_mean[BM];
-  __shared__ float row_rstd[BM];
+constexpr float kInvSqrt2 = 0.7071067811865476f;
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
-  const int tid = threadIdx.x;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  if (PRO == PRO_LAYERNORM) {
-    // Row statistics of this CTA's 64 rows, two-pass in f32, one warp per
-    // row at a time.
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      const long long m = m0 + r;
-      float mean = 0.f, rstd = 0.f;
-      if (m < M) {
-        const TA* row = A + m * K;
-        float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += to_f32<TA>(row[k]);
-        mean = warp_sum(s) / (float)K;
-        float v = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          const float d = to_f32<TA>(row[k]) - mean;
-          v += d * d;
-        }
-        rstd = rsqrtf(warp_sum(v) / (float)K + kLnEps);
-      }
-      if (lane == 0) {
-        row_mean[r] = mean;
-        row_rstd[r] = rstd;
-      }
-    }
-    __syncthreads();
-  }
-
-  // tile loads: thread -> (row lr, four consecutive k from lk)
-  const int lr = tid >> 2, lk = (tid & 3) * 4;
-  // compute: thread -> rows ty + 16 i, cols tx + 16 j
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const long long am = m0 + lr;
-  const int wn = n0 + lr;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + lk + j;
-      float a = 0.f, w = 0.f;
-      if (am < M && k < K) {
-        a = to_f32<TA>(A[am * K + k]);
-        if (PRO == PRO_LAYERNORM)
-          a = round_to<TA>((a - row_mean[lr]) * row_rstd[lr] * ln_scale[k] + ln_bias[k]);
-      }
-      if (wn < N && k < K) {
-        w = W[(long long)wn * K + k];
-        if (ROUND_W) w = round_to<TA>(w);
-      }
-      As[lk + j][lr] = a;
-      Ws[lk + j][lr] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      float y = acc[i][j] + bias[n];
-      if (EPI == EPI_GELU) y = 0.5f * y * (1.f + erff(y * 0.7071067811865476f));
-      if (EPI == EPI_RESIDUAL) y = to_f32<TY>(R[m * N + n]) + round_to<TY>(y);
-      Y[m * N + n] = from_f32<TY>(y);
-    }
-  }
-}
-
-template <typename TA, typename TY, bool ROUND_W, int PRO, int EPI>
-cudaError_t launch_linear(const TA* A, const float* W, const float* b, const float* ln_s,
-                          const float* ln_b, const TY* R, TY* Y, long long M, int N, int K,
-                          cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  linear_kernel<TA, TY, ROUND_W, PRO, EPI>
-      <<<grid, GEMM_THREADS, 0, stream>>>(A, W, b, ln_s, ln_b, R, Y, M, N, K);
-  return cudaGetLastError();
+// d/du of the exact GELU 0.5 u (1 + erf(u / sqrt 2))
+__device__ __forceinline__ float gelu_grad(float u) {
+  return 0.5f * (1.f + erff(u * kInvSqrt2)) + u * (kInvSqrt2Pi * expf(-0.5f * u * u));
 }
 
 // ---------------------------------------------------------------------------

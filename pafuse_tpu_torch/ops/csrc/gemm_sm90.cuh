@@ -1,19 +1,25 @@
 // The Hopper GEMM of the eval block chain (block_chain.cuh: kernels #1, #3
-// and #4) and of gemm.cu:
+// and #4, and gemm.cu), of the attention kernel #2 (attention.cu) and of
+// the training backward's data gradients (block_train.cu, kernel #6):
 //
 //   Y[m, n] = TY(epilogue(sum_k prologue(A)[m, k] * w(W[n, k]) + b[n]))
 //
-// with the rounding points of common.cuh's linear_kernel (ROUND_W = true):
-// the LayerNorm prologue normalises each row of A in f32 and rounds it to T,
-// the weights enter the product rounded to T, sums accumulate in f32, and
-// the epilogue adds the bias, applies the exact (erff) GELU or adds the
-// residual R to the product rounded to T.  A, R and Y are (M, K) / (M, N) in
-// T (float or bfloat16), W is (N, K) f32 in torch's Linear layout.
+// with the rounding points of _block_body's dot2d products: the LayerNorm
+// prologue normalises each row of A in f32 and rounds it to T, the weights
+// enter the product rounded to T (for T = float: unrounded), sums
+// accumulate in f32, and the epilogue (common.cuh) adds the bias, applies
+// the exact (erff) GELU or adds the residual R to the product rounded to
+// TY; or, for the data gradients, stores the bare product or multiplies it
+// by gelu'(R).  A is (M, K) in T (float or bfloat16), R and Y (M, N) in TY
+// (T unless a caller asks otherwise: #2 stores f32 products of a bf16 x and
+// bf16 products of f32 attention output), W is (N, K) f32 in torch's
+// Linear layout; a weight stored (K, N) is split transposed
+// (split_weights_t_kernel).
 //
 // What bounds it on an H100 (data-sheet peaks at 700 W): at the block
-// widths (K = C or 2C = 224..768, N = C..3C) the product is hundreds of
-// FLOPs per byte, so it is bound by the tensor cores.  linear_kernel runs
-// on scalar f32 FMAs (67 TFLOP/s peak); this GEMM runs on wgmma:
+// widths (K = C..3C = 224..1152, N = C..3C) the product is hundreds of
+// FLOPs per byte, so it is bound by the tensor cores.  Scalar f32 FMAs
+// peak at 67 TFLOP/s; this GEMM runs on wgmma:
 //   float32   three TF32 products a_hi*w_hi + a_hi*w_lo + a_lo*w_hi per
 //             product (m64nNk8, f32 accumulation), where x_hi = tf32(x) and
 //             x_lo = tf32(x - x_hi): a float32-accurate product (the
@@ -227,6 +233,11 @@ template <> struct Wgmma<112> {
 // unused).  n elements of W (out, in) keep their layout.
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ void split_tf32(float w, float& hi, float& lo) {
+  hi = __uint_as_float(tf32_bits(w));
+  lo = __uint_as_float(tf32_bits(w - hi));
+}
+
 template <typename T>
 __global__ void split_weights_kernel(const float* __restrict__ W, T* __restrict__ hi,
                                      T* __restrict__ lo, long long n) {
@@ -234,18 +245,41 @@ __global__ void split_weights_kernel(const float* __restrict__ W, T* __restrict_
        i += (long long)gridDim.x * blockDim.x) {
     const float w = W[i];
     if constexpr (sizeof(T) == 4) {
-      const float h = __uint_as_float(tf32_bits(w));
-      hi[i] = h;
-      lo[i] = __uint_as_float(tf32_bits(w - h));
+      split_tf32(w, hi[i], lo[i]);
     } else {
       hi[i] = from_f32<T>(w);
     }
   }
 }
 
+// The f32 split of a weight stored (rows, cols) = (K, N), as a data gradient
+// Y = A W takes it, into hi and lo (N, K): the K-major operand that TF32
+// wgmma needs (its transposing layouts exist only for 16-bit types).  32 x
+// 32 tiles through shared memory, so reads and writes are both coalesced.
+constexpr int SPLIT_T_TILE = 32;
+
+__global__ void __launch_bounds__(SPLIT_T_TILE * 8)
+split_weights_t_kernel(const float* __restrict__ W, float* __restrict__ hi,
+                       float* __restrict__ lo, int rows, int cols) {
+  __shared__ float tile[SPLIT_T_TILE][SPLIT_T_TILE + 1];
+  const int r0 = blockIdx.y * SPLIT_T_TILE, c0 = blockIdx.x * SPLIT_T_TILE;
+  for (int i = threadIdx.y; i < SPLIT_T_TILE; i += 8) {
+    const int r = r0 + i, c = c0 + threadIdx.x;
+    if (r < rows && c < cols) tile[i][threadIdx.x] = W[(long long)r * cols + c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < SPLIT_T_TILE; i += 8) {
+    const int c = c0 + i, r = r0 + threadIdx.x;
+    if (r < rows && c < cols) {
+      const long long o = (long long)c * rows + r;
+      split_tf32(tile[threadIdx.x][i], hi[o], lo[o]);
+    }
+  }
+}
+
 // Row statistics of the LayerNorm prologue: stats[m] = (mean, rstd) of row
 // m of X (M, K), two-pass in f32 with eps 1e-6, one warp per row (the
-// arithmetic of linear_kernel's prologue).
+// arithmetic of common.cuh's layernorm_kernel).
 constexpr int STATS_THREADS = 256;
 
 template <typename T>
@@ -370,12 +404,12 @@ __device__ __forceinline__ void issue_slice(float (&part)[BN / 2], const uint8_t
   wgmma_commit();
 }
 
-template <typename T, int BN, int PRO, int EPI>
+template <typename T, typename TY, int BN, int PRO, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
             const __grid_constant__ CUtensorMap tm_wlo, const float* __restrict__ bias,
             const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-            const float2* __restrict__ stats, const T* __restrict__ R, T* __restrict__ Y,
+            const float2* __restrict__ stats, const TY* __restrict__ R, TY* __restrict__ Y,
             int M, int N, int K) {
   using Cf = Cfg<T>;
   constexpr int STAGES = Cf::STAGES;
@@ -483,26 +517,36 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
     }
 
     // epilogue: accumulator 4j + 2h + {0, 1} is (row r0 + 8h, col 8j + 2t + {0, 1})
+    constexpr bool BIAS = EPI == EPI_STORE || EPI == EPI_GELU || EPI == EPI_RESIDUAL;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * t;
       if (n >= N) continue;             // N % 8 == 0, so n + 1 < N as well
-      const float b0 = bias[n], b1 = bias[n + 1];
+      const float b0 = BIAS ? bias[n] : 0.f, b1 = BIAS ? bias[n + 1] : 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const long long m = (long long)m0 + r0 + 8 * h;
         if (m >= M) continue;
-        float y0 = acc[4 * j + 2 * h] + b0, y1 = acc[4 * j + 2 * h + 1] + b1;
+        float y0 = acc[4 * j + 2 * h], y1 = acc[4 * j + 2 * h + 1];
+        if (BIAS) {
+          y0 += b0;
+          y1 += b1;
+        }
         if (EPI == EPI_GELU) {
-          y0 = 0.5f * y0 * (1.f + erff(y0 * 0.7071067811865476f));
-          y1 = 0.5f * y1 * (1.f + erff(y1 * 0.7071067811865476f));
+          y0 = 0.5f * y0 * (1.f + erff(y0 * kInvSqrt2));
+          y1 = 0.5f * y1 * (1.f + erff(y1 * kInvSqrt2));
         }
         if (EPI == EPI_RESIDUAL) {
-          const float2 r = load2<T>(R + m * N + n);
-          y0 = r.x + round_to<T>(y0);
-          y1 = r.y + round_to<T>(y1);
+          const float2 r = load2<TY>(R + m * N + n);
+          y0 = r.x + round_to<TY>(y0);
+          y1 = r.y + round_to<TY>(y1);
         }
-        store2<T>(Y + m * N + n, y0, y1);
+        if (EPI == EPI_GELU_GRAD) {
+          const float2 u = load2<TY>(R + m * N + n);
+          y0 *= gelu_grad(u.x);
+          y1 *= gelu_grad(u.y);
+        }
+        store2<TY>(Y + m * N + n, y0, y1);
       }
     }
   }
@@ -568,6 +612,15 @@ cudaError_t split_weights(const float* W, T* hi, T* lo, long long n, cudaStream_
   return cudaGetLastError();
 }
 
+// W (rows, cols) f32 -> the TF32 halves hi and lo of W^T (cols, rows)
+inline cudaError_t split_weights_t(const float* W, float* hi, float* lo, int rows, int cols,
+                                   cudaStream_t stream) {
+  const dim3 grid((unsigned)((cols + SPLIT_T_TILE - 1) / SPLIT_T_TILE),
+                  (unsigned)((rows + SPLIT_T_TILE - 1) / SPLIT_T_TILE));
+  split_weights_t_kernel<<<grid, dim3(SPLIT_T_TILE, 8), 0, stream>>>(W, hi, lo, rows, cols);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t row_stats(const T* X, float2* stats, long long M, int K, cudaStream_t stream) {
   constexpr int rows = STATS_THREADS / 32;
@@ -576,17 +629,17 @@ cudaError_t row_stats(const T* X, float2* stats, long long M, int K, cudaStream_
   return cudaGetLastError();
 }
 
-template <typename T, int BN, int PRO, int EPI>
+template <typename T, typename TY, int BN, int PRO, int EPI>
 cudaError_t launch_gemm_bn(const T* A, const T* w_hi, const T* w_lo, const float* bias,
                            const float* ln_s, const float* ln_b, const float2* stats,
-                           const T* R, T* Y, long long M, int N, int K, cudaStream_t stream) {
+                           const TY* R, TY* Y, long long M, int N, int K, cudaStream_t stream) {
   CUtensorMap ma, mw, mwl;
   cudaError_t e;
   if ((e = encode_tile<T>(&ma, A, M, K, BM)) != cudaSuccess) return e;
   if ((e = encode_tile<T>(&mw, w_hi, N, K, BN)) != cudaSuccess) return e;
   if ((e = encode_tile<T>(&mwl, w_lo != nullptr ? w_lo : w_hi, N, K, BN)) != cudaSuccess)
     return e;
-  auto kernel = gemm_kernel<T, BN, PRO, EPI>;
+  auto kernel = gemm_kernel<T, TY, BN, PRO, EPI>;
   constexpr int smem = Cfg<T>::SMEM;
   if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
       cudaSuccess)
@@ -603,21 +656,26 @@ cudaError_t launch_gemm_bn(const T* A, const T* w_hi, const T* w_lo, const float
 }
 
 // Y = TY(epilogue(prologue(A) @ W^T + b)) on weights already split by
-// split_weights (w_lo: nullptr for bf16) and, for the LayerNorm prologue,
-// row statistics already made by row_stats.  N and K multiples of 8, K <=
-// MAX_LN_K with the LayerNorm prologue, M <= 2^30.
-template <typename T, int PRO, int EPI>
+// split_weights or split_weights_t (w_lo: nullptr for bf16) and, for the
+// LayerNorm prologue, row statistics already made by row_stats.  N and K
+// multiples of 8, K <= MAX_LN_K with the LayerNorm prologue, M <= 2^30;
+// bias is not read by EPI_NONE and EPI_GELU_GRAD.  TY is T unless given
+// (R and Y do not deduce it, so R may be nullptr).
+template <typename X> struct NoDeduce { using type = X; };
+
+template <typename T, int PRO, int EPI, typename TY = T>
 cudaError_t launch_gemm(const T* A, const T* w_hi, const T* w_lo, const float* bias,
-                        const float* ln_s, const float* ln_b, const float2* stats, const T* R,
-                        T* Y, long long M, int N, int K, cudaStream_t stream) {
+                        const float* ln_s, const float* ln_b, const float2* stats,
+                        const typename NoDeduce<TY>::type* R, typename NoDeduce<TY>::type* Y,
+                        long long M, int N, int K, cudaStream_t stream) {
   if (M < 1 || N % 8 || K % 8 || M > (1LL << 30) ||
       (PRO == PRO_LAYERNORM && K > MAX_LN_K))
     return cudaErrorInvalidValue;
   if (N % 128 != 0 && N % 112 == 0)
-    return launch_gemm_bn<T, 112, PRO, EPI>(A, w_hi, w_lo, bias, ln_s, ln_b, stats, R, Y, M, N,
-                                            K, stream);
-  return launch_gemm_bn<T, 128, PRO, EPI>(A, w_hi, w_lo, bias, ln_s, ln_b, stats, R, Y, M, N, K,
-                                          stream);
+    return launch_gemm_bn<T, TY, 112, PRO, EPI>(A, w_hi, w_lo, bias, ln_s, ln_b, stats, R, Y,
+                                                M, N, K, stream);
+  return launch_gemm_bn<T, TY, 128, PRO, EPI>(A, w_hi, w_lo, bias, ln_s, ln_b, stats, R, Y, M,
+                                              N, K, stream);
 }
 
 }  // namespace sm90

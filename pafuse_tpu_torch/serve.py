@@ -181,8 +181,10 @@ class LiftingService:
         }
 
     def health(self) -> Dict[str, object]:
-        with self._lock:
-            s = dict(self.stats)
+        """The service's stats, read without the request lock (as the JAX
+        service reads them), so a health check does not wait for a running
+        request."""
+        s = dict(self.stats)
         s["uptime_seconds"] = round(time.time() - s.pop("started"), 1)
         s["status"] = "ok"
         s["device"] = str(self.device)

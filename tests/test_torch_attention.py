@@ -13,11 +13,20 @@ another order; the bound of tests/test_torch_block.py).  bfloat16 x:
 |diff| <= 2^-7 |y| + 1e-4 elementwise, one bfloat16 ulp of the output plus
 the float32 bound: both sides compute in float32 and round only the output,
 so a value near a rounding boundary may round the other way.
+
+Then the numerics of the CUDA kernel's GEMMs, emulated: every product as
+TF32 products of the split_tf32 halves (a bfloat16 x is exact in TF32, so
+its QKV product is two products, x*w_hi + x*w_lo; the attention output's
+projection three), within the kernel's bounds on the card (chip_smoke.py:
+float32 1e-5 max abs, bfloat16 x 2^-7 |y| + 1e-5) of the plain version.
 """
+
+import types
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +35,9 @@ from jax.experimental import pallas as pl
 from pafuse_tpu.models import mixste
 from pafuse_tpu.ops import attention
 from pafuse_tpu_torch import checkpoints
+from pafuse_tpu_torch.ops import attention as port_attention
 from pafuse_tpu_torch.ops.attention import attention_reference, fused_attention
+from pafuse_tpu_torch.ops.gemm import split_tf32
 
 torch.set_num_threads(2)
 
@@ -133,3 +144,36 @@ def test_fused_attention_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_attention(torch.empty(2, 9, 32, device="meta"),
                         *_port_params(p), HEADS)
+
+
+def _tf32_linear(a, w, b):
+    """F.linear as the kernel's GEMM computes it: a_lo*w_hi + a_hi*w_lo +
+    a_hi*w_hi on the TF32 halves (each product exact in float32), summed in
+    float32; a_lo*w_hi is zero where a is exact in TF32."""
+    a_hi, a_lo = split_tf32(a)
+    w_hi, w_lo = split_tf32(w)
+    return (F.linear(a_lo, w_hi) + F.linear(a_hi, w_lo)
+            + F.linear(a_hi, w_hi) + b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,C", [(24, 384), (68, 224), (42, 256)])
+def test_tf32_products_keep_the_kernel_bounds(monkeypatch, dtype, L, C):
+    """At each part's spatial shape: bfloat16 x -> two TF32 products for
+    QKV (its low halves are 0), three for the projection; float32 x ->
+    three for both."""
+    p, x = _inputs(L, C)
+    params = _port_params(p)
+    xt = torch.from_numpy(x).to(dtype)
+    if dtype == torch.bfloat16:
+        assert torch.count_nonzero(split_tf32(xt.float())[1]) == 0
+    want = attention_reference(xt, *params, HEADS).float()
+    with monkeypatch.context() as m:
+        m.setattr(port_attention, "F",
+                  types.SimpleNamespace(linear=_tf32_linear))
+        got = attention_reference(xt, *params, HEADS).float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        assert diff.max() <= 1e-5
+    else:
+        assert torch.all(diff <= 2.0 ** -7 * want.abs() + 1e-5)

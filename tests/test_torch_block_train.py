@@ -16,6 +16,11 @@ Tolerances (float32): forward 2e-5 max abs (sums differ only in order; the
 TPU kernel's A&S erf differs from the exact erf by <= ~1e-7); gradients
 1e-4 x max|reference gradient| per tensor (dx and each of the 14 parameter
 gradients).
+
+Then the CUDA backward's arithmetic, emulated in the plain backward: every
+product of its GEMMs as three TF32 products, the weight gradients summed
+per chunk of RED_ROWS rows in partial sums of two 32-row slices and then in
+chunk order, within the same 1e-4 x max|gradient| of the plain gradients.
 """
 
 import functools
@@ -32,10 +37,13 @@ from pafuse_tpu.models import mixste
 from pafuse_tpu.ops import block_grad
 from pafuse_tpu_torch import checkpoints
 from pafuse_tpu_torch.models.mixste import Block
-from pafuse_tpu_torch.ops.block_train import (block_train, block_train_bwd,
+from pafuse_tpu_torch.ops import block_train as port_block_train
+from pafuse_tpu_torch.ops.block_train import (RED_ROWS, block_train,
+                                              block_train_bwd,
                                               block_train_fwd,
                                               train_bwd_reference,
                                               train_fwd_reference)
+from pafuse_tpu_torch.ops.gemm import split_tf32
 
 torch.set_num_threads(2)
 
@@ -252,3 +260,52 @@ def test_block_train_rejects_bad_input():
         block_train_fwd(torch.empty(2, 5, 32, device="meta"), m, m, params,
                         HEADS)
 
+
+
+def _three_products(a, b):
+    """a @ b as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi on the TF32 halves."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _emulated_data_grad(a, w, aux=None):
+    """The data-gradient GEMM on W^T's TF32 halves (N, K), as split once a
+    call for the wgmma GEMM."""
+    w_hi, w_lo = split_tf32(w.t())
+    a_hi, a_lo = split_tf32(a)
+    y = a_lo @ w_hi.t() + a_hi @ w_lo.t() + a_hi @ w_hi.t()
+    return y if aux is None else y * port_block_train._gelu_grad(aux)
+
+
+def _emulated_weight_grad(d, x):
+    """d^T x in the kernel's order: per chunk of RED_ROWS rows, partial sums
+    of two 32-row slices (three TF32 products each) added in float32, then
+    the chunks in order."""
+    total = None
+    for r0 in range(0, d.shape[0], RED_ROWS):
+        acc = torch.zeros(d.shape[1], x.shape[1])
+        for p0 in range(r0, min(r0 + RED_ROWS, d.shape[0]), 64):
+            p1 = min(p0 + 64, r0 + RED_ROWS, d.shape[0])
+            acc = acc + _three_products(d[p0:p1].t(), x[p0:p1])
+        total = acc if total is None else total + acc
+    return total
+
+
+@pytest.mark.parametrize("B,L,C", [(90, 27, 64), (44, 68, 32), (60, 42, 64)])
+def test_tensor_core_backward_order_keeps_the_gradient_bound(monkeypatch, B, L,
+                                                             C):
+    """The plain backward with its data and weight gradients computed as
+    the CUDA kernel computes them, over 2-3 chunks of RED_ROWS rows (the
+    last one ragged), against the plain backward."""
+    p, outer = _jax_block(C, seed=B + L + C)
+    x, g, m1, m2 = (torch.from_numpy(a) for a in _inputs(B, L, C, seed=B))
+    params = _port_params(p, outer)
+    assert B * L > 2 * RED_ROWS
+    want_dx, want = train_bwd_reference(x, g, m1, m2, params, HEADS)
+    with monkeypatch.context() as m:
+        m.setattr(port_block_train, "data_grad_reference", _emulated_data_grad)
+        m.setattr(port_block_train, "weight_grad_reference",
+                  _emulated_weight_grad)
+        got_dx, got = train_bwd_reference(x, g, m1, m2, params, HEADS)
+    _assert_grads(got_dx, got, want_dx, want, "tensor-core order")

@@ -10,7 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from pafuse_tpu import checkpoints as jax_checkpoints
 from pafuse_tpu import config as jcfg
+from pafuse_tpu.diffusion import D3DP as JaxD3DP
+from pafuse_tpu.diffusion import D3DPConfig as JaxD3DPConfig
+from pafuse_tpu_torch import checkpoints
 from pafuse_tpu_torch import config as tcfg
 from pafuse_tpu_torch.cli import main_h3wb
 
@@ -82,6 +88,47 @@ def test_evaluate_reference_bin(tmp_path, monkeypatch):
                                  f"general.checkpoint={tmp_path}/ck",
                                  "general.by_subject=true"])
     assert set(out["final"]) == {"S8"}
+    assert os.path.exists(tmp_path / "ck" / REPORT)
+
+
+def test_evaluate_monolithic_reference_bin(tmp_path, monkeypatch):
+    """A monolithic reference checkpoint (keys ``module.pose_estimator.
+    STEblocks...`` and the schedule buffers, written by the JAX package's
+    ``export_torch_state_dict(part_based=False)``) loads through the CLI's
+    ``.bin`` path into the port's one-part model at
+    general.part_based_model=false, depth 1: the denoiser then agrees with
+    the JAX model's on the same input within 1e-5 (float32; the same
+    float32 arithmetic, sums in another order), and the CLI evaluates the
+    file."""
+    monkeypatch.chdir(tmp_path)
+    run = TINY + ["general.part_based_model=false", "model.cs=64"]
+    jm = JaxD3DP(JaxD3DPConfig(frames=9, timesteps=20, depth=1, cs=64,
+                               part_based=False, sampling_timesteps=1,
+                               num_proposals=1))
+    params = jax.device_get(jm.init_params(jax.random.PRNGKey(3)))
+    sd = jax_checkpoints.export_torch_state_dict(
+        params, part_based=False, schedule_timesteps=20)
+    torch.save({"model_pos": {f"module.{k}": torch.from_numpy(np.asarray(v))
+                              for k, v in sd.items()}}, tmp_path / "mono.bin")
+
+    model = main_h3wb.build_model(tcfg.load_config(overrides=run), "cpu")
+    parts = [spec.name for spec in model.pose_estimator.specs]
+    assert parts == ["whole_body"]
+    model.pose_estimator.load_state_dict(checkpoints.load_reference_bin(
+        str(tmp_path / "mono.bin"), parts), strict=True)
+    r = np.random.RandomState(6)
+    x2d = r.uniform(-1, 1, (3, 9, 134, 2)).astype(np.float32)
+    x3d = r.randn(3, 9, 134, 3).astype(np.float32)
+    t = np.array([0, 7, 19], np.int32)
+    want = np.asarray(jax.jit(jm.model)(params, x2d, x3d, t))
+    with torch.no_grad():
+        got = model.pose_estimator(torch.from_numpy(x2d), torch.from_numpy(x3d),
+                                   torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+    out = main_h3wb.main(run + [f"general.evaluate={tmp_path}/mono.bin",
+                                f"general.checkpoint={tmp_path}/ck"])
+    assert all(np.all(np.isfinite(v)) for v in out["final"]["all"].values())
     assert os.path.exists(tmp_path / "ck" / REPORT)
 
 

@@ -30,7 +30,11 @@ Bounds (those of chip_smoke.py; TF32 off on both sides):
                          single-ulp flips of the rounded output, of the
                          product rounded before a residual add, and of
                          normalised A elements rounded on ~1e-7
-                         differences of the row statistics.
+                         differences of the row statistics;
+  data_grad, weight_grad 1e-5 x max|plain| (the backward's GEMMs alone:
+                         float32 products as three TF32 products, sums in
+                         another order; the backward's own bound is ten
+                         times looser).
 """
 
 import numpy as np
@@ -42,9 +46,12 @@ from pafuse_tpu_torch.ops.block import block_reference, fused_block
 from pafuse_tpu_torch.ops.block_temporal import (block_temporal_reference,
                                                  fused_block_temporal)
 from pafuse_tpu_torch.ops.gemm import fused_linear, linear_reference
-from pafuse_tpu_torch.ops.block_train import (block_train_bwd, block_train_fwd,
+from pafuse_tpu_torch.ops.block_train import (RED_ROWS, block_train_bwd,
+                                              block_train_fwd, data_grad,
+                                              data_grad_reference,
                                               train_bwd_reference,
-                                              train_fwd_reference)
+                                              train_fwd_reference, weight_grad,
+                                              weight_grad_reference)
 from pafuse_tpu_torch.ops.layer import fused_layer, layer_reference
 
 HEADS = 8
@@ -337,7 +344,7 @@ def test_fused_linear_matches_plain_on_gpu(cuda_device, dtype, C, ln,
 def test_block_chain_runs_only_its_own_kernels_on_gpu(cuda_device):
     """Kernel #1's launches under torch.profiler: the Hopper GEMM, its
     weight split and row statistics, the attention and the LayerNorm, and
-    no linear_kernel, cuBLAS or other PyTorch kernel."""
+    no cuBLAS or other PyTorch kernel."""
     from torch.profiler import ProfilerActivity, profile
     params = _params(224, seed=3, device=cuda_device)
     x = _inputs(8, 68, 224, seed=2, device=cuda_device)[0]
@@ -352,3 +359,82 @@ def test_block_chain_runs_only_its_own_kernels_on_gpu(cuda_device):
             "sm90::row_stats_kernel", "attention_kernel", "layernorm_kernel")
     assert names and all(any(k in n for k in ours) for n in names), names
     assert any("sm90::gemm_kernel" in n for n in names)
+
+
+def _device_kernels(fn):
+    """The names of the CUDA kernels that one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [384, 224, 256])
+@pytest.mark.parametrize("stage", ["fc2", "fc1", "proj", "qkv"])
+def test_data_grad_matches_plain_on_gpu(cuda_device, C, stage):
+    """Kernel #6's data-gradient GEMM alone (gemm_sm90.cuh on the weight's
+    transposed split): every stage of the backward at each part's width,
+    fc2 with the GELU' epilogue, on 64*5 + 37 rows (a ragged row tile)."""
+    params = _params(C, seed=C + len(stage), device=cuda_device)
+    w = {"fc2": params[10], "fc1": params[8], "proj": params[4],
+         "qkv": params[2]}[stage]
+    K, N = w.shape
+    M = 64 * 5 + 37
+    r = np.random.RandomState(C + len(stage))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    a = t(r.randn(M, K))
+    aux = t(r.randn(M, N)) if stage == "fc2" else None
+    launches = data_grad.launches
+    got = data_grad(a, w, aux)
+    torch.cuda.synchronize()
+    assert data_grad.launches == launches + 1 and got.shape == (M, N)
+    assert _rel_errs([got], [data_grad_reference(a, w, aux)])[0] <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", [(384, 768), (768, 384), (384, 384),
+                                 (1152, 384), (224, 448), (672, 224)])
+def test_weight_grad_matches_plain_on_gpu(cuda_device, N, K):
+    """Kernel #6's weight-gradient GEMM alone (mma.sync, TF32): each weight
+    shape of the backward, over two full chunks of RED_ROWS rows and a
+    ragged one; a repeat gives the same bits."""
+    M = 2 * RED_ROWS + 333
+    r = np.random.RandomState(N + K)
+    d, x = (torch.tensor(r.randn(M, n), dtype=torch.float32,
+                         device=cuda_device) for n in (N, K))
+    launches = weight_grad.launches
+    got = weight_grad(d, x)
+    torch.cuda.synchronize()
+    assert weight_grad.launches == launches + 1 and got.shape == (N, K)
+    assert _rel_errs([got], [weight_grad_reference(d, x)])[0] <= 1e-5
+    assert torch.equal(got, weight_grad(d, x))
+
+
+@pytest.mark.cuda
+def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
+        cuda_device):
+    """One call of kernel #2 and one of kernel #6 under torch.profiler: #2
+    launches the wgmma GEMM, its weight splits and the attention kernel; #6
+    the wgmma GEMM (data gradients), its transposed weight splits and the
+    mma.sync weight-gradient kernel, and neither a scalar-FMA GEMM, cuBLAS
+    or any other PyTorch kernel."""
+    params = _params(224, seed=4, device=cuda_device)
+    x, g, m1, m2 = _inputs(8, 68, 224, seed=3, device=cuda_device)
+    names = _device_kernels(lambda: fused_attention(x, *params[2:6], HEADS))
+    ours = ("sm90::gemm_kernel", "sm90::split_weights_kernel",
+            "attention_kernel")
+    assert all(any(k in n for k in ours) for n in names), names
+    assert any("sm90::gemm_kernel" in n for n in names)
+
+    _, saved = block_train_fwd(x, m1, m2, params, HEADS)
+    names = _device_kernels(lambda: block_train_bwd(saved, g))
+    ours = ("sm90::gemm_kernel", "sm90::split_weights_t_kernel",
+            "wgrad_mma_kernel", "attn_bwd_kernel", "ln_bwd_kernel",
+            "colsum_kernel", "reduce_partials_kernel")
+    assert all(any(k in n for k in ours) for n in names), names
+    assert {k for k in ours[:3] if any(k in n for n in names)} == set(ours[:3])

@@ -133,6 +133,23 @@ def test_split_tf32_halves_are_tf32_and_sum_to_x(scale):
     assert ((hi - x).abs() / x.abs()).max() <= 2.0 ** -11
 
 
+@pytest.mark.parametrize("C", [384, 224, 256])
+def test_transposed_weight_split_sums_to_the_transpose(C):
+    """The data gradients' operands: each backward weight W (fc2 (C, 2C),
+    fc1 (2C, C), proj (C, C), qkv (3C, C)) split transposed, hi and lo (N, K)
+    = W^T's TF32 halves, sum back to W^T within 2^-21 relative."""
+    r = np.random.RandomState(C)
+    for rows, cols in ((C, 2 * C), (2 * C, C), (C, C), (3 * C, C)):
+        w = torch.from_numpy((r.uniform(-1, 1, (rows, cols))
+                              / np.sqrt(cols)).astype(np.float32))
+        hi, lo = split_tf32(w.t())
+        assert hi.shape == lo.shape == (cols, rows) and hi.is_contiguous()
+        for half in (hi, lo):
+            assert torch.all(half.view(torch.int32) & 0x1FFF == 0)
+        err = (hi.double() + lo.double() - w.t().double()).abs()
+        assert torch.all(err <= 2.0 ** -21 * w.t().double().abs())
+
+
 def _block(L, C, seed, B=16):
     """16 sequences of random block params (U(+-1/sqrt(in)) weights,
     LayerNorm affines near (1, 0)) and inputs."""

@@ -8,6 +8,8 @@ tests/test_torch_diffusion.py; the camera->world rotation and floor rebase
 of ``world=True`` are O(1) and add float32 rounding only.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -96,6 +98,25 @@ def test_lift_validation_and_health(services):
     h = psvc.health()
     assert h["status"] == "ok" and h["buckets"] == [1, 2]
     assert h["device"] == "cpu" and h["requests"] >= 1
+
+
+def test_health_does_not_wait_for_a_running_request(services):
+    """health() reads the stats without the request lock, as the JAX
+    service does: it returns while a request (here: the test) holds it."""
+    _, psvc = services
+    out, done = {}, threading.Event()
+
+    def check():
+        out.update(psvc.health())
+        done.set()
+
+    with psvc._lock:
+        thread = threading.Thread(target=check, daemon=True)
+        thread.start()
+        assert done.wait(timeout=30), "health() waited for the request lock"
+    thread.join(timeout=30)
+    assert not thread.is_alive()
+    assert out["status"] == "ok" and out["buckets"] == [1, 2]
 
 
 def test_bucket_for_matches_jax():
