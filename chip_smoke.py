@@ -35,7 +35,8 @@ Phases, one JSON line each:
                backward's tensor-core GEMMs alone at each shape (its four
                data gradients on wgmma, its four weight gradients on
                mma.sync), their time and TFLOP/s beside cuBLAS's (a @ w,
-               d^T @ x; a yardstick only).
+               d^T @ x; a yardstick only), and the forward's four GEMMs
+               alone (wgmma, with their epilogues) beside F.linear's.
   6. train   - the trainer at full width (D3DPConfig defaults with
                drop_path_rate 0.1; depth 8, float32, lr 6e-5, weighted MPJPE)
                on synthetic H3WB (S1, S5, S6, S7) through ChunkedSampler
@@ -46,7 +47,9 @@ Phases, one JSON line each:
                step with every block on the plain versions; and the loss
                falling over 16 steps on one repeated batch at lr 1e-3.
                One more step runs under torch.profiler: device time by
-               kernel group and the device's idle share.
+               kernel group (the wgmma GEMMs split by their epilogue into
+               #5's forward products and #6's data gradients; both must
+               show) and the device's idle share.
   7. attention_kernel - the attention kernel (#2) against its plain PyTorch
                version at every part's spatial and temporal shape of the
                evaluation path (window batch 64, P=10, flip on), in float32
@@ -175,6 +178,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -638,6 +642,8 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
                  "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
                  "C": C, "max_abs_err": float(diff.max()), "ok": ok,
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 **(forward_gemm_times(B, L, params)
+                    if dtype == torch.float32 else {}),
                  **train_bound(B, L, C, x.element_size(), param_bytes,
                                backward=False)}
             emit(r)
@@ -680,6 +686,38 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
         del x32, g32, x, y, saved, want, diff, lib_x, lib_p
         torch.cuda.empty_cache()
     return results
+
+
+def forward_gemm_times(B, L, params):
+    """Kernel #5's GEMMs alone on B*L rows of random float32 operands, as
+    its forward runs them (ops.block_train.fwd_linear, wgmma): qkv, proj
+    with the masked residual, fc1 with (u, gelu(u)), fc2 with the masked
+    residual; their ms and TFLOP/s (2*M*N*K per product) beside cuBLAS's
+    F.linear with bias for the same four products."""
+    import torch
+    import torch.nn.functional as F
+    from pafuse_tpu_torch.ops.block_train import fwd_linear
+    M = B * L
+    wqkv, wproj, wfc1, wfc2 = params[2], params[4], params[8], params[10]
+    dev = wqkv.device
+    g = torch.Generator(device=dev).manual_seed(M + 1)
+    rows = lambda n: torch.randn(M, n, generator=g, device=dev)  # noqa: E731
+    mask = (torch.rand(B, generator=g, device=dev) < 0.9).float() / 0.9
+    calls = [(rows(w.shape[1]), w, b, epi, rows(w.shape[0]) if epi == "residual"
+              else None) for w, b, epi in ((wqkv, params[3], "store"),
+                                           (wproj, params[5], "residual"),
+                                           (wfc1, params[9], "gelu"),
+                                           (wfc2, params[11], "residual"))]
+    flop = sum(2 * M * w.numel() for w in (wqkv, wproj, wfc1, wfc2))
+    times = {
+        "fgemm_ms": cuda_time_ms(lambda: [fwd_linear(a, w, b, epi, r, mask, L)
+                                          for a, w, b, epi, r in calls]),
+        "fgemm_library_ms": cuda_time_ms(
+            lambda: [F.linear(a, w, b) for a, w, b, _, _ in calls]),
+    }
+    del calls
+    return {**times, **{k.replace("_ms", "_tflops"): flop / v / 1e9
+                        for k, v in times.items()}}
 
 
 def backward_gemm_times(M, params):
@@ -802,8 +840,12 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
           "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if dev.type == "cuda" else None)})
     if dev.type == "cuda":
-        profile_step(lambda: float(step(state, lr, *batches[-1])),
-                     names=TRAIN_GROUPS)
+        groups = profile_step(lambda: float(step(state, lr, *batches[-1])),
+                              names=TRAIN_GROUPS)
+        missing = {g for _, g in TRAIN_GROUPS[:2]} - set(groups)
+        if groups and missing:
+            raise AssertionError(f"train: the profile shows no {missing}: "
+                                 f"{sorted(groups)}")
     del model, state, step, before
 
     # two runs from one seed: bit-identical losses and params after 2 steps
@@ -882,7 +924,6 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("sm90::split_weights_t", "transposed weight splits (#6)"),
                  ("sm90::split_weights", "weight splits (#1, #3, #4)"),
                  ("sm90::row_stats", "row statistics (#1, #3, #4)"),
-                 ("fwd_gemm_kernel", "forward GEMMs (#5, scalar FMAs)"),
                  ("wgrad_mma_kernel", "weight-gradient GEMMs (#6, mma.sync)"),
                  ("attn_bwd_kernel", "attention backward"),
                  ("attention_kernel", "attention forward"),
@@ -895,11 +936,25 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("gemm", "cuBLAS GEMMs"))
 
 
-#: the training step's wgmma GEMMs are #6's data gradients
-TRAIN_GROUPS = (("sm90::gemm_kernel", "data-gradient GEMMs (#6, wgmma)"),)
+#: the training step's wgmma GEMMs by the epilogue, the last template
+#: argument of their name: #5's forward products (EPI_STORE 0,
+#: EPI_MASK_RESIDUAL 5, EPI_STORE_GELU 6) and #6's data gradients (EPI_NONE
+#: 3, EPI_GELU_GRAD 4); the plain weight splits are #5's
+TRAIN_GROUPS = ((r"sm90::gemm_kernel<[^>]*\D[056]>", "forward GEMMs (#5, wgmma)"),
+                (r"sm90::gemm_kernel<[^>]*\D[34]>",
+                 "data-gradient GEMMs (#6, wgmma)"),
+                ("sm90::split_weights_kernel", "weight splits (#5)"))
 #: a use_pallas=true step's wgmma GEMMs and weight splits are #2's
 EVAL_TRUE_GROUPS = (("sm90::gemm_kernel", "#2's GEMMs (wgmma)"),
                     ("sm90::split_weights", "#2's weight splits"))
+
+
+def kernel_group(key, names=(), rest=None):
+    """The profile group of a CUDA kernel named ``key``: that of the first
+    pattern (a regular expression) of ``names``, then of KERNEL_GROUPS,
+    found in it; else ``rest``."""
+    return next((g for pat, g in tuple(names) + KERNEL_GROUPS
+                 if re.search(pat, key)), rest)
 
 
 def profile_step(run_step, phase="train_profile",
@@ -925,8 +980,7 @@ def profile_step(run_step, phase="train_profile",
                and e.self_device_time_total > 0]
     groups = {}
     for e in kernels:
-        group = next((g for pat, g in tuple(names) + KERNEL_GROUPS
-                      if pat in e.key), rest)
+        group = kernel_group(e.key, names, rest)
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     device_ms = sum(groups.values())
     emit({"phase": phase, **fields, "wall_ms": wall_ms,
@@ -936,6 +990,7 @@ def profile_step(run_step, phase="train_profile",
           "idle_share": 1 - device_ms / wall_ms if kernels else "not measured",
           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
           "kernel_launches": sum(e.count for e in kernels)})
+    return groups
 
 
 def library_attention(x, wqkv, bqkv, wproj, bproj, num_heads):
@@ -1661,9 +1716,11 @@ def main() -> int:
     emit({"kernels": [
         _kernel_entry("fused_block", "cuda", SOURCE, REPLACES, launches,
                       cases, **bf16(cases)),
+        # with its four GEMMs alone (wgmma) and cuBLAS's F.linear's
         _kernel_entry("block_train_fwd", "cuda", TRAIN_SOURCE,
                       TRAIN_REPLACES["block_train_fwd"], train_launches[0],
-                      fwd, **bf16(fwd)),
+                      fwd, **bf16(fwd),
+                      **f32_sums(fwd, ("fgemm_ms", "fgemm_library_ms"))),
         # with its GEMMs alone: data gradients (wgmma) and weight
         # gradients (mma.sync), and cuBLAS's for the same products
         _kernel_entry("block_train_bwd", "cuda", TRAIN_SOURCE,

@@ -143,6 +143,22 @@ def load_state_npz(path: str) -> Dict[str, torch.Tensor]:
     return _state_dict(flat)
 
 
+def _random_state_globals() -> list:
+    """The NumPy globals that a pickled ``np.random.RandomState`` names: its
+    and its bit generator's constructors, the MT19937 class, and the array
+    (``_reconstruct``, ``ndarray``, ``dtype``) of its key.  NumPy 1.x
+    pickles ``_reconstruct`` under ``numpy.core.multiarray``, NumPy 2.x
+    under ``numpy._core.multiarray``: both names are allowed."""
+    from numpy.random import _mt19937, _pickle
+    reconstruct = np.empty(0).__reduce__()[0]
+    return [getattr(_pickle, "__randomstate_ctor"),
+            getattr(_pickle, "__bit_generator_ctor"), _mt19937.MT19937,
+            np.random.RandomState,
+            np.ndarray, np.dtype, type(np.dtype(np.uint32)),
+            (reconstruct, "numpy.core.multiarray._reconstruct"),
+            (reconstruct, "numpy._core.multiarray._reconstruct")]
+
+
 def load_reference_bin(path: str, parts: Sequence[str] = ()
                        ) -> Dict[str, torch.Tensor]:
     """State dict of the part networks from a reference-named torch
@@ -154,8 +170,14 @@ def load_reference_bin(path: str, parts: Sequence[str] = ()
     part (``general.part_based_model=false``: ``whole_body``) takes the
     reference's monolithic keys (``pose_estimator.STEblocks...``, no part
     name) under that part's name, as the JAX loader maps them into its one
-    tree."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    tree.
+
+    The reference's ``save_state`` also writes ``epoch``, ``lr``,
+    ``optimizer`` and ``random_state``, a pickled ``np.random.RandomState``;
+    the file is read with ``weights_only=True`` and only the NumPy globals
+    such a pickle names allowed (:func:`_random_state_globals`)."""
+    with torch.serialization.safe_globals(_random_state_globals()):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model_pos", ckpt.get("state_dict", ckpt))
     out = {}
     for key, value in sd.items():

@@ -47,16 +47,23 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         # scratch: B, L, C, hidden
         "pafuse_block_train_saved_floats": ([_LL, _I, _I, _I], _LL),
         "pafuse_block_train_scratch_floats": ([_LL, _I, _I, _I], _LL),
+        # float count of the forward's weight split: C, hidden
+        "pafuse_block_train_split_floats": ([_I, _I], _LL),
         # attention-backward shared memory in bytes: L, head size
         "pafuse_block_train_smem_bytes": ([_I, _I], _LL),
-        # is_bf16, x, m1, m2, 14 params, y, saved, B, L, C, H, hidden,
-        # scale, stream
-        "pafuse_block_train_fwd": ([_I] + [_P] * 3 + [_P] * 14 + [_P] * 2
+        # is_bf16, x, m1, m2, 14 params, y, saved, weight split, B, L, C,
+        # H, hidden, scale, stream
+        "pafuse_block_train_fwd": ([_I] + [_P] * 3 + [_P] * 14 + [_P] * 3
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
         # is_bf16, x, g, m1, m2, 14 params, saved, dx, grads, scratch, B, L,
         # C, H, hidden, scale, stream
         "pafuse_block_train_bwd": ([_I] + [_P] * 4 + [_P] * 14 + [_P] * 4
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
+        # the forward's GEMM alone: A, W, bias, epilogue, R (or NULL),
+        # r_is_bf16, mask (or NULL), L, Y, Y2 (or NULL), workspace, M, N, K,
+        # stream
+        "pafuse_fwd_linear": ([_P] * 3 + [_I, _P, _I, _P, _I] + [_P] * 3
+                              + [_LL, _I, _I, _P], _I),
         # the backward's GEMMs alone: A, W, aux (or NULL), Y, workspace, M,
         # N, K, stream; the partials' float count: M, N, K; D, X, partials,
         # dW, M, N, K, stream

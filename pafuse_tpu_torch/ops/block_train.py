@@ -21,12 +21,15 @@ recomputes them from the inputs.  ``block_train`` wraps the pair as a
 ``torch.autograd.Function`` that returns dx, the 14 parameter gradients and
 zero gradients for the masks.
 
-The backward's GEMMs run on the tensor cores, each float32 product as three
-TF32 products (``ops.gemm.split_tf32``): the data gradients on the TMA +
-``wgmma`` GEMM of ``csrc/gemm_sm90.cuh``, the weight gradients on
+Every GEMM runs on the tensor cores, each float32 product as three TF32
+products (``ops.gemm.split_tf32``) with partial sums over pairs of 32-deep K
+slices added in float32: the forward's four products (with their bias,
+GELU and masked-residual epilogues) and the backward's data gradients on
+the TMA + ``wgmma`` GEMM of ``csrc/gemm_sm90.cuh``, the weight gradients on
 ``mma.sync`` per chunk of ``RED_ROWS`` rows, summed in chunk order.
-``data_grad`` and ``weight_grad`` run each alone (plain versions
-``data_grad_reference`` and ``weight_grad_reference``).
+``fwd_linear``, ``data_grad`` and ``weight_grad`` run each alone (plain
+versions ``fwd_linear_reference``, through which the plain forward runs
+its four products, ``data_grad_reference`` and ``weight_grad_reference``).
 
 Parameters are the 14 float32 tensors of ``ops.block`` in torch layout:
 ``(norm1.weight, norm1.bias, qkv.weight, qkv.bias, proj.weight, proj.bias,
@@ -77,23 +80,45 @@ def _gelu_grad(u):
     return 0.5 * (1.0 + torch.erf(u * _INV_SQRT2)) + u * phi
 
 
+def fwd_linear_reference(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         epilogue: str = "store",
+                         residual: Optional[torch.Tensor] = None,
+                         mask: Optional[torch.Tensor] = None,
+                         seq_len: int = 1):
+    """Plain version of :func:`fwd_linear` on float32 ``a`` (M, K) and a
+    torch Linear weight ``w`` (N, K): ``a @ w^T + b`` ("store"); the pair
+    (that, its exact GELU) ("gelu"); or ``residual + mask[m // seq_len] *
+    (a @ w^T + b)`` for row m ("residual"; residual (M, N) in float32 or
+    bfloat16, mask one float32 factor a sequence of seq_len rows)."""
+    y = a @ w.t() + b
+    if epilogue == "store":
+        return y
+    if epilogue == "gelu":
+        return y, _gelu(y)
+    if epilogue == "residual":
+        return residual.float() + mask.repeat_interleave(seq_len)[:, None] * y
+    raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
 def _fwd_core(x0, m1, m2, params, num_heads):
-    """The forward on float32 (B, L, C) with masks (B, 1, 1); returns y and
-    the intermediates the backward needs."""
+    """The forward on float32 (B, L, C) with masks (B, 1, 1), its four
+    products through :func:`fwd_linear_reference` on the (B*L, C) rows;
+    returns y and the intermediates the backward needs."""
     (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
      nos, nob) = params
     B, L, C = x0.shape
-    d = C // num_heads
+    M, d = B * L, C // num_heads
     h1, xhat1, inv1 = _ln_fwd(x0, n1s, n1b)
-    qkv = h1 @ wqkv.t() + bqkv
+    qkv = fwd_linear_reference(h1.reshape(M, C), wqkv, bqkv)
     q, k, v = qkv.view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
     P = torch.softmax(q @ k.transpose(-1, -2) * d ** -0.5, dim=-1)
     o = (P @ v).transpose(1, 2).reshape(B, L, C)
-    x1 = x0 + m1 * (o @ wproj.t() + bproj)
+    x1 = fwd_linear_reference(o.reshape(M, C), wproj, bproj, "residual",
+                              x0.reshape(M, C), m1.reshape(B), L).view(B, L, C)
     h2, xhat2, inv2 = _ln_fwd(x1, n2s, n2b)
-    u = h2 @ wfc1.t() + bfc1
-    gu = _gelu(u)
-    x2 = x1 + m2 * (gu @ wfc2.t() + bfc2)
+    u, gu = fwd_linear_reference(h2.reshape(M, C), wfc1, bfc1, "gelu")
+    x2 = fwd_linear_reference(gu, wfc2, bfc2, "residual", x1.reshape(M, C),
+                              m2.reshape(B), L).view(B, L, C)
     y, xhato, invo = _ln_fwd(x2, nos, nob)
     return y, (h1, xhat1, inv1, q, k, v, P, o, xhat2, inv2, h2, u, gu, xhato,
                invo)
@@ -236,12 +261,16 @@ def block_train_fwd(x: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
     lib, (B, L, C, H, hid, scale) = _lib_and_dims(x, params, num_heads)
     workspace = torch.empty(lib.pafuse_block_train_saved_floats(B, L, C, hid),
                             dtype=torch.float32, device=x.device)
+    # the weights' TF32 halves: a temporary of this call, freed on return
+    split = torch.empty(lib.pafuse_block_train_split_floats(C, hid),
+                        dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.pafuse_block_train_fwd(
             int(x.dtype == torch.bfloat16), x.data_ptr(), m1.data_ptr(),
             m2.data_ptr(), *[p.data_ptr() for p in params], y.data_ptr(),
-            workspace.data_ptr(), B, L, C, H, hid, scale, _stream(x))
+            workspace.data_ptr(), split.data_ptr(), B, L, C, H, hid, scale,
+            _stream(x))
     _raise_on(err, "block_train_fwd")
     block_train_fwd.launches += 1
     return y, TrainSaved(x, m1, m2, params, num_heads, workspace)
@@ -301,6 +330,59 @@ def _check_2d(what, *tensors):
                              f"{tuple(t.shape)}")
 
 
+_FWD_EPILOGUES = {"store": 0, "gelu": 1, "residual": 2}
+
+
+def fwd_linear(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               epilogue: str = "store", residual: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None, seq_len: int = 1):
+    """The forward's GEMM alone: ``a`` (M, K) float32 times the torch Linear
+    weight ``w`` (N, K) plus ``b``, with the epilogue of
+    :func:`fwd_linear_reference`; float32 (M, N), or the pair (u, gelu(u))
+    for "gelu".  On the tensor cores for CUDA tensors (or raise);
+    :func:`fwd_linear_reference` for CPU tensors."""
+    if a.device.type == "cpu":
+        return fwd_linear_reference(a, w, b, epilogue, residual, mask, seq_len)
+    if a.device.type != "cuda":
+        raise ValueError(f"fwd_linear: unsupported device {a.device}")
+    if epilogue not in _FWD_EPILOGUES:
+        raise ValueError(f"fwd_linear: unknown epilogue {epilogue!r}")
+    _check_2d("fwd_linear", a, w, b.view(1, -1))
+    (M, K), N = a.shape, w.shape[0]
+    if w.shape[1] != K or tuple(b.shape) != (N,):
+        raise ValueError(f"fwd_linear: a {tuple(a.shape)}, w {tuple(w.shape)} "
+                         f"and b {tuple(b.shape)} do not fit")
+    if epilogue == "residual":
+        if (tuple(residual.shape) != (M, N) or residual.device != a.device
+                or residual.dtype not in (torch.float32, torch.bfloat16)
+                or not residual.is_contiguous()):
+            raise ValueError(f"fwd_linear: residual must be a contiguous "
+                             f"float32 or bfloat16 ({M}, {N}) tensor on "
+                             f"{a.device}")
+        if (seq_len < 1 or M % seq_len or mask.dtype != torch.float32
+                or tuple(mask.shape) != (M // seq_len,)
+                or mask.device != a.device or not mask.is_contiguous()):
+            raise ValueError(f"fwd_linear: mask must be a contiguous float32 "
+                             f"({M} // seq_len,) tensor on {a.device}, "
+                             f"seq_len a divisor of {M}")
+    from pafuse_tpu_torch.ops import _build
+    lib = _build.load("block_train")
+    y = a.new_empty((M, N))
+    y2 = a.new_empty((M, N)) if epilogue == "gelu" else None
+    ws = a.new_empty(2 * N * K)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(a.device):
+        err = lib.pafuse_fwd_linear(
+            a.data_ptr(), w.data_ptr(), b.data_ptr(), _FWD_EPILOGUES[epilogue],
+            ptr(residual), int(residual is not None
+                               and residual.dtype == torch.bfloat16),
+            ptr(mask), seq_len, y.data_ptr(), ptr(y2), ws.data_ptr(), M, N, K,
+            _stream(a))
+    _raise_on(err, "fwd_linear")
+    fwd_linear.launches += 1
+    return y if y2 is None else (y, y2)
+
+
 def data_grad(a: torch.Tensor, w: torch.Tensor,
               aux: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The backward's data-gradient GEMM alone: a (M, K) @ w (K, N), times
@@ -358,6 +440,7 @@ def weight_grad(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 #: kernel launches through the GEMM wrappers (CUDA path only)
+fwd_linear.launches = 0
 data_grad.launches = 0
 weight_grad.launches = 0
 

@@ -32,14 +32,21 @@
 //   * A chain of launches, as block.cu, with the row LayerNorms, one
 //     attention CTA per (sequence, head) forward and backward with q, k, v,
 //     dO, P and dS in shared memory (L <= 68 fits), and LayerNorm-backward
-//     row kernels.  The forward's GEMMs (kernel #5) are tiled f32 GEMMs
-//     (64x64 tile, scalar FMAs) with fused epilogues (bias, GELU,
-//     mask-scaled residual).  The backward's (kernel #6) run on the tensor
-//     cores, every float32 product as three TF32 products a_lo*b_hi +
-//     a_hi*b_lo + a_hi*b_hi (x_hi = tf32(x), x_lo = tf32(x - x_hi); the
-//     dropped a_lo*b_lo is ~2^-22 relative), with partial sums over at most
-//     two 32-deep K slices added in f32 FADDs (the tensor cores' own f32
-//     accumulation truncates):
+//     row kernels.  Every GEMM runs on the tensor cores, every float32
+//     product as three TF32 products a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
+//     (x_hi = tf32(x), x_lo = tf32(x - x_hi); the dropped a_lo*b_lo is
+//     ~2^-22 relative), with partial sums over at most two 32-deep K slices
+//     added in f32 FADDs (the tensor cores' own f32 accumulation
+//     truncates):
+//       - the forward's four (kernel #5) on gemm_sm90.cuh's TMA + wgmma
+//         GEMM with fused epilogues: bias (qkv); bias with the
+//         pre-activation u and gelu(u) both stored (fc1, as the backward
+//         needs u); and R + m[b] * (product + bias) (proj with R = x in T,
+//         fc2 with R = x1), so a bf16 x is read as it is (the GEMM's R type
+//         TR) and needs no converting pass.  A torch Linear weight is
+//         stored (N, K), K-major already, so each call splits the four
+//         weights as stored (split_weights_kernel) into a temporary of the
+//         call, not into the workspace that lives until the backward;
 //       - the data gradients Y = dY W (fc2 with the GELU' epilogue, fc1,
 //         proj, qkv) on gemm_sm90.cuh's TMA + wgmma GEMM.  TF32 wgmma takes
 //         K-major operands only, and W is stored (K, N), so each call first
@@ -70,10 +77,6 @@
 #include "gemm_sm90.cuh"
 
 namespace {
-
-__device__ __forceinline__ float gelu(float u) {
-  return 0.5f * u * (1.f + erff(u * kInvSqrt2));
-}
 
 // rows per partial sum of a weight or bias gradient, and of a LayerNorm
 // parameter gradient
@@ -159,12 +162,14 @@ long long part_floats(long long M, int C, int hid) {
   return w > b ? (w > l ? w : l) : (b > l ? b : l);
 }
 
-long long split_t_floats(int C, int hid) {
+// The TF32 hi and lo halves of the four weights: the forward's (as stored)
+// or the backward's (transposed).
+long long split_floats(int C, int hid) {
   return 2LL * (4LL * C * C + 2LL * hid * C);
 }
 
 long long scratch_floats(long long M, int C, int hid) {
-  return M * (10LL * C + hid) + part_floats(M, C, hid) + split_t_floats(C, hid);
+  return M * (10LL * C + hid) + part_floats(M, C, hid) + split_floats(C, hid);
 }
 
 Scratch carve_scratch(float* p, long long M, int C, int hid) {
@@ -217,93 +222,18 @@ ln_fwd_kernel(const TIn* __restrict__ X, const float* __restrict__ scale,
   }
 }
 
-// ---------------------------------------------------------------------------
-// The forward's tiled f32 GEMM  Y[m, n] = epilogue(sum_k A[m, k] * W[n, k])
-// for a torch Linear weight W (N, K): 64x64 output tile per CTA, 16-deep K
-// slices through shared memory, 256 threads with a 4x4 register tile each;
-// M on gridDim.x, N tiles on gridDim.y.
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
-
-enum {
-  FWD_BIAS = 0,           // Y = acc + b
-  FWD_BIAS_GELU = 1,      // Y = acc + b, Y2 = gelu(Y)
-  FWD_MASK_RESIDUAL = 2,  // Y = R + mask[m / L] * (acc + b)
-};
-
-template <int EPI, typename TR>
-__global__ void __launch_bounds__(GEMM_THREADS)
-fwd_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ bias, const TR* __restrict__ R,
-                const float* __restrict__ mask, float* __restrict__ Y,
-                float* __restrict__ Y2, long long M, int N, int K, int L) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN + 4];
-
-  const int tid = threadIdx.x;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  // A and weight tile loads: thread -> row lr, four consecutive k
-  const int lr = tid >> 2, lk = (tid & 3) * 4;
-  // compute: thread -> rows ty + 16 i, cols tx + 16 j
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const long long am = m0 + lr;
-  const int wn = n0 + lr;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + lk + j;
-      As[lk + j][lr] = (am < M && k < K) ? A[am * K + k] : 0.f;
-      Ws[lk + j][lr] = (wn < N && k < K) ? W[(long long)wn * K + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const long long idx = m * N + n;
-      float y = acc[i][j] + bias[n];
-      if (EPI == FWD_BIAS_GELU) Y2[idx] = gelu(y);
-      if (EPI == FWD_MASK_RESIDUAL) y = to_f32<TR>(R[idx]) + mask[m / L] * y;
-      Y[idx] = y;
-    }
-  }
-}
-
+// The forward's GEMM  Y (M, N) = epilogue(A (M, K) W^T + b) for a torch
+// Linear weight W (N, K), on gemm_sm90.cuh's GEMM with W already split into
+// w_hi and w_lo (N, K) by split_weights: EPI_STORE (qkv), EPI_STORE_GELU
+// (u and gu = gelu(u) into Y2) or EPI_MASK_RESIDUAL (Y = R + mask[m / L] *
+// (A W^T + b), R in TR: the block input x in T, or x1).
 template <int EPI, typename TR = float>
-cudaError_t launch_fwd_gemm(const float* A, const float* W, const float* bias, const TR* R,
-                            const float* mask, float* Y, float* Y2, long long M, int N, int K,
-                            int L, cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  fwd_gemm_kernel<EPI, TR><<<grid, GEMM_THREADS, 0, stream>>>(A, W, bias, R, mask, Y, Y2, M,
-                                                              N, K, L);
-  return cudaGetLastError();
+cudaError_t fwd_linear(const float* A, const float* w_hi, const float* w_lo, const float* bias,
+                       const TR* R, const float* mask, int L, float* Y, float* Y2, long long M,
+                       int N, int K, cudaStream_t stream) {
+  return sm90::launch_gemm<float, PRO_NONE, EPI, float, TR>(
+      A, w_hi, w_lo, bias, nullptr, nullptr, nullptr, R, Y, M, N, K, stream,
+      sm90::EpiExtra{mask, Y2, L});
 }
 
 // The data-gradient GEMM  Y (M, N) = A (M, K) W [* gelu'(aux)] for a weight
@@ -750,35 +680,48 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
 
 template <typename T>
 cudaError_t train_fwd(const T* x, const float* m1, const float* m2, const Params& p,
-                      T* y, float* ws, long long B, int L, int C, int H, int hid,
-                      float scale, cudaStream_t st) {
+                      T* y, float* ws, float* split, long long B, int L, int C, int H,
+                      int hid, float scale, cudaStream_t st) {
   const long long M = B * L;
   const Saved s = carve_saved(ws, M, C, hid);
   const unsigned ln_grid = (unsigned)((M + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
+  const float* none = nullptr;
+
+  // 0. the four weights W (N, K) -> their TF32 halves, into split
+  const float* w[4] = {p.wqkv, p.wproj, p.wfc1, p.wfc2};
+  const long long n[4] = {3LL * C * C, (long long)C * C, (long long)hid * C,
+                          (long long)C * hid};
+  const float* hi[4];
+  const float* lo[4];
+  for (int i = 0; i < 4; ++i) {
+    RETURN_IF_ERROR(sm90::split_weights<float>(w[i], split, split + n[i], n[i], st));
+    hi[i] = split;
+    lo[i] = split + n[i];
+    split += 2 * n[i];
+  }
 
   // 1. h1 = LN1(x0)
   ln_fwd_kernel<T, float><<<ln_grid, LN_THREADS, 0, st>>>(x, p.n1s, p.n1b, s.h1,
                                                           s.mean1, s.rstd1, M, C);
   RETURN_IF_ERROR(cudaGetLastError());
   // 2. qkv = h1 Wqkv^T + bqkv
-  RETURN_IF_ERROR((launch_fwd_gemm<FWD_BIAS>(s.h1, p.wqkv, p.bqkv, (const float*)nullptr,
-                                             nullptr, s.qkv, nullptr, M, 3 * C, C, L, st)));
+  RETURN_IF_ERROR(fwd_linear<EPI_STORE>(s.h1, hi[0], lo[0], p.bqkv, none, nullptr, L, s.qkv,
+                                        nullptr, M, 3 * C, C, st));
   // 3. o = per-head softmax(q k^T * scale) v
   RETURN_IF_ERROR(launch_attention<float>(s.qkv, s.o, B, L, C, H, scale, st));
   // 4. x1 = x0 + m1 * (o Wproj^T + bproj)
-  RETURN_IF_ERROR((launch_fwd_gemm<FWD_MASK_RESIDUAL, T>(s.o, p.wproj, p.bproj, x, m1, s.x1,
-                                                        nullptr, M, C, C, L, st)));
+  RETURN_IF_ERROR((fwd_linear<EPI_MASK_RESIDUAL, T>(s.o, hi[1], lo[1], p.bproj, x, m1, L,
+                                                    s.x1, nullptr, M, C, C, st)));
   // 5. h2 = LN2(x1)
   ln_fwd_kernel<float, float><<<ln_grid, LN_THREADS, 0, st>>>(s.x1, p.n2s, p.n2b, s.h2,
                                                               s.mean2, s.rstd2, M, C);
   RETURN_IF_ERROR(cudaGetLastError());
   // 6. u = h2 Wfc1^T + bfc1, gu = gelu(u)
-  RETURN_IF_ERROR((launch_fwd_gemm<FWD_BIAS_GELU>(s.h2, p.wfc1, p.bfc1, (const float*)nullptr,
-                                                  nullptr, s.u, s.gu, M, hid, C, L, st)));
+  RETURN_IF_ERROR(fwd_linear<EPI_STORE_GELU>(s.h2, hi[2], lo[2], p.bfc1, none, nullptr, L,
+                                             s.u, s.gu, M, hid, C, st));
   // 7. x2 = x1 + m2 * (gu Wfc2^T + bfc2)
-  RETURN_IF_ERROR((launch_fwd_gemm<FWD_MASK_RESIDUAL, float>(s.gu, p.wfc2, p.bfc2, s.x1, m2,
-                                                            s.x2, nullptr, M, C, hid, L,
-                                                            st)));
+  RETURN_IF_ERROR(fwd_linear<EPI_MASK_RESIDUAL>(s.gu, hi[3], lo[3], p.bfc2, s.x1, m2, L, s.x2,
+                                                nullptr, M, C, hid, st));
   // 8. y = T(LN_outer(x2))
   ln_fwd_kernel<float, T><<<ln_grid, LN_THREADS, 0, st>>>(s.x2, p.nos, p.nob, y, s.meano,
                                                           s.rstdo, M, C);
@@ -860,9 +803,45 @@ extern "C" long long pafuse_block_train_scratch_floats(long long B, int L, int C
   return scratch_floats(B * L, C, hid);
 }
 
+// The forward's weight split, a temporary of each forward call.
+extern "C" long long pafuse_block_train_split_floats(int C, int hid) {
+  return split_floats(C, hid);
+}
+
 // Dynamic shared memory of the attention backward at L tokens, head size d.
 extern "C" long long pafuse_block_train_smem_bytes(int L, int d) {
   return (long long)attn_bwd_smem(L, d);
+}
+
+// The forward's GEMM alone (for its tests and timings): Y (M, N) = A (M,
+// K) W^T + b for W (N, K), with ws (8 N K bytes) taking W's split, and the
+// epilogue 0: store; 1: also Y2 = gelu(Y); 2: Y = R + mask[m / L] * (A W^T
+// + b), R (M, N) float32 or (r_is_bf16) bfloat16.
+extern "C" int pafuse_fwd_linear(const float* A, const float* W, const float* bias,
+                                 int epilogue, const void* R, int r_is_bf16,
+                                 const float* mask, int L, float* Y, float* Y2, float* ws,
+                                 long long M, int N, int K, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)N * K;
+  const float* none = nullptr;
+  RETURN_IF_ERROR(sm90::split_weights<float>(W, ws, ws + n, n, st));
+  switch (epilogue) {
+    case 0:
+      return (int)fwd_linear<EPI_STORE>(A, ws, ws + n, bias, none, nullptr, 1, Y, nullptr, M,
+                                        N, K, st);
+    case 1:
+      return (int)fwd_linear<EPI_STORE_GELU>(A, ws, ws + n, bias, none, nullptr, 1, Y, Y2, M,
+                                             N, K, st);
+    case 2:
+      if (r_is_bf16)
+        return (int)fwd_linear<EPI_MASK_RESIDUAL>(
+            A, ws, ws + n, bias, static_cast<const __nv_bfloat16*>(R), mask, L, Y, nullptr,
+            M, N, K, st);
+      return (int)fwd_linear<EPI_MASK_RESIDUAL>(A, ws, ws + n, bias,
+                                                static_cast<const float*>(R), mask, L, Y,
+                                                nullptr, M, N, K, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The backward's two GEMMs alone (for their tests and timings):
@@ -894,18 +873,18 @@ extern "C" int pafuse_block_train_fwd(
     const float* n1b, const float* wqkv, const float* bqkv, const float* wproj,
     const float* bproj, const float* n2s, const float* n2b, const float* wfc1,
     const float* bfc1, const float* wfc2, const float* bfc2, const float* nos,
-    const float* nob, void* y, float* ws, long long B, int L, int C, int H, int hid,
-    float scale, void* stream) {
+    const float* nob, void* y, float* ws, float* split, long long B, int L, int C, int H,
+    int hid, float scale, void* stream) {
   const Params p{n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b,
                  wfc1, bfc1, wfc2, bfc2, nos, nob};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using T = __nv_bfloat16;
     return (int)train_fwd<T>(static_cast<const T*>(x), m1, m2, p, static_cast<T*>(y), ws,
-                             B, L, C, H, hid, scale, st);
+                             split, B, L, C, H, hid, scale, st);
   }
   return (int)train_fwd<float>(static_cast<const float*>(x), m1, m2, p,
-                               static_cast<float*>(y), ws, B, L, C, H, hid, scale, st);
+                               static_cast<float*>(y), ws, split, B, L, C, H, hid, scale, st);
 }
 
 extern "C" int pafuse_block_train_bwd(

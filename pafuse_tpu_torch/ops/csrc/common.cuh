@@ -50,14 +50,30 @@ constexpr float kLnEps = 1e-6f;
 //   EPI_RESIDUAL   Y = R + T(acc + b)
 //   EPI_NONE       Y = acc                                no bias
 //   EPI_GELU_GRAD  Y = acc * gelu'(R)                     R: the f32 pre-activation
+//   EPI_MASK_RESIDUAL  Y = R + mask[m / L] * (acc + b)    row m of sequence m / L
+//   EPI_STORE_GELU Y = acc + b, Y2 = gelu(Y)              both f32
 // and its A-operand prologues (none, or the row LayerNorm rounded to T).
+// The last two are the training forward's (kernel #5), in f32 throughout.
 // ---------------------------------------------------------------------------
 
 enum { PRO_NONE = 0, PRO_LAYERNORM = 1 };
-enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_NONE = 3, EPI_GELU_GRAD = 4 };
+enum {
+  EPI_STORE = 0,
+  EPI_GELU = 1,
+  EPI_RESIDUAL = 2,
+  EPI_NONE = 3,
+  EPI_GELU_GRAD = 4,
+  EPI_MASK_RESIDUAL = 5,
+  EPI_STORE_GELU = 6
+};
 
 constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+
+// the exact GELU
+__device__ __forceinline__ float gelu(float u) {
+  return 0.5f * u * (1.f + erff(u * kInvSqrt2));
+}
 
 // d/du of the exact GELU 0.5 u (1 + erf(u / sqrt 2))
 __device__ __forceinline__ float gelu_grad(float u) {

@@ -1,6 +1,7 @@
 // The Hopper GEMM of the eval block chain (block_chain.cuh: kernels #1, #3
-// and #4, and gemm.cu), of the attention kernel #2 (attention.cu) and of
-// the training backward's data gradients (block_train.cu, kernel #6):
+// and #4, and gemm.cu), of the attention kernel #2 (attention.cu), and of
+// the training forward's four products (kernel #5) and the training
+// backward's data gradients (kernel #6) in block_train.cu:
 //
 //   Y[m, n] = TY(epilogue(sum_k prologue(A)[m, k] * w(W[n, k]) + b[n]))
 //
@@ -9,11 +10,14 @@
 // enter the product rounded to T (for T = float: unrounded), sums
 // accumulate in f32, and the epilogue (common.cuh) adds the bias, applies
 // the exact (erff) GELU or adds the residual R to the product rounded to
-// TY; or, for the data gradients, stores the bare product or multiplies it
-// by gelu'(R).  A is (M, K) in T (float or bfloat16), R and Y (M, N) in TY
-// (T unless a caller asks otherwise: #2 stores f32 products of a bf16 x and
-// bf16 products of f32 attention output), W is (N, K) f32 in torch's
-// Linear layout; a weight stored (K, N) is split transposed
+// TY; for the data gradients, stores the bare product or multiplies it by
+// gelu'(R); for the training forward, stores the biased product and its
+// GELU (two outputs), or adds the product scaled by its sequence's branch
+// mask to R.  A is (M, K) in T (float or bfloat16), Y (M, N) in TY (T
+// unless a caller asks otherwise: #2 stores f32 products of a bf16 x and
+// bf16 products of f32 attention output), R (M, N) in TR (TY unless asked:
+// #5 adds f32 products to a bf16 x), W is (N, K) f32 in torch's Linear
+// layout; a weight stored (K, N) is split transposed
 // (split_weights_t_kernel).
 //
 // What bounds it on an H100 (data-sheet peaks at 700 W): at the block
@@ -327,6 +331,15 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16*
 
 __device__ __forceinline__ float tf32_round(float v) { return __uint_as_float(tf32_bits(v)); }
 
+// Operands of the training forward's epilogues, unread by the others:
+// EPI_MASK_RESIDUAL scales row m's product by mask[m / L], EPI_STORE_GELU
+// stores gelu(Y) into Y2 (M, N) f32.
+struct EpiExtra {
+  const float* mask = nullptr;
+  float* Y2 = nullptr;
+  int L = 1;
+};
+
 // Make one consumer warpgroup's 64 rows of an A slice in shared memory the
 // product's operand: the LayerNorm and the rounding to T (PRO_LAYERNORM)
 // and, for f32, the TF32 split, hi in place and lo into the stage's second
@@ -404,13 +417,13 @@ __device__ __forceinline__ void issue_slice(float (&part)[BN / 2], const uint8_t
   wgmma_commit();
 }
 
-template <typename T, typename TY, int BN, int PRO, int EPI>
+template <typename T, typename TY, typename TR, int BN, int PRO, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
             const __grid_constant__ CUtensorMap tm_wlo, const float* __restrict__ bias,
             const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-            const float2* __restrict__ stats, const TY* __restrict__ R, TY* __restrict__ Y,
-            int M, int N, int K) {
+            const float2* __restrict__ stats, const TR* __restrict__ R, TY* __restrict__ Y,
+            int M, int N, int K, const EpiExtra ex) {
   using Cf = Cfg<T>;
   constexpr int STAGES = Cf::STAGES;
   // the A slice needs no pass of its own only as bf16 without a LayerNorm
@@ -517,7 +530,16 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
     }
 
     // epilogue: accumulator 4j + 2h + {0, 1} is (row r0 + 8h, col 8j + 2t + {0, 1})
-    constexpr bool BIAS = EPI == EPI_STORE || EPI == EPI_GELU || EPI == EPI_RESIDUAL;
+    constexpr bool BIAS = EPI == EPI_STORE || EPI == EPI_GELU || EPI == EPI_RESIDUAL ||
+                          EPI == EPI_MASK_RESIDUAL || EPI == EPI_STORE_GELU;
+    float mk[2] = {0.f, 0.f};           // the rows' branch masks
+    if constexpr (EPI == EPI_MASK_RESIDUAL) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + r0 + 8 * h;
+        mk[h] = m < M ? ex.mask[m / ex.L] : 0.f;
+      }
+    }
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * t;
@@ -533,19 +555,25 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
           y1 += b1;
         }
         if (EPI == EPI_GELU) {
-          y0 = 0.5f * y0 * (1.f + erff(y0 * kInvSqrt2));
-          y1 = 0.5f * y1 * (1.f + erff(y1 * kInvSqrt2));
+          y0 = gelu(y0);
+          y1 = gelu(y1);
         }
         if (EPI == EPI_RESIDUAL) {
-          const float2 r = load2<TY>(R + m * N + n);
+          const float2 r = load2<TR>(R + m * N + n);
           y0 = r.x + round_to<TY>(y0);
           y1 = r.y + round_to<TY>(y1);
         }
         if (EPI == EPI_GELU_GRAD) {
-          const float2 u = load2<TY>(R + m * N + n);
+          const float2 u = load2<TR>(R + m * N + n);
           y0 *= gelu_grad(u.x);
           y1 *= gelu_grad(u.y);
         }
+        if constexpr (EPI == EPI_MASK_RESIDUAL) {
+          const float2 r = load2<TR>(R + m * N + n);
+          y0 = r.x + mk[h] * y0;
+          y1 = r.y + mk[h] * y1;
+        }
+        if constexpr (EPI == EPI_STORE_GELU) store2<float>(ex.Y2 + m * N + n, gelu(y0), gelu(y1));
         store2<TY>(Y + m * N + n, y0, y1);
       }
     }
@@ -629,17 +657,18 @@ cudaError_t row_stats(const T* X, float2* stats, long long M, int K, cudaStream_
   return cudaGetLastError();
 }
 
-template <typename T, typename TY, int BN, int PRO, int EPI>
+template <typename T, typename TY, typename TR, int BN, int PRO, int EPI>
 cudaError_t launch_gemm_bn(const T* A, const T* w_hi, const T* w_lo, const float* bias,
                            const float* ln_s, const float* ln_b, const float2* stats,
-                           const TY* R, TY* Y, long long M, int N, int K, cudaStream_t stream) {
+                           const TR* R, TY* Y, long long M, int N, int K, cudaStream_t stream,
+                           const EpiExtra& ex) {
   CUtensorMap ma, mw, mwl;
   cudaError_t e;
   if ((e = encode_tile<T>(&ma, A, M, K, BM)) != cudaSuccess) return e;
   if ((e = encode_tile<T>(&mw, w_hi, N, K, BN)) != cudaSuccess) return e;
   if ((e = encode_tile<T>(&mwl, w_lo != nullptr ? w_lo : w_hi, N, K, BN)) != cudaSuccess)
     return e;
-  auto kernel = gemm_kernel<T, TY, BN, PRO, EPI>;
+  auto kernel = gemm_kernel<T, TY, TR, BN, PRO, EPI>;
   constexpr int smem = Cfg<T>::SMEM;
   if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
       cudaSuccess)
@@ -651,7 +680,7 @@ cudaError_t launch_gemm_bn(const T* A, const T* w_hi, const T* w_lo, const float
   const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);    // persistent
   kernel<<<grid, THREADS, smem, stream>>>(ma, mw, mwl, bias, ln_s, ln_b, stats, R, Y, (int)M,
-                                          N, K);
+                                          N, K, ex);
   return cudaGetLastError();
 }
 
@@ -659,23 +688,27 @@ cudaError_t launch_gemm_bn(const T* A, const T* w_hi, const T* w_lo, const float
 // split_weights or split_weights_t (w_lo: nullptr for bf16) and, for the
 // LayerNorm prologue, row statistics already made by row_stats.  N and K
 // multiples of 8, K <= MAX_LN_K with the LayerNorm prologue, M <= 2^30;
-// bias is not read by EPI_NONE and EPI_GELU_GRAD.  TY is T unless given
-// (R and Y do not deduce it, so R may be nullptr).
+// bias is not read by EPI_NONE and EPI_GELU_GRAD; ex (the mask and L, or
+// Y2) only by EPI_MASK_RESIDUAL and EPI_STORE_GELU.  TY is T and TR is TY
+// unless given (R and Y do not deduce them, so R may be nullptr).
 template <typename X> struct NoDeduce { using type = X; };
 
-template <typename T, int PRO, int EPI, typename TY = T>
+template <typename T, int PRO, int EPI, typename TY = T, typename TR = TY>
 cudaError_t launch_gemm(const T* A, const T* w_hi, const T* w_lo, const float* bias,
                         const float* ln_s, const float* ln_b, const float2* stats,
-                        const typename NoDeduce<TY>::type* R, typename NoDeduce<TY>::type* Y,
-                        long long M, int N, int K, cudaStream_t stream) {
+                        const typename NoDeduce<TR>::type* R, typename NoDeduce<TY>::type* Y,
+                        long long M, int N, int K, cudaStream_t stream,
+                        const EpiExtra& ex = EpiExtra{}) {
   if (M < 1 || N % 8 || K % 8 || M > (1LL << 30) ||
-      (PRO == PRO_LAYERNORM && K > MAX_LN_K))
+      (PRO == PRO_LAYERNORM && K > MAX_LN_K) ||
+      (EPI == EPI_MASK_RESIDUAL && (ex.mask == nullptr || ex.L < 1)) ||
+      (EPI == EPI_STORE_GELU && ex.Y2 == nullptr))
     return cudaErrorInvalidValue;
   if (N % 128 != 0 && N % 112 == 0)
-    return launch_gemm_bn<T, TY, 112, PRO, EPI>(A, w_hi, w_lo, bias, ln_s, ln_b, stats, R, Y,
-                                                M, N, K, stream);
-  return launch_gemm_bn<T, TY, 128, PRO, EPI>(A, w_hi, w_lo, bias, ln_s, ln_b, stats, R, Y, M,
-                                              N, K, stream);
+    return launch_gemm_bn<T, TY, TR, 112, PRO, EPI>(A, w_hi, w_lo, bias, ln_s, ln_b, stats, R,
+                                                    Y, M, N, K, stream, ex);
+  return launch_gemm_bn<T, TY, TR, 128, PRO, EPI>(A, w_hi, w_lo, bias, ln_s, ln_b, stats, R, Y,
+                                                  M, N, K, stream, ex);
 }
 
 }  // namespace sm90

@@ -21,6 +21,17 @@ Then the CUDA backward's arithmetic, emulated in the plain backward: every
 product of its GEMMs as three TF32 products, the weight gradients summed
 per chunk of RED_ROWS rows in partial sums of two 32-row slices and then in
 chunk order, within the same 1e-4 x max|gradient| of the plain gradients.
+
+The forward's GEMM stage, ``fwd_linear_reference`` (through which the plain
+forward runs its four products), against the intermediates of the JAX
+forward ``block_grad._fwd_core(..., want_residuals=True)`` on the same
+inputs: qkv (bias), x1 (masked residual on x0), u and gu (bias and GELU)
+from JAX's own h1, o and h2, and x2 from JAX's gu and x1 against float64;
+FWD_TOL max abs (float32 sums of at most 2C products in another order, the
+A&S erf within ~1e-7).  Then the CUDA forward's arithmetic emulated in the
+plain forward (three TF32 products per product, partial sums over pairs of
+32-deep K slices added in float32) within TRAIN_FWD_TOL, chip_smoke.py's
+bound for kernel #5, of the JAX forward.
 """
 
 import functools
@@ -40,7 +51,8 @@ from pafuse_tpu_torch.models.mixste import Block
 from pafuse_tpu_torch.ops import block_train as port_block_train
 from pafuse_tpu_torch.ops.block_train import (RED_ROWS, block_train,
                                               block_train_bwd,
-                                              block_train_fwd,
+                                              block_train_fwd, fwd_linear,
+                                              fwd_linear_reference,
                                               train_bwd_reference,
                                               train_fwd_reference)
 from pafuse_tpu_torch.ops.gemm import split_tf32
@@ -49,6 +61,7 @@ torch.set_num_threads(2)
 
 HEADS = 8
 FWD_TOL = 2e-5
+TRAIN_FWD_TOL = 1e-4
 GRAD_RTOL = 1e-4
 KEEP = 0.9
 
@@ -309,3 +322,104 @@ def test_tensor_core_backward_order_keeps_the_gradient_bound(monkeypatch, B, L,
                   _emulated_weight_grad)
         got_dx, got = train_bwd_reference(x, g, m1, m2, params, HEADS)
     _assert_grads(got_dx, got, want_dx, want, "tensor-core order")
+
+
+def _jax_fwd_residuals(p, outer, x, m1, m2):
+    """block_grad._fwd_core's intermediates (h1, qkv, o, x1, h2, u, gu) on
+    the (B, L, C) batch as one tile, without padding."""
+    B, L, C = x.shape
+    flat = [jnp.asarray(a) for a in block_grad._flat_params(p, outer)]
+    out = block_grad._fwd_core(
+        jnp.asarray(x), jnp.asarray(m1.reshape(B, 1, 1)),
+        jnp.asarray(m2.reshape(B, 1, 1)), *flat, num_heads=HEADS, seq_len=L,
+        head_dim=C // HEADS, want_residuals=True)
+    h1, qkv, o, x1, h2, u, gu = (np.array(out[i]).reshape(B * L, -1)
+                                 for i in (1, 4, 6, 7, 8, 11, 12))
+    return h1, qkv, o, x1, h2, u, gu
+
+
+@pytest.mark.parametrize("B,L,C", [(4, 24, 32), (4, 68, 64), (4, 27, 64),
+                                   (2, 68, 224)])
+def test_fwd_linear_reference_matches_jax_fwd_core(B, L, C):
+    p, outer = _jax_block(C, seed=L * 1000 + C + 2)
+    x, _, m1, m2 = _inputs(B, L, C, seed=L + C + 2)
+    params = _port_params(p, outer)
+    h1, qkv, o, x1, h2, u, gu = _jax_fwd_residuals(p, outer, x, m1, m2)
+    t = torch.from_numpy
+    close = lambda a, b: np.testing.assert_allclose(  # noqa: E731
+        a.numpy(), b, rtol=0, atol=FWD_TOL)
+    close(fwd_linear_reference(t(h1), params[2], params[3]), qkv)
+    close(fwd_linear_reference(t(o), params[4], params[5], "residual",
+                               t(x.reshape(B * L, C)), t(m1), L), x1)
+    got_u, got_gu = fwd_linear_reference(t(h2), params[8], params[9], "gelu")
+    close(got_u, u)
+    close(got_gu, gu)
+    # x2 (not among the JAX residuals) against float64 on JAX's gu and x1
+    want = x1 + np.repeat(m2, L)[:, None] * (
+        gu.astype(np.float64) @ params[10].double().numpy().T
+        + params[11].double().numpy())
+    close(fwd_linear_reference(t(gu), params[10], params[11], "residual",
+                               t(x1), t(m2), L), want)
+
+
+def test_fwd_linear_on_cpu_is_the_plain_version():
+    r = np.random.RandomState(0)
+    a, res = (torch.from_numpy(r.randn(18, n).astype(np.float32))
+              for n in (16, 24))
+    w = torch.from_numpy(r.randn(24, 16).astype(np.float32))
+    b = torch.from_numpy(r.randn(24).astype(np.float32))
+    mask = torch.tensor([0.0, 1.0 / KEEP, 1.0])
+    launches = fwd_linear.launches
+    for epilogue in ("store", "gelu", "residual"):
+        args = (a, w, b, epilogue, res.bfloat16(), mask, 6)
+        got, want = fwd_linear(*args), fwd_linear_reference(*args)
+        for g, v in zip(*(((got,), (want,)) if epilogue != "gelu"
+                          else (got, want))):
+            assert g.dtype == torch.float32
+            torch.testing.assert_close(g, v, rtol=0, atol=0)
+    assert fwd_linear.launches == launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        fwd_linear(a.to("meta"), w, b)
+    with pytest.raises(ValueError, match="unknown epilogue"):
+        fwd_linear_reference(a, w, b, "bias")
+
+
+def _emulated_fwd_linear(a, w, b, epilogue="store", residual=None, mask=None,
+                         seq_len=1):
+    """The forward GEMM as the wgmma kernel computes it: per pair of
+    32-deep K slices a partial sum of three TF32 products (a_lo*w_hi +
+    a_hi*w_lo + a_hi*w_hi), the partials added in float32 in K order, then
+    the bias and the epilogue."""
+    a_hi, a_lo = split_tf32(a)
+    w_hi, w_lo = split_tf32(w)
+    acc = torch.zeros(a.shape[0], w.shape[0])
+    for k0 in range(0, a.shape[1], 64):
+        k = slice(k0, k0 + 64)
+        acc = acc + (a_lo[:, k] @ w_hi[:, k].t() + a_hi[:, k] @ w_lo[:, k].t()
+                     + a_hi[:, k] @ w_hi[:, k].t())
+    y = acc + b
+    if epilogue == "gelu":
+        return y, port_block_train._gelu(y)
+    if epilogue == "residual":
+        return residual.float() + mask.repeat_interleave(seq_len)[:, None] * y
+    return y
+
+
+@pytest.mark.parametrize("B,L,C", [(4, 27, 64), (4, 42, 64), (2, 68, 224)])
+def test_tensor_core_forward_order_keeps_the_forward_bound(monkeypatch, B, L,
+                                                           C):
+    """The plain forward with its four products computed as the CUDA
+    forward computes them (K up to 2C = 448: seven pairs of slices) against
+    the JAX forward (the XLA block), within kernel #5's bound."""
+    p, outer = _jax_block(C, seed=B + L + C + 3)
+    x, _, m1, m2 = _inputs(B, L, C, seed=B + 3)
+    params = _port_params(p, outer)
+    with monkeypatch.context() as m:
+        m.setattr(port_block_train, "fwd_linear_reference",
+                  _emulated_fwd_linear)
+        got = train_fwd_reference(torch.from_numpy(x), torch.from_numpy(m1),
+                                  torch.from_numpy(m2), params, HEADS)
+    want = _xla_block(p, outer, jnp.asarray(x), jnp.asarray(m1),
+                      jnp.asarray(m2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TRAIN_FWD_TOL)

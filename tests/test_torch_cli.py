@@ -132,6 +132,48 @@ def test_evaluate_monolithic_reference_bin(tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "ck" / REPORT)
 
 
+def test_evaluate_reference_bin_with_random_state(tmp_path, monkeypatch):
+    """A reference ``.bin`` as the reference's ``save_state`` writes it:
+    ``model_pos`` (here the JAX package's ``export_torch_state_dict`` of
+    the part-based model under ``module.``) beside ``epoch``, ``lr``,
+    ``optimizer`` and ``random_state``, a pickled ``np.random.RandomState``.
+    It loads with ``weights_only=True`` (the RandomState's NumPy globals
+    allowed), the denoiser then agrees with the JAX model's on the same
+    input within 1e-5 (float32; the same float32 arithmetic, sums in
+    another order), and the CLI evaluates the file."""
+    monkeypatch.chdir(tmp_path)
+    jm = JaxD3DP(JaxD3DPConfig(frames=9, timesteps=20, depth=1,
+                               sampling_timesteps=1, num_proposals=1))
+    params = jax.device_get(jm.init_params(jax.random.PRNGKey(4)))
+    sd = jax_checkpoints.export_torch_state_dict(params, schedule_timesteps=20)
+    rs = np.random.RandomState(11)
+    rs.permutation(50)
+    torch.save({"epoch": 7, "lr": 5e-5, "random_state": rs,
+                "optimizer": {"state": {0: {"step": torch.tensor(3.0)}},
+                              "param_groups": [{"lr": 5e-5, "params": [0]}]},
+                "model_pos": {f"module.{k}": torch.from_numpy(np.asarray(v))
+                              for k, v in sd.items()}}, tmp_path / "rs.bin")
+
+    model = main_h3wb.build_model(tcfg.load_config(overrides=TINY), "cpu")
+    model.pose_estimator.load_state_dict(checkpoints.load_reference_bin(
+        str(tmp_path / "rs.bin"),
+        [spec.name for spec in model.pose_estimator.specs]), strict=True)
+    r = np.random.RandomState(7)
+    x2d = r.uniform(-1, 1, (2, 9, 134, 2)).astype(np.float32)
+    x3d = r.randn(2, 9, 134, 3).astype(np.float32)
+    t = np.array([3, 18], np.int32)
+    want = np.asarray(jax.jit(jm.model)(params, x2d, x3d, t))
+    with torch.no_grad():
+        got = model.pose_estimator(torch.from_numpy(x2d), torch.from_numpy(x3d),
+                                   torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+    out = main_h3wb.main(TINY + [f"general.evaluate={tmp_path}/rs.bin",
+                                 f"general.checkpoint={tmp_path}/ck"])
+    assert all(np.all(np.isfinite(v)) for v in out["final"]["all"].values())
+    assert os.path.exists(tmp_path / "ck" / REPORT)
+
+
 def test_logging_tee_is_restored(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     import sys

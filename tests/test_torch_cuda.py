@@ -34,7 +34,11 @@ Bounds (those of chip_smoke.py; TF32 off on both sides):
   data_grad, weight_grad 1e-5 x max|plain| (the backward's GEMMs alone:
                          float32 products as three TF32 products, sums in
                          another order; the backward's own bound is ten
-                         times looser).
+                         times looser);
+  fwd_linear             1e-5 x max|plain| per output (the forward's GEMM
+                         alone, the same arithmetic as data_grad; a
+                         bfloat16 residual is exact in float32 on both
+                         sides).
 """
 
 import numpy as np
@@ -49,6 +53,7 @@ from pafuse_tpu_torch.ops.gemm import fused_linear, linear_reference
 from pafuse_tpu_torch.ops.block_train import (RED_ROWS, block_train_bwd,
                                               block_train_fwd, data_grad,
                                               data_grad_reference,
+                                              fwd_linear, fwd_linear_reference,
                                               train_bwd_reference,
                                               train_fwd_reference, weight_grad,
                                               weight_grad_reference)
@@ -394,6 +399,72 @@ def test_data_grad_matches_plain_on_gpu(cuda_device, C, stage):
     torch.cuda.synchronize()
     assert data_grad.launches == launches + 1 and got.shape == (M, N)
     assert _rel_errs([got], [data_grad_reference(a, w, aux)])[0] <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [384, 224, 256])
+@pytest.mark.parametrize("stage,r_dtype", [
+    ("qkv", None), ("proj", torch.float32), ("proj", torch.bfloat16),
+    ("fc1", None), ("fc2", torch.float32)])
+def test_fwd_linear_matches_plain_on_gpu(cuda_device, C, stage, r_dtype):
+    """Kernel #5's forward GEMM alone (gemm_sm90.cuh on the weight's split as
+    stored): every product of the forward at each part's width (C = 224
+    gives N = 224, 448 and 672: the BN = 112 tiles), qkv with the bias
+    epilogue, fc1 with the pair (u, gelu(u)), proj and fc2 with the masked
+    residual (proj's in float32 and, as a bfloat16 x gives it, bfloat16),
+    on 37 sequences of 9 rows (333 rows: a ragged row tile); a repeat gives
+    the same bits."""
+    params = _params(C, seed=C + len(stage), device=cuda_device)
+    w, b, epilogue = {"qkv": (params[2], params[3], "store"),
+                      "proj": (params[4], params[5], "residual"),
+                      "fc1": (params[8], params[9], "gelu"),
+                      "fc2": (params[10], params[11], "residual")}[stage]
+    N, K = w.shape
+    B, L = 37, 9
+    r = np.random.RandomState(C + N + K)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    a = t(r.randn(B * L, K))
+    residual = None if r_dtype is None else t(r.randn(B * L, N)).to(r_dtype)
+    mask = t(np.array([0.0, 1.0 / 0.9, 1.0])[np.arange(B) % 3])
+    args = (a, w, b, epilogue, residual, mask, L)
+    launches = fwd_linear.launches
+    got = fwd_linear(*args)
+    torch.cuda.synchronize()
+    assert fwd_linear.launches == launches + 1
+    want = fwd_linear_reference(*args)
+    got, want = ((got,), (want,)) if epilogue != "gelu" else (got, want)
+    assert all(g.shape == (B * L, N) and g.dtype == torch.float32 for g in got)
+    assert max(_rel_errs(got, want)) <= 1e-5
+    again = fwd_linear(*args)
+    assert all(torch.equal(x, y) for x, y in zip(
+        got, (again,) if epilogue != "gelu" else again))
+
+
+@pytest.mark.cuda
+def test_kernel_5_runs_its_gemms_on_the_tensor_cores_on_gpu(cuda_device):
+    """One call of kernel #5 under torch.profiler launches the wgmma GEMM
+    (its four products), the weight splits, the LayerNorm forward and the
+    attention kernel, and no other kernel (no scalar-FMA GEMM, no cuBLAS);
+    chip_smoke.py's training profile files these GEMMs under the forward
+    and kernel #6's under the data gradients, by the epilogue in the
+    kernel's name."""
+    import chip_smoke
+    params = _params(224, seed=4, device=cuda_device)
+    x, g, m1, m2 = _inputs(8, 68, 224, seed=3, device=cuda_device)
+    names = _device_kernels(lambda: block_train_fwd(x, m1, m2, params, HEADS))
+    ours = ("sm90::gemm_kernel", "sm90::split_weights_kernel",
+            "ln_fwd_kernel", "attention_kernel")
+    assert all(any(k in n for k in ours) for n in names), names
+    fwd = [n for n in names if "sm90::gemm_kernel" in n]
+    assert len(fwd) == 3, fwd          # store, store + GELU, masked residual
+    _, saved = block_train_fwd(x, m1, m2, params, HEADS)
+    bwd = [n for n in _device_kernels(lambda: block_train_bwd(saved, g))
+           if "sm90::gemm_kernel" in n]
+    assert len(bwd) == 2, bwd          # none, GELU'
+    groups = {n: chip_smoke.kernel_group(n, chip_smoke.TRAIN_GROUPS)
+              for n in fwd + bwd}
+    assert {groups[n] for n in fwd} == {"forward GEMMs (#5, wgmma)"}, groups
+    assert {groups[n] for n in bwd} == {"data-gradient GEMMs (#6, wgmma)"}, groups
 
 
 @pytest.mark.cuda

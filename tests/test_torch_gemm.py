@@ -16,7 +16,11 @@ Then the numerics decision of the kernel's float32 path, on the same
 blocks: ``split_tf32`` halves are TF32 values that sum back to x, and a
 block whose products are three TF32 products each stays within 1e-5 of the
 float32 block, while one TF32 product per product misses the kernel's 1e-4
-bound.
+bound.  The same decision for the training forward's GEMM (kernel #5,
+``ops.block_train.fwd_linear``) at the part shapes: its four products in
+the kernel's order (three TF32 products per pair of 32-deep K slices, the
+pairs' partial sums added in float32) stay within 1e-5 of
+``fwd_linear_reference`` in float32, one TF32 product does not.
 """
 
 import types
@@ -32,6 +36,7 @@ from jax import lax
 from pafuse_tpu.ops import attention
 from pafuse_tpu_torch.ops import gemm
 from pafuse_tpu_torch.ops.block import block_reference
+from pafuse_tpu_torch.ops.block_train import fwd_linear_reference
 from pafuse_tpu_torch.ops.gemm import fused_linear, linear_reference, split_tf32
 
 torch.set_num_threads(2)
@@ -213,3 +218,49 @@ def test_one_tf32_product_misses_the_kernel_bound(monkeypatch, L, C):
     f32 = block_reference(x, bp, on, HEADS)
     one = _emulated_block(monkeypatch, 1, x, bp, on)
     assert (one - f32).abs().max() > 1e-4
+
+
+def _pairwise_tf32(a, w, products):
+    """a @ w^T as kernel #5's GEMM sums it: per pair of 32-deep K slices
+    one (a_hi*w_hi) or three (+ a_hi*w_lo + a_lo*w_hi) TF32 products, the
+    pairs' partial sums added in float32 in K order."""
+    a_hi, a_lo = split_tf32(a)
+    w_hi, w_lo = split_tf32(w)
+    acc = torch.zeros(a.shape[0], w.shape[0])
+    for k0 in range(0, a.shape[1], 64):
+        k = slice(k0, k0 + 64)
+        part = a_hi[:, k] @ w_hi[:, k].t()
+        if products == 3:
+            part = (a_lo[:, k] @ w_hi[:, k].t() + a_hi[:, k] @ w_lo[:, k].t()
+                    + part)
+        acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("L,C", PART_SHAPES)
+def test_forward_gemm_order_keeps_float32_accuracy(L, C):
+    """Each forward product of a block (qkv on LN1(x), proj, fc1, fc2 on
+    GELU outputs) at the part's width: three TF32 products within 1e-5
+    max abs of float32 for every epilogue, one TF32 product beyond it."""
+    x, bp, _ = _block(L, C, seed=L + C + 1)
+    B = x.shape[0]
+    rows = x.reshape(-1, C)
+    r = np.random.RandomState(C)
+    mask = torch.tensor(np.array([0.0, 1 / 0.9, 1.0])[np.arange(B) % 3],
+                        dtype=torch.float32)
+    hidden = F.gelu(torch.tensor(r.randn(B * L, 2 * C), dtype=torch.float32))
+    stages = [(gemm._layernorm(rows, bp[0], bp[1]), bp[2], bp[3], "store"),
+              (torch.tensor(r.randn(B * L, C), dtype=torch.float32), bp[4],
+               bp[5], "residual"),
+              (gemm._layernorm(rows, bp[6], bp[7]), bp[8], bp[9], "gelu"),
+              (hidden, bp[10], bp[11], "residual")]
+    for a, w, b, epilogue in stages:
+        want = fwd_linear_reference(a, w, b, epilogue, rows, mask, L)
+        for products, ok in ((3, True), (1, False)):
+            y = _pairwise_tf32(a, w, products) + b
+            if epilogue == "residual":
+                y = rows + mask.repeat_interleave(L)[:, None] * y
+            pairs = (zip((y, F.gelu(y)), want) if epilogue == "gelu"
+                     else [(y, want)])
+            err = max(float((g - v).abs().max()) for g, v in pairs)
+            assert (err <= 1e-5) == ok, (epilogue, products, err)
