@@ -20,11 +20,36 @@ Phases, one JSON line each:
                a yardstick only) and the card's lower bound.
   4. serve   - LiftingService at full width (the D3DPConfig defaults: part
                based, merged hands, 27 frames, 134 joints, depth 8) with
-               seeded weights, P=10, T=5, buckets (1,2,4,8,16), float32:
-               warm-up and three requests, with shape, finiteness,
-               determinism and kernel-launch checks, and one request held
+               seeded weights, P=10, T=5, buckets (1,2,4,8,16), float32,
+               host noise, dynamic batching on: warm-up and three requests,
+               with shape, finiteness, determinism and kernel-launch checks;
+               the 27-frame request with batching off, bit-equal to the
+               lone request through the batcher; and one request held
                against the same service with every block on the plain
-               version.
+               version.  Then, on the same weights:
+     serve_concurrent - 8 client threads x 4 requests of 27 frames, first
+               with batching off (each request its lone run), then through
+               the batcher: requests/s, p50/p95 latency, batch_calls (fewer
+               than the requests), busy seconds over wall, peak device
+               memory (and memory back where it was), every co-batched
+               result within SERVE_TOL of its lone run;
+     serve_modes - a noise=device, readback=mean service with tiers
+               ["10x5", "1x1"]: warm-up, 27- and 405-frame latencies per
+               tier, device-noise determinism (same seed bit-equal, another
+               seed differs), host noise against device noise at 405 frames
+               (interleaved), and the mean within MEAN_TOL of the 'all'
+               service's host mean;
+     serve_stream - one 1x1 session pushing 60 frames one at a time (p50/p95
+               per push), then 4 concurrent sessions of 30 pushes each,
+               co-batched (batch_calls below the pushes), each emit within
+               SERVE_TOL of the same session run alone;
+     serve_http - cli.serve.build_service from the default config and
+               make_http_server(port=0): /healthz, a /lift bit-equal to the
+               same request in-process, a stream round trip and /metrics;
+     serve_profile - one 405-frame request under torch.profiler on the
+               host-noise 'all' service and on the device-noise mean
+               service: device time by kernel group and the idle share.
+               Every serve phase checks kernel #1's launches.
   5. train_kernel - the training block kernels (#5 forward, #6 backward)
                against their plain PyTorch versions at every part's
                spatial and temporal shape of a training step (37 sequences
@@ -133,7 +158,12 @@ Tolerances (max abs, elementwise):
                    wrong index moves most elements.  A flat 5e-3 max cannot
                    hold: one output ulp at |y| >= 2 is 0.0156;
   serve            1e-3 on poses (O(1) values): 16 blocks per part network,
-                   5 DDIM steps feeding back, each block within ~1e-6;
+                   5 DDIM steps feeding back, each block within ~1e-6; the
+                   same bound holds a co-batched request against its lone
+                   run (cuBLAS picks its algorithm by the row count of the
+                   embedding and head GEMMs);
+  serve mean       1e-6: a hypothesis mean of 10 O(1) values summed on the
+                   card against NumPy's on the host, the same poses;
   train kernels    forward 1e-4 max abs in float32 (float32 arithmetic on
                    both sides, sums in another order; TF32 off); bfloat16 x:
                    |diff| <= 2^-7 |y| + 1e-4 elementwise, one bfloat16 ulp
@@ -195,6 +225,12 @@ SIMT_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 KERNEL_TOL_F32 = 1e-4
 KERNEL_TOL_BF16 = (2.0 ** -4, 1e-3)     # (max, mean)
 SERVE_TOL = 1e-3
+MEAN_TOL = 1e-6
+SERVE_CLIENTS = 8               # serve_concurrent: client threads
+SERVE_PER_CLIENT = 4            # ... and requests each
+STREAM_FRAMES = 60              # serve_stream: pushes of the lone session
+SERVE_REST = "PyTorch (embedding, head, sampler, noise, assembly)"
+CUBLAS_WORKSPACE_BOUND = 64 << 20   # bytes a new client thread may add
 REPLACES = "pafuse_tpu/ops/attention.py:405"
 SOURCE = "pafuse_tpu_torch/ops/csrc/block.cu"
 TRAIN_SOURCE = "pafuse_tpu_torch/ops/csrc/block_train.cu"
@@ -454,7 +490,29 @@ def gemm_kernel_phase(seed: int, windows: int, P: int, frames: int,
     return results
 
 
-def serve_phase(seed: int):
+def _per_chunk(model, T):
+    """Kernel #1 launches of one sampler call: parts x depth x 2 blocks x T
+    DDIM steps."""
+    return len(model.pose_estimator.specs) * model.cfg.depth * 2 * T
+
+
+def _kp(rng, frames, J=134):
+    import numpy as np
+    return rng.uniform(-1, 1, (frames, J, 2)).astype(np.float32)
+
+
+def _pcts(lat_ms):
+    """p50 and p95 of a list of latencies (ms)."""
+    import numpy as np
+    return {"p50_ms": float(np.percentile(lat_ms, 50)),
+            "p95_ms": float(np.percentile(lat_ms, 95))}
+
+
+def serve_phase(seed: int, device: str = "cuda", cfg=None):
+    """LiftingService at full width (see the module docstring; a CPU
+    rehearsal passes device="cpu" and a small cfg, and checks no launches).
+    Returns (the kernel launches of the main-path runs, the service, the
+    27-frame request and its poses)."""
     import numpy as np
     import torch
     from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
@@ -462,28 +520,30 @@ def serve_phase(seed: int):
     from pafuse_tpu_torch.ops.block import block_reference, fused_block
     from pafuse_tpu_torch.serve import LiftingService, bucket_for
 
-    cfg = D3DPConfig()              # flagship: depth 8, 27 frames, P=10, T=5
-    model = D3DP(cfg, device="cuda",
+    cfg = cfg or D3DPConfig()       # flagship: depth 8, 27 frames, P=10, T=5
+    on_card = device != "cpu"
+    model = D3DP(cfg, device=device,
                  generator=torch.Generator().manual_seed(seed))
-    svc = LiftingService(model, buckets=(1, 2, 4, 8, 16), device="cuda")
+    svc = LiftingService(model, buckets=(1, 2, 4, 8, 16), device=device)
     P, T = cfg.num_proposals, cfg.sampling_timesteps
-    parts = len(model.pose_estimator.specs)
-    per_chunk = parts * cfg.depth * 2 * T   # blocks per DDIM call x steps
+    per_chunk = _per_chunk(model, T)
     rng = np.random.RandomState(seed)
 
     def chunks(frames):
         w = max(1, -(-frames // cfg.frames))
         return -(-w // bucket_for(w, svc.buckets))
 
+    def check(label, launches, expected):
+        if on_card and launches != expected:
+            raise AssertionError(f"{label}: {launches} launches, expected "
+                                 f"{expected}")
+
     main_path_launches = 0
     fused_block.launches = 0
     t0 = time.time()
     svc.warmup()
     warm_s = time.time() - t0
-    expected = per_chunk * len(svc.buckets)
-    if fused_block.launches != expected:
-        raise AssertionError(f"warmup: {fused_block.launches} launches, "
-                             f"expected {expected}")
+    check("warmup", fused_block.launches, per_chunk * len(svc.buckets))
     emit({"phase": "serve_warmup", "seconds": warm_s,
           "launches": fused_block.launches})
     main_path_launches += fused_block.launches
@@ -518,9 +578,7 @@ def serve_phase(seed: int):
             raise AssertionError(f"{label}: shape {poses.shape} != {want_shape}")
         if not np.all(np.isfinite(poses)):
             raise AssertionError(f"{label}: non-finite poses")
-        if launches != per_chunk * chunks(kp.shape[0]):
-            raise AssertionError(f"{label}: {launches} launches, expected "
-                                 f"{per_chunk * chunks(kp.shape[0])}")
+        check(label, launches, per_chunk * chunks(kp.shape[0]))
         if kw.get("world") and poses[..., 2].min() < 0.0:
             raise AssertionError(f"{label}: pose below the rebased floor")
         outputs[label] = poses
@@ -531,6 +589,20 @@ def serve_phase(seed: int):
               "pose_abs_mean": float(np.abs(poses).mean())})
     if not np.array_equal(outputs["27 frames"], outputs["27 frames again"]):
         raise AssertionError("same (request, seed) gave different poses")
+
+    # a lone request through the (default) batcher == batching off, bit for
+    # bit: the same rows through the same calls
+    off = LiftingService(model, buckets=svc.buckets, dynamic_batching=False,
+                         device=device)
+    fused_block.launches = 0
+    lone = off.lift(first_kp, seed=seed)["poses"]
+    main_path_launches += fused_block.launches
+    check("batching off", fused_block.launches, per_chunk)
+    emit({"phase": "serve_vs_batching_off",
+          "bit_equal": bool(np.array_equal(lone, outputs["27 frames"]))})
+    if not np.array_equal(lone, outputs["27 frames"]):
+        raise AssertionError("a lone request through the batcher differs "
+                             "from the same request with batching off")
 
     # the same service with every block on the plain version, on the card
     nets = [m for m in model.modules() if isinstance(m, MixSTE2)]
@@ -546,7 +618,380 @@ def serve_phase(seed: int):
     if not err <= SERVE_TOL:
         raise AssertionError(f"kernel path vs plain path: {err} > {SERVE_TOL}")
     emit({"phase": "serve_health", **svc.health()})
-    return main_path_launches
+    return main_path_launches, svc, first_kp, outputs["27 frames"]
+
+
+def _memory(device):
+    import torch
+    if device.type != "cuda":
+        return {}
+    return {"allocated_bytes": torch.cuda.memory_allocated(device),
+            "peak_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def _reset_peak(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def serve_concurrent_phase(svc, seed: int, clients: int = SERVE_CLIENTS,
+                           per_client: int = SERVE_PER_CLIENT,
+                           frames: int = 27):
+    """``clients`` threads x ``per_client`` requests of ``frames`` frames on
+    the default tier, first with batching off (requests serialise: each is
+    its lone run), then through the batcher.  Checks batch_calls <
+    requests, every co-batched result within SERVE_TOL of its lone run,
+    the launch counts, and that device memory returns to where it was (no
+    graph kept alive by the dispatch threads).  Returns the launches."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.serve import LiftingService
+
+    dev = svc.device
+    on_card = dev.type == "cuda"
+    model = svc.model
+    per_chunk = _per_chunk(model, svc.default_op_point[1])
+    rng = np.random.RandomState(seed + 1)
+    n = clients * per_client
+    reqs = [(_kp(rng, frames), seed + i) for i in range(n)]
+    off = LiftingService(model, buckets=svc.buckets, dynamic_batching=False,
+                         device=dev)
+
+    def load(service):
+        """Each client sends its requests one after another."""
+        lat = [None] * n
+
+        def client(c):
+            out = {}
+            for i in range(c, n, clients):
+                kp, s = reqs[i]
+                t0 = time.time()
+                out[i] = service.lift(kp, seed=s)["poses"]
+                lat[i] = (time.time() - t0) * 1e3
+            return out
+
+        stats0 = dict(service.stats)
+        _reset_peak(dev)
+        mem0 = _memory(dev)
+        fused_block.launches = 0
+        t0 = time.time()
+        with ThreadPoolExecutor(clients) as ex:
+            futs = [ex.submit(client, c) for c in range(clients)]
+            poses = {}
+            for f in futs:
+                poses.update(f.result(timeout=600))
+        wall = time.time() - t0
+        launches = fused_block.launches
+        mem1 = _memory(dev)
+        calls = service.stats["batch_calls"] - stats0["batch_calls"]
+        busy = service.stats["busy_seconds"] - stats0["busy_seconds"]
+        r = {"requests": n, "clients": clients, "frames": frames,
+             "wall_s": wall, "requests_per_s": n / wall,
+             "frames_per_s": n * frames / wall, **_pcts(lat),
+             "mean_ms": float(np.mean(lat)), "batch_calls": calls,
+             "busy_s": busy, "busy_share": busy / wall,
+             "launches": launches}
+        if on_card:
+            r.update(peak_bytes=mem1["peak_bytes"],
+                     allocated_before=mem0["allocated_bytes"],
+                     allocated_after=mem1["allocated_bytes"])
+        return r, [poses[i] for i in range(n)]
+
+    r_off, lone = load(off)
+    emit({"phase": "serve_concurrent", "batching": "off", **r_off})
+    r_on, batched = load(svc)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(batched, lone))
+    emit({"phase": "serve_concurrent", "batching": "on", **r_on,
+          "max_abs_err_vs_lone": err, "tol": SERVE_TOL})
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"co-batched vs lone: {err} > {SERVE_TOL}")
+    if not r_on["batch_calls"] < n:
+        raise AssertionError(f"no co-batching: {r_on['batch_calls']} batch "
+                             f"calls for {n} requests")
+    if on_card:
+        if r_off["launches"] != per_chunk * n:
+            raise AssertionError(f"batching off: {r_off['launches']} "
+                                 f"launches, expected {per_chunk * n}")
+        # every co-batched call holds <= max(buckets) one-window rows: one
+        # chunk
+        if r_on["launches"] != per_chunk * r_on["batch_calls"]:
+            raise AssertionError(f"batching on: {r_on['launches']} launches "
+                                 f"for {r_on['batch_calls']} batch calls")
+        # each client thread's first cuBLAS call allocates a workspace for
+        # that thread's handle (PyTorch keeps one per handle, 33 MiB on the
+        # H100), which stays for the process: the batching-off load runs on
+        # `clients` fresh threads, the batcher on its one dispatch thread,
+        # whose workspace exists already
+        grown = r_off["allocated_after"] - r_off["allocated_before"]
+        if grown > clients * CUBLAS_WORKSPACE_BOUND:
+            raise AssertionError(f"batching off: device memory grew by "
+                                 f"{grown} bytes under load")
+        if r_on["allocated_after"] > r_on["allocated_before"] + (1 << 20):
+            raise AssertionError(f"batching on: device memory grew under "
+                                 f"load: {r_on}")
+    return r_off["launches"] + r_on["launches"]
+
+
+def serve_modes_phase(svc, kp27, poses27, seed: int):
+    """A noise=device, readback=mean service with tiers ["10x5", "1x1"] (or
+    the service's P x T and 1x1) on the same weights: warm-up, 27- and
+    405-frame latencies per tier, host noise against device noise at 405
+    frames (a host-noise mean service, interleaved), device-noise
+    determinism, and the mean service's 27-frame poses against the 'all'
+    service's host mean.  Returns (launches, the modes service)."""
+    import numpy as np
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.serve import LiftingService
+
+    dev = svc.device
+    on_card = dev.type == "cuda"
+    model = svc.model
+    P, T = svc.default_op_point
+    tiers = [f"{P}x{T}", "1x1"]
+    rf = svc.receptive_field
+    modes = LiftingService(model, buckets=svc.buckets, noise_mode="device",
+                           readback="mean", op_points=tiers, device=dev)
+    host = LiftingService(model, buckets=svc.buckets, noise_mode="host",
+                          readback="mean", op_points=tiers, device=dev)
+    launches = 0
+
+    def run(service, kp, s, tier):
+        nonlocal launches
+        fused_block.launches = 0
+        t0 = time.time()
+        out = service.lift(kp, seed=s, op_point=tier)
+        ms = (time.time() - t0) * 1e3
+        n = fused_block.launches
+        launches += n
+        pt = service._resolve_op_point(tier)
+        w = max(1, -(-kp.shape[0] // rf))
+        want = _per_chunk(model, pt[1]) * -(-w // min(w, max(svc.buckets)))
+        if on_card and n != want:
+            raise AssertionError(f"serve_modes {tier}: {n} launches, "
+                                 f"expected {want}")
+        if out["poses"].shape != (kp.shape[0], 134, 3) or not np.all(
+                np.isfinite(out["poses"])):
+            raise AssertionError(f"serve_modes {tier}: bad poses")
+        return out["poses"], ms
+
+    fused_block.launches = 0
+    t0 = time.time()
+    modes.warmup()
+    warm_s = time.time() - t0
+    launches += fused_block.launches
+    want = sum(_per_chunk(model, t) for _, t in modes.op_points) * len(
+        modes.buckets)
+    if on_card and fused_block.launches != want:
+        raise AssertionError(f"serve_modes warmup: {fused_block.launches} "
+                             f"launches, expected {want}")
+    emit({"phase": "serve_modes_warmup", "seconds": warm_s,
+          "launches": fused_block.launches})
+
+    rng = np.random.RandomState(seed + 2)
+    kp405 = _kp(rng, 405)
+    for tier in tiers:
+        lat = {}
+        for label, kp in (("27", kp27), ("405", kp405)):
+            a, ms1 = run(modes, kp, seed, tier)
+            b, ms2 = run(modes, kp, seed, tier)
+            c, ms3 = run(modes, kp, seed + 1, tier)
+            if not np.array_equal(a, b):
+                raise AssertionError(f"device noise, tier {tier}, {label} "
+                                     "frames: same seed, other poses")
+            if not np.abs(a - c).max() > 0:
+                raise AssertionError(f"device noise, tier {tier}: another "
+                                     "seed gave the same poses")
+            lat[f"latency_{label}_ms"] = [ms1, ms2, ms3]
+        emit({"phase": "serve_modes", "tier": tier, "noise": "device",
+              "readback": "mean", **lat, "same_seed_bit_equal": True})
+
+    # host vs device noise at 405 frames on the default tier, interleaved
+    times = {"host": [], "device": []}
+    for which in ("host", "device", "device", "host"):
+        _, ms = run(host if which == "host" else modes, kp405, seed, tiers[0])
+        times[which].append(ms)
+    emit({"phase": "serve_modes_noise", "frames": 405, "tier": tiers[0],
+          "host_ms": times["host"], "device_ms": times["device"]})
+
+    mean27, _ = run(host, kp27, seed, tiers[0])
+    err = float(np.abs(mean27 - poses27).max())
+    emit({"phase": "serve_modes_mean", "max_abs_err_vs_host_mean": err,
+          "tol": MEAN_TOL})
+    if not err <= MEAN_TOL:
+        raise AssertionError(f"mean readback vs host mean: {err} > {MEAN_TOL}")
+    emit({"phase": "serve_modes_health", **modes.health()})
+    host.close()
+    return launches, modes
+
+
+def serve_stream_phase(modes, seed: int, frames: int = STREAM_FRAMES,
+                       sessions: int = 4):
+    """One 1x1 session on ``modes`` pushing ``frames`` frames one at a time
+    (latency per push), then ``sessions`` concurrent sessions pushing
+    ``frames // 2`` frames each, co-batched through the tier's batcher
+    (batch_calls < pushes) and each emit within SERVE_TOL of the same
+    session run alone.  Returns the launches."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.serve import StreamingSession
+
+    on_card = modes.device.type == "cuda"
+    per_push = _per_chunk(modes.model, 1)
+    rng = np.random.RandomState(seed + 3)
+    kp = _kp(rng, frames)
+    sess = StreamingSession(modes, seed=seed, op_point="1x1")
+    fused_block.launches = 0
+    lat = []
+    for t in range(frames):
+        out = sess.push(kp[t])
+        lat.append(out["latency_ms"])
+        if out["poses"].shape != (1, 134, 3) or not np.all(
+                np.isfinite(out["poses"])):
+            raise AssertionError("serve_stream: bad poses")
+    launches = fused_block.launches
+    if on_card and launches != per_push * frames:
+        raise AssertionError(f"serve_stream: {launches} launches, expected "
+                             f"{per_push * frames}")
+    emit({"phase": "serve_stream", "sessions": 1, "pushes": frames,
+          **_pcts(lat), "mean_ms": float(np.mean(lat)),
+          "launches": launches})
+
+    n = frames // 2
+    streams = [_kp(rng, n) for _ in range(sessions)]
+
+    def run_session(i):
+        s = StreamingSession(modes, seed=seed + i, op_point="1x1",
+                             per_frame_noise=True)
+        res, ms = [], []
+        for t in range(n):
+            out = s.push(streams[i][t])
+            res.append(out["poses"])
+            ms.append(out["latency_ms"])
+        return np.concatenate(res), ms
+
+    lone = [run_session(i)[0] for i in range(sessions)]
+    calls0 = modes.stats["batch_calls"]
+    fused_block.launches = 0
+    t0 = time.time()
+    with ThreadPoolExecutor(sessions) as ex:
+        futs = [ex.submit(run_session, i) for i in range(sessions)]
+        done = [f.result(timeout=600) for f in futs]
+    wall = time.time() - t0
+    conc = fused_block.launches
+    calls = modes.stats["batch_calls"] - calls0
+    err = max(float(np.abs(d[0] - l).max()) for d, l in zip(done, lone))
+    lat = [m for d in done for m in d[1]]
+    emit({"phase": "serve_stream", "sessions": sessions,
+          "pushes": sessions * n, "batch_calls": calls, "wall_s": wall,
+          "pushes_per_s": sessions * n / wall, **_pcts(lat),
+          "launches": conc, "max_abs_err_vs_lone": err, "tol": SERVE_TOL})
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"co-batched streams vs lone: {err}")
+    if not calls < sessions * n:
+        raise AssertionError(f"streams did not co-batch: {calls} calls")
+    if on_card and conc != per_push * calls:
+        raise AssertionError(f"serve_stream: {conc} launches for {calls} "
+                             "batch calls")
+    return launches + conc
+
+
+def serve_http_phase(seed: int, overrides=()):
+    """cli.serve.build_service from the default config (full width, a seeded
+    model) behind make_http_server(port=0): /healthz, a /lift equal bit for
+    bit to the same request in-process, a stream round trip (create, push
+    three frames, delete) and /metrics.  Returns the launches."""
+    import threading
+    import urllib.request
+    import numpy as np
+    from pafuse_tpu_torch import config as cfg_mod
+    from pafuse_tpu_torch.cli.serve import build_service
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.serve import make_http_server
+
+    args = cfg_mod.load_config(overrides=[f"gpu.seed={seed}", "serve.port=0",
+                                          *overrides])
+    svc = build_service(args, warmup=False)
+    server = make_http_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def call(path, payload=None, method=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(f"{base}{path}", data=data,
+                                     method=method)
+        with urllib.request.urlopen(req, timeout=300) as r:
+            body = r.read()
+        return body if path == "/metrics" else json.loads(body)
+
+    try:
+        kp = _kp(np.random.RandomState(seed + 4), 27)
+        fused_block.launches = 0
+        if call("/healthz")["status"] != "ok":
+            raise AssertionError("serve_http: /healthz not ok")
+        t0 = time.time()
+        out = call("/lift", {"keypoints": kp.tolist(), "seed": seed})
+        http_ms = (time.time() - t0) * 1e3
+        t0 = time.time()
+        want = svc.lift(kp, seed=seed)["poses"]
+        lift_ms = (time.time() - t0) * 1e3
+        got = np.asarray(out["poses"], np.float32)
+        if out["shape"] != [27, 134, 3] or not np.array_equal(got, want):
+            raise AssertionError("serve_http: /lift differs from the same "
+                                 "request in-process")
+        sid = call("/stream", {"seed": seed, "delay": 2})["session"]
+        pushed = call(f"/stream/{sid}", {"keypoints": kp[:3].tolist()})
+        if pushed["shape"] != [3, 134, 3] or pushed["frame_indices"] != [
+                0, 0, 0]:
+            raise AssertionError(f"serve_http: stream push {pushed['shape']}"
+                                 f" {pushed['frame_indices']}")
+        closed = call(f"/stream/{sid}", method="DELETE")
+        if closed != {"closed": True, "frames": 3}:
+            raise AssertionError(f"serve_http: stream close {closed}")
+        metrics = call("/metrics").decode()
+        for line in ("pafuse_requests 2", "pafuse_stream_frames 3",
+                     "pafuse_mesh_devices 1", "# TYPE pafuse_requests counter"):
+            if line not in metrics.splitlines():
+                raise AssertionError(f"serve_http: /metrics lacks {line!r}")
+        launches = fused_block.launches
+        per_chunk = _per_chunk(svc.model, svc.default_op_point[1])
+        if svc.device.type == "cuda" and launches != 3 * per_chunk:
+            raise AssertionError(f"serve_http: {launches} launches, expected "
+                                 f"{3 * per_chunk}")
+        emit({"phase": "serve_http", "http_lift_ms": http_ms,
+              "inprocess_lift_ms": lift_ms, "launches": launches,
+              "metrics_lines": len(metrics.splitlines())})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        svc.close()
+    return launches
+
+
+def serve_profile_phase(svc, modes, seed: int):
+    """One 405-frame request under torch.profiler on the 'all' service
+    (host noise) and on the modes service (device noise, mean): device time
+    by kernel group and the idle share.  Returns the launches."""
+    import numpy as np
+    from pafuse_tpu_torch.ops.block import fused_block
+
+    kp = _kp(np.random.RandomState(seed + 5), 405)
+    launches = 0
+    for label, service in (("host noise, readback all", svc),
+                           ("device noise, readback mean", modes)):
+        fused_block.launches = 0
+        profile_step(lambda: service.lift(kp, seed=seed),
+                     phase="serve_profile", rest=SERVE_REST,
+                     request="405 frames", service=label)
+        if service.device.type == "cuda" and fused_block.launches == 0:
+            raise AssertionError("serve_profile: kernel #1 did not launch")
+        launches += fused_block.launches
+    return launches
 
 
 def _random_block_params(C, g, dev):
@@ -1648,7 +2093,16 @@ def main() -> int:
             "library_tflops": v["flop"] / v["library_ms"] / 1e9}
         for k, v in gemm_sums.items()}})
     cases = kernel_phase(args.seed, windows=16, P=10, frames=27)
-    launches = serve_phase(args.seed)
+    launches, svc, kp27, poses27 = serve_phase(args.seed)
+    launches += serve_concurrent_phase(svc, args.seed)
+    modes_launches, modes = serve_modes_phase(svc, kp27, poses27, args.seed)
+    launches += modes_launches
+    launches += serve_stream_phase(modes, args.seed)
+    launches += serve_http_phase(args.seed)
+    launches += serve_profile_phase(svc, modes, args.seed)
+    svc.close()
+    modes.close()
+    del svc, modes
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"fused_block disagrees with block_reference: {bad}")

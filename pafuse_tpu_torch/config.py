@@ -3,9 +3,9 @@ a plain printer, with the standard library alone.
 
 Counterpart of ``pafuse_tpu/config.py`` and ``pafuse_tpu/configs/
 config.yaml``.  The groups and keys of the reference (general, mlflow,
-data, model, experiment, viz, ft2d, in_the_wild) are those of the JAX
-package; its TPU group is replaced by ``gpu``.  Overrides are strict: an
-unknown key (a typo, or a TPU-only key such as ``tpu.mesh_shape``) raises,
+data, model, experiment, viz, ft2d, in_the_wild) and ``serve`` are those
+of the JAX package; its TPU group is replaced by ``gpu``.  Overrides are
+strict: an unknown key (a typo, or a TPU-only key such as ``tpu.mesh_shape``) raises,
 and ``+a.b=value`` adds a new key.  Values are parsed as YAML scalars are:
 null, booleans (true/false/yes/no/on/off), ints, floats, quoted strings
 and flat ``[a, b]`` lists; anything else stays a string.  ``--config
@@ -90,6 +90,27 @@ DEFAULTS: Dict[str, Dict[str, Any]] = {
         "p2": False,                    # protocol #2 metrics
     },
     "in_the_wild": {"video_path": ""},
+    "serve": {
+        "host": "127.0.0.1",
+        "port": 8012,
+        "buckets": [1, 2, 4, 8, 16],    # window-batch chunk sizes; the
+                                        # largest caps a co-batched call
+        "shard": "auto",                # auto | off; one card either way
+                                        # (multi-card serving not ported)
+        "batching": "auto",             # auto: co-batch concurrent requests'
+                                        # windows; off: serialise requests
+        "max_frames": 100000,           # per-request frame cap
+        "noise": "host",                # host: per-window noise drawn on the
+                                        # host (the JAX service's draws);
+                                        # device: drawn on the card from
+                                        # per-window seeds (another universe)
+        "readback": "all",              # all: every hypothesis read back;
+                                        # mean: averaged on the card
+                                        # (all_hypotheses rejected)
+        "op_points": [],                # (P,T) tiers over the same weights,
+                                        # e.g. ['10x5', '1x1']; first is the
+                                        # default; [] = ft2d's P and T
+    },
     "gpu": {
         "device": "cuda",               # cuda | cuda:N | cpu
         # auto | block: kernel #1; true: kernel #2 in the unfused block;

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from pafuse_tpu_torch import skeleton as sk
+from pafuse_tpu_torch.utils.device import to_device
 
 
 def normalize_screen_coordinates(x: np.ndarray, w, h) -> np.ndarray:
@@ -33,8 +34,7 @@ def flip_pose(pose: torch.Tensor, flip_permutation) -> torch.Tensor:
     """Mirror a pose: negate x, then swap left and right joints."""
     sign = torch.ones(pose.shape[-1], dtype=pose.dtype, device=pose.device)
     sign[0] = -1.0
-    perm = torch.as_tensor(flip_permutation, dtype=torch.long,
-                           device=pose.device)
+    perm = to_device(flip_permutation, pose.device, torch.long)
     return (pose * sign).index_select(-2, perm)
 
 
@@ -178,11 +178,10 @@ def wb_pose_from_parts(part_pose: torch.Tensor,
     as in the reference, whose in-place root revert zeroes the root."""
     table = np.asarray(sk.CONNECTION_OF_JOINT if connection_of_joint is None
                        else connection_of_joint)
-    idx = torch.as_tensor(table, dtype=torch.long, device=part_pose.device)
+    idx = to_device(table, part_pose.device, torch.long)
     out = part_pose + part_pose.index_select(-2, idx)
     self_connected = table == np.arange(table.shape[0])
     if np.any(self_connected):
-        mask = torch.as_tensor(~self_connected, dtype=out.dtype,
-                               device=out.device)[:, None]
+        mask = to_device(~self_connected, out.device, out.dtype)[:, None]
         out = out * mask
     return out

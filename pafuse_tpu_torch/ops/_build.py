@@ -101,6 +101,15 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``.  Wrappers launch from several
+    threads at once (the serving batchers, one per tier), and ``+= 1`` on
+    an attribute is a read-modify-write, so it runs under a lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:

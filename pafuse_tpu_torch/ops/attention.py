@@ -26,6 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pafuse_tpu_torch.ops import _build
+
 
 def attention_reference(x: torch.Tensor, qkv_w: torch.Tensor,
                         qkv_b: torch.Tensor, proj_w: torch.Tensor,
@@ -88,7 +90,6 @@ def fused_attention(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
         raise ValueError(f"fused_attention: unsupported device {x.device}")
     params = (qkv_w, qkv_b, proj_w, proj_b)
     _check(x, params, num_heads)
-    from pafuse_tpu_torch.ops import _build
     lib = _build.load("attention")
 
     L, C = x.shape[-2:]
@@ -110,7 +111,7 @@ def fused_attention(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
         raise RuntimeError(f"fused_attention: CUDA kernel launch failed with "
                            f"cudaError {err} (1: a shape the GEMM does not "
                            f"take, or a failed TMA tensor-map encode)")
-    fused_attention.launches += 1
+    _build.count_launch(fused_attention)
     return out
 
 

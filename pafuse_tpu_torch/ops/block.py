@@ -26,6 +26,7 @@ from typing import Sequence
 
 import torch
 
+from pafuse_tpu_torch.ops import _build
 from pafuse_tpu_torch.ops.gemm import (_layernorm, chain_workspace_bytes,
                                        linear_reference)
 
@@ -101,7 +102,6 @@ def fused_block(x: torch.Tensor, block_params: Sequence[torch.Tensor],
         raise ValueError(f"fused_block: unsupported device {x.device}")
     params = tuple(block_params) + tuple(outer_norm)
     hidden = _check(x, params, num_heads)
-    from pafuse_tpu_torch.ops import _build
     lib = _build.load("block")
 
     B, L, C = x.shape
@@ -123,7 +123,7 @@ def fused_block(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"fused_block: CUDA kernel launch failed with "
                            f"cudaError {err}")
-    fused_block.launches += 1
+    _build.count_launch(fused_block)
     return out
 
 

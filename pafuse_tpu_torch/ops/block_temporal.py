@@ -19,6 +19,7 @@ from typing import Sequence
 
 import torch
 
+from pafuse_tpu_torch.ops import _build
 from pafuse_tpu_torch.ops.block import _check, block_reference
 from pafuse_tpu_torch.ops.gemm import chain_workspace_bytes
 
@@ -50,7 +51,6 @@ def fused_block_temporal(x: torch.Tensor, block_params: Sequence[torch.Tensor],
                          f"{x.device}")
     params = tuple(block_params) + tuple(outer_norm)
     hidden = _check(x, params, num_heads, "fused_block_temporal", ndim=4)
-    from pafuse_tpu_torch.ops import _build
     lib = _build.load("block_temporal")
 
     B, F, N, C = x.shape
@@ -72,7 +72,7 @@ def fused_block_temporal(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"fused_block_temporal: CUDA kernel launch failed "
                            f"with cudaError {err}")
-    fused_block_temporal.launches += 1
+    _build.count_launch(fused_block_temporal)
     return out
 
 

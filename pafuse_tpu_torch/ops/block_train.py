@@ -43,7 +43,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from pafuse_tpu_torch.ops import _build
 from pafuse_tpu_torch.ops.block import _check as _check_block
+
 
 _EPS = 1e-6
 _INV_SQRT2 = 0.7071067811865476
@@ -224,7 +226,6 @@ def _check(x, m1, m2, params, num_heads) -> None:
 
 
 def _lib_and_dims(x, params, num_heads):
-    from pafuse_tpu_torch.ops import _build
     lib = _build.load("block_train")
     B, L, C = x.shape
     smem = lib.pafuse_block_train_smem_bytes(L, C // num_heads)
@@ -272,7 +273,7 @@ def block_train_fwd(x: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
             workspace.data_ptr(), split.data_ptr(), B, L, C, H, hid, scale,
             _stream(x))
     _raise_on(err, "block_train_fwd")
-    block_train_fwd.launches += 1
+    _build.count_launch(block_train_fwd)
     return y, TrainSaved(x, m1, m2, params, num_heads, workspace)
 
 
@@ -308,7 +309,7 @@ def block_train_bwd(ctx: TrainSaved, g: torch.Tensor
             workspace.data_ptr(), dx.data_ptr(), flat.data_ptr(),
             scratch.data_ptr(), B, L, C, H, hid, scale, _stream(x))
     _raise_on(err, "block_train_bwd")
-    block_train_bwd.launches += 1
+    _build.count_launch(block_train_bwd)
     return dx, grads
 
 
@@ -365,7 +366,6 @@ def fwd_linear(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"fwd_linear: mask must be a contiguous float32 "
                              f"({M} // seq_len,) tensor on {a.device}, "
                              f"seq_len a divisor of {M}")
-    from pafuse_tpu_torch.ops import _build
     lib = _build.load("block_train")
     y = a.new_empty((M, N))
     y2 = a.new_empty((M, N)) if epilogue == "gelu" else None
@@ -379,7 +379,7 @@ def fwd_linear(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             ptr(mask), seq_len, y.data_ptr(), ptr(y2), ws.data_ptr(), M, N, K,
             _stream(a))
     _raise_on(err, "fwd_linear")
-    fwd_linear.launches += 1
+    _build.count_launch(fwd_linear)
     return y if y2 is None else (y, y2)
 
 
@@ -398,7 +398,6 @@ def data_grad(a: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"data_grad: a {tuple(a.shape)}, w {tuple(w.shape)} "
                          f"and aux {None if aux is None else tuple(aux.shape)} "
                          f"do not fit")
-    from pafuse_tpu_torch.ops import _build
     lib = _build.load("block_train")
     y = a.new_empty((M, N))
     ws = a.new_empty(2 * N * K)
@@ -408,7 +407,7 @@ def data_grad(a: torch.Tensor, w: torch.Tensor,
                                    y.data_ptr(), ws.data_ptr(), M, N, K,
                                    _stream(a))
     _raise_on(err, "data_grad")
-    data_grad.launches += 1
+    _build.count_launch(data_grad)
     return y
 
 
@@ -426,7 +425,6 @@ def weight_grad(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x.shape[0] != M:
         raise ValueError(f"weight_grad: {tuple(d.shape)} and "
                          f"{tuple(x.shape)} differ in rows")
-    from pafuse_tpu_torch.ops import _build
     lib = _build.load("block_train")
     dw = d.new_empty((N, K))
     part = d.new_empty(lib.pafuse_weight_grad_part_floats(M, N, K))
@@ -435,7 +433,7 @@ def weight_grad(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                                      part.data_ptr(), dw.data_ptr(), M, N, K,
                                      _stream(d))
     _raise_on(err, "weight_grad")
-    weight_grad.launches += 1
+    _build.count_launch(weight_grad)
     return dw
 
 

@@ -23,6 +23,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from pafuse_tpu_torch.ops import _build
+
 _EPS = 1e-6
 EPILOGUES = {"store": 0, "gelu": 1, "residual": 2}
 
@@ -115,7 +117,6 @@ def fused_linear(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if a.device.type != "cuda":
         raise ValueError(f"fused_linear: unsupported device {a.device}")
     _check(a, w, b, ln, epilogue, residual)
-    from pafuse_tpu_torch.ops import _build
     lib = _build.load("gemm")
 
     M, K = a.shape
@@ -136,7 +137,7 @@ def fused_linear(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"fused_linear: CUDA launch failed with cudaError "
                            f"{err} (1: a shape the GEMM does not take, or a "
                            f"failed TMA tensor-map encode)")
-    fused_linear.launches += 1
+    _build.count_launch(fused_linear)
     return y
 
 

@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from pafuse_tpu_torch.ops import _build
 from pafuse_tpu_torch.ops.block import _check, block_reference
 from pafuse_tpu_torch.ops.gemm import chain_workspace_bytes
 from pafuse_tpu_torch.ops.block_temporal import block_temporal_reference
@@ -66,7 +67,6 @@ def fused_layer(x: torch.Tensor, spatial_params: Sequence[torch.Tensor],
         raise ValueError(f"fused_layer: tpe must be contiguous float32 "
                          f"({F}, {C}) on {x.device}; got {tpe.dtype} "
                          f"{tuple(tpe.shape)} on {tpe.device}")
-    from pafuse_tpu_torch.ops import _build
     lib = _build.load("layer")
 
     M = B * F * N
@@ -89,7 +89,7 @@ def fused_layer(x: torch.Tensor, spatial_params: Sequence[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"fused_layer: CUDA kernel launch failed with "
                            f"cudaError {err}")
-    fused_layer.launches += 1
+    _build.count_launch(fused_layer)
     return out
 
 

@@ -240,15 +240,15 @@ def test_cli_refuses_missing_cuda(tmp_path, monkeypatch):
 
 
 def test_defaults_match_the_jax_config():
-    """The reference groups keep the JAX package's keys and defaults; the
-    TPU group becomes ``gpu``."""
+    """The reference groups and ``serve`` keep the JAX package's keys and
+    defaults; the TPU group becomes ``gpu``."""
     want = jcfg.load_config().to_dict()
     got = tcfg.load_config().to_dict()
     for group in ("general", "mlflow", "data", "model", "experiment", "viz",
-                  "ft2d", "in_the_wild"):
+                  "ft2d", "in_the_wild", "serve"):
         assert got[group] == want[group], group
     assert set(got) - set(want) == {"gpu"}
-    assert set(want) - set(got) == {"tpu", "serve"}
+    assert set(want) - set(got) == {"tpu"}
     assert set(got["gpu"]) == {"device", "use_pallas", "experimental_kernels",
                                "train_kernel", "compute_dtype", "seed"}
     for key in ("use_pallas", "experimental_kernels"):

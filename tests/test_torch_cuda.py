@@ -509,3 +509,69 @@ def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
             "colsum_kernel", "reduce_partials_kernel")
     assert all(any(k in n for k in ours) for n in names), names
     assert {k for k in ours[:3] if any(k in n for n in names)} == set(ours[:3])
+
+
+@pytest.mark.cuda
+def test_readback_waits_for_its_own_chunk_only_on_gpu(cuda_device):
+    """Two chunks queued back to back, each followed by its readback
+    (``utils.device.to_host``): waiting for chunk 0's copy returns while
+    chunk 1's work (40 float32 4096^3 products, ~0.1 s) still runs, as the
+    events' ``query()`` shows; a blocking ``.cpu()`` would have waited for
+    both."""
+    from pafuse_tpu_torch.utils.device import run_chunked, to_host
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(4096, 4096, generator=g, device=cuda_device) / 64
+    torch.cuda.synchronize()
+    h0 = to_host(a[:8] * 2)                     # chunk 0: tiny work
+    big = a
+    for _ in range(40):                         # chunk 1: long work
+        big = big @ a
+    h1 = to_host(big[:8])
+    first = h0.numpy()
+    assert h0.ready() and not h1.ready()
+    np.testing.assert_array_equal(first, (a[:8] * 2).cpu().numpy())
+    h1.numpy()
+    assert h1.ready()
+
+    # chunked on the card == one call
+    rows = torch.randn(7, 64, generator=g, device=cuda_device).cpu().numpy()
+    w = torch.randn(64, 32, generator=g, device=cuda_device)
+    fn = lambda x: torch.tanh(torch.from_numpy(x).to(cuda_device) @ w)  # noqa: E731
+    want = fn(rows).cpu().numpy()
+    for chunk in (1, 2, 5):
+        np.testing.assert_array_equal(run_chunked(fn, (rows,), chunk), want)
+
+
+@pytest.mark.cuda
+def test_served_requests_run_kernel_1_on_gpu(cuda_device):
+    """A depth-1 service on the card: a lone request through the batcher
+    equals the same request with batching off bit for bit, kernel #1
+    launches 2 * parts * T times per chunk, device noise repeats per seed,
+    and mean readback equals the host mean."""
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.serve import LiftingService
+    cfg = D3DPConfig(frames=9, timesteps=20, sampling_timesteps=2,
+                     num_proposals=2, depth=1)
+    model = D3DP(cfg, device=cuda_device,
+                 generator=torch.Generator().manual_seed(0))
+    kp = np.random.RandomState(0).uniform(-1, 1, (20, 134, 2)).astype(
+        np.float32)
+    on = LiftingService(model, buckets=(1, 2, 4), device=cuda_device)
+    off = LiftingService(model, buckets=(1, 2, 4), dynamic_batching=False,
+                         device=cuda_device)
+    dev_mean = LiftingService(model, buckets=(1, 2, 4), noise_mode="device",
+                              readback="mean", device=cuda_device)
+    try:
+        fused_block.launches = 0
+        a = on.lift(kp, seed=3)["poses"]
+        assert fused_block.launches == 2 * 3 * cfg.sampling_timesteps
+        np.testing.assert_array_equal(a, off.lift(kp, seed=3)["poses"])
+        full = on.lift(kp, seed=3, all_hypotheses=True)["poses"]
+        np.testing.assert_allclose(full.mean(axis=0), a, rtol=0, atol=1e-6)
+        d = dev_mean.lift(kp, seed=3)["poses"]
+        assert np.all(np.isfinite(d))
+        np.testing.assert_array_equal(d, dev_mean.lift(kp, seed=3)["poses"])
+        assert np.abs(d - dev_mean.lift(kp, seed=4)["poses"]).max() > 0
+    finally:
+        on.close()
+        dev_mean.close()

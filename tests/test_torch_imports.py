@@ -52,6 +52,9 @@ def test_package_imports_without_jax_or_pafuse_tpu():
         "bad = [n for n, m in sys.modules.items() if m is not None and"
         " (n == 'pafuse_tpu' or n.startswith(('pafuse_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
+        "for m in ('pafuse_tpu_torch.serve', 'pafuse_tpu_torch.cli.serve',"
+        " 'pafuse_tpu_torch.utils.device'):\n"
+        "    assert m in sys.modules, m\n"
         "print('ok', len([n for n in sys.modules"
         " if n.startswith('pafuse_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -76,6 +79,15 @@ def test_entry_points_refuse_missing_cuda():
     model = D3DP(D3DPConfig(depth=1, frames=9), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_train_state(model)
+    assert next(model.parameters()).device.type == "cpu"
+    # the service and its CLI serve on CUDA unless the CPU is asked for
+    from pafuse_tpu_torch.cli.serve import build_service
+    from pafuse_tpu_torch.config import load_config
+    from pafuse_tpu_torch.serve import LiftingService
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LiftingService(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_service(load_config(overrides=["model.dep=1"]), warmup=False)
     assert next(model.parameters()).device.type == "cpu"
 
 

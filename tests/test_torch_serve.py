@@ -1,13 +1,18 @@
 """Port serving path and its host-side helpers against the JAX package.
 
-``LiftingService.lift`` of the port and of the JAX package (dynamic batching
-off) serve the same params and draw the same host noise for the same
-(request, seed), so their poses agree to float32 noise.  Config: depth 1, 9
+``LiftingService.lift`` of the port and of the JAX package serve the same
+params and draw the same host noise for the same (request, seed), so their
+poses agree to float32 noise: lone requests (port batching on, JAX off),
+both batchers under four concurrent clients, the ``1x1`` tier of a
+``["2x2", "1x1"]`` service, ``readback="mean"`` and streaming sessions
+(fixed and per-frame noise, delay 0 and 3, world).  ``_window_seeds`` and
+the host noise (any salt and base) are bit-equal.  Config: depth 1, 9
 frames, P=2, T=2, buckets (1, 2).  Tolerance 1e-4 max abs, the DDIM bound of
 tests/test_torch_diffusion.py; the camera->world rotation and floor rebase
 of ``world=True`` are O(1) and add float32 rounding only.
 """
 
+import concurrent.futures as cf
 import threading
 
 import numpy as np
@@ -34,15 +39,30 @@ KW = dict(frames=9, num_kps=134, timesteps=20, sampling_timesteps=2,
 
 
 @pytest.fixture(scope="module")
-def services():
+def jax_model_params():
     jm = JaxD3DP(JaxD3DPConfig(**KW))
-    params = jax.device_get(jm.init_params(jax.random.PRNGKey(1)))
-    jsvc = jax_serve.LiftingService(jm, params, buckets=(1, 2),
-                                    dynamic_batching=False)
+    return jm, jax.device_get(jm.init_params(jax.random.PRNGKey(1)))
+
+
+def _pair(jax_model_params, **kw):
+    """(JAX service, port service) over the same params, ``kw`` to both."""
+    jm, params = jax_model_params
+    jsvc = jax_serve.LiftingService(jm, params, buckets=(1, 2), **kw)
     psvc = serve.LiftingService(D3DP(D3DPConfig(**KW), device="cpu"),
                                 checkpoints.params_from_jax(params),
-                                buckets=(1, 2), device="cpu")
+                                buckets=(1, 2), device="cpu",
+                                **{k: v for k, v in kw.items()
+                                   if k != "dynamic_batching"})
     return jsvc, psvc
+
+
+@pytest.fixture(scope="module")
+def services(jax_model_params):
+    """JAX with batching off, the port with its default batcher on."""
+    jsvc, psvc = _pair(jax_model_params, dynamic_batching=False)
+    yield jsvc, psvc
+    jsvc.close()
+    psvc.close()
 
 
 def _keypoints(frames, seed, pixels=False):
@@ -80,11 +100,93 @@ def test_lift_deterministic_and_seeded(services):
     assert np.all(a[:, 0] == 0)
 
 
-def test_request_noise_matches_jax(services):
+@pytest.mark.parametrize("kw", [{}, {"salt": 0x51AE, "base": 17},
+                                {"op_point": (1, 1), "base": 3}])
+def test_request_noise_matches_jax(services, kw):
     jsvc, psvc = services
-    for got, want in zip(psvc._request_noise(3, seed=9),
-                         jsvc._request_noise(3, seed=9)):
+    for got, want in zip(psvc._request_noise(3, seed=9, **kw),
+                         jsvc._request_noise(3, seed=9, **kw)):
         np.testing.assert_array_equal(got, want)
+
+
+def test_window_seeds_match_jax():
+    for kw in ({}, {"salt": 0x51AE}, {"base": 40}, {"salt": 7, "base": 2**31}):
+        for seed in (0, 1, 12345, 2**32 - 1):
+            np.testing.assert_array_equal(
+                serve.LiftingService._window_seeds(6, seed, **kw),
+                jax_serve.LiftingService._window_seeds(6, seed, **kw))
+
+
+def test_batching_services_match_jax_under_concurrency(jax_model_params):
+    """Both services with their dynamic batchers on, four concurrent
+    clients each: every request's poses agree."""
+    jsvc, psvc = _pair(jax_model_params)
+    try:
+        reqs = [(_keypoints(f, seed=f), i) for i, f in
+                enumerate((9, 14, 5, 27, 9, 18, 3, 11))]
+
+        def run(svc):
+            with cf.ThreadPoolExecutor(4) as ex:
+                futs = [ex.submit(svc.lift, kp, seed=s) for kp, s in reqs]
+                return [f.result(timeout=300)["poses"] for f in futs]
+        want, got = run(jsvc), run(psvc)
+        assert psvc.health()["batch_calls"] <= len(reqs)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=0, atol=TOL)
+    finally:
+        jsvc.close()
+        psvc.close()
+
+
+def test_op_point_tiers_match_jax(jax_model_params):
+    jsvc, psvc = _pair(jax_model_params, op_points=["2x2", "1x1"])
+    try:
+        kp = _keypoints(13, seed=4)
+        for pt in ("1x1", None):
+            want = jsvc.lift(kp, seed=6, op_point=pt)
+            got = psvc.lift(kp, seed=6, op_point=pt)
+            assert got["num_hypotheses"] == want["num_hypotheses"]
+            np.testing.assert_allclose(got["poses"], want["poses"], rtol=0,
+                                       atol=TOL, err_msg=str(pt))
+    finally:
+        jsvc.close()
+        psvc.close()
+
+
+def test_mean_readback_matches_jax(jax_model_params):
+    jsvc, psvc = _pair(jax_model_params, readback="mean",
+                       dynamic_batching=False)
+    try:
+        for frames, kw in ((13, {}), (7, {"world": True})):
+            kp = _keypoints(frames, seed=frames)
+            np.testing.assert_allclose(psvc.lift(kp, seed=2, **kw)["poses"],
+                                       jsvc.lift(kp, seed=2, **kw)["poses"],
+                                       rtol=0, atol=TOL)
+    finally:
+        jsvc.close()
+        psvc.close()
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"per_frame_noise": True},
+    {"delay": 3, "world": True},
+    {"delay": 3, "per_frame_noise": True, "world": True,
+     "all_hypotheses": True},
+])
+def test_streaming_matches_jax(services, kw):
+    """The same pushes through a JAX and a port session: one frame at a
+    time, then three at once; every emit and frame index agrees."""
+    jsvc, psvc = services
+    js = jax_serve.StreamingSession(jsvc, seed=4, **kw)
+    ps = serve.StreamingSession(psvc, seed=4, **kw)
+    kp = _keypoints(8, seed=5)
+    for push in (kp[0], kp[1], kp[2], kp[3], kp[4], kp[5:8]):
+        want, got = js.push(push), ps.push(push)
+        assert got["frame_indices"] == want["frame_indices"]
+        assert got["poses"].shape == want["poses"].shape
+        np.testing.assert_allclose(got["poses"], want["poses"], rtol=0,
+                                   atol=TOL)
 
 
 def test_lift_validation_and_health(services):
