@@ -127,6 +127,42 @@ Phases, one JSON line each:
                layer, auto and false, and one DDIM step of the 64-row batch
                at layer and at block_t under torch.profiler (device time by
                kernel group, copies included, and the idle share).
+ 12. dhp3_kernel - the 3DHP model's one network (17 joints, model.cs 288,
+               8 heads of d = 36) against the plain versions: kernel #1 at
+               window batches of 64, 38 and 16 (R = 1280, 760 and 320 rows
+               of windows x P=10 x flip: spatial (R*27, 17, 288), temporal
+               (R*17, 27, 288)) in float32 and bfloat16; the Hopper GEMM
+               alone at 64 windows (N x K = 864 x 288, 288 x 288, 576 x 288,
+               288 x 576); #5/#6 at 37 sequences ((999, 17, 288) and (629,
+               27, 288)); #2 at 64 windows in float32; each with its time,
+               bound and library time.
+ 13. dhp3_train - the 3DHP trainer (cli.main_3dhp's model: depth 8,
+               mm_scale, unweighted MPJPE in mm) on
+               dhp3.make_synthetic(num_train_seqs=16, frames=1000), 37
+               sequences a step, through the same checks as train: 16 + 16
+               launches a step.
+ 14. dhp3_eval - cli.main_3dhp.main at full width on its default synthetic
+               data: one epoch (train, its P=1, T=1 evaluation, the final
+               P=10, T=5 evaluation, the report, epoch_1), then
+               evaluate-only from epoch_1 (the same metrics); then
+               evaluate_3dhp on those weights over two 1000-frame test
+               sequences (38 windows each, one sampler call each) at
+               use_pallas=auto (16*T launches of #1 a call) and true (of
+               #2): windows/s; one injected noise table at auto, true and
+               false; one DDIM step traced.
+ 15. in_the_wild - cli.in_the_wild.lift_to_world at full width (the H3WB
+               model) on an OpenPifPaf JSON of 1000 frames the script
+               writes: 38 windows in a 37-window chunk and a 1-window tail,
+               48*T launches of #1 a chunk, shape (T, P, 1000, 134, 3);
+               frames/s; then the same frames and chunks with one injected
+               noise table against the plain block.
+ 16. draw    - cli.draw_h3wb.draw_poses at full width on synthetic S8 (one
+               1000-frame action, camera 0): 38 windows in one call (48*T
+               launches of #1), the J-Agg pick, world coordinates; frames/s;
+               then the same call with one injected noise table against
+               the plain block.  Rendering (matplotlib, OpenCV) is left to
+               the CPU tests.
+Each of phases 12-16 prints its wall seconds.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without CUDA it exits non-zero at once.
@@ -201,7 +237,14 @@ Tolerances (max abs, elementwise):
                    that flips at a near-tie moves a mean by its gap over
                    ~10^5 selections;
   eval_experimental block_t and layer within EVAL_RTOL (1e-4) relative of
-                   auto and of false, for the same reasons.
+                   auto and of false, for the same reasons;
+  dhp3_*           the kernels at the 3DHP shapes under the bounds above
+                   (the same arithmetic at C = 288); the 3DHP metrics (mm)
+                   of auto and true within EVAL_RTOL relative of false, and
+                   evaluate-only within it of the evaluation after
+                   training (both are the same float32 function);
+  in_the_wild      1e-3 on poses, as serve (16 blocks per network, 5 DDIM
+                   steps feeding back, each block within ~1e-6).
 """
 
 import argparse
@@ -242,6 +285,10 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_SEQS = 1024 // 27         # model.batch_size // number_of_frames
 TRAIN_STEPS = 5
 OVERFIT_STEPS = 16
+DHP3_CS = 288                   # model.cs: the 3DHP network's channels
+DHP3_TRAIN_SEQS = 16            # dhp3_train: synthetic training sequences
+DHP3_FRAMES = 1000              # ... of 1000 frames (dhp3_eval: the test set)
+DHP3_EVAL_WINDOWS = 64          # evaluate_3dhp's largest sampler call
 ATTN_SOURCE = "pafuse_tpu_torch/ops/csrc/attention.cu"
 ATTN_REPLACES = "pafuse_tpu/ops/attention.py:158"
 ATTN_TOL_F32 = 1e-5
@@ -375,21 +422,32 @@ def _within(diff, dtype, bf16_tol) -> bool:
     return bool(diff.max() <= max_tol and diff.mean() <= mean_tol)
 
 
-def kernel_phase(seed: int, windows: int, P: int, frames: int):
+def h3wb_parts():
+    """(name, joints, channels) of the default config's part networks."""
+    from pafuse_tpu_torch.models.parts import PART_CHANNELS
+    from pafuse_tpu_torch.skeleton import parts_table
+    return [(part, len(joints), PART_CHANNELS[part])
+            for part, joints in parts_table(True).items()]
+
+
+def kernel_phase(seed: int, windows: int, P: int, frames: int, parts=None,
+                 phase="kernel"):
+    """Kernel #1 against its plain version at each network's spatial (B =
+    windows*P*2*frames sequences of its joints) and temporal (B =
+    windows*P*2*joints sequences of the frames) shape; ``parts``:
+    (name, joints, channels) of the networks, the default config's when
+    omitted."""
     import torch
     from pafuse_tpu_torch.ops.block import block_reference, fused_block
-    from pafuse_tpu_torch.skeleton import parts_table
-    from pafuse_tpu_torch.models.parts import PART_CHANNELS
     from pafuse_tpu_torch.utils.device import sync
 
     dev = torch.device("cuda")
     heads = 8
     cases = []
-    for part, joints in parts_table(True).items():
-        C = PART_CHANNELS[part]
+    for part, N, C in parts or h3wb_parts():
         seqs = windows * P * 2                      # windows x hypotheses x flip
-        cases.append((part, "spatial", seqs * frames, len(joints), C))
-        cases.append((part, "temporal", seqs * len(joints), frames, C))
+        cases.append((part, "spatial", seqs * frames, N, C))
+        cases.append((part, "temporal", seqs * N, frames, C))
 
     results = []
     for i, (part, kind, B, L, C) in enumerate(cases):
@@ -412,8 +470,9 @@ def kernel_phase(seed: int, windows: int, P: int, frames: int):
             plain_ms = cuda_time_ms(lambda: block_reference(x, bp, on, heads))
             lib_ms = cuda_time_ms(
                 lambda: library_block(x, lib_bp, lib_on, heads))
-            r = {"phase": "kernel", "name": "fused_block", "part": part,
-                 "kind": kind, "dtype": name, "B": B, "L": L, "C": C,
+            r = {"phase": phase, "name": "fused_block", "part": part,
+                 "kind": kind, "dtype": name, "windows": windows, "B": B,
+                 "L": L, "C": C,
                  "max_abs_err": float(diff.max()),
                  "mean_abs_err": float(diff.mean()), "ok": ok, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -427,25 +486,23 @@ def kernel_phase(seed: int, windows: int, P: int, frames: int):
 
 
 def gemm_kernel_phase(seed: int, windows: int, P: int, frames: int,
-                      shapes: str):
+                      shapes: str, parts=None, phase="gemm_kernel"):
     """The chain's Hopper GEMM alone (ops.gemm.fused_linear) against its
-    plain version at each stage x part shape of one block call (M =
+    plain version at each stage x network shape of one block call (M =
     windows*P*2*frames*N rows, the same for the spatial and the temporal
-    block), in float32 and bfloat16: its time, TFLOP/s (2*M*N*K over the
-    time, three TF32 products counted once) and F.linear's time in the same
-    dtype (cuBLAS, the yardstick)."""
+    block; ``parts`` as kernel_phase's), in float32 and bfloat16: its time,
+    TFLOP/s (2*M*N*K over the time, three TF32 products counted once), its
+    bound (A, the weights, the residual read once, Y written once) and
+    F.linear's time in the same dtype (cuBLAS, the yardstick)."""
     import torch
     import torch.nn.functional as F
-    from pafuse_tpu_torch.models.parts import PART_CHANNELS
     from pafuse_tpu_torch.ops.gemm import fused_linear, linear_reference
-    from pafuse_tpu_torch.skeleton import parts_table
     from pafuse_tpu_torch.utils.device import sync
 
     dev = torch.device("cuda")
     results = []
-    for i, (part, joints) in enumerate(parts_table(True).items()):
-        C = PART_CHANNELS[part]
-        M = windows * P * 2 * frames * len(joints)
+    for i, (part, joints, C) in enumerate(parts or h3wb_parts()):
+        M = windows * P * 2 * frames * joints
         g = torch.Generator().manual_seed(seed * 100 + 150 + i)
         gd = torch.Generator(device=dev).manual_seed(seed * 100 + 150 + i)
         p = _random_block_params(C, g, dev)
@@ -475,13 +532,16 @@ def gemm_kernel_phase(seed: int, windows: int, P: int, frames: int,
                 wl, bl = w.to(dtype), b.to(dtype)
                 ms = cuda_time_ms(lambda: fused_linear(a, w, b, ln, epi, res))
                 lib_ms = cuda_time_ms(lambda: F.linear(a, wl, bl))
-                r = {"phase": "gemm_kernel", "name": "fused_linear",
+                size = a.element_size()
+                nbytes = (M * K + (2 if res is not None else 1) * M * N) * size
+                r = {"phase": phase, "name": "fused_linear",
                      "shapes": shapes, "part": part, "stage": stage,
                      "dtype": name, "M": M, "N": N, "K": K,
                      "max_abs_err": err, "ok": ok, "ms": ms,
                      "tflops": 2 * M * N * K / ms / 1e9,
                      "library_ms": lib_ms,
-                     "library_tflops": 2 * M * N * K / lib_ms / 1e9}
+                     "library_tflops": 2 * M * N * K / lib_ms / 1e9,
+                     **bound(2 * M * N * K, nbytes + 4 * (N * K + N), name)}
                 emit(r)
                 results.append(r)
                 del a, res
@@ -1022,25 +1082,23 @@ GRAD_NAMES = ("dx", "norm1.weight", "norm1.bias", "qkv.weight", "qkv.bias",
               "outer.weight", "outer.bias")
 
 
-def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
-    """Kernels #5 and #6 against their plain versions at each part's
+def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
+                       parts=None, phase="train_kernel"):
+    """Kernels #5 and #6 against their plain versions at each network's
     spatial (B = seqs*frames, L = joints) and temporal (B = seqs*joints,
-    L = frames) training shape; masks drawn per sample and repeated like
-    MixSTE2 repeats them."""
+    L = frames) training shape (``parts`` as kernel_phase's); masks drawn
+    per sample and repeated like MixSTE2 repeats them."""
     import torch
-    from pafuse_tpu_torch.models.parts import PART_CHANNELS
     from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
                                                   block_train_fwd,
                                                   train_bwd_reference,
                                                   train_fwd_reference)
-    from pafuse_tpu_torch.skeleton import parts_table
     from pafuse_tpu_torch.utils.device import sync
 
     dev = torch.device("cuda")
     heads = 8
     cases = []
-    for part, joints in parts_table(True).items():
-        N, C = len(joints), PART_CHANNELS[part]
+    for part, N, C in parts or h3wb_parts():
         cases.append((part, "spatial", frames, N, C))
         cases.append((part, "temporal", N, frames, C))
 
@@ -1083,7 +1141,7 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
                 x, m1, m2, params, heads))
             with torch.no_grad():
                 lib_ms = cuda_time_ms(lib_fwd)
-            r = {"phase": "train_kernel", "name": "block_train_fwd",
+            r = {"phase": phase, "name": "block_train_fwd",
                  "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
                  "C": C, "max_abs_err": float(diff.max()), "ok": ok,
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -1115,7 +1173,7 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9):
             y_lib = lib_fwd()
             lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
                 y_lib, [lib_x] + lib_p, gr, retain_graph=True))
-            r = {"phase": "train_kernel", "name": "block_train_bwd",
+            r = {"phase": phase, "name": "block_train_bwd",
                  "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
                  "C": C, "max_abs_err": max_abs,
                  "max_rel_grad_err": max(rel.values()), "rel_grad_err": rel,
@@ -1218,13 +1276,62 @@ def _synthetic_batches(seed: int, seqs: int, frames: int):
 
 def train_phase(seed: int, device: str = "cuda", depth: int = 8,
                 seqs: int = TRAIN_SEQS, steps: int = TRAIN_STEPS):
-    """The trainer at full width (the defaults; a CPU rehearsal passes
+    """The H3WB trainer at full width (the defaults; a CPU rehearsal passes
     device="cpu" and a smaller depth and batch).  Returns the kernel
     launches of the main-path run."""
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.diffusion import D3DPConfig
+
+    cfg = D3DPConfig(depth=depth, drop_path_rate=0.1)
+    loader, sampler = _synthetic_batches(seed, seqs, cfg.frames)
+    return run_trainer(seed, device, cfg, loader, sampler, seqs, steps,
+                       weights=tr.mixste_weight_table(cfg.num_kps),
+                       phase="train")
+
+
+def dhp3_train_phase(seed: int, device: str = "cuda", depth: int = 8,
+                     seqs: int = TRAIN_SEQS, steps: int = TRAIN_STEPS,
+                     train_seqs: int = DHP3_TRAIN_SEQS,
+                     frames: int = DHP3_FRAMES):
+    """The 3DHP trainer at full width (cli.main_3dhp's model: monolithic,
+    17 joints, model.cs 288, depth 8, mm_scale, unweighted MPJPE in mm) on
+    dhp3.make_synthetic(num_train_seqs=16, frames=1000) through
+    ChunkedSampler (augment, the 3DHP flip table) and PrefetchingLoader,
+    37 sequences a step.  Returns the kernel launches of the main-path
+    run."""
+    from pafuse_tpu_torch import skeleton as sk
+    from pafuse_tpu_torch.data import dhp3
+    from pafuse_tpu_torch.data.prefetch import PrefetchingLoader
+    from pafuse_tpu_torch.data.sampling import ChunkedSampler
+    from pafuse_tpu_torch.diffusion import D3DPConfig
+
+    cfg = D3DPConfig(num_kps=sk.NUM_JOINTS_3DHP, cs=DHP3_CS, depth=depth,
+                     part_based=False, mm_scale=True, drop_path_rate=0.1)
+    train, _ = dhp3.make_synthetic(num_train_seqs=train_seqs, frames=frames,
+                                   seed=seed)
+    p3, p2 = dhp3.train_arrays(train)
+    sampler = ChunkedSampler(seqs, None, p3, p2, cfg.frames, augment=True,
+                             flip_permutation=sk.FLIP_PERMUTATION_3DHP)
+    return run_trainer(seed, device, cfg, PrefetchingLoader(sampler, depth=2),
+                       sampler, seqs, steps, part_based=False,
+                       flip_permutation=sk.FLIP_PERMUTATION_3DHP,
+                       phase="dhp3_train")
+
+
+def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
+                weights=None, part_based=True, flip_permutation=None,
+                phase="train"):
+    """The checks of a training path: ``steps`` steps through ``loader``
+    (finite losses, 2 x depth launches of #5 and of #6 per network a step,
+    every parameter moved; ms/step and trained frames/s), one step traced,
+    two runs from one seed bit-identical after two steps, one step against
+    the same step on the plain versions, and the loss falling on one
+    repeated batch.  Returns the launches of the main-path
+    run."""
     import numpy as np
     import torch
     from pafuse_tpu_torch import train as tr
-    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.diffusion import D3DP
     from pafuse_tpu_torch.models.mixste import MixSTE2
     from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
                                                   block_train_fwd,
@@ -1232,18 +1339,16 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
     from pafuse_tpu_torch.utils.device import sync
 
     dev = torch.device(device)
-    cfg = D3DPConfig(depth=depth, drop_path_rate=0.1)
     lr, lr_decay = 6e-5, 0.993
-    weights = tr.mixste_weight_table(cfg.num_kps)
 
     def fresh():
         model = D3DP(cfg, device=dev,
-                     generator=torch.Generator().manual_seed(seed))
+                     generator=torch.Generator().manual_seed(seed),
+                     flip_permutation=flip_permutation)
         state = tr.create_train_state(model, seed=seed, device=dev)
-        return model, state, tr.build_train_step(model, state.optimizer,
-                                                 weights=weights)
+        return model, state, tr.build_train_step(
+            model, state.optimizer, weights=weights, part_based=part_based)
 
-    loader, sampler = _synthetic_batches(seed, seqs, cfg.frames)
     model, state, step = fresh()
     part_names = [spec.name for spec in model.pose_estimator.specs]
     per_step = 2 * len(part_names) * cfg.depth if dev.type == "cuda" else 0
@@ -1267,17 +1372,18 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
             lr *= lr_decay
     launches = (block_train_fwd.launches, block_train_bwd.launches)
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train: non-finite loss {losses}")
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
     if launches != (per_step * steps, per_step * steps):
-        raise AssertionError(f"train: launches {launches}, expected "
+        raise AssertionError(f"{phase}: launches {launches}, expected "
                              f"{per_step * steps} of each")
     still = [n for (n, p), b in zip(model.named_parameters(), before)
              if torch.equal(p.detach(), b)]
     if still:
-        raise AssertionError(f"train: parameters did not move: {still[:5]}")
+        raise AssertionError(f"{phase}: parameters did not move: {still[:5]}")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2] if steps > 1 else step_s[0]
-    emit({"phase": "train", "steps": steps, "seqs_per_step": seqs,
-          "frames": cfg.frames, "depth": cfg.depth, "losses": losses,
+    emit({"phase": phase, "steps": steps, "seqs_per_step": seqs,
+          "frames": cfg.frames, "depth": cfg.depth, "joints": cfg.num_kps,
+          "networks": part_names, "losses": losses,
           "launches_fwd": launches[0], "launches_bwd": launches[1],
           "step_s": step_s, "ms_per_step": steady * 1e3,
           "frames_per_s": seqs * cfg.frames / steady,
@@ -1286,10 +1392,10 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
                             if dev.type == "cuda" else None)})
     if dev.type == "cuda":
         groups = profile_step(lambda: float(step(state, lr, *batches[-1])),
-                              names=TRAIN_GROUPS)
+                              phase=f"{phase}_profile", names=TRAIN_GROUPS)
         missing = {g for _, g in TRAIN_GROUPS[:2]} - set(groups)
         if groups and missing:
-            raise AssertionError(f"train: the profile shows no {missing}: "
+            raise AssertionError(f"{phase}: the profile shows no {missing}: "
                                  f"{sorted(groups)}")
     del model, state, step, before
 
@@ -1303,10 +1409,10 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
         del model, state, step
     same = runs[0][0] == runs[1][0] and all(
         torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
-    emit({"phase": "train_determinism", "losses": [r[0] for r in runs],
+    emit({"phase": f"{phase}_determinism", "losses": [r[0] for r in runs],
           "bit_identical": same})
     if not same:
-        raise AssertionError("train: two runs from one seed differ")
+        raise AssertionError(f"{phase}: two runs from one seed differ")
     del runs
 
     # one step through the kernels vs the same step on the plain versions,
@@ -1335,10 +1441,10 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
     (k_loss, k_grads), (p_loss, p_grads) = out
     loss_err = abs(k_loss - p_loss) / abs(p_loss)
     grad_err = max(_rel_err(k_grads[n], p_grads[n]) for n in p_grads)
-    emit({"phase": "train_vs_plain", "loss": k_loss, "plain_loss": p_loss,
+    emit({"phase": f"{phase}_vs_plain", "loss": k_loss, "plain_loss": p_loss,
           "loss_rel_err": loss_err, "max_rel_grad_err": grad_err})
     if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL):
-        raise AssertionError(f"train: kernel path vs plain path: loss "
+        raise AssertionError(f"{phase}: kernel path vs plain path: loss "
                              f"{loss_err:.2e}, grads {grad_err:.2e}")
     del out, k_grads, p_grads
 
@@ -1346,11 +1452,13 @@ def train_phase(seed: int, device: str = "cuda", depth: int = 8,
     # Adam's first steps overshoot (the loss jumps, then falls), so the
     # check is the mean of the last four losses against the first
     model, state, step = fresh()
-    fit = [float(step(state, 1e-3, b2d, b3d, t=t.to(dev), noise=noise.to(dev),
-                      masks=masks)) for _ in range(OVERFIT_STEPS)]
-    emit({"phase": "train_overfit", "lr": 1e-3, "losses": fit})
+    fit = [float(step(state, 1e-3, b2d, b3d, t=t.to(dev),
+                      noise=noise.to(dev), masks=masks))
+           for _ in range(OVERFIT_STEPS)]
+    emit({"phase": f"{phase}_overfit", "lr": 1e-3, "losses": fit})
     if not np.mean(fit[-4:]) < fit[0]:
-        raise AssertionError(f"train: loss did not fall on one batch: {fit}")
+        raise AssertionError(f"{phase}: loss did not fall on one batch: "
+                             f"{fit}")
     del model, state, step
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1482,25 +1590,24 @@ def attention_gemm_times(x, attn):
 
 
 def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
-                           dtypes=("float32", "bfloat16"), shapes="eval"):
-    """Kernel #2 against its plain version at each part's spatial (B =
-    windows*P*2*frames sequences of the part's joints) and temporal (B =
-    windows*P*2*joints sequences of the frames) shape."""
+                           dtypes=("float32", "bfloat16"), shapes="eval",
+                           parts=None, phase="attention_kernel"):
+    """Kernel #2 against its plain version at each network's spatial (B =
+    windows*P*2*frames sequences of its joints) and temporal (B =
+    windows*P*2*joints sequences of the frames) shape (``parts`` as
+    kernel_phase's)."""
     import torch
-    from pafuse_tpu_torch.models.parts import PART_CHANNELS
     from pafuse_tpu_torch.ops.attention import (attention_reference,
                                                 fused_attention)
-    from pafuse_tpu_torch.skeleton import parts_table
     from pafuse_tpu_torch.utils.device import sync
 
     dev = torch.device("cuda")
     heads = 8
     seqs = windows * P * 2                  # windows x hypotheses x flip
     cases = []
-    for part, joints in parts_table(True).items():
-        C = PART_CHANNELS[part]
-        cases.append((part, "spatial", seqs * frames, len(joints), C))
-        cases.append((part, "temporal", seqs * len(joints), frames, C))
+    for part, N, C in parts or h3wb_parts():
+        cases.append((part, "spatial", seqs * frames, N, C))
+        cases.append((part, "temporal", seqs * N, frames, C))
 
     results = []
     for i, (part, kind, B, L, C) in enumerate(cases):
@@ -1525,7 +1632,7 @@ def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
             plain_ms = cuda_time_ms(lambda: attention_reference(x, *attn,
                                                                 heads))
             lib_ms = cuda_time_ms(lambda: library_attention(x, *lib, heads))
-            r = {"phase": "attention_kernel", "name": "fused_attention",
+            r = {"phase": phase, "name": "fused_attention",
                  "shapes": shapes, "part": part, "kind": kind, "dtype": name,
                  "B": B, "L": L, "C": C, "max_abs_err": float(diff.max()),
                  "ok": ok, "ms": ms, "plain_ms": plain_ms,
@@ -2029,21 +2136,388 @@ def eval_experimental_phase(seed: int, workdir: str, device: str = "cuda",
     return launches
 
 
-def _kernel_entry(name, route, source, replaces, launches, cases, **extra):
-    """One entry of the kernels line: float32 numbers summed over the
-    main-path shapes."""
+def _cli_3dhp(argv, log_path):
+    """cli.main_3dhp.main(argv) with its printed lines appended to
+    ``log_path``."""
+    from pafuse_tpu_torch.cli import main_3dhp
+    with open(log_path, "a") as f, contextlib.redirect_stdout(f):
+        return main_3dhp.main(argv)
+
+
+def _check_3dhp_report(path, T, runs, what):
+    """The 3DHP report holds the JAX CLI's two lines per DDIM step, once
+    per CLI run; returns its lines."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    want = [f"step {i} : 3DHP MPJPE {m}: " for i in range(T)
+            for m in ("P_Best", "P_Agg")] * runs
+    if len(lines) != len(want) or not all(
+            ln.startswith(w) and ln.endswith(" mm")
+            for ln, w in zip(lines, want)):
+        raise AssertionError(f"{what}: report {path} is not the 3DHP "
+                             f"report: {lines[:4]}")
+    return lines
+
+
+def dhp3_eval_phase(seed: int, workdir: str, device: str = "cuda",
+                    depth: int = 8, P: int = 10, T: int = 5,
+                    frames: int = DHP3_FRAMES):
+    """The 3DHP CLI at full width (model.cs 288, 27 frames, P and T) on its
+    default synthetic data: one epoch of training with its P=1, T=1
+    evaluation and the final evaluation, then evaluate-only from the
+    epoch_1 checkpoint; then cli.main_3dhp.evaluate_3dhp on that
+    checkpoint's weights over dhp3.make_synthetic(num_test_seqs=2,
+    frames=1000) (38 windows a sequence, one sampler call each) at
+    use_pallas=auto and true, one injected noise table at auto, true and
+    false, and one DDIM step traced.  A CPU rehearsal passes device="cpu"
+    and a smaller depth, P, T and frames, and expects no launches.  Returns
+    {run: its kernel launches}."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import checkpoints, config as cfg_mod
+    from pafuse_tpu_torch.cli import main_3dhp
+    from pafuse_tpu_torch.data import dhp3
+    from pafuse_tpu_torch.data.sampling import ChunkedSampler
+
+    on_card = torch.device(device).type == "cuda"
+    blocks = 2 * depth if on_card else 0        # one network, two blocks a layer
+    rf = 27
+    out_dir = os.path.join(workdir, "dhp3")
+    log = os.path.join(workdir, "dhp3_cli.log")
+    cli = [f"gpu.device={device}", f"gpu.seed={seed}", f"model.dep={depth}",
+           "data.synthetic=true", f"ft2d.num_proposals={P}",
+           f"ft2d.sampling_timesteps={T}", f"general.checkpoint={out_dir}"]
+    train_cli, test_cli = dhp3.make_synthetic()  # the CLI's synthetic data
+    steps = ChunkedSampler(1024 // rf, None, *dhp3.train_arrays(train_cli),
+                           rf, augment=True).batch_num()
+    launches = {}
+
+    # the CLI: one epoch (its steps, a P=1, T=1 evaluation), the final
+    # evaluation, the report and epoch_1
+    _reset_launches()
+    t0 = time.time()
+    trained = _cli_3dhp(cli + ["model.epochs=1",
+                               "general.checkpoint_frequency=1"], log)
+    train_s = time.time() - t0
+    launches["cli_train"] = _launch_counts()
+    want = _expect(fused_block=blocks * len(test_cli) * (1 + T),
+                   block_train_fwd=blocks * steps,
+                   block_train_bwd=blocks * steps)
+    if launches["cli_train"] != want:
+        raise AssertionError(f"dhp3_eval: CLI train launches "
+                             f"{launches['cli_train']}, expected {want}")
+    ckpt = os.path.join(out_dir, "epoch_1.npz")
+    if not os.path.exists(ckpt):
+        raise AssertionError("dhp3_eval: the CLI wrote no epoch_1.npz")
+    with open(log) as f:
+        epoch_line = next(ln.strip() for ln in f if ln.startswith("[1] time"))
+
+    # evaluate-only from epoch_1: the same weights and noise, the same metrics
+    _reset_launches()
+    t0 = time.time()
+    again = _cli_3dhp(cli + ["general.evaluate=epoch_1.npz"], log)
+    eval_cli_s = time.time() - t0
+    launches["cli_evaluate"] = _launch_counts()
+    if launches["cli_evaluate"] != _expect(fused_block=blocks * len(test_cli)
+                                           * T):
+        raise AssertionError(f"dhp3_eval: CLI evaluate launches "
+                             f"{launches['cli_evaluate']}")
+    lines = _check_3dhp_report(trained["report"], T, 2, "dhp3_eval")
+    cli_metrics = {k: trained[k] for k in ("P_Best", "P_Agg")}
+    cli_err = _max_rel(again, cli_metrics)
+    if not (all(np.all(np.isfinite(v)) for v in cli_metrics.values())
+            and cli_err <= EVAL_RTOL):
+        raise AssertionError(f"dhp3_eval: evaluate-only {again} vs the "
+                             f"evaluation after training {cli_metrics}")
+    emit({"phase": "dhp3_eval_cli", "P": P, "T": T, "depth": depth,
+          "train_steps": steps, "epoch_log": epoch_line,
+          "train_and_eval_s": train_s, "evaluate_only_s": eval_cli_s,
+          "windows": again["windows"], "eval_s": again["eval_seconds"],
+          "report_lines": len(lines), "report_last": lines[-2:],
+          "evaluate_only_bit_equal": all(np.array_equal(again[k], v)
+                                         for k, v in cli_metrics.items()),
+          "evaluate_only_max_rel_err": cli_err,
+          "launches": {k: v for k, v in launches.items()}})
+
+    # evaluate_3dhp on the checkpoint's weights, 1000-frame sequences
+    args = cfg_mod.parse_cli(cli)
+    model = main_3dhp.build_model_3dhp(args, device)
+    checkpoints.load_state(ckpt, model)
+    _, test = dhp3.make_synthetic(num_test_seqs=2, frames=frames, seed=seed)
+    per_seq = [-(-v["data_2d"].shape[0] // rf) for v in test.values()]
+    windows = sum(per_seq)
+    calls = sum(-(-n // 64) for n in per_seq)     # evaluate_3dhp's window batch
+    kernel = {"auto": "fused_block", "true": "fused_attention"}
+    results, seconds = {}, {}
+    for use_pallas in ("auto", "true"):
+        _set_use_pallas(model, use_pallas)
+        _reset_launches()
+        t0 = time.time()
+        err, agg = main_3dhp.evaluate_3dhp(
+            model, test, args, num_proposals=P, sampling_timesteps=T)
+        seconds[use_pallas] = time.time() - t0
+        launches[use_pallas] = _launch_counts()
+        if launches[use_pallas] != _expect(
+                **{kernel[use_pallas]: blocks * T * calls}):
+            raise AssertionError(f"dhp3_eval: {use_pallas} launches "
+                                 f"{launches[use_pallas]}")
+        if not (np.all(np.isfinite(err)) and np.all(np.isfinite(agg))):
+            raise AssertionError(f"dhp3_eval: non-finite metrics {err} {agg}")
+        results[use_pallas] = {"P_Best": err.tolist(), "P_Agg": agg.tolist()}
+        emit({"phase": "dhp3_eval", "use_pallas": use_pallas, "P": P, "T": T,
+              "depth": depth, "sequences": len(test), "windows": windows,
+              "rows_per_call": windows // len(test) * P * 2,
+              "launches": launches[use_pallas], "seconds": seconds[use_pallas],
+              "windows_per_s": windows / seconds[use_pallas],
+              "frames_per_s": windows * rf / seconds[use_pallas],
+              "metrics_mm": results[use_pallas]})
+
+    # one injected noise table: the kernel paths against the plain path (mm)
+    r = np.random.RandomState(seed)
+    table = (r.randn(windows, P, rf, 17, 3).astype(np.float32),
+             r.randn(windows, T, P, rf, 17, 3).astype(np.float32))
+    means = {}
+    for use_pallas in ("auto", "true", "false"):
+        _set_use_pallas(model, use_pallas)
+        err, agg = main_3dhp.evaluate_3dhp(
+            model, test, args, num_proposals=P, sampling_timesteps=T,
+            noise_table=table)
+        means[use_pallas] = {"P_Best": err, "P_Agg": agg}
+    errs = {k: _max_rel(means[k], means["false"]) for k in ("auto", "true")}
+    abs_mm = {k: max(float(np.abs(means[k][m] - means["false"][m]).max())
+                     for m in means[k]) for k in ("auto", "true")}
+    emit({"phase": "dhp3_eval_vs_plain", "windows": windows,
+          "max_rel_err": errs, "max_abs_err_mm": abs_mm, "rtol": EVAL_RTOL,
+          "plain_mm": {k: v.tolist() for k, v in means["false"].items()}})
+    if not max(errs.values()) <= EVAL_RTOL:
+        raise AssertionError(f"dhp3_eval: a kernel path disagrees: {errs}")
+
+    # where the time goes: one DDIM step at auto
+    _set_use_pallas(model, "auto")
+    if on_card:
+        profile_step(lambda: main_3dhp.evaluate_3dhp(
+            model, test, args, num_proposals=P, sampling_timesteps=1),
+            phase="dhp3_eval_profile",
+            rest="PyTorch (embedding, head, sampler, metric)")
+        torch.cuda.empty_cache()
+    del model
+    return launches
+
+
+def _write_openpifpaf(path, frames, rng, missing=()):
+    """An OpenPifPaf whole-body JSON-lines file of ``frames`` frames (133
+    keypoints in a 1000 x 1002 frame, confidence 0.9), no person in the
+    frames of ``missing``."""
+    import numpy as np
+    with open(path, "w") as f:
+        for i in range(frames):
+            kp = np.column_stack([rng.uniform(100, 900, 133),
+                                  rng.uniform(100, 900, 133),
+                                  np.full(133, 0.9)]).ravel().tolist()
+            preds = [] if i in missing else [{"keypoints": kp}]
+            f.write(json.dumps({"predictions": preds}) + "\n")
+
+
+def in_the_wild_phase(seed: int, workdir: str, device: str = "cuda",
+                      depth: int = 8, P: int = 10, T: int = 5,
+                      frames: int = 1000):
+    """The in-the-wild CLI's compute path at full width (the H3WB model of
+    the default config, seeded): an OpenPifPaf JSON of 1000 frames ->
+    cli.in_the_wild.lift_to_world (normalisation, chunks of 1024 // 27 = 37
+    windows through utils.device.run_chunked: 38 windows are a 37-window
+    chunk and a 1-window tail; flip-TTA DDIM, whole-body assembly,
+    stitching, world coordinates).  Then the same frames and chunks with
+    one injected noise table, kernel #1 against the plain block.  A CPU
+    rehearsal passes device="cpu" and smaller sizes.  Returns the
+    main-path launches."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import config as cfg_mod
+    from pafuse_tpu_torch.cli import in_the_wild as itw
+    from pafuse_tpu_torch.cli.main_h3wb import build_model
+
+    rf = 27
+    base = [f"gpu.device={device}", f"gpu.seed={seed}", f"model.dep={depth}",
+            f"ft2d.num_proposals={P}", f"ft2d.sampling_timesteps={T}"]
+    args = cfg_mod.parse_cli(base)
+    model = build_model(args, device)
+    on_card = torch.device(device).type == "cuda"
+    path = os.path.join(workdir, "video.mp4.openpifpaf.json")
+    _write_openpifpaf(path, frames, np.random.RandomState(seed),
+                      missing=(frames // 2,))
+    keypoints = itw.load_openpifpaf_keypoints(path)
+    windows = -(-frames // rf)
+    chunk = args.model.batch_size // rf
+    chunks = -(-windows // chunk)
+    w, h, _ = itw.DEFAULT_VIDEO
+
+    _reset_launches()
+    t0 = time.time()
+    prediction, world, kp_norm = itw.lift_to_world(args, keypoints, model, w, h)
+    wall = time.time() - t0
+    launches = _launch_counts()
+    if launches != _expect(fused_block=_per_chunk(model, T) * chunks
+                           if on_card else 0):
+        raise AssertionError(f"in_the_wild: launches {launches}, expected "
+                             f"{_per_chunk(model, T)} x {chunks} chunks")
+    want = (T, P, frames, 134, 3)
+    if prediction.shape != want or world.shape != want:
+        raise AssertionError(f"in_the_wild: shapes {prediction.shape} "
+                             f"{world.shape}, expected {want}")
+    if not (np.all(np.isfinite(prediction)) and np.all(np.isfinite(world))
+            and world[..., 2].min() == 0.0):
+        raise AssertionError("in_the_wild: non-finite poses or no floor")
+
+    # the same 1000 frames and chunks with one injected noise table:
+    # kernel #1 at the timed shapes against the plain block
+    r = np.random.RandomState(seed + 1)
+    table = (r.randn(windows, P, rf, 134, 3).astype(np.float32),
+             r.randn(windows, T, P, rf, 134, 3).astype(np.float32))
+    got = itw.lift_video(args, kp_norm, model, noise_table=table)
+    _set_use_pallas(model, "false")
+    plain = itw.lift_video(args, kp_norm, model, noise_table=table)
+    err = float(np.abs(got - plain).max())
+    del got, plain, table
+    emit({"phase": "in_the_wild", "P": P, "T": T, "depth": depth,
+          "frames": frames, "windows": windows, "chunk_windows": chunk,
+          "chunks": chunks, "launches": launches, "seconds": wall,
+          "frames_per_s": frames / wall, "windows_per_s": windows / wall,
+          "shape": list(prediction.shape),
+          "world_z_max": float(world[..., 2].max()),
+          "vs_plain": {"frames": frames, "chunk_windows": chunk,
+                       "max_abs_err": err, "tol": SERVE_TOL}})
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"in_the_wild: kernel vs plain block {err}")
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def draw_phase(seed: int, device: str = "cuda", depth: int = 8, P: int = 10,
+               T: int = 5, frames: int = 1000):
+    """The draw CLI's compute path at full width (the seeded H3WB model) on
+    synthetic S8 (one action of 1000 frames, camera 0):
+    cli.draw_h3wb.draw_poses samples all 38 windows in one call, re-adds
+    the trajectory, stitches, picks each joint's hypothesis by its
+    reprojection error and converts to world coordinates.  Then the same
+    call with one injected noise table, kernel #1 against the plain block.
+    A CPU rehearsal passes device="cpu" and smaller sizes.  Returns the
+    main-path launches."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import config as cfg_mod
+    from pafuse_tpu_torch.cli import draw_h3wb
+    from pafuse_tpu_torch.cli.main_h3wb import build_model
+    from pafuse_tpu_torch.data import h3wb
+
+    args = cfg_mod.parse_cli([
+        f"gpu.device={device}", f"gpu.seed={seed}", f"model.dep={depth}",
+        f"ft2d.num_proposals={P}", f"ft2d.sampling_timesteps={T}"])
+    dataset = h3wb.make_synthetic(subjects=("S8",), actions_per_subject=1,
+                                  frames_per_action=frames, seed=seed)
+    keypoints = h3wb.prepare_data(dataset)
+    model = build_model(args, device, flip_permutation=dataset.flip_permutation)
+    on_card = torch.device(device).type == "cuda"
+    _reset_launches()
+    t0 = time.time()
+    poses = draw_h3wb.draw_poses(args, model, dataset, keypoints, "S8",
+                                 "Walking 1", 0)
+    wall = time.time() - t0
+    launches = _launch_counts()
+    if launches != _expect(fused_block=_per_chunk(model, T) if on_card else 0):
+        raise AssertionError(f"draw: launches {launches}")
+    stitched, selected = poses["stitched"], poses["selected"]
+    if (stitched.shape != (T, P, frames, 134, 3)
+            or selected.shape != (T, frames, 134, 3)):
+        raise AssertionError(f"draw: shapes {stitched.shape} {selected.shape}")
+    picked = np.all(np.any(np.all(selected[:, None] == stitched, axis=-1),
+                           axis=1))
+    if not (picked and all(np.all(np.isfinite(v)) for v in poses.values())):
+        raise AssertionError("draw: a selected joint is no hypothesis's, or "
+                             "non-finite poses")
+    # the same call with one injected noise table: kernel #1 at the timed
+    # shapes against the plain block (the J-Agg picks are reported, not
+    # held: a pick may turn on a near tie of two reprojection errors)
+    windows = -(-frames // 27)
+    r = np.random.RandomState(seed + 1)
+    table = (r.randn(windows, P, 27, 134, 3).astype(np.float32),
+             r.randn(windows, T, P, 27, 134, 3).astype(np.float32))
+    got = draw_h3wb.draw_poses(args, model, dataset, keypoints, "S8",
+                               "Walking 1", 0, noise_table=table)
+    _set_use_pallas(model, "false")
+    plain = draw_h3wb.draw_poses(args, model, dataset, keypoints, "S8",
+                                 "Walking 1", 0, noise_table=table)
+    err = float(np.abs(got["stitched"] - plain["stitched"]).max())
+
+    def picks(p):   # the hypothesis each selected joint came from
+        return np.abs(p["stitched"] - p["selected"][:, None]).sum(-1).argmin(1)
+
+    same_pick = float(np.mean(picks(got) == picks(plain)))
+    del got, plain, table
+    emit({"phase": "draw", "P": P, "T": T, "depth": depth, "frames": frames,
+          "windows": windows, "launches": launches, "seconds": wall,
+          "frames_per_s": frames / wall,
+          "gt_vs_selected_mm": float(1000 * np.linalg.norm(
+              poses["sel_world"][-1] - poses["gt_world"], axis=-1).mean()),
+          "vs_plain": {"frames": frames, "windows": windows,
+                       "max_abs_err": err, "tol": SERVE_TOL,
+                       "same_pick_share": same_pick}})
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"draw: kernel vs plain block {err}")
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _sums(cases):
+    """Float32 numbers of ``cases`` summed (max_abs_err: the largest)."""
     f32 = [c for c in cases if c["dtype"] == "float32"]
     bound_by = max(("operations", "bytes"), key=lambda b: sum(
         c["bound_ms"] for c in f32 if c["bound_by"] == b))
-    return {"name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(c["max_abs_err"] for c in f32),
+    return {"max_abs_err": max(c["max_abs_err"] for c in f32),
             "ms": sum(c["ms"] for c in f32),
             "plain_ms": sum(c["plain_ms"] for c in f32),
             "bound_ms": sum(c["bound_ms"] for c in f32),
             "bound_by": bound_by,
             "simt_bound_ms": sum(c["simt_bound_ms"] for c in f32),
-            "library_ms": sum(c["library_ms"] for c in f32), **extra}
+            "library_ms": sum(c["library_ms"] for c in f32)}
+
+
+def _kernel_entry(name, route, source, replaces, launches, cases, **extra):
+    """One entry of the kernels line: float32 numbers summed over the
+    main-path shapes."""
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches, **_sums(cases),
+            **extra}
+
+
+def _dhp3(cases, launches, windows=None):
+    """The 3DHP shapes of a kernel's entry: its float32 sums over
+    ``cases`` (those of ``windows`` windows when given) and its launches on
+    each 3DHP path."""
+    picked = [c for c in cases if windows is None or c["windows"] == windows]
+    return {"dhp3": {**_sums(picked), "launches": launches,
+                     "shapes": sorted({f'{c["kind"]} ({c["B"]}, {c["L"]}, '
+                                       f'{c["C"]})' for c in picked})}}
+
+
+def emit_gemm_sums(cases, phase):
+    """One line of the GEMM's sums per (shapes, dtype): ms, library ms,
+    bound ms and the TFLOP/s of each."""
+    sums = {}
+    for c in cases:
+        key = f'{c["shapes"]}_{c["dtype"]}'
+        tot = sums.setdefault(key, {"ms": 0.0, "library_ms": 0.0,
+                                    "bound_ms": 0.0, "flop": 0})
+        for k in ("ms", "library_ms", "bound_ms"):
+            tot[k] += c[k]
+        tot["flop"] += 2 * c["M"] * c["N"] * c["K"]
+    emit({"phase": phase, "source": GEMM_SOURCE, "sums": {
+        k: {**v, "tflops": v["flop"] / v["ms"] / 1e9,
+            "library_tflops": v["flop"] / v["library_ms"] / 1e9}
+        for k, v in sums.items()}})
 
 
 def main() -> int:
@@ -2080,18 +2554,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"fused_linear disagrees with linear_reference: "
                              f"{bad}")
-    gemm_sums = {}
-    for c in gemm_cases:
-        key = f'{c["shapes"]}_{c["dtype"]}'
-        tot = gemm_sums.setdefault(key, {"ms": 0.0, "library_ms": 0.0,
-                                         "flop": 0})
-        tot["ms"] += c["ms"]
-        tot["library_ms"] += c["library_ms"]
-        tot["flop"] += 2 * c["M"] * c["N"] * c["K"]
-    emit({"phase": "gemm", "source": GEMM_SOURCE, "sums": {
-        k: {**v, "tflops": v["flop"] / v["ms"] / 1e9,
-            "library_tflops": v["flop"] / v["library_ms"] / 1e9}
-        for k, v in gemm_sums.items()}})
+    emit_gemm_sums(gemm_cases, "gemm")
     cases = kernel_phase(args.seed, windows=16, P=10, frames=27)
     launches, svc, kp27, poses27 = serve_phase(args.seed)
     launches += serve_concurrent_phase(svc, args.seed)
@@ -2140,6 +2603,40 @@ def main() -> int:
     shutil.rmtree(workdir, ignore_errors=True)
     eval_launches = eval_phase(args.seed, workdir)
     exp_launches = eval_experimental_phase(args.seed, workdir)
+
+    # the 3DHP model (one network: 17 joints, model.cs 288, d = 36), the
+    # in-the-wild and the draw paths; each phase's wall seconds
+    def timed(name, fn, *a, **kw):
+        t0 = time.time()
+        out = fn(*a, **kw)
+        emit({"phase": f"{name}_seconds", "seconds": time.time() - t0})
+        return out
+
+    def dhp3_kernels():
+        parts = [("whole_body", 17, DHP3_CS)]
+        blocks = [c for w in (DHP3_EVAL_WINDOWS, 38, 16) for c in kernel_phase(
+            args.seed, w, P=10, frames=27, parts=parts, phase="dhp3_kernel")]
+        gemms = gemm_kernel_phase(args.seed, DHP3_EVAL_WINDOWS, P=10,
+                                  frames=27, shapes="dhp3_eval", parts=parts,
+                                  phase="dhp3_kernel")
+        trains = train_kernel_phase(args.seed, TRAIN_SEQS, frames=27,
+                                    parts=parts, phase="dhp3_kernel")
+        attns = attention_kernel_phase(args.seed, DHP3_EVAL_WINDOWS, P=10,
+                                       frames=27, dtypes=("float32",),
+                                       shapes="dhp3_eval", parts=parts,
+                                       phase="dhp3_kernel")
+        emit_gemm_sums(gemms, "dhp3_gemm")
+        bad = [c for c in blocks + gemms + trains + attns if not c["ok"]]
+        if bad:
+            raise AssertionError(f"a kernel disagrees with its plain version "
+                                 f"at the 3DHP shapes: {bad}")
+        return blocks, trains, attns
+
+    dhp3_blocks, dhp3_train, dhp3_attn = timed("dhp3_kernel", dhp3_kernels)
+    dhp3_train_launches = timed("dhp3_train", dhp3_train_phase, args.seed)
+    dhp3_launches = timed("dhp3_eval", dhp3_eval_phase, args.seed, workdir)
+    itw_launches = timed("in_the_wild", in_the_wild_phase, args.seed, workdir)
+    draw_launches = timed("draw", draw_phase, args.seed)
     shutil.rmtree(workdir, ignore_errors=True)
 
     def bf16(cs):
@@ -2164,17 +2661,33 @@ def main() -> int:
 
     fwd = [c for c in train_cases if c["name"] == "block_train_fwd"]
     bwd = [c for c in train_cases if c["name"] == "block_train_bwd"]
+    dhp3_fwd = [c for c in dhp3_train if c["name"] == "block_train_fwd"]
+    dhp3_bwd = [c for c in dhp3_train if c["name"] == "block_train_bwd"]
+    cli_launches = {run: dhp3_launches[run] for run in ("cli_train",
+                                                        "cli_evaluate")}
     # float32 numbers summed over each kernel's main-path shapes: for
     # fused_block one spatial + one temporal block of each part at bucket
     # 16, for the training kernels each part's two blocks of a step
     emit({"kernels": [
         _kernel_entry("fused_block", "cuda", SOURCE, REPLACES, launches,
-                      cases, **bf16(cases)),
+                      cases, **bf16(cases),
+                      **_dhp3(dhp3_blocks, {
+                          "dhp3_cli": sum(v["fused_block"]
+                                          for v in cli_launches.values()),
+                          "dhp3_evaluate_auto":
+                              dhp3_launches["auto"]["fused_block"],
+                          "in_the_wild": itw_launches["fused_block"],
+                          "draw": draw_launches["fused_block"]},
+                          windows=DHP3_EVAL_WINDOWS)),
         # with its four GEMMs alone (wgmma) and cuBLAS's F.linear's
         _kernel_entry("block_train_fwd", "cuda", TRAIN_SOURCE,
                       TRAIN_REPLACES["block_train_fwd"], train_launches[0],
                       fwd, **bf16(fwd),
-                      **f32_sums(fwd, ("fgemm_ms", "fgemm_library_ms"))),
+                      **f32_sums(fwd, ("fgemm_ms", "fgemm_library_ms")),
+                      **_dhp3(dhp3_fwd, {
+                          "dhp3_train": dhp3_train_launches[0],
+                          "dhp3_cli": cli_launches["cli_train"][
+                              "block_train_fwd"]})),
         # with its GEMMs alone: data gradients (wgmma) and weight
         # gradients (mma.sync), and cuBLAS's for the same products
         _kernel_entry("block_train_bwd", "cuda", TRAIN_SOURCE,
@@ -2182,13 +2695,20 @@ def main() -> int:
                       bwd, max_rel_grad_err=max(
                           c["max_rel_grad_err"] for c in bwd),
                       **f32_sums(bwd, ("dgrad_ms", "dgrad_library_ms",
-                                       "wgrad_ms", "wgrad_library_ms"))),
+                                       "wgrad_ms", "wgrad_library_ms")),
+                      **_dhp3(dhp3_bwd, {
+                          "dhp3_train": dhp3_train_launches[1],
+                          "dhp3_cli": cli_launches["cli_train"][
+                              "block_train_bwd"]})),
         # eval shapes (window batch 64); the serve bucket-16 shapes beside;
         # its two GEMMs alone and F.linear's
         _kernel_entry("fused_attention", "cuda", ATTN_SOURCE, ATTN_REPLACES,
                       eval_launches["fused_attention"], attn_cases,
                       **bf16(attn_cases), **serve16(serve_attn),
-                      **f32_sums(attn_cases, ("gemm_ms", "gemm_library_ms"))),
+                      **f32_sums(attn_cases, ("gemm_ms", "gemm_library_ms")),
+                      **_dhp3(dhp3_attn, {
+                          "dhp3_evaluate_true":
+                              dhp3_launches["true"]["fused_attention"]})),
         # eval shapes, the serve bucket-16 shapes beside; replaced_ms is the
         # path each kernel replaces (kernel #1 and the transposes)
         _kernel_entry("fused_block_temporal", "cuda", BT_SOURCE, BT_REPLACES,

@@ -192,6 +192,17 @@ def load_reference_bin(path: str, parts: Sequence[str] = ()
     return out
 
 
+def load_weights(model: torch.nn.Module, path: str) -> None:
+    """Load the part networks' weights of a reference ``.bin``
+    (:func:`load_reference_bin`) or a port or JAX ``.npz``
+    (:func:`load_state`) into the D3DP ``model``, strictly."""
+    if path.endswith(".bin"):
+        model.pose_estimator.load_state_dict(load_reference_bin(
+            path, [s.name for s in model.pose_estimator.specs]), strict=True)
+    else:
+        load_state(path, model)
+
+
 # ---------------------------------------------------------------------------
 # Training checkpoints
 # ---------------------------------------------------------------------------

@@ -34,27 +34,15 @@ from pafuse_tpu_torch.utils.misc import Logger, Timer
 def build_model(args, device, flip_permutation=None):
     """The D3DP of the config: part-based unless
     ``general.part_based_model=false``, stochastic depth 0.1 in training,
-    the evaluation functions of ``gpu.use_pallas`` behind the
-    ``gpu.experimental_kernels`` gate (read per build, as the JAX CLI
-    does), weights from ``gpu.seed``.
+    on :func:`make_d3dp`'s rules.
     One module serves training (``.train()``, the training kernels) and
     evaluation (``.eval()``)."""
-    import torch
-    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.diffusion import D3DPConfig
 
     if args.model.diff_model != "MixSTE2":
         raise ValueError(
             f"The model {args.model.diff_model!r} does not exist "
             "(model.diff_model supports only 'MixSTE2')")
-    if args.gpu.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"gpu.compute_dtype={args.gpu.compute_dtype}: only float32 is "
-            "ported (ROADMAP.md)")
-    if str(args.gpu.train_kernel).lower() not in ("auto", "true"):
-        raise NotImplementedError(
-            f"gpu.train_kernel={args.gpu.train_kernel}: training runs the "
-            "training block kernels (auto | true); the autodiff path is not "
-            "ported (ROADMAP.md)")
     cfg = D3DPConfig(
         frames=args.model.number_of_frames,
         num_kps=args.data.num_kps,
@@ -71,14 +59,33 @@ def build_model(args, device, flip_permutation=None):
         dropout=float(args.model.dropout),
         test_time_augmentation=args.model.test_time_augmentation,
     )
-    model = D3DP(cfg, device=device,
-                 generator=torch.Generator().manual_seed(int(args.gpu.seed)),
-                 use_pallas=args.gpu.use_pallas,
-                 experimental_kernels=str(args.gpu.experimental_kernels).lower()
-                 in ("true", "1", "on", "yes"))
-    if flip_permutation is not None:
-        model.flip_permutation = np.asarray(flip_permutation)
-    return model
+    return make_d3dp(args, cfg, device, flip_permutation)
+
+
+def make_d3dp(args, cfg, device, flip_permutation=None):
+    """``D3DP(cfg)`` under the config's ``gpu`` keys: the evaluation
+    functions of ``gpu.use_pallas`` behind the ``gpu.experimental_kernels``
+    gate (read per build, as the JAX CLI does), weights from ``gpu.seed``;
+    ``gpu.compute_dtype`` and ``gpu.train_kernel`` values whose path is not
+    ported raise."""
+    import torch
+    from pafuse_tpu_torch.diffusion import D3DP
+
+    if args.gpu.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"gpu.compute_dtype={args.gpu.compute_dtype}: only float32 is "
+            "ported (ROADMAP.md)")
+    if str(args.gpu.train_kernel).lower() not in ("auto", "true"):
+        raise NotImplementedError(
+            f"gpu.train_kernel={args.gpu.train_kernel}: training runs the "
+            "training block kernels (auto | true); the autodiff path is not "
+            "ported (ROADMAP.md)")
+    return D3DP(cfg, device=device,
+                generator=torch.Generator().manual_seed(int(args.gpu.seed)),
+                use_pallas=args.gpu.use_pallas,
+                experimental_kernels=str(args.gpu.experimental_kernels).lower()
+                in ("true", "1", "on", "yes"),
+                flip_permutation=flip_permutation)
 
 
 def collect_actions(dataset, subjects_test):
@@ -179,10 +186,7 @@ def _run(args, device, timestamp):
             chk_path = chk
         print("Loading checkpoint", chk_path)
         if chk_path.endswith(".bin"):
-            model.pose_estimator.load_state_dict(
-                checkpoints.load_reference_bin(
-                    chk_path, [s.name for s in model.pose_estimator.specs]),
-                strict=True)
+            checkpoints.load_weights(model, chk_path)
             restored = {"epoch": 0}
         elif args.general.resume:
             restored = checkpoints.load_state(chk_path, model, state.optimizer,

@@ -110,15 +110,37 @@ class D3DP(nn.Module):
     starts in eval mode; :meth:`train_forward` needs ``.train()``.
     ``use_pallas`` and ``experimental_kernels`` select the eval-mode
     functions of every part network (``models.mixste.MixSTE2.
-    set_use_pallas``); training always runs the training block kernels."""
+    set_use_pallas``); training always runs the training block kernels.
+    ``flip_permutation`` is the flip-TTA joint table; without one, the 134-
+    and 133-joint H3WB tables are known and any other joint count raises."""
 
     def __init__(self, cfg: D3DPConfig, device="cuda",
                  generator: torch.Generator | None = None,
-                 use_pallas="auto", experimental_kernels: bool = False):
+                 use_pallas="auto", experimental_kernels: bool = False,
+                 flip_permutation: Optional[np.ndarray] = None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.schedule = make_schedule(cfg.timesteps)
+        if cfg.part_based and cfg.num_kps != sk.NUM_JOINTS:
+            raise ValueError(f"num_kps={cfg.num_kps}: the part-based model "
+                             f"needs the {sk.NUM_JOINTS}-joint H3WB layout")
+        # the flip table: given, or known for 134 and 133 joints; an
+        # identity here would silently corrupt flip-TTA, so anything else
+        # raises
+        if flip_permutation is not None:
+            perm = np.asarray(flip_permutation, np.int32)
+        elif cfg.num_kps == sk.NUM_JOINTS:
+            perm = sk.FLIP_PERMUTATION
+        elif cfg.num_kps == sk.NUM_JOINTS - 1:
+            perm = sk.FLIP_PERMUTATION_NO_ROOT
+        else:
+            raise ValueError(f"No flip permutation known for num_kps="
+                             f"{cfg.num_kps}; pass flip_permutation=")
+        if perm.shape != (cfg.num_kps,):
+            raise ValueError(f"flip_permutation has shape {perm.shape}, "
+                             f"expected ({cfg.num_kps},)")
+        self.flip_permutation = perm
         rates = dict(drop_path_rate=cfg.drop_path_rate, drop_rate=cfg.dropout,
                      attn_drop_rate=cfg.attn_dropout)
         if cfg.part_based:
@@ -130,10 +152,6 @@ class D3DP(nn.Module):
                                     cfg.cs, cfg.depth, **rates)
         self.pose_estimator = PartModel(specs, self.device, generator,
                                         use_pallas, experimental_kernels)
-        if cfg.num_kps != sk.NUM_JOINTS:
-            raise ValueError(f"num_kps={cfg.num_kps}: only the "
-                             f"{sk.NUM_JOINTS}-joint H3WB layout is ported")
-        self.flip_permutation = sk.FLIP_PERMUTATION
         for name in ("sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod"):
             self.register_buffer(f"_{name}", torch.as_tensor(
                 getattr(self.schedule, name), device=self.device),
@@ -235,7 +253,8 @@ class D3DP(nn.Module):
         init_noise: optional (B, H, F, N, 3) x_T; step_noise: optional
         (S, B, H, F, N, 3) per-step noise.  Noise not given is drawn from
         ``generator`` on the model's device.
-        Returns (B, S, H, F, N, 3) x0 predictions of every step."""
+        Returns (B, S, H, F, N, 3) x0 predictions of every step, in
+        millimetres with ``mm_scale``."""
         cfg = self.cfg
         H = cfg.num_proposals if num_proposals is None else num_proposals
         S = (cfg.sampling_timesteps if sampling_timesteps is None
@@ -280,7 +299,9 @@ class D3DP(nn.Module):
                      else torch.randn(shape, generator=generator, device=dev))
             img = (x_start * float(alpha_next_sqrt[i])
                    + float(coef_c[i]) * pred_noise + float(sigma[i]) * noise)
-        return torch.stack(preds, dim=1)
+        preds = torch.stack(preds, dim=1)
+        # the 3DHP variant reports millimetres
+        return preds * 1000.0 if cfg.mm_scale else preds
 
     def eval_forward(self, x2d: torch.Tensor,
                      x2d_flip: Optional[torch.Tensor] = None, **kw):

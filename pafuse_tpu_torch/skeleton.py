@@ -1,8 +1,9 @@
-"""H3WB (Human3.6M WholeBody) skeleton tables used by the lifting path.
+"""Skeleton tables: H3WB (Human3.6M WholeBody) for the lifting path and
+the 17-joint MPI-INF-3DHP body.
 
 Own copy of the tables in ``pafuse_tpu/skeleton.py`` (the port imports
-nothing of the JAX package): 134 joints, the COCO-WholeBody 133-keypoint
-layout with a synthetic root (mid-hip) at index 0.
+nothing of the JAX package).  H3WB has 134 joints, the COCO-WholeBody
+133-keypoint layout with a synthetic root (mid-hip) at index 0:
 
 ====================  ==========  =====
 part                  indices     count
@@ -153,3 +154,37 @@ def symmetry_from_metadata(metadata, add_root: bool = True):
 
 FLIP_PERMUTATION: np.ndarray = flip_permutation_from_symmetry(
     JOINTS_LEFT, JOINTS_RIGHT)
+
+#: the 133-keypoint layout without the synthetic root (``data.num_kps=133``):
+#: the same mirror pairs, one index lower.
+FLIP_PERMUTATION_NO_ROOT: np.ndarray = flip_permutation_from_symmetry(
+    [j - 1 for j in JOINTS_LEFT], [j - 1 for j in JOINTS_RIGHT],
+    num_joints=NUM_JOINTS - 1)
+
+
+def _build_parents() -> np.ndarray:
+    """Parent of each joint (-1: none; the face landmarks are dots): the
+    COCO body with the root inserted at 0, feet on the ankles, each hand's
+    21 joints on its wrist."""
+    body = [-1, -1, -1, -1, -1, -1, 0, 0, 6, 7, 8, 9, 0, 0, 12, 13, 14, 15]
+    left_foot = [15, 15, 15]
+    right_foot = [16, 16, 16]
+    face = [-1] * 68
+    left_hand = [9, 91, 92, 93, 94, 91, 96, 97, 98, 91, 100, 101, 102, 91,
+                 104, 105, 106, 91, 108, 109, 110]
+    right_hand = [10, 112, 113, 114, 115, 112, 117, 118, 119, 112, 121, 122,
+                  123, 112, 125, 126, 127, 112, 129, 130, 131]
+    shifted = [j + 1 for j in left_foot + right_foot]
+    hands = [j + 1 for j in left_hand + right_hand]
+    return np.asarray(body + shifted + face + hands, dtype=np.int32)
+
+
+#: PARENTS[j] = parent joint of j in the H3WB skeleton (-1: none).
+PARENTS: np.ndarray = _build_parents()
+
+#: the 17-joint MPI-INF-3DHP body (Human3.6M-17 order) of the 3DHP model
+NUM_JOINTS_3DHP = 17
+JOINTS_LEFT_3DHP = [5, 6, 7, 11, 12, 13]
+JOINTS_RIGHT_3DHP = [2, 3, 4, 8, 9, 10]
+FLIP_PERMUTATION_3DHP: np.ndarray = flip_permutation_from_symmetry(
+    JOINTS_LEFT_3DHP, JOINTS_RIGHT_3DHP, NUM_JOINTS_3DHP)

@@ -110,7 +110,8 @@ def _rel_errs(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,C", [(16, 24, 384), (16, 68, 224),
-                                   (16, 42, 256), (16, 27, 256)])
+                                   (16, 42, 256), (16, 27, 256),
+                                   (16, 17, 288), (16, 27, 288)])
 def test_fused_block_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L, C):
     params = _params(C, seed=C + L, device=cuda_device)
     bp, on = params[:12], params[12:]
@@ -129,7 +130,8 @@ def test_fused_block_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L, C):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,C", [(64, 24, 384), (64, 27, 384),
                                    (64, 68, 224), (64, 27, 224),
-                                   (64, 42, 256), (64, 27, 256)])
+                                   (64, 42, 256), (64, 27, 256),
+                                   (37, 17, 288), (37, 27, 288)])
 def test_block_train_kernels_match_plain_on_gpu(cuda_device, B, L, C):
     """Kernels #5 and #6 at each part's spatial and temporal (L, C)."""
     params = _params(C, seed=C + L, device=cuda_device)
@@ -169,7 +171,8 @@ def test_block_train_bf16_input_on_gpu(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,C", [(40, 24, 384), (40, 27, 384),
                                    (40, 68, 224), (40, 27, 224),
-                                   (40, 42, 256), (40, 21, 256)])
+                                   (40, 42, 256), (40, 21, 256),
+                                   (40, 17, 288), (40, 27, 288)])
 def test_fused_attention_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L,
                                                       C):
     """Kernel #2 at each part's spatial and temporal (L, C) and one unmerged
@@ -315,7 +318,7 @@ def test_experimental_model_runs_kernels_3_and_4_on_gpu(cuda_device, mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C", [384, 224, 256])
+@pytest.mark.parametrize("C", [384, 224, 256, 288])
 @pytest.mark.parametrize("ln", [False, True])
 @pytest.mark.parametrize("epilogue", ["store", "gelu", "residual"])
 def test_fused_linear_matches_plain_on_gpu(cuda_device, dtype, C, ln,
@@ -379,7 +382,7 @@ def _device_kernels(fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [384, 224, 256])
+@pytest.mark.parametrize("C", [384, 224, 256, 288])
 @pytest.mark.parametrize("stage", ["fc2", "fc1", "proj", "qkv"])
 def test_data_grad_matches_plain_on_gpu(cuda_device, C, stage):
     """Kernel #6's data-gradient GEMM alone (gemm_sm90.cuh on the weight's
@@ -402,7 +405,7 @@ def test_data_grad_matches_plain_on_gpu(cuda_device, C, stage):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [384, 224, 256])
+@pytest.mark.parametrize("C", [384, 224, 256, 288])
 @pytest.mark.parametrize("stage,r_dtype", [
     ("qkv", None), ("proj", torch.float32), ("proj", torch.bfloat16),
     ("fc1", None), ("fc2", torch.float32)])
@@ -469,7 +472,8 @@ def test_kernel_5_runs_its_gemms_on_the_tensor_cores_on_gpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,K", [(384, 768), (768, 384), (384, 384),
-                                 (1152, 384), (224, 448), (672, 224)])
+                                 (1152, 384), (224, 448), (672, 224),
+                                 (288, 576), (576, 288), (864, 288)])
 def test_weight_grad_matches_plain_on_gpu(cuda_device, N, K):
     """Kernel #6's weight-gradient GEMM alone (mma.sync, TF32): each weight
     shape of the backward, over two full chunks of RED_ROWS rows and a

@@ -53,8 +53,11 @@ def test_package_imports_without_jax_or_pafuse_tpu():
         " (n == 'pafuse_tpu' or n.startswith(('pafuse_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
         "for m in ('pafuse_tpu_torch.serve', 'pafuse_tpu_torch.cli.serve',"
-        " 'pafuse_tpu_torch.utils.device'):\n"
+        " 'pafuse_tpu_torch.utils.device', 'pafuse_tpu_torch.data.dhp3',"
+        " 'pafuse_tpu_torch.cli.main_3dhp', 'pafuse_tpu_torch.cli.in_the_wild',"
+        " 'pafuse_tpu_torch.cli.draw_h3wb', 'pafuse_tpu_torch.viz'):\n"
         "    assert m in sys.modules, m\n"
+        "assert 'matplotlib' not in sys.modules and 'cv2' not in sys.modules\n"
         "print('ok', len([n for n in sys.modules"
         " if n.startswith('pafuse_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -62,7 +65,7 @@ def test_package_imports_without_jax_or_pafuse_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
-    assert int(r.stdout.split()[1]) >= 24
+    assert int(r.stdout.split()[1]) >= 29
 
 
 def test_entry_points_refuse_missing_cuda():
@@ -89,6 +92,11 @@ def test_entry_points_refuse_missing_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_service(load_config(overrides=["model.dep=1"]), warmup=False)
     assert next(model.parameters()).device.type == "cpu"
+    # so do the 3DHP, in-the-wild and draw CLIs
+    from pafuse_tpu_torch.cli import draw_h3wb, in_the_wild, main_3dhp
+    for cli in (main_3dhp, in_the_wild, draw_h3wb):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["model.dep=1"])
 
 
 def test_kernel_wrappers_refuse_cuda_tensors_without_a_kernel():
