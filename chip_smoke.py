@@ -48,12 +48,20 @@ Phases, one JSON line each:
                same request in-process, a stream round trip and /metrics;
      serve_profile - one 405-frame request under torch.profiler on the
                host-noise 'all' service and on the device-noise mean
-               service: device time by kernel group and the idle share.
+               service: device time by kernel group and the idle share;
+     bf16_serve - the same service at compute_dtype=bfloat16 on the same
+               weights: warm-up and 27/100/405-frame latencies, all on
+               kernel #1 in bfloat16; the 405-frame request against the
+               same service on #1's plain version within BF16_POSE_TOL,
+               and against the plain bfloat16 path (use_pallas=false)
+               within BF16_NOISE_RATIO times that path's distance from
+               the float32 service (the distance from float32 in mm
+               reported).
                Every serve phase checks kernel #1's launches.
   5. train_kernel - the training block kernels (#5 forward, #6 backward)
                against their plain PyTorch versions at every part's
                spatial and temporal shape of a training step (37 sequences
-               of 27 frames), float32, plus one bfloat16-x forward per part,
+               of 27 frames), with x (and g) in float32 and in bfloat16,
                with their times, the plain versions', one PyTorch library
                composition's (layer_norm + linear + SDPA + gelu, and its
                autograd backward; a yardstick only) and the bound; and the
@@ -162,7 +170,38 @@ Phases, one JSON line each:
                then the same call with one injected noise table against
                the plain block.  Rendering (matplotlib, OpenCV) is left to
                the CPU tests.
-Each of phases 12-16 prints its wall seconds.
+ 17. bf16_eval - gpu.compute_dtype=bfloat16 at full width: the H3WB CLI on
+               the seeded weights' checkpoint on the 76-window action of
+               eval_experimental at use_pallas=auto (#1) and true (#2),
+               beside float32 at auto: seconds, windows/s, every metric's
+               delta from float32; then the action's first sequence with
+               one noise table, every prediction of the bfloat16 kernel
+               paths auto, true, block_t (#1 + #3) and layer (#4) held
+               against the same model on those kernels' plain versions
+               within BF16_POSE_TOL, and auto and true against the plain
+               bfloat16 path (false) within BF16_NOISE_RATIO times its
+               distance from float32; then evaluate_3dhp on the seeded
+               3DHP model (2 x 1000 frames) the same way at auto, its
+               outputs caught at eval_forward.
+ 18. bf16_train - the train and dhp3_train trainers at
+               compute_dtype=bfloat16 (#5/#6 on bfloat16 activations)
+               through the same checks, the plain comparison within the
+               bfloat16 training bounds.
+ 19. autodiff_train - gpu.train_kernel=false on the H3WB model at full
+               width: one step from equal params, t, noise and masks on
+               the autodiff path and on #5/#6, float32 (the train bounds)
+               and bfloat16 (the bfloat16 training bounds), ms/step, peak
+               memory and no launch of #5/#6 on the autodiff path;
+               remat=true bit-identical with its peak memory;
+               model.dropout=0.1: the loss falls on one batch and a seed
+               repeats bit for bit.
+ 20. mono134_kernel - #5/#6 against their plain versions at the
+               monolithic 134-joint model's shapes ((999, 134, 288) and
+               (4958, 27, 288)), float32 and bfloat16 x.
+ 21. mono134_train - that model (general.part_based_model=false,
+               model.cs 288) trained on #5/#6 through run_trainer's checks
+               (16 + 16 launches a step).
+Each phase from bf16_serve and from 12 on prints its wall seconds.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without CUDA it exits non-zero at once.
@@ -244,7 +283,19 @@ Tolerances (max abs, elementwise):
                    evaluate-only within it of the evaluation after
                    training (both are the same float32 function);
   in_the_wild      1e-3 on poses, as serve (16 blocks per network, 5 DDIM
-                   steps feeding back, each block within ~1e-6).
+                   steps feeding back, each block within ~1e-6);
+  bf16 paths       a bfloat16 kernel path's poses against the same model
+                   on its kernels' plain versions within BF16_POSE_TOL (max
+                   and mean), and against the plain bfloat16 path
+                   (use_pallas=false) within BF16_NOISE_RATIO times that
+                   path's own distance from float32 on the same weights and
+                   noise, plus BF16_FLOOR; bfloat16 training steps of
+                   two paths from equal draws: loss BF16_TRAIN_LOSS_RTOL
+                   relative, gradients BF16_TRAIN_GRAD_RTOL x max|gradient|
+                   (the measurements behind both are beside the constants);
+  train kernels    bfloat16 backward: the 14 parameter gradients within
+                   the float32 bound, dx within 2^-7 |dx| + 1e-4 x max|dx|
+                   (one bfloat16 ulp of a float32 value ~1e-6 apart).
 """
 
 import argparse
@@ -285,6 +336,43 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_SEQS = 1024 // 27         # model.batch_size // number_of_frames
 TRAIN_STEPS = 5
 OVERFIT_STEPS = 16
+# bfloat16 model compute.  A bfloat16 kernel path is held against the same
+# model with its kernels on their plain versions (_plain_fns), on the same
+# weights and noise, at fixed (max abs, mean abs) bounds on every output
+# (serve poses and 3DHP outputs in metres or mm, eval predictions of every
+# DDIM step and hypothesis in metres).  The two round at the same points
+# and differ only where a float32 sum in another order flips a bfloat16
+# rounding; over 16 blocks a network and 5 DDIM steps such flips grow to
+# the size of bfloat16's own distance from float32, so these bounds catch
+# a fault in how the model feeds a kernel (it shows at the pose's scale,
+# ~0.1-1 m), not one rounding: each kernel is held to one or two bfloat16
+# ulps of its plain version in the kernels line, and the depth-2 model in
+# tests/test_torch_cuda.py.  Measured on the H100 (H100 80GB HBM3,
+# 700.00 W) at full width: serve 9.37e-3 / 1.36e-3 m (the plain path's
+# distance from float32 1.97e-2 / 3.26e-3); eval auto, block_t and layer
+# 3.38e-2 / 4.11e-3 m, true 3.44e-2 / 3.94e-3 (float32: 4.03e-2 /
+# 4.50e-3); 3DHP 22.94 / 3.34 mm (float32: 23.04 / 3.37).  About twice
+# that:
+BF16_POSE_TOL = {"serve": (2e-2, 3e-3), "eval": (7e-2, 8e-3),
+                 "3dhp": (50.0, 7.0)}
+# The kernel path against the JAX model's rounding points (use_pallas=
+# false) too: within BF16_NOISE_RATIO times the plain path's own distance
+# from float32 on the same weights and noise (max and mean), plus
+# BF16_FLOOR.  The CPU rehearsal (depth 1, P <= 2, T = 2) puts #1's plain
+# version at 0.92 / 0.80 (serve), 1.01 / 0.81 (eval auto), 1.17 / 0.90
+# (eval true) and 0.99 / 0.87 (3DHP) of that distance, the H100 at full
+# width at 0.48 / 0.42, 0.85 / 0.94, 0.94 / 1.04 and 1.05 / 1.02.
+BF16_NOISE_RATIO = 2.0
+BF16_FLOOR = 1e-3               # mm (3DHP poses); x 1e-3 on poses in metres
+# a bfloat16 training step against another bfloat16 path from equal
+# params, t, noise and masks: the CPU rehearsal of autodiff_train (depth
+# 1, 2 sequences) puts the autodiff path's loss 2.6e-4 relative and its
+# gradients 9.2e-3 x max|gradient| per tensor from the kernel path's (the
+# kernel path's own distance from float32: 5.1e-4, 8.1e-3); about 5x that
+BF16_TRAIN_LOSS_RTOL = 1e-3
+BF16_TRAIN_GRAD_RTOL = 5e-2
+DROPOUT = 0.1                   # autodiff_train's model.dropout
+MONO_CS = 288                   # the monolithic H3WB model's model.cs
 DHP3_CS = 288                   # model.cs: the 3DHP network's channels
 DHP3_TRAIN_SEQS = 16            # dhp3_train: synthetic training sequences
 DHP3_FRAMES = 1000              # ... of 1000 frames (dhp3_eval: the test set)
@@ -1086,8 +1174,9 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
                        parts=None, phase="train_kernel"):
     """Kernels #5 and #6 against their plain versions at each network's
     spatial (B = seqs*frames, L = joints) and temporal (B = seqs*joints,
-    L = frames) training shape (``parts`` as kernel_phase's); masks drawn
-    per sample and repeated like MixSTE2 repeats them."""
+    L = frames) training shape (``parts`` as kernel_phase's), with x (and
+    the backward's g) in float32 and in bfloat16; masks drawn per sample
+    and repeated like MixSTE2 repeats them."""
     import torch
     from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
                                                   block_train_fwd,
@@ -1113,9 +1202,7 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
         m1, m2 = masks
         x32 = torch.randn(B, L, C, generator=g).to(dev)
         g32 = torch.randn(B, L, C, generator=g).to(dev)
-        dtypes = ((torch.float32, torch.bfloat16) if kind == "spatial"
-                  else (torch.float32,))
-        for dtype in dtypes:
+        for dtype in (torch.float32, torch.bfloat16):
             name = "float32" if dtype == torch.float32 else "bfloat16"
             x = x32.to(dtype)
             y, saved = block_train_fwd(x, m1, m2, params, heads)
@@ -1151,10 +1238,8 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
                                backward=False)}
             emit(r)
             results.append(r)
-            if dtype != torch.float32:
-                continue
 
-            gr = g32
+            gr = g32.to(dtype)
             dx, grads = block_train_bwd(saved, gr)
             sync(dev)
             want_dx, want_grads = train_bwd_reference(x, gr, m1, m2, params,
@@ -1162,6 +1247,15 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
             got_all, want_all = (dx,) + grads, (want_dx,) + want_grads
             rel = {n: _rel_err(a, b)
                    for n, a, b in zip(GRAD_NAMES, got_all, want_all)}
+            dx_ok = True
+            if dtype != torch.float32:
+                # dx rounded to bfloat16 from float32 values ~1e-6 apart:
+                # one ulp of the value plus the float32 bound
+                del rel["dx"]
+                dx_ok = bool(torch.all(
+                    (dx.float() - want_dx.float()).abs()
+                    <= 2.0 ** -7 * want_dx.float().abs()
+                    + TRAIN_GRAD_RTOL * want_dx.float().abs().max()))
             max_abs = max(float((a - b).abs().max())
                           for a, b in zip(got_all, want_all))
             dx2, grads2 = block_train_bwd(saved, gr)
@@ -1177,10 +1271,12 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
                  "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
                  "C": C, "max_abs_err": max_abs,
                  "max_rel_grad_err": max(rel.values()), "rel_grad_err": rel,
-                 "deterministic": deterministic,
-                 "ok": max(rel.values()) <= TRAIN_GRAD_RTOL and deterministic,
+                 "deterministic": deterministic, "dx_ok": dx_ok,
+                 "ok": (max(rel.values()) <= TRAIN_GRAD_RTOL and deterministic
+                        and dx_ok),
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                 **backward_gemm_times(B * L, params),
+                 **(backward_gemm_times(B * L, params)
+                    if dtype == torch.float32 else {}),
                  **train_bound(B, L, C, x.element_size(), param_bytes,
                                backward=True)}
             emit(r)
@@ -1320,13 +1416,14 @@ def dhp3_train_phase(seed: int, device: str = "cuda", depth: int = 8,
 
 def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
                 weights=None, part_based=True, flip_permutation=None,
-                phase="train"):
+                phase="train", compute_dtype="float32", profile=True):
     """The checks of a training path: ``steps`` steps through ``loader``
     (finite losses, 2 x depth launches of #5 and of #6 per network a step,
-    every parameter moved; ms/step and trained frames/s), one step traced,
-    two runs from one seed bit-identical after two steps, one step against
-    the same step on the plain versions, and the loss falling on one
-    repeated batch.  Returns the launches of the main-path
+    every parameter moved; ms/step and trained frames/s), one step traced
+    (``profile``), two runs from one seed bit-identical after two steps,
+    one step against the same step on the plain versions (float32 bounds,
+    or the bfloat16 ones at ``compute_dtype=bfloat16``), and the loss
+    falling on one repeated batch.  Returns the launches of the main-path
     run."""
     import numpy as np
     import torch
@@ -1344,7 +1441,8 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
     def fresh():
         model = D3DP(cfg, device=dev,
                      generator=torch.Generator().manual_seed(seed),
-                     flip_permutation=flip_permutation)
+                     flip_permutation=flip_permutation,
+                     compute_dtype=compute_dtype)
         state = tr.create_train_state(model, seed=seed, device=dev)
         return model, state, tr.build_train_step(
             model, state.optimizer, weights=weights, part_based=part_based)
@@ -1382,6 +1480,7 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
         raise AssertionError(f"{phase}: parameters did not move: {still[:5]}")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2] if steps > 1 else step_s[0]
     emit({"phase": phase, "steps": steps, "seqs_per_step": seqs,
+          "compute_dtype": compute_dtype,
           "frames": cfg.frames, "depth": cfg.depth, "joints": cfg.num_kps,
           "networks": part_names, "losses": losses,
           "launches_fwd": launches[0], "launches_bwd": launches[1],
@@ -1390,7 +1489,7 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
           "batches_per_epoch": sampler.batch_num(),
           "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if dev.type == "cuda" else None)})
-    if dev.type == "cuda":
+    if dev.type == "cuda" and profile:
         groups = profile_step(lambda: float(step(state, lr, *batches[-1])),
                               phase=f"{phase}_profile", names=TRAIN_GROUPS)
         missing = {g for _, g in TRAIN_GROUPS[:2]} - set(groups)
@@ -1441,9 +1540,13 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
     (k_loss, k_grads), (p_loss, p_grads) = out
     loss_err = abs(k_loss - p_loss) / abs(p_loss)
     grad_err = max(_rel_err(k_grads[n], p_grads[n]) for n in p_grads)
+    loss_tol, grad_tol = ((TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL)
+                          if compute_dtype == "float32"
+                          else (BF16_TRAIN_LOSS_RTOL, BF16_TRAIN_GRAD_RTOL))
     emit({"phase": f"{phase}_vs_plain", "loss": k_loss, "plain_loss": p_loss,
-          "loss_rel_err": loss_err, "max_rel_grad_err": grad_err})
-    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL):
+          "loss_rel_err": loss_err, "max_rel_grad_err": grad_err,
+          "loss_rtol": loss_tol, "grad_rtol": grad_tol})
+    if not (loss_err <= loss_tol and grad_err <= grad_tol):
         raise AssertionError(f"{phase}: kernel path vs plain path: loss "
                              f"{loss_err:.2e}, grads {grad_err:.2e}")
     del out, k_grads, p_grads
@@ -2471,6 +2574,552 @@ def draw_phase(seed: int, device: str = "cuda", depth: int = 8, P: int = 10,
     return launches
 
 
+def _pose_check(what, got, want, tol):
+    """``got`` against ``want`` (NumPy arrays) within ``tol`` = (max abs,
+    mean abs).  Returns the numbers; raises where they miss."""
+    import numpy as np
+    d = np.abs(got - want)
+    out = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+           "tol": list(tol)}
+    if not (out["max_abs_err"] <= tol[0] and out["mean_abs_err"] <= tol[1]):
+        raise AssertionError(f"{what}: the bfloat16 kernel path against its "
+                             f"plain versions: {out}")
+    return out
+
+
+def _noise_check(what, got, plain, f32, floor):
+    """A bfloat16 path's output ``got`` against the plain bfloat16 path's
+    ``plain`` (NumPy arrays), within BF16_NOISE_RATIO times ``plain``'s
+    own distance from the float32 output ``f32`` plus ``floor``, in max
+    and in mean abs.  Returns the numbers; raises where they miss."""
+    import numpy as np
+    d, noise = np.abs(got - plain), np.abs(plain - f32)
+    out = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+           "plain_vs_f32_max_abs": float(noise.max()),
+           "plain_vs_f32_mean_abs": float(noise.mean()),
+           "ratio": BF16_NOISE_RATIO, "floor": floor}
+    if not (out["max_abs_err"] <= BF16_NOISE_RATIO
+            * out["plain_vs_f32_max_abs"] + floor
+            and out["mean_abs_err"] <= BF16_NOISE_RATIO
+            * out["plain_vs_f32_mean_abs"] + floor):
+        raise AssertionError(f"{what}: the bfloat16 path against the plain "
+                             f"bfloat16 path: {out}")
+    return out
+
+
+def _plain_fns(mode):
+    """The eval functions of ``use_pallas=mode`` with every kernel on its
+    plain version: #1 block_reference, #2 attention_reference inside the
+    unfused block, #3 block_temporal_reference, #4 layer_reference (the
+    last two run block_reference on the rows #1 would take)."""
+    import functools
+    from pafuse_tpu_torch.models.mixste import unfused_block
+    from pafuse_tpu_torch.ops.attention import attention_reference
+    from pafuse_tpu_torch.ops.block import block_reference
+    from pafuse_tpu_torch.ops.block_temporal import block_temporal_reference
+    from pafuse_tpu_torch.ops.layer import layer_reference
+    return {"auto": {"block_fn": block_reference},
+            "true": {"block_fn": functools.partial(
+                unfused_block, attention_fn=attention_reference)},
+            "block_t": {"block_fn": block_reference,
+                        "block_t_fn": block_temporal_reference},
+            "layer": {"layer_fn": layer_reference}}[mode]
+
+
+def _set_mode(model, mode):
+    """Every part network of ``model`` on ``use_pallas=mode``'s eval
+    functions, or on their plain versions for "plain_{mode}"."""
+    from pafuse_tpu_torch.models.mixste import MixSTE2
+    plain = mode.startswith("plain_")
+    _set_use_pallas(model, mode[len("plain_"):] if plain else mode)
+    if plain:
+        for m in model.modules():
+            if isinstance(m, MixSTE2):
+                for k, v in _plain_fns(mode[len("plain_"):]).items():
+                    setattr(m, k, v)
+
+
+def _metrics(means):
+    """The metrics of a report (``means_mm()`` or evaluate_3dhp's) as one
+    flat float64 array, in key order."""
+    import numpy as np
+    return np.concatenate([np.atleast_1d(np.asarray(means[k], np.float64))
+                           .ravel() for k in sorted(means)])
+
+
+def bf16_serve_phase(seed: int, f32_svc, device: str = "cuda", cfg=None):
+    """LiftingService at compute_dtype=bfloat16 on the serve phase's seeded
+    weights (batcher on, host noise): warm-up and requests of 27, 100 and
+    405 frames, each with 48*T launches of kernel #1 a chunk in bfloat16;
+    then the 405-frame request against the same service on #1's plain
+    version (BF16_POSE_TOL) and on the plain bfloat16 path (use_pallas=
+    false, the JAX model's rounding points; within BF16_NOISE_RATIO times
+    that path's distance from the float32 service ``f32_svc`` on the same
+    weights and noise), and its distance from float32 in mm.  A CPU
+    rehearsal passes device="cpu" and a small cfg.  Returns the kernel
+    launches of the main-path requests."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.serve import LiftingService, bucket_for
+
+    cfg = cfg or D3DPConfig()
+    on_card = device != "cpu"
+    model = D3DP(cfg, device=device,
+                 generator=torch.Generator().manual_seed(seed),
+                 compute_dtype="bfloat16")
+    svc = LiftingService(model, buckets=(1, 2, 4, 8, 16), device=device)
+    per_chunk = _per_chunk(model, cfg.sampling_timesteps)
+    rng = np.random.RandomState(seed + 7)
+
+    def chunks(frames):
+        w = max(1, -(-frames // cfg.frames))
+        return -(-w // bucket_for(w, svc.buckets))
+
+    def check(label, launches, expected):
+        if on_card and launches != expected:
+            raise AssertionError(f"bf16_serve {label}: {launches} launches, "
+                                 f"expected {expected}")
+
+    fused_block.launches = 0
+    t0 = time.time()
+    svc.warmup()
+    emit({"phase": "bf16_serve_warmup", "seconds": time.time() - t0,
+          "launches": fused_block.launches})
+    check("warmup", fused_block.launches, per_chunk * len(svc.buckets))
+    launches = fused_block.launches
+    kp, poses = {}, {}
+    for frames in (27, 100, 405):
+        kp[frames] = _kp(rng, frames)
+        fused_block.launches = 0
+        res = svc.lift(kp[frames], seed=seed)
+        n = fused_block.launches
+        launches += n
+        check(f"{frames} frames", n, per_chunk * chunks(frames))
+        poses[frames] = res["poses"]
+        if (poses[frames].shape != (frames, cfg.num_kps, 3)
+                or not np.all(np.isfinite(poses[frames]))):
+            raise AssertionError(f"bf16_serve: {frames} frames gave "
+                                 f"{poses[frames].shape} or non-finite poses")
+        emit({"phase": "bf16_serve", "frames": frames,
+              "chunks": chunks(frames), "launches": n,
+              "latency_ms": res["latency_ms"],
+              "frames_per_s": frames / (res["latency_ms"] / 1e3)})
+
+    # the same 405-frame request, the same weights and host noise: on the
+    # float32 service, on #1's plain version and on the plain bfloat16
+    # path (the JAX model's rounding points)
+    f32 = f32_svc.lift(kp[405], seed=seed)["poses"]
+    out = {}
+    for mode in ("plain_auto", "false"):
+        _set_mode(model, mode)
+        out[mode] = svc.lift(kp[405], seed=seed)["poses"]
+    _set_use_pallas(model, "auto")
+    got = poses[405]
+    emit({"phase": "bf16_serve_vs_plain", "frames": 405,
+          "vs_plain_versions": _pose_check("bf16_serve", got,
+                                           out["plain_auto"],
+                                           BF16_POSE_TOL["serve"]),
+          "vs_false": _noise_check("bf16_serve", got, out["false"], f32,
+                                   BF16_FLOOR * 1e-3),
+          "vs_float32_max_mm": float(1e3 * np.abs(got - f32).max()),
+          "vs_float32_mean_mm": float(1e3 * np.abs(got - f32).mean())})
+    svc.close()
+    del svc, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_eval_phase(seed: int, workdir: str, device: str = "cuda",
+                    depth: int = 8, P: int = 10, T: int = 5,
+                    frames: int = DHP3_FRAMES):
+    """Evaluation at gpu.compute_dtype=bfloat16 at full width: the H3WB CLI
+    on a checkpoint of the seeded weights, on eval_experimental's 76-window
+    action (P, T), at use_pallas=auto (48*T launches of #1 a window batch)
+    and true (of #2), beside the float32 run at auto: seconds, windows/s,
+    every metric's delta from float32.  Then the action's first sequence
+    with one injected noise table through evaluate_sequences, predictions
+    returned: the bfloat16 kernel paths auto, true, block_t and layer
+    against the same model on their kernels' plain versions
+    (BF16_POSE_TOL), and auto and true against the plain bfloat16 path
+    (false) within BF16_NOISE_RATIO times its distance from float32.  Then
+    evaluate_3dhp on the seeded 3DHP model over two sequences of
+    ``frames`` frames at auto in bfloat16 (16*T launches of #1 a call) and
+    float32, and with one noise table its outputs (caught at
+    ``eval_forward``) against #1's plain version and the plain path the
+    same way.  Returns {run: its kernel launches}."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import checkpoints, config as cfg_mod
+    from pafuse_tpu_torch import evaluate as ev
+    from pafuse_tpu_torch.cli import main_3dhp, main_h3wb
+    from pafuse_tpu_torch.data import dhp3, h3wb
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.skeleton import parts_table
+
+    cfg = D3DPConfig(depth=depth, num_proposals=P, sampling_timesteps=T)
+    rf = cfg.frames
+    on_card = torch.device(device).type == "cuda"
+    model = D3DP(cfg, device=device,
+                 generator=torch.Generator().manual_seed(seed))
+    ckpt = checkpoints.save_state(workdir, "seeded_bf16", model=model)
+    del model
+    windows = EVAL_CAMERAS * -(-EXP_FRAMES // rf)
+    batches = -(-windows // EVAL_WINDOWS)
+    per_batch = len(parts_table(True)) * depth * 2 * T if on_card else 0
+    kernel = {"auto": "fused_block", "true": "fused_attention"}
+    cli = ["data.synthetic=true", "general.nolog=true",
+           "data.synthetic_actions=1", f"data.synthetic_frames={EXP_FRAMES}",
+           f"gpu.device={device}", f"model.dep={depth}", f"gpu.seed={seed}",
+           f"ft2d.num_proposals={P}", f"ft2d.sampling_timesteps={T}",
+           f"general.evaluate={ckpt}"]
+    cli_log = os.path.join(workdir, "cli.log")
+    launches, metrics = {}, {}
+    for dtype, mode in (("float32", "auto"), ("bfloat16", "auto"),
+                        ("bfloat16", "true")):
+        run = f"{dtype}_{mode}"
+        _reset_launches()
+        out = _cli(cli + [f"gpu.compute_dtype={dtype}",
+                          f"gpu.use_pallas={mode}",
+                          f"general.checkpoint={workdir}/bf16_{run}"], cli_log)
+        launches[run] = _launch_counts()
+        want = _expect(**{kernel[mode]: per_batch * batches})
+        if launches[run] != want:
+            raise AssertionError(f"bf16_eval {run}: launches "
+                                 f"{launches[run]}, expected {want}")
+        avg = out["final"]["all"]
+        if not all(np.all(np.isfinite(v)) for v in avg.values()):
+            raise AssertionError(f"bf16_eval {run}: non-finite metrics")
+        metrics[run] = avg
+        emit({"phase": "bf16_eval", "run": run, "P": P, "T": T,
+              "depth": depth, "windows": out["windows"],
+              "batches": out["batches"], "launches": launches[run],
+              "eval_s": out["eval_seconds"],
+              "windows_per_s": out["windows"] / out["eval_seconds"],
+              "frames_per_s": out["windows"] * rf / out["eval_seconds"],
+              "delta_from_float32_mm": {
+                  k: float(np.abs(np.atleast_1d(v) - np.atleast_1d(
+                      metrics["float32_auto"][k])).max())
+                  for k, v in sorted(avg.items())},
+              "final_step": {k: float(np.atleast_1d(v)[-1])
+                             for k, v in sorted(avg.items())}})
+
+    # the action's first sequence, one noise table, every prediction
+    dataset = h3wb.load_dataset(synthetic=True, actions_per_subject=1,
+                                frames_per_action=EXP_FRAMES)
+    keypoints = h3wb.prepare_data(dataset)
+    action = sorted(main_h3wb.collect_actions(dataset, ["S8"])[0].items())[0]
+    seqs = list(zip(*h3wb.fetch_actions(action[1], keypoints, dataset)))[:1]
+    n_win = -(-seqs[0][2].shape[0] // rf)
+    r = np.random.RandomState(seed)
+    table = (r.randn(n_win, P, rf, cfg.num_kps, 3).astype(np.float32),
+             r.randn(n_win, T, P, rf, cfg.num_kps, 3).astype(np.float32))
+    preds, seconds = {}, {}
+    for dtype, modes in (("float32", ("auto",)),
+                         ("bfloat16", ("auto", "true", "block_t", "layer",
+                                       "plain_auto", "plain_true",
+                                       "false"))):
+        model = D3DP(cfg, device=device, compute_dtype=dtype)
+        checkpoints.load_state(ckpt, model)
+        for mode in modes:
+            _set_mode(model, mode)
+            t0 = time.time()
+            _, pred = ev.evaluate_sequences(
+                model, seqs, receptive_field=rf, num_proposals=P,
+                sampling_timesteps=T, noise_table=table,
+                return_predictions=True)
+            seconds[f"{dtype}_{mode}"] = time.time() - t0
+            if pred.shape != (n_win, T, P, rf, cfg.num_kps, 3) or not (
+                    np.all(np.isfinite(pred))):
+                raise AssertionError(f"bf16_eval {dtype} {mode}: "
+                                     f"predictions {pred.shape}")
+            preds[f"{dtype}_{mode}"] = pred
+        del model
+    f32, plain = preds["float32_auto"], preds["bfloat16_false"]
+    vs = {}
+    for mode, ref in (("auto", "auto"), ("true", "true"),
+                      ("block_t", "auto"), ("layer", "auto")):
+        # #3's and #4's plain versions are block_reference on the rows #1
+        # would take: the plain_auto run is theirs
+        got = preds[f"bfloat16_{mode}"]
+        vs[mode] = {"vs_plain_versions": _pose_check(
+            f"bf16_eval {mode}", got, preds[f"bfloat16_plain_{ref}"],
+            BF16_POSE_TOL["eval"])}
+        if mode in ("auto", "true"):
+            vs[mode]["vs_false"] = _noise_check(f"bf16_eval {mode}", got,
+                                                plain, f32, BF16_FLOOR * 1e-3)
+        vs[mode]["vs_float32_max_mm"] = float(1e3 * np.abs(got - f32).max())
+        vs[mode]["vs_float32_mean_mm"] = float(1e3 * np.abs(got - f32).mean())
+    emit({"phase": "bf16_eval_vs_plain", "action": action[0],
+          "windows": n_win, "P": P, "T": T, "by_mode": vs,
+          "seconds": seconds})
+    del preds
+
+    # evaluate_3dhp on the seeded 3DHP model: bfloat16 at auto beside
+    # float32 (timed, launches counted), then with one noise table
+    _, test = dhp3.make_synthetic(num_test_seqs=2, frames=frames, seed=seed)
+    per_seq = [-(-v["data_2d"].shape[0] // rf) for v in test.values()]
+    calls = sum(-(-n // 64) for n in per_seq)
+    blocks = 2 * depth if on_card else 0
+    r = np.random.RandomState(seed)
+    table = (r.randn(sum(per_seq), P, rf, 17, 3).astype(np.float32),
+             r.randn(sum(per_seq), T, P, rf, 17, 3).astype(np.float32))
+    res3, outs = {}, {}
+    for dtype, modes in (("float32", ("auto",)),
+                         ("bfloat16", ("auto", "plain_auto", "false"))):
+        args = cfg_mod.parse_cli([f"gpu.device={device}", f"gpu.seed={seed}",
+                                  f"model.dep={depth}",
+                                  f"gpu.compute_dtype={dtype}"])
+        model = main_3dhp.build_model_3dhp(args, device)
+        run = f"dhp3_{dtype}_auto"
+        _reset_launches()
+        t0 = time.time()
+        err, agg = main_3dhp.evaluate_3dhp(model, test, args,
+                                           num_proposals=P,
+                                           sampling_timesteps=T)
+        secs = time.time() - t0
+        launches[run] = _launch_counts()
+        if launches[run] != _expect(fused_block=blocks * T * calls):
+            raise AssertionError(f"bf16_eval {run}: launches "
+                                 f"{launches[run]}")
+        if not (np.all(np.isfinite(err)) and np.all(np.isfinite(agg))):
+            raise AssertionError(f"bf16_eval {run}: non-finite metrics")
+        res3[run] = {"P_Best": err, "P_Agg": agg}
+        emit({"phase": "bf16_eval_3dhp", "run": run, "P": P, "T": T,
+              "windows": sum(per_seq), "launches": launches[run],
+              "seconds": secs, "windows_per_s": sum(per_seq) / secs,
+              "metrics_mm": {k: v.tolist() for k, v in res3[run].items()}})
+        forward = model.eval_forward
+        for mode in modes:
+            caught = []
+
+            def eval_forward(*a, **kw):
+                y = forward(*a, **kw)
+                caught.append(y.float().cpu().numpy())
+                return y
+
+            model.eval_forward = eval_forward
+            _set_mode(model, mode)
+            main_3dhp.evaluate_3dhp(model, test, args, num_proposals=P,
+                                    sampling_timesteps=T, noise_table=table)
+            outs[f"{dtype}_{mode}"] = np.concatenate(caught)
+        del model
+    f32, got = outs["float32_auto"], outs["bfloat16_auto"]
+    emit({"phase": "bf16_eval_3dhp_vs_plain", "windows": sum(per_seq),
+          "vs_plain_versions": _pose_check("bf16_eval 3dhp", got,
+                                           outs["bfloat16_plain_auto"],
+                                           BF16_POSE_TOL["3dhp"]),
+          "vs_false": _noise_check("bf16_eval 3dhp", got,
+                                   outs["bfloat16_false"], f32, BF16_FLOOR),
+          "vs_float32_max_mm": float(np.abs(got - f32).max()),
+          "vs_float32_mean_mm": float(np.abs(got - f32).mean()),
+          "metric_delta_from_float32_mm": float(np.abs(
+              _metrics(res3["dhp3_bfloat16_auto"])
+              - _metrics(res3["dhp3_float32_auto"])).max())})
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_train_phase(seed: int, device: str = "cuda", depth: int = 8,
+                     seqs: int = TRAIN_SEQS, steps: int = TRAIN_STEPS):
+    """The H3WB and the 3DHP trainers of train and dhp3_train at
+    gpu.compute_dtype=bfloat16 (kernels #5/#6 on bfloat16 activations),
+    through run_trainer's checks with the bfloat16 bounds against the plain
+    versions; the H3WB step traced.  Returns {trainer: the launches of its
+    main-path run}."""
+    from pafuse_tpu_torch import skeleton as sk, train as tr
+    from pafuse_tpu_torch.data import dhp3
+    from pafuse_tpu_torch.data.prefetch import PrefetchingLoader
+    from pafuse_tpu_torch.data.sampling import ChunkedSampler
+    from pafuse_tpu_torch.diffusion import D3DPConfig
+
+    cfg = D3DPConfig(depth=depth, drop_path_rate=0.1)
+    loader, sampler = _synthetic_batches(seed, seqs, cfg.frames)
+    h3wb = run_trainer(seed, device, cfg, loader, sampler, seqs, steps,
+                       weights=tr.mixste_weight_table(cfg.num_kps),
+                       phase="bf16_train", compute_dtype="bfloat16")
+    cfg3 = D3DPConfig(num_kps=sk.NUM_JOINTS_3DHP, cs=DHP3_CS, depth=depth,
+                      part_based=False, mm_scale=True, drop_path_rate=0.1)
+    train, _ = dhp3.make_synthetic(num_train_seqs=DHP3_TRAIN_SEQS,
+                                   frames=DHP3_FRAMES, seed=seed)
+    sampler3 = ChunkedSampler(seqs, None, *dhp3.train_arrays(train),
+                              cfg3.frames, augment=True,
+                              flip_permutation=sk.FLIP_PERMUTATION_3DHP)
+    dhp3_launches = run_trainer(
+        seed, device, cfg3, PrefetchingLoader(sampler3, depth=2), sampler3,
+        seqs, steps, part_based=False,
+        flip_permutation=sk.FLIP_PERMUTATION_3DHP, phase="bf16_dhp3_train",
+        compute_dtype="bfloat16", profile=False)
+    return {"h3wb": h3wb, "dhp3": dhp3_launches}
+
+
+def autodiff_train_phase(seed: int, device: str = "cuda", depth: int = 8,
+                         seqs: int = TRAIN_SEQS, timed: int = 3):
+    """gpu.train_kernel=false on the H3WB model at full width (depth 8, 37
+    sequences, synthetic H3WB through the sampler): one step from equal
+    params, t, noise and stochastic-depth masks (drawn at each block's
+    rate) on the autodiff path and on kernels #5/#6, in float32 (loss and
+    gradients within the train bounds) and in bfloat16 (within the
+    bfloat16 ones; the kernel path's distance from float32 beside), each
+    path's ms/step (median of ``timed`` more steps) and peak memory, no
+    launch of #5/#6 on the autodiff path; gpu.remat=true: the same loss and
+    gradients bit for bit, its peak memory beside; model.dropout=0.1: the
+    loss falls on one repeated batch and two runs from one seed are
+    bit-identical.  Returns {run: launches of #5/#6} of the kernel runs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.models.mixste import branch_masks
+    from pafuse_tpu_torch.utils.device import sync
+
+    dev = torch.device(device)
+    lr = 6e-5
+    cfg = D3DPConfig(depth=depth, drop_path_rate=0.1)
+    loader, _ = _synthetic_batches(seed, seqs, cfg.frames)
+    _, b3d, b2d = next(iter(loader.next_epoch()))
+    b2d, _ = tr.pad_batch(b2d, seqs)
+    b3d, _ = tr.pad_batch(b3d, seqs)
+    weights = tr.mixste_weight_table(cfg.num_kps)
+    g = torch.Generator().manual_seed(seed + 2)
+    t = torch.randint(0, cfg.timesteps, (seqs,), generator=g).to(dev)
+    noise = torch.randn(b3d.shape, generator=g).to(dev)
+    rates = np.repeat(np.linspace(0.0, cfg.drop_path_rate, depth), 2)
+
+    def fresh(**kw):
+        model = D3DP(dataclasses.replace(cfg, **kw.pop("cfg", {})),
+                     device=dev, generator=torch.Generator().manual_seed(seed),
+                     **kw)
+        state = tr.create_train_state(model, seed=seed, device=dev)
+        return model, state, tr.build_train_step(model, state.optimizer,
+                                                 weights=weights)
+
+    masks = {s.name: [tuple(m.to(dev) for m in branch_masks(
+        float(r), seqs, "cpu", g)) for r in rates]
+        for s in fresh()[0].pose_estimator.specs}
+    draws = dict(t=t, noise=noise, masks=masks)
+
+    def one(**kw):
+        """One step from the seeded params with ``draws``: loss, grads,
+        launches, peak memory, then ms/step of ``timed`` more steps."""
+        model, state, step = fresh(**kw)
+        _reset_launches()
+        _reset_peak(dev)
+        loss = float(step(state, lr, b2d, b3d, **draws))
+        launches = _launch_counts()
+        peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                if dev.type == "cuda" else None)
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        times = []
+        for _ in range(timed):
+            sync(dev)
+            t0 = time.time()
+            float(step(state, lr, b2d, b3d, **draws))
+            times.append(time.time() - t0)
+        path = model.train_path
+        del model, state, step
+        return {"loss": loss, "grads": grads, "path": path,
+                "launches": {k: launches[k] for k in ("block_train_fwd",
+                                                      "block_train_bwd")},
+                "peak_gb": peak,
+                "ms_per_step": sorted(times)[len(times) // 2] * 1e3}
+
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        for kernel in ("true", "false"):
+            runs[f"{dtype}_{kernel}"] = one(compute_dtype=dtype,
+                                            train_kernel=kernel)
+    runs["float32_false_remat"] = one(train_kernel="false", remat=True)
+    per_step = 2 * 3 * depth if dev.type == "cuda" else 0
+    for name, r in runs.items():
+        want = per_step if name.endswith("_true") else 0
+        if r["launches"] != {"block_train_fwd": want, "block_train_bwd": want}:
+            raise AssertionError(f"autodiff_train {name}: launches "
+                                 f"{r['launches']}")
+        if r["path"] != ("kernels" if name.endswith("_true") else "autodiff"):
+            raise AssertionError(f"autodiff_train {name}: path {r['path']}")
+
+    def diff(a, b):
+        return {"loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "max_rel_grad_err": max(_rel_err(a["grads"][n], b["grads"][n])
+                                        for n in b["grads"])}
+
+    f32 = diff(runs["float32_false"], runs["float32_true"])
+    bf16 = diff(runs["bfloat16_false"], runs["bfloat16_true"])
+    noise_bf16 = diff(runs["bfloat16_true"], runs["float32_true"])
+    remat = runs["float32_false_remat"]
+    remat_same = (remat["loss"] == runs["float32_false"]["loss"] and all(
+        torch.equal(remat["grads"][n], v)
+        for n, v in runs["float32_false"]["grads"].items()))
+    emit({"phase": "autodiff_train", "seqs_per_step": seqs, "depth": depth,
+          **{f"{k}_{f}": v[f] for k, v in runs.items()
+             for f in ("loss", "ms_per_step", "peak_gb")},
+          "frames_per_s": {k: seqs * cfg.frames / (v["ms_per_step"] / 1e3)
+                           for k, v in runs.items()},
+          "float32_vs_kernels": f32, "bfloat16_vs_kernels": bf16,
+          "bfloat16_kernels_vs_float32": noise_bf16,
+          "remat_bit_identical": remat_same,
+          "tol": {"float32": [TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL],
+                  "bfloat16": [BF16_TRAIN_LOSS_RTOL, BF16_TRAIN_GRAD_RTOL]}})
+    if not (f32["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and f32["max_rel_grad_err"] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"autodiff_train: float32 autodiff vs kernels "
+                             f"{f32}")
+    if not (bf16["loss_rel_err"] <= BF16_TRAIN_LOSS_RTOL
+            and bf16["max_rel_grad_err"] <= BF16_TRAIN_GRAD_RTOL):
+        raise AssertionError(f"autodiff_train: bfloat16 autodiff vs kernels "
+                             f"{bf16}")
+    if not remat_same:
+        raise AssertionError("autodiff_train: remat changed the gradients")
+    del runs
+
+    # dropout: the loss falls on one repeated batch (dropout masks drawn
+    # anew each step), and two runs from one seed are bit-identical
+    drop = {"cfg": {"dropout": DROPOUT}}
+    model, state, step = fresh(**drop)
+    fit = [float(step(state, 1e-3, b2d, b3d, **draws))
+           for _ in range(OVERFIT_STEPS)]
+    path = model.train_path
+    del model, state, step
+    repeat = []
+    for _ in range(2):
+        model, state, step = fresh(**drop)
+        repeat.append(([float(step(state, lr, b2d, b3d)) for _ in range(2)],
+                       [p.detach().clone() for p in model.parameters()]))
+        del model, state, step
+    same = repeat[0][0] == repeat[1][0] and all(
+        torch.equal(a, b) for a, b in zip(repeat[0][1], repeat[1][1]))
+    emit({"phase": "autodiff_train_dropout", "dropout": DROPOUT,
+          "path": path, "lr": 1e-3, "losses": fit,
+          "repeat_losses": [r[0] for r in repeat], "bit_identical": same})
+    if path != "autodiff" or not np.mean(fit[-4:]) < fit[0] or not same:
+        raise AssertionError(f"autodiff_train: dropout path {path}, losses "
+                             f"{fit}, bit-identical {same}")
+    del repeat
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mono134_train_phase(seed: int, device: str = "cuda", depth: int = 8,
+                        seqs: int = TRAIN_SEQS, steps: int = TRAIN_STEPS):
+    """The monolithic 134-joint H3WB model (general.part_based_model=false,
+    model.cs 288, 8 heads of 36) trained on kernels #5/#6 through
+    run_trainer's checks on synthetic H3WB, 37 sequences a step, the loss
+    centred at the root as the CLI does.  Returns the main-path launches."""
+    from pafuse_tpu_torch.diffusion import D3DPConfig
+
+    cfg = D3DPConfig(depth=depth, part_based=False, cs=MONO_CS,
+                     drop_path_rate=0.1)
+    loader, sampler = _synthetic_batches(seed, seqs, cfg.frames)
+    return run_trainer(seed, device, cfg, loader, sampler, seqs, steps,
+                       part_based=False, phase="mono134_train", profile=False)
+
+
 def _sums(cases):
     """Float32 numbers of ``cases`` summed (max_abs_err: the largest)."""
     f32 = [c for c in cases if c["dtype"] == "float32"]
@@ -2546,6 +3195,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0,
           "libraries": sorted(libs)})
 
+    # wall seconds of the phases from 3DHP on
+    def timed(name, fn, *a, **kw):
+        t0 = time.time()
+        out = fn(*a, **kw)
+        emit({"phase": f"{name}_seconds", "seconds": time.time() - t0})
+        return out
+
     gemm_cases = (gemm_kernel_phase(args.seed, 16, P=10, frames=27,
                                     shapes="serve")
                   + gemm_kernel_phase(args.seed, EVAL_WINDOWS, P=10,
@@ -2563,6 +3219,8 @@ def main() -> int:
     launches += serve_stream_phase(modes, args.seed)
     launches += serve_http_phase(args.seed)
     launches += serve_profile_phase(svc, modes, args.seed)
+    bf16_serve_launches = timed("bf16_serve", bf16_serve_phase, args.seed,
+                                svc)
     svc.close()
     modes.close()
     del svc, modes
@@ -2605,13 +3263,7 @@ def main() -> int:
     exp_launches = eval_experimental_phase(args.seed, workdir)
 
     # the 3DHP model (one network: 17 joints, model.cs 288, d = 36), the
-    # in-the-wild and the draw paths; each phase's wall seconds
-    def timed(name, fn, *a, **kw):
-        t0 = time.time()
-        out = fn(*a, **kw)
-        emit({"phase": f"{name}_seconds", "seconds": time.time() - t0})
-        return out
-
+    # in-the-wild and the draw paths
     def dhp3_kernels():
         parts = [("whole_body", 17, DHP3_CS)]
         blocks = [c for w in (DHP3_EVAL_WINDOWS, 38, 16) for c in kernel_phase(
@@ -2637,7 +3289,22 @@ def main() -> int:
     dhp3_launches = timed("dhp3_eval", dhp3_eval_phase, args.seed, workdir)
     itw_launches = timed("in_the_wild", in_the_wild_phase, args.seed, workdir)
     draw_launches = timed("draw", draw_phase, args.seed)
+    # bfloat16 model compute, the autodiff path, the monolithic 134-joint
+    # model in training
+    bf16_eval_launches = timed("bf16_eval", bf16_eval_phase, args.seed,
+                               workdir)
     shutil.rmtree(workdir, ignore_errors=True)
+    bf16_train_launches = timed("bf16_train", bf16_train_phase, args.seed)
+    timed("autodiff_train", autodiff_train_phase, args.seed)
+    mono_cases = timed("mono134_kernel", train_kernel_phase, args.seed,
+                       TRAIN_SEQS, frames=27,
+                       parts=[("whole_body", 134, MONO_CS)],
+                       phase="mono134_kernel")
+    bad = [c for c in mono_cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"a training kernel disagrees with its plain "
+                             f"version at the monolithic shapes: {bad}")
+    mono_launches = timed("mono134_train", mono134_train_phase, args.seed)
 
     def bf16(cs):
         cs = [c for c in cs if c["dtype"] == "bfloat16"]
@@ -2659,8 +3326,15 @@ def main() -> int:
     def tpe(cs, with_tpe):
         return [c for c in cs if c["tpe"] == with_tpe]
 
+    def mono134(name, launches):
+        cs = [c for c in mono_cases if c["name"] == name]
+        return {"mono134": {**_sums(cs), **bf16(cs), "launches": launches,
+                            "shapes": sorted({f'({c["B"]}, {c["L"]}, '
+                                              f'{c["C"]})' for c in cs})}}
+
     fwd = [c for c in train_cases if c["name"] == "block_train_fwd"]
     bwd = [c for c in train_cases if c["name"] == "block_train_bwd"]
+    bf16_train = {f"bf16_{k}": v for k, v in bf16_train_launches.items()}
     dhp3_fwd = [c for c in dhp3_train if c["name"] == "block_train_fwd"]
     dhp3_bwd = [c for c in dhp3_train if c["name"] == "block_train_bwd"]
     cli_launches = {run: dhp3_launches[run] for run in ("cli_train",
@@ -2678,7 +3352,13 @@ def main() -> int:
                               dhp3_launches["auto"]["fused_block"],
                           "in_the_wild": itw_launches["fused_block"],
                           "draw": draw_launches["fused_block"]},
-                          windows=DHP3_EVAL_WINDOWS)),
+                          windows=DHP3_EVAL_WINDOWS),
+                      bf16_launches={
+                          "bf16_serve": bf16_serve_launches,
+                          "bf16_eval_auto": bf16_eval_launches[
+                              "bfloat16_auto"]["fused_block"],
+                          "bf16_evaluate_3dhp": bf16_eval_launches[
+                              "dhp3_bfloat16_auto"]["fused_block"]}),
         # with its four GEMMs alone (wgmma) and cuBLAS's F.linear's
         _kernel_entry("block_train_fwd", "cuda", TRAIN_SOURCE,
                       TRAIN_REPLACES["block_train_fwd"], train_launches[0],
@@ -2687,19 +3367,23 @@ def main() -> int:
                       **_dhp3(dhp3_fwd, {
                           "dhp3_train": dhp3_train_launches[0],
                           "dhp3_cli": cli_launches["cli_train"][
-                              "block_train_fwd"]})),
+                              "block_train_fwd"]}),
+                      **mono134("block_train_fwd", mono_launches[0]),
+                      bf16_launches={k: v[0] for k, v in bf16_train.items()}),
         # with its GEMMs alone: data gradients (wgmma) and weight
         # gradients (mma.sync), and cuBLAS's for the same products
         _kernel_entry("block_train_bwd", "cuda", TRAIN_SOURCE,
                       TRAIN_REPLACES["block_train_bwd"], train_launches[1],
                       bwd, max_rel_grad_err=max(
-                          c["max_rel_grad_err"] for c in bwd),
+                          c["max_rel_grad_err"] for c in bwd), **bf16(bwd),
                       **f32_sums(bwd, ("dgrad_ms", "dgrad_library_ms",
                                        "wgrad_ms", "wgrad_library_ms")),
                       **_dhp3(dhp3_bwd, {
                           "dhp3_train": dhp3_train_launches[1],
                           "dhp3_cli": cli_launches["cli_train"][
-                              "block_train_bwd"]})),
+                              "block_train_bwd"]}),
+                      **mono134("block_train_bwd", mono_launches[1]),
+                      bf16_launches={k: v[1] for k, v in bf16_train.items()}),
         # eval shapes (window batch 64); the serve bucket-16 shapes beside;
         # its two GEMMs alone and F.linear's
         _kernel_entry("fused_attention", "cuda", ATTN_SOURCE, ATTN_REPLACES,
@@ -2708,7 +3392,9 @@ def main() -> int:
                       **f32_sums(attn_cases, ("gemm_ms", "gemm_library_ms")),
                       **_dhp3(dhp3_attn, {
                           "dhp3_evaluate_true":
-                              dhp3_launches["true"]["fused_attention"]})),
+                              dhp3_launches["true"]["fused_attention"]}),
+                      bf16_launches={"bf16_eval_true": bf16_eval_launches[
+                          "bfloat16_true"]["fused_attention"]}),
         # eval shapes, the serve bucket-16 shapes beside; replaced_ms is the
         # path each kernel replaces (kernel #1 and the transposes)
         _kernel_entry("fused_block_temporal", "cuda", BT_SOURCE, BT_REPLACES,

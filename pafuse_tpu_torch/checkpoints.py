@@ -16,9 +16,14 @@ become ``time_mlp.1/3`` and ``head.norm/fc`` become ``head.0/1``.
 :func:`save_state` writes ``{folder}/{tag}.npz`` in the layout of the JAX
 ``save_state``: ``params/...`` in the JAX tree layout (so the JAX
 ``load_state`` reads the port's weights), ``__meta__`` (epoch, lr, extra as
-JSON) and ``__random_state__`` (the sampler's pickled NumPy RandomState),
-plus the port's own ``opt/{parameter}/{exp_avg,exp_avg_sq,step}`` (torch
-AdamW state) and ``__torch_rng__`` (the training generator's state).
+JSON), ``__random_state__`` (the sampler's pickled NumPy RandomState), the
+AdamW state under ``opt/`` in the layout of the JAX ``make_optimizer()``
+state (:func:`opt_state_to_jax`), which the JAX ``load_state`` restores
+into its optax template, and the port's own ``__torch_rng__`` (the training
+generator's state).  :func:`load_state` reads that layout, from either
+package, into ``torch.optim.AdamW`` (:func:`opt_state_from_jax`), and also
+the ``opt/{parameter}/{exp_avg,exp_avg_sq,step}`` entries of older port
+files.
 """
 
 from __future__ import annotations
@@ -132,6 +137,94 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return _state_dict(_flatten(tree))
 
 
+# The optax state of the JAX ``make_optimizer()``
+# (``inject_hyperparams(adamw)``), flattened as the JAX ``save_state`` writes
+# it: ``0`` the step count, ``1/{b1,b2,eps,eps_root,learning_rate,
+# weight_decay}`` the hyperparameters, ``3/0/0`` Adam's step count and
+# ``3/0/1/<params path>``, ``3/0/2/<params path>`` its first and second
+# moments (mu, nu) in the JAX parameter layout.
+_ADAM_COUNT, _MU, _NU = "3/0/0", "3/0/1/", "3/0/2/"
+
+
+def opt_state_to_jax(model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer) -> list:
+    """The AdamW state of ``optimizer`` over ``model``'s parameters (a D3DP,
+    PartModel or MixSTE2) as the JAX ``make_optimizer()`` state tree: its
+    namedtuple fields as a list (count, hyperparams, hyperparams_states,
+    inner_state), moments in the JAX parameter layout (Linear weights
+    transposed), counts int32, hyperparameters float32 scalars with the
+    optimizer's current lr.  A parameter the optimizer has not stepped
+    has zero moments."""
+    net = _part_model(model)
+    group = optimizer.param_groups[0]
+    moments, steps = ({}, {}), set()
+    for name, p in net.named_parameters():
+        st = optimizer.state.get(p, {})
+        steps.add(int(torch.as_tensor(st.get("step", 0)).item()))
+        for out, key in zip(moments, ("exp_avg", "exp_avg_sq")):
+            out[name] = st[key] if key in st else torch.zeros_like(p)
+    if len(steps) > 1:
+        raise ValueError(f"opt_state_to_jax: parameters at different step "
+                         f"counts {sorted(steps)}; optax keeps one count")
+    count = np.int32(steps.pop() if steps else 0)
+    f32 = np.float32
+    hyper = {"b1": f32(group["betas"][0]), "b2": f32(group["betas"][1]),
+             "eps": f32(group["eps"]), "eps_root": f32(0.0),
+             "learning_rate": f32(group["lr"]),
+             "weight_decay": f32(group["weight_decay"])}
+    mu, nu = (params_to_jax(m) for m in moments)
+    return [count, hyper, {}, [[count, mu, nu]]]
+
+
+def opt_state_from_jax(tree: Any) -> Dict[str, Dict[str, torch.Tensor]]:
+    """AdamW state per port parameter name, {name: {"step", "exp_avg",
+    "exp_avg_sq"}}, from a JAX ``make_optimizer()`` state (the optax tree,
+    or the flat ``opt/`` entries of a ``save_state`` npz without the
+    prefix): mu -> exp_avg, nu -> exp_avg_sq with kernels transposed as
+    :func:`params_from_jax` does, Adam's count -> step."""
+    flat = _flatten(tree)
+    if _ADAM_COUNT not in flat:
+        raise ValueError(f"no optax Adam count ({_ADAM_COUNT}) among the "
+                         f"optimizer entries {sorted(flat)[:4]}")
+    step = torch.tensor(float(np.asarray(flat[_ADAM_COUNT])))
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for prefix, key in ((_MU, "exp_avg"), (_NU, "exp_avg_sq")):
+        for name, value in _state_dict({k[len(prefix):]: v for k, v in
+                                        flat.items()
+                                        if k.startswith(prefix)}).items():
+            out.setdefault(name, {"step": step.clone()})[key] = value
+    return out
+
+
+def _opt_state(flat: Dict[str, np.ndarray], names: Sequence[str]
+               ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The AdamW state per parameter name from a file's ``opt/`` entries
+    (prefix removed): the optax layout, or the ``{name}/{key}`` entries of
+    older port files.  An entry that maps to no parameter of ``names``, or
+    a parameter without its full state, raises."""
+    if _ADAM_COUNT in flat:
+        state = opt_state_from_jax(flat)
+        stray = [k for k in flat if k not in ("0", _ADAM_COUNT)
+                 and not k.startswith(("1/", _MU, _NU))]
+    else:
+        state, stray = {}, []
+        for k, v in flat.items():
+            name, _, key = k.rpartition("/")
+            if key in ("exp_avg", "exp_avg_sq", "step"):
+                state.setdefault(name, {})[key] = torch.from_numpy(v.copy())
+            else:
+                stray.append(k)
+    stray += sorted(set(state) - set(names))
+    if stray:
+        raise ValueError(f"optimizer entries that map to no parameter: "
+                         f"{stray[:4]}")
+    partial = [n for n in names
+               if set(state.get(n, {})) != {"step", "exp_avg", "exp_avg_sq"}]
+    if partial:
+        raise ValueError(f"no full AdamW state for {partial[:4]}")
+    return state
+
+
 def load_state_npz(path: str) -> Dict[str, torch.Tensor]:
     """State dict from the ``params/...`` entries of a JAX ``save_state``
     npz, read with NumPy alone."""
@@ -224,12 +317,8 @@ def save_state(folder: str, tag: str, *, model: torch.nn.Module,
     arrays = {f"params/{k}": v for k, v in _flatten(
         params_to_jax(net.state_dict())).items()}
     if optimizer is not None:
-        names = {id(p): n for n, p in net.named_parameters()}
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                for k, v in optimizer.state.get(p, {}).items():
-                    arrays[f"opt/{names[id(p)]}/{k}"] = (
-                        torch.as_tensor(v).detach().cpu().numpy())
+        arrays.update({f"opt/{k}": v for k, v in _flatten(
+            opt_state_to_jax(net, optimizer)).items()})
     meta = {"epoch": int(epoch), "lr": float(lr), "extra": extra or {}}
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     if random_state is not None:
@@ -246,11 +335,12 @@ def save_state(folder: str, tag: str, *, model: torch.nn.Module,
 def load_state(path: str, model: Optional[torch.nn.Module] = None,
                optimizer: Optional[torch.optim.Optimizer] = None,
                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-    """Restore a :func:`save_state` checkpoint (or a JAX one, for the
-    params): loads the params into ``model`` (strict), the AdamW state into
-    ``optimizer`` and the generator state into ``generator`` when given and
-    the file has them (a JAX checkpoint holds neither).  Returns {"params",
-    "epoch", "lr", "extra"} and "random_state" when the file has one."""
+    """Restore a :func:`save_state` checkpoint of either package: loads the
+    params into ``model`` (strict), the AdamW state into ``optimizer``
+    (:func:`_opt_state`; the lr set to the file's) and the generator state
+    into ``generator`` when given and the file has them (a JAX checkpoint
+    has no generator state).  Returns {"params", "epoch", "lr", "extra"}
+    and "random_state" when the file has one."""
     out: Dict[str, Any] = {"params": load_state_npz(path)}
     with np.load(path, allow_pickle=False) as raw:
         out.update(json.loads(bytes(raw["__meta__"]).decode()))
@@ -263,16 +353,15 @@ def load_state(path: str, model: Optional[torch.nn.Module] = None,
     if model is not None:
         _part_model(model).load_state_dict(out["params"], strict=True)
     if optimizer is not None:
-        names = {id(p): n for n, p in _part_model(model).named_parameters()}
-        sd = optimizer.state_dict()
-        params = [p for g in optimizer.param_groups for p in g["params"]]
-        for i, p in enumerate(params):
-            prefix = f"{names[id(p)]}/"
-            state = {k[len(prefix):]: torch.from_numpy(v.copy())
-                     for k, v in opt.items() if k.startswith(prefix)}
-            if state:
-                sd["state"][i] = state
-        optimizer.load_state_dict(sd)
+        if opt:
+            names = {id(p): n
+                     for n, p in _part_model(model).named_parameters()}
+            state = _opt_state(opt, list(names.values()))
+            sd = optimizer.state_dict()
+            params = [p for g in optimizer.param_groups for p in g["params"]]
+            for i, p in enumerate(params):
+                sd["state"][i] = state[names[id(p)]]
+            optimizer.load_state_dict(sd)
         for g in optimizer.param_groups:
             g["lr"] = out["lr"]
     return out

@@ -7,9 +7,10 @@ Counterpart of ``pafuse_tpu/cli/main_3dhp.py``: the monolithic MixSTE2
 denoiser (``model.cs`` channels) on 17 joints, in metres inside the model
 and millimetres outside (``mm_scale``), evaluated with the per-frame
 validity masks of the test set (``losses.mpjpe_diffusion_3dhp``).  Without
-``general.evaluate`` it trains ``model.epochs`` epochs (AdamW, the training
-block kernels), evaluating at P=1, T=1 after each and saving ``epoch_N``
-every ``general.checkpoint_frequency`` epochs; then it evaluates at the
+``general.evaluate`` it trains ``model.epochs`` epochs (AdamW, on the
+training path of ``cli.main_h3wb.make_d3dp``), evaluating at P=1, T=1 after
+each and saving ``epoch_N`` every ``general.checkpoint_frequency`` epochs;
+then it evaluates at the
 config's P and T and appends the report to
 ``{general.checkpoint}/3dhp_test_log_H{P}_K{T}.txt`` (default directory
 ``checkpoint_3dhp``).  ``general.resume`` / ``general.evaluate`` load a
@@ -214,10 +215,12 @@ def _train(args, model, state, epoch, lr, resume_ckpt, train_data, test_data):
     """Epochs of training, each followed by an evaluation at P=1, T=1 and
     its log line; returns (epoch, lr)."""
     from pafuse_tpu_torch import checkpoints, skeleton as sk, train as tr
+    from pafuse_tpu_torch.cli.main_h3wb import training_path_line
     from pafuse_tpu_torch.data import dhp3
     from pafuse_tpu_torch.data.prefetch import PrefetchingLoader
     from pafuse_tpu_torch.data.sampling import ChunkedSampler
 
+    print(training_path_line(args, model))
     p3, p2 = dhp3.train_arrays(train_data)
     seqs_per_batch = max(1, args.model.batch_size
                          // args.model.number_of_frames)

@@ -65,27 +65,37 @@ def build_model(args, device, flip_permutation=None):
 def make_d3dp(args, cfg, device, flip_permutation=None):
     """``D3DP(cfg)`` under the config's ``gpu`` keys: the evaluation
     functions of ``gpu.use_pallas`` behind the ``gpu.experimental_kernels``
-    gate (read per build, as the JAX CLI does), weights from ``gpu.seed``;
-    ``gpu.compute_dtype`` and ``gpu.train_kernel`` values whose path is not
-    ported raise."""
+    gate (read per build, as the JAX CLI does), the activations' dtype of
+    ``gpu.compute_dtype``, the training path of ``gpu.train_kernel`` (and
+    of ``model.dropout``) with ``gpu.remat``, weights from ``gpu.seed``."""
     import torch
     from pafuse_tpu_torch.diffusion import D3DP
 
-    if args.gpu.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"gpu.compute_dtype={args.gpu.compute_dtype}: only float32 is "
-            "ported (ROADMAP.md)")
-    if str(args.gpu.train_kernel).lower() not in ("auto", "true"):
-        raise NotImplementedError(
-            f"gpu.train_kernel={args.gpu.train_kernel}: training runs the "
-            "training block kernels (auto | true); the autodiff path is not "
-            "ported (ROADMAP.md)")
     return D3DP(cfg, device=device,
                 generator=torch.Generator().manual_seed(int(args.gpu.seed)),
                 use_pallas=args.gpu.use_pallas,
-                experimental_kernels=str(args.gpu.experimental_kernels).lower()
-                in ("true", "1", "on", "yes"),
-                flip_permutation=flip_permutation)
+                experimental_kernels=_on(args.gpu.experimental_kernels),
+                flip_permutation=flip_permutation,
+                compute_dtype=args.gpu.compute_dtype,
+                train_kernel=args.gpu.train_kernel,
+                remat=_on(args.gpu.remat))
+
+
+def _on(value) -> bool:
+    return str(value).lower() in ("true", "1", "on", "yes")
+
+
+def training_path_line(args, model) -> str:
+    """The log line that names the training path the model takes."""
+    if model.train_path == "kernels":
+        path, why = "kernels #5/#6", f"gpu.train_kernel={args.gpu.train_kernel}"
+    else:
+        path = "autodiff" + (", remat" if _on(args.gpu.remat) else "")
+        why = (f"model.dropout={args.model.dropout}: the training kernels "
+               "have no dropout" if float(args.model.dropout) > 0
+               else f"gpu.train_kernel={args.gpu.train_kernel}")
+    return (f"INFO: Training path: {path} ({why}); compute dtype "
+            f"{args.gpu.compute_dtype}")
 
 
 def collect_actions(dataset, subjects_test):
@@ -298,6 +308,7 @@ def _train(args, model, state, epoch, lr, resume_ckpt, dataset, keypoints,
     if resume_ckpt is not None and "random_state" in resume_ckpt:
         train_gen.set_random_state(resume_ckpt["random_state"])
 
+    print(training_path_line(args, model))
     weights = (tr.mixste_weight_table(args.data.num_kps)
                if args.model.weighted_loss else None)
     step_fn = tr.build_train_step(

@@ -120,10 +120,15 @@ DEFAULTS: Dict[str, Dict[str, Any]] = {
         "use_pallas": "auto",
         "experimental_kernels": False,  # unlock the JAX package's retained
                                         # negative-result A/B paths
-        # parse-compatible keys of the JAX config: a user's override carries
-        # over, and the values whose path is not ported raise in build_model
-        "train_kernel": "auto",         # auto | true: kernels #5/#6
-        "compute_dtype": "float32",     # float32 (bfloat16 not ported)
+        # auto | true: training on kernels #5/#6; false: the autodiff path
+        # (any model.dropout > 0 takes it too: the kernels have no dropout)
+        "train_kernel": "auto",
+        # float32 | bfloat16: the denoiser's activations (float32 stays the
+        # default for parity-grade evaluation; parameters, the loss, the
+        # optimizer and the sampler stay float32)
+        "compute_dtype": "float32",
+        "remat": False,                 # recompute each layer in the
+                                        # backward of the autodiff path
         "seed": 1,
     },
 }

@@ -96,7 +96,7 @@ class D3DPConfig:
     part_based: bool = True
     merge_hands: bool = True
     drop_path_rate: float = 0.0     # 0.1 for training
-    dropout: float = 0.0            # training with dropout > 0 is not ported
+    dropout: float = 0.0            # MLP/proj/pos dropout in training
     attn_dropout: float = 0.0
     test_time_augmentation: bool = True
     mm_scale: bool = False          # 3DHP variant: model works in mm / 1000
@@ -110,14 +110,20 @@ class D3DP(nn.Module):
     starts in eval mode; :meth:`train_forward` needs ``.train()``.
     ``use_pallas`` and ``experimental_kernels`` select the eval-mode
     functions of every part network (``models.mixste.MixSTE2.
-    set_use_pallas``); training always runs the training block kernels.
-    ``flip_permutation`` is the flip-TTA joint table; without one, the 134-
-    and 133-joint H3WB tables are known and any other joint count raises."""
+    set_use_pallas``), ``train_kernel`` the training path (kernels #5/#6,
+    or the autodiff path, which dropout also takes; ``MixSTE2.train_path``)
+    and ``remat`` its recomputation; ``compute_dtype`` (float32 or
+    bfloat16) is the denoiser's activation dtype, while the noising, the
+    sampler and the model's output stay float32.  ``flip_permutation`` is
+    the flip-TTA joint table; without one, the 134- and 133-joint H3WB
+    tables are known and any other joint count raises."""
 
     def __init__(self, cfg: D3DPConfig, device="cuda",
                  generator: torch.Generator | None = None,
                  use_pallas="auto", experimental_kernels: bool = False,
-                 flip_permutation: Optional[np.ndarray] = None):
+                 flip_permutation: Optional[np.ndarray] = None,
+                 compute_dtype=torch.float32, train_kernel="auto",
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -151,7 +157,8 @@ class D3DP(nn.Module):
             specs = monolithic_spec(cfg.num_kps, cfg.frames, cfg.input_size,
                                     cfg.cs, cfg.depth, **rates)
         self.pose_estimator = PartModel(specs, self.device, generator,
-                                        use_pallas, experimental_kernels)
+                                        use_pallas, experimental_kernels,
+                                        compute_dtype, train_kernel, remat)
         for name in ("sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod"):
             self.register_buffer(f"_{name}", torch.as_tensor(
                 getattr(self.schedule, name), device=self.device),
@@ -187,16 +194,25 @@ class D3DP(nn.Module):
         x = self.q_sample(x3d_gt * self.cfg.scale, t, noise)
         return self._clamp_scaled(x) / self.cfg.scale, noise, t
 
+    @property
+    def train_path(self) -> str:
+        """"kernels" or "autodiff": the training path of the part networks,
+        which share the config (``MixSTE2.train_path``)."""
+        return next(iter(self.pose_estimator.values())).train_path
+
     def train_forward(self, x2d: torch.Tensor, x3d_gt: torch.Tensor, *,
                       t: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
                       masks: Optional[Dict[str, Sequence]] = None,
+                      dropout_masks: Optional[Dict[str, dict]] = None,
                       generator: Optional[torch.Generator] = None
                       ) -> torch.Tensor:
         """Training pass: noise the ground truth, denoise it in train mode,
-        return the x0 prediction (B, F, N, 3).  ``t``, ``noise`` and the
-        stochastic-depth ``masks`` ({part: [(m1, m2), ...]}) may be
-        injected; the rest is drawn from ``generator``, in that order.  With
+        return the x0 prediction (B, F, N, 3).  ``t``, ``noise``, the
+        stochastic-depth ``masks`` ({part: [(m1, m2), ...]}) and the
+        ``dropout_masks`` ({part: ``models.mixste.draw_dropout_masks``'s
+        layout}) may be injected; the rest is drawn from ``generator``, in
+        that order.  With
         ``mm_scale`` the ground truth arrives in millimetres and the
         prediction is returned in millimetres."""
         if not self.training:
@@ -206,6 +222,7 @@ class D3DP(nn.Module):
             x3d_gt = x3d_gt / 1000.0
         x_t, _, t = self.prepare_targets(x3d_gt, t, noise, generator)
         pred = self.pose_estimator(x2d, x_t, t, masks=masks,
+                                   dropout_masks=dropout_masks,
                                    generator=generator)
         return pred * 1000.0 if self.cfg.mm_scale else pred
 

@@ -72,16 +72,20 @@ class PartModel(nn.ModuleDict):
     under ``pose_estimator.``.  Part networks draw their weights from
     ``generator`` in spec order; ``use_pallas`` and
     ``experimental_kernels`` select their eval-mode functions
-    (``MixSTE2.set_use_pallas``)."""
+    (``MixSTE2.set_use_pallas``), and ``compute_dtype``, ``train_kernel``
+    and ``remat`` reach every part network (``MixSTE2``)."""
 
     def __init__(self, specs: List[PartSpec], device="cuda",
                  generator: torch.Generator | None = None,
-                 use_pallas="auto", experimental_kernels: bool = False):
+                 use_pallas="auto", experimental_kernels: bool = False,
+                 compute_dtype=torch.float32, train_kernel="auto",
+                 remat: bool = False):
         dev = resolve_device(device)
         gen = generator if generator is not None else (
             torch.Generator().manual_seed(0))
         super().__init__({s.name: MixSTE2(s.config, dev, gen, use_pallas,
-                                          experimental_kernels)
+                                          experimental_kernels,
+                                          compute_dtype, train_kernel, remat)
                           for s in specs})
         self.specs = specs
         concat_order = np.concatenate([s.joint_indices for s in specs])
@@ -99,10 +103,12 @@ class PartModel(nn.ModuleDict):
 
     def forward(self, x2d: torch.Tensor, x3d: torch.Tensor, t: torch.Tensor,
                 masks: Optional[Dict[str, Sequence]] = None,
+                dropout_masks: Optional[Dict[str, dict]] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """In train mode, ``masks`` maps each part to its network's branch
-        masks (see :meth:`MixSTE2.forward`); parts without them draw their
-        own from ``generator``, in spec order."""
+        """In train mode, ``masks`` and ``dropout_masks`` map each part to
+        its network's branch and dropout masks (see
+        :meth:`MixSTE2.forward`); parts without them draw their own from
+        ``generator``, in spec order."""
         outs = []
         for s in self.specs:
             idx = getattr(self, f"_idx_{s.name}")
@@ -111,9 +117,11 @@ class PartModel(nn.ModuleDict):
                 part_masks = [tuple(torch.as_tensor(m, dtype=torch.float32,
                                                     device=x2d.device)
                                     for m in pair) for pair in masks[s.name]]
-            outs.append(self[s.name](x2d.index_select(-2, idx),
-                                     x3d.index_select(-2, idx), t,
-                                     masks=part_masks, generator=generator))
+            outs.append(self[s.name](
+                x2d.index_select(-2, idx), x3d.index_select(-2, idx), t,
+                masks=part_masks,
+                dropout_masks=(dropout_masks or {}).get(s.name),
+                generator=generator))
         merged = torch.cat(outs, dim=-2)
         if self._is_identity:
             return merged

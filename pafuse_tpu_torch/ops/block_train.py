@@ -484,3 +484,18 @@ def block_train_plain(x: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
     comparison path of checks on the card."""
     return BlockTrainFn.apply(x, m1, m2, num_heads, True, *params)
 
+
+
+def select_train_block_fn(train_kernel="auto"):
+    """The training block of ``gpu.train_kernel``, as the JAX package's
+    ``select_train_block_fn`` (``block_grad.py:442``): ``auto``/``true``
+    -> :func:`block_train` (kernels #5/#6; their plain versions on the
+    CPU); ``false`` -> None, the autodiff path of ``models.mixste``.  Any
+    other value raises."""
+    mode = str(train_kernel).lower()
+    if mode in ("auto", "true"):
+        return block_train
+    if mode == "false":
+        return None
+    raise ValueError(f"train_kernel={train_kernel!r}: expected auto, true "
+                     "or false")

@@ -2,11 +2,12 @@
 
 Counterpart of ``pafuse_tpu/train.py`` on one device.  A step centres the
 ground truth on the device (each part at its own root), noises it, denoises
-it in train mode (every block through ``ops.block_train``: kernels #5 and #6
-on the GPU), takes the MPJPE loss, backpropagates and applies one AdamW
-update.  Randomness of a step (the diffusion steps t, the noise and the
-stochastic-depth masks) comes from the state's ``torch.Generator``, or is
-injected.
+it in train mode (on the model's training path: every block through
+``ops.block_train``, kernels #5 and #6 on the GPU, or the autodiff path),
+takes the MPJPE loss, backpropagates and applies one AdamW update.
+Randomness of a step (the diffusion steps t, the noise, the
+stochastic-depth masks and the dropout masks) comes from the state's
+``torch.Generator``, or is injected.
 
 The optimizer is ``torch.optim.AdamW(weight_decay=0.1, betas=(0.9, 0.999),
 eps=1e-8)`` over all parameters: optax ``adamw`` has no mask, so LayerNorm
@@ -60,12 +61,15 @@ def build_train_step(model: D3DP, optimizer: torch.optim.Optimizer, *,
                      mse_loss: bool = False, wb_loss: bool = False,
                      part_based: bool = True) -> Callable[..., torch.Tensor]:
     """Returns ``step(state, lr, x2d, x3d, *, t=None, noise=None,
-    masks=None) -> loss``.
+    masks=None, dropout_masks=None) -> loss``.
 
     ``x3d`` is the raw camera-space ground truth (B, F, N, 3); it is centred
     on the device (per part, or at the root for a monolithic model).  ``t``,
-    ``noise`` and ``masks`` ({part: [(m1, m2) per block]}) may be injected;
-    what is not is drawn from ``state.generator``.  Model and optimizer are
+    ``noise``, ``masks`` ({part: [(m1, m2) per block]}) and
+    ``dropout_masks`` ({part: ``models.mixste.draw_dropout_masks``'s
+    layout}) may be injected; what is not is drawn from
+    ``state.generator``.  The loss is float32 whatever the model's compute
+    dtype; params, gradients and the AdamW state are float32.  Model and optimizer are
     updated in place; the loss comes back as a device scalar (reading it
     waits for the step)."""
     w = (torch.as_tensor(weights, dtype=torch.float32, device=model.device)
@@ -73,13 +77,15 @@ def build_train_step(model: D3DP, optimizer: torch.optim.Optimizer, *,
 
     def step(state: TrainState, lr: float, x2d, x3d, *,
              t=None, noise=None,
-             masks: Optional[Dict[str, Sequence]] = None) -> torch.Tensor:
+             masks: Optional[Dict[str, Sequence]] = None,
+             dropout_masks: Optional[Dict[str, dict]] = None) -> torch.Tensor:
         dev = model.device
         x2d = torch.as_tensor(x2d, dtype=torch.float32, device=dev)
         x3d = torch.as_tensor(x3d, dtype=torch.float32, device=dev)
         x3d_c = (geometry.center_pose_parts(x3d) if part_based
                  else geometry.center_pose_at_root(x3d))
         pred = model.train_forward(x2d, x3d_c, t=t, noise=noise, masks=masks,
+                                   dropout_masks=dropout_masks,
                                    generator=state.generator)
         target = x3d_c
         if part_based and wb_loss:

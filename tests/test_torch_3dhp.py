@@ -324,6 +324,27 @@ def test_cli_train_then_evaluate(tmp_path, monkeypatch):
         assert len(f.read().splitlines()) == 2 * len(lines)
 
 
+@pytest.mark.parametrize("overrides,path", [
+    (["gpu.compute_dtype=bfloat16"], "kernels #5/#6"),
+    (["gpu.train_kernel=false", "gpu.remat=true", "model.dropout=0.1",
+      "gpu.compute_dtype=bfloat16"], "autodiff, remat"),
+])
+def test_cli_training_paths_train_and_evaluate(tmp_path, monkeypatch, capsys,
+                                               overrides, path):
+    """bf16 compute, the autodiff path with remat and dropout through the
+    3DHP CLI: one quick-debug epoch (the log names the path), finite
+    metrics, the report and epoch_1."""
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / "ck")
+    out = main_3dhp.main(TINY + overrides + [
+        "gpu.device=cpu", f"general.checkpoint={ckpt}", "model.epochs=1",
+        "ft2d.debug=true", "general.checkpoint_frequency=1"])
+    assert f"INFO: Training path: {path} (" in capsys.readouterr().out
+    assert np.all(np.isfinite(out["P_Best"])) and out["windows"] == 9
+    assert os.path.exists(os.path.join(ckpt, "epoch_1.npz"))
+    assert os.path.exists(out["report"])
+
+
 def test_cli_evaluates_a_jax_exported_bin(tmp_path, monkeypatch):
     """A monolithic 17-joint reference ``.bin`` (JAX
     ``export_torch_state_dict(part_based=False)`` under ``module.``) loads
@@ -365,8 +386,17 @@ def test_build_model_3dhp_follows_the_gpu_rules():
             cfg.drop_path_rate) == (J, 32, False, True, 0.1)
     np.testing.assert_array_equal(model.flip_permutation,
                                   sk.FLIP_PERMUTATION_3DHP)
-    for bad in ("gpu.compute_dtype=bfloat16", "gpu.train_kernel=false"):
-        with pytest.raises(NotImplementedError):
+    assert model.train_path == "kernels"
+    model = main_3dhp.build_model_3dhp(tcfg.parse_cli(TINY + [
+        "gpu.compute_dtype=bfloat16", "gpu.train_kernel=false",
+        "gpu.remat=true"]), "cpu")
+    net = model.pose_estimator["whole_body"]
+    assert (net.compute_dtype, model.train_path, net.remat) == (
+        torch.bfloat16, "autodiff", True)
+    assert main_3dhp.build_model_3dhp(tcfg.parse_cli(
+        TINY + ["model.dropout=0.1"]), "cpu").train_path == "autodiff"
+    for bad in ("gpu.compute_dtype=float16", "gpu.train_kernel=maybe"):
+        with pytest.raises(ValueError):
             main_3dhp.build_model_3dhp(tcfg.parse_cli(TINY + [bad]), "cpu")
     with pytest.raises(ValueError, match="experimental"):
         main_3dhp.build_model_3dhp(

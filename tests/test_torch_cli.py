@@ -192,19 +192,59 @@ def test_logging_tee_is_restored(tmp_path, monkeypatch, capsys):
     ("ft2d.sampling_timestep=5", KeyError),        # a typo
     ("tpu.use_pallas=true", KeyError),            # the TPU group is gone
     ("gpu.mesh_shape=[-1]", KeyError),            # TPU-only keys are absent
-    ("gpu.remat=true", KeyError),
+    ("gpu.donate_buffers=true", KeyError),
     ("experiment.warmup=5", ValueError),
     ("model.diff_model=X", ValueError),
     ("gpu.use_pallas=block_t", ValueError),       # without the gate
     ("gpu.use_pallas=layer", ValueError),
-    ("gpu.compute_dtype=bfloat16", NotImplementedError),
-    ("gpu.train_kernel=false", NotImplementedError),
+    ("gpu.compute_dtype=float16", ValueError),
+    ("gpu.train_kernel=maybe", ValueError),
     ("mlflow.mlflow_on=true", NotImplementedError),
 ])
 def test_cli_rejects(tmp_path, monkeypatch, override, error):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(error):
         main_h3wb.main(TINY + [override, f"general.checkpoint={tmp_path}/ck"])
+
+
+@pytest.mark.parametrize("overrides,path", [
+    (["gpu.compute_dtype=bfloat16"], "kernels #5/#6"),
+    (["gpu.train_kernel=false"], "autodiff"),
+    (["model.dropout=0.1"], "autodiff"),
+    (["gpu.train_kernel=false", "gpu.remat=true",
+      "gpu.compute_dtype=bfloat16"], "autodiff, remat"),
+])
+def test_training_paths_train_and_evaluate(tmp_path, monkeypatch, capsys,
+                                           overrides, path):
+    """bf16 compute, the autodiff path, dropout and remat through the CLI:
+    one epoch of training (the log names the path), the per-epoch and the
+    final evaluation with finite metrics, the report and the checkpoint."""
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / "ckpt")
+    out = main_h3wb.main(TINY + overrides + [
+        "model.epochs=1", f"general.checkpoint={ckpt}",
+        "general.checkpoint_frequency=1"])
+    assert f"INFO: Training path: {path} (" in capsys.readouterr().out
+    assert all(np.all(np.isfinite(v)) for v in out["final"]["all"].values())
+    for name in ("epoch_1.npz", "training_log.txt", REPORT):
+        assert os.path.exists(os.path.join(ckpt, name)), name
+
+
+def test_bf16_evaluation_tracks_float32(tmp_path, monkeypatch):
+    """Evaluating one checkpoint at gpu.compute_dtype=bfloat16 gives metrics
+    near the float32 evaluation's (the same weights and noise; bf16 moves
+    these tiny-model metrics by well under 1%) but not equal to them."""
+    monkeypatch.chdir(tmp_path)
+    args = tcfg.load_config(overrides=TINY)
+    model = main_h3wb.build_model(args, "cpu")
+    checkpoints.save_state(str(tmp_path), "w", model=model)
+    run = TINY + [f"general.evaluate={tmp_path}/w.npz"]
+    f32 = main_h3wb.main(run + [f"general.checkpoint={tmp_path}/f32"])
+    bf16 = main_h3wb.main(run + ["gpu.compute_dtype=bfloat16",
+                                 f"general.checkpoint={tmp_path}/bf16"])
+    a, b = f32["final"]["all"]["P_Best"], bf16["final"]["all"]["P_Best"]
+    np.testing.assert_allclose(b, a, rtol=1e-2)
+    assert not np.array_equal(a, b)
 
 
 def test_experimental_modes_evaluate_as_the_plain_block(tmp_path, monkeypatch):
@@ -250,8 +290,10 @@ def test_defaults_match_the_jax_config():
     assert set(got) - set(want) == {"gpu"}
     assert set(want) - set(got) == {"tpu"}
     assert set(got["gpu"]) == {"device", "use_pallas", "experimental_kernels",
-                               "train_kernel", "compute_dtype", "seed"}
-    for key in ("use_pallas", "experimental_kernels"):
+                               "train_kernel", "compute_dtype", "remat",
+                               "seed"}
+    for key in ("use_pallas", "experimental_kernels", "train_kernel",
+                "compute_dtype", "remat", "seed"):
         assert got["gpu"][key] == want["tpu"][key], key
 
 

@@ -38,7 +38,15 @@ Bounds (those of chip_smoke.py; TF32 off on both sides):
   fwd_linear             1e-5 x max|plain| per output (the forward's GEMM
                          alone, the same arithmetic as data_grad; a
                          bfloat16 residual is exact in float32 on both
-                         sides).
+                         sides);
+  bfloat16 model         a bfloat16 model on the kernels against the same
+                         model on their plain versions: BF16_MODEL_TOL (max
+                         and mean), tests/test_torch_bf16.py's bounds for
+                         the plain versions against the JAX kernels; a
+                         bfloat16
+                         training step loss 1e-3 relative, gradients 5e-2 x
+                         max|plain gradient| (chip_smoke.py's bfloat16
+                         training bounds).
 """
 
 import numpy as np
@@ -131,7 +139,8 @@ def test_fused_block_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L, C):
 @pytest.mark.parametrize("B,L,C", [(64, 24, 384), (64, 27, 384),
                                    (64, 68, 224), (64, 27, 224),
                                    (64, 42, 256), (64, 27, 256),
-                                   (37, 17, 288), (37, 27, 288)])
+                                   (37, 17, 288), (37, 27, 288),
+                                   (16, 134, 288)])
 def test_block_train_kernels_match_plain_on_gpu(cuda_device, B, L, C):
     """Kernels #5 and #6 at each part's spatial and temporal (L, C)."""
     params = _params(C, seed=C + L, device=cuda_device)
@@ -579,3 +588,103 @@ def test_served_requests_run_kernel_1_on_gpu(cuda_device):
     finally:
         on.close()
         dev_mean.close()
+
+
+@pytest.mark.cuda
+def test_block_train_bf16_at_134_joints_on_gpu(cuda_device):
+    """Kernels #5/#6 on the monolithic 134-joint model's spatial shape
+    (L = 134, d = 36: the attention backward's largest shared-memory
+    footprint) with bfloat16 x and g."""
+    B, L, C = 16, 134, 288
+    params = _params(C, seed=7, device=cuda_device)
+    x, g, m1, m2 = _inputs(B, L, C, seed=3, device=cuda_device)
+    x, g = x.bfloat16(), g.bfloat16()
+    y, saved = block_train_fwd(x, m1, m2, params, HEADS)
+    dx, grads = block_train_bwd(saved, g)
+    torch.cuda.synchronize()
+    want = train_fwd_reference(x, m1, m2, params, HEADS)
+    assert (y.float() - want.float()).abs().max() <= 2.0 ** -5
+    want_dx, want_grads = train_bwd_reference(x, g, m1, m2, params, HEADS)
+    assert max(_rel_errs(grads, want_grads)) <= 1e-4
+    assert max(_rel_errs((dx.float(),), (want_dx.float(),))) <= 2.0 ** -7
+
+
+def _model_outputs(make, x2d, x3d, t, **swap):
+    """A depth-2 model's output with its blocks' functions swapped in."""
+    m = make()
+    for net in m.pose_estimator.values():
+        for k, v in swap.items():
+            setattr(net, k, v)
+    with torch.no_grad():
+        return m.pose_estimator(x2d, x3d, t).float().cpu().numpy()
+
+
+#: (max abs, mean abs) on outputs of ~1-3: tests/test_torch_bf16.py's
+#: bound at auto for the plain versions against the JAX kernels at depth 2
+#: (the same kind of difference: one set of bfloat16 rounding points,
+#: float32 sums in another order).  On the card #2's products run as
+#: three TF32 products in another order than cuBLAS's, so its output
+#: roundings flip as often as #1's.  Measured on the H100: auto, block_t
+#: and layer 1.14e-2 / 1.72e-3, true 7.8e-3 / 1.08e-3 (the CPU's JAX
+#: comparison gives true 3.4e-3 / 5.6e-5); the plain versions sit 1.8e-2 /
+#: 3.2e-3 from the float32 model.
+BF16_MODEL_TOL = (2e-2, 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", ["auto", "true", "block_t", "layer"])
+def test_bf16_model_on_kernels_matches_plain_on_gpu(cuda_device, use_pallas):
+    """The part router in bfloat16 at depth 2 on kernel #1 (auto), #2
+    (true), #1 and #3 (block_t) or #4 (layer) against the same model on
+    those kernels' plain versions, within BF16_MODEL_TOL."""
+    import functools
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.models.mixste import unfused_block
+    r = np.random.RandomState(0)
+    x2d, x3d = (torch.tensor(r.randn(4, 27, 134, c), dtype=torch.float32,
+                             device=cuda_device) for c in (2, 3))
+    t = torch.tensor([0, 10, 500, 999], device=cuda_device)
+
+    def make():
+        return D3DP(D3DPConfig(depth=2), device=cuda_device,
+                    generator=torch.Generator().manual_seed(0),
+                    use_pallas=use_pallas, experimental_kernels=True,
+                    compute_dtype="bfloat16")
+
+    plain = {"auto": {"block_fn": block_reference},
+             "true": {"block_fn": functools.partial(
+                 unfused_block, attention_fn=attention_reference)},
+             "block_t": {"block_fn": block_reference,
+                         "block_t_fn": block_temporal_reference},
+             "layer": {"layer_fn": layer_reference}}[use_pallas]
+    got = _model_outputs(make, x2d, x3d, t)
+    want = _model_outputs(make, x2d, x3d, t, **plain)
+    d = np.abs(got - want)
+    assert (d.max() <= BF16_MODEL_TOL[0]
+            and d.mean() <= BF16_MODEL_TOL[1]), (d.max(), d.mean())
+
+
+@pytest.mark.cuda
+def test_bf16_training_step_matches_plain_on_gpu(cuda_device):
+    """A bfloat16 training step at depth 1 on kernels #5/#6 against the
+    same step on their plain versions (block_train_plain)."""
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.ops.block_train import block_train_plain
+    r = np.random.RandomState(1)
+    x2d = r.randn(4, 27, 134, 2).astype(np.float32)
+    x3d = (r.randn(4, 27, 134, 3) * 0.1).astype(np.float32)
+    out = []
+    for plain in (False, True):
+        m = D3DP(D3DPConfig(depth=1, drop_path_rate=0.1), device=cuda_device,
+                 generator=torch.Generator().manual_seed(0),
+                 compute_dtype="bfloat16")
+        if plain:
+            for net in m.pose_estimator.values():
+                net.train_block_fn = block_train_plain
+        st = tr.create_train_state(m, seed=0, device=cuda_device)
+        loss = float(tr.build_train_step(m, st.optimizer)(st, 1e-4, x2d, x3d))
+        out.append((loss, [p.grad for p in m.parameters()]))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 1e-3 * abs(lp)
+    assert max(_rel_errs(gk, gp)) <= 5e-2
