@@ -201,6 +201,31 @@ Phases, one JSON line each:
  21. mono134_train - that model (general.part_based_model=false,
                model.cs 288) trained on #5/#6 through run_trainer's checks
                (16 + 16 launches a step).
+ 22. ddp_train - data parallel (parallel.mesh): the H3WB trainer at full
+               width through DistributedDataParallel in a world of one on
+               NCCL (make_mesh under torchrun's RANK/WORLD_SIZE/LOCAL_RANK
+               variables), bit for bit against the plain trainer over 5 steps
+               (ms/step, its overhead, the all-reduced bytes; 48 + 48
+               launches a step); then two ranks in a gloo world on this
+               card (NCCL refuses two ranks on one device) at depth 2, one
+               step on the global batch of 36 against one process (loss
+               and gradients within TRAIN_LOSS_RTOL, params within
+               DDP_PARAM_ATOL, replicas bit for bit).
+ 23. ddp_eval - sharded evaluate_sequences on the 76-window action at
+               P=10, T=2: a launched world of one on NCCL bit for bit
+               against the unsharded run; two gloo ranks on this card at
+               auto (#1) and true (#2) within DDP_EVAL_RTOL of one process.
+ 24. serve_sharded - LiftingService(devices=[cuda:0, cuda:0]): two
+               replicas, each its share of a sampler call's rows, against
+               one replica on 27- and 405-frame requests (SERVE_TOL), #1's
+               launches counted per replica; then whether a row's result
+               depends on its call's row count: #1 at bucket 16 vs 8 and
+               cuBLAS's F.linear at the model's library products.
+ 25. observability - the H3WB CLI, launched as torchrun launches a
+               world of one (NCCL, DDP training, sharded evaluation),
+               without general.nolog and with gpu.profile=true: an event
+               file with the JAX CLI's tags and a Chrome trace; the CLI
+               loop's steps timed with and without the trace.
 Each phase from bf16_serve and from 12 on prints its wall seconds.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
@@ -3120,6 +3145,573 @@ def mono134_train_phase(seed: int, device: str = "cuda", depth: int = 8,
                        part_based=False, phase="mono134_train", profile=False)
 
 
+# ---------------------------------------------------------------------------
+# PR 11: data parallel (training, sharded evaluation, multi-replica serving)
+# and the CLI's observability
+# ---------------------------------------------------------------------------
+
+#: a collective or a spawned rank may take this long before the phase fails
+DDP_DEADLINE = 300
+DDP_GLOO_DEPTH = 2              # ddp_train's two-rank gloo world
+DDP_EVAL_T = 2                  # ddp_eval's DDIM steps (P=10)
+#: params after the two-rank step against one process, max abs: Adam's
+#: first step moves a parameter by lr * g / (|g| + eps), at most lr, so
+#: where |g| is near eps a rounding-level change of g moves it by a
+#: fraction of lr (a CPU rehearsal at depth 1: 0.17 x lr); half of lr 6e-5.
+#: The gradients (TRAIN_LOSS_RTOL) carry the check of the averaging, which
+#: Adam's scale invariance would hide.
+DDP_PARAM_ATOL = 3e-5
+#: ddp_eval's two-rank world against one process, relative per metric:
+#: not bit for bit on the card (the 64-row batches split bit for bit, but
+#: in the 12-row tail cuBLAS rounds the time MLP's second product
+#: otherwise at 120 rows than at 240: the row_independence line), so
+#: float32 rounding of means over ~10^6 errors.  Measured 4.3e-8 / 5.3e-8
+#: at auto / true (H100 80GB HBM3, 700 W); 1e-6 is about 20x that.
+DDP_EVAL_RTOL = 1e-6
+OBS_STEPS = 4                   # observability: steps timed with the trace
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _launch_env():
+    """torchrun's launch contract for a world of one rank (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT on a free port), restored
+    after: under it ``parallel.mesh.make_mesh`` takes the launched branch
+    every ``torchrun`` run takes (cuda:LOCAL_RANK, NCCL through env://;
+    gloo on the CPU)."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _launched_world_of_one(device):
+    """``parallel.mesh.make_mesh(device=device)`` under :func:`_launch_env`:
+    yields the World and leaves its process group after."""
+    from pafuse_tpu_torch.parallel import mesh
+    with _launch_env():
+        world = mesh.make_mesh(device=device)
+        try:
+            if not world.distributed:
+                raise AssertionError("make_mesh under a launch started no "
+                                     "process group")
+            yield world
+        finally:
+            mesh.close(world)
+
+
+def _gloo_rank(rank, port, workdir, device, job):
+    """One rank of a two-rank gloo world, both ranks on ``device`` (NCCL
+    refuses two ranks on one card; gloo all-reduces CUDA tensors too):
+    runs ``job`` (a function of this module) on the inputs in ``workdir``
+    and saves what it returns."""
+    import torch
+    import torch.distributed as dist
+    from pafuse_tpu_torch.parallel import mesh
+    from pafuse_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2, timeout=mesh.TIMEOUT)
+    try:
+        inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                            weights_only=False)
+        _reset_launches()
+        out = globals()[job](mesh.World(rank, 2, dev, True), inputs)
+        out["launches"] = _launch_counts()
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_world(workdir, device, job, inputs):
+    """Run ``job`` in a two-rank gloo world of spawned processes (each
+    killed at DDP_DEADLINE) and return the ranks' results."""
+    import multiprocessing
+    import torch
+    os.makedirs(workdir, exist_ok=True)
+    torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_gloo_rank,
+                         args=(r, port, workdir, str(device), job))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    end = time.time() + DDP_DEADLINE
+    for p in procs:
+        p.join(max(1.0, end - time.time()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{job}: a rank failed or hung: exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+
+
+def _train_run(cfg, seed, device, batches, weights, world=None):
+    """A fresh model and AdamW from ``seed`` stepped over ``batches``:
+    (losses, params, gradients of the last step, seconds a step)."""
+    import torch
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.diffusion import D3DP
+    model = D3DP(cfg, device=device,
+                 generator=torch.Generator().manual_seed(seed))
+    state = tr.create_train_state(model, seed=seed, device=device)
+    step = tr.build_train_step(model, state.optimizer, weights=weights,
+                               world=world)
+    losses, secs = [], []
+    for b2d, b3d in batches:
+        t0 = time.time()
+        losses.append(float(step(state, 6e-5, b2d, b3d)))   # waits
+        secs.append(time.time() - t0)
+    return (losses, [p.detach().clone() for p in model.parameters()],
+            [p.grad.detach().clone() for p in model.parameters()], secs)
+
+
+def _ddp_train_job(world, inputs):
+    import torch
+    losses, params, grads, _ = _train_run(
+        inputs["cfg"], inputs["seed"], world.device, inputs["batches"],
+        inputs["weights"], world)
+    return {"losses": losses, "params": [p.cpu() for p in params],
+            "grads": [g.cpu() for g in grads],
+            "device": torch.cuda.get_device_name(world.device)
+            if world.device.type == "cuda" else "cpu"}
+
+
+def ddp_train_phase(seed: int, workdir: str, device: str = "cuda",
+                    depth: int = 8, seqs: int = TRAIN_SEQS,
+                    steps: int = TRAIN_STEPS, gloo_depth: int = DDP_GLOO_DEPTH):
+    """Data-parallel training: the H3WB trainer at full width through
+    ``parallel.mesh.replicate`` (DistributedDataParallel) in a world of one
+    on NCCL (``make_mesh`` under :func:`_launch_env`), held bit for bit against the plain trainer over ``steps``
+    steps of the same batches (ms/step, its overhead, the all-reduced
+    gradient bytes); then a two-rank gloo world on this card at depth
+    ``gloo_depth`` against one process on the global batch (36 sequences:
+    37 rounded to whole shards): loss and gradients within TRAIN_LOSS_RTOL,
+    params within DDP_PARAM_ATOL, the two replicas bit for bit.  Returns the
+    kernel launches of the world-of-one run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.diffusion import D3DPConfig
+    from pafuse_tpu_torch.parallel import mesh
+
+    dev = torch.device(device)
+    cfg = D3DPConfig(depth=depth, drop_path_rate=0.1)
+    loader, _ = _synthetic_batches(seed, seqs, cfg.frames)
+    batches = []
+    for _, b3d, b2d in loader.next_epoch():
+        batches.append((tr.pad_batch(b2d, seqs)[0], tr.pad_batch(b3d, seqs)[0]))
+        if len(batches) == steps:
+            break
+    weights = tr.mixste_weight_table(cfg.num_kps)
+    plain = _train_run(cfg, seed, dev, batches, weights)
+    with _launched_world_of_one(device) as world:
+        backend = dist.get_backend()
+        _reset_launches()
+        ddp = _train_run(cfg, seed, world.device, batches, weights, world)
+        launches = _launch_counts()
+    same = plain[0] == ddp[0] and all(
+        torch.equal(a, b) for a, b in zip(plain[1] + plain[2],
+                                          ddp[1] + ddp[2]))
+    per_step = 2 * 3 * depth if dev.type == "cuda" else 0
+    n_params = sum(p.numel() for p in plain[1])
+    ms = [float(np.median(r[3][1:]) * 1e3) for r in (plain, ddp)]
+    emit({"phase": "ddp_train", "world": 1, "backend": backend,
+          "depth": depth, "steps": steps,
+          "seqs_per_step": seqs, "losses": ddp[0], "plain_losses": plain[0],
+          "bit_identical": same, "ms_per_step": ms[1],
+          "plain_ms_per_step": ms[0], "overhead_ms": ms[1] - ms[0],
+          "params": n_params, "allreduce_bytes_per_step": 4 * n_params,
+          "launches": launches})
+    if not same:
+        raise AssertionError("ddp_train: the world of one differs from the "
+                             "plain trainer")
+    if launches != _expect(block_train_fwd=per_step * steps,
+                           block_train_bwd=per_step * steps):
+        raise AssertionError(f"ddp_train: launches {launches}")
+    del plain, ddp
+
+    # two ranks on this card (gloo) against one process, one step
+    cfg2 = D3DPConfig(depth=gloo_depth, drop_path_rate=0.1)
+    g = 2 * mesh.per_rank_batch(seqs, mesh.World(size=2))
+    step1 = [(b2d[:g], b3d[:g]) for b2d, b3d in batches[:1]]
+    one = _train_run(cfg2, seed, dev, step1, weights)
+    ranks = _gloo_world(os.path.join(workdir, "ddp_train"), dev,
+                        "_ddp_train_job", {"cfg": cfg2, "seed": seed,
+                                           "batches": step1,
+                                           "weights": weights})
+    loss_err = max(abs(r["losses"][0] - one[0][0]) / abs(one[0][0])
+                   for r in ranks)
+    grad_err = max(_rel_err(a.to(dev), b) for r in ranks
+                   for a, b in zip(r["grads"], one[2]))
+    param_err = max(float((a.to(dev) - b).abs().max()) for r in ranks
+                    for a, b in zip(r["params"], one[1]))
+    replicas_equal = all(torch.equal(a, b) for a, b in
+                         zip(ranks[0]["params"], ranks[1]["params"]))
+    per_rank = 2 * 3 * gloo_depth if dev.type == "cuda" else 0
+    emit({"phase": "ddp_train_gloo", "world": 2, "backend": "gloo",
+          "device": ranks[0]["device"], "depth": gloo_depth,
+          "global_seqs": g, "loss": ranks[0]["losses"][0],
+          "one_process_loss": one[0][0], "loss_rel_err": loss_err,
+          "max_rel_grad_err": grad_err, "max_abs_param_err": param_err,
+          "rtol": TRAIN_LOSS_RTOL, "param_atol": DDP_PARAM_ATOL,
+          "replicas_bit_identical": replicas_equal,
+          "launches_per_rank": [r["launches"] for r in ranks]})
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_LOSS_RTOL
+            and param_err <= DDP_PARAM_ATOL and replicas_equal):
+        raise AssertionError("ddp_train: the two-rank step differs from one "
+                             "process on the global batch")
+    if any(r["launches"] != _expect(block_train_fwd=per_rank,
+                                    block_train_bwd=per_rank)
+           for r in ranks):
+        raise AssertionError("ddp_train: a rank did not run #5/#6")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _eval_action(seed, frames=EXP_FRAMES):
+    """The first synthetic S8 action: 4 cameras x ``frames`` frames."""
+    from pafuse_tpu_torch.cli import main_h3wb
+    from pafuse_tpu_torch.data import h3wb
+    dataset = h3wb.load_dataset(synthetic=True, actions_per_subject=1,
+                                frames_per_action=frames)
+    keypoints = h3wb.prepare_data(dataset)
+    action = sorted(main_h3wb.collect_actions(dataset, ["S8"])[0].items())[0]
+    return list(zip(*h3wb.fetch_actions(action[1], keypoints, dataset)))
+
+
+def _ddp_eval_job(world, inputs):
+    import torch
+    from pafuse_tpu_torch import evaluate as ev
+    from pafuse_tpu_torch.diffusion import D3DP
+    model = D3DP(inputs["cfg"], device=world.device,
+                 generator=torch.Generator().manual_seed(inputs["seed"]))
+    out = {}
+    for mode in ("auto", "true"):
+        _set_use_pallas(model, mode)
+        before = _launch_counts()
+        t0 = time.time()
+        acc, _ = ev.evaluate_sequences(
+            model, inputs["seqs"], receptive_field=27,
+            num_proposals=inputs["cfg"].num_proposals,
+            sampling_timesteps=inputs["cfg"].sampling_timesteps,
+            world=world)
+        after = _launch_counts()
+        out[mode] = {"means": acc.means_mm(), "seconds": time.time() - t0,
+                     "launches": {k: after[k] - before[k] for k in after}}
+    return out
+
+
+def ddp_eval_phase(seed: int, workdir: str, device: str = "cuda",
+                   depth: int = 8, P: int = 10, T: int = DDP_EVAL_T,
+                   frames: int = EXP_FRAMES):
+    """Sharded evaluation: ``evaluate_sequences`` on the 76-window action of
+    eval_experimental (a 64-row batch and a 12-row tail) in a world of
+    one on NCCL (``make_mesh`` under :func:`_launch_env`), bit for bit against the unsharded run; then a two-rank
+    gloo world on this card at use_pallas=auto (#1) and true (#2), every
+    metric within DDP_EVAL_RTOL of one process.  Returns the kernel
+    launches of the world-of-one run ("world1") and of rank 0's runs at
+    auto and true ("world2_auto", "world2_true")."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pafuse_tpu_torch import evaluate as ev
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+
+    dev = torch.device(device)
+    cfg = D3DPConfig(depth=depth, num_proposals=P, sampling_timesteps=T)
+    seqs = _eval_action(seed, frames)
+    model = D3DP(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    kw = dict(receptive_field=cfg.frames, num_proposals=P,
+              sampling_timesteps=T)
+    one, seconds = {}, {}
+    for mode in ("auto", "true"):
+        _set_use_pallas(model, mode)
+        t0 = time.time()
+        one[mode] = ev.evaluate_sequences(model, seqs, **kw)[0].means_mm()
+        seconds[mode] = time.time() - t0
+    _set_use_pallas(model, "auto")
+    with _launched_world_of_one(device) as world:
+        backend = dist.get_backend()
+        _reset_launches()
+        t0 = time.time()
+        w1 = ev.evaluate_sequences(model, seqs, world=world, **kw)[0]
+        w1_s = time.time() - t0
+        launches = _launch_counts()
+    w1 = w1.means_mm()
+    same = all(np.array_equal(w1[k], one["auto"][k]) for k in one["auto"])
+    del model
+    ranks = _gloo_world(os.path.join(workdir, "ddp_eval"), dev,
+                        "_ddp_eval_job", {"cfg": cfg, "seed": seed,
+                                          "seqs": seqs})
+    errs = {mode: max(float(np.max(np.abs(r[mode]["means"][k] - one[mode][k])))
+                      for r in ranks for k in one[mode])
+            for mode in one}
+    rel = {mode: max(float(np.max(np.abs(r[mode]["means"][k] - one[mode][k])
+                                  / np.abs(one[mode][k])))
+                     for r in ranks for k in one[mode])
+           for mode in one}
+    bitwise = {mode: all(np.array_equal(r[mode]["means"][k], one[mode][k])
+                         for r in ranks for k in one[mode]) for mode in one}
+    emit({"phase": "ddp_eval", "P": P, "T": T, "depth": depth,
+          "windows": sum(-(-s[2].shape[0] // cfg.frames) for s in seqs),
+          "world1_backend": backend, "world1_bit_identical": same,
+          "world1_seconds": w1_s,
+          "one_process_seconds": seconds, "world1_launches": launches,
+          "world2_max_abs_err_mm": errs, "world2_max_rel_err": rel,
+          "world2_bit_identical": bitwise, "rtol": DDP_EVAL_RTOL,
+          "world2_seconds": {m: [r[m]["seconds"] for r in ranks]
+                             for m in one},
+          "world2_launches_per_rank": {m: [r[m]["launches"] for r in ranks]
+                                       for m in one}})
+    if not same:
+        raise AssertionError("ddp_eval: the world of one differs from the "
+                             "unsharded evaluation")
+    if not max(rel.values()) <= DDP_EVAL_RTOL:
+        raise AssertionError(f"ddp_eval: two ranks differ from one process "
+                             f"by {rel} (relative)")
+    if dev.type == "cuda" and not (
+            launches["fused_block"] > 0
+            and all(r["auto"]["launches"]["fused_block"] > 0
+                    and r["true"]["launches"]["fused_attention"] > 0
+                    for r in ranks)):
+        raise AssertionError(f"ddp_eval: #1/#2 did not launch: {launches}, "
+                             f"{[{m: r[m]['launches'] for m in one} for r in ranks]}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"world1": launches, "world2_auto": ranks[0]["auto"]["launches"],
+            "world2_true": ranks[0]["true"]["launches"]}
+
+
+def serve_sharded_phase(seed: int, device: str = "cuda", cfg=None):
+    """Multi-replica serving: a service with ``devices=[device, device]``
+    (two replicas on this card, each its share of every sampler call's
+    rows) against one replica on 27- and 405-frame requests: poses within
+    SERVE_TOL (bit for bit where each replica's GEMMs see the row counts
+    of the lone replica's), #1's launches counted per replica.  Returns
+    the launches of #1 in the two-replica service's requests."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.models.mixste import MixSTE2
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.serve import LiftingService
+
+    cfg = cfg or D3DPConfig()
+    on_card = torch.device(device).type == "cuda"
+
+    def service(**kw):
+        return LiftingService(
+            D3DP(cfg, device=device,
+                 generator=torch.Generator().manual_seed(seed)),
+            buckets=(1, 2, 4, 8, 16), **kw)
+
+    one, two = service(device=device), service(devices=[device, device])
+    calls = [0, 0]
+
+    def counted(fn, i):
+        def block(*args, **kwargs):
+            calls[i] += 1
+            return fn(*args, **kwargs)
+        return block
+
+    for i, replica in enumerate(two.replicas):
+        for m in replica.modules():
+            if isinstance(m, MixSTE2):
+                m.block_fn = counted(m.block_fn, i)
+    rng = np.random.RandomState(seed)
+    rows, launches = [], 0
+    try:
+        for frames in (27, 405):
+            kp = rng.uniform(-1, 1, (frames, cfg.num_kps, 2)).astype(np.float32)
+            a = one.lift(kp, seed=seed)
+            calls[:] = [0, 0]
+            fused_block.launches = 0
+            b = two.lift(kp, seed=seed)
+            launches += fused_block.launches
+            if on_card and sum(calls) != fused_block.launches:
+                raise AssertionError(f"serve_sharded: {calls} block calls, "
+                                     f"{fused_block.launches} launches")
+            err = float(np.max(np.abs(a["poses"] - b["poses"])))
+            rows.append({"frames": frames, "max_abs_err": err,
+                         "bit_identical": bool(np.array_equal(a["poses"],
+                                                              b["poses"])),
+                         "one_replica_ms": a["latency_ms"],
+                         "two_replica_ms": b["latency_ms"],
+                         "launches_per_replica": list(calls)})
+            if not (err <= SERVE_TOL and np.all(np.isfinite(b["poses"]))):
+                raise AssertionError(f"serve_sharded: {frames} frames differ "
+                                     f"by {err}")
+        health = two.health()
+    finally:
+        one.close()
+        two.close()
+    row_independence(seed, device, cfg)
+    emit({"phase": "serve_sharded", "replicas": 2, "buckets":
+          health["buckets"], "mesh_devices": health["mesh_devices"],
+          "tol": SERVE_TOL, "requests": rows})
+    if health["mesh_devices"] != 2:
+        raise AssertionError("serve_sharded: mesh_devices != 2")
+    if on_card and not all(r["launches_per_replica"][0] > 0 for r in rows):
+        raise AssertionError("serve_sharded: replica 0 launched no #1")
+    if on_card and rows[-1]["launches_per_replica"][1] == 0:
+        raise AssertionError("serve_sharded: replica 1 launched no #1")
+    return launches
+
+
+def row_independence(seed: int, device: str, cfg):
+    """Whether splitting a sampler call's rows can change a row's result:
+    kernel #1 on a body spatial block's rows at serve bucket 16 against
+    the first half of them alone (bucket 8), and F.linear (cuBLAS) at the
+    row counts of the model's library products (embedding, time MLP,
+    head) at bucket 16 and at ddp_eval's 12-row tail (the time MLP's two
+    products at 240 rows) against half of them; emitted, not asserted
+    (serve_sharded and ddp_eval bound the end result)."""
+    import torch
+    import torch.nn.functional as F
+    from pafuse_tpu_torch.ops.block import fused_block
+
+    g = torch.Generator().manual_seed(seed)
+    dev = torch.device(device)
+    P, C, L = cfg.num_proposals, 384, 24
+    seqs = 16 * P * 2 * cfg.frames          # bucket 16, P, flip, frames
+    x = torch.randn(seqs, L, C, generator=g).to(dev)
+    p = _random_block_params(C, g, dev)
+    launches = fused_block.launches
+    half = seqs // 2
+    block_same = torch.equal(fused_block(x, p[:12], p[12:], 8)[:half],
+                             fused_block(x[:half], p[:12], p[12:], 8))
+    fused_block.launches = launches        # comparison launches
+    linear = {}
+    for name, (M, K, N) in (("embedding", (seqs * L, 5, C)),
+                            ("time_mlp", (16 * P * 2, C, 2 * C)),
+                            ("head", (seqs * L, C, 3)),
+                            ("time_mlp_fc1_tail12", (12 * P * 2, C, 2 * C)),
+                            ("time_mlp_fc2_tail12", (12 * P * 2, 2 * C, C))):
+        a = torch.randn(M, K, generator=g).to(dev)
+        w = (torch.randn(N, K, generator=g) * K ** -0.5).to(dev)
+        b = torch.zeros(N, device=dev)
+        linear[name] = torch.equal(F.linear(a, w, b)[:M // 2],
+                                   F.linear(a[:M // 2], w, b))
+    emit({"phase": "row_independence", "fused_block_16_vs_8": block_same,
+          "library_linear_half_rows_equal": linear})
+
+
+#: the JAX CLI's TensorBoard tags (pafuse_tpu/cli/main_h3wb.py:128-129,
+#: 334-339), the misspelt "learing" included
+JAX_TAGS = ("description", "command", "Loss/3d training loss",
+            "Loss/3d validation loss", "Parameters/learing rate",
+            "Parameters/training time per epoch")
+
+
+def observability_phase(seed: int, workdir: str, device: str = "cuda",
+                        depth: int = 8, steps: int = OBS_STEPS):
+    """The CLI's observability at full width: a one-epoch quick-debug
+    training run, launched as torchrun launches a world of one
+    (:func:`_launch_env`: the CLI's ``make_mesh`` starts NCCL, training
+    runs through DDP and evaluation through the sharded path), without
+    general.nolog and with gpu.profile=true, writes a
+    TensorBoard event file holding the JAX CLI's tags and a Chrome trace;
+    then ``steps`` steps of the CLI's loop (``train.run_epoch``) timed with
+    and without ``utils.observability.profile_trace``.  Returns the kernel
+    launches of the CLI run."""
+    import glob
+    import torch
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.utils import observability as obs
+    from pafuse_tpu_torch.utils.device import sync
+
+    dev = torch.device(device)
+    out_dir = os.path.join(workdir, "observability")
+    os.makedirs(out_dir, exist_ok=True)
+    _reset_launches()
+    cli_log = os.path.join(workdir, "obs_cli.log")
+    with _launch_env():
+        _cli(["data.synthetic=true", f"gpu.device={device}",
+              f"model.dep={depth}", f"gpu.seed={seed}", "ft2d.debug=true",
+              "model.epochs=1", "ft2d.num_proposals=2",
+              "ft2d.sampling_timesteps=2", "gpu.profile=true",
+              f"general.log={out_dir}/log", f"general.checkpoint={out_dir}"],
+             cli_log)
+    launches = _launch_counts()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    logs = [cli_log] + glob.glob(os.path.join(out_dir, "log_*", "*.log"))
+    launched = any(f"rank 0 of 1 ({backend})" in open(p).read() for p in logs)
+    events = glob.glob(os.path.join(out_dir, "log_*", "events.out.tfevents*"))
+    data = b"".join(open(p, "rb").read() for p in events)
+    missing = [t for t in JAX_TAGS if t.encode() not in data
+               and t.replace(" ", "_").encode() not in data]
+    trace = os.path.join(out_dir, "profile", "trace.json")
+    trace_mb = os.path.getsize(trace) / 2 ** 20 if os.path.exists(trace) else 0
+
+    cfg = D3DPConfig(depth=depth, drop_path_rate=0.1)
+    loader, _ = _synthetic_batches(seed, TRAIN_SEQS, cfg.frames)
+    batches = []
+    for batch in loader.next_epoch():
+        batches.append(batch)
+        if len(batches) == steps + 1:
+            break
+    model = D3DP(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    state = tr.create_train_state(model, seed=seed, device=dev)
+    step = tr.build_train_step(model, state.optimizer)
+    tr.run_epoch(step, state, 6e-5, batches[:1], TRAIN_SEQS)   # warm
+    seconds = {}
+    for traced in (False, True, True, False):
+        ctx = (obs.profile_trace(os.path.join(workdir, "obs_trace"), dev)
+               if traced else contextlib.nullcontext())
+        sync(dev)
+        t0 = time.time()
+        with ctx:
+            tr.run_epoch(step, state, 6e-5, batches[1:], TRAIN_SEQS)
+            sync(dev)
+        seconds.setdefault("traced" if traced else "plain", []).append(
+            time.time() - t0)
+    emit({"phase": "observability", "launched_world": launched,
+          "event_files": len(events),
+          "missing_tags": missing, "trace_mb": trace_mb,
+          "cli_launches": launches, "steps": steps,
+          "epoch_s_plain": seconds["plain"], "epoch_s_traced": seconds["traced"],
+          "trace_overhead": min(seconds["traced"]) / min(seconds["plain"]) - 1})
+    if not events or missing or not trace_mb:
+        raise AssertionError(f"observability: event files {events}, missing "
+                             f"tags {missing}, trace {trace_mb} MB")
+    if not launched or torch.distributed.is_initialized():
+        raise AssertionError(f"observability: the CLI did not run (and "
+                             f"leave) a launched {backend} world of one")
+    if dev.type == "cuda" and not (launches["block_train_fwd"] > 0
+                                   and launches["fused_block"] > 0):
+        raise AssertionError(f"observability: launches {launches}")
+    del model, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _sums(cases):
     """Float32 numbers of ``cases`` summed (max_abs_err: the largest)."""
     f32 = [c for c in cases if c["dtype"] == "float32"]
@@ -3305,6 +3897,14 @@ def main() -> int:
         raise AssertionError(f"a training kernel disagrees with its plain "
                              f"version at the monolithic shapes: {bad}")
     mono_launches = timed("mono134_train", mono134_train_phase, args.seed)
+    # data parallel on torch.distributed and the CLI's observability
+    ddp_train_launches = timed("ddp_train", ddp_train_phase, args.seed,
+                               workdir)
+    ddp_eval_launches = timed("ddp_eval", ddp_eval_phase, args.seed, workdir)
+    sharded_launches = timed("serve_sharded", serve_sharded_phase, args.seed)
+    obs_launches = timed("observability", observability_phase, args.seed,
+                         workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
 
     def bf16(cs):
         cs = [c for c in cs if c["dtype"] == "bfloat16"]
@@ -3358,7 +3958,14 @@ def main() -> int:
                           "bf16_eval_auto": bf16_eval_launches[
                               "bfloat16_auto"]["fused_block"],
                           "bf16_evaluate_3dhp": bf16_eval_launches[
-                              "dhp3_bfloat16_auto"]["fused_block"]}),
+                              "dhp3_bfloat16_auto"]["fused_block"]},
+                      pr11_launches={
+                          "ddp_eval_world1": ddp_eval_launches["world1"][
+                              "fused_block"],
+                          "ddp_eval_world2_rank0": ddp_eval_launches[
+                              "world2_auto"]["fused_block"],
+                          "serve_sharded": sharded_launches,
+                          "observability_cli": obs_launches["fused_block"]}),
         # with its four GEMMs alone (wgmma) and cuBLAS's F.linear's
         _kernel_entry("block_train_fwd", "cuda", TRAIN_SOURCE,
                       TRAIN_REPLACES["block_train_fwd"], train_launches[0],
@@ -3369,7 +3976,12 @@ def main() -> int:
                           "dhp3_cli": cli_launches["cli_train"][
                               "block_train_fwd"]}),
                       **mono134("block_train_fwd", mono_launches[0]),
-                      bf16_launches={k: v[0] for k, v in bf16_train.items()}),
+                      bf16_launches={k: v[0] for k, v in bf16_train.items()},
+                      pr11_launches={
+                          "ddp_train_world1": ddp_train_launches[
+                              "block_train_fwd"],
+                          "observability_cli": obs_launches[
+                              "block_train_fwd"]}),
         # with its GEMMs alone: data gradients (wgmma) and weight
         # gradients (mma.sync), and cuBLAS's for the same products
         _kernel_entry("block_train_bwd", "cuda", TRAIN_SOURCE,
@@ -3383,7 +3995,12 @@ def main() -> int:
                           "dhp3_cli": cli_launches["cli_train"][
                               "block_train_bwd"]}),
                       **mono134("block_train_bwd", mono_launches[1]),
-                      bf16_launches={k: v[1] for k, v in bf16_train.items()}),
+                      bf16_launches={k: v[1] for k, v in bf16_train.items()},
+                      pr11_launches={
+                          "ddp_train_world1": ddp_train_launches[
+                              "block_train_bwd"],
+                          "observability_cli": obs_launches[
+                              "block_train_bwd"]}),
         # eval shapes (window batch 64); the serve bucket-16 shapes beside;
         # its two GEMMs alone and F.linear's
         _kernel_entry("fused_attention", "cuda", ATTN_SOURCE, ATTN_REPLACES,
@@ -3394,7 +4011,9 @@ def main() -> int:
                           "dhp3_evaluate_true":
                               dhp3_launches["true"]["fused_attention"]}),
                       bf16_launches={"bf16_eval_true": bf16_eval_launches[
-                          "bfloat16_true"]["fused_attention"]}),
+                          "bfloat16_true"]["fused_attention"]},
+                      pr11_launches={"ddp_eval_world2_rank0": ddp_eval_launches[
+                          "world2_true"]["fused_attention"]}),
         # eval shapes, the serve bucket-16 shapes beside; replaced_ms is the
         # path each kernel replaces (kernel #1 and the transposes)
         _kernel_entry("fused_block_temporal", "cuda", BT_SOURCE, BT_REPLACES,

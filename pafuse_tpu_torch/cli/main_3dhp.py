@@ -16,6 +16,9 @@ config's P and T and appends the report to
 ``checkpoint_3dhp``).  ``general.resume`` / ``general.evaluate`` load a
 port or JAX ``.npz`` or a reference ``.bin``.  It runs on ``gpu.device``
 (CUDA by default; it raises without CUDA unless ``gpu.device=cpu``).
+Launched by ``torchrun`` it is data parallel as ``cli.main_h3wb`` is: the
+batch rounded to whole shards, each rank on its rows of every training
+batch and sampler call, only rank 0 writing checkpoints and the report.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ def build_model_3dhp(args, device):
 def evaluate_3dhp(model, test_data, args, *, num_proposals: int = 1,
                   sampling_timesteps: int = 1, window_batch: int = 64,
                   generator=None, noise_table=None,
-                  timings: Optional[dict] = None):
+                  timings: Optional[dict] = None, world=None):
     """Masked multi-hypothesis evaluation (``mpjpe_diffusion_3dhp``): each
     test sequence is windowed with its flipped twin and sampled (flip-TTA
     DDIM) in calls of at most ``window_batch`` windows, unpadded; the
@@ -71,10 +74,15 @@ def evaluate_3dhp(model, test_data, args, *, num_proposals: int = 1,
     (windows, S, H, F, 17, 3), in sequence then window order, injects the
     DDIM noise; otherwise it is drawn from ``generator`` (a fresh one
     seeded 0 on the model's device when omitted).  ``timings`` receives
-    the window count.  With ``ft2d.debug`` only the first sequence runs."""
+    the window count.  With ``ft2d.debug`` only the first sequence runs.
+    ``world`` (``parallel.mesh``) with a process group splits each sampler
+    call's windows over the ranks (``evaluate.sharded_eval_forward``);
+    every rank gets the same metrics."""
     import torch
     from pafuse_tpu_torch import geometry, losses
     from pafuse_tpu_torch.data import windows as win
+    from pafuse_tpu_torch.evaluate import sharded_eval_forward
+    from pafuse_tpu_torch.parallel.mesh import World
     from pafuse_tpu_torch.utils.device import to_device, to_host
 
     if model.training:
@@ -94,9 +102,9 @@ def evaluate_3dhp(model, test_data, args, *, num_proposals: int = 1,
                           for a in noise_table)
             kw = dict(init_noise=to_device(init, dev),
                       step_noise=to_device(np.moveaxis(step, 1, 0), dev))
-        return model.eval_forward(
-            to_device(w2d[lo:hi], dev), to_device(wflip[lo:hi], dev),
-            num_proposals=num_proposals,
+        return sharded_eval_forward(
+            model, to_device(w2d[lo:hi], dev), to_device(wflip[lo:hi], dev),
+            world or World(), num_proposals=num_proposals,
             sampling_timesteps=sampling_timesteps, generator=generator, **kw)
 
     # one-deep readback: a sequence's metrics are read while the next one's
@@ -148,8 +156,17 @@ def main(argv=None):
     {"P_Best": (S,) mm, "P_Agg": (S,) mm, "eval_seconds": s, "windows": n,
     "report": path}."""
     args = cfg_mod.parse_cli(argv if argv is not None else sys.argv[1:])
-    from pafuse_tpu_torch.utils.device import resolve_device
-    device = resolve_device(args.gpu.device)
+    from pafuse_tpu_torch.parallel import mesh
+    world = mesh.make_mesh(tuple(args.gpu.mesh_shape),
+                           tuple(args.gpu.mesh_axis_names), args.gpu.device)
+    try:
+        return _run(args, world)
+    finally:
+        mesh.close(world)
+
+
+def _run(args, world):
+    device = world.device
     if not args.general.checkpoint:
         args.general.checkpoint = "checkpoint_3dhp"
     os.makedirs(args.general.checkpoint, exist_ok=True)
@@ -189,14 +206,15 @@ def main(argv=None):
 
     if not args.general.evaluate:
         epoch, lr = _train(args, model, state, epoch, lr, resume_ckpt,
-                           train_data, test_data)
+                           train_data, test_data, world)
 
     model.eval()
     timings = {}
     t0 = time()
     err, err_agg = evaluate_3dhp(
         model, test_data, args, num_proposals=args.ft2d.num_proposals,
-        sampling_timesteps=args.ft2d.sampling_timesteps, timings=timings)
+        sampling_timesteps=args.ft2d.sampling_timesteps, timings=timings,
+        world=world)
     eval_seconds = time() - t0
     report = format_report(err, err_agg)
     print(report, end="")
@@ -204,14 +222,16 @@ def main(argv=None):
         args.general.checkpoint,
         f"3dhp_test_log_H{args.ft2d.num_proposals}"
         f"_K{args.ft2d.sampling_timesteps}.txt")
-    with open(log_path, "a") as f:
-        f.write(report)
+    if world.main:
+        with open(log_path, "a") as f:
+            f.write(report)
     return {"P_Best": np.atleast_1d(err), "P_Agg": np.atleast_1d(err_agg),
             "eval_seconds": eval_seconds, "windows": timings["windows"],
             "report": log_path}
 
 
-def _train(args, model, state, epoch, lr, resume_ckpt, train_data, test_data):
+def _train(args, model, state, epoch, lr, resume_ckpt, train_data, test_data,
+           world):
     """Epochs of training, each followed by an evaluation at P=1, T=1 and
     its log line; returns (epoch, lr)."""
     from pafuse_tpu_torch import checkpoints, skeleton as sk, train as tr
@@ -219,11 +239,13 @@ def _train(args, model, state, epoch, lr, resume_ckpt, train_data, test_data):
     from pafuse_tpu_torch.data import dhp3
     from pafuse_tpu_torch.data.prefetch import PrefetchingLoader
     from pafuse_tpu_torch.data.sampling import ChunkedSampler
+    from pafuse_tpu_torch.parallel.mesh import per_rank_batch
 
     print(training_path_line(args, model))
     p3, p2 = dhp3.train_arrays(train_data)
-    seqs_per_batch = max(1, args.model.batch_size
-                         // args.model.number_of_frames)
+    # the global batch, rounded to whole shards as the JAX CLI rounds it
+    seqs_per_batch = world.size * per_rank_batch(
+        max(1, args.model.batch_size // args.model.number_of_frames), world)
     gen = ChunkedSampler(seqs_per_batch, None, p3, p2,
                          args.model.number_of_frames,
                          augment=args.model.data_augmentation,
@@ -231,34 +253,23 @@ def _train(args, model, state, epoch, lr, resume_ckpt, train_data, test_data):
     if resume_ckpt is not None and "random_state" in resume_ckpt:
         gen.set_random_state(resume_ckpt["random_state"])
     loader = PrefetchingLoader(gen, depth=2)
-    step_fn = tr.build_train_step(model, state.optimizer, part_based=False)
+    step_fn = tr.build_train_step(model, state.optimizer, part_based=False,
+                                  world=world)
     while epoch < args.model.epochs:
         t0 = time()
         model.train()
-        tot, n = 0.0, 0
-        pending = None  # one-deep loss readback (see cli/main_h3wb.py)
-        for _, b3d, b2d in loader.next_epoch():
-            b2d, real = tr.pad_batch(b2d, seqs_per_batch)
-            b3d, _ = tr.pad_batch(b3d, seqs_per_batch)
-            # the loss compares the prediction (mm) with the mm ground truth
-            loss = step_fn(state, lr, b2d, b3d)
-            if pending is not None:
-                tot += float(pending[0]) * pending[1]
-            pending = (loss, real)
-            n += real
-            if args.ft2d.debug:
-                break
-        if pending is not None:
-            tot += float(pending[0]) * pending[1]
+        # the loss compares the prediction (mm) with the mm ground truth
+        tot, n = tr.run_epoch(step_fn, state, lr, loader.next_epoch(),
+                              seqs_per_batch, quickdebug=args.ft2d.debug)
         model.eval()
-        err, err_agg = evaluate_3dhp(model, test_data, args)
+        err, err_agg = evaluate_3dhp(model, test_data, args, world=world)
         print(f"[{epoch + 1}] time {(time() - t0) / 60:.2f} lr {lr:f} "
               f"train {tot / max(n, 1):.4f} "
               f"valid P_Best {float(np.atleast_1d(err)[0]):.2f}mm "
               f"P_Agg {float(np.atleast_1d(err_agg)[0]):.2f}mm")
         lr *= args.model.lr_decay
         epoch += 1
-        if epoch % args.general.checkpoint_frequency == 0:
+        if epoch % args.general.checkpoint_frequency == 0 and world.main:
             checkpoints.save_state(args.general.checkpoint, f"epoch_{epoch}",
                                    model=model, optimizer=state.optimizer,
                                    epoch=epoch, lr=lr,

@@ -13,12 +13,27 @@ action at the config's P and T and appends the reports to
 ``.bin``) it only evaluates.  It runs on ``gpu.device`` (CUDA by default;
 it raises without CUDA unless ``gpu.device=cpu``); ``gpu.use_pallas``
 selects the evaluation block (``block_t`` and ``layer`` only with
-``gpu.experimental_kernels=true``).  It logs to ``logging.log`` and
-``training_log.txt``; MLflow and TensorBoard are not ported.
+``gpu.experimental_kernels=true``).  It logs to ``logging.log``,
+``training_log.txt`` and, without ``general.nolog``, a TensorBoard event
+file in the log directory (the JAX CLI's tags); ``gpu.profile=true``
+traces the first trained epoch into ``{general.checkpoint}/profile``.
+MLflow is not ported.
+
+Data parallel: launched by ``torchrun`` it trains and evaluates on every
+rank of the launch (``gpu.mesh_shape``, ``parallel.mesh``), one card each:
+
+    torchrun --standalone --nproc_per_node=8 \\
+        -m pafuse_tpu_torch.cli.main_h3wb general.checkpoint=ckpt
+
+The batch is rounded to whole shards as the JAX CLI rounds it, each rank
+trains on its rows of every global batch and evaluates its rows of every
+window batch; only rank 0 writes files (checkpoints, logs, reports, the
+event file, the trace).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 from datetime import datetime
@@ -126,24 +141,34 @@ def main(argv=None):
         raise ValueError("experiment.warmup is not implemented (the "
                          "reference's hydra entry point ignores it); remove "
                          "the override")
-    from pafuse_tpu_torch.utils.device import resolve_device
-    device = resolve_device(args.gpu.device)
-
-    timestamp = datetime.now().strftime("%Y%m%dT%H-%M-%S")
-    stdout, logger = sys.stdout, None
-    if not args.general.nolog:
-        logdir = f"{args.general.log}_{timestamp}"
-        logger = Logger(os.path.join(logdir, "logging.log"))
-        sys.stdout = logger
+    from pafuse_tpu_torch.parallel import mesh
+    from pafuse_tpu_torch.utils import observability as obs
+    world = mesh.make_mesh(tuple(args.gpu.mesh_shape),
+                           tuple(args.gpu.mesh_axis_names), args.gpu.device)
+    stdout, logger, writer = sys.stdout, None, None
     try:
-        return _run(args, device, timestamp)
+        timestamp = mesh.broadcast_object(
+            datetime.now().strftime("%Y%m%dT%H-%M-%S"), world)
+        description = "Evaluate!" if args.general.evaluate else "Train!"
+        if not args.general.nolog and world.main:
+            logdir = f"{args.general.log}_{timestamp}"
+            logger = Logger(os.path.join(logdir, "logging.log"))
+            writer = obs.make_summary_writer(logdir)
+            if writer is not None:
+                writer.add_text("description", description)
+                writer.add_text("command", "python " + " ".join(sys.argv))
+            sys.stdout = logger
+        return _run(args, world, timestamp, writer)
     finally:
+        if writer is not None:
+            writer.close()
         if logger is not None:
             sys.stdout = stdout
             logger.close()
+        mesh.close(world)
 
 
-def _run(args, device, timestamp):
+def _run(args, world, timestamp, writer=None):
     import torch
     from pafuse_tpu_torch import checkpoints, evaluate as ev, train as tr
     from pafuse_tpu_torch.data import h3wb
@@ -154,9 +179,13 @@ def _run(args, device, timestamp):
     if not args.general.checkpoint:
         args.general.checkpoint = f"{args.general.log}_{timestamp}"
     os.makedirs(args.general.checkpoint, exist_ok=True)
+    device = world.device
     print(f"Torch device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
+    print(f"INFO: data-parallel world: rank {world.rank} of {world.size} "
+          + (f"({torch.distributed.get_backend()})" if world.distributed
+             else "(no process group)"))
 
     # ---- data ------------------------------------------------------------
     print("Loading dataset...")
@@ -221,7 +250,7 @@ def _run(args, device, timestamp):
     if not args.general.evaluate:
         _train(args, model, state, epoch, lr, resume_ckpt, dataset, keypoints,
                subjects_train, action_filter, pin_bs,
-               (cams_valid, poses_valid, poses_valid_2d))
+               (cams_valid, poses_valid, poses_valid_2d), world, writer)
 
     # ---- final evaluation --------------------------------------------------
     print("Evaluating...")
@@ -244,13 +273,15 @@ def _run(args, device, timestamp):
                 num_proposals=args.ft2d.num_proposals,
                 sampling_timesteps=args.ft2d.sampling_timesteps,
                 window_batch=pin_bs, quickdebug=args.ft2d.debug,
-                collect_p2=args.ft2d.p2, timings=timings)
+                collect_p2=args.ft2d.p2, timings=timings, world=world)
             means = acc.means_mm()
             p2m = p2.means_mm() if (p2 is not None and p2.n > 0) else None
             report = ev.format_report(means, action_key, p2m)
             print(report)
-            ev.write_report(args.general.checkpoint, args.ft2d.num_proposals,
-                            args.ft2d.sampling_timesteps, report)
+            if world.main:
+                ev.write_report(args.general.checkpoint,
+                                args.ft2d.num_proposals,
+                                args.ft2d.sampling_timesteps, report)
             per_action[action_key] = means
             if p2m is not None:
                 per_action_p2[action_key] = p2m
@@ -265,8 +296,9 @@ def _run(args, device, timestamp):
         text = ev.format_actionwise_average(
             avg, avg_of(per_action_p2) if per_action_p2 else None)
         print(text)
-        ev.write_report(args.general.checkpoint, args.ft2d.num_proposals,
-                        args.ft2d.sampling_timesteps, text)
+        if world.main:
+            ev.write_report(args.general.checkpoint, args.ft2d.num_proposals,
+                            args.ft2d.sampling_timesteps, text)
         return avg
 
     final = {}
@@ -284,19 +316,24 @@ def _run(args, device, timestamp):
 
 
 def _train(args, model, state, epoch, lr, resume_ckpt, dataset, keypoints,
-           subjects_train, action_filter, pin_bs, valid):
+           subjects_train, action_filter, pin_bs, valid, world, writer=None):
     """Epochs of training, each followed by an evaluation at P=1, T=1 and
-    the checkpoints; the model ends in train mode."""
+    (on rank 0) the checkpoints, the log line and the TensorBoard scalars;
+    the model ends in train mode."""
     from pafuse_tpu_torch import checkpoints, evaluate as ev, train as tr
     from pafuse_tpu_torch.data import h3wb
     from pafuse_tpu_torch.data.prefetch import PrefetchingLoader
     from pafuse_tpu_torch.data.sampling import ChunkedSampler
+    from pafuse_tpu_torch.parallel.mesh import per_rank_batch
+    from pafuse_tpu_torch.utils import observability as obs
 
     receptive_field = args.model.number_of_frames
     cams_train, poses_train, poses_train_2d = h3wb.fetch(
         subjects_train, keypoints, dataset, stride=args.experiment.downsample,
         action_filter=action_filter, subset=args.experiment.subset)
-    seqs_per_batch = max(1, args.model.batch_size // receptive_field)
+    # the global batch, rounded to whole shards as the JAX CLI rounds it
+    seqs_per_batch = world.size * per_rank_batch(
+        max(1, args.model.batch_size // receptive_field), world)
     train_gen = ChunkedSampler(
         seqs_per_batch, cams_train, poses_train, poses_train_2d,
         receptive_field, shuffle=True, augment=args.model.data_augmentation,
@@ -313,33 +350,28 @@ def _train(args, model, state, epoch, lr, resume_ckpt, dataset, keypoints,
                if args.model.weighted_loss else None)
     step_fn = tr.build_train_step(
         model, state.optimizer, weights=weights, mse_loss=args.model.mse_loss,
-        wb_loss=args.model.wb_loss, part_based=args.general.part_based_model)
+        wb_loss=args.model.wb_loss, part_based=args.general.part_based_model,
+        world=world)
 
     log_path = os.path.join(args.general.checkpoint, "training_log.txt")
     quickdebug = args.ft2d.debug
     min_loss = args.model.min_loss
     train_curve, valid_curve = [], []
+    first_epoch = epoch
     while epoch < args.model.epochs:
         start_time = time()
         model.train()
-        epoch_loss, n_seen = 0.0, 0
         num_batches = train_gen.batch_num()
-        # one-deep loss pipeline: step N's loss is read while step N+1 runs
-        pending = None
-        for it, (_, b3d, b2d) in enumerate(train_loader.next_epoch()):
-            if it % 10 == 0:
-                print(f"{it}/{num_batches}")
-            b2d, real = tr.pad_batch(b2d, seqs_per_batch)
-            b3d, _ = tr.pad_batch(b3d, seqs_per_batch)
-            loss = step_fn(state, lr, b2d, b3d)
-            if pending is not None:
-                epoch_loss += pending[1] * float(pending[0])
-            pending = (loss, real * receptive_field)
-            n_seen += real * receptive_field
-            if quickdebug:
-                break
-        if pending is not None:
-            epoch_loss += pending[1] * float(pending[0])
+        # gpu.profile: a torch.profiler trace of the first trained epoch
+        with (obs.profile_trace(os.path.join(args.general.checkpoint,
+                                             "profile"), world.device)
+              if _on(args.gpu.profile) and epoch == first_epoch
+              and world.main else contextlib.nullcontext()):
+            epoch_loss, n_seen = tr.run_epoch(
+                step_fn, state, lr, train_loader.next_epoch(), seqs_per_batch,
+                rows_weight=receptive_field, quickdebug=quickdebug,
+                progress=lambda it: (print(f"{it}/{num_batches}")
+                                     if it % 10 == 0 else None))
         epoch_loss_mm = epoch_loss / max(n_seen, 1) * 1000
 
         # per-epoch evaluation at P=1, T=1 with flip-TTA
@@ -349,7 +381,7 @@ def _train(args, model, state, epoch, lr, resume_ckpt, dataset, keypoints,
             acc, _ = ev.evaluate_sequences(
                 model, zip(*valid), receptive_field=receptive_field,
                 num_proposals=1, sampling_timesteps=1, window_batch=pin_bs,
-                quickdebug=quickdebug)
+                quickdebug=quickdebug, world=world)
             model.train()
             means = acc.means_mm()
             val_mm = float(np.atleast_1d(means["P_Best"])[0])
@@ -360,27 +392,36 @@ def _train(args, model, state, epoch, lr, resume_ckpt, dataset, keypoints,
                f"3d_train {epoch_loss_mm:f} 3d_pos_valid {val_mm:f} "
                f"3d_pb_pos_valid {val_pb_mm:f}")
         print(log)
-        with open(log_path, "a") as f:
-            f.write(log + "\n")
+        if world.main:
+            with open(log_path, "a") as f:
+                f.write(log + "\n")
+        if writer is not None:
+            writer.add_scalar("Loss/3d training loss", epoch_loss_mm,
+                              epoch + 1)
+            writer.add_scalar("Loss/3d validation loss", val_mm, epoch + 1)
+            writer.add_scalar("Parameters/learing rate", lr, epoch + 1)
+            writer.add_scalar("Parameters/training time per epoch", elapsed,
+                              epoch + 1)
 
         lr *= args.model.lr_decay
         epoch += 1
         ckpt = dict(model=model, optimizer=state.optimizer, epoch=epoch, lr=lr,
                     random_state=train_gen.random_state(),
                     generator=state.generator)
-        if epoch % args.general.checkpoint_frequency == 0:
+        if epoch % args.general.checkpoint_frequency == 0 and world.main:
             checkpoints.save_state(args.general.checkpoint, f"epoch_{epoch}",
                                    **ckpt)
         if val_mm < min_loss:
             min_loss = val_mm
-            checkpoints.save_state(args.general.checkpoint, "best_epoch",
-                                   **ckpt)
-            with open(log_path, "a") as f:
-                f.write("best epoch\n")
+            if world.main:
+                checkpoints.save_state(args.general.checkpoint, "best_epoch",
+                                       **ckpt)
+                with open(log_path, "a") as f:
+                    f.write("best epoch\n")
 
         train_curve.append(epoch_loss_mm)
         valid_curve.append(val_mm)
-        if args.general.export_training_curves and epoch > 3:
+        if args.general.export_training_curves and epoch > 3 and world.main:
             import matplotlib
             matplotlib.use("Agg")
             import matplotlib.pyplot as plt

@@ -16,7 +16,9 @@ Usage:
     curl -s localhost:8012/metrics
 
 It runs on ``gpu.device`` (CUDA by default; it raises without CUDA unless
-``gpu.device=cpu``) and serves on that one card.
+``gpu.device=cpu``).  With ``serve.shard=auto`` and more than one visible
+card it serves on all of them (``gpu.mesh_shape`` [-1], or the card count):
+one replica each, the rows of every sampler call split over them.
 """
 
 from __future__ import annotations
@@ -48,10 +50,16 @@ def build_service(args, warmup: bool = True):
     device = resolve_device(args.gpu.device)
     shard = _mode(args, "shard")
     batching = _mode(args, "batching")
+    devices = None
     if (shard == "auto" and device.type == "cuda"
             and torch.cuda.device_count() > 1):
-        print(f"[serve] {torch.cuda.device_count()} GPUs visible; serving on "
-              f"{device} only (multi-card serving is not ported)")
+        n = torch.cuda.device_count()
+        if int(args.gpu.mesh_shape[0]) not in (-1, n):
+            raise ValueError(f"gpu.mesh_shape {list(args.gpu.mesh_shape)} "
+                             f"does not match the {n} visible cards")
+        devices = [f"cuda:{i}" for i in range(n)]
+        print(f"[serve] one replica on each of {n} cards; window rows split "
+              f"over them")
 
     model = build_model(args, device)
     state_dict = None
@@ -82,7 +90,7 @@ def build_service(args, warmup: bool = True):
         max_frames=int(getattr(args.serve, "max_frames", 100_000)),
         noise_mode=str(getattr(args.serve, "noise", "host")).lower(),
         readback=str(getattr(args.serve, "readback", "all")).lower(),
-        op_points=op_points or None, device=device)
+        op_points=op_points or None, device=device, devices=devices)
     if warmup:
         secs = service.warmup()
         print(f"[serve] warm: buckets {service.buckets} x op points "

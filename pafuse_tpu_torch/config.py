@@ -5,7 +5,8 @@ Counterpart of ``pafuse_tpu/config.py`` and ``pafuse_tpu/configs/
 config.yaml``.  The groups and keys of the reference (general, mlflow,
 data, model, experiment, viz, ft2d, in_the_wild) and ``serve`` are those
 of the JAX package; its TPU group is replaced by ``gpu``.  Overrides are
-strict: an unknown key (a typo, or a TPU-only key such as ``tpu.mesh_shape``) raises,
+strict: an unknown key (a typo, or a TPU-only key such as
+``tpu.donate_buffers``) raises,
 and ``+a.b=value`` adds a new key.  Values are parsed as YAML scalars are:
 null, booleans (true/false/yes/no/on/off), ints, floats, quoted strings
 and flat ``[a, b]`` lists; anything else stays a string.  ``--config
@@ -95,8 +96,9 @@ DEFAULTS: Dict[str, Dict[str, Any]] = {
         "port": 8012,
         "buckets": [1, 2, 4, 8, 16],    # window-batch chunk sizes; the
                                         # largest caps a co-batched call
-        "shard": "auto",                # auto | off; one card either way
-                                        # (multi-card serving not ported)
+        "shard": "auto",                # auto: one replica per visible
+                                        # card, window rows split over
+                                        # them; off: gpu.device alone
         "batching": "auto",             # auto: co-batch concurrent requests'
                                         # windows; off: serialise requests
         "max_frames": 100000,           # per-request frame cap
@@ -130,6 +132,12 @@ DEFAULTS: Dict[str, Dict[str, Any]] = {
         "remat": False,                 # recompute each layer in the
                                         # backward of the autodiff path
         "seed": 1,
+        # the data-parallel world (parallel/mesh.py): [-1] = every rank of
+        # the launch (torchrun), one rank per card; only 'data' is sharded
+        "mesh_shape": [-1],
+        "mesh_axis_names": ["data"],
+        "profile": False,               # torch.profiler trace of the first
+                                        # trained epoch (<checkpoint>/profile)
     },
 }
 

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 
 from pafuse_tpu_torch import geometry, skeleton as sk
+from pafuse_tpu_torch.models.mixste import branch_masks, draw_dropout_masks
 from pafuse_tpu_torch.models.parts import (PartModel, build_part_specs,
                                            monolithic_spec)
 from pafuse_tpu_torch.utils.device import resolve_device
@@ -177,22 +178,47 @@ class D3DP(nn.Module):
         b = self._sqrt_one_minus_alphas_cumprod[t].reshape(shape)
         return a * x_start + b * noise
 
-    def prepare_targets(self, x3d_gt: torch.Tensor,
-                        t: Optional[torch.Tensor] = None,
-                        noise: Optional[torch.Tensor] = None,
-                        generator: Optional[torch.Generator] = None):
-        """Noise the ground truth: (x_t, noise, t).  ``t`` (B,) and
-        ``noise`` (like x3d_gt) are drawn from ``generator`` unless given."""
+    def prepare_targets(self, x3d_gt: torch.Tensor, t: torch.Tensor,
+                        noise: torch.Tensor):
+        """Noise the ground truth at steps ``t`` (B,) with ``noise`` (like
+        x3d_gt): (x_t, noise, t)."""
         dev = x3d_gt.device
-        if t is None:
-            t = torch.randint(0, self.cfg.timesteps, (x3d_gt.shape[0],),
-                              generator=generator, device=dev)
         t = torch.as_tensor(t, device=dev).long()
-        if noise is None:
-            noise = torch.randn(x3d_gt.shape, generator=generator, device=dev)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
         x = self.q_sample(x3d_gt * self.cfg.scale, t, noise)
         return self._clamp_scaled(x) / self.cfg.scale, noise, t
+
+    def draw_train(self, x3d_shape, device,
+                   generator: Optional[torch.Generator] = None, *,
+                   t=None, noise=None,
+                   masks: Optional[Dict[str, Sequence]] = None,
+                   dropout_masks: Optional[Dict[str, dict]] = None):
+        """The random draws of one training forward on a batch of
+        ``x3d_shape`` (B, F, N, 3), those not given drawn from
+        ``generator`` in this order: t, the noise, then for each part
+        network in spec order its branch masks and (with dropout) its
+        dropout masks.  The one place that order is kept: the
+        one-process step and the data-parallel step (which draws for the
+        global batch) both come here.  Returns (t, noise, masks,
+        dropout_masks), the last None without dropout."""
+        B = x3d_shape[0]
+        if t is None:
+            t = torch.randint(0, self.cfg.timesteps, (B,),
+                              generator=generator, device=device)
+        if noise is None:
+            noise = torch.randn(tuple(x3d_shape), generator=generator,
+                                device=device)
+        masks, drop = dict(masks or {}), dict(dropout_masks or {})
+        for spec in self.pose_estimator.specs:
+            cfg = self.pose_estimator[spec.name].cfg
+            if spec.name not in masks:
+                masks[spec.name] = [
+                    branch_masks(float(rate), B, device, generator)
+                    for rate in np.repeat(cfg.drop_path_rates, 2)]
+            if cfg.has_dropout and spec.name not in drop:
+                drop[spec.name] = draw_dropout_masks(cfg, B, device,
+                                                     generator)
+        return t, noise, masks, drop or None
 
     @property
     def train_path(self) -> str:
@@ -211,8 +237,8 @@ class D3DP(nn.Module):
         return the x0 prediction (B, F, N, 3).  ``t``, ``noise``, the
         stochastic-depth ``masks`` ({part: [(m1, m2), ...]}) and the
         ``dropout_masks`` ({part: ``models.mixste.draw_dropout_masks``'s
-        layout}) may be injected; the rest is drawn from ``generator``, in
-        that order.  With
+        layout}) may be injected; the rest is drawn from ``generator``
+        (:meth:`draw_train`).  With
         ``mm_scale`` the ground truth arrives in millimetres and the
         prediction is returned in millimetres."""
         if not self.training:
@@ -220,10 +246,12 @@ class D3DP(nn.Module):
                                "(call .train() first)")
         if self.cfg.mm_scale:
             x3d_gt = x3d_gt / 1000.0
-        x_t, _, t = self.prepare_targets(x3d_gt, t, noise, generator)
+        t, noise, masks, dropout_masks = self.draw_train(
+            x3d_gt.shape, x3d_gt.device, generator, t=t, noise=noise,
+            masks=masks, dropout_masks=dropout_masks)
+        x_t, _, t = self.prepare_targets(x3d_gt, t, noise)
         pred = self.pose_estimator(x2d, x_t, t, masks=masks,
-                                   dropout_masks=dropout_masks,
-                                   generator=generator)
+                                   dropout_masks=dropout_masks)
         return pred * 1000.0 if self.cfg.mm_scale else pred
 
     def _model_predictions(self, x: torch.Tensor, x2d_tiled: torch.Tensor,
@@ -269,7 +297,7 @@ class D3DP(nn.Module):
         x2d: (B, F, N, 2) conditioning; x2d_flip: optional flipped twin.
         init_noise: optional (B, H, F, N, 3) x_T; step_noise: optional
         (S, B, H, F, N, 3) per-step noise.  Noise not given is drawn from
-        ``generator`` on the model's device.
+        ``generator`` on the model's device (:func:`ddim_noise`).
         Returns (B, S, H, F, N, 3) x0 predictions of every step, in
         millimetres with ``mm_scale``."""
         cfg = self.cfg
@@ -279,7 +307,6 @@ class D3DP(nn.Module):
         if H < 1 or S < 1:
             raise ValueError(f"num_proposals/sampling_timesteps must be >=1, "
                              f"got {H}/{S}")
-        B, F, N, _ = x2d.shape
         sched = self.schedule
         dev = x2d.device
 
@@ -300,9 +327,9 @@ class D3DP(nn.Module):
         x2d_flip_tiled = (x2d_flip.repeat_interleave(H, dim=0)
                           if x2d_flip is not None else None)
 
-        shape = (B, H, F, N, 3)
-        img = (init_noise.to(dev, torch.float32) if init_noise is not None
-               else torch.randn(shape, generator=generator, device=dev))
+        init_noise, step_noise = ddim_noise(cfg, x2d.shape, H, S, dev,
+                                            generator, init_noise, step_noise)
+        img = init_noise.to(dev, torch.float32)
         preds = []
         for i in range(S):
             pred_noise, x_start = self._model_predictions(
@@ -311,9 +338,7 @@ class D3DP(nn.Module):
             if times_next[i] < 0:
                 img = x_start
                 continue
-            noise = (step_noise[i].to(dev, torch.float32)
-                     if step_noise is not None
-                     else torch.randn(shape, generator=generator, device=dev))
+            noise = step_noise[i].to(dev, torch.float32)
             img = (x_start * float(alpha_next_sqrt[i])
                    + float(coef_c[i]) * pred_noise + float(sigma[i]) * noise)
         preds = torch.stack(preds, dim=1)
@@ -327,3 +352,26 @@ class D3DP(nn.Module):
         if self.cfg.test_time_augmentation and x2d_flip is not None:
             return self.ddim_sample(x2d, x2d_flip, **kw)
         return self.ddim_sample(x2d, None, **kw)
+
+
+def ddim_noise(cfg: D3DPConfig, x2d_shape, num_proposals: int,
+               sampling_timesteps: int, device, generator=None,
+               init_noise=None, step_noise=None):
+    """The DDIM noise of a batch of 2D windows of ``x2d_shape``
+    (B, F, N, 2): those given passed through, the rest drawn from
+    ``generator`` in this order: x_T, then each step that adds noise.
+    ``D3DP.ddim_sample`` and the sharded evaluation (which draws for the
+    global batch) both come here.  Returns (init (B, H, F, N, 3),
+    steps (S, B, H, F, N, 3)); the last step adds none and its slot is
+    zeros."""
+    B, F, N, _ = x2d_shape
+    shape = (B, num_proposals, F, N, 3)
+    if init_noise is None:
+        init_noise = torch.randn(shape, generator=generator, device=device)
+    if step_noise is None:
+        pairs = ddim_time_pairs(cfg.timesteps, sampling_timesteps)
+        step_noise = torch.stack([
+            torch.randn(shape, generator=generator, device=device)
+            if nxt >= 0 else torch.zeros(shape, device=device)
+            for _, nxt in pairs])
+    return init_noise, step_noise

@@ -7,6 +7,13 @@ P_Best, P_Agg, J_Agg) with their part-based breakdowns, all on the model's
 device; only the per-step metric vectors (and, for protocol #2, the poses)
 are read back, one batch behind the dispatch.  The report text reproduces
 the reference's ``h36m_test_log_H{P}_K{T}.txt`` vocabulary line for line.
+
+Sharded evaluation (``world=`` with a process group, as
+``build_eval_step(mesh=)`` shards the JAX step): the window batch is
+rounded up to a multiple of the world size, each rank samples its rows of
+it with its rows of the global batch's noise (:func:`sharded_eval_forward`),
+and the predictions are gathered in rank order, so every rank computes
+the batch's metrics from the same tensors, in the single-process order.
 """
 
 from __future__ import annotations
@@ -21,7 +28,9 @@ import torch
 
 from pafuse_tpu_torch import geometry, losses
 from pafuse_tpu_torch.data import windows as win
-from pafuse_tpu_torch.diffusion import D3DP
+from pafuse_tpu_torch.diffusion import D3DP, ddim_noise
+from pafuse_tpu_torch.parallel.mesh import World, gather_rows
+from pafuse_tpu_torch.utils.device import to_device, to_host
 
 PART_NAMES = ("body", "face", "left_hand", "right_hand")
 
@@ -43,19 +52,56 @@ class EvalAccumulator:
 
 
 def get_eval_step(model: D3DP, num_proposals: int, sampling_timesteps: int,
-                  part_based: bool = True, with_p2_data: bool = False):
-    """Memoised :func:`build_eval_step`, one step per (model, P, T, flags)."""
+                  part_based: bool = True, with_p2_data: bool = False,
+                  world: Optional[World] = None):
+    """Memoised :func:`build_eval_step`, one step per (model, P, T, flags,
+    world)."""
     cache = model.__dict__.setdefault("_eval_step_cache", {})
-    key = (num_proposals, sampling_timesteps, part_based, with_p2_data)
+    key = (num_proposals, sampling_timesteps, part_based, with_p2_data, world)
     if key not in cache:
         cache[key] = build_eval_step(model, num_proposals, sampling_timesteps,
                                      part_based=part_based,
-                                     with_p2_data=with_p2_data)
+                                     with_p2_data=with_p2_data, world=world)
     return cache[key]
 
 
+def sharded_eval_forward(model: D3DP, x2d, x2d_flip, world: World, *,
+                         num_proposals: int, sampling_timesteps: int,
+                         init_noise=None, step_noise=None, generator=None
+                         ) -> torch.Tensor:
+    """``model.eval_forward`` on B rows split over the ranks: the rows (and
+    the noise, injected or drawn here for all B rows from ``generator`` as
+    one process draws it, :func:`diffusion.ddim_noise`) are padded by their
+    last row to a multiple of the world size, each rank samples its share,
+    and the predictions (B, S, H, F, N, 3) are gathered in rank order.
+    Without a process group it is ``model.eval_forward`` itself."""
+    kw = dict(num_proposals=num_proposals,
+              sampling_timesteps=sampling_timesteps)
+    if not world.distributed:
+        return model.eval_forward(x2d, x2d_flip, init_noise=init_noise,
+                                  step_noise=step_noise, generator=generator,
+                                  **kw)
+    B = x2d.shape[0]
+    if init_noise is None or step_noise is None:
+        init_noise, step_noise = ddim_noise(
+            model.cfg, x2d.shape, num_proposals, sampling_timesteps,
+            x2d.device, generator, init_noise, step_noise)
+    k = -(-B // world.size)
+    idx = torch.arange(world.rank * k, (world.rank + 1) * k,
+                       device=x2d.device).clamp_max(B - 1)
+
+    def rows(t, dim=0):
+        return t.index_select(dim, idx)
+
+    preds = model.eval_forward(
+        rows(x2d), None if x2d_flip is None else rows(x2d_flip),
+        init_noise=rows(init_noise), step_noise=rows(step_noise, 1), **kw)
+    return gather_rows(preds, world)[:B]
+
+
 def build_eval_step(model: D3DP, num_proposals: int, sampling_timesteps: int,
-                    part_based: bool = True, with_p2_data: bool = False):
+                    part_based: bool = True, with_p2_data: bool = False,
+                    world: Optional[World] = None):
     """Returns ``step(x2d, x2d_flip, x3d_parts, traj, cam, mask,
     init_noise=None, step_noise=None, generator=None) -> {name: tensor}``
     on one window batch (tensors on the model's device).
@@ -65,14 +111,18 @@ def build_eval_step(model: D3DP, num_proposals: int, sampling_timesteps: int,
     are zeroed and every metric rescaled by B / sum(mask), so each keeps
     the mean over the real rows.  ``init_noise`` (B, H, F, N, 3) and
     ``step_noise`` (S, B, H, F, N, 3) inject the DDIM noise; what is not
-    injected is drawn from ``generator``."""
+    injected is drawn from ``generator``.  With a ``world`` that has a
+    process group the sampling is split over the ranks
+    (:func:`sharded_eval_forward`) and every rank returns the batch's
+    metrics."""
 
     def step(x2d, x2d_flip, x3d_parts, traj, cam, mask, init_noise=None,
              step_noise=None, generator=None):
-        preds = model.eval_forward(
-            x2d, x2d_flip, num_proposals=num_proposals,
+        preds = sharded_eval_forward(                     # (B,S,H,F,N,3)
+            model, x2d, x2d_flip, world or World(),
+            num_proposals=num_proposals,
             sampling_timesteps=sampling_timesteps, init_noise=init_noise,
-            step_noise=step_noise, generator=generator)      # (B,S,H,F,N,3)
+            step_noise=step_noise, generator=generator)
         if part_based:
             pred_wb = geometry.wb_pose_from_parts(preds)
             gt_wb = geometry.wb_pose_from_parts(x3d_parts)
@@ -150,6 +200,7 @@ def evaluate_sequences(model: D3DP, sequences, *,
                        sequence_batches: bool = False,
                        tail_bucket: bool = True,
                        timings: Optional[dict] = None,
+                       world: Optional[World] = None,
                        ) -> Tuple[EvalAccumulator, object]:
     """Evaluate (cam, pose_3d, pose_2d) sequences with the model in eval
     mode; returns (metrics accumulator, second) where ``second`` is the
@@ -173,9 +224,14 @@ def evaluate_sequences(model: D3DP, sequences, *,
     noise; otherwise it is drawn from ``generator`` (a fresh one seeded 0
     on the model's device when omitted).  ``timings`` receives host-clock
     seconds of host_prep / transfer / dispatch / drain and window counts.
+    ``world`` (``parallel.mesh``) with a process group shards each window
+    batch over the ranks (the batch rounded up to a multiple of the world
+    size); every rank gets the same metrics.
 
-    The metric tensors stay on the device until the batch after them has
-    been dispatched (the one-deep drain)."""
+    Each batch's metric tensors are copied back right behind its work
+    (``utils.device.to_host``) and read after the next batch has been
+    dispatched (the one-deep drain): the read waits for its own batch
+    only."""
     if model.training:
         raise RuntimeError("evaluate_sequences needs the model in eval mode "
                            "(call .eval() first)")
@@ -188,7 +244,8 @@ def evaluate_sequences(model: D3DP, sequences, *,
         generator = torch.Generator(device=dev).manual_seed(0)
     step = get_eval_step(model, num_proposals, sampling_timesteps,
                          part_based=part_based,
-                         with_p2_data=collect_p2 or return_predictions)
+                         with_p2_data=collect_p2 or return_predictions,
+                         world=world)
     acc = EvalAccumulator()
     p2_acc = EvalAccumulator()
     all_preds = []
@@ -197,11 +254,13 @@ def evaluate_sequences(model: D3DP, sequences, *,
     bs = (window_batch if window_batch is not None else
           pinned_window_batch([s for _, _, s in sequences], receptive_field,
                               sub_batch=sub_batch))
+    if world is not None:   # even shards per rank
+        bs = -(-max(bs, world.size) // world.size) * world.size
 
     def _drain(pending):
         t0 = time.perf_counter()
         metrics_dev, weight, cur = pending
-        metrics = {k: v.cpu().numpy() for k, v in metrics_dev.items()}
+        metrics = {k: v.numpy() for k, v in metrics_dev.items()}
         pred_wb = metrics.pop("_pred_wb", None)
         gt_wb = metrics.pop("_gt_wb", None)
         reproj = metrics.pop("_reproj", None)
@@ -265,9 +324,6 @@ def evaluate_sequences(model: D3DP, sequences, *,
         return np.ascontiguousarray(a.reshape((nb, bs) + a.shape[1:]),
                                     dtype=np.float32)
 
-    def to_dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
     seq_off = np.cumsum([0] + [p.shape[0] for p in parts_2d])
     total_windows = int(seq_off[-1])
     if noise_table is not None:
@@ -288,11 +344,11 @@ def evaluate_sequences(model: D3DP, sequences, *,
         n_batches = -(-n_windows // bs)
         t_xfer = time.perf_counter()
         d2d, d2d_flip, dgt, dtraj, dcam = (
-            to_dev(pooled([chunks[i] for i in g])) for chunks in
+            to_device(pooled([chunks[i] for i in g]), dev) for chunks in
             (parts_2d, parts_2d_flip, parts_gt, parts_traj, parts_cam))
         masks = np.ones((n_batches, bs), np.float32)
         masks[-1, n_windows - (n_batches - 1) * bs:] = 0.0
-        dmask = to_dev(masks)
+        dmask = to_device(masks, dev)
         if timings is not None:
             timings["transfer"] = (timings.get("transfer", 0.0)
                                    + time.perf_counter() - t_xfer)
@@ -314,8 +370,11 @@ def evaluate_sequences(model: D3DP, sequences, *,
             args = [t[b_i, :tb] for t in (d2d, d2d_flip, dgt, dtraj, dcam,
                                           dmask)]
             if noise_table is not None:
-                args += [to_dev(hinit[b_i, :tb]), to_dev(hstep[b_i][:, :tb])]
-            metrics_dev = step(*args, generator=generator)
+                args += [to_device(hinit[b_i, :tb], dev),
+                         to_device(hstep[b_i][:, :tb], dev)]
+            # the readback is queued right behind this batch's work
+            metrics_dev = {k: to_host(v) for k, v in
+                           step(*args, generator=generator).items()}
             if timings is not None:
                 timings["dispatch"] = (timings.get("dispatch", 0.0)
                                        + time.perf_counter() - t_disp)

@@ -165,8 +165,7 @@ def center_pose_parts(pose: torch.Tensor,
     ``out[..., j, :] = pose[..., j, :] - pose[..., root_of(j), :]``."""
     table = (sk.PART_ROOT_OF_JOINT if part_root_of_joint is None
              else part_root_of_joint)
-    idx = torch.as_tensor(np.asarray(table), dtype=torch.long,
-                          device=pose.device)
+    idx = to_device(np.asarray(table), pose.device, torch.long)
     return pose - pose.index_select(-2, idx)
 
 

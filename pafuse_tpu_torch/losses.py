@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from pafuse_tpu_torch import geometry, skeleton as sk
+from pafuse_tpu_torch.utils.device import to_device
 
 
 # ---------------------------------------------------------------------------
@@ -53,8 +54,7 @@ def mpjpe_per_joint(predicted: torch.Tensor, target: torch.Tensor):
 
 def _joints(x: torch.Tensor, idx) -> torch.Tensor:
     """x[..., idx] over the last (joint) axis."""
-    return x.index_select(-1, torch.as_tensor(np.asarray(idx), dtype=torch.long,
-                                              device=x.device))
+    return x.index_select(-1, to_device(np.asarray(idx), x.device, torch.long))
 
 
 def mpjpe_diffusion_all_min(predicted: torch.Tensor, target: torch.Tensor,

@@ -473,28 +473,26 @@ class MixSTE2(nn.Module):
 
     def forward(self, x2d: torch.Tensor, x3d: torch.Tensor, t: torch.Tensor,
                 masks: Optional[Sequence[BranchMasks]] = None,
-                dropout_masks: Optional[dict] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_masks: Optional[dict] = None) -> torch.Tensor:
         """In train mode, ``masks`` gives each block's branch masks (2·depth
         pairs of (B,) tensors, 0 or 1/keep at the block's rate: layer i's
-        spatial block at 2i, its temporal block at 2i+1) and
+        spatial block at 2i, its temporal block at 2i+1) and, with dropout,
         ``dropout_masks`` the dropout keep masks
-        (:func:`draw_dropout_masks`'s layout); those not given are drawn
-        from ``generator``, branch masks first."""
+        (:func:`draw_dropout_masks`'s layout).  Both are drawn by the
+        caller (``diffusion.D3DP.draw_train``)."""
         cfg = self.cfg
         cd = self.compute_dtype
-        B = x2d.shape[0]
         drop = None
         if self.training:
-            if masks is None:
-                masks = [branch_masks(float(rate), B, x2d.device, generator)
-                         for rate in np.repeat(cfg.drop_path_rates, 2)]
-            if len(masks) != 2 * cfg.depth:
-                raise ValueError(f"MixSTE2: {len(masks)} mask pairs for "
-                                 f"{2 * cfg.depth} blocks")
+            if masks is None or len(masks) != 2 * cfg.depth:
+                raise ValueError(
+                    f"MixSTE2: train mode needs {2 * cfg.depth} mask pairs, "
+                    f"got {None if masks is None else len(masks)}")
             if cfg.has_dropout:
-                drop = (dropout_masks if dropout_masks is not None else
-                        draw_dropout_masks(cfg, B, x2d.device, generator))
+                if dropout_masks is None:
+                    raise ValueError("MixSTE2: train mode with dropout needs "
+                                     "dropout_masks")
+                drop = dropout_masks
         else:
             masks = [None] * (2 * cfg.depth)
         blocks = drop["blocks"] if drop else [None] * (2 * cfg.depth)

@@ -103,12 +103,11 @@ class PartModel(nn.ModuleDict):
 
     def forward(self, x2d: torch.Tensor, x3d: torch.Tensor, t: torch.Tensor,
                 masks: Optional[Dict[str, Sequence]] = None,
-                dropout_masks: Optional[Dict[str, dict]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_masks: Optional[Dict[str, dict]] = None
+                ) -> torch.Tensor:
         """In train mode, ``masks`` and ``dropout_masks`` map each part to
         its network's branch and dropout masks (see
-        :meth:`MixSTE2.forward`); parts without them draw their own from
-        ``generator``, in spec order."""
+        :meth:`MixSTE2.forward`; drawn by ``diffusion.D3DP.draw_train``)."""
         outs = []
         for s in self.specs:
             idx = getattr(self, f"_idx_{s.name}")
@@ -120,8 +119,7 @@ class PartModel(nn.ModuleDict):
             outs.append(self[s.name](
                 x2d.index_select(-2, idx), x3d.index_select(-2, idx), t,
                 masks=part_masks,
-                dropout_masks=(dropout_masks or {}).get(s.name),
-                generator=generator))
+                dropout_masks=(dropout_masks or {}).get(s.name)))
         merged = torch.cat(outs, dim=-2)
         if self._is_identity:
             return merged

@@ -1,7 +1,7 @@
 """Persistent pose-lifting service: weights on the device once, requests
 lifted through flip-TTA multi-hypothesis DDIM, over HTTP or in-process.
 
-Counterpart of ``pafuse_tpu/serve.py``, on one CUDA device:
+Counterpart of ``pafuse_tpu/serve.py``, on one CUDA device or on several:
 
 * **Resident weights.** The model's weights move to the device once, at
   construction; every request and every op-point tier shares them.
@@ -30,6 +30,12 @@ Counterpart of ``pafuse_tpu/serve.py``, on one CUDA device:
 * **Op-point tiers.** ``op_points`` lists (P, T) tiers served over the same
   weights, the first the default; each tier has its own batcher, so tiers
   never co-batch.
+* **Several cards.** With ``devices=[...]`` (``cli/serve.py`` passes every
+  visible card at ``serve.shard=auto``) there is one replica of the model
+  per device, the buckets are rounded up to a multiple of the device
+  count (as the JAX service rounds them for its mesh), and the rows of
+  each sampler call split evenly over the replicas, each slice queued on
+  its own device's stream and read back into row order on the host.
 
 The request path: normalise -> flipped twin -> window -> DDIM (chunked) ->
 whole-body assembly -> stitch -> optional camera-to-world.
@@ -41,6 +47,7 @@ with Prometheus metrics.
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import json
 import queue
@@ -260,6 +267,9 @@ class LiftingService:
         ``op_point=``.  Default: the model config's (num_proposals,
         sampling_timesteps).
     device: ``"cuda"`` (default; raises without CUDA) or ``"cpu"``.
+    devices: several devices (``["cuda:0", "cuda:1"]``; a device may repeat):
+        one replica per entry, the rows of each sampler call split evenly
+        over them; overrides ``device`` (the first is the service's).
     """
 
     def __init__(self, model, state_dict: Optional[Dict] = None,
@@ -267,23 +277,30 @@ class LiftingService:
                  warmup: bool = False, dynamic_batching: bool = True,
                  max_frames: int = 100_000, noise_mode: str = "host",
                  readback: str = "all", op_points: Optional[Sequence] = None,
-                 device="cuda"):
+                 device="cuda", devices: Optional[Sequence] = None):
         if noise_mode not in ("host", "device"):
             raise ValueError(f"noise_mode must be 'host' or 'device'; "
                              f"got {noise_mode!r}")
         if readback not in ("all", "mean"):
             raise ValueError(f"readback must be 'all' or 'mean'; "
                              f"got {readback!r}")
-        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
-        if not self.buckets or min(self.buckets) < 1:
+        if not buckets or min(int(b) for b in buckets) < 1:
             raise ValueError(f"invalid buckets {buckets!r}")
+        self.devices = tuple(resolve_device(d)
+                             for d in (devices if devices else [device]))
+        n = len(self.devices)
+        # even row shards per replica
+        self.buckets = tuple(sorted(set(-(-int(b) // n) * n
+                                        for b in buckets)))
         self.noise_mode = noise_mode
         self.readback = readback
         self.max_frames = int(max_frames)
-        self.device = resolve_device(device)
+        self.device = self.devices[0]
         if state_dict is not None:
             model.pose_estimator.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
+        self.replicas = (self.model,) + tuple(
+            copy.deepcopy(self.model).to(d) for d in self.devices[1:])
         cfg = model.cfg
         self.receptive_field = cfg.frames
 
@@ -386,13 +403,14 @@ class LiftingService:
         return (w2d, w2d_flip) + self._request_noise(w2d.shape[0], seed,
                                                      op_point=op_point)
 
-    def _device_noise(self, seeds: np.ndarray, op_point):
-        """Noise drawn on the device, one generator per window seeded with
-        its seed: init (W, H, rf, J, 3), then steps, stacked (S, W, H, rf,
-        J, 3) as the sampler takes them."""
+    def _device_noise(self, seeds: np.ndarray, op_point, device=None):
+        """Noise drawn on the device (the service's, or ``device``), one
+        generator per window seeded with its seed: init (W, H, rf, J, 3),
+        then steps, stacked (S, W, H, rf, J, 3) as the sampler takes
+        them."""
         rf, J = self.receptive_field, self.model.cfg.num_kps
         H, S = op_point
-        dev = self.device
+        dev = self.device if device is None else device
         init, steps = [], []
         for s in seeds.tolist():
             g = torch.Generator(device=dev)
@@ -402,21 +420,40 @@ class LiftingService:
                                      device=dev))
         return torch.stack(init), torch.stack(steps, dim=1)
 
-    def _call_chunk(self, w2d_c, w2d_flip_c, *noise_c, op_point=None
-                    ) -> torch.Tensor:
-        """One sampler call on a chunk of rows, queued on the device:
-        (W, H, rf, J, 3) at the final DDIM step, assembled to the whole
-        body, or its hypothesis mean (W, rf, J, 3) with readback='mean'."""
+    def _call_chunk(self, *arrays, op_point=None):
+        """One sampler call on a chunk of rows (the 2D windows, their flipped
+        twins and the noise or seeds), queued on the device(s): (W, H, rf,
+        J, 3) at the final DDIM step, assembled to the whole body, or its
+        hypothesis mean (W, rf, J, 3) with readback='mean'.  With several
+        replicas the rows split evenly over them and the result is the list
+        of their slices, in row order (``to_host`` reads it back as one
+        array)."""
+        if len(self.replicas) == 1:
+            return self._replica_call(0, *arrays, op_point=op_point)
+        n, W = len(self.replicas), arrays[0].shape[0]
+        # as even as rows allow, the first W % n replicas one row more
+        bounds = np.cumsum([0] + [W // n + (i < W % n) for i in range(n)])
+        return [self._replica_call(i, *(a[lo:hi] for a in arrays),
+                                   op_point=op_point)
+                for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))
+                if hi > lo]
+
+    def _replica_call(self, i: int, w2d_c, w2d_flip_c, *noise_c,
+                      op_point=None) -> torch.Tensor:
+        """The sampler call of :meth:`_call_chunk` on replica ``i``, queued
+        on its device's current stream."""
         H, S = op_point if op_point is not None else self.default_op_point
-        dev = self.device
-        with torch.no_grad():
+        dev, model = self.devices[i], self.replicas[i]
+        on_card = (torch.cuda.device(dev) if dev.type == "cuda"
+                   else contextlib.nullcontext())
+        with torch.no_grad(), on_card:
             if self.noise_mode == "device":
-                init, stepn = self._device_noise(noise_c[0], (H, S))
+                init, stepn = self._device_noise(noise_c[0], (H, S), dev)
             else:
                 init = to_device(noise_c[0], dev)
                 # (W, S, ...) -> the sampler's (S, W, ...), on the device
                 stepn = to_device(noise_c[1], dev).transpose(0, 1)
-            preds = self.model.eval_forward(
+            preds = model.eval_forward(
                 to_device(w2d_c, dev), to_device(w2d_flip_c, dev),
                 num_proposals=H, sampling_timesteps=S, init_noise=init,
                 step_noise=stepn)
@@ -569,7 +606,7 @@ class LiftingService:
         s["num_proposals"] = int(self.default_op_point[0])
         s["sampling_timesteps"] = int(self.default_op_point[1])
         s["op_points"] = [f"{p}x{t}" for p, t in self.op_points]
-        s["mesh_devices"] = 1
+        s["mesh_devices"] = len(self.devices)
         s["dynamic_batching"] = self._batchers is not None
         s["noise_mode"] = self.noise_mode
         s["readback"] = self.readback

@@ -9,6 +9,13 @@ Randomness of a step (the diffusion steps t, the noise, the
 stochastic-depth masks and the dropout masks) comes from the state's
 ``torch.Generator``, or is injected.
 
+Data parallel (``world=`` with a process group, ``parallel.mesh``): every
+rank is handed the same global batch and draws the whole batch's
+randomness from the same seeded generator, in the order one process draws
+it (``D3DP.draw_train``); it then runs its own rows through the model behind
+``DistributedDataParallel``, whose backward averages the gradients, so a
+step equals one process on the global batch and the replicas stay equal.
+
 The optimizer is ``torch.optim.AdamW(weight_decay=0.1, betas=(0.9, 0.999),
 eps=1e-8)`` over all parameters: optax ``adamw`` has no mask, so LayerNorm
 parameters, biases and position embeddings are decayed too.  The learning
@@ -25,7 +32,9 @@ import torch
 
 from pafuse_tpu_torch import geometry, losses
 from pafuse_tpu_torch.diffusion import D3DP
-from pafuse_tpu_torch.utils.device import resolve_device
+from pafuse_tpu_torch.parallel.mesh import (World, all_mean, replicate,
+                                            shard_rows)
+from pafuse_tpu_torch.utils.device import resolve_device, to_device, to_host
 
 
 @dataclasses.dataclass
@@ -56,10 +65,31 @@ def create_train_state(model: D3DP, seed: int = 1, weight_decay: float = 0.1,
                       gen)
 
 
+def _draw_rows(draws, world: World, batch: int):
+    """This rank's rows of ``D3DP.draw_train``'s draws for a global batch of
+    ``batch`` rows: rows of t, the noise and the branch masks, and of the
+    dropout masks, whose leading axis is batch x S (b-major)."""
+    def cut(x):
+        k = x.shape[0] // batch * (batch // world.size)
+        return x[world.rank * k:(world.rank + 1) * k]
+
+    t, noise, masks, drop = draws
+    masks = {p: [tuple(cut(m) for m in pair) for pair in v]
+             for p, v in masks.items()}
+    if drop is not None:
+        drop = {p: {"pos": [None if m is None else cut(m) for m in d["pos"]],
+                    "blocks": [{k: None if m is None else cut(m)
+                                for k, m in b.items()} for b in d["blocks"]]}
+                for p, d in drop.items()}
+    return cut(t), cut(noise), masks, drop
+
+
 def build_train_step(model: D3DP, optimizer: torch.optim.Optimizer, *,
                      weights: Optional[np.ndarray] = None,
                      mse_loss: bool = False, wb_loss: bool = False,
-                     part_based: bool = True) -> Callable[..., torch.Tensor]:
+                     part_based: bool = True,
+                     world: Optional[World] = None
+                     ) -> Callable[..., torch.Tensor]:
     """Returns ``step(state, lr, x2d, x3d, *, t=None, noise=None,
     masks=None, dropout_masks=None) -> loss``.
 
@@ -71,22 +101,37 @@ def build_train_step(model: D3DP, optimizer: torch.optim.Optimizer, *,
     ``state.generator``.  The loss is float32 whatever the model's compute
     dtype; params, gradients and the AdamW state are float32.  Model and optimizer are
     updated in place; the loss comes back as a device scalar (reading it
-    waits for the step)."""
+    waits for the step).
+
+    With a ``world`` that has a process group, ``x2d``/``x3d`` and the
+    injected draws are the global batch's; the step takes this rank's rows
+    of them (``parallel.mesh.shard_rows``), backpropagates through
+    ``parallel.mesh.replicate`` and returns the loss averaged over the
+    ranks, the global batch's loss."""
     w = (torch.as_tensor(weights, dtype=torch.float32, device=model.device)
          if weights is not None else None)
+    parallel = world is not None and world.distributed
+    forward = replicate(model, world) if parallel else model.train_forward
 
     def step(state: TrainState, lr: float, x2d, x3d, *,
              t=None, noise=None,
              masks: Optional[Dict[str, Sequence]] = None,
              dropout_masks: Optional[Dict[str, dict]] = None) -> torch.Tensor:
         dev = model.device
-        x2d = torch.as_tensor(x2d, dtype=torch.float32, device=dev)
-        x3d = torch.as_tensor(x3d, dtype=torch.float32, device=dev)
+        if parallel:
+            t, noise, masks, dropout_masks = _draw_rows(
+                model.draw_train(x3d.shape, dev, state.generator, t=t,
+                                 noise=noise, masks=masks,
+                                 dropout_masks=dropout_masks),
+                world, x3d.shape[0])
+            x2d, x3d = shard_rows((x2d, x3d), world)
+        x2d = to_device(x2d, dev, torch.float32)
+        x3d = to_device(x3d, dev, torch.float32)
         x3d_c = (geometry.center_pose_parts(x3d) if part_based
                  else geometry.center_pose_at_root(x3d))
-        pred = model.train_forward(x2d, x3d_c, t=t, noise=noise, masks=masks,
-                                   dropout_masks=dropout_masks,
-                                   generator=state.generator)
+        pred = forward(x2d, x3d_c, t=t, noise=noise, masks=masks,
+                       dropout_masks=dropout_masks,
+                       generator=state.generator)
         target = x3d_c
         if part_based and wb_loss:
             pred = geometry.wb_pose_from_parts(pred)
@@ -97,9 +142,41 @@ def build_train_step(model: D3DP, optimizer: torch.optim.Optimizer, *,
         for group in optimizer.param_groups:
             group["lr"] = float(lr)
         optimizer.step()
-        return loss.detach()
+        loss = loss.detach()
+        return all_mean(loss, world) if parallel else loss
 
     return step
+
+
+def run_epoch(step: Callable[..., torch.Tensor], state: TrainState, lr: float,
+              batches, seqs_per_batch: int, *, rows_weight: int = 1,
+              quickdebug: bool = False,
+              progress: Optional[Callable[[int], None]] = None
+              ) -> Tuple[float, int]:
+    """One epoch of ``step`` over ``batches`` ((cam, x3d, x2d) triples,
+    each padded to ``seqs_per_batch`` rows by :func:`pad_batch`), with a
+    one-deep loss readback: step N's loss is read (``utils.device.to_host``:
+    a pinned copy queued right behind step N) after step N+1 has been
+    queued, and the read waits for step N alone.  Returns (sum of loss x
+    weight, sum of weights), a batch's weight being its real rows times
+    ``rows_weight``.  ``progress(i)`` is called before batch i;
+    ``quickdebug`` stops after one batch."""
+    total, seen, pending = 0.0, 0, None
+    for it, (_, b3d, b2d) in enumerate(batches):
+        if progress is not None:
+            progress(it)
+        b2d, real = pad_batch(b2d, seqs_per_batch)
+        b3d, _ = pad_batch(b3d, seqs_per_batch)
+        loss = to_host(step(state, lr, b2d, b3d))
+        if pending is not None:
+            total += pending[1] * float(pending[0].numpy())
+        pending = (loss, real * rows_weight)
+        seen += real * rows_weight
+        if quickdebug:
+            break
+    if pending is not None:
+        total += pending[1] * float(pending[0].numpy())
+    return total, seen
 
 
 def pad_batch(arr: np.ndarray, batch_size: int) -> Tuple[np.ndarray, int]:

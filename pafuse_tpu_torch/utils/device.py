@@ -76,10 +76,23 @@ class HostCopy:
         return self._host.numpy()
 
 
-def to_host(out: torch.Tensor) -> Union[HostCopy, torch.Tensor]:
+class HostConcat:
+    """The readbacks of consecutive row slices (on one device or several):
+    :meth:`numpy` waits for each and concatenates them in order."""
+
+    def __init__(self, handles):
+        self.handles = handles
+
+    def numpy(self) -> np.ndarray:
+        return np.concatenate([h.numpy() for h in self.handles])
+
+
+def to_host(out) -> Union[HostCopy, HostConcat, torch.Tensor]:
     """Start reading ``out`` back: a :class:`HostCopy` for a CUDA tensor, the
-    tensor itself on the CPU.  Either handle's ``numpy()`` gives the host
-    array."""
+    tensor itself on the CPU, a :class:`HostConcat` for a list of row
+    slices.  Each handle's ``numpy()`` gives the host array."""
+    if isinstance(out, (list, tuple)):
+        return HostConcat([to_host(o) for o in out])
     return HostCopy(out) if out.device.type == "cuda" else out
 
 

@@ -191,8 +191,9 @@ def test_logging_tee_is_restored(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("override,error", [
     ("ft2d.sampling_timestep=5", KeyError),        # a typo
     ("tpu.use_pallas=true", KeyError),            # the TPU group is gone
-    ("gpu.mesh_shape=[-1]", KeyError),            # TPU-only keys are absent
-    ("gpu.donate_buffers=true", KeyError),
+    ("gpu.mesh_shape=[2]", ValueError),           # not the world's size
+    ("gpu.mesh_axis_names=[model]", ValueError),  # only 'data' is sharded
+    ("gpu.donate_buffers=true", KeyError),        # TPU-only keys are absent
     ("experiment.warmup=5", ValueError),
     ("model.diff_model=X", ValueError),
     ("gpu.use_pallas=block_t", ValueError),       # without the gate
@@ -291,9 +292,11 @@ def test_defaults_match_the_jax_config():
     assert set(want) - set(got) == {"tpu"}
     assert set(got["gpu"]) == {"device", "use_pallas", "experimental_kernels",
                                "train_kernel", "compute_dtype", "remat",
-                               "seed"}
+                               "seed", "mesh_shape", "mesh_axis_names",
+                               "profile"}
     for key in ("use_pallas", "experimental_kernels", "train_kernel",
-                "compute_dtype", "remat", "seed"):
+                "compute_dtype", "remat", "seed", "mesh_shape",
+                "mesh_axis_names", "profile"):
         assert got["gpu"][key] == want["tpu"][key], key
 
 

@@ -688,3 +688,124 @@ def test_bf16_training_step_matches_plain_on_gpu(cuda_device):
     (lk, gk), (lp, gp) = out
     assert abs(lk - lp) <= 1e-3 * abs(lp)
     assert max(_rel_errs(gk, gp)) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_loss_readback_waits_for_its_own_step_only_on_gpu(cuda_device):
+    """The training loop's one-deep loss readback (``train.run_epoch``, the
+    CLIs' loop): step 0's loss is read after step 1 (40 float32 4096^3
+    products, ~0.1 s) has been queued, and the read returns while step 1
+    still runs, as its event's ``query()`` shows when batch 2 starts; a
+    blocking ``float()`` would have waited for step 1 too.  One product
+    runs first: the first product of a process initialises cuBLAS, which
+    blocks the host for the whole queue."""
+    from pafuse_tpu_torch import train as tr
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(4096, 4096, generator=g, device=cuda_device) / 64
+    a @ a
+    torch.cuda.synchronize()
+    done, seen = [], []
+
+    def step(state, lr, b2d, b3d):
+        loss = a[:2, :2].sum() * float(b2d[0, 0] + 1)
+        if b2d[0, 0] == 1:                      # step 1: long work
+            big = a
+            for _ in range(40):
+                big = big @ a
+            loss = loss + 0 * big[0, 0]
+        ev = torch.cuda.Event()
+        ev.record()
+        done.append(ev)
+        return loss
+
+    def progress(it):
+        if it == 2:
+            seen.append(done[1].query())
+
+    batches = [(None, np.zeros((2, 1), np.float32),
+                np.full((2, 1), i, np.float32)) for i in range(3)]
+    total, n = tr.run_epoch(step, None, 0.0, batches, 2, progress=progress)
+    assert seen == [False]
+    s = float(a[:2, :2].sum())
+    assert n == 6 and abs(total - 2 * s * (1 + 2 + 3)) <= 1e-4 * abs(total)
+
+
+@pytest.mark.cuda
+def test_eval_drain_waits_for_its_own_batch_only_on_gpu(cuda_device,
+                                                        monkeypatch):
+    """The evaluation drain: batch 0's metrics are read after batch 1 has
+    been dispatched, from a copy queued right behind batch 0's work, so
+    the read returns while batch 1 (its sampler call followed by 40
+    float32 4096^3 products) still runs; a blocking ``.cpu()`` would have
+    waited for batch 1 too.  One product runs first, as in the loss
+    readback test."""
+    from pafuse_tpu_torch import evaluate as ev
+    from pafuse_tpu_torch.data import h3wb
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    model = D3DP(D3DPConfig(frames=9, timesteps=20, depth=1), device=cuda_device)
+    ds = h3wb.make_synthetic(subjects=("S8",), actions_per_subject=1,
+                             frames_per_action=36, seed=0)
+    kp = h3wb.prepare_data(ds)
+    seqs = list(zip(*h3wb.fetch(["S8"], kp, ds)))      # 4 x 4 windows
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(4096, 4096, generator=g, device=cuda_device) / 64
+    a @ a
+    torch.cuda.synchronize()
+    real, events, seen = model.eval_forward, [], []
+
+    def slow_second(*args, **kw):
+        out = real(*args, **kw)
+        if len(events) == 1:                    # batch 1: long work after
+            big = a
+            for _ in range(40):
+                big = big @ a
+            out = out + 0 * big[0, 0]
+        e = torch.cuda.Event()
+        e.record()
+        events.append(e)
+        return out
+
+    add = ev.EvalAccumulator.add
+
+    def spy(self, metrics, weight):
+        if not seen:
+            seen.append(events[1].query())
+        return add(self, metrics, weight)
+
+    monkeypatch.setattr(model, "eval_forward", slow_second)
+    monkeypatch.setattr(ev.EvalAccumulator, "add", spy)
+    acc, _ = ev.evaluate_sequences(model, seqs, receptive_field=9,
+                                   num_proposals=2, sampling_timesteps=1,
+                                   window_batch=8)
+    assert len(events) == 2 and seen == [False]
+    assert all(np.all(np.isfinite(v)) for v in acc.means_mm().values())
+
+
+@pytest.mark.cuda
+def test_two_replicas_on_one_card_serve_as_one_on_gpu(cuda_device):
+    """``LiftingService(devices=[cuda, cuda])``: the rows of each sampler
+    call split over two replicas (each on the card's stream) and read back
+    in row order equal one replica's poses within chip_smoke.py's
+    SERVE_TOL (the library GEMMs of the embedding and head may round a row
+    differently at another row count)."""
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.serve import LiftingService
+    cfg = D3DPConfig(frames=9, timesteps=20, sampling_timesteps=2,
+                     num_proposals=2, depth=1)
+
+    def service(**kw):
+        return LiftingService(D3DP(cfg, device=cuda_device,
+                                   generator=torch.Generator().manual_seed(0)),
+                              buckets=(1, 2, 4, 8), **kw)
+
+    one, two = service(device=cuda_device), service(
+        devices=[cuda_device, cuda_device])
+    try:
+        kp = np.random.RandomState(0).uniform(-1, 1, (60, 134, 2))
+        for frames in (9, 40, 60):
+            a, b = (s.lift(kp[:frames], seed=2)["poses"] for s in (one, two))
+            assert np.max(np.abs(a - b)) <= 1e-3
+        assert two.health()["mesh_devices"] == 2
+    finally:
+        one.close()
+        two.close()

@@ -17,8 +17,8 @@ import jax.numpy as jnp
 
 from pafuse_tpu import diffusion as jax_diffusion
 from pafuse_tpu_torch import checkpoints
-from pafuse_tpu_torch.diffusion import (D3DP, D3DPConfig, ddim_time_pairs,
-                                        make_schedule)
+from pafuse_tpu_torch.diffusion import (D3DP, D3DPConfig, ddim_noise,
+                                        ddim_time_pairs, make_schedule)
 
 torch.set_num_threads(2)
 
@@ -97,3 +97,22 @@ def test_ddim_sample_draws_from_generator(models):
             for _ in range(2))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert a.shape == (B, S, H, F, N, 3)
+
+
+@pytest.mark.parametrize("S_", [1, 2, 3])
+def test_ddim_sample_draws_through_ddim_noise(models, S_):
+    """``diffusion.ddim_noise`` is the one owner of DDIM's draw order (the
+    sharded evaluation draws the global batch through it): sampling that
+    draws for itself equals sampling handed ``ddim_noise``'s draws from an
+    equally seeded generator, bit for bit, with the generator left in the
+    same state; the last step adds no noise."""
+    _, _, pm = models
+    x2d = torch.from_numpy(_inputs()[0])
+    g1, g2 = (torch.Generator().manual_seed(7) for _ in range(2))
+    own = pm.ddim_sample(x2d, sampling_timesteps=S_, generator=g1)
+    init, steps = ddim_noise(pm.cfg, x2d.shape, H, S_, "cpu", g2)
+    given = pm.ddim_sample(x2d, sampling_timesteps=S_, init_noise=init,
+                           step_noise=steps)
+    assert torch.equal(own, given)
+    assert torch.equal(g1.get_state(), g2.get_state())
+    assert steps.shape == (S_, B, H, F, N, 3) and not steps[-1].any()

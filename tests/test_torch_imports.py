@@ -17,7 +17,7 @@ PKG = os.path.join(REPO, "pafuse_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_ab.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -55,9 +55,13 @@ def test_package_imports_without_jax_or_pafuse_tpu():
         "for m in ('pafuse_tpu_torch.serve', 'pafuse_tpu_torch.cli.serve',"
         " 'pafuse_tpu_torch.utils.device', 'pafuse_tpu_torch.data.dhp3',"
         " 'pafuse_tpu_torch.cli.main_3dhp', 'pafuse_tpu_torch.cli.in_the_wild',"
-        " 'pafuse_tpu_torch.cli.draw_h3wb', 'pafuse_tpu_torch.viz'):\n"
+        " 'pafuse_tpu_torch.cli.draw_h3wb', 'pafuse_tpu_torch.viz',"
+        " 'pafuse_tpu_torch.parallel.mesh',"
+        " 'pafuse_tpu_torch.utils.observability'):\n"
         "    assert m in sys.modules, m\n"
         "assert 'matplotlib' not in sys.modules and 'cv2' not in sys.modules\n"
+        "assert 'tensorboardX' not in sys.modules\n"
+        "assert 'torch.utils.tensorboard' not in sys.modules\n"
         "print('ok', len([n for n in sys.modules"
         " if n.startswith('pafuse_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -97,6 +101,12 @@ def test_entry_points_refuse_missing_cuda():
     for cli in (main_3dhp, in_the_wild, draw_h3wb):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["model.dep=1"])
+    # so do the data-parallel world and a service over several devices
+    from pafuse_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LiftingService(model, device="cpu", devices=["cuda:0", "cuda:1"])
 
 
 def test_kernel_wrappers_refuse_cuda_tensors_without_a_kernel():

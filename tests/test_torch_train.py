@@ -206,3 +206,28 @@ def test_train_forward_needs_train_mode():
     x2d, x3d = _batch(3)
     with pytest.raises(RuntimeError, match="train mode"):
         m.train_forward(torch.from_numpy(x2d), torch.from_numpy(x3d))
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_train_forward_draws_through_draw_train(dropout):
+    """``D3DP.draw_train`` is the one owner of a training forward's draw
+    order (the data-parallel step draws the global batch through it): a
+    forward that draws for itself equals one handed ``draw_train``'s draws
+    from an equally seeded generator, bit for bit, and leaves the
+    generator in the same state; the part networks draw nothing, so in
+    train mode they refuse to run without masks."""
+    m = D3DP(D3DPConfig(**dict(KW, depth=1, dropout=dropout)), device="cpu",
+             generator=torch.Generator().manual_seed(0))
+    m.train()
+    x2d, x3d = (torch.from_numpy(a) for a in _batch(4))
+    g1, g2 = (torch.Generator().manual_seed(5) for _ in range(2))
+    with torch.no_grad():
+        own = m.train_forward(x2d, x3d, generator=g1)
+        t, noise, masks, drop = m.draw_train(x3d.shape, "cpu", g2)
+        given = m.train_forward(x2d, x3d, t=t, noise=noise, masks=masks,
+                                dropout_masks=drop)
+        assert (drop is not None) == (dropout > 0)
+        assert torch.equal(own, given)
+        assert torch.equal(g1.get_state(), g2.get_state())
+        with pytest.raises(ValueError, match="mask pairs"):
+            m.pose_estimator(x2d, x3d, t)
