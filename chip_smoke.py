@@ -5,7 +5,8 @@
 
 Phases, one JSON line each:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA.
-  2. build   - nvcc builds every kernel from the repository's sources.
+  2. build   - nvcc builds every kernel from the repository's sources,
+               and g++ the native batcher (build_batcher).
   2b. gemm_kernel - the block chain's Hopper GEMM alone (ops.gemm,
                csrc/gemm.cu) against its plain version at every stage
                (qkv, proj, fc1, fc2) x part shape of one block call at
@@ -226,6 +227,27 @@ Phases, one JSON line each:
                without general.nolog and with gpu.profile=true: an event
                file with the JAX CLI's tags and a Chrome trace; the CLI
                loop's steps timed with and without the trace.
+ 26. packed_serve - packed parts at full width (body/face/hands at C =
+               384/224/256 padded to one (68, 384), run as one batched
+               call, models/packed.py): LiftingService on
+               D3DP(packed_parts=True, experimental_kernels=True) beside the
+               same weights unpacked at use_pallas=auto, P=10, T=5,
+               buckets 1..16, float32 and bfloat16: 27- and 405-frame
+               latency, frames/s, peak memory; none of #1-#6 launched by a
+               packed service; ddim_sample on 4 windows with one noise
+               table, packed against the unpacked plain path
+               (use_pallas=false) within PACKED_ATOL / PACKED_RTOL.
+ 27. native_batcher - the native batcher (runtime/batcher.cpp, g++ at its
+               first use, in the build phase): the H3WB CLI with its
+               training loop cut to 6 steps assembles on the native path;
+               one of its batches natively and with NumPy, bit for bit,
+               host ms each; ms per step of the CLI's loop.
+ 28. dryrun  - pafuse_tpu_torch.dryrun: entry()'s step (the flagship model
+               at P=4) on kernel #1 against use_pallas=false within
+               DRYRUN_TOL; dryrun_multichip(1) in a world of one launched as
+               torchrun launches it (NCCL) and dryrun_multichip(2) in two
+               gloo ranks sharing the card: DDP step (#5/#6), sharded eval
+               step and a two-tier service with a stream (#1).
 Each phase from bf16_serve and from 12 on prints its wall seconds.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
@@ -3712,6 +3734,308 @@ def observability_phase(seed: int, workdir: str, device: str = "cuda",
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Packed parts, the native batcher on the training path and the dry run
+# ---------------------------------------------------------------------------
+
+#: packed_serve: ddim_sample on the packed parts against the unpacked
+#: plain path (use_pallas=false) from one injected noise table, float32:
+#: tests/test_packed.py's bounds (each network within ~1e-6, T steps
+#: feeding back)
+PACKED_ATOL, PACKED_RTOL = 2e-5, 1e-4
+#: dryrun: entry()'s step on kernel #1 against use_pallas=false on the
+#: card, max abs on x_start (clamped to [-1.1, 1.1]): kernel #1's float32
+#: bound (1e-4 a block); 16 blocks a part network, each within ~1e-6
+DRYRUN_TOL = 1e-4
+NATIVE_STEPS = 6                # native_batcher: steps of the CLI's loop
+
+
+def packed_serve_phase(seed: int, device: str = "cuda", cfg=None,
+                       hold_windows: int = 4):
+    """Packed parts at full width (the D3DPConfig defaults: widths 384 /
+    224 / 256 padded to one (68, 384)): LiftingService on
+    D3DP(packed_parts=True, experimental_kernels=True) against the same
+    weights unpacked at use_pallas=auto (kernel #1), P=10, T=5, flip-TTA,
+    buckets 1..16, float32 and bfloat16: 27- and 405-frame (bucket 16)
+    latency and frames/s and the peak memory of each service; no launch of
+    #1-#6 while a packed service runs (its products are PyTorch's
+    ``bmm``).  Then ``ddim_sample`` on ``hold_windows`` windows with one
+    injected noise table, packed against the unpacked plain path
+    (use_pallas=false), float32, within PACKED_ATOL / PACKED_RTOL.  A CPU
+    rehearsal passes device="cpu" and a small cfg.  Returns the launches
+    of the packed services' runs."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import skeleton as sk
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.serve import LiftingService
+
+    cfg = cfg or D3DPConfig()
+    dev = torch.device(device)
+    rng = np.random.RandomState(seed + 12)
+    kp = {frames: _kp(rng, frames, cfg.num_kps) for frames in (27, 405)}
+    packed_launches = {}
+    for dtype in ("float32", "bfloat16"):
+        for name, packed in (("packed", True), ("unpacked_auto", False)):
+            model = D3DP(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(seed),
+                         packed_parts=packed, experimental_kernels=packed,
+                         compute_dtype=dtype)
+            svc = LiftingService(model, buckets=(1, 2, 4, 8, 16),
+                                 device=dev)
+            # warm the buckets the timed requests use; a packed 405-frame
+            # request (~14 s) is its bucket's first call, whose cuBLAS
+            # heuristics and allocator growth take milliseconds
+            for frames in (27,) if packed else (27, 405):
+                svc.lift(kp[frames], seed=seed)
+            _reset_peak(dev)
+            _reset_launches()
+            row = {"phase": "packed_serve", "model": name,
+                   "compute_dtype": dtype}
+            for frames in (27, 405):
+                res = svc.lift(kp[frames], seed=seed)
+                if (res["poses"].shape != (frames, cfg.num_kps, 3)
+                        or not np.all(np.isfinite(res["poses"]))):
+                    raise AssertionError(f"packed_serve {name} {dtype}: "
+                                         f"{frames} frames gave bad poses")
+                row[f"latency_ms_{frames}"] = res["latency_ms"]
+                row[f"frames_per_s_{frames}"] = frames / (
+                    res["latency_ms"] / 1e3)
+            launches = _launch_counts()
+            if packed:
+                packed_launches[dtype] = launches
+                if any(launches.values()):
+                    raise AssertionError(f"packed_serve: the packed service "
+                                         f"launched kernels: {launches}")
+            elif dev.type == "cuda" and not launches["fused_block"]:
+                raise AssertionError(f"packed_serve: unpacked auto launched "
+                                     f"no #1: {launches}")
+            emit({**row, "launches": launches,
+                  "peak_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                              if dev.type == "cuda" else None)})
+            svc.close()
+            del svc, model
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+    # the packed sampler against the unpacked plain path, one noise table
+    P, T, F, N = (cfg.num_proposals, cfg.sampling_timesteps, cfg.frames,
+                  cfg.num_kps)
+    x2d = rng.uniform(-1, 1, (hold_windows, F, N, 2)).astype(np.float32)
+    x2d_flip = (x2d[:, :, sk.FLIP_PERMUTATION] * [-1, 1]).astype(np.float32)
+    init = rng.randn(hold_windows, P, F, N, 3).astype(np.float32)
+    steps = rng.randn(T, hold_windows, P, F, N, 3).astype(np.float32)
+    out = {}
+    for name, packed in (("packed", True), ("false", False)):
+        model = D3DP(cfg, device=dev,
+                     generator=torch.Generator().manual_seed(seed),
+                     packed_parts=packed, experimental_kernels=packed,
+                     use_pallas="auto" if packed else "false")
+        _reset_launches()
+        out[name] = model.ddim_sample(
+            *(torch.as_tensor(a, device=dev) for a in (x2d, x2d_flip)),
+            init_noise=torch.as_tensor(init, device=dev),
+            step_noise=torch.as_tensor(steps, device=dev)).cpu().numpy()
+        if any(_launch_counts().values()):
+            raise AssertionError(f"packed_serve hold: {name} launched "
+                                 f"kernels: {_launch_counts()}")
+        del model
+    err = np.abs(out["packed"] - out["false"])
+    ok = bool(np.all(err <= PACKED_ATOL + PACKED_RTOL * np.abs(out["false"])))
+    emit({"phase": "packed_serve_vs_false", "windows": hold_windows,
+          "P": P, "T": T, "max_abs_err": float(err.max()),
+          "atol": PACKED_ATOL, "rtol": PACKED_RTOL, "ok": ok})
+    if not ok:
+        raise AssertionError(f"packed_serve: packed ddim_sample vs false: "
+                             f"{err.max()}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return packed_launches
+
+
+def native_batcher_phase(seed: int, workdir: str, device: str = "cuda",
+                         depth: int = 8, steps: int = NATIVE_STEPS,
+                         overrides=()):
+    """The native batcher (pafuse_tpu_torch/runtime, built with g++ at its
+    first use, the build phase's :func:`batcher_library`): the H3WB CLI
+    (cli.main_h3wb.main, synthetic data, full width, P=1, T=1) run with
+    its training loop cut to ``steps`` steps: its sampler on the native
+    path; one of its batches assembled natively and with NumPy, bit for
+    bit, host ms per batch of each; the loop's steady ms per step (the
+    median interval after the first).  A CPU rehearsal passes
+    device="cpu", a small depth and CLI ``overrides``.  Returns the kernel
+    launches of the CLI run."""
+    import itertools
+    import numpy as np
+    from pafuse_tpu_torch import runtime, train as tr
+    from pafuse_tpu_torch.data import sampling
+
+    lib_path = batcher_library()
+
+    samplers, timing = [], {}
+    real_init, real_epoch = sampling.ChunkedSampler.__init__, tr.run_epoch
+
+    def spy_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        samplers.append(self)
+
+    def cut_epoch(step, state, lr, batches, seqs_per_batch, **kw):
+        marks = []
+        kw["progress"] = lambda it: marks.append(time.time())
+        t0 = time.time()
+        out = real_epoch(step, state, lr, itertools.islice(batches, steps),
+                         seqs_per_batch, **kw)
+        batches.close()                       # stop the prefetch thread
+        timing.update(seconds=time.time() - t0, marks=marks)
+        return out
+
+    out_dir = os.path.join(workdir, "native_batcher")
+    os.makedirs(out_dir, exist_ok=True)
+    sampling.ChunkedSampler.__init__ = spy_init
+    tr.run_epoch = cut_epoch
+    _reset_launches()
+    try:
+        _cli(["data.synthetic=true", f"gpu.device={device}",
+              f"model.dep={depth}", f"gpu.seed={seed}", "model.epochs=1",
+              "experiment.no_eval=true", "ft2d.num_proposals=1",
+              "ft2d.sampling_timesteps=1", "general.nolog=true",
+              f"general.checkpoint={out_dir}", *overrides],
+             os.path.join(workdir, "native_cli.log"))
+    finally:
+        sampling.ChunkedSampler.__init__ = real_init
+        tr.run_epoch = real_epoch
+    launches = _launch_counts()
+    if len(samplers) != 1 or samplers[0]._native is not runtime.assemble_batch:
+        raise AssertionError(f"native_batcher: the CLI's samplers "
+                             f"{[s._native for s in samplers]}")
+    gen = samplers[0]
+
+    # one CLI batch, assembled natively and with NumPy
+    order = np.arange(len(gen.pairs))
+    times = {}
+    batches = {}
+    for path in ("native", "numpy"):
+        gen._native = runtime.assemble_batch if path == "native" else None
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            batches[path] = gen._batch(order, 0)
+            ts.append(time.perf_counter() - t0)
+        times[path] = sorted(ts)[2] * 1e3
+    gen._native = runtime.assemble_batch
+    same = all(np.array_equal(a, b)
+               for a, b in zip(batches["native"], batches["numpy"]))
+    # the loop reads step i-1's loss after queueing step i, so in steady
+    # state the calls of progress(i) are one step apart; the first
+    # interval holds the fresh model's first step
+    marks = timing["marks"]
+    per_step = [b - a for a, b in zip(marks, marks[1:])]
+    steady = sorted(per_step[1:])[len(per_step[1:]) // 2]
+    emit({"phase": "native_batcher", "library": os.path.relpath(
+              lib_path, os.path.dirname(os.path.abspath(__file__))),
+          "cli_sampler_native": True,
+          "batch_shape_2d": list(batches["native"][2].shape),
+          "native_ms_per_batch": times["native"],
+          "numpy_ms_per_batch": times["numpy"], "bit_equal": same,
+          "steps": steps, "loop_seconds": timing["seconds"],
+          "ms_per_step": 1e3 * steady,
+          "ms_between_steps": [1e3 * s for s in per_step],
+          "host_cpus": os.cpu_count(),
+          "launches": launches})
+    if not same:
+        raise AssertionError("native_batcher: native and NumPy batches "
+                             "differ")
+    if device != "cpu" and not (launches["block_train_fwd"] > 0
+                                and launches["block_train_bwd"] > 0):
+        raise AssertionError(f"native_batcher: launches {launches}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+def batcher_library() -> str:
+    """The native batcher's library path, built (at its first use in this
+    process) and loaded; raises without a C++ compiler."""
+    import shutil as sh
+    from pafuse_tpu_torch import runtime
+    cxx = sh.which(runtime.CXX)
+    if cxx is None or runtime.get_library() is None:
+        raise AssertionError(f"no {runtime.CXX} on the PATH: the native "
+                             f"batcher cannot build")
+    path = runtime.library_path(cxx)
+    if not (os.path.isfile(path) and path.startswith(runtime.BUILD_ROOT)):
+        raise AssertionError(f"the native batcher is not at {path}")
+    return path
+
+
+def _dryrun_job(world, inputs):
+    from pafuse_tpu_torch import dryrun
+    return {"result": dryrun.dryrun_multichip(world.size, world=world)}
+
+
+def dryrun_phase(seed: int, workdir: str, device: str = "cuda"):
+    """pafuse_tpu_torch.dryrun on the card: entry()'s step (the flagship
+    model at P=4, flip-TTA) at use_pallas=auto (kernel #1) against the same
+    step at use_pallas=false within DRYRUN_TOL; dryrun_multichip(1) in a
+    world of one launched as torchrun launches it (make_mesh: NCCL), and
+    dryrun_multichip(2) in two gloo ranks sharing the card; the two ranks
+    return one result.  Returns the launches of each run."""
+    import numpy as np
+    import torch
+    from pafuse_tpu_torch import dryrun
+
+    fn, args = dryrun.entry(device)
+    model = args[0]
+    fn(*args)                                   # warm-up
+    _reset_launches()
+    t0 = time.time()
+    got = fn(*args).cpu().numpy()               # waits
+    entry_s = time.time() - t0
+    entry_launches = _launch_counts()
+    _set_use_pallas(model, "false")
+    want = fn(*args).cpu().numpy()
+    _set_use_pallas(model, "auto")
+    err = float(np.abs(got - want).max())
+    blocks = len(model.pose_estimator.specs) * model.cfg.depth * 2
+    emit({"phase": "dryrun_entry", "shape": list(got.shape),
+          "max_abs_err_vs_false": err, "tol": DRYRUN_TOL,
+          "ms": entry_s * 1e3, "launches": entry_launches})
+    if device != "cpu" and entry_launches != _expect(fused_block=blocks):
+        raise AssertionError(f"dryrun entry: launches {entry_launches}")
+    if not (got.shape == (2, 4, 27, 134, 3) and err <= DRYRUN_TOL):
+        raise AssertionError(f"dryrun entry: {got.shape}, {err}")
+    del fn, args, model
+
+    _reset_launches()
+    t0 = time.time()
+    with _launched_world_of_one(device) as world:
+        one = dryrun.dryrun_multichip(1, world=world)
+    one_s = time.time() - t0
+    world1 = _launch_counts()
+    two = _gloo_world(os.path.join(workdir, "dryrun2"), device, "_dryrun_job",
+                      {})
+    world2 = [r.pop("launches") for r in two]
+    results = [r["result"] for r in two]
+    for r in [one] + results:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["J_Best"])
+                and r["poses"] == (18, 134, 3) and r["stream_emits"] == 3
+                and r["num_hypotheses_1x1"] == 1):
+            raise AssertionError(f"dryrun_multichip: {r}")
+    if results[0] != results[1]:
+        raise AssertionError(f"dryrun_multichip(2): the ranks differ: "
+                             f"{results}")
+    emit({"phase": "dryrun_multichip", "world1": {**one, "seconds": one_s,
+                                                  "launches": world1},
+          "world2_gloo": {**results[0], "launches": world2}})
+    if device != "cpu" and not all(
+            c["fused_block"] and c["block_train_fwd"] and c["block_train_bwd"]
+            for c in (world1, world2[0])):
+        raise AssertionError(f"dryrun_multichip: launches {world1}, "
+                             f"{world2}")
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {"entry": entry_launches, "world1": world1, "world2": world2}
+
+
 def _sums(cases):
     """Float32 numbers of ``cases`` summed (max_abs_err: the largest)."""
     f32 = [c for c in cases if c["dtype"] == "float32"]
@@ -3786,6 +4110,15 @@ def main() -> int:
     libs = _build.build_all()
     emit({"phase": "build", "seconds": time.time() - t0,
           "libraries": sorted(libs)})
+    # the native batcher (g++), built at its first use: here
+    from pafuse_tpu_torch import runtime
+    cxx = shutil.which(runtime.CXX)
+    prebuilt = bool(cxx) and os.path.exists(runtime.library_path(cxx))
+    t0 = time.time()
+    batcher = batcher_library()
+    emit({"phase": "build_batcher", "seconds": time.time() - t0,
+          "library": os.path.relpath(batcher, os.path.dirname(
+              os.path.abspath(__file__))), "built_in_this_run": not prebuilt})
 
     # wall seconds of the phases from 3DHP on
     def timed(name, fn, *a, **kw):
@@ -3904,6 +4237,12 @@ def main() -> int:
     sharded_launches = timed("serve_sharded", serve_sharded_phase, args.seed)
     obs_launches = timed("observability", observability_phase, args.seed,
                          workdir)
+    # packed parts, the native batcher on the CLI's training loop, the dry
+    # run
+    packed_launches = timed("packed_serve", packed_serve_phase, args.seed)
+    native_launches = timed("native_batcher", native_batcher_phase,
+                            args.seed, workdir)
+    dryrun_launches = timed("dryrun", dryrun_phase, args.seed, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
 
     def bf16(cs):
@@ -3931,6 +4270,15 @@ def main() -> int:
         return {"mono134": {**_sums(cs), **bf16(cs), "launches": launches,
                             "shapes": sorted({f'({c["B"]}, {c["L"]}, '
                                               f'{c["C"]})' for c in cs})}}
+
+    def _packed(launches, name):
+        return {f"packed_serve_{dtype}": c[name]
+                for dtype, c in launches.items()}
+
+    def _dryrun(launches, name):
+        return {"dryrun_entry": launches["entry"][name],
+                "dryrun_world1_nccl": launches["world1"][name],
+                "dryrun_world2_gloo_rank0": launches["world2"][0][name]}
 
     fwd = [c for c in train_cases if c["name"] == "block_train_fwd"]
     bwd = [c for c in train_cases if c["name"] == "block_train_bwd"]
@@ -3965,7 +4313,10 @@ def main() -> int:
                           "ddp_eval_world2_rank0": ddp_eval_launches[
                               "world2_auto"]["fused_block"],
                           "serve_sharded": sharded_launches,
-                          "observability_cli": obs_launches["fused_block"]}),
+                          "observability_cli": obs_launches["fused_block"]},
+                      launches_by_phase={
+                          **_packed(packed_launches, "fused_block"),
+                          **_dryrun(dryrun_launches, "fused_block")}),
         # with its four GEMMs alone (wgmma) and cuBLAS's F.linear's
         _kernel_entry("block_train_fwd", "cuda", TRAIN_SOURCE,
                       TRAIN_REPLACES["block_train_fwd"], train_launches[0],
@@ -3981,7 +4332,12 @@ def main() -> int:
                           "ddp_train_world1": ddp_train_launches[
                               "block_train_fwd"],
                           "observability_cli": obs_launches[
-                              "block_train_fwd"]}),
+                              "block_train_fwd"]},
+                      launches_by_phase={
+                          "native_batcher_cli": native_launches[
+                              "block_train_fwd"],
+                          **_packed(packed_launches, "block_train_fwd"),
+                          **_dryrun(dryrun_launches, "block_train_fwd")}),
         # with its GEMMs alone: data gradients (wgmma) and weight
         # gradients (mma.sync), and cuBLAS's for the same products
         _kernel_entry("block_train_bwd", "cuda", TRAIN_SOURCE,
@@ -4000,7 +4356,12 @@ def main() -> int:
                           "ddp_train_world1": ddp_train_launches[
                               "block_train_bwd"],
                           "observability_cli": obs_launches[
-                              "block_train_bwd"]}),
+                              "block_train_bwd"]},
+                      launches_by_phase={
+                          "native_batcher_cli": native_launches[
+                              "block_train_bwd"],
+                          **_packed(packed_launches, "block_train_bwd"),
+                          **_dryrun(dryrun_launches, "block_train_bwd")}),
         # eval shapes (window batch 64); the serve bucket-16 shapes beside;
         # its two GEMMs alone and F.linear's
         _kernel_entry("fused_attention", "cuda", ATTN_SOURCE, ATTN_REPLACES,
@@ -4013,7 +4374,9 @@ def main() -> int:
                       bf16_launches={"bf16_eval_true": bf16_eval_launches[
                           "bfloat16_true"]["fused_attention"]},
                       pr11_launches={"ddp_eval_world2_rank0": ddp_eval_launches[
-                          "world2_true"]["fused_attention"]}),
+                          "world2_true"]["fused_attention"]},
+                      launches_by_phase=_packed(packed_launches,
+                                            "fused_attention")),
         # eval shapes, the serve bucket-16 shapes beside; replaced_ms is the
         # path each kernel replaces (kernel #1 and the transposes)
         _kernel_entry("fused_block_temporal", "cuda", BT_SOURCE, BT_REPLACES,
@@ -4021,7 +4384,9 @@ def main() -> int:
                       bt_cases, replaced_ms=replaced(bt_cases),
                       **bf16(serve_bt),
                       **serve16(serve_bt, ("ms", "plain_ms", "library_ms",
-                                           "bound_ms", "replaced_ms"))),
+                                           "bound_ms", "replaced_ms")),
+                      launches_by_phase=_packed(packed_launches,
+                                            "fused_block_temporal")),
         # layers 1-7 (no tpe); layer 0's times (with tpe) beside
         _kernel_entry("fused_layer", "cuda", LAYER_SOURCE, LAYER_REPLACES,
                       exp_launches["layer"]["fused_layer"],
@@ -4033,7 +4398,9 @@ def main() -> int:
                       **bf16(tpe(serve_layer, False)),
                       **serve16(tpe(serve_layer, False),
                                 ("ms", "plain_ms", "library_ms", "bound_ms",
-                                 "replaced_ms"))),
+                                 "replaced_ms")),
+                      launches_by_phase=_packed(packed_launches,
+                                                "fused_layer")),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

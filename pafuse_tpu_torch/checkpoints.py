@@ -285,6 +285,46 @@ def load_reference_bin(path: str, parts: Sequence[str] = ()
     return out
 
 
+#: the reference D3DP's registered schedule buffers that its strict load
+#: needs, computed as ``diffusion.make_schedule`` computes them
+_SCHEDULE_BUFFERS = ("betas", "alphas_cumprod", "alphas_cumprod_prev",
+                     "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
+                     "sqrt_recip_alphas_cumprod",
+                     "sqrt_recipm1_alphas_cumprod", "posterior_variance",
+                     "posterior_log_variance_clipped",
+                     "posterior_mean_coef1", "posterior_mean_coef2")
+
+
+def export_reference_state_dict(model: torch.nn.Module,
+                                schedule_timesteps: Optional[int] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`load_reference_bin`, the counterpart of the JAX
+    ``export_torch_state_dict``: the part networks of ``model`` (a D3DP or
+    a PartModel) as the reference's ``pose_estimator.*`` state dict of
+    float32 CPU tensors (``pose_estimator.{part}.<key>``; the monolithic
+    model, one ``whole_body`` network, as ``pose_estimator.<key>``).
+    ``schedule_timesteps`` also adds the D3DP schedule buffers of that many
+    steps, ``log_one_minus_alphas_cumprod`` included, which the
+    reference's strict load needs.  Save it as ``{"model_pos": ...}`` with
+    ``torch.save`` for a reference ``.bin``."""
+    from pafuse_tpu_torch.diffusion import make_schedule
+    out: Dict[str, torch.Tensor] = {}
+    if schedule_timesteps is not None:
+        sched = make_schedule(schedule_timesteps)
+        for name in _SCHEDULE_BUFFERS:
+            out[name] = torch.from_numpy(getattr(sched, name).copy())
+        # registered by the reference, unused by the sampler
+        out["log_one_minus_alphas_cumprod"] = torch.from_numpy(np.log(
+            1.0 - sched.alphas_cumprod.astype(np.float64)).astype(np.float32))
+    net = _part_model(model)
+    monolithic = [s.name for s in net.specs] == ["whole_body"]
+    for key, value in net.state_dict().items():
+        if monolithic:
+            key = key[len("whole_body."):]
+        out[f"pose_estimator.{key}"] = value.detach().cpu().float().clone()
+    return out
+
+
 def load_weights(model: torch.nn.Module, path: str) -> None:
     """Load the part networks' weights of a reference ``.bin``
     (:func:`load_reference_bin`) or a port or JAX ``.npz``

@@ -21,7 +21,8 @@ import torch
 import torch.nn as nn
 
 from pafuse_tpu_torch import geometry, skeleton as sk
-from pafuse_tpu_torch.models.mixste import branch_masks, draw_dropout_masks
+from pafuse_tpu_torch.models.mixste import (_require_experimental,
+                                            branch_masks, draw_dropout_masks)
 from pafuse_tpu_torch.models.parts import (PartModel, build_part_specs,
                                            monolithic_spec)
 from pafuse_tpu_torch.utils.device import resolve_device
@@ -117,14 +118,17 @@ class D3DP(nn.Module):
     bfloat16) is the denoiser's activation dtype, while the noising, the
     sampler and the model's output stay float32.  ``flip_permutation`` is
     the flip-TTA joint table; without one, the 134- and 133-joint H3WB
-    tables are known and any other joint count raises."""
+    tables are known and any other joint count raises.  ``packed_parts``
+    runs the part networks packed in eval mode (``PartModel(packed=)``), an
+    experimental path of the JAX package: with a part-based config it
+    raises unless ``experimental_kernels`` opens the gate."""
 
     def __init__(self, cfg: D3DPConfig, device="cuda",
                  generator: torch.Generator | None = None,
                  use_pallas="auto", experimental_kernels: bool = False,
                  flip_permutation: Optional[np.ndarray] = None,
                  compute_dtype=torch.float32, train_kernel="auto",
-                 remat: bool = False):
+                 remat: bool = False, packed_parts: bool = False):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -157,9 +161,15 @@ class D3DP(nn.Module):
         else:
             specs = monolithic_spec(cfg.num_kps, cfg.frames, cfg.input_size,
                                     cfg.cs, cfg.depth, **rates)
+        packed_parts = packed_parts and cfg.part_based
+        if packed_parts:
+            # a measured negative result of the JAX package, kept for A/B
+            _require_experimental("D3DP(packed_parts=True)",
+                                  experimental_kernels)
         self.pose_estimator = PartModel(specs, self.device, generator,
                                         use_pallas, experimental_kernels,
-                                        compute_dtype, train_kernel, remat)
+                                        compute_dtype, train_kernel, remat,
+                                        packed=packed_parts)
         for name in ("sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod"):
             self.register_buffer(f"_{name}", torch.as_tensor(
                 getattr(self.schedule, name), device=self.device),
@@ -255,12 +265,14 @@ class D3DP(nn.Module):
         return pred * 1000.0 if self.cfg.mm_scale else pred
 
     def _model_predictions(self, x: torch.Tensor, x2d_tiled: torch.Tensor,
-                           t: int, x2d_flip_tiled: Optional[torch.Tensor]):
+                           t: int, x2d_flip_tiled: Optional[torch.Tensor],
+                           packed: Optional[dict] = None):
         """x: (B,H,F,N,3) noisy -> (pred_noise, x_start), same shape.
 
         (B, H) fold into the batch; with flip-TTA the flipped twin is
         appended to the batch, denoised in the same call, un-flipped and
-        averaged."""
+        averaged.  ``packed``: the part networks' packed parameters
+        (``PartModel.prepare``), or None."""
         cfg = self.cfg
         B, H, F, N, C = x.shape
         xt_flat = (self._clamp_scaled(x) / cfg.scale).reshape(B * H, F, N, C)
@@ -270,11 +282,13 @@ class D3DP(nn.Module):
             xt_flip = geometry.flip_pose(xt_flat, perm)
             pred = self.pose_estimator(
                 torch.cat([x2d_tiled, x2d_flip_tiled]),
-                torch.cat([xt_flat, xt_flip]), torch.cat([t_cond, t_cond]))
+                torch.cat([xt_flat, xt_flip]), torch.cat([t_cond, t_cond]),
+                packed_params=packed)
             pred_n, pred_f = pred[:B * H], pred[B * H:]
             pred = 0.5 * (pred_n + geometry.flip_pose(pred_f, perm))
         else:
-            pred = self.pose_estimator(x2d_tiled, xt_flat, t_cond)
+            pred = self.pose_estimator(x2d_tiled, xt_flat, t_cond,
+                                       packed_params=packed)
 
         x_start = self._clamp_scaled(pred.reshape(B, H, F, N, C) * cfg.scale)
         sched = self.schedule
@@ -329,11 +343,13 @@ class D3DP(nn.Module):
 
         init_noise, step_noise = ddim_noise(cfg, x2d.shape, H, S, dev,
                                             generator, init_noise, step_noise)
+        # the part networks packed once for all steps (None when unpacked)
+        packed = self.pose_estimator.prepare(train=False)
         img = init_noise.to(dev, torch.float32)
         preds = []
         for i in range(S):
             pred_noise, x_start = self._model_predictions(
-                img, x2d_tiled, int(times[i]), x2d_flip_tiled)
+                img, x2d_tiled, int(times[i]), x2d_flip_tiled, packed)
             preds.append(x_start)
             if times_next[i] < 0:
                 img = x_start

@@ -194,6 +194,14 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return (0.5 * xf * erfc).to(cd)
 
 
+def _keep_prob(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """The keep probability 1 - rate rounded to x's dtype, as a 0-dim
+    tensor on x's device.  ``torch.full`` fills it on the device: a
+    ``torch.tensor`` of a Python number would copy it from pageable host
+    memory, which waits for every kernel queued before it."""
+    return torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+
+
 def _dropout(x: torch.Tensor, keep: Optional[torch.Tensor],
              rate: float) -> torch.Tensor:
     """Inverted dropout as ``mixste.py:163-170``: kept elements divided by
@@ -201,8 +209,7 @@ def _dropout(x: torch.Tensor, keep: Optional[torch.Tensor],
     or without a mask."""
     if rate <= 0.0 or keep is None:
         return x
-    scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
-    return torch.where(keep, x / scale, x.new_zeros(()))
+    return torch.where(keep, x / _keep_prob(x, rate), x.new_zeros(()))
 
 
 def _drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
@@ -212,8 +219,8 @@ def _drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
     the keep probability in x's dtype; x unchanged at rate 0."""
     if rate <= 0.0 or keep is None:
         return x
-    scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
-    return x * keep.to(x.dtype).view(-1, *([1] * (x.dim() - 1))) / scale
+    return (x * keep.to(x.dtype).view(-1, *([1] * (x.dim() - 1)))
+            / _keep_prob(x, rate))
 
 
 def unfused_attention(x: torch.Tensor, qkv_w: torch.Tensor,
@@ -278,11 +285,13 @@ def unfused_block(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     return _layernorm(x, *outer_norm)
 
 
-def _require_experimental(mode: str, experimental_kernels: bool) -> None:
-    """The counterpart of the JAX package's ``require_experimental``."""
+def _require_experimental(name: str, experimental_kernels: bool) -> None:
+    """The counterpart of the JAX package's ``require_experimental``:
+    ``name`` (``use_pallas=block_t``, ``D3DP(packed_parts=True)``) raises
+    unless ``experimental_kernels`` opens the gate."""
     if not experimental_kernels:
         raise ValueError(
-            f"use_pallas={mode} is an EXPERIMENTAL path (a retained "
+            f"{name} is an EXPERIMENTAL path (a retained "
             "negative-result A/B variant of the JAX package), not a supported "
             "execution path. Set gpu.experimental_kernels=true (CLI) or pass "
             "experimental_kernels=True to run it anyway.")
@@ -306,7 +315,7 @@ def select_block_fn(use_pallas="auto", experimental_kernels: bool = False):
     ``experimental_kernels`` opens the gate."""
     mode = str(use_pallas).lower()
     if mode in ("block_t", "layer"):
-        _require_experimental(mode, experimental_kernels)
+        _require_experimental(f"use_pallas={mode}", experimental_kernels)
     if mode in ("auto", "block", "block_t"):
         return fused_block
     if mode in ("true", "layer"):
@@ -324,7 +333,7 @@ def select_block_t_fn(use_pallas="auto", experimental_kernels: bool = False):
     mode = str(use_pallas).lower()
     if mode != "block_t":
         return None
-    _require_experimental(mode, experimental_kernels)
+    _require_experimental(f"use_pallas={mode}", experimental_kernels)
     return fused_block_temporal
 
 
@@ -334,7 +343,7 @@ def select_layer_fn(use_pallas="auto", experimental_kernels: bool = False):
     mode = str(use_pallas).lower()
     if mode != "layer":
         return None
-    _require_experimental(mode, experimental_kernels)
+    _require_experimental(f"use_pallas={mode}", experimental_kernels)
     return fused_layer
 
 

@@ -1,22 +1,25 @@
 """Part-based denoiser routing: one MixSTE2 per body part.
 
-Counterpart of ``pafuse_tpu/models/parts.py`` (unpacked execution): each
-part network sees a static gather of its joints, and the outputs are
-concatenated back in whole-body joint order (an inverse permutation covers
-part tables that are not contiguous and ordered).  In train mode each part
-network takes its own stochastic-depth masks, as the JAX router gives each
-part its own key.
+Counterpart of ``pafuse_tpu/models/parts.py``.  Unpacked execution (the
+default): each part network sees a static gather of its joints, and the
+outputs are concatenated back in whole-body joint order (an inverse
+permutation covers part tables that are not contiguous and ordered).  In
+train mode each part network takes its own stochastic-depth masks, as the
+JAX router gives each part its own key.  Packed execution (``packed=True``
+with more than one part, eval mode only): the parts padded to one width and
+run as one batched call (:mod:`pafuse_tpu_torch.models.packed`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from pafuse_tpu_torch.models import packed as pk
 from pafuse_tpu_torch.models.mixste import MixSTE2, MixSTEConfig
 from pafuse_tpu_torch.utils.device import resolve_device
 
@@ -73,13 +76,18 @@ class PartModel(nn.ModuleDict):
     ``generator`` in spec order; ``use_pallas`` and
     ``experimental_kernels`` select their eval-mode functions
     (``MixSTE2.set_use_pallas``), and ``compute_dtype``, ``train_kernel``
-    and ``remat`` reach every part network (``MixSTE2``)."""
+    and ``remat`` reach every part network (``MixSTE2``).
+
+    ``packed`` (with more than one part): eval-mode forwards run packed
+    (:func:`~pafuse_tpu_torch.models.packed.packed_forward`, which takes
+    ``compute_dtype`` only: no kernel runs on that path); train mode stays
+    unpacked (stochastic depth needs the part networks)."""
 
     def __init__(self, specs: List[PartSpec], device="cuda",
                  generator: torch.Generator | None = None,
                  use_pallas="auto", experimental_kernels: bool = False,
                  compute_dtype=torch.float32, train_kernel="auto",
-                 remat: bool = False):
+                 remat: bool = False, packed: bool = False):
         dev = resolve_device(device)
         gen = generator if generator is not None else (
             torch.Generator().manual_seed(0))
@@ -100,14 +108,38 @@ class PartModel(nn.ModuleDict):
             self.register_buffer(f"_idx_{s.name}", torch.as_tensor(
                 s.joint_indices, dtype=torch.long, device=dev),
                 persistent=False)
+        self.packed = bool(packed) and len(specs) > 1
+        if self.packed:
+            self._plan = pk.make_pack_plan(specs)
+            for name, table in pk.plan_tables(self._plan, dev).items():
+                self.register_buffer(f"_pack_{name}", table, persistent=False)
+
+    def prepare(self, train: bool = False) -> Optional[Dict[str, Any]]:
+        """The packed parameters for repeated forwards (once per DDIM
+        sampling call, as the JAX ``prepare`` packs once before its scan)
+        when packed execution applies, else None."""
+        if not self.packed or train:
+            return None
+        return pk.pack_params(self, self._plan, {
+            name: getattr(self, f"_pack_{name}") for name in pk.TABLES})
 
     def forward(self, x2d: torch.Tensor, x3d: torch.Tensor, t: torch.Tensor,
                 masks: Optional[Dict[str, Sequence]] = None,
-                dropout_masks: Optional[Dict[str, dict]] = None
+                dropout_masks: Optional[Dict[str, dict]] = None,
+                packed_params: Optional[Dict[str, Any]] = None
                 ) -> torch.Tensor:
         """In train mode, ``masks`` and ``dropout_masks`` map each part to
         its network's branch and dropout masks (see
-        :meth:`MixSTE2.forward`; drawn by ``diffusion.D3DP.draw_train``)."""
+        :meth:`MixSTE2.forward`; drawn by ``diffusion.D3DP.draw_train``).
+        ``packed_params`` (:meth:`prepare`'s) run the packed forward; a
+        packed model in eval mode packs its parameters itself without
+        them."""
+        if packed_params is None and self.packed and not self.training:
+            packed_params = self.prepare()
+        if packed_params is not None:
+            return pk.packed_forward(
+                packed_params, self._plan, x2d, x3d, t,
+                compute_dtype=next(iter(self.values())).compute_dtype)
         outs = []
         for s in self.specs:
             idx = getattr(self, f"_idx_{s.name}")

@@ -1,5 +1,9 @@
 """Optimizer state across the two packages: a checkpoint written by one
-resumes in the other and takes the same next step.
+resumes in the other and takes the same next step.  And the export to the
+reference layout (``export_reference_state_dict``) against the JAX
+``export_torch_state_dict``: the same keys and the same arrays, bit for
+bit, part-based and monolithic, with and without the schedule buffers, and
+back through ``load_reference_bin`` strictly.
 
 JAX -> port: the JAX ``build_train_step`` takes two steps at depth 1 and
 ``save_state`` writes params and ``opt_state``; the port's ``load_state``
@@ -174,3 +178,34 @@ def test_older_port_optimizer_entries_still_load(tmp_path):
     for p, s in st2.optimizer.state.items():
         for k in ("step", "exp_avg", "exp_avg_sq"):
             assert torch.equal(s[k], by_name[names[id(p)]][k])
+
+
+@pytest.mark.parametrize("part_based", [True, False],
+                         ids=["part_based", "monolithic"])
+@pytest.mark.parametrize("timesteps", [None, 50], ids=["params", "schedule"])
+def test_reference_export_matches_jax_and_loads_back(tmp_path, part_based,
+                                                      timesteps):
+    kw = dict(frames=9, depth=1, part_based=part_based, cs=32)
+    jm = JaxD3DP(JaxConfig(**kw))
+    params = jax.device_get(jm.init_params(jax.random.PRNGKey(4)))
+    want = jax_ckpt.export_torch_state_dict(
+        params, part_based=part_based, schedule_timesteps=timesteps)
+    model = D3DP(D3DPConfig(**kw), device="cpu")
+    model.pose_estimator.load_state_dict(checkpoints.params_from_jax(params),
+                                         strict=True)
+    got = checkpoints.export_reference_state_dict(
+        model, schedule_timesteps=timesteps)
+    assert sorted(got) == sorted(want)
+    assert ("log_one_minus_alphas_cumprod" in got) == (timesteps is not None)
+    for k, v in want.items():
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+
+    path = str(tmp_path / "exported.bin")
+    torch.save({"model_pos": got, "epoch": 3}, path)
+    fresh = D3DP(D3DPConfig(**kw), device="cpu",
+                 generator=torch.Generator().manual_seed(9))
+    checkpoints.load_weights(fresh, path)        # strict
+    for (name, a), b in zip(model.pose_estimator.state_dict().items(),
+                            fresh.pose_estimator.state_dict().values()):
+        assert torch.equal(a, b), name

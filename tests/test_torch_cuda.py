@@ -506,14 +506,26 @@ def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
     launches the wgmma GEMM, its weight splits and the attention kernel; #6
     the wgmma GEMM (data gradients), its transposed weight splits and the
     mma.sync weight-gradient kernel, and neither a scalar-FMA GEMM, cuBLAS
-    or any other PyTorch kernel."""
+    or any other PyTorch kernel.  The profiled call's output of #2 is held
+    against ``attention_reference`` (1e-5, the file's bound), and every
+    failure of #2's checks reports that output's error beside the profiled
+    kernel names, so a miss of the GEMM in the profile shows whether the
+    kernel or the profiler missed."""
     params = _params(224, seed=4, device=cuda_device)
     x, g, m1, m2 = _inputs(8, 68, 224, seed=3, device=cuda_device)
-    names = _device_kernels(lambda: fused_attention(x, *params[2:6], HEADS))
+    outs = []
+    names = _device_kernels(
+        lambda: outs.append(fused_attention(x, *params[2:6], HEADS)))
+    err = float((outs[-1] - attention_reference(x, *params[2:6], HEADS))
+                .abs().max())
+    what = (f"#2's profiled output: max abs error {err:.3g} against "
+            f"attention_reference (bound 1e-5); profiled kernels: "
+            f"{sorted(names)}")
+    assert err <= 1e-5, what
     ours = ("sm90::gemm_kernel", "sm90::split_weights_kernel",
             "attention_kernel")
-    assert all(any(k in n for k in ours) for n in names), names
-    assert any("sm90::gemm_kernel" in n for n in names)
+    assert all(any(k in n for k in ours) for n in names), what
+    assert any("sm90::gemm_kernel" in n for n in names), what
 
     _, saved = block_train_fwd(x, m1, m2, params, HEADS)
     names = _device_kernels(lambda: block_train_bwd(saved, g))
@@ -728,6 +740,53 @@ def test_loss_readback_waits_for_its_own_step_only_on_gpu(cuda_device):
     assert seen == [False]
     s = float(a[:2, :2].sum())
     assert n == 6 and abs(total - 2 * s * (1 + 2 + 3)) <= 1e-4 * abs(total)
+
+
+@pytest.mark.cuda
+def test_autodiff_dropout_step_queues_without_waiting_on_gpu(cuda_device,
+                                                            monkeypatch):
+    """An autodiff training step with dropout, attention dropout and drop
+    path (depth 1) queued behind long work (80 float32 4096^3 products,
+    ~0.2 s) returns while that work still runs, as its event's ``query()``
+    shows: the keep probabilities of ``models.mixste._dropout`` and
+    ``_drop_path`` are filled on the device (``_keep_prob``).  With the
+    former ``torch.tensor(1 - rate, device=)`` in its place, a copy from
+    pageable host memory, the same step waits for the whole queue.  One
+    step runs first (cuBLAS, the allocator, the AdamW state)."""
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    from pafuse_tpu_torch.models import mixste
+    model = D3DP(D3DPConfig(frames=9, timesteps=50, depth=1, dropout=0.1,
+                            attn_dropout=0.1, drop_path_rate=0.1),
+                 device=cuda_device,
+                 generator=torch.Generator().manual_seed(0))
+    assert model.train_path == "autodiff"
+    st = tr.create_train_state(model, seed=0, device=cuda_device)
+    step = tr.build_train_step(model, st.optimizer)
+    r = np.random.RandomState(0)
+    x2d = r.randn(4, 9, 134, 2).astype(np.float32)
+    x3d = (r.randn(4, 9, 134, 3) * 0.1).astype(np.float32)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(4096, 4096, generator=g, device=cuda_device) / 64
+    float(step(st, 1e-4, x2d, x3d))
+    a @ a
+    torch.cuda.synchronize()
+
+    def queued_behind_long_work():
+        big = a
+        for _ in range(80):
+            big = big @ a
+        long_done = torch.cuda.Event()
+        long_done.record()
+        loss = step(st, 1e-4, x2d, x3d)
+        waited = long_done.query()
+        assert np.isfinite(float(loss))
+        return waited
+
+    assert queued_behind_long_work() is False
+    monkeypatch.setattr(mixste, "_keep_prob", lambda x, rate: torch.tensor(
+        1.0 - rate, dtype=x.dtype, device=x.device))
+    assert queued_behind_long_work() is True
 
 
 @pytest.mark.cuda

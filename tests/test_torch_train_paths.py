@@ -246,3 +246,22 @@ def test_dropout_steps_repeat_from_a_seed():
         return [float(step(st, 1e-3, x2d, x3d)) for _ in range(2)]
 
     assert run(4) == run(4) != run(5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_scales_round_as_the_keep_probability(dtype):
+    """``_dropout`` and ``_drop_path`` divide by the keep probability
+    rounded to x's dtype, filled on x's device (no host copy): bit for bit
+    the division by ``torch.tensor(1 - rate, dtype=x.dtype)``, the form
+    they had before, at rates whose keep probability rounds in bfloat16."""
+    from pafuse_tpu_torch.models.mixste import _drop_path, _dropout
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 5, 16, generator=g).to(dtype)
+    keep = torch.rand(6, 5, 16, generator=g) >= 0.3
+    rows = (torch.rand(6, generator=g) >= 0.3).float()
+    for rate in (0.1, 0.2, 1 / 3, 0.37):
+        scale = torch.tensor(1.0 - rate, dtype=dtype)
+        assert torch.equal(_dropout(x, keep, rate),
+                           torch.where(keep, x / scale, x.new_zeros(())))
+        assert torch.equal(_drop_path(x, rows, rate),
+                           x * rows.to(dtype).view(-1, 1, 1) / scale)
