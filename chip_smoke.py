@@ -18,7 +18,10 @@ Phases, one JSON line each:
                shape as the serving path gives it at bucket 16 (P=10, flip
                on), in float32 and bfloat16, with its time, the plain
                version's, one PyTorch library composition's (SDPA + cuBLAS,
-               a yardstick only) and the card's lower bound.
+               a yardstick only) and the card's lower bound; each bfloat16
+               row with one call's device ms by stage (weight splits,
+               LayerNorms, the four GEMMs, attention), summed over the
+               shapes in one kernel_stages line.
   4. serve   - LiftingService at full width (the D3DPConfig defaults: part
                based, merged hands, 27 frames, 134 joints, depth 8) with
                seeded weights, P=10, T=5, buckets (1,2,4,8,16), float32,
@@ -173,7 +176,8 @@ Phases, one JSON line each:
                the CPU tests.
  17. bf16_eval - gpu.compute_dtype=bfloat16 at full width: the H3WB CLI on
                the seeded weights' checkpoint on the 76-window action of
-               eval_experimental at use_pallas=auto (#1) and true (#2),
+               eval_experimental at use_pallas=auto (#1), true (#2),
+               block_t (#1 + #3) and layer (#4), their launches counted,
                beside float32 at auto: seconds, windows/s, every metric's
                delta from float32; then the action's first sequence with
                one noise table, every prediction of the bfloat16 kernel
@@ -565,13 +569,47 @@ def h3wb_parts():
             for part, joints in parts_table(True).items()]
 
 
+#: the block chain's four GEMMs in launch order (block_chain.cuh)
+CHAIN_GEMMS = ("qkv", "proj", "fc1", "fc2")
+
+
+def chain_stages(fn):
+    """Device ms by stage of one block-chain call ``fn()`` under
+    torch.profiler: each kernel of the chain by its name without namespace
+    and template arguments (split_weights_kernel, row_stats_kernel,
+    attention_kernel, layernorm_kernel, ...), summed over its launches, and
+    the wgmma GEMMs apart by launch order as CHAIN_GEMMS says."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    stages, gemms = {}, 0
+    for e in events:
+        name = re.sub(r"\(.*", "", re.sub(r"^.*::", "", re.sub(r"<.*", "", e.name)))
+        if name in ("gemm_kernel", "gemm_bf16_kernel"):
+            name = f"gemm_{CHAIN_GEMMS[gemms % len(CHAIN_GEMMS)]}"
+            gemms += 1
+        stages[name] = stages.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    return stages
+
+
 def kernel_phase(seed: int, windows: int, P: int, frames: int, parts=None,
-                 phase="kernel"):
+                 phase="kernel", stages=False):
     """Kernel #1 against its plain version at each network's spatial (B =
     windows*P*2*frames sequences of its joints) and temporal (B =
     windows*P*2*joints sequences of the frames) shape; ``parts``:
     (name, joints, channels) of the networks, the default config's when
-    omitted."""
+    omitted.  With ``stages``, each bfloat16 row carries the device ms of
+    one call by stage (chain_stages), and one ``<phase>_stages`` line sums
+    them over the shapes."""
     import torch
     from pafuse_tpu_torch.ops.block import block_reference, fused_block
     from pafuse_tpu_torch.utils.device import sync
@@ -612,11 +650,24 @@ def kernel_phase(seed: int, windows: int, P: int, frames: int, parts=None,
                  "mean_abs_err": float(diff.mean()), "ok": ok, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
                  **block_bound(B, L, C, name, param_bytes)}
+            if stages and dtype == torch.bfloat16:
+                r["stages_ms"] = chain_stages(
+                    lambda: fused_block(x, bp, on, heads))
             emit(r)
             results.append(r)
             del got, want, diff
         del x32, x
         torch.cuda.empty_cache()
+    if stages:
+        total = {}
+        for r in results:
+            for k, v in r.get("stages_ms", {}).items():
+                total[k] = total.get(k, 0.0) + v
+        emit({"phase": f"{phase}_stages", "dtype": "bfloat16",
+              "windows": windows, "stages_ms": total,
+              "device_ms": sum(total.values()),
+              "gemm_ms": sum(v for k, v in total.items()
+                             if k.startswith("gemm_"))})
     return results
 
 
@@ -1623,7 +1674,7 @@ COPY_GROUP = "copies (transposes, .contiguous())"
 #: cuBLAS), for the profiles; the first pattern found in a kernel's name
 #: names its group
 KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
-                 ("sm90::gemm_kernel", "wgmma GEMMs (#1, #3, #4)"),
+                 (r"sm90::gemm_(bf16_)?kernel", "wgmma GEMMs (#1, #3, #4)"),
                  ("sm90::split_weights_t", "transposed weight splits (#6)"),
                  ("sm90::split_weights", "weight splits (#1, #3, #4)"),
                  ("sm90::row_stats", "row statistics (#1, #3, #4)"),
@@ -1632,6 +1683,8 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("attention_kernel", "attention forward"),
                  ("bf16_to_f32_kernel", "bfloat16 x to float32 (#2)"),
                  ("layernorm_kernel", "outer LayerNorm (#1, #3, #4)"),
+                 ("layernorm_bf16_kernel",
+                  "bf16 LayerNorms (#1, #3, #4: pre-passes and outer)"),
                  ("ln_bwd_kernel", "LayerNorm backward"),
                  ("ln_fwd_kernel", "LayerNorm forward"),
                  ("colsum_kernel", "bias-gradient sums"),
@@ -2784,9 +2837,10 @@ def bf16_eval_phase(seed: int, workdir: str, device: str = "cuda",
                     frames: int = DHP3_FRAMES):
     """Evaluation at gpu.compute_dtype=bfloat16 at full width: the H3WB CLI
     on a checkpoint of the seeded weights, on eval_experimental's 76-window
-    action (P, T), at use_pallas=auto (48*T launches of #1 a window batch)
-    and true (of #2), beside the float32 run at auto: seconds, windows/s,
-    every metric's delta from float32.  Then the action's first sequence
+    action (P, T), at use_pallas=auto (48*T launches of #1 a window batch),
+    true (of #2), block_t (24*T of #1 and of #3) and layer (24*T of #4;
+    both behind gpu.experimental_kernels=true), beside the float32 run at
+    auto: seconds, windows/s, every metric's delta from float32.  Then the action's first sequence
     with one injected noise table through evaluate_sequences, predictions
     returned: the bfloat16 kernel paths auto, true, block_t and layer
     against the same model on their kernels' plain versions
@@ -2816,7 +2870,11 @@ def bf16_eval_phase(seed: int, workdir: str, device: str = "cuda",
     windows = EVAL_CAMERAS * -(-EXP_FRAMES // rf)
     batches = -(-windows // EVAL_WINDOWS)
     per_batch = len(parts_table(True)) * depth * 2 * T if on_card else 0
-    kernel = {"auto": "fused_block", "true": "fused_attention"}
+    want = {"auto": _expect(fused_block=per_batch * batches),
+            "true": _expect(fused_attention=per_batch * batches),
+            "block_t": _expect(fused_block=per_batch // 2 * batches,
+                               fused_block_temporal=per_batch // 2 * batches),
+            "layer": _expect(fused_layer=per_batch // 2 * batches)}
     cli = ["data.synthetic=true", "general.nolog=true",
            "data.synthetic_actions=1", f"data.synthetic_frames={EXP_FRAMES}",
            f"gpu.device={device}", f"model.dep={depth}", f"gpu.seed={seed}",
@@ -2825,17 +2883,20 @@ def bf16_eval_phase(seed: int, workdir: str, device: str = "cuda",
     cli_log = os.path.join(workdir, "cli.log")
     launches, metrics = {}, {}
     for dtype, mode in (("float32", "auto"), ("bfloat16", "auto"),
-                        ("bfloat16", "true")):
+                        ("bfloat16", "true"), ("bfloat16", "block_t"),
+                        ("bfloat16", "layer")):
         run = f"{dtype}_{mode}"
+        gate = (["gpu.experimental_kernels=true"]
+                if mode in ("block_t", "layer") else [])
         _reset_launches()
-        out = _cli(cli + [f"gpu.compute_dtype={dtype}",
-                          f"gpu.use_pallas={mode}",
-                          f"general.checkpoint={workdir}/bf16_{run}"], cli_log)
+        out = _cli(cli + gate + [f"gpu.compute_dtype={dtype}",
+                                 f"gpu.use_pallas={mode}",
+                                 f"general.checkpoint={workdir}/bf16_{run}"],
+                   cli_log)
         launches[run] = _launch_counts()
-        want = _expect(**{kernel[mode]: per_batch * batches})
-        if launches[run] != want:
+        if launches[run] != want[mode]:
             raise AssertionError(f"bf16_eval {run}: launches "
-                                 f"{launches[run]}, expected {want}")
+                                 f"{launches[run]}, expected {want[mode]}")
         avg = out["final"]["all"]
         if not all(np.all(np.isfinite(v)) for v in avg.values()):
             raise AssertionError(f"bf16_eval {run}: non-finite metrics")
@@ -4136,7 +4197,7 @@ def main() -> int:
         raise AssertionError(f"fused_linear disagrees with linear_reference: "
                              f"{bad}")
     emit_gemm_sums(gemm_cases, "gemm")
-    cases = kernel_phase(args.seed, windows=16, P=10, frames=27)
+    cases = kernel_phase(args.seed, windows=16, P=10, frames=27, stages=True)
     launches, svc, kp27, poses27 = serve_phase(args.seed)
     launches += serve_concurrent_phase(svc, args.seed)
     modes_launches, modes = serve_modes_phase(svc, kp27, poses27, args.seed)
@@ -4385,6 +4446,8 @@ def main() -> int:
                       **bf16(serve_bt),
                       **serve16(serve_bt, ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "replaced_ms")),
+                      bf16_launches={"bf16_eval_block_t": bf16_eval_launches[
+                          "bfloat16_block_t"]["fused_block_temporal"]},
                       launches_by_phase=_packed(packed_launches,
                                             "fused_block_temporal")),
         # layers 1-7 (no tpe); layer 0's times (with tpe) beside
@@ -4399,6 +4462,8 @@ def main() -> int:
                       **serve16(tpe(serve_layer, False),
                                 ("ms", "plain_ms", "library_ms", "bound_ms",
                                  "replaced_ms")),
+                      bf16_launches={"bf16_eval_layer": bf16_eval_launches[
+                          "bfloat16_layer"]["fused_layer"]},
                       launches_by_phase=_packed(packed_launches,
                                                 "fused_layer")),
     ]})

@@ -30,7 +30,8 @@
 // LayerNorm prologue and the bias, GELU and residual epilogues fused; in
 // float32 three TF32 products per product, which keep float32 accuracy at
 // up to 165 TFLOP/s against the 67 TFLOP/s of scalar f32 FMAs (H100 SXM
-// data-sheet peaks at 700 W); in bfloat16 one bf16 product), one attention
+// data-sheet peaks at 700 W); in bfloat16 one bf16 product after a
+// LayerNorm pre-pass, bound by the bytes it moves), one attention
 // kernel with one CTA per (sequence, head) that keeps q, k and v in shared
 // memory (no token padding: only the L real keys enter a softmax), and one
 // row LayerNorm.

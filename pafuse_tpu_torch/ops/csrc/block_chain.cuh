@@ -3,19 +3,21 @@
 // computation is described in block.cu.
 //
 //   0. the four weights in the GEMM's operand type     split_weights_kernel
-//   1. qkv    = T(LN1(x) @ Wqkv + bqkv)          row_stats + sm90 GEMM, LN prologue
+//   1. qkv    = T(LN1(x) @ Wqkv + bqkv)          ln_gemm (LN prologue or pre-pass)
 //   2. attn   = per-head softmax attention        attention_kernel (S)
 //   3. x1     = x + T(attn @ Wproj + bproj)       sm90 GEMM, residual
-//   4. hidden = T(gelu(LN2(x1) @ Wfc1 + bfc1))    row_stats + sm90 GEMM, LN + GELU
+//   4. hidden = T(gelu(LN2(x1) @ Wfc1 + bfc1))    ln_gemm, GELU
 //   5. x2     = x1 + T(hidden @ Wfc2 + bfc2)      sm90 GEMM, into the attn buffer
-//   6. out    = T(LN_outer(x2)) [+ tpe]           layernorm_kernel
+//   6. out    = T(LN_outer(x2)) [+ tpe]           layernorm_rows
 //
 // x, out: rows = seqs * L, laid out with S as attention_kernel says; every
 // stage but the attention is row-wise, so the layout reaches only step 2.
 // p: the 14 block tensors in block.py's order.  Scratch: qkv (rows, 3C),
 // attn, x1 (rows, C), hidden (rows, hid), all in T, and the workspace ws of
-// chain_workspace_bytes: the split weights, then the row statistics.  tpe:
-// nullptr, or (F, C) added by step 6 with rows in (B, F, N, C) order.
+// chain_workspace_bytes: the split weights, then the row statistics (f32).
+// A bf16 chain writes T(LN1(x)) and T(LN2(x1)) into the attn buffer, which
+// is free at steps 1 and 4.  tpe: nullptr, or (F, C) added by step 6 with
+// rows in (B, F, N, C) order.
 
 #pragma once
 
@@ -57,26 +59,21 @@ cudaError_t block_chain(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
   float2* stats = reinterpret_cast<float2*>(static_cast<char*>(ws) +
                                             8LL * (4LL * C * C + 2LL * hid * C));
 
-  if ((err = row_stats<T>(x, stats, M, C, stream)) != cudaSuccess) return err;
-  err = launch_gemm<T, PRO_LAYERNORM, EPI_STORE>(x, hi[0], lo[0], p[3], p[0], p[1], stats,
-                                                 nullptr, qkv, M, 3 * C, C, stream);
+  err = ln_gemm<T, EPI_STORE>(x, p[0], p[1], hi[0], lo[0], p[3], nullptr, qkv, attn, stats, M,
+                              3 * C, C, stream);
   if (err != cudaSuccess) return err;
   err = launch_attention<T>(qkv, attn, seqs, L, C, H, scale, stream, S);
   if (err != cudaSuccess) return err;
   err = launch_gemm<T, PRO_NONE, EPI_RESIDUAL>(attn, hi[1], lo[1], p[5], nullptr, nullptr,
                                                nullptr, x, x1, M, C, C, stream);
   if (err != cudaSuccess) return err;
-  if ((err = row_stats<T>(x1, stats, M, C, stream)) != cudaSuccess) return err;
-  err = launch_gemm<T, PRO_LAYERNORM, EPI_GELU>(x1, hi[2], lo[2], p[9], p[6], p[7], stats,
-                                                nullptr, hidden, M, hid, C, stream);
+  err = ln_gemm<T, EPI_GELU>(x1, p[6], p[7], hi[2], lo[2], p[9], nullptr, hidden, attn, stats,
+                             M, hid, C, stream);
   if (err != cudaSuccess) return err;
   err = launch_gemm<T, PRO_NONE, EPI_RESIDUAL>(hidden, hi[3], lo[3], p[11], nullptr, nullptr,
                                                nullptr, x1, attn, M, C, hid, stream);
   if (err != cudaSuccess) return err;
-  const unsigned ln_grid = (unsigned)((M + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
-  layernorm_kernel<T><<<ln_grid, LN_THREADS, 0, stream>>>(attn, p[12], p[13], out, M,
-                                                          C, tpe, F, N);
-  return cudaGetLastError();
+  return layernorm_rows<T>(attn, p[12], p[13], out, M, C, tpe, F, N, stream);
 }
 
 }  // namespace

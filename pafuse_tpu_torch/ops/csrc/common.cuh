@@ -1,14 +1,16 @@
 // Device helpers shared by the kernels (block.cu, block_temporal.cu,
 // layer.cu, attention.cu, block_train.cu, gemm.cu): dtype conversion, warp
 // reductions, the prologue and epilogue codes of gemm_sm90.cuh's GEMM, the
-// per-(sequence, head) attention kernel and the row LayerNorm, in an
-// anonymous namespace of each source that includes them.
+// per-(sequence, head) attention kernel and the row LayerNorms (f32 and a
+// vectorised bf16 one), in an anonymous namespace of each source that
+// includes them.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -207,6 +209,125 @@ layernorm_kernel(const T* __restrict__ X, const float* __restrict__ scale,
     if (trow != nullptr) y = round_to<T>(y) + round_to<T>(trow[c]);
     yrow[c] = from_f32<T>(y);
   }
+}
+
+// The same LayerNorm for bf16 rows, 16 bytes (8 values) a lane per load:
+// lane l holds chunks l, l + 32, ... (NCH of them: C <= 256 NCH) of a row
+// in registers, so the row is read once, and the scale and bias of those
+// columns for every row it takes.  Each warp walks rows gw, gw + warps, ...
+// and loads its next row before it normalises this one.  C % 8 == 0, X and
+// Y 16-byte aligned.  The bf16 chain's three LayerNorms and the bf16 GEMM's
+// LayerNorm pre-pass (gemm_sm90.cuh: ln_gemm) run on it.
+template <int NCH>
+__global__ void __launch_bounds__(LN_THREADS)
+layernorm_bf16_kernel(const __nv_bfloat16* __restrict__ X, const float* __restrict__ scale,
+                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ Y,
+                      long long M, int C, const float* __restrict__ tpe, int F, int N) {
+  const int lane = threadIdx.x & 31, chunks = C / 8;
+  float sc[NCH][8], bi[NCH][8];
+#pragma unroll
+  for (int q = 0; q < NCH; ++q) {
+    const int c = lane + 32 * q;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      sc[q][e] = c < chunks ? scale[8 * c + e] : 0.f;
+      bi[q][e] = c < chunks ? bias[8 * c + e] : 0.f;
+    }
+  }
+  const long long warps = (long long)gridDim.x * (LN_THREADS / 32);
+  long long m = (long long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  uint4 next[NCH];
+  auto load = [&](long long row) {
+#pragma unroll
+    for (int q = 0; q < NCH; ++q) {
+      const int c = lane + 32 * q;
+      if (row < M && c < chunks) next[q] = reinterpret_cast<const uint4*>(X + row * C)[c];
+    }
+  };
+  load(m);
+  for (; m < M; m += warps) {
+    float v[NCH][8];
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < NCH; ++q) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&next[q]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        v[q][2 * e] = f.x;
+        v[q][2 * e + 1] = f.y;
+        if (lane + 32 * q < chunks) s += f.x + f.y;
+      }
+    }
+    load(m + warps);
+    const float mean = warp_sum(s) / (float)C;
+    float var = 0.f;
+#pragma unroll
+    for (int q = 0; q < NCH; ++q) {
+      if (lane + 32 * q >= chunks) continue;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float dv = v[q][e] - mean;
+        var += dv * dv;
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(var) / (float)C + kLnEps);
+    const float* trow = tpe == nullptr ? nullptr : tpe + ((m / N) % F) * C;
+    uint4* yrow = reinterpret_cast<uint4*>(Y + m * C);
+#pragma unroll
+    for (int q = 0; q < NCH; ++q) {
+      const int c = lane + 32 * q;
+      if (c >= chunks) continue;
+      uint4 raw;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float y0 = (v[q][2 * e] - mean) * rstd * sc[q][2 * e] + bi[q][2 * e];
+        float y1 = (v[q][2 * e + 1] - mean) * rstd * sc[q][2 * e + 1] + bi[q][2 * e + 1];
+        if (trow != nullptr) {
+          y0 = round_to<__nv_bfloat16>(y0) + round_to<__nv_bfloat16>(trow[8 * c + 2 * e]);
+          y1 = round_to<__nv_bfloat16>(y1) + round_to<__nv_bfloat16>(trow[8 * c + 2 * e + 1]);
+        }
+        h[e] = __floats2bfloat162_rn(y0, y1);
+      }
+      yrow[c] = raw;
+    }
+  }
+}
+
+// Y = T(LN(X)) [+ tpe] over M rows of C: layernorm_kernel for f32 (C any),
+// layernorm_bf16_kernel for bf16 (C <= 1024), its grid as many warps as
+// stay resident on the card.
+template <typename T>
+cudaError_t layernorm_rows(const T* X, const float* scale, const float* bias, T* Y,
+                           long long M, int C, const float* tpe, int F, int N,
+                           cudaStream_t stream) {
+  const long long rows = LN_THREADS / 32;
+  if constexpr (sizeof(T) == 2) {
+    if (C % 8 || C > 1024 || reinterpret_cast<uintptr_t>(X) % 16 ||
+        reinterpret_cast<uintptr_t>(Y) % 16)
+      return cudaErrorInvalidValue;
+    int dev = 0, sms = 0;
+    cudaError_t e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    const long long blocks = (M + rows - 1) / rows, resident = 8LL * sms;
+    const unsigned grid = (unsigned)(blocks < resident ? blocks : resident);
+    if (C <= 256)
+      layernorm_bf16_kernel<1><<<grid, LN_THREADS, 0, stream>>>(X, scale, bias, Y, M, C, tpe,
+                                                                F, N);
+    else if (C <= 512)
+      layernorm_bf16_kernel<2><<<grid, LN_THREADS, 0, stream>>>(X, scale, bias, Y, M, C, tpe,
+                                                                F, N);
+    else
+      layernorm_bf16_kernel<4><<<grid, LN_THREADS, 0, stream>>>(X, scale, bias, Y, M, C, tpe,
+                                                                F, N);
+  } else {
+    layernorm_kernel<T><<<(unsigned)((M + rows - 1) / rows), LN_THREADS, 0, stream>>>(
+        X, scale, bias, Y, M, C, tpe, F, N);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace

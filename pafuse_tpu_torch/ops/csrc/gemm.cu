@@ -3,7 +3,8 @@
 //
 //   Y = T(epilogue(prologue(A) @ W^T + b))
 //
-// prologue: none, or the row LayerNorm (scale, bias) rounded to T;
+// prologue: none, or the row LayerNorm (scale, bias) rounded to T (bf16:
+// a pre-pass, gemm_sm90.cuh's ln_gemm);
 // epilogue: store, exact GELU, or R + T(product).  It is the GEMM of
 // kernels #1, #3 and #4 (pafuse_tpu/ops/attention.py::pallas_block,
 // pallas_block_temporal, pallas_layer: the dot2d products of _block_body),
@@ -27,10 +28,12 @@ cudaError_t linear(const T* A, const float* W, const float* bias, const float* l
   T* lo = Cfg<T>::NT == 2 ? hi + (long long)N * K : nullptr;
   cudaError_t err = split_weights<T>(W, hi, lo, (long long)N * K, stream);
   if (err != cudaSuccess) return err;
+  if (PRO == PRO_NONE)
+    return launch_gemm<T, PRO_NONE, EPI>(A, hi, lo, bias, nullptr, nullptr, nullptr, R, Y, M,
+                                         N, K, stream);
   float2* stats = reinterpret_cast<float2*>(static_cast<char*>(ws) + 8LL * N * K);
-  if (PRO == PRO_LAYERNORM && (err = row_stats<T>(A, stats, M, K, stream)) != cudaSuccess)
-    return err;
-  return launch_gemm<T, PRO, EPI>(A, hi, lo, bias, ln_s, ln_b, stats, R, Y, M, N, K, stream);
+  T* buf = hi + (long long)N * K;       // bf16: LN(A) after the rounded weight
+  return ln_gemm<T, EPI>(A, ln_s, ln_b, hi, lo, bias, R, Y, buf, stats, M, N, K, stream);
 }
 
 template <typename T, int PRO>
@@ -65,15 +68,16 @@ cudaError_t linear_any(int pro, int epi, const void* A, const float* W, const fl
 }  // namespace
 
 // prologue: 0 none, 1 LayerNorm; epilogue: 0 store, 1 GELU, 2 residual.
-// ws: ws_bytes >= 8 N K + 8 M (ops/gemm.py::linear_workspace_bytes): the
-// weight's TF32 hi and lo halves (bf16 uses a quarter), then the (mean,
-// rstd) of every row.
+// ws: ws_bytes >= 8 N K + 8 M for f32, the weight's TF32 hi and lo halves,
+// then the (mean, rstd) of every row; 2 N K + 2 M K for bf16, the rounded
+// weight, then LN(A) (ops/gemm.py::linear_workspace_bytes).
 extern "C" int pafuse_linear_sm90(int is_bf16, int prologue, int epilogue, const void* A,
                                   const float* W, const float* bias, const float* ln_s,
                                   const float* ln_b, const void* R, void* Y, void* ws,
                                   long long ws_bytes, long long M, int N, int K,
                                   void* stream) {
-  if (ws_bytes < 8LL * N * K + 8LL * M) return (int)cudaErrorInvalidValue;
+  if (ws_bytes < (is_bf16 ? 2LL * N * K + 2LL * M * K : 8LL * N * K + 8LL * M))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return (int)linear_any<__nv_bfloat16>(prologue, epilogue, A, W, bias, ln_s, ln_b, R, Y,

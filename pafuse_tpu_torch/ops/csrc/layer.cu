@@ -30,7 +30,8 @@
 // with the LayerNorm prologues and the bias, GELU and residual epilogues
 // fused; three TF32 products per float32 product, which keep float32
 // accuracy at up to 165 TFLOP/s against the 67 TFLOP/s of scalar f32 FMAs,
-// H100 SXM data-sheet peaks at 700 W; one bf16 product for bfloat16).
+// H100 SXM data-sheet peaks at 700 W; one bf16 product for bfloat16, whose
+// LayerNorms are rounding pre-passes).
 // Each half splits its own weights into the one workspace ws before its
 // GEMMs.
 //

@@ -11,9 +11,12 @@ sums accumulate in float32, and the epilogue is ``"store"``, the exact
 For CUDA tensors it launches the Hopper GEMM (``csrc/gemm.cu`` on
 ``csrc/gemm_sm90.cuh``, the GEMM that ``csrc/block_chain.cuh`` runs four
 times a block): TMA-fed ``wgmma``, in float32 as three TF32 products per
-product (``a_hi*w_hi + a_hi*w_lo + a_lo*w_hi``, see :func:`split_tf32`),
-in bfloat16 as one bf16 product.  For CPU tensors it uses
-:func:`linear_reference`, the same function in plain PyTorch ops.
+product (``a_hi*w_hi + a_hi*w_lo + a_lo*w_hi``, see :func:`split_tf32`)
+with the LayerNorm in the GEMM's prologue, in bfloat16 as one bf16 product
+summed in one float32 accumulator over the whole K, after a pre-pass that
+writes the LayerNorm rounded to bfloat16 (plain: :func:`layernorm_round`).
+For CPU tensors it uses :func:`linear_reference`, the same function in
+plain PyTorch ops.
 """
 
 from __future__ import annotations
@@ -36,6 +39,12 @@ def _layernorm(v: torch.Tensor, scale, bias) -> torch.Tensor:
     return (v - mean) * torch.rsqrt(var + _EPS) * scale + bias
 
 
+def layernorm_round(a: torch.Tensor, scale, bias) -> torch.Tensor:
+    """The LayerNorm prologue: each row of ``a`` normalised in float32 and
+    rounded to ``a``'s dtype (the bfloat16 GEMM's pre-pass writes it)."""
+    return _layernorm(a, scale, bias).to(a.dtype)
+
+
 def split_tf32(x: torch.Tensor):
     """float32 ``x`` -> (hi, lo), both TF32 values (10 explicit mantissa
     bits), ``hi`` = x rounded to nearest with ties away from zero (PTX
@@ -56,7 +65,7 @@ def linear_reference(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Plain PyTorch version of :func:`fused_linear` (any leading dims)."""
     cd = a.dtype
     if ln is not None:
-        a = _layernorm(a, *ln).to(cd)
+        a = layernorm_round(a, *ln)
     y = F.linear(a.float(), w.to(cd).float(), b)
     if epilogue == "gelu":
         return F.gelu(y).to(cd)
@@ -67,10 +76,12 @@ def linear_reference(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(cd)
 
 
-def linear_workspace_bytes(M: int, N: int, K: int) -> int:
+def linear_workspace_bytes(M: int, N: int, K: int, bf16: bool = False) -> int:
     """Workspace of one ``fused_linear`` call (``csrc/gemm.cu`` checks it):
-    the weight's TF32 hi and lo halves and the (mean, rstd) of each row."""
-    return 8 * N * K + 8 * M
+    in float32 the weight's TF32 hi and lo halves and the (mean, rstd) of
+    each row, in bfloat16 the rounded weight and the rounded LayerNorm of
+    A."""
+    return 2 * N * K + 2 * M * K if bf16 else 8 * N * K + 8 * M
 
 
 def chain_workspace_bytes(M: int, C: int, hidden: int) -> int:
@@ -122,7 +133,7 @@ def fused_linear(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     M, K = a.shape
     N = w.shape[0]
     y = a.new_empty((M, N))
-    ws_bytes = linear_workspace_bytes(M, N, K)
+    ws_bytes = linear_workspace_bytes(M, N, K, a.dtype == torch.bfloat16)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=a.device)
     scale, bias = ln if ln is not None else (None, None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

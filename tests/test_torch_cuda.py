@@ -357,6 +357,66 @@ def test_fused_linear_matches_plain_on_gpu(cuda_device, dtype, C, ln,
         assert _bf16_ok(diff, 2.0 ** -4, 1e-3)
 
 
+#: N of the bfloat16 GEMM's tile widths: 256, 224 and 192 wide, 128, 96
+#: (N a multiple of 96 and not of 128), and a ragged N on 128; GELU takes
+#: 128 (96) wide tiles at every N
+BF16_TILE_NS = [256, 224, 192, 128, 96, 136]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", BF16_TILE_NS)
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("epilogue", ["store", "gelu", "residual"])
+def test_bf16_linear_every_tile_width_on_gpu(cuda_device, N, ln, epilogue):
+    """The bfloat16 GEMM at each tile width its launcher picks, at a ragged
+    M (64*5 + 37 rows, not a multiple of the 128-row tiles) and every
+    epilogue, with and without the LayerNorm pre-pass, against
+    linear_reference; two identical calls give the same bits."""
+    K, M = 224, 64 * 5 + 37
+    r = np.random.RandomState(N + 2 * ln + len(epilogue))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    a = t(r.randn(M, K)).to(torch.bfloat16)
+    w, b = t(r.uniform(-1, 1, (N, K)) / np.sqrt(K)), t(r.uniform(-1, 1, N) / np.sqrt(K))
+    norm = (t(1 + 0.1 * r.randn(K)), t(0.1 * r.randn(K))) if ln else None
+    res = (t(r.randn(M, N)).to(torch.bfloat16) if epilogue == "residual"
+           else None)
+    got = fused_linear(a, w, b, norm, epilogue, res)
+    again = fused_linear(a, w, b, norm, epilogue, res)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.equal(got, again)
+    want = linear_reference(a, w, b, norm, epilogue, res).float()
+    assert _bf16_ok((got.float() - want).abs(), 2.0 ** -4, 1e-3)
+
+
+@pytest.mark.cuda
+def test_bf16_chain_kernels_repeat_bit_for_bit_on_gpu(cuda_device):
+    """Kernels #1, #3 and #4 in bfloat16 at the face's shape (68 joints, C
+    224): within their bounds of the plain versions, and a second call
+    gives the same bits (one fixed summation order, no split K)."""
+    C, N = 224, 68
+    sp = _params(C, seed=11, device=cuda_device)
+    tp = _params(C, seed=12, device=cuda_device)
+    x = _inputs(2 * 27, N, C, seed=13, device=cuda_device)[0]
+    x = x.to(torch.bfloat16)
+    x4 = x.reshape(2, 27, N, C)
+    runs = [
+        (lambda: fused_block(x, sp[:12], sp[12:], HEADS),
+         lambda: block_reference(x, sp[:12], sp[12:], HEADS), 2.0 ** -4, 1e-3),
+        (lambda: fused_block_temporal(x4, tp[:12], tp[12:], HEADS),
+         lambda: block_temporal_reference(x4, tp[:12], tp[12:], HEADS),
+         2.0 ** -4, 1e-3),
+        (lambda: fused_layer(x4, sp[:12], sp[12:], tp[:12], tp[12:], HEADS),
+         lambda: layer_reference(x4, sp[:12], sp[12:], tp[:12], tp[12:],
+                                 HEADS), 2.0 ** -3, 2e-3)]
+    for kernel, plain, max_tol, mean_tol in runs:
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _bf16_ok((got.float() - plain().float()).abs(), max_tol,
+                        mean_tol)
+
+
 @pytest.mark.cuda
 def test_block_chain_runs_only_its_own_kernels_on_gpu(cuda_device):
     """Kernel #1's launches under torch.profiler: the Hopper GEMM, its

@@ -12,6 +12,13 @@ kernel's erf approximation is within 1.5e-7); bfloat16 one ulp of the
 output, 2^-7 |y| + 1e-6 elementwise (both sides round float32 values that
 differ by ~1e-7).
 
+Then the numerics decision of the kernel's bfloat16 path: one float32
+accumulator over the whole K (the tensor cores' accumulation modelled as
+truncating after every 16-deep step), at every part shape and forward
+stage, stays within the card's bfloat16 block bound of
+``linear_reference``, and the LayerNorm pre-pass's plain version
+(``layernorm_round``) is ``linear_reference``'s prologue bit for bit.
+
 Then the numerics decision of the kernel's float32 path, on the same
 blocks: ``split_tf32`` halves are TF32 values that sum back to x, and a
 block whose products are three TF32 products each stays within 1e-5 of the
@@ -37,7 +44,8 @@ from pafuse_tpu.ops import attention
 from pafuse_tpu_torch.ops import gemm
 from pafuse_tpu_torch.ops.block import block_reference
 from pafuse_tpu_torch.ops.block_train import fwd_linear_reference
-from pafuse_tpu_torch.ops.gemm import fused_linear, linear_reference, split_tf32
+from pafuse_tpu_torch.ops.gemm import (fused_linear, layernorm_round,
+                                       linear_reference, split_tf32)
 
 torch.set_num_threads(2)
 
@@ -264,3 +272,82 @@ def test_forward_gemm_order_keeps_float32_accuracy(L, C):
                      else [(y, want)])
             err = max(float((g - v).abs().max()) for g, v in pairs)
             assert (err <= 1e-5) == ok, (epilogue, products, err)
+
+
+# chip_smoke.KERNEL_TOL_BF16: the card's bound of a bfloat16 block kernel
+# (and of the bfloat16 GEMM alone) against its plain version, (max, mean)
+KERNEL_TOL_BF16 = (2.0 ** -4, 1e-3)
+
+
+def _bf16_stage(L, C, stage):
+    """One forward product of a bfloat16 block at the part's width: A (the
+    rounded LayerNorm for qkv and fc1, else bfloat16 activations), W, b,
+    the LayerNorm (scale, bias) or None, the epilogue and R (or None), with
+    ``a_raw`` the rows the LayerNorm reads."""
+    x, bp, _ = _block(L, C, seed=L + C + 2)
+    rows = x.reshape(-1, C).to(torch.bfloat16)
+    r = np.random.RandomState(C + L)
+    bf = lambda *s: torch.tensor(r.randn(*s), dtype=torch.float32).to(torch.bfloat16)  # noqa: E731
+    if stage == "qkv":
+        return rows, bp[2], bp[3], (bp[0], bp[1]), "store", None
+    if stage == "proj":
+        return bf(rows.shape[0], C), bp[4], bp[5], None, "residual", rows
+    if stage == "fc1":
+        return rows, bp[8], bp[9], (bp[6], bp[7]), "gelu", None
+    hidden = F.gelu(bf(rows.shape[0], 2 * C).float()).to(torch.bfloat16)
+    return hidden, bp[10], bp[11], None, "residual", rows
+
+
+def _truncate_f32(v):
+    """float64 ``v`` to float32 rounded toward zero."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _one_accumulator(a, w):
+    """a @ w^T for bfloat16 a and w as the bfloat16 kernel sums it: one
+    float32 accumulator over the whole K in K order, each 16-deep step's
+    exact sum added and the result truncated to float32."""
+    a64, w64 = a.double(), w.double()
+    acc = torch.zeros(a.shape[0], w.shape[0])
+    for k0 in range(0, a.shape[1], 16):
+        k = slice(k0, k0 + 16)
+        acc = _truncate_f32(acc.double() + a64[:, k] @ w64[:, k].t())
+    return acc
+
+
+@pytest.mark.parametrize("stage", ["qkv", "proj", "fc1", "fc2"])
+@pytest.mark.parametrize("L,C", PART_SHAPES)
+def test_bf16_one_accumulator_stays_within_kernel_bound(L, C, stage):
+    """The bfloat16 GEMM's order (no partial sums: one float32 accumulator
+    over K = C or 2C) at each stage's epilogue (store, residual, GELU,
+    residual) against linear_reference, within KERNEL_TOL_BF16."""
+    a, w, b, ln, epilogue, res = _bf16_stage(L, C, stage)
+    want = linear_reference(a, w, b, ln, epilogue, res)
+    if ln is not None:
+        a = layernorm_round(a, *ln)
+    y = _one_accumulator(a, w.to(torch.bfloat16)) + b
+    if epilogue == "gelu":
+        got = F.gelu(y).to(torch.bfloat16)
+    elif epilogue == "residual":
+        got = res + y.to(torch.bfloat16)
+    else:
+        got = y.to(torch.bfloat16)
+    diff = (got.float() - want.float()).abs()
+    assert diff.max() <= KERNEL_TOL_BF16[0] and diff.mean() <= KERNEL_TOL_BF16[1], (
+        float(diff.max()), float(diff.mean()))
+
+
+@pytest.mark.parametrize("stage", ["qkv", "fc1"])
+@pytest.mark.parametrize("L,C", PART_SHAPES)
+def test_bf16_layernorm_prepass_is_the_reference_prologue(L, C, stage):
+    """The pre-pass's plain version is _layernorm then the rounding to
+    bfloat16, bit for bit, and the GEMM on its output is linear_reference
+    with the LayerNorm, bit for bit."""
+    a, w, b, ln, epilogue, _ = _bf16_stage(L, C, stage)
+    h = layernorm_round(a, *ln)
+    assert h.dtype == torch.bfloat16
+    assert torch.equal(h, gemm._layernorm(a, *ln).to(torch.bfloat16))
+    assert torch.equal(linear_reference(h, w, b, None, epilogue),
+                       linear_reference(a, w, b, ln, epilogue))
