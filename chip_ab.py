@@ -31,15 +31,21 @@
    ``LiftingService`` (depth 8, P=10, T=5), a bfloat16 ``use_pallas=auto``
    evaluation of the 76-window action (synthetic S8, 500 frames), and a
    float32 training step (depth 8, 37 sequences); times are device ms
-   (CUDA events) or host ms ending in a synchronisation.  Each worker also
-   hashes the float32 outputs of #1-#6 on the same seeded inputs, and the
-   summary says whether the two trees' hashes are equal.  First it
-   compiles both trees' CUDA sources and holds the SASS of every kernel the
-   two have in common equal (the float32 GEMM's instantiations among them).
+   (CUDA events) or host ms ending in a synchronisation.  Beside #1's
+   times, the device ms of its attention stage (every kernel whose name
+   holds "attention" in one profiled call of each shape).  Each worker also
+   hashes the float32 outputs of #1-#6 on the same seeded inputs and the
+   float32 training window's losses and parameters, and the summary says
+   whether each hash is equal across the two trees and across each tree's
+   two runs (a repeat); ``--changed`` names the kernels whose float32
+   outputs this change may alter (e.g. ``#1,#3,#4``), every other hash must
+   be equal across the trees.  First it compiles both trees' CUDA sources
+   and holds the SASS of every kernel the two have in common equal (the
+   float32 GEMM's instantiations among them).
 
     python3 chip_ab.py --parent build/parent --routing 50
     python3 chip_ab.py --suite --routing 50
-    python3 chip_ab.py --kernels build/parent
+    python3 chip_ab.py --kernels build/parent [--changed '#1,#3,#4']
 
 Prints JSON lines; the last is ``{"ok": true, ...}``.  It exits non-zero
 without CUDA.
@@ -256,6 +262,18 @@ def kernels_worker(mode: str):
             h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
         digests[key] = h.hexdigest()[:16]
 
+    def attention_ms(fn):
+        """Device ms of the attention kernels of one profiled call."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "attention" in e.key) / 1e3
+
     # every float32 reading first (all parts), then the bfloat16 ones, so
     # no float32 time follows the bfloat16 kernels' load on the card
     for dtype in (torch.float32, torch.bfloat16):
@@ -283,6 +301,8 @@ def kernels_worker(mode: str):
                     add(f"{k}_{name}_ms", _cuda_ms(fn))
                     if dtype == torch.float32:
                         digest(f"{k}_{part}_{j}", fn())
+            for fn in runs["#1"]:
+                add(f"#1_attention_{name}_ms", attention_ms(fn))
             del x, spatial, temporal
             if dtype == torch.bfloat16:
                 # the bfloat16 GEMM alone: each stage on its A, R
@@ -376,12 +396,13 @@ def kernels_worker(mode: str):
         batches.append(batch)
         if len(batches) == 2 + STEPS:
             break
-    for _, b3d, b2d in batches[:2]:
-        float(step(state, 6e-5, b2d, b3d))
+    losses = [float(step(state, 6e-5, b2d, b3d)) for _, b3d, b2d in batches[:2]]
     t0 = time.time()
     for _, b3d, b2d in batches[2:]:
-        float(step(state, 6e-5, b2d, b3d))
+        losses.append(float(step(state, 6e-5, b2d, b3d)))
     times["train_step_float32_ms"] = (time.time() - t0) * 1e3 / STEPS
+    digest("train_window", torch.tensor(losses),
+           *[q for q in model.parameters()])
     emit({"kernels_ab": mode, "times": times, "float32_digests": digests})
 
 
@@ -398,7 +419,9 @@ def sass_compare(other: str):
     flags = [f for f in _build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     jobs = {}
-    for name in _build.KERNELS:
+    names = [n for n in _build.KERNELS if os.path.exists(os.path.join(
+        other, "pafuse_tpu_torch", "ops", "csrc", f"{n}.cu"))]
+    for name in names:
         for tree, root in (("parent", other), ("change", HERE)):
             src = os.path.join(root, "pafuse_tpu_torch", "ops", "csrc",
                                f"{name}.cu")
@@ -428,7 +451,7 @@ def sass_compare(other: str):
 
     common = identical = 0
     differing = []
-    for name in _build.KERNELS:
+    for name in names:
         par = kernels(jobs[(name, "parent")][0])
         chg = kernels(jobs[(name, "change")][0])
         for k in sorted(set(par) & set(chg)):
@@ -441,11 +464,12 @@ def sass_compare(other: str):
             "identical": identical, "differing": differing}
 
 
-def kernels_summary(results):
+def kernels_summary(results, changed=()):
     """Per metric: the parent's and the change's readings, each tree's
     spread, the change over the parent, and whether the change is faster
-    (or, for the float32 rows, within 5%) beyond the spread; and whether
-    every float32 output hash agrees across the trees."""
+    (or, for the float32 rows, within 5%) beyond the spread; whether each
+    float32 hash repeats within each tree, and agrees across the trees for
+    every kernel not in ``changed``."""
     runs = {"parent": [], "change": []}
     for res in results:
         runs[res["kernels_ab"]].append(res)
@@ -467,10 +491,17 @@ def kernels_summary(results):
     keys = runs["change"][0]["float32_digests"]
     same = {k: len({r["float32_digests"][k] for r in runs["parent"]
                     + runs["change"]}) == 1 for k in keys}
+    repeat = {k: all(len({r["float32_digests"][k] for r in rs}) == 1
+                     for rs in runs.values()) for k in keys}
+    kept = {k: v for k, v in same.items() if k.split("_")[0] not in changed}
     return {"phase": "kernels_ab", "metrics": out,
-            "float32_bit_identical": all(same.values()),
+            "float32_bit_identical": all(kept.values()),
             "float32_outputs_differing": sorted(k for k, v in same.items()
-                                                if not v)}
+                                                if not v),
+            "changed": sorted(changed),
+            "float32_repeat_bit_identical": all(repeat.values()),
+            "float32_not_repeating": sorted(k for k, v in repeat.items()
+                                            if not v)}
 
 
 def routing(runs: int):
@@ -551,6 +582,9 @@ def main() -> int:
                     help="run tests/test_torch_cuda.py in this process first")
     ap.add_argument("--kernels", metavar="DIR",
                     help="the kernel A/B against another checkout of the port")
+    ap.add_argument("--changed", default="",
+                    help="kernels whose float32 outputs may differ, e.g. "
+                         "'#1,#3,#4'")
     ap.add_argument("--worker", choices=("parent", "change"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--kernels-worker", choices=("parent", "change"),
@@ -587,11 +621,17 @@ def main() -> int:
         if sass["differing"]:
             raise AssertionError(f"kernels whose instructions differ from the "
                                  f"other tree's: {sass['differing']}")
-        summary = kernels_summary(paired(args.kernels, "--kernels-worker"))
+        changed = tuple(k for k in args.changed.split(",") if k)
+        summary = kernels_summary(paired(args.kernels, "--kernels-worker"),
+                                  changed)
         emit(summary)
         if not summary["float32_bit_identical"]:
             raise AssertionError(f"float32 outputs differ from the other "
                                  f"tree's: {summary['float32_outputs_differing']}")
+        if not summary["float32_repeat_bit_identical"]:
+            raise AssertionError(f"float32 outputs differ between two runs "
+                                 f"of one tree: "
+                                 f"{summary['float32_not_repeating']}")
     if args.suite:
         import pytest
         rc = pytest.main([os.path.join(HERE, "tests", "test_torch_cuda.py"),

@@ -18,10 +18,18 @@ Phases, one JSON line each:
                shape as the serving path gives it at bucket 16 (P=10, flip
                on), in float32 and bfloat16, with its time, the plain
                version's, one PyTorch library composition's (SDPA + cuBLAS,
-               a yardstick only) and the card's lower bound; each bfloat16
-               row with one call's device ms by stage (weight splits,
-               LayerNorms, the four GEMMs, attention), summed over the
-               shapes in one kernel_stages line.
+               a yardstick only) and the card's lower bound; each row with
+               one call's device ms by stage (weight splits, LayerNorms,
+               the four GEMMs, the tensor-core attention), summed over the
+               shapes in one kernel_stages line a dtype.
+  3b. attention_stage - the chain's attention stage alone
+               (ops.attention_core, the kernel of block_chain.cuh's step 2)
+               against its plain version at the same six shapes, on the
+               qkv the chain computes there, float32 and bfloat16: its
+               time, the plain version's, scaled_dot_product_attention's
+               on the same qkv (a yardstick only) and its bound from the
+               bytes (qkv read once, the output written once) and the
+               operations (4*B*L^2*C).
   4. serve   - LiftingService at full width (the D3DPConfig defaults: part
                based, merged hands, 27 frames, 134 joints, depth 8) with
                seeded weights, P=10, T=5, buckets (1,2,4,8,16), float32,
@@ -309,6 +317,16 @@ Tolerances (max abs, elementwise):
                    bfloat16 ulp of the value plus the float32 bound (both
                    sides round only the output, from float32 values that
                    differ by ~1e-6);
+  attention_stage  float32 1e-5 max abs (three TF32 products, whose
+                   emulation on the CPU stays within 3e-7 of the plain
+                   version on the chain's qkv, plus the tensor cores'
+                   truncating accumulation; measured 5.1e-7 at these
+                   shapes on an H100 80GB HBM3); bfloat16 2^-7 x (|y| +
+                   max|v|) elementwise: one ulp of the rounded output (at
+                   most 2^-7 |y|) plus the probabilities that round the
+                   other way from f32 values ~1e-7 apart (a p below 1
+                   moves by at most 2^-8, so up to two flips in a row carry
+                   at most 2^-7 max|v|; measured max abs 3.9e-3);
   block_temporal   kernel #3: kernel's bounds (the same block and rounding
                    points on the transposed rows);
   layer kernel     kernel #4: float32 1e-4 (two blocks, each within ~1e-6);
@@ -441,6 +459,10 @@ LAYER_REPLACES = "pafuse_tpu/ops/attention.py:646"
 LAYER_TOL_BF16 = (2.0 ** -3, 2e-3)      # (max, mean)
 GEMM_SOURCE = "pafuse_tpu_torch/ops/csrc/gemm.cu"
 GEMM_TOL_F32 = 1e-5
+ATTN_CORE_SOURCE = "pafuse_tpu_torch/ops/csrc/attention_sm90.cuh"
+ATTN_CORE_REPLACES = "pafuse_tpu/ops/attention.py:300"   # _block_body's attention
+ATTN_CORE_TOL_F32 = 1e-5
+ATTN_CORE_TOL_BF16 = 2.0 ** -7          # x (|y| + max|v|), elementwise
 
 
 def emit(obj):
@@ -573,6 +595,17 @@ def h3wb_parts():
 CHAIN_GEMMS = ("qkv", "proj", "fc1", "fc2")
 
 
+def block_cases(windows, P, frames, parts=None):
+    """(part, kind, B, L, C) of each network's spatial (B =
+    windows*P*2*frames sequences of its joints) and temporal (B =
+    windows*P*2*joints sequences of the frames) block; ``parts``: (name,
+    joints, channels) of the networks, the default config's when omitted."""
+    seqs = windows * P * 2                          # windows x hypotheses x flip
+    return [case for part, N, C in parts or h3wb_parts()
+            for case in ((part, "spatial", seqs * frames, N, C),
+                         (part, "temporal", seqs * N, frames, C))]
+
+
 def chain_stages(fn):
     """Device ms by stage of one block-chain call ``fn()`` under
     torch.profiler: each kernel of the chain by its name without namespace
@@ -603,27 +636,19 @@ def chain_stages(fn):
 
 def kernel_phase(seed: int, windows: int, P: int, frames: int, parts=None,
                  phase="kernel", stages=False):
-    """Kernel #1 against its plain version at each network's spatial (B =
-    windows*P*2*frames sequences of its joints) and temporal (B =
-    windows*P*2*joints sequences of the frames) shape; ``parts``:
-    (name, joints, channels) of the networks, the default config's when
-    omitted.  With ``stages``, each bfloat16 row carries the device ms of
-    one call by stage (chain_stages), and one ``<phase>_stages`` line sums
-    them over the shapes."""
+    """Kernel #1 against its plain version at block_cases' shapes.  With
+    ``stages``, each row carries the device ms of one call by stage
+    (chain_stages), and one ``<phase>_stages`` line a dtype sums them over
+    the shapes."""
     import torch
     from pafuse_tpu_torch.ops.block import block_reference, fused_block
     from pafuse_tpu_torch.utils.device import sync
 
     dev = torch.device("cuda")
     heads = 8
-    cases = []
-    for part, N, C in parts or h3wb_parts():
-        seqs = windows * P * 2                      # windows x hypotheses x flip
-        cases.append((part, "spatial", seqs * frames, N, C))
-        cases.append((part, "temporal", seqs * N, frames, C))
-
     results = []
-    for i, (part, kind, B, L, C) in enumerate(cases):
+    for i, (part, kind, B, L, C) in enumerate(
+            block_cases(windows, P, frames, parts)):
         g = torch.Generator().manual_seed(seed * 100 + i)
         params = _random_block_params(C, g, dev)
         bp, on = params[:12], params[12:]
@@ -650,7 +675,7 @@ def kernel_phase(seed: int, windows: int, P: int, frames: int, parts=None,
                  "mean_abs_err": float(diff.mean()), "ok": ok, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
                  **block_bound(B, L, C, name, param_bytes)}
-            if stages and dtype == torch.bfloat16:
+            if stages:
                 r["stages_ms"] = chain_stages(
                     lambda: fused_block(x, bp, on, heads))
             emit(r)
@@ -658,16 +683,71 @@ def kernel_phase(seed: int, windows: int, P: int, frames: int, parts=None,
             del got, want, diff
         del x32, x
         torch.cuda.empty_cache()
-    if stages:
+    for name in ("float32", "bfloat16") if stages else ():
         total = {}
         for r in results:
-            for k, v in r.get("stages_ms", {}).items():
+            for k, v in r["stages_ms"].items() if r["dtype"] == name else ():
                 total[k] = total.get(k, 0.0) + v
-        emit({"phase": f"{phase}_stages", "dtype": "bfloat16",
+        emit({"phase": f"{phase}_stages", "dtype": name,
               "windows": windows, "stages_ms": total,
               "device_ms": sum(total.values()),
               "gemm_ms": sum(v for k, v in total.items()
                              if k.startswith("gemm_"))})
+    return results
+
+
+def attention_stage_phase(seed: int, windows: int, P: int, frames: int):
+    """The chain's attention stage alone (ops.attention_core) against its
+    plain version at block_cases' shapes, on the qkv the chain computes
+    there (LN1(x) @ Wqkv + bqkv in the dtype), float32 and bfloat16: ms,
+    plain ms, library ms (library_sdpa on the same qkv) and the bound
+    (4*B*L^2*C operations; qkv read once, the output written once)."""
+    import torch
+    from pafuse_tpu_torch.ops.attention_core import (attention_core,
+                                                     attention_core_reference)
+    from pafuse_tpu_torch.ops.gemm import linear_reference
+    from pafuse_tpu_torch.utils.device import sync
+
+    dev = torch.device("cuda")
+    heads = 8
+    results = []
+    for i, (part, kind, B, L, C) in enumerate(block_cases(windows, P, frames)):
+        g = torch.Generator().manual_seed(seed * 100 + 200 + i)
+        p = _random_block_params(C, g, dev)
+        x32 = torch.randn(B, L, C, generator=g).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            qkv = linear_reference(x32.to(dtype), p[2], p[3], p[0:2])
+            got = attention_core(qkv, heads)
+            sync(dev)           # a fault inside the kernel surfaces here
+            want = attention_core_reference(qkv, heads).float()
+            diff = (got.float() - want).abs()
+            if dtype == torch.float32:
+                ok = bool(diff.max() <= ATTN_CORE_TOL_F32)
+            else:
+                vmax = qkv[..., 2 * C:].float().abs().max()
+                ok = bool((diff <= ATTN_CORE_TOL_BF16
+                           * (want.abs() + vmax)).all())
+            err = float(diff.max())
+            del got, want, diff
+            q, k, v = qkv.view(B, L, 3, heads, C // heads).permute(
+                2, 0, 3, 1, 4)
+            ms = cuda_time_ms(lambda: attention_core(qkv, heads))
+            plain_ms = cuda_time_ms(
+                lambda: attention_core_reference(qkv, heads))
+            lib_ms = cuda_time_ms(lambda: library_sdpa(q, k, v))
+            r = {"phase": "attention_stage", "name": "attention_core",
+                 "part": part, "kind": kind, "dtype": name,
+                 "windows": windows, "B": B, "L": L, "C": C,
+                 "max_abs_err": err, "ok": ok, "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": lib_ms,
+                 **bound(4 * B * L * L * C,
+                         4 * B * L * C * qkv.element_size(), name)}
+            emit(r)
+            results.append(r)
+            del qkv, q, k, v
+        del x32
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1231,11 +1311,16 @@ def serve_profile_phase(svc, modes, seed: int):
     for label, service in (("host noise, readback all", svc),
                            ("device noise, readback mean", modes)):
         fused_block.launches = 0
-        profile_step(lambda: service.lift(kp, seed=seed),
-                     phase="serve_profile", rest=SERVE_REST,
-                     request="405 frames", service=label)
+        groups = profile_step(lambda: service.lift(kp, seed=seed),
+                              phase="serve_profile", rest=SERVE_REST,
+                              request="405 frames", service=label)
         if service.device.type == "cuda" and fused_block.launches == 0:
             raise AssertionError("serve_profile: kernel #1 did not launch")
+        if service.device.type == "cuda" and (
+                groups.get(ATTN_CORE_GROUP, 0.0) <= 0.0
+                or "attention forward" in groups):
+            raise AssertionError(f"serve_profile: kernel #1's attention is "
+                                 f"not the tensor-core kernel: {groups}")
         launches += fused_block.launches
     return launches
 
@@ -1669,6 +1754,7 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
 #: the profiles' group of PyTorch's copy kernels (.contiguous() of a
 #: transposed tensor, dtype and device copies)
 COPY_GROUP = "copies (transposes, .contiguous())"
+ATTN_CORE_GROUP = "attention (#1, #3, #4, tensor cores)"
 
 #: kernel-name patterns of the port's CUDA sources (and PyTorch's copies and
 #: cuBLAS), for the profiles; the first pattern found in a kernel's name
@@ -1680,6 +1766,7 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("sm90::row_stats", "row statistics (#1, #3, #4)"),
                  ("wgrad_mma_kernel", "weight-gradient GEMMs (#6, mma.sync)"),
                  ("attn_bwd_kernel", "attention backward"),
+                 ("attention_tc_kernel", ATTN_CORE_GROUP),
                  ("attention_kernel", "attention forward"),
                  ("bf16_to_f32_kernel", "bfloat16 x to float32 (#2)"),
                  ("layernorm_kernel", "outer LayerNorm (#1, #3, #4)"),
@@ -4198,6 +4285,12 @@ def main() -> int:
                              f"{bad}")
     emit_gemm_sums(gemm_cases, "gemm")
     cases = kernel_phase(args.seed, windows=16, P=10, frames=27, stages=True)
+    stage_cases = attention_stage_phase(args.seed, windows=16, P=10,
+                                        frames=27)
+    bad = [c for c in stage_cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"attention_core disagrees with "
+                             f"attention_core_reference: {bad}")
     launches, svc, kp27, poses27 = serve_phase(args.seed)
     launches += serve_concurrent_phase(svc, args.seed)
     modes_launches, modes = serve_modes_phase(svc, kp27, poses27, args.seed)
@@ -4352,6 +4445,15 @@ def main() -> int:
     # fused_block one spatial + one temporal block of each part at bucket
     # 16, for the training kernels each part's two blocks of a step
     emit({"kernels": [
+        # the chain's attention stage at the six bucket-16 shapes; launched
+        # once by every call of fused_block and fused_block_temporal and
+        # twice by fused_layer (block_chain.cuh step 2), so its main-path
+        # launches are fused_block's
+        _kernel_entry("attention_core", "cuda", ATTN_CORE_SOURCE,
+                      ATTN_CORE_REPLACES, launches, stage_cases,
+                      **bf16(stage_cases),
+                      launched_by="fused_block, fused_block_temporal, "
+                                  "fused_layer (block_chain.cuh step 2)"),
         _kernel_entry("fused_block", "cuda", SOURCE, REPLACES, launches,
                       cases, **bf16(cases),
                       **_dhp3(dhp3_blocks, {

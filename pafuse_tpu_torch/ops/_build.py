@@ -15,6 +15,7 @@ hash also keys the shared headers ``csrc/*.cuh``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -37,9 +38,10 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: success.
 KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
     "block": {
-        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, workspace and
-        # its bytes, B, L, C, H, hidden, scale, stream
-        "pafuse_fused_block": ([_I] + [_P] * 6 + [_P] * 14 + [_P, _LL]
+        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, the attention
+        # (attention_function()), workspace and its bytes, B, L, C, H,
+        # hidden, scale, stream
+        "pafuse_fused_block": ([_I] + [_P] * 6 + [_P] * 14 + [_P, _P, _LL]
                                + [_LL, _I, _I, _I, _I, _F, _P], _I),
     },
     "block_train": {
@@ -72,17 +74,18 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         "pafuse_weight_grad": ([_P] * 4 + [_LL, _I, _I, _P], _I),
     },
     "block_temporal": {
-        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, workspace and
-        # its bytes, B, F, N, C, H, hidden, scale, stream
-        "pafuse_fused_block_temporal": ([_I] + [_P] * 6 + [_P] * 14 + [_P, _LL]
+        # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, the attention,
+        # workspace and its bytes, B, F, N, C, H, hidden, scale, stream
+        "pafuse_fused_block_temporal": ([_I] + [_P] * 6 + [_P] * 14
+                                        + [_P, _P, _LL]
                                         + [_LL, _I, _I, _I, _I, _I, _F, _P],
                                         _I),
     },
     "layer": {
         # is_bf16, x, out, ys, qkv, attn, x1, hidden, 14 spatial + 14
-        # temporal params, tpe (or NULL), workspace and its bytes, B, F, N,
-        # C, H, hidden, scale, stream
-        "pafuse_fused_layer": ([_I] + [_P] * 7 + [_P] * 28 + [_P] + [_P, _LL]
+        # temporal params, tpe (or NULL), the attention, workspace and its
+        # bytes, B, F, N, C, H, hidden, scale, stream
+        "pafuse_fused_layer": ([_I] + [_P] * 7 + [_P] * 28 + [_P] + [_P, _P, _LL]
                                + [_LL, _I, _I, _I, _I, _I, _F, _P], _I),
     },
     "gemm": {
@@ -90,6 +93,15 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         # workspace and its bytes, M, N, K, stream
         "pafuse_linear_sm90": ([_I, _I, _I] + [_P] * 8 + [_LL, _LL, _I, _I,
                                                            _P], _I),
+    },
+    "attention_core": {
+        # shared memory of one (sequence, head): is_bf16, L, d; the most
+        # one CTA may have
+        "pafuse_attention_core_unit_bytes": ([_I, _I, _I], _LL),
+        "pafuse_attention_core_smem_limit": ([], _LL),
+        # is_bf16, qkv, out, sequences, L, S, C, H, scale, stream
+        "pafuse_attention_core": ([_I, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
+                                  _I),
     },
     "attention": {
         # is_bf16, x, out, qkv scratch, attention scratch, workspace and its
@@ -161,6 +173,15 @@ def build_all() -> Dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths
+
+
+@functools.lru_cache(maxsize=None)
+def attention_function() -> int:
+    """The address of ``csrc/attention_core.cu``'s ``pafuse_attention_core``,
+    which the block chains (block.cu, block_temporal.cu, layer.cu) call for
+    their attention stage, so its kernels are built into one library."""
+    fn = load("attention_core").pafuse_attention_core
+    return ctypes.cast(fn, ctypes.c_void_p).value
 
 
 def load(name: str) -> ctypes.CDLL:

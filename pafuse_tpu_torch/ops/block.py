@@ -9,7 +9,8 @@ GELU run in float32, with the rounding points of the TPU kernel.
 
 ``fused_block`` launches the hand-written CUDA kernel chain
 (``csrc/block.cu`` on ``csrc/block_chain.cuh``: the four products on the
-Hopper GEMM of ``ops.gemm``, in float32 as three TF32 products per product)
+Hopper GEMM of ``ops.gemm``, in float32 as three TF32 products per product,
+the attention on the tensor-core kernel of ``ops.attention_core``)
 for CUDA tensors and uses ``block_reference``, the same
 function in plain PyTorch ops, for CPU tensors.
 
@@ -27,6 +28,8 @@ from typing import Sequence
 import torch
 
 from pafuse_tpu_torch.ops import _build
+from pafuse_tpu_torch.ops.attention_core import (attention_core_reference,
+                                                 check_shape)
 from pafuse_tpu_torch.ops.gemm import (_layernorm, chain_workspace_bytes,
                                        linear_reference)
 
@@ -37,20 +40,15 @@ def block_reference(x: torch.Tensor, block_params: Sequence[torch.Tensor],
     """Plain PyTorch version of the fused block.  x: (B, L, C).
 
     The four products are ``ops.gemm.linear_reference`` stages (weights
-    rounded to the compute dtype, float32 accumulation)."""
+    rounded to the compute dtype, float32 accumulation), the attention
+    ``ops.attention_core.attention_core_reference``."""
     (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2,
      bfc2) = block_params
     nos, nob = outer_norm
     cd = x.dtype
-    B, L, C = x.shape
-    d = C // num_heads
 
-    qkv = linear_reference(x, wqkv, bqkv, (n1s, n1b)).float()
-    q, k, v = qkv.view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    logits = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5
-    probs = torch.softmax(logits, dim=-1).to(cd).float()
-    ao = torch.matmul(probs, v).to(cd)                     # (B, H, L, d)
-    ao = ao.transpose(1, 2).reshape(B, L, C)
+    qkv = linear_reference(x, wqkv, bqkv, (n1s, n1b))
+    ao = attention_core_reference(qkv, num_heads)          # (B, L, C)
     x1 = linear_reference(ao, wproj, bproj, epilogue="residual", residual=x)
     hdn = linear_reference(x1, wfc1, bfc1, (n2s, n2b), "gelu")
     x2 = linear_reference(hdn, wfc2, bfc2, epilogue="residual", residual=x1)
@@ -102,9 +100,10 @@ def fused_block(x: torch.Tensor, block_params: Sequence[torch.Tensor],
         raise ValueError(f"fused_block: unsupported device {x.device}")
     params = tuple(block_params) + tuple(outer_norm)
     hidden = _check(x, params, num_heads)
+    B, L, C = x.shape
+    check_shape(L, C, num_heads, x.dtype, "fused_block")
     lib = _build.load("block")
 
-    B, L, C = x.shape
     M = B * L
     out = torch.empty_like(x)
     qkv = x.new_empty((M, 3 * C))
@@ -118,7 +117,8 @@ def fused_block(x: torch.Tensor, block_params: Sequence[torch.Tensor],
         err = lib.pafuse_fused_block(
             int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
             qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(), hid.data_ptr(),
-            *[p.data_ptr() for p in params], ws.data_ptr(), ws_bytes,
+            *[p.data_ptr() for p in params], _build.attention_function(),
+            ws.data_ptr(), ws_bytes,
             B, L, C, num_heads, hidden, (C // num_heads) ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"fused_block: CUDA kernel launch failed with "

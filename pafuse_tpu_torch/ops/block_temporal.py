@@ -20,6 +20,7 @@ from typing import Sequence
 import torch
 
 from pafuse_tpu_torch.ops import _build
+from pafuse_tpu_torch.ops.attention_core import check_shape
 from pafuse_tpu_torch.ops.block import _check, block_reference
 from pafuse_tpu_torch.ops.gemm import chain_workspace_bytes
 
@@ -51,9 +52,10 @@ def fused_block_temporal(x: torch.Tensor, block_params: Sequence[torch.Tensor],
                          f"{x.device}")
     params = tuple(block_params) + tuple(outer_norm)
     hidden = _check(x, params, num_heads, "fused_block_temporal", ndim=4)
+    B, F, N, C = x.shape
+    check_shape(F, C, num_heads, x.dtype, "fused_block_temporal")
     lib = _build.load("block_temporal")
 
-    B, F, N, C = x.shape
     M = B * F * N
     out = torch.empty_like(x)
     qkv = x.new_empty((M, 3 * C))
@@ -67,7 +69,8 @@ def fused_block_temporal(x: torch.Tensor, block_params: Sequence[torch.Tensor],
         err = lib.pafuse_fused_block_temporal(
             int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
             qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(), hid.data_ptr(),
-            *[p.data_ptr() for p in params], ws.data_ptr(), ws_bytes,
+            *[p.data_ptr() for p in params], _build.attention_function(),
+            ws.data_ptr(), ws_bytes,
             B, F, N, C, num_heads, hidden, (C // num_heads) ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"fused_block_temporal: CUDA kernel launch failed "

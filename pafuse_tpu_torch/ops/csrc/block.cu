@@ -32,14 +32,15 @@
 // up to 165 TFLOP/s against the 67 TFLOP/s of scalar f32 FMAs (H100 SXM
 // data-sheet peaks at 700 W); in bfloat16 one bf16 product after a
 // LayerNorm pre-pass, bound by the bytes it moves), one attention
-// kernel with one CTA per (sequence, head) that keeps q, k and v in shared
-// memory (no token padding: only the L real keys enter a softmax), and one
-// row LayerNorm.
+// kernel on the tensor cores too (attention_sm90.cuh: a CTA's (sequence,
+// head) units in shared memory, mma.sync products, the softmax on the
+// fragments; the padded keys masked to -inf), and one row LayerNorm.
 // The intermediates (qkv, attention out, x1, MLP hidden) round-trip
-// through device memory; the attention stage, on scalar FMAs, is the next
-// part to move onto the tensor cores.
+// through device memory.
 //
-// Here the chain runs over contiguous sequences (S = 1).
+// Here the chain runs over contiguous sequences (S = 1).  `attention` is
+// the address of attention_core.cu's pafuse_attention_core (block_chain.cuh:
+// AttentionFn).
 //
 // Plain C interface for ctypes: every function returns the cudaError_t of
 // the first launch that failed, or 0.  Nothing here allocates or
@@ -52,9 +53,10 @@ extern "C" int pafuse_fused_block(
     void* hidden, const float* n1s, const float* n1b, const float* wqkv,
     const float* bqkv, const float* wproj, const float* bproj, const float* n2s,
     const float* n2b, const float* wfc1, const float* bfc1, const float* wfc2,
-    const float* bfc2, const float* nos, const float* nob, void* ws, long long ws_bytes,
-    long long B, int L, int C, int H, int hid, float scale, void* stream) {
+    const float* bfc2, const float* nos, const float* nob, void* attention, void* ws,
+    long long ws_bytes, long long B, int L, int C, int H, int hid, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AttentionFn attn_fn = reinterpret_cast<AttentionFn>(attention);
   const float* p[14] = {n1s, n1b, wqkv, bqkv, wproj, bproj, n2s,
                         n2b, wfc1, bfc1, wfc2, bfc2, nos, nob};
   if (is_bf16) {
@@ -62,10 +64,11 @@ extern "C" int pafuse_fused_block(
     return (int)block_chain<T>(static_cast<const T*>(x), static_cast<T*>(out),
                                static_cast<T*>(qkv), static_cast<T*>(attn),
                                static_cast<T*>(x1), static_cast<T*>(hidden), p, B, L, 1,
-                               C, H, hid, scale, nullptr, 1, 1, ws, ws_bytes, s);
+                               C, H, hid, scale, nullptr, 1, 1, attn_fn, ws, ws_bytes, s);
   }
   return (int)block_chain<float>(static_cast<const float*>(x), static_cast<float*>(out),
                                  static_cast<float*>(qkv), static_cast<float*>(attn),
                                  static_cast<float*>(x1), static_cast<float*>(hidden), p,
-                                 B, L, 1, C, H, hid, scale, nullptr, 1, 1, ws, ws_bytes, s);
+                                 B, L, 1, C, H, hid, scale, nullptr, 1, 1, attn_fn, ws,
+                                 ws_bytes, s);
 }

@@ -4,13 +4,14 @@
 //
 //   0. the four weights in the GEMM's operand type     split_weights_kernel
 //   1. qkv    = T(LN1(x) @ Wqkv + bqkv)          ln_gemm (LN prologue or pre-pass)
-//   2. attn   = per-head softmax attention        attention_kernel (S)
+//   2. attn   = per-head softmax attention        attention_tc_kernel (S),
+//                                                 through `attention`
 //   3. x1     = x + T(attn @ Wproj + bproj)       sm90 GEMM, residual
 //   4. hidden = T(gelu(LN2(x1) @ Wfc1 + bfc1))    ln_gemm, GELU
 //   5. x2     = x1 + T(hidden @ Wfc2 + bfc2)      sm90 GEMM, into the attn buffer
 //   6. out    = T(LN_outer(x2)) [+ tpe]           layernorm_rows
 //
-// x, out: rows = seqs * L, laid out with S as attention_kernel says; every
+// x, out: rows = seqs * L, laid out with S as attention_sm90.cuh says; every
 // stage but the attention is row-wise, so the layout reaches only step 2.
 // p: the 14 block tensors in block.py's order.  Scratch: qkv (rows, 3C),
 // attn, x1 (rows, C), hidden (rows, hid), all in T, and the workspace ws of
@@ -25,6 +26,13 @@
 
 namespace {
 
+// Step 2: attention_core.cu's pafuse_attention_core (attention_sm90.cuh's
+// tensor-core kernel), whose address the caller passes, so that kernel's
+// instantiations are compiled into one library: is_bf16, qkv, out,
+// sequences, L, S, C, H, scale, stream; returns a cudaError_t.
+typedef int (*AttentionFn)(int, const void*, void*, long long, int, int, int, int, float,
+                           void*);
+
 // Bytes of a chain's workspace (ops/gemm.py::chain_workspace_bytes says the
 // same): room for the TF32 hi and lo halves of the four weights (8C^2 +
 // 4C*hid f32; a bf16 chain uses a quarter of it) and the (mean, rstd) of
@@ -37,7 +45,8 @@ template <typename T>
 cudaError_t block_chain(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
                         const float* const* p, long long seqs, int L, int S, int C,
                         int H, int hid, float scale, const float* tpe, int F, int N,
-                        void* ws, long long ws_bytes, cudaStream_t stream) {
+                        AttentionFn attention, void* ws, long long ws_bytes,
+                        cudaStream_t stream) {
   using namespace sm90;
   const long long M = seqs * L;
   if (ws_bytes < chain_workspace_bytes(M, C, hid)) return cudaErrorInvalidValue;
@@ -62,7 +71,7 @@ cudaError_t block_chain(const T* x, T* out, T* qkv, T* attn, T* x1, T* hidden,
   err = ln_gemm<T, EPI_STORE>(x, p[0], p[1], hi[0], lo[0], p[3], nullptr, qkv, attn, stats, M,
                               3 * C, C, stream);
   if (err != cudaSuccess) return err;
-  err = launch_attention<T>(qkv, attn, seqs, L, C, H, scale, stream, S);
+  err = (cudaError_t)attention(sizeof(T) == 2, qkv, attn, seqs, L, S, C, H, scale, stream);
   if (err != cudaSuccess) return err;
   err = launch_gemm<T, PRO_NONE, EPI_RESIDUAL>(attn, hi[1], lo[1], p[5], nullptr, nullptr,
                                                nullptr, x, x1, M, C, C, stream);

@@ -15,13 +15,13 @@
 // GELU and residual epilogues, the outer LayerNorm), so it runs on the
 // M = B*F*N rows in memory order whatever the token axis is, and the
 // attention kernel reads frame l of sequence (b, n) from row
-// b*F*N + l*N + n (common.cuh's strided attention, S = N).  Each
-// (sequence, head) CTA still reads d contiguous floats per token, so the
-// gather coalesces as well as the contiguous case.  This is block.cu's
-// launch chain (block_chain.cuh) on those rows: nothing is padded
-// or masked, only the F real keys enter a softmax, and no CTA reads past
-// the N joints, so the TPU kernel's zeroing of an overhanging joint tile
-// has no counterpart.
+// b*F*N + l*N + n (attention_sm90.cuh's strided layout, S = N).  Its CTAs
+// take all heads of neighbouring joints, so each token's copy is still a
+// whole contiguous row and the gather coalesces as well as the contiguous
+// case.  This is block.cu's launch chain (block_chain.cuh) on those rows:
+// only the F real keys enter a softmax (the padded ones are masked to
+// -inf), and no CTA reads past the N joints, so the TPU kernel's zeroing
+// of an overhanging joint tile has no counterpart.
 //
 // What bounds it on an H100: the same work as kernel #1 at the temporal
 // shape, ~16*M*C^2 + 4*B*N*F^2*C FLOPs against ~2*M*C*sizeof(T) bytes of
@@ -40,9 +40,11 @@ extern "C" int pafuse_fused_block_temporal(
     void* hidden, const float* n1s, const float* n1b, const float* wqkv,
     const float* bqkv, const float* wproj, const float* bproj, const float* n2s,
     const float* n2b, const float* wfc1, const float* bfc1, const float* wfc2,
-    const float* bfc2, const float* nos, const float* nob, void* ws, long long ws_bytes,
-    long long B, int F, int N, int C, int H, int hid, float scale, void* stream) {
+    const float* bfc2, const float* nos, const float* nob, void* attention, void* ws,
+    long long ws_bytes, long long B, int F, int N, int C, int H, int hid, float scale,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AttentionFn attn_fn = reinterpret_cast<AttentionFn>(attention);
   const float* p[14] = {n1s, n1b, wqkv, bqkv, wproj, bproj, n2s,
                         n2b, wfc1, bfc1, wfc2, bfc2, nos, nob};
   if (is_bf16) {
@@ -50,11 +52,11 @@ extern "C" int pafuse_fused_block_temporal(
     return (int)block_chain<T>(static_cast<const T*>(x), static_cast<T*>(out),
                                static_cast<T*>(qkv), static_cast<T*>(attn),
                                static_cast<T*>(x1), static_cast<T*>(hidden), p, B * N,
-                               F, N, C, H, hid, scale, nullptr, 1, 1, ws, ws_bytes, s);
+                               F, N, C, H, hid, scale, nullptr, 1, 1, attn_fn, ws, ws_bytes, s);
   }
   return (int)block_chain<float>(static_cast<const float*>(x), static_cast<float*>(out),
                                  static_cast<float*>(qkv), static_cast<float*>(attn),
                                  static_cast<float*>(x1), static_cast<float*>(hidden), p,
-                                 B * N, F, N, C, H, hid, scale, nullptr, 1, 1, ws, ws_bytes,
-                                 s);
+                                 B * N, F, N, C, H, hid, scale, nullptr, 1, 1, attn_fn, ws,
+                                 ws_bytes, s);
 }

@@ -47,16 +47,16 @@ template <typename T>
 cudaError_t fused_layer(const T* x, T* out, T* ys, T* qkv, T* attn, T* x1, T* hidden,
                         const float* const* sp, const float* const* tp,
                         const float* tpe, long long B, int F, int N, int C, int H,
-                        int hid, float scale, void* ws, long long ws_bytes,
-                        cudaStream_t stream) {
+                        int hid, float scale, AttentionFn attention, void* ws,
+                        long long ws_bytes, cudaStream_t stream) {
   // spatial block + Spatial_norm (+ tpe): B*F sequences of N joints
   const cudaError_t err = block_chain<T>(x, ys, qkv, attn, x1, hidden, sp, B * F, N, 1,
-                                         C, H, hid, scale, tpe, F, N, ws, ws_bytes,
-                                         stream);
+                                         C, H, hid, scale, tpe, F, N, attention, ws,
+                                         ws_bytes, stream);
   if (err != cudaSuccess) return err;
   // temporal block + Temporal_norm: B*N sequences of F frames, stride N
   return block_chain<T>(ys, out, qkv, attn, x1, hidden, tp, B * N, F, N, C, H, hid,
-                        scale, nullptr, 1, 1, ws, ws_bytes, stream);
+                        scale, nullptr, 1, 1, attention, ws, ws_bytes, stream);
 }
 
 }  // namespace
@@ -70,9 +70,10 @@ extern "C" int pafuse_fused_layer(
     const float* t2, const float* t3, const float* t4, const float* t5,
     const float* t6, const float* t7, const float* t8, const float* t9,
     const float* t10, const float* t11, const float* t12, const float* t13,
-    const float* tpe, void* ws, long long ws_bytes, long long B, int F, int N, int C, int H,
-    int hid, float scale, void* stream) {
+    const float* tpe, void* attention, void* ws, long long ws_bytes, long long B, int F,
+    int N, int C, int H, int hid, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AttentionFn attn_fn = reinterpret_cast<AttentionFn>(attention);
   const float* sp[14] = {s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13};
   const float* tp[14] = {t0, t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, t11, t12, t13};
   if (is_bf16) {
@@ -81,11 +82,11 @@ extern "C" int pafuse_fused_layer(
                                static_cast<T*>(ys), static_cast<T*>(qkv),
                                static_cast<T*>(attn), static_cast<T*>(x1),
                                static_cast<T*>(hidden), sp, tp, tpe, B, F, N, C, H, hid,
-                               scale, ws, ws_bytes, s);
+                               scale, attn_fn, ws, ws_bytes, s);
   }
   return (int)fused_layer<float>(static_cast<const float*>(x), static_cast<float*>(out),
                                  static_cast<float*>(ys), static_cast<float*>(qkv),
                                  static_cast<float*>(attn), static_cast<float*>(x1),
                                  static_cast<float*>(hidden), sp, tp, tpe, B, F, N, C, H,
-                                 hid, scale, ws, ws_bytes, s);
+                                 hid, scale, attn_fn, ws, ws_bytes, s);
 }

@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import torch
 
 from pafuse_tpu_torch.ops import _build
+from pafuse_tpu_torch.ops.attention_core import check_shape
 from pafuse_tpu_torch.ops.block import _check, block_reference
 from pafuse_tpu_torch.ops.gemm import chain_workspace_bytes
 from pafuse_tpu_torch.ops.block_temporal import block_temporal_reference
@@ -67,6 +68,8 @@ def fused_layer(x: torch.Tensor, spatial_params: Sequence[torch.Tensor],
         raise ValueError(f"fused_layer: tpe must be contiguous float32 "
                          f"({F}, {C}) on {x.device}; got {tpe.dtype} "
                          f"{tuple(tpe.shape)} on {tpe.device}")
+    check_shape(N, C, num_heads, x.dtype, "fused_layer (spatial)")
+    check_shape(F, C, num_heads, x.dtype, "fused_layer (temporal)")
     lib = _build.load("layer")
 
     M = B * F * N
@@ -84,7 +87,8 @@ def fused_layer(x: torch.Tensor, spatial_params: Sequence[torch.Tensor],
             int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
             ys.data_ptr(), qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(),
             hid.data_ptr(), *[p.data_ptr() for p in sp + tp],
-            None if tpe is None else tpe.data_ptr(), ws.data_ptr(), ws_bytes,
+            None if tpe is None else tpe.data_ptr(),
+            _build.attention_function(), ws.data_ptr(), ws_bytes,
             B, F, N, C, num_heads, hidden, (C // num_heads) ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"fused_layer: CUDA kernel launch failed with "

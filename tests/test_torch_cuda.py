@@ -23,6 +23,19 @@ Bounds (those of chip_smoke.py; TF32 off on both sides):
   fused_layer            float32 1e-4 max abs; bfloat16 max 2^-3 and mean
                          2e-3 (two blocks deep plus one tpe rounding:
                          chip_smoke.py states why);
+  attention_core         float32 ATTN_CORE_TOL_F32 = 1e-5 max abs (three
+                         TF32 products; the CPU emulation of that
+                         arithmetic stays within 3e-7 on the chain's qkv,
+                         and the tensor cores' truncating accumulation adds
+                         a few f32 ulps: measured on an H100 80GB HBM3 at
+                         most 5.1e-7 on the chain's qkv at serve bucket 16
+                         and 2.7e-6 on unit-variance qkv up to L = 243);
+                         bfloat16 elementwise ATTN_CORE_TOL_BF16 x (|y| +
+                         max|v|), 2^-7: one ulp of the rounded output (<=
+                         2^-7 |y|) plus the probabilities that round the
+                         other way (a p below 1 moves by <= 2^-8, so up to
+                         two flips in a row carry <= 2^-7 max|v|); measured
+                         at most 1.3e-3 x (|y| + max|v|);
   fused_linear           float32 1e-5 max abs (outputs O(1); three TF32
                          products per product drop only a_lo*w_lo, ~2^-22
                          relative, and sum in another order); bfloat16
@@ -54,6 +67,8 @@ import pytest
 import torch
 
 from pafuse_tpu_torch.ops.attention import attention_reference, fused_attention
+from pafuse_tpu_torch.ops.attention_core import (attention_core,
+                                                 attention_core_reference)
 from pafuse_tpu_torch.ops.block import block_reference, fused_block
 from pafuse_tpu_torch.ops.block_temporal import (block_temporal_reference,
                                                  fused_block_temporal)
@@ -420,8 +435,8 @@ def test_bf16_chain_kernels_repeat_bit_for_bit_on_gpu(cuda_device):
 @pytest.mark.cuda
 def test_block_chain_runs_only_its_own_kernels_on_gpu(cuda_device):
     """Kernel #1's launches under torch.profiler: the Hopper GEMM, its
-    weight split and row statistics, the attention and the LayerNorm, and
-    no cuBLAS or other PyTorch kernel."""
+    weight split and row statistics, the tensor-core attention and the
+    LayerNorm, and no cuBLAS or other PyTorch kernel."""
     from torch.profiler import ProfilerActivity, profile
     params = _params(224, seed=3, device=cuda_device)
     x = _inputs(8, 68, 224, seed=2, device=cuda_device)[0]
@@ -433,9 +448,11 @@ def test_block_chain_runs_only_its_own_kernels_on_gpu(cuda_device):
     names = {e.key for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA}
     ours = ("sm90::gemm_kernel", "sm90::split_weights_kernel",
-            "sm90::row_stats_kernel", "attention_kernel", "layernorm_kernel")
+            "sm90::row_stats_kernel", "attention_tc_kernel",
+            "layernorm_kernel")
     assert names and all(any(k in n for k in ours) for n in names), names
     assert any("sm90::gemm_kernel" in n for n in names)
+    assert any("attention_tc_kernel" in n for n in names), names
 
 
 def _device_kernels(fn):
@@ -928,3 +945,101 @@ def test_two_replicas_on_one_card_serve_as_one_on_gpu(cuda_device):
     finally:
         one.close()
         two.close()
+
+
+ATTN_CORE_TOL_F32 = 1e-5
+ATTN_CORE_TOL_BF16 = 2.0 ** -7
+
+#: (L, C) of the attention stage: the six serve bucket-16 shapes (each
+#: part's joints and 27 frames), 3DHP's (C 288, d 36), the monolithic
+#: model's 134 joints, 243 frames (two passes over chunks of 64 keys) and
+#: one token
+ATTN_CORE_SHAPES = [(24, 384), (27, 384), (68, 224), (27, 224), (42, 256),
+                    (27, 256), (17, 288), (27, 288), (134, 288), (243, 384),
+                    (243, 224), (1, 384)]
+
+
+def _attention_core_ok(got, want, qkv):
+    """(within the bound, max abs error): ATTN_CORE_TOL_F32 in float32,
+    ATTN_CORE_TOL_BF16 x (|want| + max|v|) elementwise in bfloat16."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return bool(diff.max() <= ATTN_CORE_TOL_F32), float(diff.max())
+    vmax = qkv[..., 2 * (qkv.shape[-1] // 3):].float().abs().max()
+    bound = ATTN_CORE_TOL_BF16 * (want.float().abs() + vmax)
+    return bool((diff <= bound).all()), float(diff.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["S=1", "S=N"])
+@pytest.mark.parametrize("L,C", ATTN_CORE_SHAPES)
+def test_attention_core_matches_plain_on_gpu(cuda_device, dtype, layout, L,
+                                             C):
+    """The chain's tensor-core attention alone against its plain version,
+    on (24, L, 3C) sequences and on the (2, L, 12, 3C) frames-first layout
+    of kernels #3 and #4; a repeat gives the same bits."""
+    r = np.random.RandomState(L + C)
+    shape = (24, L) if layout == "S=1" else (2, L, 12)
+    qkv = torch.tensor(r.randn(*shape, 3 * C), dtype=torch.float32,
+                       device=cuda_device).to(dtype)
+    launches = attention_core.launches
+    got = attention_core(qkv, HEADS)
+    torch.cuda.synchronize()
+    assert attention_core.launches == launches + 1
+    assert got.shape == qkv.shape[:-1] + (C,) and got.dtype == dtype
+    ok, err = _attention_core_ok(got, attention_core_reference(qkv, HEADS),
+                                 qkv)
+    assert ok, err
+    assert torch.equal(got, attention_core(qkv, HEADS))
+
+
+@pytest.mark.cuda
+def test_chains_run_the_tensor_core_attention_on_gpu(cuda_device):
+    """Under torch.profiler kernels #1 (float32 and bfloat16), #3 and #4
+    launch attention_tc_kernel and not common.cuh's attention_kernel;
+    kernels #2 and #5 still launch attention_kernel."""
+    sp = _params(224, seed=5, device=cuda_device)
+    tp = _params(224, seed=6, device=cuda_device)
+    x, _, m1, m2 = _inputs(2 * 27, 68, 224, seed=7, device=cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        x3 = x.to(dtype)
+        x4 = x3.reshape(2, 27, 68, 224)
+        for what, fn in (
+                ("#1", lambda: fused_block(x3, sp[:12], sp[12:], HEADS)),
+                ("#3", lambda: fused_block_temporal(x4, tp[:12], tp[12:],
+                                                    HEADS)),
+                ("#4", lambda: fused_layer(x4, sp[:12], sp[12:], tp[:12],
+                                           tp[12:], HEADS))):
+            names = _device_kernels(fn)
+            assert any("attention_tc_kernel" in n for n in names), (what, names)
+            assert not any("attention_kernel" in n for n in names), (what,
+                                                                     names)
+    for what, fn in (
+            ("#2", lambda: fused_attention(x, *sp[2:6], HEADS)),
+            ("#5", lambda: block_train_fwd(x, m1, m2, sp, HEADS))):
+        names = _device_kernels(fn)
+        assert any("attention_kernel" in n for n in names), (what, names)
+        assert not any("attention_tc_kernel" in n for n in names), (what,
+                                                                    names)
+
+
+@pytest.mark.cuda
+def test_chains_reject_shapes_the_attention_does_not_take_on_gpu(
+        cuda_device):
+    """A head size above 64, or one (sequence, head) beyond a CTA's shared
+    memory (float32, d = 64, 300 tokens), raises ValueError before any
+    launch; bfloat16 takes the same 300 tokens."""
+    wide = _params(8 * 72, seed=8, device=cuda_device)
+    with pytest.raises(ValueError, match="head sizes up to 64"):
+        fused_block(torch.zeros(2, 10, 8 * 72, device=cuda_device),
+                    wide[:12], wide[12:], HEADS)
+    p = _params(8 * 64, seed=9, device=cuda_device)
+    x = torch.zeros(1, 300, 2, 8 * 64, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_block_temporal(x, p[:12], p[12:], HEADS)
+    qkv = torch.zeros(1, 300, 3 * 8 * 64, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention_core(qkv, HEADS)
+    assert attention_core(qkv.to(torch.bfloat16), HEADS).shape == (1, 300,
+                                                                   8 * 64)
