@@ -29,23 +29,27 @@
    stages of each part at bucket 16), #2 at bucket 16 and #5/#6 at the
    training shapes in float32, a 405-frame request of a bfloat16
    ``LiftingService`` (depth 8, P=10, T=5), a bfloat16 ``use_pallas=auto``
-   evaluation of the 76-window action (synthetic S8, 500 frames), and a
+   evaluation of the 76-window action (synthetic S8, 500 frames), the same
+   evaluation in float32 at ``use_pallas=true`` (kernel #2), and a
    float32 training step (depth 8, 37 sequences); times are device ms
-   (CUDA events) or host ms ending in a synchronisation.  Beside #1's
-   times, the device ms of its attention stage (every kernel whose name
-   holds "attention" in one profiled call of each shape).  Each worker also
+   (CUDA events) or host ms ending in a synchronisation.  Beside the
+   times of #1, #2, #5 and #6, the device ms of their attention stages
+   (every kernel whose name holds "attention" or "attn_bwd" in one
+   profiled call of each shape: ``#1_attention_*``, ``#2_attention_*``,
+   ``#5_attention_*``, ``#6_attention_*``).  Each worker also
    hashes the float32 outputs of #1-#6 on the same seeded inputs and the
    float32 training window's losses and parameters, and the summary says
    whether each hash is equal across the two trees and across each tree's
    two runs (a repeat); ``--changed`` names the kernels whose float32
    outputs this change may alter (e.g. ``#1,#3,#4``), every other hash must
-   be equal across the trees.  First it compiles both trees' CUDA sources
+   be equal across the trees (the training window's hash belongs to #5 and
+   #6).  First it compiles both trees' CUDA sources
    and holds the SASS of every kernel the two have in common equal (the
    float32 GEMM's instantiations among them).
 
     python3 chip_ab.py --parent build/parent --routing 50
     python3 chip_ab.py --suite --routing 50
-    python3 chip_ab.py --kernels build/parent [--changed '#1,#3,#4']
+    python3 chip_ab.py --kernels build/parent [--changed '#2,#5,#6']
 
 Prints JSON lines; the last is ``{"ok": true, ...}``.  It exits non-zero
 without CUDA.
@@ -64,6 +68,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS = 3                 # steps in a training window (after 2 warm steps)
 SEQS = 1024 // 27         # the CLI's sequences a step
+#: the kernels whose float32 outputs a hash depends on, where its key does
+#: not start with the kernel ("#1_body_0" belongs to #1)
+DIGEST_KERNELS = {"train_window": ("#5", "#6")}
 
 
 def emit(obj):
@@ -233,6 +240,7 @@ def kernels_worker(mode: str):
     from pafuse_tpu_torch.data.sampling import ChunkedSampler
     from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
     from pafuse_tpu_torch.evaluate import evaluate_sequences
+    from pafuse_tpu_torch.models.mixste import MixSTE2
     from pafuse_tpu_torch.models.parts import PART_CHANNELS
     from pafuse_tpu_torch.ops import _build
     from pafuse_tpu_torch.ops.attention import fused_attention
@@ -263,7 +271,8 @@ def kernels_worker(mode: str):
         digests[key] = h.hexdigest()[:16]
 
     def attention_ms(fn):
-        """Device ms of the attention kernels of one profiled call."""
+        """Device ms of the attention kernels of one profiled call (the
+        tensor-core stages and the scalar ones they replaced)."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
@@ -272,7 +281,7 @@ def kernels_worker(mode: str):
             torch.cuda.synchronize()
         return sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "attention" in e.key) / 1e3
+                   and ("attention" in e.key or "attn_bwd" in e.key)) / 1e3
 
     # every float32 reading first (all parts), then the bfloat16 ones, so
     # no float32 time follows the bfloat16 kernels' load on the card
@@ -301,8 +310,9 @@ def kernels_worker(mode: str):
                     add(f"{k}_{name}_ms", _cuda_ms(fn))
                     if dtype == torch.float32:
                         digest(f"{k}_{part}_{j}", fn())
-            for fn in runs["#1"]:
-                add(f"#1_attention_{name}_ms", attention_ms(fn))
+            for k in ("#1", "#2") if dtype == torch.float32 else ("#1",):
+                for fn in runs[k]:
+                    add(f"{k}_attention_{name}_ms", attention_ms(fn))
             del x, spatial, temporal
             if dtype == torch.bfloat16:
                 # the bfloat16 GEMM alone: each stage on its A, R
@@ -332,6 +342,9 @@ def kernels_worker(mode: str):
                     add("#5_float32_ms", _cuda_ms(lambda: fwd()[0]))
                     y, saved = fwd()
                     add("#6_float32_ms", _cuda_ms(lambda: block_train_bwd(saved, g)))
+                    add("#5_attention_float32_ms", attention_ms(lambda: fwd()[0]))
+                    add("#6_attention_float32_ms",
+                        attention_ms(lambda: block_train_bwd(saved, g)))
                     dx, grads = block_train_bwd(saved, g)
                     digest(f"#5_{part}_{j}", y)
                     digest(f"#6_{part}_{j}", dx, *grads)
@@ -378,6 +391,17 @@ def kernels_worker(mode: str):
     t0 = time.time()
     evaluate()
     times["bf16_eval_auto_s"] = time.time() - t0
+    # the same action in float32 at use_pallas=true (kernel #2, the CLI's
+    # `true` evaluation; host s)
+    model = D3DP(D3DPConfig(depth=8), device=dev,
+                 generator=torch.Generator().manual_seed(0))
+    for m in model.modules():
+        if isinstance(m, MixSTE2):
+            m.set_use_pallas("true")
+    evaluate()
+    t0 = time.time()
+    evaluate()
+    times["eval_true_float32_s"] = time.time() - t0
     del model
     # a float32 training step (host ms, ending in the loss)
     subjects = ["S1", "S5", "S6", "S7"]
@@ -493,7 +517,8 @@ def kernels_summary(results, changed=()):
                     + runs["change"]}) == 1 for k in keys}
     repeat = {k: all(len({r["float32_digests"][k] for r in rs}) == 1
                      for rs in runs.values()) for k in keys}
-    kept = {k: v for k, v in same.items() if k.split("_")[0] not in changed}
+    kept = {k: v for k, v in same.items()
+            if not set(DIGEST_KERNELS.get(k, (k.split("_")[0],))) & set(changed)}
     return {"phase": "kernels_ab", "metrics": out,
             "float32_bit_identical": all(kept.values()),
             "float32_outputs_differing": sorted(k for k, v in same.items()

@@ -81,7 +81,15 @@ Phases, one JSON line each:
                data gradients on wgmma, its four weight gradients on
                mma.sync), their time and TFLOP/s beside cuBLAS's (a @ w,
                d^T @ x; a yardstick only), and the forward's four GEMMs
-               alone (wgmma, with their epilogues) beside F.linear's.
+               alone (wgmma, with their epilogues) beside F.linear's; and
+               at each shape the two attention stages alone in float32:
+               the forward (ops.attention_core, #5's step 3) on
+               the qkv the forward computes there and the backward
+               (ops.attention_core_bwd, #6's step 9) on that qkv and a
+               unit-variance dO, each against its plain version, with its
+               time, the plain version's, scaled_dot_product_attention's
+               (the backward: autograd through it; a yardstick only) and
+               its bound.
   6. train   - the trainer at full width (D3DPConfig defaults with
                drop_path_rate 0.1; depth 8, float32, lr 6e-5, weighted MPJPE)
                on synthetic H3WB (S1, S5, S6, S7) through ChunkedSampler
@@ -104,7 +112,9 @@ Phases, one JSON line each:
                alone (ops.gemm.fused_linear, the same GEMM on the same
                split weights), their time and TFLOP/s beside F.linear's; and
                in float32 at the serving shapes of bucket 16, the shapes of
-               the kernel phase.
+               the kernel phase; with float32 x also #2's attention stage
+               alone (ops.attention_core in float32 on the qkv of its
+               first GEMM) against its plain version, timed beside SDPA.
   8. eval    - the H3WB CLI (cli.main_h3wb) evaluating a checkpoint of
                seeded full-width weights saved with checkpoints.save_state
                on synthetic H3WB (test subject S8; 2 actions x 4 cameras x
@@ -171,19 +181,21 @@ Phases, one JSON line each:
                #2): windows/s; one injected noise table at auto, true and
                false; one DDIM step traced.
  15. in_the_wild - cli.in_the_wild.lift_to_world at full width (the H3WB
-               model) on an OpenPifPaf JSON of 1000 frames the script
-               writes: 38 windows in a 37-window chunk and a 1-window tail,
-               48*T launches of #1 a chunk, shape (T, P, 1000, 134, 3);
-               frames/s; then the same frames and chunks with one injected
-               noise table against the plain block.
- 16. draw    - cli.draw_h3wb.draw_poses at full width on synthetic S8 (one
-               1000-frame action, camera 0): 38 windows in one call (48*T
-               launches of #1), the J-Agg pick, world coordinates; frames/s;
-               then the same call with one injected noise table against
-               the plain block.  Rendering (matplotlib, OpenCV) is left to
-               the CPU tests.
- 17. bf16_eval - gpu.compute_dtype=bfloat16 at full width: the H3WB CLI on
-               the seeded weights' checkpoint on the 76-window action of
+               model at depth 4, for the run's time limit) on an OpenPifPaf
+               JSON of 1000 frames the script writes: 38 windows in a
+               37-window chunk and a 1-window tail, 24*T launches of #1 a
+               chunk, shape (T, P, 1000, 134, 3); frames/s; then the same
+               frames and chunks with one injected noise table against the
+               plain block.
+ 16. draw    - cli.draw_h3wb.draw_poses at full width (depth 4, for the
+               run's time limit) on synthetic S8 (one 1000-frame action,
+               camera 0): 38 windows in one call (24*T launches of #1), the
+               J-Agg pick, world coordinates; frames/s; then the same call
+               with one injected noise table against the plain block.
+               Rendering (matplotlib, OpenCV) is left to the CPU tests.
+ 17. bf16_eval - gpu.compute_dtype=bfloat16 at full width (depth 4, for
+               the run's time limit): the H3WB CLI on the seeded weights'
+               checkpoint on the 76-window action of
                eval_experimental at use_pallas=auto (#1), true (#2),
                block_t (#1 + #3) and layer (#4), their launches counted,
                beside float32 at auto: seconds, windows/s, every metric's
@@ -210,7 +222,8 @@ Phases, one JSON line each:
                repeats bit for bit.
  20. mono134_kernel - #5/#6 against their plain versions at the
                monolithic 134-joint model's shapes ((999, 134, 288) and
-               (4958, 27, 288)), float32 and bfloat16 x.
+               (4958, 27, 288)), float32 and bfloat16 x, with the two
+               attention stages alone as in train_kernel.
  21. mono134_train - that model (general.part_based_model=false,
                model.cs 288) trained on #5/#6 through run_trainer's checks
                (16 + 16 launches a step).
@@ -225,9 +238,10 @@ Phases, one JSON line each:
                and gradients within TRAIN_LOSS_RTOL, params within
                DDP_PARAM_ATOL, replicas bit for bit).
  23. ddp_eval - sharded evaluate_sequences on the 76-window action at
-               P=10, T=2: a launched world of one on NCCL bit for bit
-               against the unsharded run; two gloo ranks on this card at
-               auto (#1) and true (#2) within DDP_EVAL_RTOL of one process.
+               P=10, T=2 (depth 4, for the run's time limit): a launched
+               world of one on NCCL bit for bit against the unsharded run;
+               two gloo ranks on this card at auto (#1) and true (#2)
+               within DDP_EVAL_RTOL of one process.
  24. serve_sharded - LiftingService(devices=[cuda:0, cuda:0]): two
                replicas, each its share of a sampler call's rows, against
                one replica on 27- and 405-frame requests (SERVE_TOL), #1's
@@ -239,10 +253,11 @@ Phases, one JSON line each:
                without general.nolog and with gpu.profile=true: an event
                file with the JAX CLI's tags and a Chrome trace; the CLI
                loop's steps timed with and without the trace.
- 26. packed_serve - packed parts at full width (body/face/hands at C =
-               384/224/256 padded to one (68, 384), run as one batched
-               call, models/packed.py): LiftingService on
-               D3DP(packed_parts=True, experimental_kernels=True) beside the
+ 26. packed_serve - packed parts at full width, at depth 4 for the run's
+               time limit (body/face/hands at C = 384/224/256 padded to one
+               (68, 384), run as one batched call, models/packed.py):
+               LiftingService on D3DP(packed_parts=True,
+               experimental_kernels=True) beside the
                same weights unpacked at use_pallas=auto, P=10, T=5,
                buckets 1..16, float32 and bfloat16: 27- and 405-frame
                latency, frames/s, peak memory; none of #1-#6 launched by a
@@ -327,6 +342,13 @@ Tolerances (max abs, elementwise):
                    other way from f32 values ~1e-7 apart (a p below 1
                    moves by at most 2^-8, so up to two flips in a row carry
                    at most 2^-7 max|v|; measured max abs 3.9e-3);
+  attention_bwd    #6's attention backward alone: ATTN_BWD_RTOL =
+                   1e-5 x max|plain| for each of dq, dk and dv (three TF32
+                   products a product; the CPU emulation of that arithmetic
+                   stays within 1.0e-6 on the training qkv, and the tensor
+                   cores' truncating accumulation adds a few f32 ulps), and
+                   a repeat bit for bit; #2's and #5's forward stage alone
+                   in float32: attention_stage's 1e-5;
   block_temporal   kernel #3: kernel's bounds (the same block and rounding
                    points on the transposed rows);
   layer kernel     kernel #4: float32 1e-4 (two blocks, each within ~1e-6);
@@ -463,6 +485,9 @@ ATTN_CORE_SOURCE = "pafuse_tpu_torch/ops/csrc/attention_sm90.cuh"
 ATTN_CORE_REPLACES = "pafuse_tpu/ops/attention.py:300"   # _block_body's attention
 ATTN_CORE_TOL_F32 = 1e-5
 ATTN_CORE_TOL_BF16 = 2.0 ** -7          # x (|y| + max|v|), elementwise
+ATTN_BWD_SOURCE = "pafuse_tpu_torch/ops/csrc/attention_bwd_sm90.cuh"
+ATTN_BWD_REPLACES = "pafuse_tpu/ops/block_grad.py:203"   # _train_bwd_kernel's attention
+ATTN_BWD_RTOL = 1e-5                    # x max|plain| for each of dq, dk, dv
 
 
 def emit(obj):
@@ -1316,9 +1341,8 @@ def serve_profile_phase(svc, modes, seed: int):
                               request="405 frames", service=label)
         if service.device.type == "cuda" and fused_block.launches == 0:
             raise AssertionError("serve_profile: kernel #1 did not launch")
-        if service.device.type == "cuda" and (
-                groups.get(ATTN_CORE_GROUP, 0.0) <= 0.0
-                or "attention forward" in groups):
+        if (service.device.type == "cuda"
+                and groups.get(ATTN_CORE_GROUP, 0.0) <= 0.0):
             raise AssertionError(f"serve_profile: kernel #1's attention is "
                                  f"not the tensor-core kernel: {groups}")
         launches += fused_block.launches
@@ -1347,6 +1371,73 @@ def _rel_err(a, b) -> float:
                  / b.double().abs().max().clamp_min(1e-30))
 
 
+def attention_stage_row(qkv, heads, phase, **fields):
+    """The float32 attention forward alone (ops.attention_core on a (B, L,
+    3C) float32 qkv, the stage of #2 and #5) against its plain version
+    (ATTN_CORE_TOL_F32): ms, plain ms, library ms (library_sdpa on the same
+    qkv) and the bound (4*B*L^2*C operations; qkv read once, the output
+    written once)."""
+    import torch
+    from pafuse_tpu_torch.ops.attention_core import (attention_core,
+                                                     attention_core_reference)
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    got = attention_core(qkv, heads)
+    torch.cuda.synchronize()
+    err = float((got - attention_core_reference(qkv, heads)).abs().max())
+    del got
+    q, k, v = qkv.view(B, L, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    r = {"phase": phase, "name": "attention_core", "dtype": "float32",
+         **fields, "B": B, "L": L, "C": C, "max_abs_err": err,
+         "ok": err <= ATTN_CORE_TOL_F32,
+         "ms": cuda_time_ms(lambda: attention_core(qkv, heads)),
+         "plain_ms": cuda_time_ms(lambda: attention_core_reference(qkv, heads)),
+         "library_ms": cuda_time_ms(lambda: library_sdpa(q, k, v)),
+         **bound(4 * B * L * L * C, 16 * B * L * C, "float32")}
+    emit(r)
+    return r
+
+
+def attention_bwd_stage_row(qkv, do, heads, phase, **fields):
+    """#6's attention backward alone (ops.attention_core_bwd) on float32 qkv
+    (B, L, 3C) and dO (B, L, C) against its plain version (ATTN_BWD_RTOL x
+    max|plain| for each of dq, dk, dv; a repeat bit for bit): ms, plain ms,
+    library ms (autograd through library_sdpa on the same qkv) and the
+    bound (10*B*L^2*C operations; qkv and dO read once, dqkv written
+    once)."""
+    import torch
+    from pafuse_tpu_torch.ops.attention_core import (
+        attention_core_bwd, attention_core_bwd_reference)
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    got = attention_core_bwd(qkv, do, heads)
+    torch.cuda.synchronize()
+    want = attention_core_bwd_reference(qkv, do, heads)
+    rel = [float((got[..., i * C:(i + 1) * C] - want[..., i * C:(i + 1) * C])
+                 .abs().max() / want[..., i * C:(i + 1) * C].abs().max())
+           for i in range(3)]
+    err = float((got - want).abs().max())
+    repeat = bool(torch.equal(got, attention_core_bwd(qkv, do, heads)))
+    del got, want
+    q, k, v = (t.detach().requires_grad_() for t in qkv.view(
+        B, L, 3, heads, C // heads).permute(2, 0, 3, 1, 4))
+    o = library_sdpa(q, k, v)
+    go = do.view(B, L, heads, C // heads).transpose(1, 2)
+    r = {"phase": phase, "name": "attention_core_bwd", "dtype": "float32",
+         **fields, "B": B, "L": L, "C": C, "max_abs_err": err,
+         "max_rel_err": max(rel), "deterministic": repeat,
+         "ok": max(rel) <= ATTN_BWD_RTOL and repeat,
+         "ms": cuda_time_ms(lambda: attention_core_bwd(qkv, do, heads)),
+         "plain_ms": cuda_time_ms(
+             lambda: attention_core_bwd_reference(qkv, do, heads)),
+         "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+             o, (q, k, v), go, retain_graph=True)),
+         **bound(10 * B * L * L * C, 28 * B * L * C, "float32")}
+    emit(r)
+    del q, k, v, o
+    return r
+
+
 GRAD_NAMES = ("dx", "norm1.weight", "norm1.bias", "qkv.weight", "qkv.bias",
               "proj.weight", "proj.bias", "norm2.weight", "norm2.bias",
               "fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias",
@@ -1359,12 +1450,17 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
     spatial (B = seqs*frames, L = joints) and temporal (B = seqs*joints,
     L = frames) training shape (``parts`` as kernel_phase's), with x (and
     the backward's g) in float32 and in bfloat16; masks drawn per sample
-    and repeated like MixSTE2 repeats them."""
+    and repeated like MixSTE2 repeats them.  At each shape also their
+    attention stages alone (float32 by contract): the forward
+    (attention_stage_row) on the qkv the forward computes there (LN1(x) @
+    Wqkv + bqkv) and the backward (attention_bwd_stage_row) on that qkv and
+    a unit-variance dO."""
     import torch
     from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
                                                   block_train_fwd,
                                                   train_bwd_reference,
                                                   train_fwd_reference)
+    from pafuse_tpu_torch.ops.gemm import linear_reference
     from pafuse_tpu_torch.utils.device import sync
 
     dev = torch.device("cuda")
@@ -1466,6 +1562,15 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
             results.append(r)
             del y_lib, dx, grads, dx2, grads2, want_dx, want_grads
         del x32, g32, x, y, saved, want, diff, lib_x, lib_p
+        torch.cuda.empty_cache()
+        qkv = linear_reference(torch.randn(B, L, C, generator=g).to(dev),
+                               params[2], params[3], params[0:2])
+        fields = {"part": part, "kind": kind, "shapes": "train"}
+        results.append(attention_stage_row(qkv, heads, phase, **fields))
+        do = torch.randn(B, L, C, generator=g).to(dev)
+        results.append(attention_bwd_stage_row(qkv, do, heads, phase,
+                                               **fields))
+        del qkv, do
         torch.cuda.empty_cache()
     return results
 
@@ -1675,7 +1780,8 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
     if dev.type == "cuda" and profile:
         groups = profile_step(lambda: float(step(state, lr, *batches[-1])),
                               phase=f"{phase}_profile", names=TRAIN_GROUPS)
-        missing = {g for _, g in TRAIN_GROUPS[:2]} - set(groups)
+        missing = ({g for _, g in TRAIN_GROUPS[:2]}
+                   | {ATTN_CORE_GROUP, ATTN_BWD_GROUP}) - set(groups)
         if groups and missing:
             raise AssertionError(f"{phase}: the profile shows no {missing}: "
                                  f"{sorted(groups)}")
@@ -1754,7 +1860,8 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
 #: the profiles' group of PyTorch's copy kernels (.contiguous() of a
 #: transposed tensor, dtype and device copies)
 COPY_GROUP = "copies (transposes, .contiguous())"
-ATTN_CORE_GROUP = "attention (#1, #3, #4, tensor cores)"
+ATTN_CORE_GROUP = "attention (#1-#5, tensor cores)"
+ATTN_BWD_GROUP = "attention backward (#6, tensor cores)"
 
 #: kernel-name patterns of the port's CUDA sources (and PyTorch's copies and
 #: cuBLAS), for the profiles; the first pattern found in a kernel's name
@@ -1765,9 +1872,8 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("sm90::split_weights", "weight splits (#1, #3, #4)"),
                  ("sm90::row_stats", "row statistics (#1, #3, #4)"),
                  ("wgrad_mma_kernel", "weight-gradient GEMMs (#6, mma.sync)"),
-                 ("attn_bwd_kernel", "attention backward"),
+                 ("attention_bwd_tc_kernel", ATTN_BWD_GROUP),
                  ("attention_tc_kernel", ATTN_CORE_GROUP),
-                 ("attention_kernel", "attention forward"),
                  ("bf16_to_f32_kernel", "bfloat16 x to float32 (#2)"),
                  ("layernorm_kernel", "outer LayerNorm (#1, #3, #4)"),
                  ("layernorm_bf16_kernel",
@@ -1885,8 +1991,10 @@ def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
     """Kernel #2 against its plain version at each network's spatial (B =
     windows*P*2*frames sequences of its joints) and temporal (B =
     windows*P*2*joints sequences of the frames) shape (``parts`` as
-    kernel_phase's)."""
+    kernel_phase's).  With float32 x, also #2's attention stage alone
+    (attention_stage_row) on the float32 qkv of its first GEMM there."""
     import torch
+    import torch.nn.functional as F
     from pafuse_tpu_torch.ops.attention import (attention_reference,
                                                 fused_attention)
     from pafuse_tpu_torch.utils.device import sync
@@ -1933,6 +2041,11 @@ def attention_kernel_phase(seed: int, windows: int, P: int, frames: int,
             emit(r)
             results.append(r)
             del diff
+            if name == "float32":
+                qkv = F.linear(x, attn[0], attn[1])
+                results.append(attention_stage_row(
+                    qkv, heads, phase, shapes=shapes, part=part, kind=kind))
+                del qkv
         del x32, x
         torch.cuda.empty_cache()
     return results
@@ -4319,8 +4432,13 @@ def main() -> int:
                                         shapes="serve")
     bad = [c for c in attn_cases + serve_attn if not c["ok"]]
     if bad:
-        raise AssertionError(f"fused_attention disagrees with "
-                             f"attention_reference: {bad}")
+        raise AssertionError(f"fused_attention (or its attention stage) "
+                             f"disagrees with its plain version: {bad}")
+    # #2's attention stage alone at the window-batch-64 and bucket-16 rows
+    attn_stage = [c for c in attn_cases + serve_attn
+                  if c["name"] == "attention_core"]
+    attn_cases, serve_attn = ([c for c in cs if c["name"] == "fused_attention"]
+                              for cs in (attn_cases, serve_attn))
     bt_cases = block_temporal_kernel_phase(args.seed, EVAL_WINDOWS, P=10,
                                            frames=27, dtypes=("float32",),
                                            shapes="eval")
@@ -4364,14 +4482,21 @@ def main() -> int:
         return blocks, trains, attns
 
     dhp3_blocks, dhp3_train, dhp3_attn = timed("dhp3_kernel", dhp3_kernels)
+    dhp3_attn = [c for c in dhp3_attn if c["name"] == "fused_attention"]
     dhp3_train_launches = timed("dhp3_train", dhp3_train_phase, args.seed)
     dhp3_launches = timed("dhp3_eval", dhp3_eval_phase, args.seed, workdir)
-    itw_launches = timed("in_the_wild", in_the_wild_phase, args.seed, workdir)
-    draw_launches = timed("draw", draw_phase, args.seed)
+    # depth 4 for in_the_wild, draw, ddp_eval and packed_serve, as for
+    # bf16_eval below: the run's time limit, which the attention stages'
+    # build (attention_core.cu, ~100-140 s) takes a share of
+    itw_launches = timed("in_the_wild", in_the_wild_phase, args.seed, workdir,
+                         depth=4)
+    draw_launches = timed("draw", draw_phase, args.seed, depth=4)
     # bfloat16 model compute, the autodiff path, the monolithic 134-joint
     # model in training
+    # depth 4 for the run's time limit; the bfloat16 bounds hold the more
+    # easily at half the depth
     bf16_eval_launches = timed("bf16_eval", bf16_eval_phase, args.seed,
-                               workdir)
+                               workdir, depth=4)
     shutil.rmtree(workdir, ignore_errors=True)
     bf16_train_launches = timed("bf16_train", bf16_train_phase, args.seed)
     timed("autodiff_train", autodiff_train_phase, args.seed)
@@ -4387,13 +4512,16 @@ def main() -> int:
     # data parallel on torch.distributed and the CLI's observability
     ddp_train_launches = timed("ddp_train", ddp_train_phase, args.seed,
                                workdir)
-    ddp_eval_launches = timed("ddp_eval", ddp_eval_phase, args.seed, workdir)
+    ddp_eval_launches = timed("ddp_eval", ddp_eval_phase, args.seed, workdir,
+                              depth=4)
     sharded_launches = timed("serve_sharded", serve_sharded_phase, args.seed)
     obs_launches = timed("observability", observability_phase, args.seed,
                          workdir)
     # packed parts, the native batcher on the CLI's training loop, the dry
     # run
-    packed_launches = timed("packed_serve", packed_serve_phase, args.seed)
+    from pafuse_tpu_torch.diffusion import D3DPConfig
+    packed_launches = timed("packed_serve", packed_serve_phase, args.seed,
+                            cfg=D3DPConfig(depth=4))
     native_launches = timed("native_batcher", native_batcher_phase,
                             args.seed, workdir)
     dryrun_launches = timed("dryrun", dryrun_phase, args.seed, workdir)
@@ -4449,11 +4577,41 @@ def main() -> int:
         # once by every call of fused_block and fused_block_temporal and
         # twice by fused_layer (block_chain.cuh step 2), so its main-path
         # launches are fused_block's
+        # also #2's (attention.cu step 2) and #5's (block_train.cu step 3)
+        # attention, in float32: their stage sums and launches beside
         _kernel_entry("attention_core", "cuda", ATTN_CORE_SOURCE,
                       ATTN_CORE_REPLACES, launches, stage_cases,
                       **bf16(stage_cases),
                       launched_by="fused_block, fused_block_temporal, "
-                                  "fused_layer (block_chain.cuh step 2)"),
+                                  "fused_layer (block_chain.cuh step 2), "
+                                  "fused_attention (attention.cu step 2), "
+                                  "block_train_fwd (block_train.cu step 3)",
+                      fused_attention_eval={
+                          **_sums([c for c in attn_stage
+                                   if c["shapes"] == "eval"]),
+                          "launches": eval_launches["fused_attention"]},
+                      block_train_fwd={
+                          **_sums([c for c in train_cases
+                                   if c["name"] == "attention_core"]),
+                          "launches": train_launches[0]},
+                      mono134_fwd={
+                          **_sums([c for c in mono_cases
+                                   if c["name"] == "attention_core"]),
+                          "launches": mono_launches[0]}),
+        # #6's attention backward at the training shapes (launched once by
+        # every call of block_train_bwd, block_train.cu step 9)
+        _kernel_entry("attention_core_bwd", "cuda", ATTN_BWD_SOURCE,
+                      ATTN_BWD_REPLACES, train_launches[1],
+                      [c for c in train_cases
+                       if c["name"] == "attention_core_bwd"],
+                      launched_by="block_train_bwd (block_train.cu step 9)",
+                      mono134={
+                          **_sums([c for c in mono_cases
+                                   if c["name"] == "attention_core_bwd"]),
+                          "launches": mono_launches[1]},
+                      **_dhp3([c for c in dhp3_train
+                               if c["name"] == "attention_core_bwd"],
+                              {"dhp3_train": dhp3_train_launches[1]})),
         _kernel_entry("fused_block", "cuda", SOURCE, REPLACES, launches,
                       cases, **bf16(cases),
                       **_dhp3(dhp3_blocks, {

@@ -51,15 +51,14 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         "pafuse_block_train_scratch_floats": ([_LL, _I, _I, _I], _LL),
         # float count of the forward's weight split: C, hidden
         "pafuse_block_train_split_floats": ([_I, _I], _LL),
-        # attention-backward shared memory in bytes: L, head size
-        "pafuse_block_train_smem_bytes": ([_I, _I], _LL),
-        # is_bf16, x, m1, m2, 14 params, y, saved, weight split, B, L, C,
-        # H, hidden, scale, stream
-        "pafuse_block_train_fwd": ([_I] + [_P] * 3 + [_P] * 14 + [_P] * 3
+        # is_bf16, x, m1, m2, 14 params, y, saved, weight split, the
+        # attention (attention_function()), B, L, C, H, hidden, scale, stream
+        "pafuse_block_train_fwd": ([_I] + [_P] * 3 + [_P] * 14 + [_P] * 4
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
-        # is_bf16, x, g, m1, m2, 14 params, saved, dx, grads, scratch, B, L,
-        # C, H, hidden, scale, stream
-        "pafuse_block_train_bwd": ([_I] + [_P] * 4 + [_P] * 14 + [_P] * 4
+        # is_bf16, x, g, m1, m2, 14 params, saved, dx, grads, scratch, the
+        # attention backward (attention_bwd_function()), B, L, C, H, hidden,
+        # scale, stream
+        "pafuse_block_train_bwd": ([_I] + [_P] * 4 + [_P] * 14 + [_P] * 5
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
         # the forward's GEMM alone: A, W, bias, epilogue, R (or NULL),
         # r_is_bf16, mask (or NULL), L, Y, Y2 (or NULL), workspace, M, N, K,
@@ -99,14 +98,20 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         # one CTA may have
         "pafuse_attention_core_unit_bytes": ([_I, _I, _I], _LL),
         "pafuse_attention_core_smem_limit": ([], _LL),
+        # the backward's (float32): L, d
+        "pafuse_attention_core_bwd_unit_bytes": ([_I, _I], _LL),
         # is_bf16, qkv, out, sequences, L, S, C, H, scale, stream
         "pafuse_attention_core": ([_I, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
                                   _I),
+        # qkv, dO, dqkv, sequences, L, C, H, scale, stream
+        "pafuse_attention_core_bwd": ([_P, _P, _P, _LL, _I, _I, _I, _F, _P],
+                                      _I),
     },
     "attention": {
         # is_bf16, x, out, qkv scratch, attention scratch, workspace and its
-        # bytes, wqkv, bqkv, wproj, bproj, B, L, C, H, scale, stream
-        "pafuse_fused_attention": ([_I] + [_P] * 5 + [_LL] + [_P] * 4
+        # bytes, wqkv, bqkv, wproj, bproj, the attention, B, L, C, H, scale,
+        # stream
+        "pafuse_fused_attention": ([_I] + [_P] * 5 + [_LL] + [_P] * 5
                                    + [_LL, _I, _I, _I, _F, _P], _I),
     },
 }
@@ -178,9 +183,19 @@ def build_all() -> Dict[str, str]:
 @functools.lru_cache(maxsize=None)
 def attention_function() -> int:
     """The address of ``csrc/attention_core.cu``'s ``pafuse_attention_core``,
-    which the block chains (block.cu, block_temporal.cu, layer.cu) call for
-    their attention stage, so its kernels are built into one library."""
+    which the block chains (block.cu, block_temporal.cu, layer.cu), kernel
+    #2 (attention.cu) and kernel #5 (block_train.cu) call for their
+    attention stage, so its kernels are built into one library."""
     fn = load("attention_core").pafuse_attention_core
+    return ctypes.cast(fn, ctypes.c_void_p).value
+
+
+@functools.lru_cache(maxsize=None)
+def attention_bwd_function() -> int:
+    """The address of ``csrc/attention_core.cu``'s
+    ``pafuse_attention_core_bwd``, which kernel #6 (block_train.cu) calls
+    for its attention backward."""
+    fn = load("attention_core").pafuse_attention_core_bwd
     return ctypes.cast(fn, ctypes.c_void_p).value
 
 

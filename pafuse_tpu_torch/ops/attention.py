@@ -12,9 +12,12 @@ outputs stay in float32, and only the output is rounded to ``x.dtype``.
 (``csrc/attention.cu``: the two GEMMs on ``csrc/gemm_sm90.cuh``, TMA-fed
 ``wgmma`` with each float32 product as three TF32 products, see
 ``ops.gemm.split_tf32``; a bfloat16 ``x`` is converted to float32 first,
-which TF32 holds exactly) for CUDA tensors and uses
-``attention_reference``, the same function in plain PyTorch ops, for CPU
-tensors.
+which TF32 holds exactly; the attention between them on the tensor-core
+kernel of ``ops.attention_core`` in float32, three TF32 products a product)
+for CUDA tensors and uses ``attention_reference``, the same function in
+plain PyTorch ops, for CPU tensors.  Shapes that kernel does not take (a
+head size above 64, or L too long for one (sequence, head) in a CTA's
+shared memory) raise ``ValueError`` before any launch.
 
 Parameters are float32 in torch layout: ``qkv_w`` (3C, C), ``qkv_b`` (3C,),
 ``proj_w`` (C, C), ``proj_b`` (C,).  ``x`` is (..., L, C): the leading dims
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from pafuse_tpu_torch.ops import _build
+from pafuse_tpu_torch.ops.attention_core import check_shape
 
 
 def attention_reference(x: torch.Tensor, qkv_w: torch.Tensor,
@@ -90,9 +94,10 @@ def fused_attention(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
         raise ValueError(f"fused_attention: unsupported device {x.device}")
     params = (qkv_w, qkv_b, proj_w, proj_b)
     _check(x, params, num_heads)
+    L, C = x.shape[-2:]
+    check_shape(L, C, num_heads, torch.float32, "fused_attention")
     lib = _build.load("attention")
 
-    L, C = x.shape[-2:]
     B = x.numel() // (L * C)
     out = torch.empty_like(x)
     bf16 = x.dtype == torch.bfloat16
@@ -105,7 +110,7 @@ def fused_attention(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
         err = lib.pafuse_fused_attention(
             int(bf16), x.data_ptr(), out.data_ptr(), qkv.data_ptr(),
             attn.data_ptr(), ws.data_ptr(), ws_bytes,
-            *[p.data_ptr() for p in params],
+            *[p.data_ptr() for p in params], _build.attention_function(),
             B, L, C, num_heads, (C // num_heads) ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"fused_attention: CUDA kernel launch failed with "

@@ -1,4 +1,5 @@
-"""The eval block chain's attention stage alone (kernels #1, #3, #4).
+"""The attention stages on the tensor cores alone: the forward of kernels
+#1-#5 and the training backward of kernel #6.
 
 ``attention_core`` computes per-head softmax attention from a packed qkv
 with the rounding points of ``pafuse_tpu/ops/attention.py::_block_body``
@@ -8,11 +9,22 @@ rounded to the compute dtype ``T`` (the dtype of qkv) after the row's full
 sum, and ``T(sum p v)`` summed in float32.
 
 For CUDA tensors it launches the tensor-core kernel that the block chain
-runs at its step 2 (``csrc/attention_core.cu`` on
-``csrc/attention_sm90.cuh``: ``mma.sync``, bf16 products in bfloat16,
-three TF32 products a product in float32); for CPU tensors it uses
-:func:`attention_core_reference`, the same function in plain PyTorch ops,
-through which ``ops.block.block_reference`` runs its attention.
+runs at its step 2, and kernels #2 and #5 in float32
+(``csrc/attention_core.cu`` on ``csrc/attention_sm90.cuh``: ``mma.sync``,
+bf16 products in bfloat16, three TF32 products a product in float32); for
+CPU tensors it uses :func:`attention_core_reference`, the same function in
+plain PyTorch ops, through which ``ops.block.block_reference`` runs its
+attention.
+
+``attention_core_bwd`` is kernel #6's attention backward
+(``pafuse_tpu/ops/block_grad.py:203-226``): from the saved float32 qkv (B,
+L, 3C) and the gradient of the attention output dO (B, L, C) it recomputes
+P = softmax(q k^T d^-1/2) and returns dqkv = [dq | dk | dv] (B, L, 3C), dq
+= d^-1/2 dS k, dk = d^-1/2 dS^T q, dv = P^T dO, dS = P (dO v^T - rowsum(dO
+v^T * P)).  CUDA tensors go through ``csrc/attention_bwd_sm90.cuh`` (built
+into the same library; three TF32 products a product), CPU tensors through
+:func:`attention_core_bwd_reference`, through which
+``ops.block_train.train_bwd_reference`` runs its attention backward.
 
 Layouts, with the chain's row order: qkv ``(B, L, 3C)`` attends over L for
 each of the B sequences; qkv ``(B, F, N, 3C)`` attends over the F frames
@@ -75,20 +87,44 @@ def _unit_bytes(bf16: bool, L: int, d: int):
             lib.pafuse_attention_core_smem_limit())
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_unit_bytes(L: int, d: int):
+    """The same for the backward (float32)."""
+    lib = _build.load("attention_core")
+    return (lib.pafuse_attention_core_bwd_unit_bytes(L, d),
+            lib.pafuse_attention_core_smem_limit())
+
+
+def _raise_unless_fits(need, limit, L, C, num_heads, dtype, what, stage):
+    d = C // num_heads
+    if need == 0:
+        raise ValueError(f"{what}: the tensor-core attention{stage} takes "
+                         f"head sizes up to 64; got d = {C} / {num_heads} "
+                         f"= {d}")
+    if need > limit:
+        raise ValueError(f"{what}: {L} tokens of head size {d} in {dtype} "
+                         f"need {need} bytes of shared memory for one "
+                         f"(sequence, head) in the tensor-core attention"
+                         f"{stage}, above the {limit} a CTA has")
+
+
 def check_shape(L: int, C: int, num_heads: int, dtype: torch.dtype,
                 what: str) -> None:
     """Raise ValueError where the tensor-core attention does not take (L,
     d = C / num_heads) in ``dtype``: d above 64, or one (sequence, head)'s
     q, k and v beyond a CTA's shared memory.  Builds the kernels."""
-    d = C // num_heads
-    need, limit = _unit_bytes(dtype == torch.bfloat16, L, d)
-    if need == 0:
-        raise ValueError(f"{what}: the tensor-core attention takes head "
-                         f"sizes up to 64; got d = {C} / {num_heads} = {d}")
-    if need > limit:
-        raise ValueError(f"{what}: {L} tokens of head size {d} in {dtype} "
-                         f"need {need} bytes of shared memory for one "
-                         f"(sequence, head), above the {limit} a CTA has")
+    need, limit = _unit_bytes(dtype == torch.bfloat16, L, C // num_heads)
+    _raise_unless_fits(need, limit, L, C, num_heads, dtype, what, "")
+
+
+def check_bwd_shape(L: int, C: int, num_heads: int, what: str) -> None:
+    """Raise ValueError where the tensor-core attention backward does not
+    take (L, d = C / num_heads): d above 64, or one (sequence, head)'s q, k,
+    v and dO beyond a CTA's shared memory (float32: L up to at least 256
+    at d <= 48, up to 192 at d = 64).  Builds the kernels."""
+    need, limit = _bwd_unit_bytes(L, C // num_heads)
+    _raise_unless_fits(need, limit, L, C, num_heads, torch.float32, what,
+                       " backward")
 
 
 def attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -125,3 +161,70 @@ def attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 #: kernel launches through ``attention_core`` (CUDA path only; the block
 #: chains launch the same kernel from their own wrappers)
 attention_core.launches = 0
+
+
+def attention_core_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
+                                 num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`attention_core_bwd`: float32 qkv (B,
+    L, 3C) and do (B, L, C) -> dqkv (B, L, 3C), with JAX's formula
+    (``block_grad.py:210-223``)."""
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    d = C // num_heads
+    scale = d ** -0.5
+    q, k, v = qkv.view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    P = torch.softmax(q @ k.transpose(-1, -2) * d ** -0.5, dim=-1)
+    do = do.view(B, L, num_heads, d).transpose(1, 2)     # (B, H, L, d)
+    dP = do @ v.transpose(-1, -2)
+    dv = P.transpose(-1, -2) @ do
+    dS = P * (dP - (dP * P).sum(-1, keepdim=True))
+    dq = (dS @ k) * scale
+    dk = (dS.transpose(-1, -2) @ q) * scale
+    dqkv = torch.stack([dq, dk, dv], dim=2)              # (B, H, 3, L, d)
+    return dqkv.permute(0, 3, 2, 1, 4).reshape(B, L, 3 * C)
+
+
+def attention_core_bwd(qkv: torch.Tensor, do: torch.Tensor,
+                       num_heads: int) -> torch.Tensor:
+    """Kernel #6's attention backward alone: float32 qkv (B, L, 3C) and do
+    (B, L, C) -> dqkv (B, L, 3C).
+
+    CUDA tensors go through the tensor-core kernel (built on first use) or
+    raise; CPU tensors go through :func:`attention_core_bwd_reference`."""
+    if qkv.device.type == "cpu":
+        return attention_core_bwd_reference(qkv, do, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_core_bwd: unsupported device "
+                         f"{qkv.device}")
+    if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % num_heads:
+        raise ValueError(f"attention_core_bwd: qkv must be (B, L, 3C) with C "
+                         f"a multiple of {num_heads} heads; got "
+                         f"{tuple(qkv.shape)}")
+    B, L, C3 = qkv.shape
+    for name, t, shape in (("qkv", qkv, (B, L, C3)),
+                           ("do", do, (B, L, C3 // 3))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != qkv.device or not t.is_contiguous()):
+            raise ValueError(f"attention_core_bwd: {name} must be a "
+                             f"contiguous float32 {shape} tensor on "
+                             f"{qkv.device}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    C = C3 // 3
+    check_bwd_shape(L, C, num_heads, "attention_core_bwd")
+    lib = _build.load("attention_core")
+    dqkv = torch.empty_like(qkv)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with torch.cuda.device(qkv.device):
+        err = lib.pafuse_attention_core_bwd(
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), B, L, C,
+            num_heads, (C // num_heads) ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"attention_core_bwd: CUDA launch failed with "
+                           f"cudaError {err}")
+    _build.count_launch(attention_core_bwd)
+    return dqkv
+
+
+#: kernel launches through ``attention_core_bwd`` (CUDA path only; kernel
+#: #6 launches the same kernel from its own wrapper)
+attention_core_bwd.launches = 0

@@ -30,6 +30,12 @@ the TMA + ``wgmma`` GEMM of ``csrc/gemm_sm90.cuh``, the weight gradients on
 ``fwd_linear``, ``data_grad`` and ``weight_grad`` run each alone (plain
 versions ``fwd_linear_reference``, through which the plain forward runs
 its four products, ``data_grad_reference`` and ``weight_grad_reference``).
+The attention forward and backward run on the tensor-core kernels of
+``ops.attention_core`` in float32 (plain ``attention_core_bwd_reference``,
+through which the plain backward runs its attention backward); shapes they
+do not take (a head size above 64, or L too long for one (sequence, head)
+in a CTA's shared memory: at head sizes up to 48, L up to 256) raise
+``ValueError`` before any launch.
 
 Parameters are the 14 float32 tensors of ``ops.block`` in torch layout:
 ``(norm1.weight, norm1.bias, qkv.weight, qkv.bias, proj.weight, proj.bias,
@@ -44,14 +50,14 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from pafuse_tpu_torch.ops import _build
+from pafuse_tpu_torch.ops.attention_core import (attention_core_bwd_reference,
+                                                 check_bwd_shape, check_shape)
 from pafuse_tpu_torch.ops.block import _check as _check_block
 
 
 _EPS = 1e-6
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
-#: shared memory an H100 block can take (bytes)
-_MAX_SMEM = 232448
 #: rows per partial sum of a weight gradient (``csrc/block_train.cu``)
 RED_ROWS = 1024
 
@@ -122,8 +128,7 @@ def _fwd_core(x0, m1, m2, params, num_heads):
     x2 = fwd_linear_reference(gu, wfc2, bfc2, "residual", x1.reshape(M, C),
                               m2.reshape(B), L).view(B, L, C)
     y, xhato, invo = _ln_fwd(x2, nos, nob)
-    return y, (h1, xhat1, inv1, q, k, v, P, o, xhat2, inv2, h2, u, gu, xhato,
-               invo)
+    return y, (h1, xhat1, inv1, qkv, o, xhat2, inv2, h2, u, gu, xhato, invo)
 
 
 def _masks(m: torch.Tensor) -> torch.Tensor:
@@ -162,9 +167,7 @@ def train_bwd_reference(x: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
      nos, nob) = params
     m1, m2 = _masks(m1), _masks(m2)
     B, L, C = x.shape
-    d = C // num_heads
-    scale = d ** -0.5
-    (_, (h1, xhat1, inv1, q, k, v, P, o, xhat2, inv2, h2, u, gu, xhato,
+    (_, (h1, xhat1, inv1, qkv, o, xhat2, inv2, h2, u, gu, xhato,
          invo)) = _fwd_core(x.float(), m1, m2, params, num_heads)
     M = B * L
 
@@ -181,15 +184,9 @@ def train_bwd_reference(x: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
     # attention branch
     da = (m1 * dx1).reshape(M, C)
     dwproj, dbproj = weight_grad_reference(da, o.reshape(M, C)), da.sum(0)
-    do = data_grad_reference(da, wproj).view(B, L, num_heads, d)
-    do = do.transpose(1, 2)                                      # (B, H, L, d)
-    dP = do @ v.transpose(-1, -2)
-    dv = P.transpose(-1, -2) @ do
-    dS = P * (dP - (dP * P).sum(-1, keepdim=True))
-    dq = (dS @ k) * scale
-    dk = (dS.transpose(-1, -2) @ q) * scale
-    dqkv = torch.stack([dq, dk, dv], dim=2)                      # (B, H, 3, L, d)
-    dqkv = dqkv.permute(0, 3, 2, 1, 4).reshape(M, 3 * C)
+    do = data_grad_reference(da, wproj).view(B, L, C)
+    dqkv = attention_core_bwd_reference(qkv.view(B, L, 3 * C), do,
+                                        num_heads).reshape(M, 3 * C)
     dwqkv, dbqkv = weight_grad_reference(dqkv, h1.reshape(M, C)), dqkv.sum(0)
     dh1 = data_grad_reference(dqkv, wqkv).reshape(B, L, C)
     dx0_ln1, dn1s, dn1b = _ln_bwd(dh1, xhat1, inv1, n1s)
@@ -226,14 +223,14 @@ def _check(x, m1, m2, params, num_heads) -> None:
 
 
 def _lib_and_dims(x, params, num_heads):
-    lib = _build.load("block_train")
+    """The library and (B, L, C, H, hidden, scale), after checking that both
+    attention stages take (L, C / H); the forward checks the backward's
+    shape too, so a step that cannot finish does not start."""
     B, L, C = x.shape
-    smem = lib.pafuse_block_train_smem_bytes(L, C // num_heads)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"block_train: L={L} needs {smem} bytes of shared "
-                         f"memory in the attention backward (> {_MAX_SMEM})")
-    return lib, (B, L, C, num_heads, params[8].shape[0],
-                 (C // num_heads) ** -0.5)
+    check_shape(L, C, num_heads, torch.float32, "block_train")
+    check_bwd_shape(L, C, num_heads, "block_train")
+    return _build.load("block_train"), (B, L, C, num_heads, params[8].shape[0],
+                                        (C // num_heads) ** -0.5)
 
 
 def _stream(x):
@@ -270,8 +267,8 @@ def block_train_fwd(x: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
         err = lib.pafuse_block_train_fwd(
             int(x.dtype == torch.bfloat16), x.data_ptr(), m1.data_ptr(),
             m2.data_ptr(), *[p.data_ptr() for p in params], y.data_ptr(),
-            workspace.data_ptr(), split.data_ptr(), B, L, C, H, hid, scale,
-            _stream(x))
+            workspace.data_ptr(), split.data_ptr(),
+            _build.attention_function(), B, L, C, H, hid, scale, _stream(x))
     _raise_on(err, "block_train_fwd")
     _build.count_launch(block_train_fwd)
     return y, TrainSaved(x, m1, m2, params, num_heads, workspace)
@@ -307,7 +304,8 @@ def block_train_bwd(ctx: TrainSaved, g: torch.Tensor
             int(x.dtype == torch.bfloat16), x.data_ptr(), g.data_ptr(),
             m1.data_ptr(), m2.data_ptr(), *[p.data_ptr() for p in params],
             workspace.data_ptr(), dx.data_ptr(), flat.data_ptr(),
-            scratch.data_ptr(), B, L, C, H, hid, scale, _stream(x))
+            scratch.data_ptr(), _build.attention_bwd_function(), B, L, C, H,
+            hid, scale, _stream(x))
     _raise_on(err, "block_train_bwd")
     _build.count_launch(block_train_bwd)
     return dx, grads

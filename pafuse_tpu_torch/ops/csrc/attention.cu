@@ -27,14 +27,18 @@
 //      TF32, so the three-product GEMM's a_lo * w_hi product adds zeros);
 //   1. qkv on gemm_sm90.cuh's GEMM (TMA + wgmma, float32 as three TF32
 //      products, partial sums per pair of K slices added in f32), f32 out;
-//   2. one attention CTA per (sequence, head) with q, k and v in shared
-//      memory (common.cuh's attention_kernel, instantiated for f32);
+//   2. the attention in f32 on the tensor cores: attention_core.cu's
+//      pafuse_attention_core (attention_sm90.cuh: (sequence, head) units in
+//      shared memory, mma.sync, each product as three TF32 products, the
+//      softmax on the fragments), called through the address `attention`
+//      (common.cuh: AttentionFn) with is_bf16 = 0 whatever T is;
 //   3. the projection on the same GEMM, f32 A, T out.
 // The TPU pads L to a multiple of 8 and masks the padded keys with -1e30
-// and pads B to its 32-row tile; nothing is padded here: TMA zero-fills the
-// ragged row tile, the GEMM's epilogue masks it and the attention CTA runs
-// over the L real keys, so no pad row enters a softmax or a sum.  The face
-// widths (3C = 672, C = 224) tile with the GEMM's 112-column tiles.
+// and pads B to its 32-row tile; nothing is padded in device memory here:
+// TMA zero-fills the ragged row tile, the GEMM's epilogue masks it, and the
+// attention pads its shared-memory tiles with zeros and masks the padded
+// keys to -inf, so no pad row enters a softmax or a sum.  The face widths
+// (3C = 672, C = 224) tile with the GEMM's 112-column tiles.
 //
 // Plain C interface for ctypes: returns the cudaError_t of the first launch
 // that failed, or 0.  Nothing here allocates or synchronises; everything
@@ -61,8 +65,8 @@ __global__ void bf16_to_f32_kernel(const __nv_bfloat16* __restrict__ x, float* _
 template <typename T>
 cudaError_t fused_attention(const T* x, T* out, float* qkv, float* attn, void* ws,
                             const float* wqkv, const float* bqkv, const float* wproj,
-                            const float* bproj, long long B, int L, int C, int H,
-                            float scale, cudaStream_t stream) {
+                            const float* bproj, AttentionFn attention, long long B, int L,
+                            int C, int H, float scale, cudaStream_t stream) {
   using namespace sm90;
   const long long M = B * L;
   cudaError_t err;
@@ -93,9 +97,9 @@ cudaError_t fused_attention(const T* x, T* out, float* qkv, float* attn, void* w
                                                 nullptr, nullptr, qkv, M, 3 * C, C, stream);
   if (err != cudaSuccess) return err;
 
-  // 2. per-head attention in f32 (rounding points of attention_kernel<float>
-  //    are no-ops)
-  err = launch_attention<float>(qkv, attn, B, L, C, H, scale, stream);
+  // 2. per-head attention in f32 (the float32 instantiation's rounding
+  //    points are no-ops)
+  err = (cudaError_t)attention(0, qkv, attn, B, L, 1, C, H, scale, stream);
   if (err != cudaSuccess) return err;
 
   // 3. out = T(attn @ Wproj + bproj)
@@ -106,20 +110,24 @@ cudaError_t fused_attention(const T* x, T* out, float* qkv, float* attn, void* w
 
 }  // namespace
 
-// ws: ws_bytes >= attention_workspace_bytes(is_bf16, B * L, C).
+// ws: ws_bytes >= attention_workspace_bytes(is_bf16, B * L, C); attention:
+// the address of attention_core.cu's pafuse_attention_core.
 extern "C" int pafuse_fused_attention(int is_bf16, const void* x, void* out, float* qkv,
                                       float* attn, void* ws, long long ws_bytes,
                                       const float* wqkv, const float* bqkv,
-                                      const float* wproj, const float* bproj, long long B,
-                                      int L, int C, int H, float scale, void* stream) {
+                                      const float* wproj, const float* bproj,
+                                      void* attention, long long B, int L, int C, int H,
+                                      float scale, void* stream) {
   if (ws_bytes < attention_workspace_bytes(is_bf16, B * L, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AttentionFn fn = reinterpret_cast<AttentionFn>(attention);
   if (is_bf16) {
     using T = __nv_bfloat16;
     return (int)fused_attention<T>(static_cast<const T*>(x), static_cast<T*>(out), qkv,
-                                   attn, ws, wqkv, bqkv, wproj, bproj, B, L, C, H, scale, s);
+                                   attn, ws, wqkv, bqkv, wproj, bproj, fn, B, L, C, H, scale,
+                                   s);
   }
   return (int)fused_attention<float>(static_cast<const float*>(x), static_cast<float*>(out),
-                                     qkv, attn, ws, wqkv, bqkv, wproj, bproj, B, L, C, H,
+                                     qkv, attn, ws, wqkv, bqkv, wproj, bproj, fn, B, L, C, H,
                                      scale, s);
 }

@@ -1,22 +1,27 @@
-// The attention stage of the eval block chain on the tensor cores: step 2
-// of block_chain.cuh (kernels #1, #3 and both halves of #4).  Built into one
-// library only, attention_core.cu, whose pafuse_attention_core the chains
-// call through its address and ops/attention_core.py calls alone.
+// The attention forward on the tensor cores: step 2 of block_chain.cuh
+// (kernels #1, #3 and both halves of #4), step 2 of attention.cu (#2) and
+// step 3 of block_train.cu's forward (#5), the last two in float32.  Built
+// into one library only, attention_core.cu, whose pafuse_attention_core the
+// other libraries call through its address and ops/attention_core.py calls
+// alone.
 //
 // Replaces: the attention of pafuse_tpu/ops/attention.py::_block_body
-// (:300-345, inside _block_kernel, _block_t_kernel and _layer_kernel), which
-// the chain ran on common.cuh's attention_kernel (one CTA per (sequence,
-// head), scalar FMAs; kernels #2 and #5 still do).  Per (sequence, head),
-// with _block_body's rounding points:
+// (:300-345, inside _block_kernel, _block_t_kernel and _layer_kernel), of
+// _attention_kernel (attention.py:113-152, #2) and of
+// pafuse_tpu/ops/block_grad.py::_fwd_core (#5), which the port ran on a
+// scalar kernel (one CTA per (sequence, head), scalar FMAs) until the
+// chains moved here and then #2 and #5.  Per (sequence, head), with
+// _block_body's rounding points (no-ops in float32, the only dtype of #2's
+// and #5's attention):
 //
 //   s = (q . k summed in f32) * d^-1/2    softmax over the whole row in f32
 //   p = T(e / sum)                        after the row's full sum
 //   o = T(sum_j p_j v_j)                  summed in f32
 //
 // qkv: (rows, 3C) in T with [q | k | v] blocks of C; out: (rows, C) in T.
-// Token l of sequence s lives at row (s / S) * L * S + l * S + s % S, as in
-// common.cuh's attention_kernel (S = 1: contiguous sequences; S = N: the
-// frames of each (b, joint) of a (B, F, N, C) activation).
+// Token l of sequence s lives at row (s / S) * L * S + l * S + s % S (S = 1:
+// contiguous sequences; S = N: the frames of each (b, joint) of a (B, F, N,
+// C) activation, read in place by kernels #3 and #4).
 //
 // What bounds it on an H100 (data-sheet peaks at 700 W): 4*B*L^2*C
 // operations against 4*B*L*C*sizeof(T) bytes (qkv read once, out written

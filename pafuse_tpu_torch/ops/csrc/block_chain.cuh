@@ -27,11 +27,9 @@
 namespace {
 
 // Step 2: attention_core.cu's pafuse_attention_core (attention_sm90.cuh's
-// tensor-core kernel), whose address the caller passes, so that kernel's
-// instantiations are compiled into one library: is_bf16, qkv, out,
-// sequences, L, S, C, H, scale, stream; returns a cudaError_t.
-typedef int (*AttentionFn)(int, const void*, void*, long long, int, int, int, int, float,
-                           void*);
+// tensor-core kernel), whose address the caller passes as an AttentionFn
+// (common.cuh), so that kernel's instantiations are compiled into one
+// library.
 
 // Bytes of a chain's workspace (ops/gemm.py::chain_workspace_bytes says the
 // same): room for the TF32 hi and lo halves of the four weights (8C^2 +

@@ -29,11 +29,14 @@
 //     At the training batch that is about 27 GB for the 48 blocks of a step,
 //     a third of the card's 80 GB, and it saves the third of the backward's
 //     FLOPs that a recompute would add.
-//   * A chain of launches, as block.cu, with the row LayerNorms, one
-//     attention CTA per (sequence, head) forward and backward with q, k, v,
-//     dO, P and dS in shared memory (L <= 68 fits), and LayerNorm-backward
-//     row kernels.  Every GEMM runs on the tensor cores, every float32
-//     product as three TF32 products a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
+//   * A chain of launches, as block.cu, with the row LayerNorms, the
+//     attention forward and backward on the tensor cores (attention_core.cu:
+//     attention_sm90.cuh and attention_bwd_sm90.cuh, (sequence, head) units
+//     in shared memory, mma.sync products as three TF32 products; called
+//     through the addresses the caller passes, AttentionFn and
+//     AttentionBwdFn), and LayerNorm-backward row kernels.  Every GEMM
+//     runs on the tensor cores, every float32 product as three TF32
+//     products a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
 //     (x_hi = tf32(x), x_lo = tf32(x - x_hi); the dropped a_lo*b_lo is
 //     ~2^-22 relative), with partial sums over at most two 32-deep K slices
 //     added in f32 FADDs (the tensor cores' own f32 accumulation
@@ -65,9 +68,10 @@
 //     LayerNorm-parameter gradients go the same way (column sums per chunk,
 //     then the ordered sum).  No float atomics and no split-K whose order
 //     varies: two identical calls give bit-identical gradients.
-//   * No padding: L and B are taken as they are (the TPU pads L to 8 and B
-//     to the tile, and masks the pad), so nothing from a pad row enters a
-//     sum.
+//   * No padding in device memory: L and B are taken as they are (the TPU
+//     pads L to 8 and B to the tile, and masks the pad); the attention
+//     stages pad their shared-memory tiles with zeros and mask the padded
+//     keys, so nothing from a pad row enters a sum.
 //
 // Plain C interface for ctypes: the kernel functions return the cudaError_t
 // of the first launch that failed, or 0; the size functions return float
@@ -574,101 +578,6 @@ cudaError_t ln_backward(const TG* G, const TX* X, const float* mean, const float
 }
 
 // ---------------------------------------------------------------------------
-// Attention backward: one CTA per (sequence, head).  q, k, v and the
-// head's output gradient g = dO live in shared memory (odd row stride); one
-// warp per query row recomputes P = softmax(q k^T * scale) and forms
-// dS = P * (dP - rowsum(dP * P)) with dP = g v^T; then every thread takes
-// (token, dim) elements of dq = scale * dS k, dk = scale * dS^T q and
-// dv = P^T g, written to dqkv in the [q | k | v] layout of qkv.
-// ---------------------------------------------------------------------------
-
-constexpr int ATTN_BWD_THREADS = 256;
-
-size_t attn_bwd_smem(int L, int d) {
-  return sizeof(float) * (4 * (size_t)L * (d | 1) + 2 * (size_t)L * (L | 1));
-}
-
-__global__ void __launch_bounds__(ATTN_BWD_THREADS)
-attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
-                float* __restrict__ dqkv, int L, int C, int H, int d, float scale) {
-  extern __shared__ float smem[];
-  const int dp = d | 1, lp = L | 1;
-  float* q = smem;
-  float* k = q + L * dp;
-  float* v = k + L * dp;
-  float* g = v + L * dp;
-  float* P = g + L * dp;
-  float* dS = P + L * lp;
-
-  const long long b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const float* base = qkv + b * L * 3LL * C + (long long)h * d;
-  const float* gbase = dO + b * L * (long long)C + (long long)h * d;
-  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
-    const int l = idx / d, c = idx % d;
-    const float* row = base + (long long)l * 3 * C + c;
-    q[l * dp + c] = row[0];
-    k[l * dp + c] = row[C];
-    v[l * dp + c] = row[2 * C];
-    g[l * dp + c] = gbase[(long long)l * C + c];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < L; i += ATTN_BWD_THREADS / 32) {
-    const float* qi = q + i * dp;
-    const float* gi = g + i * dp;
-    float* Pi = P + i * lp;
-    float* dSi = dS + i * lp;
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      const float* kj = k + j * dp;
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) s = fmaf(qi[c], kj[c], s);
-      s *= scale;
-      Pi[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(Pi[j] - mx);
-      Pi[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float rs = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float p = Pi[j] / sum;
-      const float* vj = v + j * dp;
-      float dpij = 0.f;
-      for (int c = 0; c < d; ++c) dpij = fmaf(gi[c], vj[c], dpij);
-      Pi[j] = p;
-      dSi[j] = dpij;
-      rs += dpij * p;
-    }
-    rs = warp_sum(rs);
-    for (int j = lane; j < L; j += 32) dSi[j] = Pi[j] * (dSi[j] - rs);
-  }
-  __syncthreads();
-
-  float* obase = dqkv + b * L * 3LL * C + (long long)h * d;
-  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
-    const int l = idx / d, c = idx % d;
-    float dq = 0.f, dk = 0.f, dv = 0.f;
-    for (int j = 0; j < L; ++j) {
-      dq = fmaf(dS[l * lp + j], k[j * dp + c], dq);
-      dk = fmaf(dS[j * lp + l], q[j * dp + c], dk);
-      dv = fmaf(P[j * lp + l], g[j * dp + c], dv);
-    }
-    float* row = obase + (long long)l * 3 * C + c;
-    row[0] = dq * scale;
-    row[C] = dk * scale;
-    row[2 * C] = dv;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // The two chains.
 // ---------------------------------------------------------------------------
 
@@ -680,8 +589,8 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
 
 template <typename T>
 cudaError_t train_fwd(const T* x, const float* m1, const float* m2, const Params& p,
-                      T* y, float* ws, float* split, long long B, int L, int C, int H,
-                      int hid, float scale, cudaStream_t st) {
+                      T* y, float* ws, float* split, AttentionFn attention, long long B,
+                      int L, int C, int H, int hid, float scale, cudaStream_t st) {
   const long long M = B * L;
   const Saved s = carve_saved(ws, M, C, hid);
   const unsigned ln_grid = (unsigned)((M + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
@@ -707,8 +616,8 @@ cudaError_t train_fwd(const T* x, const float* m1, const float* m2, const Params
   // 2. qkv = h1 Wqkv^T + bqkv
   RETURN_IF_ERROR(fwd_linear<EPI_STORE>(s.h1, hi[0], lo[0], p.bqkv, none, nullptr, L, s.qkv,
                                         nullptr, M, 3 * C, C, st));
-  // 3. o = per-head softmax(q k^T * scale) v
-  RETURN_IF_ERROR(launch_attention<float>(s.qkv, s.o, B, L, C, H, scale, st));
+  // 3. o = per-head softmax(q k^T * scale) v, float32 on the tensor cores
+  RETURN_IF_ERROR((cudaError_t)attention(0, s.qkv, s.o, B, L, 1, C, H, scale, st));
   // 4. x1 = x0 + m1 * (o Wproj^T + bproj)
   RETURN_IF_ERROR((fwd_linear<EPI_MASK_RESIDUAL, T>(s.o, hi[1], lo[1], p.bproj, x, m1, L,
                                                     s.x1, nullptr, M, C, C, st)));
@@ -731,8 +640,8 @@ cudaError_t train_fwd(const T* x, const float* m1, const float* m2, const Params
 template <typename T>
 cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
                       const Params& p, float* ws, T* dx, float* grads, float* scratch,
-                      long long B, int L, int C, int H, int hid, float scale,
-                      cudaStream_t st) {
+                      AttentionBwdFn attention_bwd, long long B, int L, int C, int H,
+                      int hid, float scale, cudaStream_t st) {
   const long long M = B * L;
   const Saved s = carve_saved(ws, M, C, hid);
   const Grads gr = carve_grads(grads, C, hid);
@@ -773,15 +682,8 @@ cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
   RETURN_IF_ERROR(data_grad<EPI_NONE>(t.da, hi[2], lo[2], none, t.dO, M, C, C, st));
   // 8. dWproj = da^T o, dbproj = sum of da
   RETURN_IF_ERROR(weight_grads(t.da, s.o, t.part, gr.wproj, gr.bproj, M, C, C, st));
-  // 9. attention backward -> dqkv
-  const int d = C / H;
-  const size_t smem = attn_bwd_smem(L, d);
-  if (smem > 48 * 1024)
-    RETURN_IF_ERROR(cudaFuncSetAttribute(
-        attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  attn_bwd_kernel<<<(unsigned)(B * H), ATTN_BWD_THREADS, smem, st>>>(s.qkv, t.dO, t.dqkv,
-                                                                     L, C, H, d, scale);
-  RETURN_IF_ERROR(cudaGetLastError());
+  // 9. attention backward -> dqkv, on the tensor cores
+  RETURN_IF_ERROR((cudaError_t)attention_bwd(s.qkv, t.dO, t.dqkv, B, L, C, H, scale, st));
   // 10. dh1 = dqkv Wqkv
   RETURN_IF_ERROR(data_grad<EPI_NONE>(t.dqkv, hi[3], lo[3], none, t.dh1, M, C, 3 * C, st));
   // 11. dWqkv = dqkv^T h1, dbqkv = sum of dqkv
@@ -806,11 +708,6 @@ extern "C" long long pafuse_block_train_scratch_floats(long long B, int L, int C
 // The forward's weight split, a temporary of each forward call.
 extern "C" long long pafuse_block_train_split_floats(int C, int hid) {
   return split_floats(C, hid);
-}
-
-// Dynamic shared memory of the attention backward at L tokens, head size d.
-extern "C" long long pafuse_block_train_smem_bytes(int L, int d) {
-  return (long long)attn_bwd_smem(L, d);
 }
 
 // The forward's GEMM alone (for its tests and timings): Y (M, N) = A (M,
@@ -873,18 +770,20 @@ extern "C" int pafuse_block_train_fwd(
     const float* n1b, const float* wqkv, const float* bqkv, const float* wproj,
     const float* bproj, const float* n2s, const float* n2b, const float* wfc1,
     const float* bfc1, const float* wfc2, const float* bfc2, const float* nos,
-    const float* nob, void* y, float* ws, float* split, long long B, int L, int C, int H,
-    int hid, float scale, void* stream) {
+    const float* nob, void* y, float* ws, float* split, void* attention, long long B, int L,
+    int C, int H, int hid, float scale, void* stream) {
   const Params p{n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b,
                  wfc1, bfc1, wfc2, bfc2, nos, nob};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AttentionFn fn = reinterpret_cast<AttentionFn>(attention);
   if (is_bf16) {
     using T = __nv_bfloat16;
     return (int)train_fwd<T>(static_cast<const T*>(x), m1, m2, p, static_cast<T*>(y), ws,
-                             split, B, L, C, H, hid, scale, st);
+                             split, fn, B, L, C, H, hid, scale, st);
   }
   return (int)train_fwd<float>(static_cast<const float*>(x), m1, m2, p,
-                               static_cast<float*>(y), ws, split, B, L, C, H, hid, scale, st);
+                               static_cast<float*>(y), ws, split, fn, B, L, C, H, hid, scale,
+                               st);
 }
 
 extern "C" int pafuse_block_train_bwd(
@@ -893,18 +792,19 @@ extern "C" int pafuse_block_train_bwd(
     const float* wproj, const float* bproj, const float* n2s, const float* n2b,
     const float* wfc1, const float* bfc1, const float* wfc2, const float* bfc2,
     const float* nos, const float* nob, float* ws, void* dx, float* grads,
-    float* scratch, long long B, int L, int C, int H, int hid, float scale,
-    void* stream) {
+    float* scratch, void* attention_bwd, long long B, int L, int C, int H, int hid,
+    float scale, void* stream) {
   const Params p{n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b,
                  wfc1, bfc1, wfc2, bfc2, nos, nob};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AttentionBwdFn fn = reinterpret_cast<AttentionBwdFn>(attention_bwd);
   if (is_bf16) {
     using T = __nv_bfloat16;
     return (int)train_bwd<T>(static_cast<const T*>(x), static_cast<const T*>(g), m1, m2,
-                             p, ws, static_cast<T*>(dx), grads, scratch, B, L, C, H, hid,
+                             p, ws, static_cast<T*>(dx), grads, scratch, fn, B, L, C, H, hid,
                              scale, st);
   }
   return (int)train_bwd<float>(static_cast<const float*>(x), static_cast<const float*>(g),
-                               m1, m2, p, ws, static_cast<float*>(dx), grads, scratch, B,
+                               m1, m2, p, ws, static_cast<float*>(dx), grads, scratch, fn, B,
                                L, C, H, hid, scale, st);
 }

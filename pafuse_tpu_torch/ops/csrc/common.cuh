@@ -1,9 +1,9 @@
 // Device helpers shared by the kernels (block.cu, block_temporal.cu,
-// layer.cu, attention.cu, block_train.cu, gemm.cu): dtype conversion, warp
-// reductions, the prologue and epilogue codes of gemm_sm90.cuh's GEMM, the
-// per-(sequence, head) attention kernel and the row LayerNorms (f32 and a
-// vectorised bf16 one), in an anonymous namespace of each source that
-// includes them.
+// layer.cu, attention.cu, block_train.cu, gemm.cu, attention_core.cu): dtype
+// conversion, warp reductions, the prologue and epilogue codes of
+// gemm_sm90.cuh's GEMM, the signatures of the attention stages and the row
+// LayerNorms (f32 and a vectorised bf16 one), in an anonymous namespace of
+// each source that includes them.
 
 #pragma once
 
@@ -34,12 +34,6 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -83,96 +77,21 @@ __device__ __forceinline__ float gelu_grad(float u) {
 }
 
 // ---------------------------------------------------------------------------
-// Attention: one CTA per (sequence, head).  q, k, v of the head live in
-// shared memory as f32 (k and v rows padded to an odd stride so that lanes
-// reading different keys hit different banks).  One warp per query row:
-// lanes split the keys for the logits, then the head dims for AV.  The
-// probabilities and the output are rounded to T (no-ops for T = float).
-// qkv: (rows, 3C) in T with [q | k | v] blocks of C; out: (rows, C) in T.
-//
-// Token l of sequence s lives at row (s / S) * L * S + l * S + s % S: S = 1
-// is the contiguous (seqs, L, C) layout (kernels #1, #2, the spatial half of
-// #4); S = N reads the frames of each (b, joint) sequence straight from a
-// (B, F, N, C) activation (the temporal block of #3 and #4), so no
-// transpose is needed.  Either way a token's d head values are contiguous.
+// The attention stages live in attention_core.cu only (attention_sm90.cuh,
+// attention_bwd_sm90.cuh); the other libraries call them through the
+// addresses ops/_build.py passes, so their kernels compile once:
+//   AttentionFn     pafuse_attention_core: is_bf16, qkv, out, sequences, L,
+//                   S, C, H, scale, stream (the chains' step 2, #2's and #5's
+//                   attention)
+//   AttentionBwdFn  pafuse_attention_core_bwd: qkv, dO, dqkv, sequences, L,
+//                   C, H, scale, stream (#6's attention backward)
+// Each returns a cudaError_t.
 // ---------------------------------------------------------------------------
 
-constexpr int ATTN_THREADS = 128;
-
-template <typename T>
-__global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int S,
-                 int C, int H, int d, float scale) {
-  extern __shared__ float smem[];
-  const int dp = d | 1;
-  float* q = smem;
-  float* k = q + L * dp;
-  float* v = k + L * dp;
-  float* p = v + L * dp;
-
-  const long long s = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const long long row0 = (s / S) * L * S + s % S;    // row of token 0
-  const T* base = qkv + row0 * 3LL * C + (long long)h * d;
-  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
-    const int l = idx / d, c = idx % d;
-    const T* row = base + (long long)l * S * 3 * C + c;
-    q[l * dp + c] = to_f32<T>(row[0]);
-    k[l * dp + c] = to_f32<T>(row[C]);
-    v[l * dp + c] = to_f32<T>(row[2 * C]);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  float* pw = p + warp * L;
-  for (int i = warp; i < L; i += nwarps) {
-    const float* qi = q + i * dp;
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      const float* kj = k + j * dp;
-      float sc = 0.f;
-      for (int c = 0; c < d; ++c) sc = fmaf(qi[c], kj[c], sc);
-      sc *= scale;
-      pw[j] = sc;
-      mx = fmaxf(mx, sc);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(pw[j] - mx);
-      pw[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) pw[j] = round_to<T>(pw[j] / sum);
-    __syncwarp();
-    T* orow = out + (row0 + (long long)i * S) * C + (long long)h * d;
-    for (int c = lane; c < d; c += 32) {
-      float o = 0.f;
-      for (int j = 0; j < L; ++j) o = fmaf(pw[j], v[j * dp + c], o);
-      orow[c] = from_f32<T>(o);
-    }
-    __syncwarp();
-  }
-}
-
-// seqs sequences of L tokens, laid out with S as above (S = 1: contiguous)
-template <typename T>
-cudaError_t launch_attention(const T* qkv, T* out, long long seqs, int L, int C, int H,
-                             float scale, cudaStream_t stream, int S = 1) {
-  const int d = C / H;
-  const size_t smem =
-      sizeof(float) * (3 * (size_t)L * (d | 1) + (size_t)(ATTN_THREADS / 32) * L);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  attention_kernel<T><<<(unsigned)(seqs * H), ATTN_THREADS, smem, stream>>>(
-      qkv, out, L, S, C, H, d, scale);
-  return cudaGetLastError();
-}
+typedef int (*AttentionFn)(int, const void*, void*, long long, int, int, int, int, float,
+                           void*);
+typedef int (*AttentionBwdFn)(const float*, const float*, float*, long long, int, int, int,
+                              float, void*);
 
 // ---------------------------------------------------------------------------
 // Row LayerNorm (the outer Spatial/Temporal norm): one warp per row,

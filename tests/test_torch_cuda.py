@@ -36,6 +36,14 @@ Bounds (those of chip_smoke.py; TF32 off on both sides):
                          other way (a p below 1 moves by <= 2^-8, so up to
                          two flips in a row carry <= 2^-7 max|v|); measured
                          at most 1.3e-3 x (|y| + max|v|);
+  attention_core_bwd     ATTN_BWD_RTOL = 1e-5 x max|plain| for each of dq,
+                         dk and dv (three TF32 products a product; the CPU
+                         emulation of that arithmetic stays within 1.0e-6
+                         on the training qkv and 1.9e-6 on unit-variance
+                         qkv at L = 243, and the tensor cores' truncating
+                         accumulation adds a few f32 ulps: measured on an
+                         H100 80GB HBM3 at most 4.0e-6 on unit-variance
+                         qkv at L = 243);
   fused_linear           float32 1e-5 max abs (outputs O(1); three TF32
                          products per product drop only a_lo*w_lo, ~2^-22
                          relative, and sum in another order); bfloat16
@@ -68,6 +76,8 @@ import torch
 
 from pafuse_tpu_torch.ops.attention import attention_reference, fused_attention
 from pafuse_tpu_torch.ops.attention_core import (attention_core,
+                                                 attention_core_bwd,
+                                                 attention_core_bwd_reference,
                                                  attention_core_reference)
 from pafuse_tpu_torch.ops.block import block_reference, fused_block
 from pafuse_tpu_torch.ops.block_temporal import (block_temporal_reference,
@@ -533,7 +543,8 @@ def test_fwd_linear_matches_plain_on_gpu(cuda_device, C, stage, r_dtype):
 def test_kernel_5_runs_its_gemms_on_the_tensor_cores_on_gpu(cuda_device):
     """One call of kernel #5 under torch.profiler launches the wgmma GEMM
     (its four products), the weight splits, the LayerNorm forward and the
-    attention kernel, and no other kernel (no scalar-FMA GEMM, no cuBLAS);
+    tensor-core attention, and no other kernel (no scalar-FMA GEMM, no
+    cuBLAS);
     chip_smoke.py's training profile files these GEMMs under the forward
     and kernel #6's under the data gradients, by the epilogue in the
     kernel's name."""
@@ -542,7 +553,7 @@ def test_kernel_5_runs_its_gemms_on_the_tensor_cores_on_gpu(cuda_device):
     x, g, m1, m2 = _inputs(8, 68, 224, seed=3, device=cuda_device)
     names = _device_kernels(lambda: block_train_fwd(x, m1, m2, params, HEADS))
     ours = ("sm90::gemm_kernel", "sm90::split_weights_kernel",
-            "ln_fwd_kernel", "attention_kernel")
+            "ln_fwd_kernel", "attention_tc_kernel")
     assert all(any(k in n for k in ours) for n in names), names
     fwd = [n for n in names if "sm90::gemm_kernel" in n]
     assert len(fwd) == 3, fwd          # store, store + GELU, masked residual
@@ -580,10 +591,11 @@ def test_weight_grad_matches_plain_on_gpu(cuda_device, N, K):
 def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
         cuda_device):
     """One call of kernel #2 and one of kernel #6 under torch.profiler: #2
-    launches the wgmma GEMM, its weight splits and the attention kernel; #6
-    the wgmma GEMM (data gradients), its transposed weight splits and the
-    mma.sync weight-gradient kernel, and neither a scalar-FMA GEMM, cuBLAS
-    or any other PyTorch kernel.  The profiled call's output of #2 is held
+    launches the wgmma GEMM, its weight splits and the tensor-core
+    attention; #6 the wgmma GEMM (data gradients), its transposed weight
+    splits, the mma.sync weight-gradient kernel and the tensor-core
+    attention backward, and neither a scalar-FMA GEMM, cuBLAS or any other
+    PyTorch kernel.  The profiled call's output of #2 is held
     against ``attention_reference`` (1e-5, the file's bound), and every
     failure of #2's checks reports that output's error beside the profiled
     kernel names, so a miss of the GEMM in the profile shows whether the
@@ -600,17 +612,17 @@ def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
             f"{sorted(names)}")
     assert err <= 1e-5, what
     ours = ("sm90::gemm_kernel", "sm90::split_weights_kernel",
-            "attention_kernel")
+            "attention_tc_kernel")
     assert all(any(k in n for k in ours) for n in names), what
     assert any("sm90::gemm_kernel" in n for n in names), what
 
     _, saved = block_train_fwd(x, m1, m2, params, HEADS)
     names = _device_kernels(lambda: block_train_bwd(saved, g))
     ours = ("sm90::gemm_kernel", "sm90::split_weights_t_kernel",
-            "wgrad_mma_kernel", "attn_bwd_kernel", "ln_bwd_kernel",
+            "wgrad_mma_kernel", "attention_bwd_tc_kernel", "ln_bwd_kernel",
             "colsum_kernel", "reduce_partials_kernel")
     assert all(any(k in n for k in ours) for n in names), names
-    assert {k for k in ours[:3] if any(k in n for n in names)} == set(ours[:3])
+    assert {k for k in ours[:4] if any(k in n for n in names)} == set(ours[:4])
 
 
 @pytest.mark.cuda
@@ -996,9 +1008,10 @@ def test_attention_core_matches_plain_on_gpu(cuda_device, dtype, layout, L,
 
 @pytest.mark.cuda
 def test_chains_run_the_tensor_core_attention_on_gpu(cuda_device):
-    """Under torch.profiler kernels #1 (float32 and bfloat16), #3 and #4
-    launch attention_tc_kernel and not common.cuh's attention_kernel;
-    kernels #2 and #5 still launch attention_kernel."""
+    """Under torch.profiler kernels #1 (float32 and bfloat16), #3, #4, #2
+    and #5 launch attention_tc_kernel, #6 attention_bwd_tc_kernel, and none
+    launches a kernel named attention_kernel or attn_bwd_kernel (the scalar
+    stages the tensor-core ones replaced)."""
     sp = _params(224, seed=5, device=cuda_device)
     tp = _params(224, seed=6, device=cuda_device)
     x, _, m1, m2 = _inputs(2 * 27, 68, 224, seed=7, device=cuda_device)
@@ -1019,9 +1032,13 @@ def test_chains_run_the_tensor_core_attention_on_gpu(cuda_device):
             ("#2", lambda: fused_attention(x, *sp[2:6], HEADS)),
             ("#5", lambda: block_train_fwd(x, m1, m2, sp, HEADS))):
         names = _device_kernels(fn)
-        assert any("attention_kernel" in n for n in names), (what, names)
-        assert not any("attention_tc_kernel" in n for n in names), (what,
-                                                                    names)
+        assert any("attention_tc_kernel" in n for n in names), (what, names)
+        assert not any("attention_kernel" in n for n in names), (what, names)
+    _, saved = block_train_fwd(x, m1, m2, sp, HEADS)
+    names = _device_kernels(lambda: block_train_bwd(saved, x))
+    assert any("attention_bwd_tc_kernel" in n for n in names), names
+    assert not any("attn_bwd_kernel" in n or "attention_kernel" in n
+                   for n in names), names
 
 
 @pytest.mark.cuda
@@ -1043,3 +1060,114 @@ def test_chains_reject_shapes_the_attention_does_not_take_on_gpu(
         attention_core(qkv, HEADS)
     assert attention_core(qkv.to(torch.bfloat16), HEADS).shape == (1, 300,
                                                                    8 * 64)
+
+
+ATTN_BWD_RTOL = 1e-5
+
+#: (B, L, C) of the attention backward: each part's spatial and temporal
+#: training shape (37 sequences of 27 frames), 3DHP's, the monolithic
+#: model's 134 joints, and 243 frames at each part width
+ATTN_BWD_SHAPES = [(999, 24, 384), (888, 27, 384), (999, 68, 224),
+                   (2516, 27, 224), (999, 42, 256), (1554, 27, 256),
+                   (999, 17, 288), (629, 27, 288), (999, 134, 288),
+                   (4958, 27, 288), (64, 243, 224), (64, 243, 256),
+                   (64, 243, 288), (64, 243, 384)]
+
+
+def _attention_bwd_errs(got, want):
+    """max|got - want| / max|want| for dq, dk and dv of (B, L, 3C)."""
+    C = got.shape[-1] // 3
+    return [float((got[..., i * C:(i + 1) * C] - want[..., i * C:(i + 1) * C])
+                  .abs().max() / want[..., i * C:(i + 1) * C].abs().max())
+            for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,C", ATTN_BWD_SHAPES)
+def test_attention_core_bwd_matches_plain_on_gpu(cuda_device, B, L, C):
+    """Kernel #6's attention backward alone against its plain version on
+    unit-variance qkv and dO; a repeat gives the same bits."""
+    r = np.random.RandomState(B + L + C)
+    qkv, do = (torch.tensor(r.randn(B, L, n), dtype=torch.float32,
+                            device=cuda_device) for n in (3 * C, C))
+    launches = attention_core_bwd.launches
+    got = attention_core_bwd(qkv, do, HEADS)
+    torch.cuda.synchronize()
+    assert attention_core_bwd.launches == launches + 1
+    assert got.shape == qkv.shape and bool(torch.isfinite(got).all())
+    errs = _attention_bwd_errs(got, attention_core_bwd_reference(qkv, do,
+                                                                 HEADS))
+    assert max(errs) <= ATTN_BWD_RTOL, errs
+    assert torch.equal(got, attention_core_bwd(qkv, do, HEADS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,C", [(37, 243, 256), (8, 243, 384)])
+def test_block_train_at_243_frames_on_gpu(cuda_device, B, L, C):
+    """Kernels #5/#6 at 243 tokens (MixSTE's receptive field; head sizes 32
+    and 48), which the scalar attention backward could not take, against
+    their plain versions; a second backward gives the same bits."""
+    params = _params(C, seed=L + C, device=cuda_device)
+    x, g, m1, m2 = _inputs(B, L, C, seed=2, device=cuda_device)
+    y, saved = block_train_fwd(x, m1, m2, params, HEADS)
+    dx, grads = block_train_bwd(saved, g)
+    torch.cuda.synchronize()
+    assert (y - train_fwd_reference(x, m1, m2, params, HEADS)).abs().max() <= 1e-4
+    want_dx, want = train_bwd_reference(x, g, m1, m2, params, HEADS)
+    assert max(_rel_errs((dx,) + grads, (want_dx,) + want)) <= 1e-4
+    dx2, grads2 = block_train_bwd(saved, g)
+    assert all(torch.equal(a, b) for a, b in zip((dx,) + grads, (dx2,) + grads2))
+
+
+@pytest.mark.cuda
+def test_float32_training_step_repeats_bit_for_bit_on_gpu(cuda_device):
+    """Two float32 training steps at depth 2 on kernels #5/#6 from one seed
+    give the same loss and the same parameters, bit for bit."""
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+    r = np.random.RandomState(3)
+    x2d = r.randn(8, 27, 134, 2).astype(np.float32)
+    x3d = (r.randn(8, 27, 134, 3) * 0.1).astype(np.float32)
+    runs = []
+    for _ in range(2):
+        m = D3DP(D3DPConfig(depth=2, drop_path_rate=0.1), device=cuda_device,
+                 generator=torch.Generator().manual_seed(0))
+        st = tr.create_train_state(m, seed=0, device=cuda_device)
+        step = tr.build_train_step(m, st.optimizer)
+        losses = [float(step(st, 1e-4, x2d, x3d)) for _ in range(2)]
+        runs.append((losses, [p.detach().clone() for p in m.parameters()]))
+    (l1, p1), (l2, p2) = runs
+    assert l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+
+
+@pytest.mark.cuda
+def test_kernels_2_and_5_reject_shapes_the_attention_does_not_take_on_gpu(
+        cuda_device):
+    """Kernel #2 and kernels #5/#6 raise ValueError before any launch where
+    the tensor-core attention does not take the shape: a head size above
+    64, or one (sequence, head) beyond a CTA's shared memory (float32, d =
+    64: the forward at 300 tokens; the backward already at 200, which
+    block_train_fwd checks before it starts a step)."""
+    wide = _params(288, seed=8, device=cuda_device)
+    x = torch.zeros(2, 10, 288, device=cuda_device)
+    with pytest.raises(ValueError, match="head sizes up to 64"):
+        fused_attention(x, *wide[2:6], 4)
+    ones = torch.ones(2, device=cuda_device)
+    with pytest.raises(ValueError, match="head sizes up to 64"):
+        block_train_fwd(x, ones, ones, wide, 4)
+    p = _params(8 * 64, seed=9, device=cuda_device)
+    x = torch.zeros(1, 300, 8 * 64, device=cuda_device)
+    launches = (fused_attention.launches, block_train_fwd.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_attention(x, *p[2:6], HEADS)
+    with pytest.raises(ValueError, match="shared memory"):
+        block_train_fwd(x, ones[:1], ones[:1], p, HEADS)
+    x = torch.zeros(1, 200, 8 * 64, device=cuda_device)
+    with pytest.raises(ValueError, match="attention backward"):
+        block_train_fwd(x, ones[:1], ones[:1], p, HEADS)
+    qkv = torch.zeros(1, 200, 3 * 8 * 64, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention_core_bwd(qkv, qkv[..., :8 * 64].contiguous(), HEADS)
+    assert (fused_attention.launches, block_train_fwd.launches) == launches
+    assert attention_core(qkv, HEADS).shape == (1, 200, 8 * 64)
