@@ -433,7 +433,10 @@ def kernels_worker(mode: str):
 def sass_compare(other: str):
     """Compile every CUDA source of both trees to a cubin (sm_90a, -O3) and
     compare the SASS (cuobjdump) of each kernel the two have in common,
-    names taken without the anonymous namespace's per-file hash."""
+    names taken without the anonymous namespace (which holds the file's
+    name and a hash): a source of this tree against the other tree's source
+    of the same name, or, where the other tree has none (a source split in
+    two), against the kernel of that name in any of its sources."""
     from pafuse_tpu_torch.ops import _build
 
     nvcc = _build._nvcc()
@@ -442,11 +445,13 @@ def sass_compare(other: str):
     os.makedirs(out, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    trees = {"parent": other, "change": HERE}
+    sources = {tree: sorted(f[:-3] for f in os.listdir(os.path.join(
+        root, "pafuse_tpu_torch", "ops", "csrc")) if f.endswith(".cu"))
+        for tree, root in trees.items()}
     jobs = {}
-    names = [n for n in _build.KERNELS if os.path.exists(os.path.join(
-        other, "pafuse_tpu_torch", "ops", "csrc", f"{n}.cu"))]
-    for name in names:
-        for tree, root in (("parent", other), ("change", HERE)):
+    for tree, root in trees.items():
+        for name in sources[tree]:
             src = os.path.join(root, "pafuse_tpu_torch", "ops", "csrc",
                                f"{name}.cu")
             cubin = os.path.join(out, f"{name}.{tree}.cubin")
@@ -462,8 +467,8 @@ def sass_compare(other: str):
                               text=True, check=True).stdout
         found, cur = {}, None
         for line in sass.splitlines():
-            line = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "",
-                          line)
+            line = re.sub(r"_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
+                          "_ZN", line)
             m = re.match(r"\s*Function : (\S+)", line)
             if m:
                 cur = found.setdefault(m.group(1), [])
@@ -473,14 +478,20 @@ def sass_compare(other: str):
                     cur.append(" ".join(m.group(1).split()))
         return found
 
+    par = {name: kernels(jobs[(name, "parent")][0])
+           for name in sources["parent"]}
+    pooled = {}
+    for name in sources["parent"]:
+        for k, v in par[name].items():
+            pooled.setdefault(k, v)
     common = identical = 0
     differing = []
-    for name in names:
-        par = kernels(jobs[(name, "parent")][0])
+    for name in sources["change"]:
+        ref = par.get(name, pooled)
         chg = kernels(jobs[(name, "change")][0])
-        for k in sorted(set(par) & set(chg)):
+        for k in sorted(set(ref) & set(chg)):
             common += 1
-            if par[k] == chg[k]:
+            if ref[k] == chg[k]:
                 identical += 1
             else:
                 differing.append(f"{name}.cu: {k}")

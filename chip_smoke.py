@@ -227,6 +227,21 @@ Phases, one JSON line each:
  21. mono134_train - that model (general.part_based_model=false,
                model.cs 288) trained on #5/#6 through run_trainer's checks
                (16 + 16 launches a step).
+ 21b. mixste243 - MixSTE's published model (general.part_based_model=
+               false model.cs=512 model.number_of_frames=243, depth 8,
+               1024 frames a step): the attention stages alone at (L, d) =
+               (243, 64), (351, 64), (351, 48), (243, 128), (134, 128),
+               forward float32 and bfloat16 and backward float32, on the
+               route the library takes (resident or streamed through
+               shared memory) against their plain versions, a repeat bit
+               for bit, beside the bound and SDPA; #5/#6 at (972, 134,
+               512) and (536, 243, 512) as in train_kernel; #1 at its 243-
+               and 351-frame serve windows against block_reference; 3
+               training steps through run_trainer's checks (16 + 16
+               launches a step, ms/step, peak memory, one step profiled),
+               the streamed kernels' launches counted in their libraries
+               (the forward's in the 351-frame window, the backward's two
+               passes in the training steps) and shown by the profile.
  22. ddp_train - data parallel (parallel.mesh): the H3WB trainer at full
                width through DistributedDataParallel in a world of one on
                NCCL (make_mesh under torchrun's RANK/WORLD_SIZE/LOCAL_RANK
@@ -275,8 +290,8 @@ Phases, one JSON line each:
                torchrun launches it (NCCL) and dryrun_multichip(2) in two
                gloo ranks sharing the card: DDP step (#5/#6), sharded eval
                step and a two-tier service with a stream (#1).
-Each phase from bf16_serve and from 12 on prints its wall seconds.
-Then the {"kernels": [...]} line, the nvidia-smi line and, last,
+Each phase from bf16_serve and from 12 on prints its wall seconds, and a
+"run" line the whole run's.  Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without CUDA it exits non-zero at once.
 
@@ -1371,51 +1386,90 @@ def _rel_err(a, b) -> float:
                  / b.double().abs().max().clamp_min(1e-30))
 
 
+ROUTES = {1: "resident", 2: "streamed"}
+
+
+def _stage_ok(got, want, qkv):
+    """(within the stage's bound, max abs error): ATTN_CORE_TOL_F32 in
+    float32, ATTN_CORE_TOL_BF16 x (|want| + max|v|) elementwise in
+    bfloat16."""
+    import torch
+    diff = (got.float() - want).abs()
+    if got.dtype == torch.float32:
+        return bool(diff.max() <= ATTN_CORE_TOL_F32), float(diff.max())
+    vmax = qkv[..., 2 * (qkv.shape[-1] // 3):].float().abs().max()
+    return (bool((diff <= ATTN_CORE_TOL_BF16 * (want.abs() + vmax)).all()),
+            float(diff.max()))
+
+
 def attention_stage_row(qkv, heads, phase, **fields):
-    """The float32 attention forward alone (ops.attention_core on a (B, L,
-    3C) float32 qkv, the stage of #2 and #5) against its plain version
-    (ATTN_CORE_TOL_F32): ms, plain ms, library ms (library_sdpa on the same
-    qkv) and the bound (4*B*L^2*C operations; qkv read once, the output
-    written once)."""
+    """The attention forward alone (ops.attention_core on a (B, L, 3C) qkv
+    in its dtype; in float32 the stage of #2 and #5) against its plain
+    version (_stage_ok), a repeat bit for bit, and the route the library
+    takes (its rule, and the streamed kernel's launches that its library
+    counted in the first call: one where the rule streams, else none): ms,
+    plain ms, library ms (library_sdpa on the same qkv) and the bound
+    (4*B*L^2*C operations; qkv read once, the output written once)."""
     import torch
     from pafuse_tpu_torch.ops.attention_core import (attention_core,
-                                                     attention_core_reference)
+                                                     attention_core_reference,
+                                                     stream_launches, variant)
     B, L, C3 = qkv.shape
     C = C3 // 3
+    name = "float32" if qkv.dtype == torch.float32 else "bfloat16"
+    route = variant(name == "bfloat16", L, C // heads)
+    stream_launches(zero=True)
     got = attention_core(qkv, heads)
+    streamed = stream_launches(zero=True)["forward"]
     torch.cuda.synchronize()
-    err = float((got - attention_core_reference(qkv, heads)).abs().max())
-    del got
+    want = attention_core_reference(qkv, heads).float()
+    ok, err = _stage_ok(got, want, qkv)
+    repeat = bool(torch.equal(got, attention_core(qkv, heads)))
+    del got, want
     q, k, v = qkv.view(B, L, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
-    r = {"phase": phase, "name": "attention_core", "dtype": "float32",
-         **fields, "B": B, "L": L, "C": C, "max_abs_err": err,
-         "ok": err <= ATTN_CORE_TOL_F32,
+    r = {"phase": phase, "name": "attention_core", "dtype": name,
+         **fields, "B": B, "L": L, "C": C, "route": ROUTES[route],
+         "stream_launches": streamed, "max_abs_err": err,
+         "deterministic": repeat,
+         "ok": ok and repeat and streamed == int(route == 2),
          "ms": cuda_time_ms(lambda: attention_core(qkv, heads)),
          "plain_ms": cuda_time_ms(lambda: attention_core_reference(qkv, heads)),
          "library_ms": cuda_time_ms(lambda: library_sdpa(q, k, v)),
-         **bound(4 * B * L * L * C, 16 * B * L * C, "float32")}
+         **bound(4 * B * L * L * C, 4 * B * L * C * qkv.element_size(), name)}
     emit(r)
     return r
+
+
+def _bwd_rel(got, want, C):
+    """max|got - want| / max|want| for each of dq, dk and dv."""
+    return [float((got[..., i * C:(i + 1) * C] - want[..., i * C:(i + 1) * C])
+                  .abs().max() / want[..., i * C:(i + 1) * C].abs().max())
+            for i in range(3)]
 
 
 def attention_bwd_stage_row(qkv, do, heads, phase, **fields):
     """#6's attention backward alone (ops.attention_core_bwd) on float32 qkv
     (B, L, 3C) and dO (B, L, C) against its plain version (ATTN_BWD_RTOL x
-    max|plain| for each of dq, dk, dv; a repeat bit for bit): ms, plain ms,
-    library ms (autograd through library_sdpa on the same qkv) and the
-    bound (10*B*L^2*C operations; qkv and dO read once, dqkv written
-    once)."""
+    max|plain| for each of dq, dk, dv; a repeat bit for bit), and the route
+    the library takes (its rule, and the launches of each streamed pass
+    that its library counted in the first call): ms, plain ms, library ms
+    (autograd through
+    library_sdpa on the same qkv) and the bound (10*B*L^2*C operations; qkv
+    and dO read once, dqkv written once)."""
     import torch
     from pafuse_tpu_torch.ops.attention_core import (
-        attention_core_bwd, attention_core_bwd_reference)
+        attention_core_bwd, attention_core_bwd_reference, bwd_variant,
+        stream_launches)
     B, L, C3 = qkv.shape
     C = C3 // 3
+    route = bwd_variant(L, C // heads)
+    stream_launches(zero=True)
     got = attention_core_bwd(qkv, do, heads)
+    passes = stream_launches(zero=True)
+    streamed = [passes["backward_a"], passes["backward_b"]]
     torch.cuda.synchronize()
     want = attention_core_bwd_reference(qkv, do, heads)
-    rel = [float((got[..., i * C:(i + 1) * C] - want[..., i * C:(i + 1) * C])
-                 .abs().max() / want[..., i * C:(i + 1) * C].abs().max())
-           for i in range(3)]
+    rel = _bwd_rel(got, want, C)
     err = float((got - want).abs().max())
     repeat = bool(torch.equal(got, attention_core_bwd(qkv, do, heads)))
     del got, want
@@ -1424,9 +1478,11 @@ def attention_bwd_stage_row(qkv, do, heads, phase, **fields):
     o = library_sdpa(q, k, v)
     go = do.view(B, L, heads, C // heads).transpose(1, 2)
     r = {"phase": phase, "name": "attention_core_bwd", "dtype": "float32",
-         **fields, "B": B, "L": L, "C": C, "max_abs_err": err,
+         **fields, "B": B, "L": L, "C": C, "route": ROUTES[route],
+         "stream_launches": streamed, "max_abs_err": err,
          "max_rel_err": max(rel), "deterministic": repeat,
-         "ok": max(rel) <= ATTN_BWD_RTOL and repeat,
+         "ok": (max(rel) <= ATTN_BWD_RTOL and repeat
+                and streamed == [int(route == 2)] * 2),
          "ms": cuda_time_ms(lambda: attention_core_bwd(qkv, do, heads)),
          "plain_ms": cuda_time_ms(
              lambda: attention_core_bwd_reference(qkv, do, heads)),
@@ -1704,7 +1760,8 @@ def dhp3_train_phase(seed: int, device: str = "cuda", depth: int = 8,
 
 def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
                 weights=None, part_based=True, flip_permutation=None,
-                phase="train", compute_dtype="float32", profile=True):
+                phase="train", compute_dtype="float32", profile=True,
+                streams=None, profile_groups=()):
     """The checks of a training path: ``steps`` steps through ``loader``
     (finite losses, 2 x depth launches of #5 and of #6 per network a step,
     every parameter moved; ms/step and trained frames/s), one step traced
@@ -1712,12 +1769,16 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
     one step against the same step on the plain versions (float32 bounds,
     or the bfloat16 ones at ``compute_dtype=bfloat16``), and the loss
     falling on one repeated batch.  Returns the launches of the main-path
-    run."""
+    run; the streamed attention kernels' launches in it, as their libraries
+    count them (ops.attention_core.stream_launches), go into ``streams``
+    when given a dict.  The profiled step must also show the groups
+    ``profile_groups``."""
     import numpy as np
     import torch
     from pafuse_tpu_torch import train as tr
     from pafuse_tpu_torch.diffusion import D3DP
     from pafuse_tpu_torch.models.mixste import MixSTE2
+    from pafuse_tpu_torch.ops.attention_core import stream_launches
     from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
                                                   block_train_fwd,
                                                   block_train_plain)
@@ -1742,6 +1803,8 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
 
     # main path: steps through the loader, lr decayed per epoch as the CLI
     block_train_fwd.launches = block_train_bwd.launches = 0
+    if dev.type == "cuda":
+        stream_launches(zero=True)
     losses, step_s, batches = [], [], []
     while len(losses) < steps:
         for _, b3d, b2d in loader.next_epoch():
@@ -1757,6 +1820,9 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
         else:
             lr *= lr_decay
     launches = (block_train_fwd.launches, block_train_bwd.launches)
+    streamed = stream_launches() if dev.type == "cuda" else {}
+    if streams is not None:
+        streams.update(streamed)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: non-finite loss {losses}")
     if launches != (per_step * steps, per_step * steps):
@@ -1772,7 +1838,7 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
           "frames": cfg.frames, "depth": cfg.depth, "joints": cfg.num_kps,
           "networks": part_names, "losses": losses,
           "launches_fwd": launches[0], "launches_bwd": launches[1],
-          "step_s": step_s, "ms_per_step": steady * 1e3,
+          "stream_launches": streamed, "step_s": step_s, "ms_per_step": steady * 1e3,
           "frames_per_s": seqs * cfg.frames / steady,
           "batches_per_epoch": sampler.batch_num(),
           "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -1781,7 +1847,8 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
         groups = profile_step(lambda: float(step(state, lr, *batches[-1])),
                               phase=f"{phase}_profile", names=TRAIN_GROUPS)
         missing = ({g for _, g in TRAIN_GROUPS[:2]}
-                   | {ATTN_CORE_GROUP, ATTN_BWD_GROUP}) - set(groups)
+                   | {ATTN_CORE_GROUP, ATTN_BWD_GROUP}
+                   | set(profile_groups)) - set(groups)
         if groups and missing:
             raise AssertionError(f"{phase}: the profile shows no {missing}: "
                                  f"{sorted(groups)}")
@@ -1862,6 +1929,8 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
 COPY_GROUP = "copies (transposes, .contiguous())"
 ATTN_CORE_GROUP = "attention (#1-#5, tensor cores)"
 ATTN_BWD_GROUP = "attention backward (#6, tensor cores)"
+ATTN_STREAM_GROUP = "attention, streamed (#1-#5, tensor cores)"
+ATTN_BWD_STREAM_GROUP = "attention backward, streamed (#6, passes A and B)"
 
 #: kernel-name patterns of the port's CUDA sources (and PyTorch's copies and
 #: cuBLAS), for the profiles; the first pattern found in a kernel's name
@@ -1873,7 +1942,9 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("sm90::row_stats", "row statistics (#1, #3, #4)"),
                  ("wgrad_mma_kernel", "weight-gradient GEMMs (#6, mma.sync)"),
                  ("attention_bwd_tc_kernel", ATTN_BWD_GROUP),
+                 ("attention_bwd_stream_[ab]_kernel", ATTN_BWD_STREAM_GROUP),
                  ("attention_tc_kernel", ATTN_CORE_GROUP),
+                 ("attention_stream_kernel", ATTN_STREAM_GROUP),
                  ("bf16_to_f32_kernel", "bfloat16 x to float32 (#2)"),
                  ("layernorm_kernel", "outer LayerNorm (#1, #3, #4)"),
                  ("layernorm_bf16_kernel",
@@ -3429,6 +3500,122 @@ def mono134_train_phase(seed: int, device: str = "cuda", depth: int = 8,
 
 
 # ---------------------------------------------------------------------------
+# MixSTE's published model: the attention stages streamed through shared
+# memory where one (sequence, head) does not fit a CTA
+# ---------------------------------------------------------------------------
+
+#: MixSTE (Zhang et al., CVPR 2022), the denoiser D3DP and PAFUSE build on:
+#: 8 layers of 512 channels (8 heads of 64) over 243 frames, run as
+#: general.part_based_model=false model.cs=512 model.number_of_frames=243
+#: on the 134 H3WB joints, 1024 frames (4 sequences) a step
+MIXSTE_CS, MIXSTE_FRAMES = 512, 243
+MIXSTE_SEQS = 1024 // MIXSTE_FRAMES
+MIXSTE_STEPS = 3
+#: (L, d) of the attention stages alone: the model's temporal block (243 x
+#: 64: resident forward, streamed backward), 351 frames at d = 64 and 48,
+#: and d = 128 (model.cs=1024) at 243 frames and at the 134 joints
+STREAM_STAGES = ((243, 64), (351, 64), (351, 48), (243, 128), (134, 128))
+#: its serve windows for kernel #1: (frames, hypotheses); 351 frames stream
+#: the float32 temporal attention
+MIXSTE_WINDOWS = ((243, 10), (351, 5))
+
+
+def mixste243_phase(seed: int, depth: int = 8, steps: int = MIXSTE_STEPS):
+    """MixSTE's 243-frame, 512-wide monolithic model on the card:
+    (a) the attention stages alone at STREAM_STAGES (B: the model's 536
+        temporal sequences, or its 972 spatial ones at 134 tokens), the
+        forward in float32 and bfloat16 and the backward in float32,
+        against their plain versions with a repeat bit for bit, each beside
+        its bound and SDPA's time, on the route the library takes;
+    (b) kernels #5/#6 against their plain versions at the model's spatial
+        (972, 134, 512) and temporal (536, 243, 512) shapes, x in float32
+        and bfloat16 (train_kernel_phase);
+    (c) kernel #1 at its serve windows (MIXSTE_WINDOWS, flip on) against
+        block_reference, float32 and bfloat16 (kernel_phase), counting the
+        streamed forward's launches in its library;
+    (d) ``steps`` training steps of the model at ``depth`` through
+        run_trainer's checks (16 + 16 launches a step at depth 8, ms/step,
+        peak memory), counting the launches of the streamed backward's two
+        passes in its library, one step profiled, which must show them.
+    Returns {"stages", "trains", "blocks": the rows of (a), (b), (c);
+    "launches": #5/#6's in (d); "block_launches": #1's in (c); "streams":
+    the streamed kernels' launches, "forward" in (c), "backward_a" and
+    "backward_b" in (d)}."""
+    import torch
+    from pafuse_tpu_torch.diffusion import D3DPConfig
+    from pafuse_tpu_torch.ops.attention_core import stream_launches
+    from pafuse_tpu_torch.ops.block import fused_block
+    from pafuse_tpu_torch.ops.gemm import linear_reference
+
+    dev = torch.device("cuda")
+    heads = 8
+    model = [("whole_body", 134, MIXSTE_CS)]
+    stages = []
+    for i, (L, d) in enumerate(STREAM_STAGES):
+        C = heads * d
+        B = MIXSTE_SEQS * (MIXSTE_FRAMES if L == 134 else 134)
+        g = torch.Generator().manual_seed(seed * 100 + 700 + i)
+        p = _random_block_params(C, g, dev)
+        x = torch.randn(B, L, C, generator=g).to(dev)
+        fields = {"L_d": [L, d], "shapes": "mixste243"}
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = linear_reference(x.to(dtype), p[2], p[3], p[0:2])
+            stages.append(attention_stage_row(qkv, heads, "mixste243_stage",
+                                              **fields))
+            del qkv
+        qkv = linear_reference(x, p[2], p[3], p[0:2])
+        do = torch.randn(B, L, C, generator=g).to(dev)
+        stages.append(attention_bwd_stage_row(qkv, do, heads,
+                                              "mixste243_stage", **fields))
+        del x, qkv, do, p
+        torch.cuda.empty_cache()
+    bad = [r for r in stages if not r["ok"]]
+    if bad:
+        raise AssertionError(f"mixste243: an attention stage disagrees with "
+                             f"its plain version: {bad}")
+
+    trains = train_kernel_phase(seed, MIXSTE_SEQS, frames=MIXSTE_FRAMES,
+                                parts=model, phase="mixste243_kernel")
+    bad = [r for r in trains if not r["ok"]]
+    if bad:
+        raise AssertionError(f"mixste243: a training kernel disagrees with "
+                             f"its plain version: {bad}")
+
+    fused_block.launches = 0
+    stream_launches(zero=True)
+    blocks = [r for frames, P in MIXSTE_WINDOWS
+              for r in kernel_phase(seed, 1, P=P, frames=frames, parts=model,
+                                    phase="mixste243_block")]
+    streams = {"forward": stream_launches()["forward"]}
+    block_launches = fused_block.launches
+    bad = [r for r in blocks if not r["ok"]]
+    if bad:
+        raise AssertionError(f"mixste243: fused_block disagrees with "
+                             f"block_reference: {bad}")
+
+    cfg = D3DPConfig(depth=depth, part_based=False, cs=MIXSTE_CS,
+                     frames=MIXSTE_FRAMES, drop_path_rate=0.1)
+    loader, sampler = _synthetic_batches(seed, MIXSTE_SEQS, cfg.frames)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trained = {}
+    launches = run_trainer(seed, "cuda", cfg, loader, sampler, MIXSTE_SEQS,
+                           steps, part_based=False, phase="mixste243_train",
+                           streams=trained,
+                           profile_groups=(ATTN_BWD_STREAM_GROUP,))
+    streams.update(backward_a=trained["backward_a"],
+                   backward_b=trained["backward_b"])
+    if not all(streams.values()):
+        raise AssertionError(f"mixste243: the streamed kernels did not run "
+                             f"on the main path: {streams}")
+    emit({"phase": "mixste243", "stream_launches": streams,
+          "attention_bwd_stream_launches_per_step": trained["backward_a"] / steps,
+          "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
+    return {"stages": stages, "trains": trains, "blocks": blocks,
+            "launches": launches, "block_launches": block_launches,
+            "streams": streams}
+
+
+# ---------------------------------------------------------------------------
 # PR 11: data parallel (training, sharded evaluation, multi-replica serving)
 # and the CLI's observability
 # ---------------------------------------------------------------------------
@@ -4357,6 +4544,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this smoke test needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    run_start = time.time()
     from pafuse_tpu_torch.ops import _build
     from pafuse_tpu_torch.utils.device import resolve_device
 
@@ -4509,6 +4697,8 @@ def main() -> int:
         raise AssertionError(f"a training kernel disagrees with its plain "
                              f"version at the monolithic shapes: {bad}")
     mono_launches = timed("mono134_train", mono134_train_phase, args.seed)
+    # MixSTE's 243-frame, 512-wide model: the streamed attention stages
+    m243 = timed("mixste243", mixste243_phase, args.seed)
     # data parallel on torch.distributed and the CLI's observability
     ddp_train_launches = timed("ddp_train", ddp_train_phase, args.seed,
                                workdir)
@@ -4553,6 +4743,16 @@ def main() -> int:
                             "shapes": sorted({f'({c["B"]}, {c["L"]}, '
                                               f'{c["C"]})' for c in cs})}}
 
+    def mixste243(cases, name, launches):
+        cs = [c for c in cases if c["name"] == name]
+        return {"mixste243": {**_sums(cs), **bf16(cs), "launches": launches,
+                              "shapes": sorted({f'({c["B"]}, {c["L"]}, '
+                                                f'{c["C"]})' for c in cs})}}
+
+    def streamed(name):
+        return [c for c in m243["stages"] if c["name"] == name
+                and c["route"] == "streamed"]
+
     def _packed(launches, name):
         return {f"packed_serve_{dtype}": c[name]
                 for dtype, c in launches.items()}
@@ -4569,6 +4769,7 @@ def main() -> int:
     dhp3_bwd = [c for c in dhp3_train if c["name"] == "block_train_bwd"]
     cli_launches = {run: dhp3_launches[run] for run in ("cli_train",
                                                         "cli_evaluate")}
+    emit({"phase": "run", "seconds": time.time() - run_start})
     # float32 numbers summed over each kernel's main-path shapes: for
     # fused_block one spatial + one temporal block of each part at bucket
     # 16, for the training kernels each part's two blocks of a step
@@ -4598,6 +4799,30 @@ def main() -> int:
                           **_sums([c for c in mono_cases
                                    if c["name"] == "attention_core"]),
                           "launches": mono_launches[0]}),
+        # the streamed forward (attention_sm90.cuh's attention_stream_kernel,
+        # the same entry and replaces) at mixste243's stage shapes where the
+        # library streams; launched by fused_block in mixste243's 351-frame
+        # serve window (float32 temporal blocks), as its library counts
+        _kernel_entry("attention_core_streamed", "cuda", ATTN_CORE_SOURCE,
+                      ATTN_CORE_REPLACES, m243["streams"]["forward"],
+                      streamed("attention_core"),
+                      **bf16(streamed("attention_core")),
+                      launched_by="any wrapper of the attention forward "
+                                  "where one (sequence, head) does not fit "
+                                  "a CTA or d > 64 (mixste243: fused_block "
+                                  "at 351 frames)"),
+        # the streamed backward's two kernels (pass A, pass B), launched by
+        # block_train_bwd at mixste243's temporal blocks (243 frames at d =
+        # 64), as its library counts: launches sums both passes
+        _kernel_entry("attention_core_bwd_streamed", "cuda", ATTN_BWD_SOURCE,
+                      ATTN_BWD_REPLACES,
+                      m243["streams"]["backward_a"]
+                      + m243["streams"]["backward_b"],
+                      streamed("attention_core_bwd"),
+                      launches_pass_a=m243["streams"]["backward_a"],
+                      launches_pass_b=m243["streams"]["backward_b"],
+                      launched_by="block_train_bwd (mixste243_train's "
+                                  "temporal blocks, block_train.cu step 9)"),
         # #6's attention backward at the training shapes (launched once by
         # every call of block_train_bwd, block_train.cu step 9)
         _kernel_entry("attention_core_bwd", "cuda", ATTN_BWD_SOURCE,
@@ -4614,6 +4839,8 @@ def main() -> int:
                               {"dhp3_train": dhp3_train_launches[1]})),
         _kernel_entry("fused_block", "cuda", SOURCE, REPLACES, launches,
                       cases, **bf16(cases),
+                      **mixste243(m243["blocks"], "fused_block",
+                                  m243["block_launches"]),
                       **_dhp3(dhp3_blocks, {
                           "dhp3_cli": sum(v["fused_block"]
                                           for v in cli_launches.values()),
@@ -4648,6 +4875,8 @@ def main() -> int:
                           "dhp3_cli": cli_launches["cli_train"][
                               "block_train_fwd"]}),
                       **mono134("block_train_fwd", mono_launches[0]),
+                      **mixste243(m243["trains"], "block_train_fwd",
+                                  m243["launches"][0]),
                       bf16_launches={k: v[0] for k, v in bf16_train.items()},
                       pr11_launches={
                           "ddp_train_world1": ddp_train_launches[
@@ -4672,6 +4901,8 @@ def main() -> int:
                           "dhp3_cli": cli_launches["cli_train"][
                               "block_train_bwd"]}),
                       **mono134("block_train_bwd", mono_launches[1]),
+                      **mixste243(m243["trains"], "block_train_bwd",
+                                  m243["launches"][1]),
                       bf16_launches={k: v[1] for k, v in bf16_train.items()},
                       pr11_launches={
                           "ddp_train_world1": ddp_train_launches[

@@ -56,9 +56,10 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         "pafuse_block_train_fwd": ([_I] + [_P] * 3 + [_P] * 14 + [_P] * 4
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
         # is_bf16, x, g, m1, m2, 14 params, saved, dx, grads, scratch, the
-        # attention backward (attention_bwd_function()), B, L, C, H, hidden,
-        # scale, stream
-        "pafuse_block_train_bwd": ([_I] + [_P] * 4 + [_P] * 14 + [_P] * 5
+        # streamed attention backward's stats (or NULL), the attention
+        # backward (attention_bwd_function()), B, L, C, H, hidden, scale,
+        # stream
+        "pafuse_block_train_bwd": ([_I] + [_P] * 4 + [_P] * 14 + [_P] * 6
                                    + [_LL, _I, _I, _I, _I, _F, _P], _I),
         # the forward's GEMM alone: A, W, bias, epilogue, R (or NULL),
         # r_is_bf16, mask (or NULL), L, Y, Y2 (or NULL), workspace, M, N, K,
@@ -94,18 +95,24 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
                                                            _P], _I),
     },
     "attention_core": {
-        # shared memory of one (sequence, head): is_bf16, L, d; the most
-        # one CTA may have
-        "pafuse_attention_core_unit_bytes": ([_I, _I, _I], _LL),
-        "pafuse_attention_core_smem_limit": ([], _LL),
-        # the backward's (float32): L, d
-        "pafuse_attention_core_bwd_unit_bytes": ([_I, _I], _LL),
+        # which kernel takes (L, d): is_bf16, L, d -> 1 resident, 2
+        # streamed, 0 neither
+        "pafuse_attention_core_variant": ([_I, _I, _I], _I),
         # is_bf16, qkv, out, sequences, L, S, C, H, scale, stream
         "pafuse_attention_core": ([_I, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
                                   _I),
-        # qkv, dO, dqkv, sequences, L, C, H, scale, stream
-        "pafuse_attention_core_bwd": ([_P, _P, _P, _LL, _I, _I, _I, _F, _P],
-                                      _I),
+        # the streamed kernel's launches: zero -> the count (then 0 if zero)
+        "pafuse_attention_core_stream_launches": ([_I], _LL),
+    },
+    "attention_core_bwd": {
+        # L, d -> as above (float32)
+        "pafuse_attention_core_bwd_variant": ([_I, _I], _I),
+        # qkv, dO, dqkv, stats scratch (or NULL), sequences, L, C, H, scale,
+        # stream
+        "pafuse_attention_core_bwd": ([_P, _P, _P, _P, _LL, _I, _I, _I, _F,
+                                       _P], _I),
+        # pass (0: A, 1: B), zero -> that pass's launches (then 0 if zero)
+        "pafuse_attention_core_bwd_stream_launches": ([_I, _I], _LL),
     },
     "attention": {
         # is_bf16, x, out, qkv scratch, attention scratch, workspace and its
@@ -192,10 +199,10 @@ def attention_function() -> int:
 
 @functools.lru_cache(maxsize=None)
 def attention_bwd_function() -> int:
-    """The address of ``csrc/attention_core.cu``'s
+    """The address of ``csrc/attention_core_bwd.cu``'s
     ``pafuse_attention_core_bwd``, which kernel #6 (block_train.cu) calls
     for its attention backward."""
-    fn = load("attention_core").pafuse_attention_core_bwd
+    fn = load("attention_core_bwd").pafuse_attention_core_bwd
     return ctypes.cast(fn, ctypes.c_void_p).value
 
 

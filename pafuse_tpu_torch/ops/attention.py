@@ -15,9 +15,8 @@ outputs stay in float32, and only the output is rounded to ``x.dtype``.
 which TF32 holds exactly; the attention between them on the tensor-core
 kernel of ``ops.attention_core`` in float32, three TF32 products a product)
 for CUDA tensors and uses ``attention_reference``, the same function in
-plain PyTorch ops, for CPU tensors.  Shapes that kernel does not take (a
-head size above 64, or L too long for one (sequence, head) in a CTA's
-shared memory) raise ``ValueError`` before any launch.
+plain PyTorch ops, for CPU tensors.  It takes any L and head sizes up to
+128; a head size above 128 raises ``ValueError`` before any launch.
 
 Parameters are float32 in torch layout: ``qkv_w`` (3C, C), ``qkv_b`` (3C,),
 ``proj_w`` (C, C), ``proj_b`` (C,).  ``x`` is (..., L, C): the leading dims

@@ -8,13 +8,17 @@ d^-1/2, the softmax over the whole row in float32, the probabilities
 rounded to the compute dtype ``T`` (the dtype of qkv) after the row's full
 sum, and ``T(sum p v)`` summed in float32.
 
-For CUDA tensors it launches the tensor-core kernel that the block chain
+For CUDA tensors it launches the tensor-core kernels that the block chain
 runs at its step 2, and kernels #2 and #5 in float32
 (``csrc/attention_core.cu`` on ``csrc/attention_sm90.cuh``: ``mma.sync``,
 bf16 products in bfloat16, three TF32 products a product in float32); for
 CPU tensors it uses :func:`attention_core_reference`, the same function in
 plain PyTorch ops, through which ``ops.block.block_reference`` runs its
-attention.
+attention.  A (sequence, head) whose q, k and v fit a CTA's shared memory
+(head size up to 64; L up to 256 in float32 at d = 64) goes through the
+resident kernel; any other L, and head sizes up to 128, through the
+streamed one, which runs the same arithmetic on key chunks that stream
+through shared memory.  A head size above 128 raises ``ValueError``.
 
 ``attention_core_bwd`` is kernel #6's attention backward
 (``pafuse_tpu/ops/block_grad.py:203-226``): from the saved float32 qkv (B,
@@ -22,7 +26,10 @@ L, 3C) and the gradient of the attention output dO (B, L, C) it recomputes
 P = softmax(q k^T d^-1/2) and returns dqkv = [dq | dk | dv] (B, L, 3C), dq
 = d^-1/2 dS k, dk = d^-1/2 dS^T q, dv = P^T dO, dS = P (dO v^T - rowsum(dO
 v^T * P)).  CUDA tensors go through ``csrc/attention_bwd_sm90.cuh`` (built
-into the same library; three TF32 products a product), CPU tensors through
+into ``csrc/attention_core_bwd.cu``; three TF32 products a product; the
+resident kernel where q, k, v and dO of one (sequence, head) fit a CTA,
+else the streamed one's two passes, with the rows' statistics in a
+scratch the wrapper allocates), CPU tensors through
 :func:`attention_core_bwd_reference`, through which
 ``ops.block_train.train_bwd_reference`` runs its attention backward.
 
@@ -36,6 +43,7 @@ and #4).  Each token's ``3C`` values are ``[q | k | v]``, C =
 from __future__ import annotations
 
 import functools
+from typing import Dict, Optional
 
 import torch
 
@@ -78,61 +86,83 @@ def attention_core_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return ao.permute(0, 3, 1, 2, 4).reshape(B, F, N, C)       # (B, N, H, F, d)
 
 
-@functools.lru_cache(maxsize=None)
-def _unit_bytes(bf16: bool, L: int, d: int):
-    """(shared memory of one (sequence, head), a CTA's most), from the
-    library: the kernels' own rule, asked once a shape."""
-    lib = _build.load("attention_core")
-    return (lib.pafuse_attention_core_unit_bytes(int(bf16), L, d),
-            lib.pafuse_attention_core_smem_limit())
+#: the largest head size the tensor-core attention takes (both stages)
+MAX_HEAD_DIM = 128
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_unit_bytes(L: int, d: int):
+def variant(bf16: bool, L: int, d: int) -> int:
+    """Which forward kernel takes (L, d) in bfloat16 or float32: 1 the
+    resident one, 2 the streamed one, 0 neither; the library's own rule,
+    asked once a shape.  Builds the kernels."""
+    return _build.load("attention_core").pafuse_attention_core_variant(
+        int(bf16), L, d)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_variant(L: int, d: int) -> int:
     """The same for the backward (float32)."""
-    lib = _build.load("attention_core")
-    return (lib.pafuse_attention_core_bwd_unit_bytes(L, d),
-            lib.pafuse_attention_core_smem_limit())
+    return _build.load("attention_core_bwd").pafuse_attention_core_bwd_variant(
+        L, d)
 
 
-def _raise_unless_fits(need, limit, L, C, num_heads, dtype, what, stage):
-    d = C // num_heads
-    if need == 0:
+def _raise_unless_taken(route, L, C, num_heads, what, stage):
+    if route == 0:
         raise ValueError(f"{what}: the tensor-core attention{stage} takes "
-                         f"head sizes up to 64; got d = {C} / {num_heads} "
-                         f"= {d}")
-    if need > limit:
-        raise ValueError(f"{what}: {L} tokens of head size {d} in {dtype} "
-                         f"need {need} bytes of shared memory for one "
-                         f"(sequence, head) in the tensor-core attention"
-                         f"{stage}, above the {limit} a CTA has")
+                         f"head sizes from 1 to {MAX_HEAD_DIM} and at least "
+                         f"one token; got d = {C} / {num_heads} = "
+                         f"{C // num_heads}, L = {L}")
 
 
 def check_shape(L: int, C: int, num_heads: int, dtype: torch.dtype,
                 what: str) -> None:
     """Raise ValueError where the tensor-core attention does not take (L,
-    d = C / num_heads) in ``dtype``: d above 64, or one (sequence, head)'s
-    q, k and v beyond a CTA's shared memory.  Builds the kernels."""
-    need, limit = _unit_bytes(dtype == torch.bfloat16, L, C // num_heads)
-    _raise_unless_fits(need, limit, L, C, num_heads, dtype, what, "")
+    d = C / num_heads) in ``dtype``: d above MAX_HEAD_DIM, or L < 1.
+    Builds the kernels."""
+    _raise_unless_taken(variant(dtype == torch.bfloat16, L, C // num_heads),
+                        L, C, num_heads, what, "")
 
 
 def check_bwd_shape(L: int, C: int, num_heads: int, what: str) -> None:
-    """Raise ValueError where the tensor-core attention backward does not
-    take (L, d = C / num_heads): d above 64, or one (sequence, head)'s q, k,
-    v and dO beyond a CTA's shared memory (float32: L up to at least 256
-    at d <= 48, up to 192 at d = 64).  Builds the kernels."""
-    need, limit = _bwd_unit_bytes(L, C // num_heads)
-    _raise_unless_fits(need, limit, L, C, num_heads, torch.float32, what,
-                       " backward")
+    """The same for the tensor-core attention backward (float32)."""
+    _raise_unless_taken(bwd_variant(L, C // num_heads), L, C, num_heads,
+                        what, " backward")
+
+
+def bwd_stats(seqs: int, L: int, C: int, num_heads: int,
+              device: torch.device) -> Optional[torch.Tensor]:
+    """The streamed backward's scratch of row statistics (m, 1 / l and t / l
+    a row and head: 3 x seqs x num_heads x L floats) where the library
+    streams (L, C / num_heads), else None: the resident kernel needs none
+    and its callers pass NULL."""
+    if bwd_variant(L, C // num_heads) != 2:
+        return None
+    return torch.empty(3 * seqs * num_heads * L, dtype=torch.float32,
+                       device=device)
+
+
+def stream_launches(zero: bool = False) -> Dict[str, int]:
+    """Launches of the streamed kernels, counted in the libraries where they
+    launch, from any wrapper, since the counts were last zeroed:
+    ``forward`` (attention_stream_kernel), ``backward_a`` and
+    ``backward_b`` (the backward's two passes, one each a call).  With
+    ``zero``, also sets them to 0.  Builds the kernels."""
+    fwd = _build.load("attention_core")
+    bwd = _build.load("attention_core_bwd")
+    return {"forward": fwd.pafuse_attention_core_stream_launches(int(zero)),
+            "backward_a": bwd.pafuse_attention_core_bwd_stream_launches(
+                0, int(zero)),
+            "backward_b": bwd.pafuse_attention_core_bwd_stream_launches(
+                1, int(zero))}
 
 
 def attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Attention from qkv (B, L, 3C) or (B, F, N, 3C); returns (B, L, C) or
     (B, F, N, C) in qkv's dtype.
 
-    CUDA tensors go through the tensor-core kernel (built on first use) or
-    raise; CPU tensors go through :func:`attention_core_reference`."""
+    CUDA tensors go through the tensor-core kernels (built on first use) or
+    raise: the resident one where it takes the shape, else the streamed
+    one; CPU tensors go through :func:`attention_core_reference`."""
     if qkv.device.type == "cpu":
         return attention_core_reference(qkv, num_heads)
     if qkv.device.type != "cuda":
@@ -159,7 +189,7 @@ def attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 #: kernel launches through ``attention_core`` (CUDA path only; the block
-#: chains launch the same kernel from their own wrappers)
+#: chains launch the same kernels from their own wrappers)
 attention_core.launches = 0
 
 
@@ -189,8 +219,9 @@ def attention_core_bwd(qkv: torch.Tensor, do: torch.Tensor,
     """Kernel #6's attention backward alone: float32 qkv (B, L, 3C) and do
     (B, L, C) -> dqkv (B, L, 3C).
 
-    CUDA tensors go through the tensor-core kernel (built on first use) or
-    raise; CPU tensors go through :func:`attention_core_bwd_reference`."""
+    CUDA tensors go through the tensor-core kernels (built on first use) or
+    raise, as :func:`attention_core` chooses; CPU tensors go through
+    :func:`attention_core_bwd_reference`."""
     if qkv.device.type == "cpu":
         return attention_core_bwd_reference(qkv, do, num_heads)
     if qkv.device.type != "cuda":
@@ -211,13 +242,15 @@ def attention_core_bwd(qkv: torch.Tensor, do: torch.Tensor,
                              f"{tuple(t.shape)} on {t.device}")
     C = C3 // 3
     check_bwd_shape(L, C, num_heads, "attention_core_bwd")
-    lib = _build.load("attention_core")
+    lib = _build.load("attention_core_bwd")
     dqkv = torch.empty_like(qkv)
+    stats = bwd_stats(B, L, C, num_heads, qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         err = lib.pafuse_attention_core_bwd(
-            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), B, L, C,
-            num_heads, (C // num_heads) ** -0.5, stream)
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
+            None if stats is None else stats.data_ptr(), B, L, C, num_heads,
+            (C // num_heads) ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"attention_core_bwd: CUDA launch failed with "
                            f"cudaError {err}")
@@ -226,5 +259,5 @@ def attention_core_bwd(qkv: torch.Tensor, do: torch.Tensor,
 
 
 #: kernel launches through ``attention_core_bwd`` (CUDA path only; kernel
-#: #6 launches the same kernel from its own wrapper)
+#: #6 launches the same kernels from its own wrapper)
 attention_core_bwd.launches = 0

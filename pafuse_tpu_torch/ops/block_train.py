@@ -32,9 +32,9 @@ versions ``fwd_linear_reference``, through which the plain forward runs
 its four products, ``data_grad_reference`` and ``weight_grad_reference``).
 The attention forward and backward run on the tensor-core kernels of
 ``ops.attention_core`` in float32 (plain ``attention_core_bwd_reference``,
-through which the plain backward runs its attention backward); shapes they
-do not take (a head size above 64, or L too long for one (sequence, head)
-in a CTA's shared memory: at head sizes up to 48, L up to 256) raise
+through which the plain backward runs its attention backward), which take
+any L and head sizes up to 128 (a (sequence, head) held in shared memory, or
+streamed through it beyond); a head size above 128, or C above 1024, raises
 ``ValueError`` before any launch.
 
 Parameters are the 14 float32 tensors of ``ops.block`` in torch layout:
@@ -51,7 +51,8 @@ import torch
 
 from pafuse_tpu_torch.ops import _build
 from pafuse_tpu_torch.ops.attention_core import (attention_core_bwd_reference,
-                                                 check_bwd_shape, check_shape)
+                                                 bwd_stats, check_bwd_shape,
+                                                 check_shape)
 from pafuse_tpu_torch.ops.block import _check as _check_block
 
 
@@ -215,8 +216,10 @@ def _check(x, m1, m2, params, num_heads) -> None:
             raise ValueError(f"block_train: {name} must be a contiguous float32 "
                              f"({B},) tensor on {x.device}; got {m.dtype} "
                              f"{tuple(m.shape)} on {m.device}")
-    if x.shape[2] > 512:
-        raise ValueError(f"block_train: C={x.shape[2]} > 512 is not supported")
+    if x.shape[2] > 1024:
+        raise ValueError(f"block_train: C={x.shape[2]} > 1024 is not supported "
+                         f"(the LayerNorm backward holds at most 1024 "
+                         f"columns a row)")
     if x.shape[2] % 8 or params[8].shape[0] % 8:
         raise ValueError("block_train: C and the hidden width must be "
                          "multiples of 8 (the tensor-core GEMMs' tiles)")
@@ -299,13 +302,15 @@ def block_train_bwd(ctx: TrainSaved, g: torch.Tensor
     dx = torch.empty_like(x)
     scratch = torch.empty(lib.pafuse_block_train_scratch_floats(B, L, C, hid),
                           dtype=torch.float32, device=x.device)
+    stats = bwd_stats(B, L, C, H, x.device)
     with torch.cuda.device(x.device):
         err = lib.pafuse_block_train_bwd(
             int(x.dtype == torch.bfloat16), x.data_ptr(), g.data_ptr(),
             m1.data_ptr(), m2.data_ptr(), *[p.data_ptr() for p in params],
             workspace.data_ptr(), dx.data_ptr(), flat.data_ptr(),
-            scratch.data_ptr(), _build.attention_bwd_function(), B, L, C, H,
-            hid, scale, _stream(x))
+            scratch.data_ptr(), None if stats is None else stats.data_ptr(),
+            _build.attention_bwd_function(), B, L, C, H, hid, scale,
+            _stream(x))
     _raise_on(err, "block_train_bwd")
     _build.count_launch(block_train_bwd)
     return dx, grads

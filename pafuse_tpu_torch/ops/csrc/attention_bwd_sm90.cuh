@@ -1,6 +1,6 @@
 // The attention backward of the training block (kernel #6, step 9 of
 // block_train.cu's train_bwd) on the tensor cores, in float32.  Built into
-// one library only, attention_core.cu, whose pafuse_attention_core_bwd
+// one library only, attention_core_bwd.cu, whose pafuse_attention_core_bwd
 // block_train.cu calls through its address and ops/attention_core.py calls
 // alone.
 //
@@ -49,6 +49,10 @@
 //     dS^T Q (P^T and dS^T repacked as A operands as in pass A); dk =
 //     scale * dk and dv are written from the fragments.
 // No atomics and a fixed order of every sum: a call repeats bit for bit.
+// Where one unit's four tiles do not fit a CTA's shared memory (float32: L
+// above 256 at d <= 48, above 192 at d = 64) or d is above 64, the
+// streamed kernel below takes it, in two passes over chunks that stream
+// through shared memory; variant() is the rule.
 //
 // Everything launches on the caller's stream; nothing allocates.
 
@@ -466,32 +470,389 @@ cudaError_t launch_dp(int nkt, const float* qkv, const float* dO, float* dqkv, l
   }
 }
 
+// ---------------------------------------------------------------------------
+// The streamed backward, for the units the resident kernel above does not
+// take (d above 64, up to attn_tc::MAX_STREAM_DIM, or one unit's q, k, v
+// and dO beyond a CTA's shared memory).  Two launches, each CTA
+// STREAM_WARPS 16-row tiles of one (sequence, head), one a warp, d padded
+// to 64 or 128:
+//   - pass A, per query tile: Q's and dO's A fragments split once into
+//     TF32 halves in shared memory (fragment order: one 16-byte read a
+//     lane, a k-step and a half); K and V stream through a two-stage
+//     cp.async ring in chunks of STREAM_KC keys, twice: the row's max, sum
+//     and sum of e * dP over the chunks (rescaled as the resident pass A
+//     rescales), then dS and dq = scale * dS K.  Each row's m, 1 / l and
+//     t / l go to the caller's scratch in global memory (3 L floats a unit);
+//   - pass B, per key tile: K's and V's halves split once into shared
+//     memory the same way; Q, dO and the rows' statistics stream through the
+//     ring in chunks of STREAM_KC queries, walked in order as the resident
+//     pass B walks its query tiles (a tile wholly past L skipped as there),
+//     so dk and dv sum in the same fixed order.
+// The statistics go through global memory, not shared, because the two
+// passes cut a unit differently (query tiles, key tiles) and so run as two
+// launches; at 3 floats a row they are a 1/40 of the unit's bytes at d =
+// 64.  Chunks of 32 keys (the resident kernel's are 32-80) keep the ring
+// and four warps' halves within ~100 KB at d <= 64 (two CTAs an SM) and
+// ~200 KB at d = 128.  The products are the resident kernel's (row_products,
+// fragment_times_rows), with the A fragments read from shared memory.
+// No atomics: a call repeats bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int STREAM_WARPS = THREADS / 32;
+constexpr int STREAM_KC = 32;
+
+using attn_tc::stream_dim;
+using attn_tc::stream_rows;
+using attn_tc::zero_smem;
+
+// 1: the resident kernel takes (L, d); 2: the streamed one; 0: neither.
+inline int variant(int L, int d) {
+  if (L < 1 || d < 1 || d > attn_tc::MAX_STREAM_DIM) return 0;
+  const long long ub = unit_bytes(L, d);
+  return ub != 0 && ub <= SMEM_MAX ? 1 : 2;
+}
+
+// Floats of one ring stage (pass A: a K and a V chunk; pass B: a Q and a
+// dO chunk and their rows' three statistics) and bytes of a CTA's shared
+// memory (two stages, and each warp's two 16-row tiles in TF32 halves).
+__host__ __device__ constexpr int stream_stage(int dp, bool b) {
+  return 2 * STREAM_KC * row_stride(dp, 4) + (b ? 3 * STREAM_KC : 0);
+}
+__host__ __device__ constexpr int stream_smem(int dp, bool b) {
+  return 2 * stream_stage(dp, b) * 4 + STREAM_WARPS * 2 * (dp / 8) * 2 * 32 * 16;
+}
+
+// A 16-row tile's A fragments (rows row0.. of x, row stride ld; zeros past
+// L and d) split into TF32 halves, into f: [k-step][hi, lo][lane].
+template <int KS>
+__device__ __forceinline__ void split_rows(uint4* f, const float* x, long long ld, int row0,
+                                           int L, int d) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + g + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+      split(row < L && col < d ? x[(long long)row * ld + col] : 0.f, h[i], l[i]);
+    }
+    f[2 * kk * 32 + lane] = make_uint4(h[0], h[1], h[2], h[3]);
+    f[(2 * kk + 1) * 32 + lane] = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// row_products with x's fragments read from shared memory (split_rows).
+template <int KS, int STRIDE>
+__device__ __forceinline__ void row_products(float (&acc)[4], const uint4* f, const float* y) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float small[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint4 h = f[2 * kk * 32 + lane], l = f[(2 * kk + 1) * 32 + lane];
+    const uint32_t a_h[4] = {h.x, h.y, h.z, h.w}, a_l[4] = {l.x, l.y, l.z, l.w};
+    const float* yr = y + g * STRIDE + 8 * kk + t;
+    uint32_t bh0, bl0, bh1, bl1;
+    split(yr[0], bh0, bl0);
+    split(yr[4], bh1, bl1);
+    mma_tf32(small, a_l, bh0, bh1);
+    mma_tf32(small, a_h, bl0, bl1);
+    mma_tf32(acc, a_h, bh0, bh1);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += small[e];
+}
+
+// Pass A.  One CTA: query tiles (blockIdx.x % blocks) * STREAM_WARPS.. of
+// unit blockIdx.x / blocks; stats: 3 L floats a unit (m, 1 / l, t / l).
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+attention_bwd_stream_a_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
+                              float* __restrict__ dqkv, float* __restrict__ stats, int L, int C,
+                              int H, int d, float scale, int blocks, int vb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int STRIDE = row_stride(DP, 4), KS = DP / 8, NKT = STREAM_KC / 16;
+  constexpr int STAGE = stream_stage(DP, false);
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  const long long unit = blockIdx.x / blocks, seq = unit / H;
+  const int blk = (int)(blockIdx.x - unit * blocks), h = (int)(unit - seq * H);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  const int q0 = (blk * STREAM_WARPS + warp) * 16;
+  const int C3 = 3 * C, nc = (L + STREAM_KC - 1) / STREAM_KC;
+  const float* src = qkv + seq * L * C3 + (long long)h * d;    // the unit's q at token 0
+  uint4* qf = reinterpret_cast<uint4*>(ring + 2 * STAGE) + warp * 2 * KS * 64;
+  uint4* gf = qf + KS * 64;
+
+  zero_smem(smem_raw, 2 * STAGE * 4 / 16);
+  __syncthreads();
+  // step i < nc: chunk i of K and V for the statistics; step nc + i: again
+  // for dq
+  auto issue = [&](int step) {
+    const int k0 = (step < nc ? step : step - nc) * STREAM_KC;
+    const int rows = L - k0 < STREAM_KC ? L - k0 : STREAM_KC;
+    float* stage = ring + (step & 1) * STAGE;
+    stream_rows(vb, stage, src + C, 0, 1, C3, k0, rows, d, STRIDE);
+    stream_rows(vb, stage + STREAM_KC * STRIDE, src + 2 * C, 0, 1, C3, k0, rows, d, STRIDE);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  issue(0);
+  split_rows<KS>(qf, src, C3, q0, L, d);
+  split_rows<KS>(gf, dO + seq * L * C + (long long)h * d, C, q0, L, d);
+  __syncwarp();
+
+  float s[NKT][2][4], dp[NKT][2][4];
+  auto products = [&](const float* k, const float* v, int k0) {
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int key0 = 16 * j + 8 * n;
+        row_products<KS, STRIDE>(s[j][n], qf, k + key0 * STRIDE);
+        row_products<KS, STRIDE>(dp[j][n], gf, v + key0 * STRIDE);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][n][e] = k0 + key0 + 2 * t + (e & 1) < L ? s[j][n][e] * scale : -INFINITY;
+      }
+  };
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, tot[2] = {0.f, 0.f};
+  float inv[2], rt[2], acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int step = 0; step < 2 * nc; ++step) {
+    if (step + 1 < 2 * nc) {
+      issue(step + 1);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();
+    const float* k = ring + (step & 1) * STAGE;
+    const float* v = k + STREAM_KC * STRIDE;
+    if (q0 < L && step < nc) {
+      products(k, v, step * STREAM_KC);
+      float cm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NKT; ++j)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], s[j][n][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m = fmaxf(mx[r], quad_max(cm[r]));
+        const float alpha = expf(mx[r] - m);     // 0 on the first chunk
+        sum[r] *= alpha;
+        tot[r] *= alpha;
+        mx[r] = m;
+      }
+      float cs[2] = {0.f, 0.f}, ct[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NKT; ++j)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][n][e] = expf(s[j][n][e] - mx[e >> 1]);
+            cs[e >> 1] += s[j][n][e];
+            ct[e >> 1] += s[j][n][e] * dp[j][n][e];
+          }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += quad_sum(cs[r]);
+        tot[r] += quad_sum(ct[r]);
+      }
+    } else if (q0 < L) {
+      if (step == nc) {
+        float* st = stats + unit * 3 * L;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          inv[r] = 1.f / sum[r];
+          rt[r] = tot[r] * inv[r];
+          const int row = q0 + gr + 8 * r;
+          if (t == 0 && row < L) {
+            st[row] = mx[r];
+            st[L + row] = inv[r];
+            st[2 * L + row] = rt[r];
+          }
+        }
+      }
+      products(k, v, (step - nc) * STREAM_KC);
+#pragma unroll
+      for (int j = 0; j < NKT; ++j)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[e] = (expf(s[j][n][e] - mx[e >> 1]) * inv[e >> 1]) * (dp[j][n][e] - rt[e >> 1]);
+          fragment_times_rows<KS, STRIDE>(acc, ds, k + (16 * j + 8 * n) * STRIDE);
+        }
+    }
+    __syncthreads();       // every warp is done with this stage before it refills
+  }
+  if (q0 < L) store_rows<KS>(dqkv + seq * L * C3 + (long long)h * d, C3, acc, scale, q0, L, d);
+}
+
+// Pass B.  One CTA: key tiles (blockIdx.x % blocks) * STREAM_WARPS.. of
+// unit blockIdx.x / blocks, with pass A's statistics.
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+attention_bwd_stream_b_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
+                              const float* __restrict__ stats, float* __restrict__ dqkv, int L,
+                              int C, int H, int d, float scale, int blocks, int vb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int STRIDE = row_stride(DP, 4), KS = DP / 8;
+  constexpr int STAGE = stream_stage(DP, true);
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  const long long unit = blockIdx.x / blocks, seq = unit / H;
+  const int blk = (int)(blockIdx.x - unit * blocks), h = (int)(unit - seq * H);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int k0 = (blk * STREAM_WARPS + warp) * 16;
+  const int C3 = 3 * C, nc = (L + STREAM_KC - 1) / STREAM_KC;
+  const float* src = qkv + seq * L * C3 + (long long)h * d;
+  const float* gsrc = dO + seq * L * C + (long long)h * d;
+  const float* st = stats + unit * 3 * L;
+  uint4* kf = reinterpret_cast<uint4*>(ring + 2 * STAGE) + warp * 2 * KS * 64;
+  uint4* vf = kf + KS * 64;
+
+  zero_smem(smem_raw, 2 * STAGE * 4 / 16);
+  __syncthreads();
+  // step c: chunk c of Q, dO and the statistics
+  auto issue = [&](int c) {
+    const int r0 = c * STREAM_KC, rows = L - r0 < STREAM_KC ? L - r0 : STREAM_KC;
+    float* stage = ring + (c & 1) * STAGE;
+    stream_rows(vb, stage, src, 0, 1, C3, r0, rows, d, STRIDE);
+    stream_rows(vb, stage + STREAM_KC * STRIDE, gsrc, 0, 1, C, r0, rows, d, STRIDE);
+    float* sst = stage + 2 * STREAM_KC * STRIDE;
+    for (int i = threadIdx.x; i < 3 * rows; i += blockDim.x) {
+      const int part = i / rows, r = i - part * rows;
+      copy_in<4>(sst + part * STREAM_KC + r, st + part * L + r0 + r);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  issue(0);
+  split_rows<KS>(kf, src + C, C3, k0, L, d);
+  split_rows<KS>(vf, src + 2 * C, C3, k0, L, d);
+  __syncwarp();
+
+  float dka[KS][4], dva[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) {
+      issue(c + 1);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();
+    const float* q = ring + (c & 1) * STAGE;
+    const float* g = q + STREAM_KC * STRIDE;
+    const float* sm = g + STREAM_KC * STRIDE;          // m, 1 / l, t / l
+    if (k0 < L)
+#pragma unroll
+      for (int qt = 0; qt < STREAM_KC / 16; ++qt) {
+        if (c * STREAM_KC + 16 * qt >= L) break;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int q0 = 16 * qt + 8 * n;
+          float s[4], dp[4], p[4], ds[4];
+          row_products<KS, STRIDE>(s, kf, q + q0 * STRIDE);
+          row_products<KS, STRIDE>(dp, vf, g + q0 * STRIDE);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = q0 + 2 * t + (e & 1);
+            p[e] = c * STREAM_KC + r < L ? expf(s[e] * scale - sm[r]) * sm[STREAM_KC + r] : 0.f;
+            ds[e] = p[e] * (dp[e] - sm[2 * STREAM_KC + r]);
+          }
+          fragment_times_rows<KS, STRIDE>(dva, p, g + q0 * STRIDE);
+          fragment_times_rows<KS, STRIDE>(dka, ds, q + q0 * STRIDE);
+        }
+      }
+    __syncthreads();
+  }
+  if (k0 < L) {
+    float* dk = dqkv + seq * L * C3 + C + (long long)h * d;
+    store_rows<KS>(dk, C3, dka, scale, k0, L, d);
+    store_rows<KS>(dk + C, C3, dva, 1.f, k0, L, d);
+  }
+}
+
+// Launches of attention_bwd_stream_a_kernel (pass A) and _b_kernel (pass
+// B) in this library, counted on the host where they happen
+// (pafuse_attention_core_bwd_stream_launches reads them).
+std::atomic<long long> stream_a_launches{0}, stream_b_launches{0};
+
+template <int DP>
+cudaError_t launch_stream(const float* qkv, const float* dO, float* dqkv, float* stats,
+                          long long seqs, int L, int C, int H, int d, float scale, int vb,
+                          cudaStream_t stream) {
+  if (stats == nullptr) return cudaErrorInvalidValue;
+  const auto ka = attention_bwd_stream_a_kernel<DP>;
+  const auto kb = attention_bwd_stream_b_kernel<DP>;
+  constexpr int smem_a = stream_smem(DP, false), smem_b = stream_smem(DP, true);
+  cudaError_t err;
+  if (smem_a > 48 * 1024 && (err = cudaFuncSetAttribute(
+                                 ka, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a)) !=
+                                cudaSuccess)
+    return err;
+  if (smem_b > 48 * 1024 && (err = cudaFuncSetAttribute(
+                                 kb, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b)) !=
+                                cudaSuccess)
+    return err;
+  const int blocks = ((L + 15) / 16 + STREAM_WARPS - 1) / STREAM_WARPS;
+  const long long grid = seqs * H * blocks;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  ka<<<(unsigned)grid, THREADS, smem_a, stream>>>(qkv, dO, dqkv, stats, L, C, H, d, scale,
+                                                   blocks, vb);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  stream_a_launches.fetch_add(1, std::memory_order_relaxed);
+  kb<<<(unsigned)grid, THREADS, smem_b, stream>>>(qkv, dO, stats, dqkv, L, C, H, d, scale,
+                                                   blocks, vb);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  stream_b_launches.fetch_add(1, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
 }  // namespace attn_bwd
 
-// seqs contiguous sequences of L tokens; cudaErrorInvalidValue for a shape
-// it does not take (d = C / H above 64, or one (sequence, head) beyond a
-// CTA's shared memory).
+// seqs contiguous sequences of L tokens: the resident kernel where it
+// takes (L, d = C / H), else the streamed one, which keeps the rows'
+// statistics in stats (3 * seqs * H * L floats; the resident kernel takes
+// NULL); cudaErrorInvalidValue for a shape neither takes (d above
+// attn_tc::MAX_STREAM_DIM), or for a streamed shape without stats.
 inline cudaError_t launch_attention_bwd_tc(const float* qkv, const float* dO, float* dqkv,
-                                           long long seqs, int L, int C, int H, float scale,
-                                           cudaStream_t stream) {
+                                           float* stats, long long seqs, int L, int C, int H,
+                                           float scale, cudaStream_t stream) {
   using namespace attn_bwd;
   if (seqs == 0) return cudaSuccess;
   if (seqs < 0 || H < 1 || C % H) return cudaErrorInvalidValue;
   const int d = C / H;
-  const long long ub = unit_bytes(L, d);
-  if (ub == 0 || ub > SMEM_MAX) return cudaErrorInvalidValue;
+  const int route = variant(L, d);
+  if (route == 0) return cudaErrorInvalidValue;
   // the copy width: the largest of 16, 8, 4 bytes that divides a head row,
   // the row strides and both input pointers
   const unsigned long long bits = (unsigned long long)(d * 4) | (unsigned long long)(C * 4) |
                                   reinterpret_cast<uintptr_t>(qkv) |
                                   reinterpret_cast<uintptr_t>(dO);
   const unsigned long long low = bits & (~bits + 1);
+  const int vb = (int)(low < 16 ? low : 16);
+  if (route == 2)
+    return stream_dim(d) == 64
+               ? launch_stream<64>(qkv, dO, dqkv, stats, seqs, L, C, H, d, scale, vb, stream)
+               : launch_stream<128>(qkv, dO, dqkv, stats, seqs, L, C, H, d, scale, vb, stream);
+  const long long ub = unit_bytes(L, d);
   // U: the most units (U | H or H | U) in SMEM_TARGET
   int U = 1;
   for (int u = 2; u * ub <= SMEM_TARGET; ++u)
     if (H % u == 0 || u % H == 0) U = u;
   const int nkt = key_tiles(L), kc = 16 * nkt, nc = (L + kc - 1) / kc;
-  const int vb = (int)(low < 16 ? low : 16);
   const size_t smem = (size_t)(U * ub);
   const int dp = padded_dim(d);
   return dp == 32   ? launch_dp<32>(nkt, qkv, dO, dqkv, seqs, L, C, H, d, scale, U, nc, vb,

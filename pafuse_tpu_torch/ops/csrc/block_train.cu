@@ -30,9 +30,10 @@
 //     a third of the card's 80 GB, and it saves the third of the backward's
 //     FLOPs that a recompute would add.
 //   * A chain of launches, as block.cu, with the row LayerNorms, the
-//     attention forward and backward on the tensor cores (attention_core.cu:
-//     attention_sm90.cuh and attention_bwd_sm90.cuh, (sequence, head) units
-//     in shared memory, mma.sync products as three TF32 products; called
+//     attention forward and backward on the tensor cores (attention_core.cu
+//     and attention_core_bwd.cu: attention_sm90.cuh and
+//     attention_bwd_sm90.cuh, (sequence, head) units in shared memory or
+//     streamed through it, mma.sync products as three TF32 products; called
 //     through the addresses the caller passes, AttentionFn and
 //     AttentionBwdFn), and LayerNorm-backward row kernels.  Every GEMM
 //     runs on the tensor cores, every float32 product as three TF32
@@ -483,35 +484,40 @@ cudaError_t weight_grads(const float* D, const float* X, float* part, float* dW,
 //   DXM = mask[m / L] * DX (the masked branch gradient, when asked for),
 // and per-CTA partials P[p, 0, c] = sum of g*xhat, P[p, 1, c] = sum of g
 // over the CTA's rows (warps in fixed order), for the scale and bias
-// gradients.  xhat is recomputed from X and the saved row statistics.
+// gradients.  xhat is recomputed from X and the saved row statistics.  A
+// lane holds MAXJ columns of a row: C <= 512 at LNB_MAXJ, C <= 1024 at
+// LNB_WIDE_MAXJ, whose warps' partials go through one shared buffer twice
+// (the scale sums, then the bias sums: the same order) to stay within the
+// 48 KB of static shared memory.
 // ---------------------------------------------------------------------------
 
 constexpr int LNB_THREADS = 256, LNB_WARPS = LNB_THREADS / 32;
 constexpr int LNB_MAXJ = 16;          // C <= 32 * LNB_MAXJ = 512
-constexpr int LNB_MAXC = 32 * LNB_MAXJ;
+constexpr int LNB_WIDE_MAXJ = 32;     // C <= 1024
 
-template <typename TG, typename TX, typename TO>
+template <typename TG, typename TX, typename TO, int MAXJ>
 __global__ void __launch_bounds__(LNB_THREADS)
 ln_bwd_kernel(const TG* __restrict__ G, const TX* __restrict__ X,
               const float* __restrict__ mean, const float* __restrict__ rstd,
               const float* __restrict__ scale, const float* __restrict__ R,
               const float* __restrict__ mask, int L, TO* __restrict__ DX,
               float* __restrict__ DXM, float* __restrict__ P, long long M, int C) {
-  __shared__ float red[LNB_WARPS][2][LNB_MAXC];
+  constexpr int MAXC = 32 * MAXJ, PARTS = MAXJ > LNB_MAXJ ? 1 : 2;
+  __shared__ float red[LNB_WARPS][PARTS][MAXC];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long r0 = (long long)blockIdx.x * LNB_ROWS;
-  float ps[LNB_MAXJ], pb[LNB_MAXJ];
+  float ps[MAXJ], pb[MAXJ];
 #pragma unroll
-  for (int j = 0; j < LNB_MAXJ; ++j) ps[j] = pb[j] = 0.f;
+  for (int j = 0; j < MAXJ; ++j) ps[j] = pb[j] = 0.f;
 
   for (int r = warp; r < LNB_ROWS; r += LNB_WARPS) {
     const long long m = r0 + r;
     if (m >= M) break;
     const float mu = mean[m], inv = rstd[m];
-    float gv[LNB_MAXJ], xh[LNB_MAXJ];
+    float gv[MAXJ], xh[MAXJ];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int j = 0; j < LNB_MAXJ; ++j) {
+    for (int j = 0; j < MAXJ; ++j) {
       const int c = lane + 32 * j;
       gv[j] = xh[j] = 0.f;
       if (c < C) {
@@ -530,7 +536,7 @@ ln_bwd_kernel(const TG* __restrict__ G, const TX* __restrict__ X,
     s2 = warp_sum(s2) / (float)C;
     const float mk = DXM != nullptr ? mask[m / L] : 0.f;
 #pragma unroll
-    for (int j = 0; j < LNB_MAXJ; ++j) {
+    for (int j = 0; j < MAXJ; ++j) {
       const int c = lane + 32 * j;
       if (c < C) {
         float dx = inv * (gv[j] * scale[c] - s1 - xh[j] * s2);
@@ -541,24 +547,41 @@ ln_bwd_kernel(const TG* __restrict__ G, const TX* __restrict__ X,
     }
   }
 
-#pragma unroll
-  for (int j = 0; j < LNB_MAXJ; ++j) {
-    const int c = lane + 32 * j;
-    if (c < C) {
-      red[warp][0][c] = ps[j];
-      red[warp][1][c] = pb[j];
-    }
-  }
-  __syncthreads();
   float* out = P + (long long)blockIdx.x * 2 * C;
-  for (int c = threadIdx.x; c < C; c += LNB_THREADS) {
-    float a = 0.f, b = 0.f;
-    for (int w = 0; w < LNB_WARPS; ++w) {
-      a += red[w][0][c];
-      b += red[w][1][c];
+  if constexpr (PARTS == 2) {
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < C) {
+        red[warp][0][c] = ps[j];
+        red[warp][1][c] = pb[j];
+      }
     }
-    out[c] = a;
-    out[C + c] = b;
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += LNB_THREADS) {
+      float a = 0.f, b = 0.f;
+      for (int w = 0; w < LNB_WARPS; ++w) {
+        a += red[w][0][c];
+        b += red[w][1][c];
+      }
+      out[c] = a;
+      out[C + c] = b;
+    }
+  } else {
+    for (int part = 0; part < 2; ++part) {
+#pragma unroll
+      for (int j = 0; j < MAXJ; ++j) {
+        const int c = lane + 32 * j;
+        if (c < C) red[warp][0][c] = part == 0 ? ps[j] : pb[j];
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < C; c += LNB_THREADS) {
+        float a = 0.f;
+        for (int w = 0; w < LNB_WARPS; ++w) a += red[w][0][c];
+        out[part * C + c] = a;
+      }
+      __syncthreads();     // read before the bias sums overwrite it
+    }
   }
 }
 
@@ -570,8 +593,13 @@ cudaError_t ln_backward(const TG* G, const TX* X, const float* mean, const float
                         TO* DX, float* DXM, float* part, float* ds_db, long long M,
                         int C, cudaStream_t stream) {
   const long long nch = n_chunks(M, LNB_ROWS);
-  ln_bwd_kernel<TG, TX, TO><<<(unsigned)nch, LNB_THREADS, 0, stream>>>(
-      G, X, mean, rstd, scale, R, mask, L, DX, DXM, part, M, C);
+  if (C > 32 * LNB_WIDE_MAXJ) return cudaErrorInvalidValue;
+  if (C <= 32 * LNB_MAXJ)
+    ln_bwd_kernel<TG, TX, TO, LNB_MAXJ><<<(unsigned)nch, LNB_THREADS, 0, stream>>>(
+        G, X, mean, rstd, scale, R, mask, L, DX, DXM, part, M, C);
+  else
+    ln_bwd_kernel<TG, TX, TO, LNB_WIDE_MAXJ><<<(unsigned)nch, LNB_THREADS, 0, stream>>>(
+        G, X, mean, rstd, scale, R, mask, L, DX, DXM, part, M, C);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_partials(part, nch, 2LL * C, ds_db, stream);
@@ -640,8 +668,8 @@ cudaError_t train_fwd(const T* x, const float* m1, const float* m2, const Params
 template <typename T>
 cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
                       const Params& p, float* ws, T* dx, float* grads, float* scratch,
-                      AttentionBwdFn attention_bwd, long long B, int L, int C, int H,
-                      int hid, float scale, cudaStream_t st) {
+                      float* stats, AttentionBwdFn attention_bwd, long long B, int L, int C,
+                      int H, int hid, float scale, cudaStream_t st) {
   const long long M = B * L;
   const Saved s = carve_saved(ws, M, C, hid);
   const Grads gr = carve_grads(grads, C, hid);
@@ -683,7 +711,8 @@ cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
   // 8. dWproj = da^T o, dbproj = sum of da
   RETURN_IF_ERROR(weight_grads(t.da, s.o, t.part, gr.wproj, gr.bproj, M, C, C, st));
   // 9. attention backward -> dqkv, on the tensor cores
-  RETURN_IF_ERROR((cudaError_t)attention_bwd(s.qkv, t.dO, t.dqkv, B, L, C, H, scale, st));
+  RETURN_IF_ERROR(
+      (cudaError_t)attention_bwd(s.qkv, t.dO, t.dqkv, stats, B, L, C, H, scale, st));
   // 10. dh1 = dqkv Wqkv
   RETURN_IF_ERROR(data_grad<EPI_NONE>(t.dqkv, hi[3], lo[3], none, t.dh1, M, C, 3 * C, st));
   // 11. dWqkv = dqkv^T h1, dbqkv = sum of dqkv
@@ -786,14 +815,16 @@ extern "C" int pafuse_block_train_fwd(
                                st);
 }
 
+// stats: the streamed attention backward's row statistics (3 * B * H * L
+// floats), or NULL where the resident kernel takes (L, C / H).
 extern "C" int pafuse_block_train_bwd(
     int is_bf16, const void* x, const void* g, const float* m1, const float* m2,
     const float* n1s, const float* n1b, const float* wqkv, const float* bqkv,
     const float* wproj, const float* bproj, const float* n2s, const float* n2b,
     const float* wfc1, const float* bfc1, const float* wfc2, const float* bfc2,
     const float* nos, const float* nob, float* ws, void* dx, float* grads,
-    float* scratch, void* attention_bwd, long long B, int L, int C, int H, int hid,
-    float scale, void* stream) {
+    float* scratch, float* stats, void* attention_bwd, long long B, int L, int C, int H,
+    int hid, float scale, void* stream) {
   const Params p{n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b,
                  wfc1, bfc1, wfc2, bfc2, nos, nob};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -801,10 +832,10 @@ extern "C" int pafuse_block_train_bwd(
   if (is_bf16) {
     using T = __nv_bfloat16;
     return (int)train_bwd<T>(static_cast<const T*>(x), static_cast<const T*>(g), m1, m2,
-                             p, ws, static_cast<T*>(dx), grads, scratch, fn, B, L, C, H, hid,
-                             scale, st);
+                             p, ws, static_cast<T*>(dx), grads, scratch, stats, fn, B, L, C,
+                             H, hid, scale, st);
   }
   return (int)train_bwd<float>(static_cast<const float*>(x), static_cast<const float*>(g),
-                               m1, m2, p, ws, static_cast<float*>(dx), grads, scratch, fn, B,
-                               L, C, H, hid, scale, st);
+                               m1, m2, p, ws, static_cast<float*>(dx), grads, scratch, stats,
+                               fn, B, L, C, H, hid, scale, st);
 }

@@ -77,21 +77,23 @@ __device__ __forceinline__ float gelu_grad(float u) {
 }
 
 // ---------------------------------------------------------------------------
-// The attention stages live in attention_core.cu only (attention_sm90.cuh,
-// attention_bwd_sm90.cuh); the other libraries call them through the
-// addresses ops/_build.py passes, so their kernels compile once:
+// The attention stages live in attention_core.cu (attention_sm90.cuh) and
+// attention_core_bwd.cu (attention_bwd_sm90.cuh) only; the other libraries
+// call them through the addresses ops/_build.py passes, so their kernels
+// compile once:
 //   AttentionFn     pafuse_attention_core: is_bf16, qkv, out, sequences, L,
 //                   S, C, H, scale, stream (the chains' step 2, #2's and #5's
 //                   attention)
-//   AttentionBwdFn  pafuse_attention_core_bwd: qkv, dO, dqkv, sequences, L,
-//                   C, H, scale, stream (#6's attention backward)
+//   AttentionBwdFn  pafuse_attention_core_bwd: qkv, dO, dqkv, stats (3 *
+//                   sequences * H * L floats of scratch), sequences, L, C,
+//                   H, scale, stream (#6's attention backward)
 // Each returns a cudaError_t.
 // ---------------------------------------------------------------------------
 
 typedef int (*AttentionFn)(int, const void*, void*, long long, int, int, int, int, float,
                            void*);
-typedef int (*AttentionBwdFn)(const float*, const float*, float*, long long, int, int, int,
-                              float, void*);
+typedef int (*AttentionBwdFn)(const float*, const float*, float*, float*, long long, int, int,
+                              int, float, void*);
 
 // ---------------------------------------------------------------------------
 // Row LayerNorm (the outer Spatial/Temporal norm): one warp per row,

@@ -24,7 +24,11 @@ tests against the TPU kernels in interpret mode and ``jax.grad``
   dk and dv, on the qkv the training forward computes (LN1(x) @ Wqkv +
   bqkv) and a unit-variance dO, at every training shape's L and d, at the
   monolithic model's L = 134 and at L = 243; and inside the whole plain
-  backward it keeps the block's bound, 1e-4 x max|gradient|.
+  backward it keeps the block's bound, 1e-4 x max|gradient|;
+- so does the streamed kernel's order (it takes a head size above 64 or a
+  unit beyond a CTA's shared memory: d padded to 64 or 128, pass A's row
+  statistics gathered over chunks of 32 keys, pass B's order unchanged) at
+  MixSTE's 243 and 351 frames and at d = 128.
 The kernel itself against this plain version runs on the card
 (tests/test_torch_cuda.py, chip_smoke.py's train_kernel and mono134_kernel
 phases).
@@ -240,7 +244,8 @@ def _jax_attention(qkv, num_heads):
 
 
 @pytest.mark.parametrize("L,d", [(24, 48), (27, 28), (68, 28), (42, 32),
-                                 (17, 36), (134, 36)])
+                                 (17, 36), (134, 36), (243, 64), (351, 64),
+                                 (243, 128)])
 def test_float32_matches_jax_vjp(L, d):
     qkv, do = _qkv_do(4, L, d, L * d)
     with jax.default_matmul_precision("highest"):
@@ -277,15 +282,47 @@ def _logits(a, b):
     return ah @ bh.mT + (al @ bh.mT + ah @ bl.mT)
 
 
-def _emulate(qkv, do, num_heads):
+#: the resident kernel's largest shared memory a CTA, and the streamed
+#: kernel's keys (and queries) a chunk (attention_bwd_sm90.cuh STREAM_KC)
+SMEM_MAX = 227 * 1024
+STREAM_KC = 32
+
+
+def _streamed(L, d):
+    """Whether the streamed backward takes (L, d) (attention_bwd_sm90.cuh's
+    variant(): d above 64, or one unit's q, k, v and dO tiles and its
+    statistics beyond SMEM_MAX)."""
+    if d > 64:
+        return True
+    kc = 16 * _bwd_key_tiles(L)
+    lp = -(-L // kc) * kc
+    dp = 32 if d <= 32 else 48 if d <= 48 else 64
+    return 4 * (4 * lp * (dp + 4) + 3 * lp) > SMEM_MAX
+
+
+def test_the_rule_streams_the_shapes_past_the_resident_kernel():
+    """L up to 256 at d <= 48 and 192 at d = 64 resident (the monolithic
+    model's 134 among them); 243 frames at d = 64 and any d above 64
+    streamed."""
+    assert not _streamed(256, 48) and _streamed(257, 48)
+    assert not _streamed(192, 64) and _streamed(193, 64)
+    assert not _streamed(134, 36) and _streamed(243, 64)
+    assert _streamed(1, 65) and _streamed(17, 128)
+
+
+def _emulate(qkv, do, num_heads, streamed=None):
     """The tensor-core backward's arithmetic on qkv (B, L, 3C), do (B, L,
-    C): returns dqkv (B, L, 3C)."""
+    C), the resident or the streamed kernel's as the rule picks (or the
+    streamed one where ``streamed``): returns dqkv (B, L, 3C)."""
     B, L, C3 = qkv.shape
     C = C3 // 3
     d = C // num_heads
     scale = d ** -0.5
-    dp = 32 if d <= 32 else 48 if d <= 48 else 64
-    kc = 16 * _bwd_key_tiles(L)
+    if streamed or _streamed(L, d):
+        dp, kc = (64 if d <= 64 else 128), STREAM_KC
+    else:
+        dp = 32 if d <= 32 else 48 if d <= 48 else 64
+        kc = 16 * _bwd_key_tiles(L)
     lp = -(-L // kc) * kc
     q, k, v = qkv.view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
     g = do.view(B, L, num_heads, d).transpose(1, 2)
@@ -366,6 +403,22 @@ def test_tensor_core_arithmetic_within_bound(L):
         want = attention_core_bwd_reference(qkv, do, HEADS)
         errs = _rel_errs(got, want, HEADS * d)
         assert max(errs) <= ATTN_BWD_RTOL, (L, d, errs)
+
+
+#: the shapes the streamed backward takes on the main paths (as
+#: test_torch_attention_core.py's STREAMED; 243 x 64 is MixSTE's cs=512
+#: temporal block) and the monolithic model's 134 joints at d = 128
+STREAMED = [(243, 64), (351, 64), (351, 48), (243, 128), (134, 128)]
+
+
+@pytest.mark.parametrize("L,d", STREAMED)
+def test_streamed_arithmetic_within_bound(L, d):
+    qkv, do = _train_qkv_do(2, L, d, L * 100 + d)
+    assert _streamed(L, d)
+    got = _emulate(qkv, do, HEADS, streamed=True)
+    want = attention_core_bwd_reference(qkv, do, HEADS)
+    errs = _rel_errs(got, want, HEADS * d)
+    assert max(errs) <= ATTN_BWD_RTOL, (L, d, errs)
 
 
 @pytest.mark.parametrize("B,L,C", [(6, 24, 384), (4, 68, 224), (3, 134, 288)])

@@ -12,10 +12,12 @@ test_torch_block_temporal.py) hold it inside the whole block.  Here:
 - its (B, F, N, 3C) layout equals transpose -> (B*N, F, 3C) -> transpose;
 - in float32 it agrees with the JAX model's ``_attention`` (the projection
   set to the identity), whose rounding points are ``_block_body``'s there;
-- the tensor-core kernel's arithmetic, emulated on the CPU (head size padded
-  with zeros to 32/48/64, keys padded to the kernel's key chunks and masked
-  to -inf, the row's max and sum gathered chunk by chunk past 144 keys),
-  stays within its bounds of the plain version:
+- the tensor-core kernels' arithmetic, emulated on the CPU (head size
+  padded with zeros to 32/48/64, keys padded to the kernel's key chunks and
+  masked to -inf, the row's max and sum gathered chunk by chunk past 144
+  keys; the streamed kernel, which takes a head size above 64 or a unit
+  beyond a CTA's shared memory, with d padded to 64 or 128 and its keys in
+  chunks of 64 at any L), stays within its bounds of the plain version:
     float32: three TF32 products a product (split_tf32; in the logits
       hi*hi, and hi*lo + lo*hi summed apart and added; in P V lo*hi, hi*lo,
       hi*hi in one sum) within 1e-6 max abs on the qkv the chain
@@ -144,7 +146,8 @@ def test_temporal_layout_equals_transposed_sequences(dtype, F, N):
 
 
 @pytest.mark.parametrize("L,d", [(24, 48), (27, 28), (68, 28), (42, 32),
-                                 (17, 36), (134, 36)])
+                                 (17, 36), (134, 36), (243, 64), (351, 64),
+                                 (243, 128)])
 def test_float32_matches_jax_attention(L, d):
     C = HEADS * d
     r = np.random.RandomState(L * d)
@@ -169,16 +172,45 @@ def _key_tiles(L):
         9 if L <= 144 else 4)
 
 
-def _emulate(qkv, num_heads):
-    """The tensor-core kernel's arithmetic on qkv (B, L, 3C): returns the
-    output (B, L, C) and the probabilities (B, H, L, L), both in qkv's
-    dtype."""
+#: the resident kernel's largest shared memory a CTA (attention_sm90.cuh
+#: SMEM_MAX), and the streamed kernel's keys a chunk (STREAM_KC)
+SMEM_MAX = 227 * 1024
+STREAM_KC = 64
+
+
+def _streamed(size, L, d):
+    """Whether the streamed kernel takes (L, d) (attention_sm90.cuh's
+    variant(): d above 64, or one unit's q, k, v tiles beyond SMEM_MAX)."""
+    if d > 64:
+        return True
+    kc = 16 * _key_tiles(L)
+    dp = 32 if d <= 32 else 48 if d <= 48 else 64
+    stride = dp + (8 if size == 2 else 4)
+    return 3 * -(-L // kc) * kc * stride * size > SMEM_MAX
+
+
+def test_the_rule_streams_the_shapes_past_the_resident_kernel():
+    """float32: L up to 256 at d = 64 and 320 at d <= 48 resident; bf16 up
+    to 512 at d = 64; any d above 64 streamed."""
+    assert not _streamed(4, 256, 64) and _streamed(4, 257, 64)
+    assert not _streamed(4, 320, 48) and _streamed(4, 321, 48)
+    assert not _streamed(2, 512, 64) and _streamed(2, 513, 64)
+    assert _streamed(4, 1, 65) and _streamed(2, 17, 128)
+
+
+def _emulate(qkv, num_heads, streamed=None):
+    """The tensor-core kernels' arithmetic on qkv (B, L, 3C), the resident
+    or the streamed one as the rule picks (or the streamed one where
+    ``streamed``): returns the output (B, L, C) and the probabilities (B,
+    H, L, L), both in qkv's dtype."""
     cd = qkv.dtype
     B, L, C3 = qkv.shape
     C = C3 // 3
     d = C // num_heads
-    dp = 32 if d <= 32 else 48 if d <= 48 else 64
-    kc = 16 * _key_tiles(L)
+    if streamed or _streamed(qkv.element_size(), L, d):
+        dp, kc = (64 if d <= 64 else 128), STREAM_KC
+    else:
+        dp, kc = (32 if d <= 32 else 48 if d <= 48 else 64), 16 * _key_tiles(L)
     chunks = -(-L // kc)
     q, k, v = qkv.float().view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
     q, k, v = (torch.nn.functional.pad(t, (0, dp - d, 0, chunks * kc - L))
@@ -258,6 +290,34 @@ def test_bfloat16_arithmetic_within_one_ulp(L):
         carried = (dp @ v.abs()).transpose(1, 2).reshape(B, L, C3 // 3)
         bound = _bf16_ulp(want) + carried
         assert bool(((got.float() - want).abs() <= bound).all()), (L, d)
+
+
+#: the shapes the streamed kernel takes on the main paths: MixSTE's 243
+#: frames at d = 64 (the cs=512 model), 351 frames at d = 64 and 48, d = 128
+#: (C = 1024) at 243 frames and at the 134 joints
+STREAMED = [(243, 64), (351, 64), (351, 48), (243, 128), (134, 128)]
+
+
+@pytest.mark.parametrize("L,d", STREAMED)
+def test_streamed_arithmetic_within_bounds(L, d):
+    """The streamed kernel's order (chunks of 64 keys, d padded to 64 or
+    128) within the resident kernel's bounds, in both dtypes (at 243 x 64
+    the resident kernel takes the shape, with the same chunks)."""
+    for dtype in DTYPES:
+        qkv = _chain_qkv(L, d, L * 100 + d, dtype)
+        got, p = _emulate(qkv, HEADS, streamed=True)
+        want = attention_core_reference(qkv, HEADS).float()
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-6, (L, d)
+            continue
+        plain_p = _plain_probs(qkv, HEADS).float()
+        dp = (p.float() - plain_p).abs()
+        assert bool((dp <= _bf16_ulp(plain_p)).all()), (L, d)
+        B, _, C3 = qkv.shape
+        v = qkv.float().view(B, L, 3, HEADS, d)[:, :, 2].transpose(1, 2)
+        carried = (dp @ v.abs()).transpose(1, 2).reshape(B, L, C3 // 3)
+        assert bool(((got.float() - want).abs()
+                     <= _bf16_ulp(want) + carried).all()), (L, d)
 
 
 def test_wrapper_rejects_a_bad_layout():

@@ -78,7 +78,8 @@ from pafuse_tpu_torch.ops.attention import attention_reference, fused_attention
 from pafuse_tpu_torch.ops.attention_core import (attention_core,
                                                  attention_core_bwd,
                                                  attention_core_bwd_reference,
-                                                 attention_core_reference)
+                                                 attention_core_reference,
+                                                 stream_launches)
 from pafuse_tpu_torch.ops.block import block_reference, fused_block
 from pafuse_tpu_torch.ops.block_temporal import (block_temporal_reference,
                                                  fused_block_temporal)
@@ -965,10 +966,14 @@ ATTN_CORE_TOL_BF16 = 2.0 ** -7
 #: (L, C) of the attention stage: the six serve bucket-16 shapes (each
 #: part's joints and 27 frames), 3DHP's (C 288, d 36), the monolithic
 #: model's 134 joints, 243 frames (two passes over chunks of 64 keys) and
-#: one token
+#: one token; then the shapes the streamed kernel takes in float32 (and in
+#: bfloat16 past 512 tokens or d = 64): MixSTE's cs=512 model at 243 frames
+#: (resident) and 351 (streamed), 351 frames at d = 48, d = 128 (C = 1024)
+#: at 243 frames, 134 joints and one token, and an odd d = 65 (C = 520)
 ATTN_CORE_SHAPES = [(24, 384), (27, 384), (68, 224), (27, 224), (42, 256),
                     (27, 256), (17, 288), (27, 288), (134, 288), (243, 384),
-                    (243, 224), (1, 384)]
+                    (243, 224), (1, 384), (243, 512), (351, 512), (351, 384),
+                    (243, 1024), (134, 1024), (1, 1024), (300, 520)]
 
 
 def _attention_core_ok(got, want, qkv):
@@ -1044,34 +1049,80 @@ def test_chains_run_the_tensor_core_attention_on_gpu(cuda_device):
 @pytest.mark.cuda
 def test_chains_reject_shapes_the_attention_does_not_take_on_gpu(
         cuda_device):
-    """A head size above 64, or one (sequence, head) beyond a CTA's shared
-    memory (float32, d = 64, 300 tokens), raises ValueError before any
-    launch; bfloat16 takes the same 300 tokens."""
+    """The shapes the resident attention refused run on the streamed one
+    against their plain versions: a head size of 72 in #1, one (sequence,
+    head) beyond a CTA's shared memory (float32, d = 64, 300 tokens) in #3
+    and the stage alone; a head size above 128 raises ValueError, naming
+    the limit, before any launch."""
     wide = _params(8 * 72, seed=8, device=cuda_device)
-    with pytest.raises(ValueError, match="head sizes up to 64"):
-        fused_block(torch.zeros(2, 10, 8 * 72, device=cuda_device),
-                    wide[:12], wide[12:], HEADS)
+    x, _, _, _ = _inputs(2, 10, 8 * 72, seed=8, device=cuda_device)
+    got = fused_block(x, wide[:12], wide[12:], HEADS)
+    want = block_reference(x, wide[:12], wide[12:], HEADS)
+    assert float((got - want).abs().max()) <= 1e-4
     p = _params(8 * 64, seed=9, device=cuda_device)
-    x = torch.zeros(1, 300, 2, 8 * 64, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_block_temporal(x, p[:12], p[12:], HEADS)
-    qkv = torch.zeros(1, 300, 3 * 8 * 64, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        attention_core(qkv, HEADS)
-    assert attention_core(qkv.to(torch.bfloat16), HEADS).shape == (1, 300,
-                                                                   8 * 64)
+    x, _, _, _ = _inputs(2, 300, 8 * 64, seed=9, device=cuda_device)
+    x = x.view(1, 300, 2, 8 * 64)
+    got = fused_block_temporal(x, p[:12], p[12:], HEADS)
+    want = block_temporal_reference(x, p[:12], p[12:], HEADS)
+    assert float((got - want).abs().max()) <= 1e-4
+    qkv = torch.randn(1, 300, 3 * 8 * 64, device=cuda_device)
+    got = attention_core(qkv, HEADS)
+    ok, err = _attention_core_ok(got, attention_core_reference(qkv, HEADS),
+                                 qkv)
+    assert ok, err
+    over = _params(8 * 136, seed=10, device=cuda_device)
+    launches = fused_block.launches
+    with pytest.raises(ValueError, match="head sizes from 1 to 128"):
+        fused_block(torch.zeros(2, 10, 8 * 136, device=cuda_device),
+                    over[:12], over[12:], HEADS)
+    with pytest.raises(ValueError, match="head sizes from 1 to 128"):
+        attention_core(torch.zeros(1, 5, 3 * 8 * 136, device=cuda_device),
+                       HEADS)
+    assert fused_block.launches == launches
+
+
+@pytest.mark.cuda
+def test_streamed_kernels_run_past_the_resident_shapes_on_gpu(cuda_device):
+    """The library routes the forward at 351 tokens (d = 64) and at d = 128,
+    and the backward at 243 tokens (d = 64), to the streamed kernels: each
+    call launches the streamed forward once, or each of the backward's two
+    passes once, as the libraries count their launches, and repeats bit
+    for bit; 134 tokens at d = 36 keep the resident kernels and launch
+    none."""
+    for L, C, streamed in ((351, 512, True), (17, 1024, True),
+                           (134, 288, False)):
+        qkv = torch.randn(4, L, 3 * C, device=cuda_device)
+        stream_launches(zero=True)
+        got = attention_core(qkv, HEADS)
+        assert stream_launches(zero=True) == {
+            "forward": int(streamed), "backward_a": 0, "backward_b": 0}
+        assert torch.equal(got, attention_core(qkv, HEADS))
+    for L, C, streamed in ((243, 512, True), (134, 288, False)):
+        qkv = torch.randn(4, L, 3 * C, device=cuda_device)
+        do = torch.randn(4, L, C, device=cuda_device)
+        stream_launches(zero=True)
+        got = attention_core_bwd(qkv, do, HEADS)
+        assert stream_launches(zero=True) == {
+            "forward": 0, "backward_a": int(streamed),
+            "backward_b": int(streamed)}
+        assert torch.equal(got, attention_core_bwd(qkv, do, HEADS))
 
 
 ATTN_BWD_RTOL = 1e-5
 
 #: (B, L, C) of the attention backward: each part's spatial and temporal
 #: training shape (37 sequences of 27 frames), 3DHP's, the monolithic
-#: model's 134 joints, and 243 frames at each part width
+#: model's 134 joints, and 243 frames at each part width; then the shapes
+#: the streamed backward takes: MixSTE's cs=512 model at 243 and 351
+#: frames, 351 frames at d = 48, d = 128 (C = 1024) at 243 frames, 134
+#: joints and 17, and an odd d = 65 (C = 520)
 ATTN_BWD_SHAPES = [(999, 24, 384), (888, 27, 384), (999, 68, 224),
                    (2516, 27, 224), (999, 42, 256), (1554, 27, 256),
                    (999, 17, 288), (629, 27, 288), (999, 134, 288),
                    (4958, 27, 288), (64, 243, 224), (64, 243, 256),
-                   (64, 243, 288), (64, 243, 384)]
+                   (64, 243, 288), (64, 243, 384), (64, 243, 512),
+                   (64, 351, 512), (64, 351, 384), (32, 243, 1024),
+                   (64, 134, 1024), (256, 17, 1024), (32, 300, 520)]
 
 
 def _attention_bwd_errs(got, want):
@@ -1102,11 +1153,14 @@ def test_attention_core_bwd_matches_plain_on_gpu(cuda_device, B, L, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L,C", [(37, 243, 256), (8, 243, 384)])
+@pytest.mark.parametrize("B,L,C", [(37, 243, 256), (8, 243, 384),
+                                   (8, 243, 512), (4, 243, 1024),
+                                   (8, 134, 1024), (16, 27, 1024)])
 def test_block_train_at_243_frames_on_gpu(cuda_device, B, L, C):
     """Kernels #5/#6 at 243 tokens (MixSTE's receptive field; head sizes 32
-    and 48), which the scalar attention backward could not take, against
-    their plain versions; a second backward gives the same bits."""
+    and 48 resident, 64 and 128 streamed) and at C = 1024 (the LayerNorm
+    backward's wide rows), against their plain versions; a second backward
+    gives the same bits."""
     params = _params(C, seed=L + C, device=cuda_device)
     x, g, m1, m2 = _inputs(B, L, C, seed=2, device=cuda_device)
     y, saved = block_train_fwd(x, m1, m2, params, HEADS)
@@ -1144,30 +1198,41 @@ def test_float32_training_step_repeats_bit_for_bit_on_gpu(cuda_device):
 @pytest.mark.cuda
 def test_kernels_2_and_5_reject_shapes_the_attention_does_not_take_on_gpu(
         cuda_device):
-    """Kernel #2 and kernels #5/#6 raise ValueError before any launch where
-    the tensor-core attention does not take the shape: a head size above
-    64, or one (sequence, head) beyond a CTA's shared memory (float32, d =
-    64: the forward at 300 tokens; the backward already at 200, which
-    block_train_fwd checks before it starts a step)."""
+    """The shapes kernel #2 and kernels #5/#6 refused run against their
+    plain versions: a head size of 72 (C = 288, 4 heads), 300 tokens at d =
+    64 in the forward and 200 in the backward; a head size above 128 raises
+    ValueError, naming the limit, before any launch."""
     wide = _params(288, seed=8, device=cuda_device)
-    x = torch.zeros(2, 10, 288, device=cuda_device)
-    with pytest.raises(ValueError, match="head sizes up to 64"):
-        fused_attention(x, *wide[2:6], 4)
-    ones = torch.ones(2, device=cuda_device)
-    with pytest.raises(ValueError, match="head sizes up to 64"):
-        block_train_fwd(x, ones, ones, wide, 4)
+    x, g, m1, m2 = _inputs(3, 10, 288, seed=8, device=cuda_device)
+    got = fused_attention(x, *wide[2:6], 4)
+    assert float((got - attention_reference(x, *wide[2:6], 4)).abs().max()
+                 ) <= 1e-5
+    y, saved = block_train_fwd(x, m1, m2, wide, 4)
+    assert float((y - train_fwd_reference(x, m1, m2, wide, 4)).abs().max()
+                 ) <= 1e-4
+    dx, grads = block_train_bwd(saved, g)
+    want_dx, want = train_bwd_reference(x, g, m1, m2, wide, 4)
+    assert max(_rel_errs((dx,) + grads, (want_dx,) + want)) <= 1e-4
     p = _params(8 * 64, seed=9, device=cuda_device)
-    x = torch.zeros(1, 300, 8 * 64, device=cuda_device)
+    for L in (300, 200):
+        x, g, m1, m2 = _inputs(1, L, 8 * 64, seed=L, device=cuda_device)
+        got = fused_attention(x, *p[2:6], HEADS)
+        assert float((got - attention_reference(x, *p[2:6], HEADS)).abs()
+                     .max()) <= 1e-5
+        y, saved = block_train_fwd(x, m1, m2, p, HEADS)
+        dx, grads = block_train_bwd(saved, g)
+        want_dx, want = train_bwd_reference(x, g, m1, m2, p, HEADS)
+        assert max(_rel_errs((dx,) + grads, (want_dx,) + want)) <= 1e-4
+    qkv = torch.randn(1, 200, 3 * 8 * 64, device=cuda_device)
+    do = torch.randn(1, 200, 8 * 64, device=cuda_device)
+    errs = _attention_bwd_errs(attention_core_bwd(qkv, do, HEADS),
+                               attention_core_bwd_reference(qkv, do, HEADS))
+    assert max(errs) <= ATTN_BWD_RTOL, errs
+    x = torch.zeros(2, 10, 288, device=cuda_device)
+    ones = torch.ones(2, device=cuda_device)
     launches = (fused_attention.launches, block_train_fwd.launches)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_attention(x, *p[2:6], HEADS)
-    with pytest.raises(ValueError, match="shared memory"):
-        block_train_fwd(x, ones[:1], ones[:1], p, HEADS)
-    x = torch.zeros(1, 200, 8 * 64, device=cuda_device)
-    with pytest.raises(ValueError, match="attention backward"):
-        block_train_fwd(x, ones[:1], ones[:1], p, HEADS)
-    qkv = torch.zeros(1, 200, 3 * 8 * 64, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        attention_core_bwd(qkv, qkv[..., :8 * 64].contiguous(), HEADS)
+    with pytest.raises(ValueError, match="head sizes from 1 to 128"):
+        fused_attention(x, *wide[2:6], 2)
+    with pytest.raises(ValueError, match="head sizes from 1 to 128"):
+        block_train_fwd(x, ones, ones, wide, 2)
     assert (fused_attention.launches, block_train_fwd.launches) == launches
-    assert attention_core(qkv, HEADS).shape == (1, 200, 8 * 64)
