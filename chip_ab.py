@@ -6,8 +6,7 @@
    archive``), run parent, change, change, parent, each in its own
    process on its own tree.  Windows: three steps of the H3WB trainer
    (depth 8, 37 sequences) and of the 3DHP trainer through the tree's
-   training loop (``train.run_epoch``; a tree from before it has the
-   loop copied below, ``float(loss)`` one step behind), and the
+   training loop (``train.run_epoch``), and the
    ``eval_profile`` window of ``chip_smoke.py`` (one 152-window action at
    ``use_pallas=true``, P=10, T=1: two 64-row batches and a 24-row tail).
 2. **Kernel A/B** (``--kernels DIR``): this tree against another
@@ -25,14 +24,16 @@
    evaluation of the 76-window action (synthetic S8, 500 frames), the same
    evaluation in float32 at ``use_pallas=true`` (kernel #2), and a
    float32 training step (depth 8, 37 sequences), then the streamed
-   attention kernels at MixSTE's shapes (8 heads; STREAMED_FWD and
-   STREAMED_BWD, each beside its plain version and SDPA, or SDPA's
-   autograd, on the same inputs; MixSTE's temporal forward at (536, 243,
-   512) beside them, on the route the library takes) and 3 depth-8 training steps of
-   MixSTE's model (``model.cs=512 model.number_of_frames=243``, 4
-   sequences); times are device ms (CUDA events) or host ms ending in a
-   synchronisation.  ``--only streamed`` runs the streamed kernels and
-   MixSTE's steps alone, ``--only serve`` the bfloat16 request and
+   attention kernels at MixSTE's shapes (8 heads; STREAMED_FWD in float32
+   and bfloat16 and STREAMED_BWD, each beside its plain version and SDPA,
+   or SDPA's autograd, on the same inputs; every forward on the route the
+   library takes), kernel #1 in bfloat16 at MixSTE's two serve windows
+   (MIXSTE_WINDOWS) beside its library composition, and 3 depth-8
+   training steps of MixSTE's model (``model.cs=512
+   model.number_of_frames=243``, 4 sequences); times are device ms (CUDA
+   events) or host ms ending in a synchronisation.  ``--only streamed``
+   runs the streamed kernels, MixSTE's #1 and its steps alone, ``--only
+   serve`` the bfloat16 request and
    evaluation alone; ``--alt DIR`` times a third tree in the same turns
    (e.g. this tree with one part of the change taken out; its hashes must
    agree too, its SASS is not compared).  Beside the
@@ -47,7 +48,9 @@
    outputs this change may alter (e.g. ``#1,#3,#4``), every other hash must
    be equal across the trees (the training window's hash belongs to #5 and
    #6, and so do MixSTE's steps).  The streamed kernels' outputs are
-   hashed too (float32 and bfloat16) and must be equal across the trees.
+   hashed too (float32 and bfloat16) and must be equal across the trees,
+   but where ``--changed`` names them: ``#6`` owns the streamed backward's
+   hashes, ``bf16`` the bfloat16 streamed forward's.
    First it compiles both trees' CUDA sources and holds the SASS of every
    kernel the two have in common equal (the float32 GEMM's instantiations
    among them), but for the kernels whose names hold one of the
@@ -60,6 +63,8 @@
     python3 chip_ab.py --kernels build/parent [--changed '#2,#5,#6'] \
         [--redesigned attention_stream_kernel,attention_bwd_stream_] \
         [--runs 3] [--only streamed|serve] [--alt DIR]
+    python3 chip_ab.py --kernels build/parent --only streamed \
+        --changed '#6,bf16' --redesigned attention_stream_kernel,attention_bwd_stream_
     python3 chip_ab.py --witness
 
 Prints JSON lines; the last is ``{"ok": true, ...}``.  It exits non-zero
@@ -82,15 +87,31 @@ SEQS = 1024 // 27         # the CLI's sequences a step
 #: the kernels whose float32 outputs a hash depends on, where its key does
 #: not start with the kernel ("#1_body_0" belongs to #1)
 DIGEST_KERNELS = {"train_window": ("#5", "#6"), "mixste_window": ("#5", "#6")}
-#: the streamed forward's shapes (B, L, C at 8 heads, dtypes): MixSTE's
-#: 351-frame temporal attention at cs 512 and 384, and d = 128 (cs 1024) at
-#: its 243 frames and 134 joints
-STREAMED_FWD = ((536, 351, 512, ("float32",)), (536, 351, 384, ("float32",)),
-                (536, 243, 1024, ("float32", "bfloat16")),
-                (972, 134, 1024, ("float32", "bfloat16")))
-#: MixSTE's temporal forward (float32 at 243 frames, d = 64: the route's
-#: boundary between the resident and the streamed kernel)
-TEMPORAL_FWD = (536, 243, 512)
+
+
+def digest_kernels(key):
+    """The kernels a hash belongs to: DIGEST_KERNELS, the streamed backward's
+    to #6 (its attention backward), the bfloat16 streamed forward's to
+    ``bf16``, else the key's first word."""
+    if key in DIGEST_KERNELS:
+        return DIGEST_KERNELS[key]
+    if key.startswith("stream_bwd"):
+        return ("#6",)
+    if key.endswith("_bfloat16") and "_fwd_" in key:
+        return ("bf16",)
+    return (key.split("_")[0],)
+
+
+#: the streamed forward's shapes (B, L, C at 8 heads), in float32 and
+#: bfloat16: MixSTE's temporal attention at 243 frames (cs 512, d = 64) and
+#: at 351 (cs 512 and 384), d = 128 (cs 1024) at its 243 frames and 134
+#: joints, and 243 frames at d = 48; the first and the last on the route
+#: the library takes in each dtype (float32 resident at d = 48)
+STREAMED_FWD = ((536, 243, 512), (536, 351, 512), (536, 351, 384),
+                (536, 243, 1024), (972, 134, 1024), (64, 243, 384))
+#: kernel #1's MixSTE serve windows (frames, P: chip_smoke.py's
+#: MIXSTE_WINDOWS) at cs 512, one window, flip on
+MIXSTE_WINDOWS = ((243, 10), (351, 5))
 #: the streamed backward's: MixSTE's temporal block at 243 and 351 frames,
 #: and d = 128 at 243
 STREAMED_BWD = ((536, 243, 512), (536, 351, 512), (536, 243, 1024))
@@ -121,23 +142,6 @@ def idle_profile(fn, device):
             "idle_share": 1 - dev_ms / wall if dev_ms else "not measured"}
 
 
-def old_loop(step, state, lr, batches, seqs):
-    """The CLIs' training loop of a tree without ``train.run_epoch`` (its
-    ``cli/main_h3wb.py``): step N's loss read by ``float()`` after step
-    N+1 has been queued."""
-    from pafuse_tpu_torch import train as tr
-    total, pending = 0.0, None
-    for _, b3d, b2d in batches:
-        b2d, real = tr.pad_batch(b2d, seqs)
-        b3d, _ = tr.pad_batch(b3d, seqs)
-        loss = step(state, lr, b2d, b3d)
-        if pending is not None:
-            total += pending[1] * float(pending[0])
-        pending = (loss, real)
-    total += pending[1] * float(pending[0])
-    return total
-
-
 def train_window(name, cfg, sampler, mode, weights=None, part_based=True,
                  flip_permutation=None):
     import torch
@@ -157,11 +161,8 @@ def train_window(name, cfg, sampler, mode, weights=None, part_based=True,
             break
     for _, b3d, b2d in batches[:2]:
         float(step(state, 6e-5, b2d, b3d))
-    if hasattr(tr, "run_epoch"):
-        run = lambda: tr.run_epoch(step, state, 6e-5, batches[2:], SEQS)  # noqa: E731
-    else:
-        run = lambda: old_loop(step, state, 6e-5, batches[2:], SEQS)  # noqa: E731
-    out = idle_profile(run, dev)
+    out = idle_profile(
+        lambda: tr.run_epoch(step, state, 6e-5, batches[2:], SEQS), dev)
     emit({"window": name, "mode": mode, "steps": STEPS, **out})
 
 
@@ -255,12 +256,11 @@ def _block_params(C, seed, device):
 
 
 def streamed_section(times, digests, dev):
-    """The streamed attention kernels at STREAMED_FWD and STREAMED_BWD
-    (and MixSTE's temporal forward, TEMPORAL_FWD, on the library's route):
-    device ms of the kernel
-    (``ops.attention_core``), of its plain version and of SDPA (the
-    forward) or SDPA's autograd (the backward) on the same seeded inputs,
-    and a hash of each kernel output."""
+    """The streamed attention kernels at STREAMED_FWD (float32 and
+    bfloat16, each on the route the library takes) and STREAMED_BWD: device
+    ms of the kernel (``ops.attention_core``), of its plain version and of
+    SDPA (the forward) or SDPA's autograd (the backward) on the same seeded
+    inputs, and a hash of each kernel output."""
     import hashlib
     import torch
     import torch.nn.functional as F
@@ -277,14 +277,12 @@ def streamed_section(times, digests, dev):
         B, L, C3 = qkv.shape
         return qkv.view(B, L, 3, heads, C3 // 3 // heads).permute(2, 0, 3, 1, 4)
 
-    shapes = [(B, L, C, dtypes, "stream") for B, L, C, dtypes in STREAMED_FWD]
-    shapes.append((*TEMPORAL_FWD, ("float32",), "temporal"))
-    for i, (B, L, C, dtypes, route) in enumerate(shapes):
-        for dtype in dtypes:
+    for i, (B, L, C) in enumerate(STREAMED_FWD):
+        for dtype in ("float32", "bfloat16"):
             gen = torch.Generator(device=dev).manual_seed(500 + i)
             qkv = torch.randn(B, L, 3 * C, generator=gen, device=dev).to(
                 getattr(torch, dtype))
-            key = f"{route}_fwd_{B}x{L}x{C}_{dtype}"
+            key = f"stream_fwd_{B}x{L}x{C}_{dtype}"
             times[f"{key}_ms"] = _cuda_ms(lambda: attention_core(qkv, heads))
             digest(key, attention_core(qkv, heads))
             q, k, v = split_heads(qkv)
@@ -308,6 +306,53 @@ def streamed_section(times, digests, dev):
         times[f"{key}_plain_ms"] = _cuda_ms(
             lambda: attention_core_bwd_reference(qkv, do, heads))
         del qkv, do, q, k, v, o, go
+        torch.cuda.empty_cache()
+
+
+def _library_block(x, bp, on, heads):
+    """Kernel #1's block as one composition of PyTorch library calls
+    (layer_norm, cuBLAS linear, SDPA in chunks of 32768 sequences, gelu),
+    as chip_smoke.py's library_block: the yardstick, never the port's."""
+    import torch
+    import torch.nn.functional as F
+    (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2,
+     bfc2) = bp
+    B, L, C = x.shape
+    h = F.layer_norm(x, (C,), n1s, n1b, 1e-6)
+    q, k, v = F.linear(h, wqkv, bqkv).view(B, L, 3, heads, C // heads).permute(
+        2, 0, 3, 1, 4)
+    a = torch.cat([F.scaled_dot_product_attention(
+        q[i:i + 32768], k[i:i + 32768], v[i:i + 32768])
+        for i in range(0, B, 32768)]).transpose(1, 2).reshape(B, L, C)
+    x = x + F.linear(a, wproj, bproj)
+    x = x + F.linear(F.gelu(F.linear(F.layer_norm(x, (C,), n2s, n2b, 1e-6),
+                                     wfc1, bfc1)), wfc2, bfc2)
+    return F.layer_norm(x, (C,), on[0], on[1], 1e-6)
+
+
+def mixste_block_section(times, dev):
+    """Kernel #1 in bfloat16 at MixSTE's serve windows (MIXSTE_WINDOWS,
+    cs 512, 8 heads): device ms of one spatial (B = P*2*frames sequences of
+    134 joints) and one temporal block (B = P*2*134 sequences of the
+    frames) summed a window, beside the library composition of the same
+    blocks."""
+    import torch
+    from pafuse_tpu_torch.ops.block import fused_block
+    heads, C = 8, 512
+    for i, (frames, P) in enumerate(MIXSTE_WINDOWS):
+        key = f"#1_mixste{frames}_bfloat16"
+        for j, (B, L) in enumerate(((P * 2 * frames, 134), (P * 2 * 134, frames))):
+            params = _block_params(C, 700 + 10 * i + j, dev)
+            bp, on = params[:12], params[12:]
+            gen = torch.Generator(device=dev).manual_seed(800 + 10 * i + j)
+            x = torch.randn(B, L, C, generator=gen, device=dev).to(torch.bfloat16)
+            lib_bp = [t.to(torch.bfloat16) for t in bp]
+            lib_on = [t.to(torch.bfloat16) for t in on]
+            times[f"{key}_ms"] = times.get(f"{key}_ms", 0.0) + _cuda_ms(
+                lambda: fused_block(x, bp, on, heads))
+            times[f"{key}_library_ms"] = times.get(f"{key}_library_ms", 0.0) + _cuda_ms(
+                lambda: _library_block(x, lib_bp, lib_on, heads))
+            del x
         torch.cuda.empty_cache()
 
 
@@ -447,6 +492,7 @@ def kernels_worker(mode: str, only=None):
     if only == "streamed":
         times, digests = {}, {}
         streamed_section(times, digests, dev)
+        mixste_block_section(times, dev)
         mixste_section(times, digests, dev)
         emit({"kernels_ab": mode, "times": times, "float32_digests": digests})
         return
@@ -591,6 +637,7 @@ def kernels_worker(mode: str, only=None):
     del model, state, step, sampler, batches
     torch.cuda.empty_cache()
     streamed_section(times, digests, dev)
+    mixste_block_section(times, dev)
     mixste_section(times, digests, dev)
     emit({"kernels_ab": mode, "times": times, "float32_digests": digests})
 
@@ -740,7 +787,7 @@ def kernels_summary(results, changed=()):
     repeat = {k: all(len({r["float32_digests"][k] for r in rs}) == 1
                      for rs in runs.values()) for k in keys}
     kept = {k: v for k, v in same.items()
-            if not set(DIGEST_KERNELS.get(k, (k.split("_")[0],))) & set(changed)}
+            if not set(digest_kernels(k)) & set(changed)}
     return {"phase": "kernels_ab", "metrics": out,
             "float32_bit_identical": all(kept.values()),
             "float32_outputs_differing": sorted(k for k, v in same.items()
@@ -786,8 +833,8 @@ def main() -> int:
     ap.add_argument("--kernels", metavar="DIR",
                     help="the kernel A/B against another checkout of the port")
     ap.add_argument("--changed", default="",
-                    help="kernels whose float32 outputs may differ, e.g. "
-                         "'#1,#3,#4'")
+                    help="kernels whose hashed outputs may differ, e.g. "
+                         "'#1,#3,#4' ('bf16': the bfloat16 streamed forward)")
     ap.add_argument("--redesigned", default="",
                     help="names (or parts of names) of the kernels whose SASS "
                          "may differ, e.g. 'attention_stream_kernel'")

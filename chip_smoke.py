@@ -3513,13 +3513,13 @@ def mono134_train_phase(seed: int, device: str = "cuda", depth: int = 8,
 MIXSTE_CS, MIXSTE_FRAMES = 512, 243
 MIXSTE_SEQS = 1024 // MIXSTE_FRAMES
 MIXSTE_STEPS = 3
-#: (L, d) of the attention stages alone: the model's temporal block (243 x
-#: 64: bf16 forward resident, float32 forward and backward streamed), 351
+#: (L, d) of the attention stages alone, each streamed in both dtypes (past
+#: 144 keys, or d above 64): the model's temporal block (243 x 64), 351
 #: frames at d = 64 and 48,
 #: and d = 128 (model.cs=1024) at 243 frames and at the 134 joints
 STREAM_STAGES = ((243, 64), (351, 64), (351, 48), (243, 128), (134, 128))
-#: its serve windows for kernel #1: (frames, hypotheses); 351 frames stream
-#: the float32 temporal attention
+#: its serve windows for kernel #1: (frames, hypotheses); both stream the
+#: temporal attention
 MIXSTE_WINDOWS = ((243, 10), (351, 5))
 
 
@@ -3572,6 +3572,10 @@ def mixste243_phase(seed: int, depth: int = 8, steps: int = MIXSTE_STEPS):
                                               "mixste243_stage", **fields))
         del x, qkv, do, p
         torch.cuda.empty_cache()
+    emit({"phase": "mixste243_bf16_routes",
+          "stages": [{k: r[k] for k in ("L_d", "route", "stream_launches",
+                                        "ms", "library_ms", "bound_ms")}
+                     for r in stages if r["dtype"] == "bfloat16"]})
     bad = [r for r in stages if not r["ok"]]
     if bad:
         raise AssertionError(f"mixste243: an attention stage disagrees with "
@@ -4814,8 +4818,10 @@ def main() -> int:
                       **bf16(streamed("attention_core")),
                       launched_by="any wrapper of the attention forward "
                                   "where one (sequence, head) does not fit "
-                                  "a CTA or d > 64 (mixste243: fused_block "
-                                  "at 351 frames)"),
+                                  "a CTA, d > 64, or past 144 keys in bf16 "
+                                  "(and float32 at d > 48) (mixste243: "
+                                  "fused_block's temporal blocks at 243 and "
+                                  "351 frames)"),
         # the streamed backward's two kernels (pass A, pass B), launched by
         # block_train_bwd at mixste243's temporal blocks (243 frames at d =
         # 64), as its library counts: launches sums both passes

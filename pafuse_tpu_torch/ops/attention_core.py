@@ -10,15 +10,16 @@ sum, and ``T(sum p v)`` summed in float32.
 
 For CUDA tensors it launches the tensor-core kernels that the block chain
 runs at its step 2, and kernels #2 and #5 in float32
-(``csrc/attention_core.cu`` on ``csrc/attention_sm90.cuh``: ``mma.sync``,
-bf16 products in bfloat16, three TF32 products a product in float32); for
-CPU tensors it uses :func:`attention_core_reference`, the same function in
-plain PyTorch ops, through which ``ops.block.block_reference`` runs its
-attention.  A (sequence, head) whose q, k and v fit a CTA's shared memory
-(head size up to 64; L up to 256 in float32 at d = 64) goes through the
-resident kernel; any other L, and head sizes up to 128, through the
-streamed one, which runs the same arithmetic on key chunks that stream
-through shared memory.  A head size above 128 raises ``ValueError``.
+(``csrc/attention_core.cu`` on ``csrc/attention_sm90.cuh``: bf16 products
+in bfloat16, three TF32 products a product in float32); for CPU tensors it
+uses :func:`attention_core_reference`, the same function in plain PyTorch
+ops, through which ``ops.block.block_reference`` runs its attention.  A
+(sequence, head) of up to 144 tokens at a head size up to 64 (float32 up
+to 320 at d <= 48) goes through the resident kernel (``mma.sync``); any
+other L, and head sizes up to 128, through the streamed one on ``wgmma``,
+whose key chunks stream through shared memory (bf16: TMA, a producer warp
+and persistent CTAs, with e = 2^(s c - m), c = d^-1/2 log2 e, in one FMA
+before ``ex2.approx``).  A head size above 128 raises ``ValueError``.
 
 ``attention_core_bwd`` is kernel #6's attention backward
 (``pafuse_tpu/ops/block_grad.py:203-226``): from the saved float32 qkv (B,

@@ -483,13 +483,21 @@ cudaError_t launch_dp(int nkt, const float* qkv, const float* dO, float* dqkv, l
 //   - pass B, per key: Q, dO and the rows' statistics stream through the
 //     ring in chunks of queries, walked in order as the resident pass B
 //     walks its query tiles (a 16-query tile wholly past L skipped as
-//     there), so dk and dv sum in the same fixed order.
+//     there).
 // The statistics go through global memory, not shared, because the two
 // passes cut a unit differently (queries, keys) and so run as two
 // launches; at 3 floats a row they are a 1/40 of the unit's bytes at d =
-// 64.  The products are the resident kernel's (row_products,
-// fragment_times_rows) product for product, with the same operands in the
-// same order on wgmma or mma.sync alike, so both give the same bits.
+// 64.  S, dP and the statistics are the resident kernel's (row_products)
+// product for product.  The three sums over L (dq over keys, dk and dv
+// over queries) are not held in one tensor-core accumulator: its
+// accumulation truncates, and over 1000 terms it drifts past the 1e-5
+// bound (1.2e-5 against float64 on an H100, where float32 sums err by
+// 1.9e-6).  Each chunk's products go into a fresh accumulator (the first
+// wgmma's scale-d is 0, or mma.sync's C is zero) that is added to the
+// f32 total with FADDs, chunk by chunk in a fixed order: on wgmma (d = 64)
+// a ring chunk (pass A 64 keys, pass B 32 queries), on mma.sync (d = 128)
+// each 8-row k-step.  So the streamed kernel's bits differ from the
+// resident one's where both would take a shape.
 //
 // What bounds it on an H100 (data-sheet peaks at 700 W): 10*B*L^2*C
 // operations (five products) at 165 TFLOP/s, float32 done as three TF32
@@ -661,33 +669,19 @@ __device__ __forceinline__ void wg_products(float (&acc)[WgTiles<DP, B>::RK / 2]
   for (int e = 0; e < NV; ++e) acc[e] += small[e];
 }
 
-// acc (64 x DP) += A Z over the four k-steps of 32 rows of a ring chunk:
-// A's fragments (ah, al) repacked from an accumulator, Z the rows'
-// transposed tile (hi at z, lo DP * 128 further): fragment_times_rows'
-// three products, as one commit group.
-template <int DP>
+// acc (64 x DP) = A Z over the first NK k-steps of 32 rows of a ring chunk
+// (4: all 32 rows; 2: the first 16), plus acc where `keep` is 1 (its first
+// wgmma's scale-d; 0: a fresh accumulator): A's fragments (ah, al) repacked
+// from an accumulator, Z the rows' transposed tile (hi at z, lo DP * 128
+// further): fragment_times_rows' three products, as one commit group.
+template <int DP, int NK>
 __device__ __forceinline__ void wg_times(float (&acc)[DP / 2], const uint32_t (&ah)[4][4],
-                                         const uint32_t (&al)[4][4], const uint8_t* z) {
+                                         const uint32_t (&al)[4][4], const uint8_t* z, int keep) {
   const uint64_t zh = tile_desc(z), zl = zh + ((DP * 128) >> 4);
   wg_fence();
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    WgTf32<DP>::rs(acc, al[j], zh + 2 * j, 1);
-    WgTf32<DP>::rs(acc, ah[j], zl + 2 * j, 1);
-    WgTf32<DP>::rs(acc, ah[j], zh + 2 * j, 1);
-  }
-  wg_commit();
-}
-
-// The same over k-steps 0, 1 only (the first 16 rows of the transposed tile).
-template <int DP>
-__device__ __forceinline__ void wg_times2(float (&acc)[DP / 2], const uint32_t (&ah)[4][4],
-                                          const uint32_t (&al)[4][4], const uint8_t* z) {
-  const uint64_t zh = tile_desc(z), zl = zh + ((DP * 128) >> 4);
-  wg_fence();
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    WgTf32<DP>::rs(acc, al[j], zh + 2 * j, 1);
+  for (int j = 0; j < NK; ++j) {
+    WgTf32<DP>::rs(acc, al[j], zh + 2 * j, j == 0 ? keep : 1);
     WgTf32<DP>::rs(acc, ah[j], zl + 2 * j, 1);
     WgTf32<DP>::rs(acc, ah[j], zh + 2 * j, 1);
   }
@@ -837,12 +831,14 @@ __device__ __forceinline__ void stream_a_wg(const float* __restrict__ qkv,
         }
       }
     }
-    // dq += dS K, dS = P (dP - t / l) (into dp) repacked as the A operand,
-    // 32 keys a commit group (the second only where its chunk of the
-    // statistics is)
+    // dq += dS K, dS = P (dP - t / l) (into dp) repacked as the A operand:
+    // the ring chunk's products in a fresh accumulator (part), 32 keys a
+    // commit group (the second only where its chunk of the statistics is),
+    // then added to dq in f32, chunk by chunk in order
 #pragma unroll
     for (int e = 0; e < NV; ++e)
       dp[e] = (expf(s[e] - mx[(e >> 1) & 1]) * inv[(e >> 1) & 1]) * (dp[e] - rt[(e >> 1) & 1]);
+    float part[DP / 2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (hh == 1 && !both) break;
@@ -853,9 +849,11 @@ __device__ __forceinline__ void stream_a_wg(const float* __restrict__ qkv,
                              dp[16 * hh + 4 * j + 2], dp[16 * hh + 4 * j + 3]};
         acc_fragment(ds, ah[j], al[j]);
       }
-      wg_times<DP>(dq, ah, al, sm + Lt::C_OFF + hh * 2 * Lt::CB);
+      wg_times<DP, 4>(part, ah, al, sm + Lt::C_OFF + hh * 2 * Lt::CB, hh);
       wg_wait0();
     }
+#pragma unroll
+    for (int n = 0; n < DP / 2; ++n) dq[n] += part[n];
   }
   store_acc<DP>(dqkv + seq * L * C3 + (long long)h * d, C3, dq, scale, q0, L, d);
 }
@@ -944,11 +942,16 @@ __device__ __forceinline__ void stream_b_wg(const float* __restrict__ qkv,
       }
       acc_fragment(p, ah[j], al[j]);
     }
+    // each product of the chunk in a fresh accumulator (part), added to dv
+    // and dk in f32, chunk by chunk in order
+    float part[DP / 2];
     if (all)
-      wg_times<DP>(dv, ah, al, sm + Lt::C_OFF + 2 * Lt::CB);
+      wg_times<DP, 4>(part, ah, al, sm + Lt::C_OFF + 2 * Lt::CB, 0);
     else
-      wg_times2<DP>(dv, ah, al, sm + Lt::C_OFF + 2 * Lt::CB);
+      wg_times<DP, 2>(part, ah, al, sm + Lt::C_OFF + 2 * Lt::CB, 0);
     wg_wait0();
+#pragma unroll
+    for (int n = 0; n < DP / 2; ++n) dv[n] += part[n];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       float ds[4];
@@ -960,10 +963,12 @@ __device__ __forceinline__ void stream_b_wg(const float* __restrict__ qkv,
       acc_fragment(ds, ah[j], al[j]);
     }
     if (all)
-      wg_times<DP>(dk, ah, al, sm + Lt::C_OFF);
+      wg_times<DP, 4>(part, ah, al, sm + Lt::C_OFF, 0);
     else
-      wg_times2<DP>(dk, ah, al, sm + Lt::C_OFF);
+      wg_times<DP, 2>(part, ah, al, sm + Lt::C_OFF, 0);
     wg_wait0();
+#pragma unroll
+    for (int n = 0; n < DP / 2; ++n) dk[n] += part[n];
   }
   float* out = dqkv + seq * L * C3 + C + (long long)h * d;
   store_acc<DP>(out, C3, dk, scale, k0, L, d);
@@ -1046,8 +1051,10 @@ __device__ __forceinline__ void tile_products(float (&acc)[M][4], const float* x
 
 // acc (16 x DP fragments) += f z, f the 16 x 8 block of an accumulator
 // fragment (its columns 2t, 2t + 1 as k columns t, t + 4, split as tile_f32
-// splits p) and z one n8 tile of a columns plane: three TF32 products into
-// acc, lo*hi, hi*lo, hi*hi.
+// splits p) and z one n8 tile of a columns plane: three TF32 products,
+// lo*hi, hi*lo, hi*hi, into a fresh accumulator, then added to acc in f32
+// (the tensor cores' accumulation truncates: summed over L rows in one
+// accumulator it drifts past the bound at L = 1000).
 template <int KS>
 __device__ __forceinline__ void fragment_times_plane(float (&acc)[KS][4], const float (&f)[4],
                                                      const uint4* tile) {
@@ -1063,9 +1070,12 @@ __device__ __forceinline__ void fragment_times_plane(float (&acc)[KS][4], const 
     // hoisted together would take 64 registers and spill
     if (nd % 8 == 0) asm volatile("" ::: "memory");
     const uint4 b = tile[nd * 32 + lane];
-    mma_tf32(acc[nd], al, b.x, b.y);
-    mma_tf32(acc[nd], ah, b.z, b.w);
-    mma_tf32(acc[nd], ah, b.x, b.y);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(part, al, b.x, b.y);
+    mma_tf32(part, ah, b.z, b.w);
+    mma_tf32(part, ah, b.x, b.y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] += part[e];
   }
 }
 

@@ -65,15 +65,17 @@
 // sum) differs from e / sum by at most one f32 ulp.
 //
 // Where one (sequence, head) does not fit a CTA's shared memory (float32 L
-// above 320 at d <= 48) or d is above 64, and in float32 past 144 keys at d
-// = 49..64, the streamed kernel below takes the unit instead, with the same
-// arithmetic on key chunks that stream through shared memory; variant() is
-// the rule.
+// above 320 at d <= 48) or d is above 64, in float32 past 144 keys at d =
+// 49..64 and in bf16 past 144 keys at any d, the streamed kernel below
+// takes the unit instead, with the same rounding points on key chunks that
+// stream through shared memory; variant() is the rule.  (The chunked path
+// here, past 144 keys, is left to float32 at d <= 48.)
 //
 // Everything launches on the caller's stream; nothing allocates.
 
 #pragma once
 
+#include <cuda.h>
 #include <type_traits>
 
 #include "common.cuh"
@@ -591,8 +593,8 @@ cudaError_t launch_dp(int nkt, const Launch<T>& a, cudaStream_t stream) {
     case 2: return launch<T, DP, 2>(a, stream);
     case 3: return launch<T, DP, 3>(a, stream);
     case CHUNK_TILES:
-      // float32 at d = 49..64 past 144 keys streams (variant())
-      if constexpr (sizeof(T) == 4 && DP == 64) return cudaErrorInvalidValue;
+      // bf16, and float32 at d = 49..64, past 144 keys stream (variant())
+      if constexpr (sizeof(T) == 2 || DP == 64) return cudaErrorInvalidValue;
       else return launch<T, DP, CHUNK_TILES>(a, stream);
     case 5: return launch<T, DP, 5>(a, stream);
     default: return launch<T, DP, 9>(a, stream);
@@ -633,12 +635,32 @@ cudaError_t launch_dp(int nkt, const Launch<T>& a, cudaStream_t stream) {
 //     same operands in the same order: the bits are the same;
 //   - a chunk wholly past L is neither split nor multiplied (its keys are
 //     -inf, their e exact zeros).
-// bf16 (stream_bf16) runs on mma.sync: four warps of 16 queries, a
-// two-stage ring of 64-key chunks, ldmatrix fragments from the ring as
-// tile_bf16 reads them.  d is padded to 64 or 128 (zeros the copies never
-// write), keys past L are masked to -inf (their rows hold zeros or an
-// earlier chunk's rows, which p = 0 multiplies).  The output goes from the
-// accumulators straight to global memory.
+// bf16 (stream_bf16) runs on wgmma too, bound on the card by the two
+// passes' exponentials (MUFU, 2 an element of the padded L x L) and the
+// products beside them, neither of which a CTA in lock step overlaps:
+//   - a CTA is a producer warp and 1-3 consumer warpgroups of 64 queries
+//     (stream_wgs), persistent: as many CTAs as the SMs hold, each walking
+//     its (unit, query block) items, so one item's first loads overlap the
+//     last steps of the one before;
+//   - the producer loads by TMA (one thread; 64-key boxes of a map over
+//     qkv that follows the frames-first layout) into a ring of 4 stages,
+//     128-byte-swizzled as wgmma reads them: K K-major (the B of S = Q
+//     K^T, m64n64k16, Q a swizzled tile too), V MN-major through the
+//     instruction's transpose for 16-bit types (the B of P V, m64nDk16, p
+//     repacked from S's accumulator as register A fragments, two n8 tiles
+//     a k16 fragment), so nothing is split or transposed; full and empty
+//     mbarriers a stage let each warpgroup run ahead of the others instead
+//     of a CTA barrier a chunk (the copies by cp.async, and a CTA barrier
+//     a chunk, cost 1.2-1.8 thousand cycles of each chunk's ~3.8 thousand
+//     on an H100);
+//   - e = 2^(s c - mx), c = d^-1/2 log2(e) folded into one FFMA before
+//     ex2.approx (expf's ~9 instructions an element bound the softmax);
+//     the rows' max and sum, p = T(e / sum) and O as above, so the
+//     rounding points are the resident kernel's but the bits are not.
+// d is padded to 64 or 128, keys past L are masked to -inf (their rows hold
+// the next sequence's finite rows, zeros or an earlier chunk's rows, which
+// p = 0 multiplies).  The output goes from the accumulators straight to
+// global memory.
 // ---------------------------------------------------------------------------
 
 constexpr int MAX_STREAM_DIM = 128;
@@ -646,29 +668,49 @@ constexpr int STREAM_KC = 16 * CHUNK_TILES;         // keys of a chunk of the ro
 
 __host__ __device__ constexpr int stream_dim(int d) { return d <= 64 ? 64 : 128; }
 
-// Warps a streamed CTA, for an element of `size` bytes: float32 two
-// warpgroups (128 queries), bf16 four warps (64 queries).
-__host__ __device__ constexpr int stream_warps(int size) { return size == 4 ? 8 : 4; }
+// The most threads a streamed CTA has, for an element of `size` bytes:
+// float32 two warpgroups (128 queries), bf16 up to two consumer
+// warpgroups (three at dp = 128) and a producer warp.
+__host__ __device__ constexpr int stream_threads(int size, int dp) {
+  return size == 4 ? 256 : 128 * (dp > 64 ? 3 : 2) + 32;
+}
+
+// Consumer warpgroups of a bf16 streamed CTA at L tokens: of 1..2 at dp =
+// 64 (two CTAs share an SM; their registers allow it), 1..3 at dp = 128
+// (one CTA fills an SM), the most that cut the unit's ceil(L / 64)
+// 64-query blocks into CTAs with the fewest blocks in all (134 tokens at
+// dp = 128: one CTA of three, not two of two).
+inline int stream_wgs(int dp, int L) {
+  const int blocks = (L + 63) / 64, most = dp > 64 ? 3 : 2;
+  int w = 1;
+  for (int u = 2; u <= most; ++u)
+    if ((blocks + u - 1) / u * u <= (blocks + w - 1) / w * w) w = u;
+  return w;
+}
 
 // 1: the resident kernel takes (L, d); 2: the streamed one; 0: neither (L
 // < 1, or d outside 1..MAX_STREAM_DIM).
 inline int variant(int size, int L, int d) {
   if (L < 1 || d < 1 || d > MAX_STREAM_DIM) return 0;
-  // float32 past 144 keys at d = 49..64: both kernels take 64-key chunks
-  // with the same products (the same bits), and the streamed one on wgmma
-  // is the faster (MixSTE's temporal (536, 243, 512) on an H100 80GB HBM3
-  // at 700 W: 2.28 against 3.74 ms, chip_ab.py)
-  if (size == 4 && d > 48 && key_tiles(L) == CHUNK_TILES) return 2;
+  // past 144 keys, bf16 at any d and float32 at d = 49..64: both kernels
+  // take 64-key chunks with the same rounding points (in float32 the same
+  // products, the same bits), and the streamed one on wgmma is the faster
+  // (MixSTE's temporal (536, 243, 512) on an H100 80GB HBM3 at 700 W,
+  // chip_ab.py: float32 2.28 against 3.74 ms; bf16 0.373 against 0.682)
+  if (key_tiles(L) == CHUNK_TILES && (size == 2 || d > 48)) return 2;
   const long long ub = unit_bytes(size, L, d);
   return ub != 0 && ub <= SMEM_MAX ? 1 : 2;
 }
 
-// Shared memory of a streamed CTA: bf16 the ring's two stages of a K and a
-// V chunk; float32 (FwdTiles, ring chunks of rk keys) at d = 128 Q's lo
+// Shared memory of a streamed CTA: bf16 (Bf16Ring, at the most consumer
+// warpgroups) 4 stages of a K and a V chunk and two Q buffers of a tile a
+// warpgroup, 64 128-byte rows a 64-value slice of dp each, and 12
+// mbarriers; float32 (FwdTiles, ring chunks of rk keys) at d = 128 Q's lo
 // tiles of 128 rows, a ring chunk's K and V tiles, hi and lo, the chunk as
-// copied, and 1 KB to align the tiles.
+// copied; both 1 KB to align the tiles.
 __host__ __device__ constexpr int stream_smem(int size, int dp) {
-  return size == 2 ? 2 * 2 * STREAM_KC * row_stride(dp, 2) * 2
+  return size == 2 ? (4 * 2 + 2 * (dp > 64 ? 3 : 2)) * (dp / 64) * STREAM_KC * 128 + 12 * 8 +
+                         1024
                    : (dp > 64 ? 2 * (dp / 32) * 64 * 128 : 0) +
                          (dp / 32) * 2 * (dp > 64 ? 32 : 64) * 128 +
                          (dp > 64 ? 1 : 2) * 2 * dp * 128 + 2 * (dp > 64 ? 32 : 64) * dp * 4 +
@@ -707,155 +749,6 @@ __device__ __forceinline__ void zero_smem(void* p, int n16) {
   uint4* z = static_cast<uint4*>(p);
   for (int i = threadIdx.x; i < n16; i += blockDim.x) z[i] = make_uint4(0u, 0u, 0u, 0u);
 }
-
-// One warp's 16-query tile across the chunks, bf16: tile_bf16's arithmetic
-// with K and V in the ring's current stage.
-template <int DP> struct StreamBf16 {
-  static constexpr int STRIDE = row_stride(DP, 2), KD = DP / 16, ND = DP / 8, NKT = CHUNK_TILES;
-  uint32_t qa[KD][4];
-  float s[NKT][2][4], o[ND][4], mx[2], sum[2], inv[2];
-
-  // Q's fragments (rows q0.., zeros past L and d) from the unit's q columns
-  // at token 0 (row r at q + (base + r * S) * ld).
-  __device__ __forceinline__ void load_q(const __nv_bfloat16* q, long long base, int S, int ld,
-                                         int q0, int L, int d, uint4*) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const uint16_t* qb = reinterpret_cast<const uint16_t*>(q);
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + g + 8 * (i & 1), col = 16 * kk + 2 * t + 8 * (i >> 1);
-        const uint16_t* p = qb + (base + (long long)row * S) * ld + col;
-        const uint32_t lo = row < L && col < d ? p[0] : 0u;
-        const uint32_t hi = row < L && col + 1 < d ? p[1] : 0u;
-        qa[kk][i] = lo | hi << 16;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = -INFINITY;
-      sum[r] = 0.f;
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  }
-
-  // the logits of keys k0.. (the chunk at k), masked past L
-  __device__ __forceinline__ void logits(const __nv_bfloat16* k, int k0, int L, float scale) {
-    const int lane = threadIdx.x & 31, t = lane & 3;
-    const int br = (lane & 7) + ((lane >> 4) & 1) * 8, bc = ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][0][e] = s[j][1][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NKT; ++j) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t kb[4];
-        ldsm4(kb, k + (16 * j + br) * STRIDE + kk * 16 + bc);
-        mma_bf16(s[j][0], qa[kk], kb[0], kb[1]);
-        mma_bf16(s[j][1], qa[kk], kb[2], kb[3]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 16 * j + 8 * n + 2 * t + (e & 1);
-          s[j][n][e] = key < L ? s[j][n][e] * scale : -INFINITY;
-        }
-  }
-
-  // pass 1: the rows' max and sum over one more chunk
-  __device__ __forceinline__ void stats(const __nv_bfloat16* k, int k0, int L, float scale) {
-    logits(k, k0, L, scale);
-    float cm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], s[j][n][e]);
-    float cs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m = fmaxf(mx[r], quad_max(cm[r]));
-      sum[r] *= expf(mx[r] - m);     // 0 on the first chunk
-      mx[r] = m;
-    }
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][n][e] = expf(s[j][n][e] - mx[e >> 1]);
-          cs[e >> 1] += s[j][n][e];
-        }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) sum[r] += quad_sum(cs[r]);
-  }
-
-  // pass 2: O += T(p) V over one chunk (K at k, V at v)
-  __device__ __forceinline__ void products(const __nv_bfloat16* k, const __nv_bfloat16* v, int k0,
-                                           int L, float scale) {
-    const int lane = threadIdx.x & 31;
-    const int ar = (lane & 7) + ((lane >> 3) & 1) * 8, ac = ((lane >> 4) & 1) * 8;
-    if (k0 == 0)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) inv[r] = 1.f / sum[r];
-    logits(k, k0, L, scale);
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][n][e] = expf(s[j][n][e] - mx[e >> 1]);
-#pragma unroll
-    for (int j = 0; j < NKT; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[j][0][0] * inv[0], s[j][0][1] * inv[0]),
-                              pack_bf16(s[j][0][2] * inv[1], s[j][0][3] * inv[1]),
-                              pack_bf16(s[j][1][0] * inv[0], s[j][1][1] * inv[0]),
-                              pack_bf16(s[j][1][2] * inv[1], s[j][1][3] * inv[1])};
-#pragma unroll
-      for (int nn = 0; nn < DP / 16; ++nn) {
-        uint32_t vb[4];
-        ldsm4_t(vb, v + (16 * j + ar) * STRIDE + nn * 16 + ac);
-        mma_bf16(o[2 * nn], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * nn + 1], pa, vb[2], vb[3]);
-      }
-    }
-  }
-
-  // rows q0.. (< L), columns < d of the unit's output at out (row r at
-  // out + (base + r * S) * ld); vo: two values a store
-  __device__ __forceinline__ void store(__nv_bfloat16* out, long long base, int S, int ld, int q0,
-                                        int L, int d, int vo) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + g + 8 * r;
-      if (row >= L) continue;
-      __nv_bfloat16* y = out + (base + (long long)row * S) * ld;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const int col = 8 * n + 2 * t;
-        const __nv_bfloat162 h = __floats2bfloat162_rn(o[n][2 * r], o[n][2 * r + 1]);
-        if (vo) {
-          if (col < d) *reinterpret_cast<__nv_bfloat162*>(y + col) = h;
-        } else {
-          if (col < d) y[col] = h.x;
-          if (col + 1 < d) y[col + 1] = h.y;
-        }
-      }
-    }
-  }
-};
 
 // ---------------------------------------------------------------------------
 // Float32 on wgmma.  A warpgroup (4 warps) takes 64 rows; an operand in
@@ -1222,93 +1115,535 @@ __device__ __forceinline__ void stream_f32(const float* __restrict__ qkv, float*
   }
 }
 
-// The bf16 streamed forward of one CTA: the body of
-// attention_stream_kernel<__nv_bfloat16, DP>, a two-stage ring of 64-key
-// chunks, a warp a 16-query tile (StreamBf16).
-template <int DP>
-__device__ __forceinline__ void stream_bf16(const __nv_bfloat16* __restrict__ qkv,
-                                            __nv_bfloat16* __restrict__ out, int L, int S, int C,
-                                            int H, int d, float scale, int qblocks, int vb,
-                                            int vo, unsigned char* smem_raw) {
-  using T = __nv_bfloat16;
-  constexpr int WARPS = stream_warps(2), RK = STREAM_KC, STRIDE = row_stride(DP, 2);
-  constexpr int STAGE = 2 * RK * STRIDE, STAGES = 2;
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  const long long unit = blockIdx.x / qblocks, seq = unit / H;
-  const int qblock = (int)(blockIdx.x - unit * qblocks), h = (int)(unit - seq * H);
-  const int warp = threadIdx.x >> 5, q0 = (qblock * WARPS + warp) * 16;
-  const int C3 = 3 * C, nc = (L + RK - 1) / RK, steps = 2 * nc;
-  const long long base = seq / S * L * S + seq % S;    // token l at row base + l * S
-  const T* src = qkv + (long long)h * d;
+// ---------------------------------------------------------------------------
+// bf16 on wgmma.  A warpgroup takes 64 queries; Q (the A of S), K and V
+// sit in 128-byte-swizzled tiles, one a 64-value slice of d, [row][d] as
+// qkv stores them: K's tile is the K-major B of S = Q K^T, V's the
+// MN-major B of P V (the instruction's transpose, which exists for 16-bit
+// types), so nothing is split or transposed in shared memory.  (Q's A
+// fragments in registers made ptxas place P's fragments in the same
+// registers, the next chunk's S then reading P as Q.)
+// ---------------------------------------------------------------------------
 
-  zero_smem(smem_raw, STAGES * STAGE * 2 / 16);
-  __syncthreads();
-  // step i < nc: chunk i of K (pass 1); step nc + i: chunk i of K and V
-  auto issue = [&](int step) {
-    const int k0 = (step < nc ? step : step - nc) * RK;
-    const int rows = L - k0 < RK ? L - k0 : RK;
-    T* stage = ring + (step & 1) * STAGE;
-    stream_rows(vb, stage, src + C, base, S, C3, k0, rows, d, STRIDE);
-    if (step >= nc)
-      stream_rows(vb, stage + RK * STRIDE, src + 2 * C, base, S, C3, k0, rows, d, STRIDE);
-    asm volatile("cp.async.commit_group;" ::: "memory");
-  };
-  StreamBf16<DP> tile;
-  tile.load_q(src, base, S, C3, q0, L, d,
-              reinterpret_cast<uint4*>(smem_raw + 2 * STAGE * sizeof(T)) + warp * (DP / 8) * 64);
-  issue(0);
-  for (int step = 0; step < steps; ++step) {
-    if (step + 1 < steps) {
-      issue(step + 1);
-      asm volatile("cp.async.wait_group 1;" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;" ::: "memory");
-    }
-    __syncthreads();
-    const T* k = ring + (step & 1) * STAGE;
-    if (q0 < L) {
-      if (step < nc)
-        tile.stats(k, step * RK, L, scale);
-      else
-        tile.products(k, k + RK * STRIDE, (step - nc) * RK, L, scale);
-    }
-    __syncthreads();       // every warp is done with this stage before it refills
+// d (64 x N) += A (64 x 16) B (16 x N) in bf16 with f32 accumulation
+// (m64nNk16): A from registers (this thread's a0..a3), B a 128-byte-
+// swizzled shared tile, K-major (TRANS 0) or MN-major (TRANS 1).  `one` is
+// 1: d accumulates.
+template <int N, int TRANS> struct WgBf16;
+
+template <int TRANS> struct WgBf16<64, TRANS> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int one) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(one), "n"(TRANS));
   }
-  if (q0 < L) tile.store(out + (long long)h * d, base, S, C, q0, L, d, vo);
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int one) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(one), "n"(TRANS));
+  }
+};
+
+template <int TRANS> struct WgBf16<128, TRANS> {
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int one) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(one), "n"(TRANS));
+  }
+};
+
+// 2^x (ex2.approx: ~2 ulp; 0 for -inf)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// One CTA: query tiles (blockIdx.x % qblocks) * stream_warps.. of unit
-// blockIdx.x / qblocks (sequence u / H, head u % H), rows laid out with S as
-// attention_tc_kernel's; vb the copy width in bytes, vo: two values a store.
+// Keeps the compiler from moving a use of an accumulator above the wait
+// for the wgmmas that write it.
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The tiles of a bf16 streamed forward CTA of 1..WGS consumer warpgroups
+// (stream_wgs) and a producer warp: a ring of STAGES stages of a K and a V
+// chunk (STREAM_KC keys), then each warpgroup's Q (64 rows), each part a
+// tile of 64 rows of 128 bytes a 64-value slice of d; then the stages'
+// mbarriers, full and empty.  The descriptor of an MN-major tile (V: its
+// 8-key groups 1024 bytes apart, its slices of d TILE bytes apart).
+template <int DP> struct Bf16Ring {
+  static constexpr int NSL = DP / 64, TILE = STREAM_KC * 128, PART = NSL * TILE;
+  static constexpr int STAGES = 4, WGS = DP > 64 ? 3 : 2;
+  static constexpr int Q_OFF = STAGES * 2 * PART;
+  // nq Q buffers: 2 where a CTA walks several items, else 1
+  __host__ __device__ static constexpr int bar_off(int wgs, int nq) {
+    return Q_OFF + nq * wgs * PART;
+  }
+  // shared memory of a CTA of wgs warpgroups, 1 KB to align the tiles
+  __host__ __device__ static constexpr int smem(int wgs, int nq) {
+    return bar_off(wgs, nq) + (2 * STAGES + 4) * 8 + 1024;
+  }
+  static constexpr int SMEM = smem(WGS, 2);
+  static __device__ __forceinline__ uint64_t v_desc(const void* tile) {
+    return (uint64_t)((saddr(tile) & 0x3FFFF) >> 4) | ((uint64_t)(TILE >> 4) << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+  }
+};
+
+// The producer warp's copy of rows k0.. (rows of them) of one part of a
+// unit into 64-row tiles (row r in the tiles of block r / 64, slice sl of d
+// at dst + (block * NSL + sl) * TILE), VB bytes a lane and step: row r from
+// src + (base + (k0 + r) * S) * ld, its first d values, each 16-byte chunk
+// c of a row at swz16(r % 64, c).  A lane walks its vectors without a
+// division a vector.
+template <int NSL, int VB>
+__device__ __forceinline__ void copy_tiles(uint8_t* dst, const __nv_bfloat16* src,
+                                           long long base, int S, int ld, int k0, int rows,
+                                           int d, int lane, int lanes) {
+  constexpr int EPV = VB / 2;
+  const int vph = d / EPV, n = rows * vph, dr = lanes / vph, dc = lanes - dr * vph;
+  int r = lane / vph, c = lane - r * vph;
+  for (int i = lane; i < n; i += lanes) {
+    const int byte = 2 * EPV * c;
+    copy_in<VB>(dst + ((r >> 6) * NSL + (byte >> 7)) * (STREAM_KC * 128) +
+                    swz16(r & 63, (byte >> 4) & 7) + (byte & 15),
+                src + (base + (long long)(k0 + r) * S) * ld + EPV * c);
+    c += dc;
+    r += dr;
+    if (c >= vph) {
+      c -= vph;
+      ++r;
+    }
+  }
+}
+
+template <int NSL>
+__device__ __forceinline__ void copy_tiles(int vb, uint8_t* dst, const __nv_bfloat16* src,
+                                           long long base, int S, int ld, int k0, int rows,
+                                           int d, int lane, int lanes) {
+  switch (vb) {
+    case 16: copy_tiles<NSL, 16>(dst, src, base, S, ld, k0, rows, d, lane, lanes); break;
+    case 8: copy_tiles<NSL, 8>(dst, src, base, S, ld, k0, rows, d, lane, lanes); break;
+    case 4: copy_tiles<NSL, 4>(dst, src, base, S, ld, k0, rows, d, lane, lanes); break;
+    default: copy_tiles<NSL, 2>(dst, src, base, S, ld, k0, rows, d, lane, lanes); break;
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(saddr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(saddr(bar)) : "memory");
+}
+// an arrival once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(saddr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred P;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n}"
+        : "=r"(done)
+        : "r"(saddr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one arrival for the warp, once all its lanes are here
+__device__ __forceinline__ void arrive_warp(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(saddr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// TMA: the box at (c0, c1, c2) of map into dst, completing on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The bf16 streamed forward of one CTA: the body of
+// attention_stream_kernel<__nv_bfloat16, DP>.  An item's step i < nc: ring
+// chunk i of K, the rows' max and sum (pass 1); step nc + i: chunk i of K
+// and V, the logits again and O += T(p) V (pass 2).  The products keep
+// tile_bf16's operands and order (S: a k16 step at a time over d; P V: a
+// k16 step at a time over the chunk's keys).
+template <int DP>
+__device__ __forceinline__ void stream_bf16(const __nv_bfloat16* __restrict__ qkv,
+                                            __nv_bfloat16* __restrict__ out, int items,
+                                            int L, int S, int C, int H, int d, float scale,
+                                            int qblocks, int vb, int vo,
+                                            unsigned char* smem_raw, int tma,
+                                            const CUtensorMap* tm) {
+  using T = __nv_bfloat16;
+  using Rg = Bf16Ring<DP>;
+  constexpr int NV = STREAM_KC / 2, ST = Rg::STAGES;
+  uint8_t* sm = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  const int wgs = (blockDim.x - 32) >> 7;          // consumer warpgroups
+  const int nq = (int)gridDim.x < items ? 2 : 1;   // Q buffers
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Rg::bar_off(wgs, nq));
+  uint64_t* empty = full + ST;
+  uint64_t* qfull = empty + ST;                    // [2]: the two Q buffers
+  uint64_t* qempty = qfull + 2;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int C3 = 3 * C, nc = (L + STREAM_KC - 1) / STREAM_KC, steps = 2 * nc;
+
+  // Q by TMA where its boxes hold nothing past d (d = DP), else by the
+  // producer's cp.async into buffers whose columns past d are zeros (they
+  // cancel K's columns past d, which a TMA box takes from the next head;
+  // rows past L hold finite rows of an earlier item or zeros, their
+  // outputs never stored; K's and V's rows past L too where the producer
+  // copies with cp.async, which p = 0 multiplies in V)
+  const bool q_tma = tma && d == DP;
+  zero_smem(sm, Rg::bar_off(wgs, nq) / 16);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, tma ? 1 : 32);   // the TMA's thread, or the producer's lanes
+      mbar_init(empty + i, 4 * wgs);       // every consumer warp, done with the stage
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(qfull + i, q_tma ? 1 : 32);
+      mbar_init(qempty + i, 4 * wgs);
+    }
+  }
+  __syncthreads();     // the zeros and the barriers are there before any copy or wait
+
+  // Work items (unit, block of 64 * wgs queries): item i at CTA i %
+  // gridDim.x, which walks its items in turn; the grid fills the SMs once,
+  // so the next item's Q and first chunks load while this one's last steps
+  // run.  Chunks count on across items (chunk k in stage k % ST), Q's
+  // buffers alternate (item j of a CTA in buffer j % 2).
+  struct Item {
+    long long base;     // token 0's row (layout S)
+    int h, qc, row0, r; // head, first query, the map's row of token 0, its column block
+  };
+  auto item = [&](int i) {
+    const int unit = i / qblocks, seq = unit / H;
+    Item it;
+    it.h = unit - seq * H;
+    it.qc = (i - unit * qblocks) * wgs * WG_ROWS;
+    it.row0 = seq / S * L;
+    it.r = seq % S;
+    it.base = (long long)it.row0 * S + it.r;
+    return it;
+  };
+
+  if (wg == wgs) {
+    // the producer warp: an item's Q, then step i < nc chunk i of K, nc + i
+    // chunk i of K and V, each into its stage once every consumer is done
+    // with the stage's previous chunk.  By TMA (one thread, 64-row boxes of
+    // the map over qkv: a box past L holds the next sequence's rows or
+    // zeros, past d the next columns, all finite; Q's zero columns cancel
+    // K's, p = 0 V's rows, and V's columns past d are never stored), else
+    // by the warp's cp.async
+    int k = 0, j = 0;
+    for (int i = blockIdx.x; i < items; i += gridDim.x, ++j) {
+      const Item it = item(i);
+      const T* src = qkv + (long long)it.h * d;
+      const int qb = j & 1;
+      uint8_t* qbuf = sm + Rg::Q_OFF + qb * wgs * Rg::PART;
+      if (j >= 2) mbar_wait(qempty + qb, ((j >> 1) - 1) & 1);
+      if (q_tma) {
+        if (lane == 0) {
+          mbar_expect_tx(qfull + qb, wgs * Rg::PART);
+          for (int w = 0; w < wgs; ++w)
+#pragma unroll
+            for (int sl = 0; sl < Rg::NSL; ++sl)
+              tma_load_3d(qbuf + (w * Rg::NSL + sl) * Rg::TILE, tm, qfull + qb,
+                          it.h * d + 64 * sl, it.r, it.row0 + it.qc + w * WG_ROWS);
+        }
+      } else {
+        copy_tiles<Rg::NSL>(vb, qbuf, src, it.base, S, C3, it.qc,
+                            L - it.qc < wgs * WG_ROWS ? L - it.qc : wgs * WG_ROWS, d, lane, 32);
+        __threadfence_block();    // (the 2-byte copies are plain stores)
+        mbar_arrive_copies(qfull + qb);
+      }
+      for (int step = 0; step < steps; ++step, ++k) {
+        const int st = k % ST;
+        const bool pass2 = step >= nc;
+        const int k0 = (pass2 ? step - nc : step) * STREAM_KC;
+        uint8_t* stage = sm + st * 2 * Rg::PART;
+        if (tma) {
+          if (lane == 0) {
+            if (k >= ST) mbar_wait(empty + st, (k / ST - 1) & 1);
+            mbar_expect_tx(full + st, (pass2 ? 2 : 1) * Rg::PART);
+#pragma unroll
+            for (int sl = 0; sl < Rg::NSL; ++sl) {
+              tma_load_3d(stage + sl * Rg::TILE, tm, full + st, C + it.h * d + 64 * sl, it.r,
+                          it.row0 + k0);
+              if (pass2)
+                tma_load_3d(stage + Rg::PART + sl * Rg::TILE, tm, full + st,
+                            2 * C + it.h * d + 64 * sl, it.r, it.row0 + k0);
+            }
+          }
+        } else {
+          if (k >= ST) mbar_wait(empty + st, (k / ST - 1) & 1);
+          const int rows = L - k0 < STREAM_KC ? L - k0 : STREAM_KC;
+          copy_tiles<Rg::NSL>(vb, stage, src + C, it.base, S, C3, k0, rows, d, lane, 32);
+          if (pass2)
+            copy_tiles<Rg::NSL>(vb, stage + Rg::PART, src + 2 * C, it.base, S, C3, k0, rows, d,
+                                lane, 32);
+          __threadfence_block();
+          mbar_arrive_copies(full + st);
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  // e = 2^(s * scale2 - mx): the scale and log2(e) folded into one FFMA
+  // before ex2.approx (the softmax's instructions bound the kernel)
+  const float scale2 = scale * 1.4426950408889634f;
+  int k = 0, j = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x, ++j) {
+    const Item it = item(i);
+    const int q0 = it.qc + wg * WG_ROWS;                  // the warpgroup's first query
+    const int qb = j & 1;
+    const uint8_t* qt = sm + Rg::Q_OFF + (qb * wgs + wg) * Rg::PART;   // the warpgroup's Q
+    mbar_wait(qfull + qb, (j >> 1) & 1);
+    if (!q_tma) async_proxy_fence();
+    float o[DP / 2], mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
+    for (int n = 0; n < DP / 2; ++n) o[n] = 0.f;
+    for (int step = 0; step < steps; ++step, ++k) {
+      const int st = k % ST;
+      mbar_wait(full + st, (k / ST) & 1);    // the chunk has landed
+      if (!tma) async_proxy_fence();        // (cp.async writes; TMA's are the async proxy's)
+      const bool pass2 = step >= nc;
+      const int k0 = (pass2 ? step - nc : step) * STREAM_KC;
+      const uint8_t* stage = sm + st * 2 * Rg::PART;
+      // S = Q K^T over the chunk (a warpgroup past L computes on zero or
+      // finite rows and stores nothing: a branch on it would serialise the
+      // wgmmas)
+      float s[NV];
+#pragma unroll
+      for (int e = 0; e < NV; ++e) s[e] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int sl = 0; sl < Rg::NSL; ++sl) {
+        const uint64_t qd = tile_desc(qt + sl * Rg::TILE), kd = tile_desc(stage + sl * Rg::TILE);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) WgBf16<STREAM_KC, 0>::ss(s, qd + 2 * kk, kd + 2 * kk, 1);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      if (!pass2) arrive_warp(empty + st);     // this warp is done with the stage
+      if (step + 1 == steps) arrive_warp(qempty + qb);   // and with Q
+      // keys past L masked in the last chunk (value 4n + 2q + {0, 1}: row
+      // g + 8q, key 8n + 2t + {0, 1})
+      if (k0 + STREAM_KC > L)
+#pragma unroll
+        for (int e = 0; e < NV; ++e)
+          if (k0 + 8 * (e >> 2) + 2 * t + (e & 1) >= L) s[e] = -INFINITY;
+      if (!pass2) {
+        // the rows' max (in units of log2, mx) and sum over one more chunk
+        float cm[2] = {-INFINITY, -INFINITY}, cs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < NV; ++e) cm[(e >> 1) & 1] = fmaxf(cm[(e >> 1) & 1], s[e]);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float m = fmaxf(mx[q], quad_max(cm[q]) * scale2);
+          sum[q] *= ex2(mx[q] - m);     // 0 on the first chunk
+          mx[q] = m;
+        }
+#pragma unroll
+        for (int e = 0; e < NV; ++e)
+          cs[(e >> 1) & 1] += ex2(fmaf(s[e], scale2, -mx[(e >> 1) & 1]));
+#pragma unroll
+        for (int q = 0; q < 2; ++q) sum[q] += quad_sum(cs[q]);
+        continue;
+      }
+      if (k0 == 0)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) inv[q] = 1.f / sum[q];
+      // p = T(e * (1 / sum)) as the A fragment of each 16 keys: n8 tiles
+      // 2j and 2j + 1 of S make one k16 fragment, as tile_bf16 packs it
+      uint32_t pa[STREAM_KC / 16][4];
+#pragma unroll
+      for (int jj = 0; jj < STREAM_KC / 16; ++jj)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int e = 8 * jj + 2 * x;
+          pa[jj][x] = pack_bf16(ex2(fmaf(s[e], scale2, -mx[x & 1])) * inv[x & 1],
+                                ex2(fmaf(s[e + 1], scale2, -mx[x & 1])) * inv[x & 1]);
+        }
+      wg_fence();
+#pragma unroll
+      for (int jj = 0; jj < STREAM_KC / 16; ++jj)
+        WgBf16<DP, 1>::rs(o, pa[jj], Rg::v_desc(stage + Rg::PART + jj * 16 * 128), 1);
+      wg_commit();
+      wg_wait0();
+      fence_regs(o);
+      arrive_warp(empty + st);
+    }
+    // rows q0 + 16 warp + g (+ 8), columns < d: accumulator 4n + 2q + {0, 1}
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int row = q0 + 16 * warp + g + 8 * q;
+      if (row >= L) continue;
+      T* y = out + (long long)it.h * d + (it.base + (long long)row * S) * C;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = 8 * n + 2 * t;
+        const __nv_bfloat162 v = __floats2bfloat162_rn(o[4 * n + 2 * q], o[4 * n + 2 * q + 1]);
+        if (vo) {
+          if (col < d) *reinterpret_cast<__nv_bfloat162*>(y + col) = v;
+        } else {
+          if (col < d) y[col] = v.x;
+          if (col + 1 < d) y[col + 1] = v.y;
+        }
+      }
+    }
+  }
+}
+
+// One CTA: 64-query blocks (blockIdx.x % qblocks) * (blockDim.x / 128).. of
+// unit blockIdx.x / qblocks (sequence u / H, head u % H), rows laid out with
+// S as attention_tc_kernel's; vb the copy width in bytes, vo: two values a
+// store.
 template <typename T, int DP>
-__global__ void __launch_bounds__(32 * stream_warps(sizeof(T)))
+__global__ void __launch_bounds__(stream_threads(sizeof(T), DP))
 attention_stream_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L, int S, int C,
                         int H, int d, float scale, int qblocks, int vb, int vo) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  if constexpr (sizeof(T) == 4)
-    stream_f32<DP>(qkv, out, L, S, C, H, d, scale, qblocks, vb, vo, smem_raw);
-  else
-    stream_bf16<DP>(qkv, out, L, S, C, H, d, scale, qblocks, vb, vo, smem_raw);
+  stream_f32<DP>(qkv, out, L, S, C, H, d, scale, qblocks, vb, vo, smem_raw);
+}
+
+// The same for bf16, with qkv's TMA map (tma: 1 where the map is good, 0:
+// the producer warp copies with cp.async instead); at dp = 64 two CTAs an
+// SM.
+template <typename T, int DP>
+__global__ void __launch_bounds__(stream_threads(sizeof(T), DP), DP > 64 ? 1 : 2)
+attention_stream_kernel(const T* __restrict__ qkv, T* __restrict__ out, int items, int L,
+                        int S, int C, int H, int d, float scale, int qblocks, int vb, int vo,
+                        int tma, const __grid_constant__ CUtensorMap tm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  stream_bf16<DP>(qkv, out, items, L, S, C, H, d, scale, qblocks, vb, vo, smem_raw, tma, &tm);
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (nothing
+// new is linked), or nullptr
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a bf16 qkv, seqs sequences of L tokens laid out with S:
+// (3C columns, S, seqs / S * L token rows), row q * L + l of column block
+// r at row (q * L + l) * S + r of qkv; boxes of 64 columns x 1 x 64 tokens,
+// 128-byte swizzled, zeros past the end.  False where TMA cannot take it
+// (the address or the row stride not a multiple of 16 bytes).
+inline bool encode_qkv(CUtensorMap* map, const void* qkv, long long seqs, int L, int S, int C) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(qkv) % 16 || (6LL * C) % 16) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)(3LL * C), (cuuint64_t)S, (cuuint64_t)(seqs / S * L)};
+  const cuuint64_t strides[2] = {(cuuint64_t)(6LL * C), (cuuint64_t)(6LL * C * S)};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)STREAM_KC}, step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(qkv), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, int DP>
 cudaError_t launch_stream(const T* qkv, T* out, long long seqs, int L, int S, int C, int H,
                           int d, float scale, int vb, cudaStream_t stream) {
-  const auto kernel = attention_stream_kernel<T, DP>;
-  constexpr int size = (int)sizeof(T), smem = stream_smem(size, DP), warps = stream_warps(size);
+  constexpr int size = (int)sizeof(T), smem = stream_smem(size, DP);
   static_assert(smem <= SMEM_MAX, "a streamed CTA's shared memory");
-  static_assert(size == 2 || smem == FwdTiles<DP>::SMEM, "FwdTiles and stream_smem agree");
+  static_assert(smem == (size == 2 ? Bf16Ring<DP>::SMEM : FwdTiles<DP>::SMEM),
+                "the tiles and stream_smem agree");
+  // the kernel: float32 or bf16 (with the TMA map), one name
+  using F32Kernel = void (*)(const T*, T*, int, int, int, int, int, float, int, int, int);
+  using Bf16Kernel = void (*)(const T*, T*, int, int, int, int, int, int, float, int, int, int,
+                              int, CUtensorMap);
+  const void* kernel;
+  if constexpr (size == 4)
+    kernel = (const void*)(F32Kernel)attention_stream_kernel<T, DP>;
+  else
+    kernel = (const void*)(Bf16Kernel)attention_stream_kernel<T, DP>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const int qblocks = ((L + 15) / 16 + warps - 1) / warps;
+  // float32: two warpgroups a CTA; bf16: stream_wgs consumer warpgroups,
+  // their Q tiles among the shared memory, and a producer warp
+  const int wgs = size == 4 ? 2 : stream_wgs(DP, L);
+  const int qblocks = ((L + 63) / 64 + wgs - 1) / wgs;
   const long long grid = seqs * H * qblocks;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int vo = d % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0;
-  kernel<<<(unsigned)grid, 32 * warps, smem, stream>>>(qkv, out, L, S, C, H, d, scale, qblocks,
-                                                        vb, vo);
+  if constexpr (size == 4) {
+    ((F32Kernel)attention_stream_kernel<T, DP>)<<<(unsigned)grid, 256, smem, stream>>>(
+        qkv, out, L, S, C, H, d, scale, qblocks, vb, vo);
+  } else {
+    CUtensorMap tm{};
+    // (a box must start on 16 bytes: each head row a multiple of them, vb)
+    const int tma = vb == 16 && encode_qkv(&tm, qkv, seqs, L, S, C);
+    // persistent CTAs: as many as the SMs hold at once, each walking its
+    // work items (with fewer items, a CTA an item and one Q buffer)
+    const auto kernel = (Bf16Kernel)attention_stream_kernel<T, DP>;
+    const int threads = 128 * wgs + 32;
+    // the CTAs a card holds at once, asked once a device (of the first 16)
+    // and warpgroup count
+    static std::atomic<int> held[16][4];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    int most = dev < 16 ? held[dev][wgs].load(std::memory_order_relaxed) : 0;
+    if (most == 0) {
+      int sms = 0, per_sm = 0;
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+              cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                               Bf16Ring<DP>::smem(wgs, 2))) !=
+              cudaSuccess)
+        return err;
+      most = sms * (per_sm > 0 ? per_sm : 1);
+      if (dev < 16) held[dev][wgs].store(most, std::memory_order_relaxed);
+    }
+    const long long ctas = grid < most ? grid : most;
+    kernel<<<(unsigned)ctas, threads, Bf16Ring<DP>::smem(wgs, ctas < grid ? 2 : 1), stream>>>(
+        qkv, out, (int)grid, L, S, C, H, d, scale, qblocks, vb, vo, tma, tm);
+  }
   return counted(LAUNCH_ATTENTION_STREAM, cudaGetLastError());
 }
 

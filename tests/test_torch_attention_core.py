@@ -15,9 +15,10 @@ test_torch_block_temporal.py) hold it inside the whole block.  Here:
 - the tensor-core kernels' arithmetic, emulated on the CPU (head size
   padded with zeros to 32/48/64, keys padded to the kernel's key chunks and
   masked to -inf, the row's max and sum gathered chunk by chunk past 144
-  keys; the streamed kernel, which takes a head size above 64 or a unit
-  beyond a CTA's shared memory, with d padded to 64 or 128 and its keys in
-  chunks of 64 at any L), stays within its bounds of the plain version:
+  keys; the streamed kernel, which takes a head size above 64, bf16 (and
+  float32 at d = 49..64) past 144 keys, or a unit beyond a CTA's shared
+  memory, with d padded to 64 or 128 and its keys in chunks of 64 at any
+  L), stays within its bounds of the plain version:
     float32: three TF32 products a product (split_tf32; in the logits
       hi*hi, and hi*lo + lo*hi summed apart and added; in P V lo*hi, hi*lo,
       hi*hi in one sum) within 1e-6 max abs on the qkv the chain
@@ -28,8 +29,10 @@ test_torch_block_temporal.py) hold it inside the whole block.  Here:
     bfloat16: bf16 operands, float32 sums, p rounded after the row's full
       sum: each probability within one bf16 ulp of the plain one (the f32
       values before the rounding differ in the last bits: another exp and a
-      multiplication by 1 / sum), and each output within one bf16 ulp of
-      its own plus what the flipped probabilities carry, sum |dp| |v|.
+      multiplication by 1 / sum; the streamed kernel's exp is 2^(s c - m)
+      with c = d^-1/2 log2(e) folded into one FMA), and each output within
+      one bf16 ulp of its own plus what the flipped probabilities carry,
+      sum |dp| |v|.
 The kernel itself against this plain version runs on the card
 (tests/test_torch_cuda.py, chip_smoke.py's attention_stage phase).
 """
@@ -180,10 +183,10 @@ STREAM_KC = 64
 
 def _streamed(size, L, d):
     """Whether the streamed kernel takes (L, d) (attention_sm90.cuh's
-    variant(): d above 64; float32 past 144 keys (the resident kernel's
-    64-key chunks, the same arithmetic) at d = 49..64; or one unit's q, k, v
-    tiles beyond SMEM_MAX)."""
-    if d > 64 or (size == 4 and d > 48 and _key_tiles(L) == 4):
+    variant(): d above 64; past 144 keys (the resident kernel's 64-key
+    chunks, the same arithmetic) bf16 at any d and float32 at d = 49..64;
+    or one unit's q, k, v tiles beyond SMEM_MAX)."""
+    if d > 64 or (_key_tiles(L) == 4 and (size == 2 or d > 48)):
         return True
     kc = 16 * _key_tiles(L)
     dp = 32 if d <= 32 else 48 if d <= 48 else 64
@@ -193,14 +196,16 @@ def _streamed(size, L, d):
 
 def _stream_smem(size, dp):
     """A streamed CTA's shared memory in bytes (attention_sm90.cuh's
-    stream_smem): bf16 a ring of two stages of a K and a V chunk
-    ([STREAM_KC][dp + 8] each); float32 (ring chunks of 64 keys, 32 at d =
-    128) at d = 128 Q's TF32 lo tiles (128 rows of 128-byte slices of dp),
-    a ring chunk's K tiles by rows and V^T tiles (one per 32 keys), hi and
-    lo, the chunk as copied ([keys][dp] twice) and 1 KB to align the
-    tiles."""
+    stream_smem): bf16 at its most consumer warpgroups (two, three at d =
+    128) a ring of four stages of a K and a V chunk and two Q buffers of a
+    tile a warpgroup, 64 128-byte rows (64 values) a 64-value slice of dp
+    each, and the ring's and the buffers' twelve mbarriers; float32 (ring chunks of 64 keys, 32 at d = 128) at d = 128 Q's
+    TF32 lo tiles (128 rows of 128-byte slices of dp), a ring chunk's K
+    tiles by rows and V^T tiles (one per 32 keys), hi and lo, the chunk as
+    copied ([keys][dp] twice); both and 1 KB to align the tiles."""
     if size == 2:
-        return 2 * 2 * STREAM_KC * (dp + 8) * 2
+        return ((4 * 2 + 2 * (3 if dp > 64 else 2)) * (dp // 64) * 64 * 128
+                + 12 * 8 + 1024)
     keys = 32 if dp > 64 else 64
     q_lo = 2 * (dp // 32) * 64 * 128 if dp > 64 else 0
     return (q_lo + (dp // 32) * 2 * keys * 128 + (keys // 32) * 2 * dp * 128
@@ -208,7 +213,7 @@ def _stream_smem(size, dp):
 
 
 @pytest.mark.parametrize("size,dp,want", [(4, 64, 99328), (4, 128, 164864),
-                                          (2, 64, 36864), (2, 128, 69632)])
+                                          (2, 64, 99424), (2, 128, 230496)])
 def test_streamed_shared_memory_fits_a_cta(size, dp, want):
     """Each streamed forward instantiation (float32 and bf16, d padded to
     64 and 128) takes no more shared memory than a CTA may have."""
@@ -217,12 +222,14 @@ def test_streamed_shared_memory_fits_a_cta(size, dp, want):
 
 def test_the_rule_streams_the_shapes_past_the_resident_kernel():
     """float32: L up to 144 at d = 64 (one pass) and 320 at d <= 48
-    resident, beyond them streamed; bf16 up to 512 at d = 64; any d above
-    64 streamed."""
+    resident, beyond them streamed; bf16 up to 144 at every d (one pass)
+    resident, beyond it streamed; any d above 64 streamed."""
     assert not _streamed(4, 144, 64) and _streamed(4, 145, 64)
     assert _streamed(4, 243, 64) and _streamed(4, 243, 49)
     assert not _streamed(4, 320, 48) and _streamed(4, 321, 48)
-    assert not _streamed(2, 512, 64) and _streamed(2, 513, 64)
+    for d in (28, 32, 36, 48, 64):
+        assert not _streamed(2, 144, d) and _streamed(2, 145, d)
+    assert _streamed(2, 243, 48) and _streamed(2, 351, 48)
     assert _streamed(4, 1, 65) and _streamed(2, 17, 128)
 
 
@@ -235,7 +242,8 @@ def _emulate(qkv, num_heads, streamed=None):
     B, L, C3 = qkv.shape
     C = C3 // 3
     d = C // num_heads
-    if streamed or _streamed(qkv.element_size(), L, d):
+    stream = bool(streamed or _streamed(qkv.element_size(), L, d))
+    if stream:
         dp, kc = (64 if d <= 64 else 128), STREAM_KC
     else:
         dp, kc = (32 if d <= 32 else 48 if d <= 48 else 64), 16 * _key_tiles(L)
@@ -248,24 +256,45 @@ def _emulate(qkv, num_heads, streamed=None):
         s = qh @ kh.mT + (ql @ kh.mT + qh @ kl.mT)
     else:
         s = q @ k.mT
-    s = s * d ** -0.5
+    # the streamed bf16 kernel: e = 2^(s c - mx), the scale and log2(e)
+    # folded into c and one float32 FMA (ex2.approx's ~2 ulp not modelled:
+    # two orders of magnitude under what the bf16 rounding of p resolves);
+    # the other kernels: e = exp(s d^-1/2 - mx)
+    log2 = cd == torch.bfloat16 and stream
+    c2 = (torch.tensor(d ** -0.5, dtype=torch.float32)
+          * torch.tensor(math.log2(math.e), dtype=torch.float32))
+
+    def exponent(x, m):
+        if log2:
+            return torch.exp2((x.double() * float(c2) - m.double()).float())
+        return torch.exp(x - m)
+
+    if not log2:
+        s = s * d ** -0.5
     s[..., L:] = -math.inf
     mx = torch.full(s.shape[:-1] + (1,), -math.inf)
     total = torch.zeros_like(mx)
     for c in range(chunks):
         part = s[..., c * kc:(c + 1) * kc]
-        m = torch.maximum(mx, part.amax(-1, keepdim=True))
-        total = total * torch.exp(mx - m) + torch.exp(part - m).sum(
-            -1, keepdim=True)
+        top = part.amax(-1, keepdim=True)
+        m = torch.maximum(mx, top * c2 if log2 else top)
+        total = total * (torch.exp2 if log2 else torch.exp)(mx - m) + exponent(
+            part, m).sum(-1, keepdim=True)
         mx = m
-    p = (torch.exp(s - mx) * (1 / total)).to(cd).float()
+    # the padded keys' p are exact zeros: P V over the L real keys, so the
+    # CPU's float32 product has the plain version's shapes (a padded one
+    # sums in another blocked order, which at 1000 tokens moves outputs
+    # that cancel to ~1e-7 by a few bf16 ulps, order noise the kernel's
+    # tensor-core sums have too and the ulp bound does not cover)
+    p = (exponent(s, mx) * (1 / total)).to(cd).float()[..., :L, :L]
+    v = v[..., :L, :]
     if cd == torch.float32:
         (ph, pl), (vh, vl) = split_tf32(p), split_tf32(v)
         o = pl @ vh + ph @ vl + ph @ vh
     else:
         o = p @ v
-    o = o.to(cd)[:, :, :L, :d].transpose(1, 2).reshape(B, L, C)
-    return o, p[:, :, :L, :L].to(cd)
+    o = o.to(cd)[..., :d].transpose(1, 2).reshape(B, L, C)
+    return o, p.to(cd)
 
 
 def _plain_probs(qkv, num_heads):
@@ -329,8 +358,9 @@ STREAMED = [(243, 64), (351, 64), (351, 48), (243, 128), (134, 128)]
 @pytest.mark.parametrize("L,d", STREAMED)
 def test_streamed_arithmetic_within_bounds(L, d):
     """The streamed kernel's order (chunks of 64 keys, d padded to 64 or
-    128) within the resident kernel's bounds, in both dtypes (at 243 x 64
-    the resident kernel takes the shape, with the same chunks)."""
+    128) within the resident kernel's bounds, in both dtypes (the resident
+    kernel's chunked path, which float32 still takes past 144 keys at d <=
+    48, has the same chunks)."""
     for dtype in DTYPES:
         qkv = _chain_qkv(L, d, L * 100 + d, dtype)
         got, p = _emulate(qkv, HEADS, streamed=True)
@@ -346,6 +376,31 @@ def test_streamed_arithmetic_within_bounds(L, d):
         carried = (dp @ v.abs()).transpose(1, 2).reshape(B, L, C3 // 3)
         assert bool(((got.float() - want).abs()
                      <= _bf16_ulp(want) + carried).all()), (L, d)
+
+
+@pytest.mark.parametrize("L,d", [(1000, 64), (1000, 48)])
+def test_streamed_bf16_within_bounds_at_1000_tokens(L, d):
+    """bf16 at 1000 tokens, the longest the card's tests stream: each
+    probability within one bf16 ulp of the plain one, as above; each
+    output within what the flipped probabilities carry plus one ulp of the
+    larger of the two outputs.  Both outputs are rounded to bf16, so their
+    rounding errors are half an ulp of each: the ulp of the plain output
+    alone (the bound above) misses the case that appears at this length,
+    an output that cancels to ~6e-8 in the plain version while the
+    carried difference (~2.9e-6, the flips all pushing one way) lifts the
+    kernel's into a binade 2^5 higher (one of 2,048,000 values at d =
+    64)."""
+    qkv = _chain_qkv(L, d, L * 100 + d, torch.bfloat16)
+    got, p = _emulate(qkv, HEADS, streamed=True)
+    want = attention_core_reference(qkv, HEADS).float()
+    plain_p = _plain_probs(qkv, HEADS).float()
+    dp = (p.float() - plain_p).abs()
+    assert bool((dp <= _bf16_ulp(plain_p)).all())
+    B, _, C3 = qkv.shape
+    v = qkv.float().view(B, L, 3, HEADS, d)[:, :, 2].transpose(1, 2)
+    carried = (dp @ v.abs()).transpose(1, 2).reshape(B, L, C3 // 3)
+    ulp = torch.maximum(_bf16_ulp(want), _bf16_ulp(got.float()))
+    assert bool(((got.float() - want).abs() <= ulp + carried).all())
 
 
 def test_wrapper_rejects_a_bad_layout():

@@ -1004,18 +1004,20 @@ ATTN_CORE_TOL_BF16 = 2.0 ** -7
 #: (L, C) of the attention stage: the six serve bucket-16 shapes (each
 #: part's joints and 27 frames), 3DHP's (C 288, d 36), the monolithic
 #: model's 134 joints, 243 frames (two passes over chunks of 64 keys) and
-#: one token; then the shapes the streamed kernel takes in float32 (and in
-#: bfloat16 past 512 tokens or d = 64): MixSTE's cs=512 model at 243 frames
-#: (float32 streamed, bf16 resident) and 351, 351 frames at d = 48, d = 128
-#: (C = 1024)
-#: at 243 frames, 134 joints and one token, an odd d = 65 (C = 520), and
-#: lengths that the streamed kernel's 128-query CTAs and 64-key chunks cut
-#: unevenly (257 and 1000 tokens, bfloat16 streamed past 512)
+#: one token; then the shapes the streamed kernel takes (bfloat16 past 144
+#: keys at any d, float32 past 144 keys at d = 64 or past a CTA's shared
+#: memory, both at d above 64): MixSTE's cs=512 model at 243 frames and
+#: 351, 351 frames at d = 48, d = 128 (C = 1024) at 243 frames, 134 joints
+#: and one token, an odd d = 65 (C = 520), lengths that the streamed
+#: kernel's 64-query warpgroups and 64-key chunks cut unevenly (257 and 1000
+#: tokens), and the bfloat16 route's boundary at d = 64 (144 keys resident,
+#: 145 streamed)
 ATTN_CORE_SHAPES = [(24, 384), (27, 384), (68, 224), (27, 224), (42, 256),
                     (27, 256), (17, 288), (27, 288), (134, 288), (243, 384),
                     (243, 224), (1, 384), (243, 512), (351, 512), (351, 384),
                     (243, 1024), (134, 1024), (1, 1024), (300, 520),
-                    (257, 512), (1000, 512), (1000, 1024)]
+                    (257, 512), (1000, 512), (1000, 1024), (144, 512),
+                    (145, 512)]
 
 
 def _attention_core_ok(got, want, qkv):
@@ -1132,19 +1134,33 @@ def test_chains_reject_shapes_the_attention_does_not_take_on_gpu(
 @pytest.mark.cuda
 def test_streamed_kernels_run_past_the_resident_shapes_on_gpu(cuda_device):
     """The library routes the forward at 257, 351 and 1000 tokens (d = 64)
-    and at d = 128, and the backward at 243, 257 and 1000 tokens (d = 64)
-    and at d = 128, to the streamed kernels: each call launches the
-    streamed forward once, or each of the backward's two passes once, as
-    the libraries count their launches, and repeats bit for bit; 134
-    tokens at d = 36 keep the resident kernels and launch none."""
-    for L, C, streamed in ((351, 512, True), (257, 512, True),
-                           (1000, 512, True), (17, 1024, True),
-                           (1000, 1024, True), (134, 288, False)):
-        qkv = torch.randn(4, L, 3 * C, device=cuda_device)
+    and at d = 128, the bfloat16 forward past 144 tokens at every d (145
+    and 243 at d = 64, 243 and 351 at d = 48, 243 at d = 28) and at d =
+    128, and the backward at 243, 257 and 1000 tokens (d = 64) and at d =
+    128, to the streamed kernels: each call launches the streamed forward
+    once, or each of the backward's two passes once, as the libraries count
+    their launches, and repeats bit for bit; 134 tokens at d = 36, and
+    bfloat16 up to 144 tokens at d = 64, keep the resident kernels and
+    launch none."""
+    for dtype, L, C, streamed in (
+            (torch.float32, 351, 512, True), (torch.float32, 257, 512, True),
+            (torch.float32, 1000, 512, True), (torch.float32, 17, 1024, True),
+            (torch.float32, 1000, 1024, True),
+            (torch.float32, 134, 288, False),
+            (torch.bfloat16, 144, 512, False),
+            (torch.bfloat16, 145, 512, True),
+            (torch.bfloat16, 243, 512, True),
+            (torch.bfloat16, 243, 384, True),
+            (torch.bfloat16, 351, 384, True),
+            (torch.bfloat16, 243, 224, True),
+            (torch.bfloat16, 134, 1024, True),
+            (torch.bfloat16, 134, 288, False)):
+        qkv = torch.randn(4, L, 3 * C, device=cuda_device).to(dtype)
         stream_launches(zero=True)
         got = attention_core(qkv, HEADS)
         assert stream_launches(zero=True) == {
-            "forward": int(streamed), "backward_a": 0, "backward_b": 0}
+            "forward": int(streamed), "backward_a": 0,
+            "backward_b": 0}, (dtype, L, C)
         assert torch.equal(got, attention_core(qkv, HEADS))
     for L, C, streamed in ((243, 512, True), (257, 512, True),
                            (1000, 512, True), (1000, 1024, True),
