@@ -34,7 +34,12 @@
    events) or host ms ending in a synchronisation.  ``--only streamed``
    runs the streamed kernels, MixSTE's #1 and its steps alone, ``--only
    serve`` the bfloat16 request and
-   evaluation alone; ``--alt DIR`` times a third tree in the same turns
+   evaluation alone, ``--only train`` the float32 hashes of #1-#6 (no
+   times), #6's weight- and bias-gradient stage alone at H3WB's and
+   MixSTE's shapes (WGRAD_ROWS) beside cuBLAS's ``d.t() @ x`` (and with
+   ``d.sum(0)``), the H3WB float32 step with one more under torch.profiler
+   (its device ms by chip_smoke.py's kernel groups, reported per tree) and
+   MixSTE's steps; ``--alt DIR`` times a third tree in the same turns
    (e.g. this tree with one part of the change taken out; its hashes must
    agree too, its SASS is not compared).  Beside the
    times of #1, #2, #5 and #6, the device ms of their attention stages
@@ -47,7 +52,9 @@
    two runs (a repeat); ``--changed`` names the kernels whose float32
    outputs this change may alter (e.g. ``#1,#3,#4``), every other hash must
    be equal across the trees (the training window's hash belongs to #5 and
-   #6, and so do MixSTE's steps).  The streamed kernels' outputs are
+   #6, and so do MixSTE's steps; #6's input gradient dx and its
+   LayerNorm parameters' gradients are hashed apart from its weight and
+   bias gradients, as ``#6dx`` and ``#6ln``).  The streamed kernels' outputs are
    hashed too (float32 and bfloat16) and must be equal across the trees,
    but where ``--changed`` names them: ``#6`` owns the streamed backward's
    hashes, ``bf16`` the bfloat16 streamed forward's.
@@ -62,9 +69,11 @@
     python3 chip_ab.py --parent build/parent
     python3 chip_ab.py --kernels build/parent [--changed '#2,#5,#6'] \
         [--redesigned attention_stream_kernel,attention_bwd_stream_] \
-        [--runs 3] [--only streamed|serve] [--alt DIR]
+        [--runs 3] [--only streamed|serve|train] [--alt DIR]
     python3 chip_ab.py --kernels build/parent --only streamed \
         --changed '#6,bf16' --redesigned attention_stream_kernel,attention_bwd_stream_
+    python3 chip_ab.py --kernels build/parent --only train --changed '#6' \
+        --redesigned wgrad_,reduce_partials_kernel
     python3 chip_ab.py --witness
 
 Prints JSON lines; the last is ``{"ok": true, ...}``.  It exits non-zero
@@ -463,10 +472,109 @@ def serve_section(times, dev):
     return evaluate
 
 
+#: (rows M, width C) of #6's weight-gradient stage: H3WB's parts (37
+#: sequences x 27 frames x their joints) and MixSTE's two blocks (4 x 243
+#: frames x 134 joints, model.cs 512), each block's four products (fc2,
+#: fc1, proj, qkv)
+WGRAD_ROWS = {"h3wb": ((999 * 24, 384), (999 * 68, 224), (999 * 42, 256)),
+              "mixste": ((4 * 243 * 134, 512), (4 * 243 * 134, 512))}
+
+
+def train_section(times, dev):
+    """#6's weight- and bias-gradient stage alone on seeded float32 d and x
+    at WGRAD_ROWS: the tree's own call (``ops.block_train.weight_grads``,
+    dW and db; a tree that has only ``weight_grad`` takes dW alone, its
+    bias sums ran apart in the backward), cuBLAS's ``d.t() @ x`` and that
+    with ``d.sum(0)``, device ms summed over each model's products and
+    TFLOP/s (2 M N K a product)."""
+    import torch
+    from pafuse_tpu_torch.ops import block_train as bt
+    stage = getattr(bt, "weight_grads", None) or bt.weight_grad
+    for model, blocks in WGRAD_ROWS.items():
+        flop = 0
+        for i, (M, C) in enumerate(blocks):
+            for j, (N, K) in enumerate(((C, 2 * C), (2 * C, C), (C, C), (3 * C, C))):
+                gen = torch.Generator(device=dev).manual_seed(900 + 10 * i + j)
+                d = torch.randn(M, N, generator=gen, device=dev)
+                x = torch.randn(M, K, generator=gen, device=dev)
+                for key, fn in (("ms", lambda: stage(d, x)),
+                                ("cublas_ms", lambda: d.t() @ x),
+                                ("cublas_sum_ms", lambda: (d.t() @ x, d.sum(0)))):
+                    times[f"wgrad_{model}_{key}"] = (times.get(f"wgrad_{model}_{key}", 0.0)
+                                                     + _cuda_ms(fn))
+                flop += 2 * M * N * K
+                del d, x
+                torch.cuda.empty_cache()
+        for what in ("", "_cublas", "_cublas_sum"):
+            times[f"wgrad_{model}{what}_tflops"] = (
+                flop / times[f"wgrad_{model}{what}_ms"] / 1e9)
+
+
+def train_step_section(times, digests, dev, traced=False):
+    """A float32 H3WB training step (depth 8, 37 sequences; host ms over
+    STEPS steps after 2 warm ones, ending in the loss) and a hash of the
+    losses and parameters; with ``traced``, one more step under
+    torch.profiler, its device ms by the tree's chip_smoke.py kernel groups
+    (TRAIN_GROUPS, then KERNEL_GROUPS) in times["traced_step_groups_ms"]."""
+    import hashlib
+    import torch
+    from pafuse_tpu_torch import train as tr
+    from pafuse_tpu_torch.data import h3wb
+    from pafuse_tpu_torch.data.sampling import ChunkedSampler
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+
+    subjects = ["S1", "S5", "S6", "S7"]
+    ds = h3wb.load_dataset(synthetic=True, subjects=tuple(subjects), seed=0)
+    kp3 = h3wb.prepare_data(ds)
+    cams, p3d, p2d = h3wb.fetch(subjects, kp3, ds)
+    sampler = ChunkedSampler(SEQS, cams, p3d, p2d, 27, shuffle=True,
+                             augment=True, flip_permutation=ds.flip_permutation)
+    model = D3DP(D3DPConfig(depth=8, drop_path_rate=0.1), device=dev,
+                 generator=torch.Generator().manual_seed(0))
+    state = tr.create_train_state(model, seed=0, device=dev)
+    step = tr.build_train_step(model, state.optimizer,
+                               weights=tr.mixste_weight_table(134))
+    batches = []
+    for batch in sampler.next_epoch():
+        batches.append(batch)
+        if len(batches) == 2 + STEPS + traced:
+            break
+    losses = [float(step(state, 6e-5, b2d, b3d)) for _, b3d, b2d in batches[:2]]
+    t0 = time.time()
+    for _, b3d, b2d in batches[2:2 + STEPS]:
+        losses.append(float(step(state, 6e-5, b2d, b3d)))
+    times["train_step_float32_ms"] = (time.time() - t0) * 1e3 / STEPS
+    h = hashlib.sha256(torch.tensor(losses).numpy().tobytes())
+    for q in model.parameters():
+        h.update(q.detach().float().contiguous().cpu().numpy().tobytes())
+    digests["train_window"] = h.hexdigest()[:16]
+    if traced:
+        import chip_smoke
+        from torch.profiler import ProfilerActivity, profile
+        _, b3d, b2d = batches[-1]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            float(step(state, 6e-5, b2d, b3d))
+        groups = {}
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                g = chip_smoke.kernel_group(e.key, chip_smoke.TRAIN_GROUPS,
+                                            "PyTorch (embedding, head, loss, AdamW)")
+                groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+        groups["device"] = sum(groups.values())
+        times["traced_step_groups_ms"] = dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+    del model, state, step, sampler, batches
+    torch.cuda.empty_cache()
+
+
 def kernels_worker(mode: str, only=None):
     """One tree's kernel A/B numbers (its package is first on sys.path);
     ``only="streamed"``: the streamed kernels and MixSTE's steps alone;
-    ``only="serve"``: the bfloat16 request and evaluation alone."""
+    ``only="serve"``: the bfloat16 request and evaluation alone;
+    ``only="train"``: the float32 hashes of #1-#6 (no times), #6's weight-
+    and bias-gradient stage alone (train_section), the H3WB float32 step
+    with a profiled one, and MixSTE's steps."""
     import hashlib
     import numpy as np
     import torch
@@ -505,6 +613,7 @@ def kernels_worker(mode: str, only=None):
     parts = [(name, len(j), PART_CHANNELS[name])
              for name, j in parts_table(True).items()]
     times, digests = {}, {}
+    timed = only != "train"
 
     def add(key, ms):
         times[key] = times.get(key, 0.0) + ms
@@ -530,7 +639,7 @@ def kernels_worker(mode: str, only=None):
 
     # every float32 reading first (all parts), then the bfloat16 ones, so
     # no float32 time follows the bfloat16 kernels' load on the card
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16) if timed else (torch.float32,):
         name = "float32" if dtype == torch.float32 else "bfloat16"
         for i, (part, J, C) in enumerate(parts):
             p = _block_params(C, 100 + i, dev)
@@ -552,10 +661,11 @@ def kernels_worker(mode: str, only=None):
                     lambda: fused_attention(temporal, q[2], q[3], q[4], q[5], heads)]
             for k, fns in runs.items():
                 for j, fn in enumerate(fns):
-                    add(f"{k}_{name}_ms", _cuda_ms(fn))
+                    if timed:
+                        add(f"{k}_{name}_ms", _cuda_ms(fn))
                     if dtype == torch.float32:
                         digest(f"{k}_{part}_{j}", fn())
-            for k in ("#1", "#2") if dtype == torch.float32 else ("#1",):
+            for k in (("#1", "#2") if dtype == torch.float32 else ("#1",)) if timed else ():
                 for fn in runs[k]:
                     add(f"{k}_attention_{name}_ms", attention_ms(fn))
             del x, spatial, temporal
@@ -584,18 +694,32 @@ def kernels_worker(mode: str, only=None):
                     m = torch.tensor(np.array([0.0, 1 / 0.9, 1.0], np.float32)[
                         np.arange(B) % 3], device=dev)
                     fwd = lambda: block_train_fwd(xt, m, m, p, heads)  # noqa: E731
-                    add("#5_float32_ms", _cuda_ms(lambda: fwd()[0]))
                     y, saved = fwd()
-                    add("#6_float32_ms", _cuda_ms(lambda: block_train_bwd(saved, g)))
-                    add("#5_attention_float32_ms", attention_ms(lambda: fwd()[0]))
-                    add("#6_attention_float32_ms",
-                        attention_ms(lambda: block_train_bwd(saved, g)))
+                    if timed:
+                        add("#5_float32_ms", _cuda_ms(lambda: fwd()[0]))
+                        add("#6_float32_ms", _cuda_ms(lambda: block_train_bwd(saved, g)))
+                        add("#5_attention_float32_ms", attention_ms(lambda: fwd()[0]))
+                        add("#6_attention_float32_ms",
+                            attention_ms(lambda: block_train_bwd(saved, g)))
                     dx, grads = block_train_bwd(saved, g)
                     digest(f"#5_{part}_{j}", y)
-                    digest(f"#6_{part}_{j}", dx, *grads)
+                    # #6's input gradient, its LayerNorm parameters'
+                    # gradients and its weight and bias gradients apart
+                    digest(f"#6dx_{part}_{j}", dx)
+                    digest(f"#6ln_{part}_{j}", *[grads[k] for k in (0, 1, 6, 7, 12, 13)])
+                    digest(f"#6_{part}_{j}", *[grads[k] for k in (2, 3, 4, 5, 8, 9, 10, 11)])
             torch.cuda.empty_cache()
-    times["gemm_bfloat16_tflops"] = (times.pop("gemm_bfloat16_flop")
-                                     / times["gemm_bfloat16_ms"] / 1e9)
+    if timed:
+        times["gemm_bfloat16_tflops"] = (times.pop("gemm_bfloat16_flop")
+                                         / times["gemm_bfloat16_ms"] / 1e9)
+    else:
+        train_section(times, dev)
+        train_step_section(times, digests, dev, traced=True)
+        mixste_section(times, digests, dev)
+        groups = times.pop("traced_step_groups_ms")
+        emit({"kernels_ab": mode, "times": times, "float32_digests": digests,
+              "traced_step_groups_ms": groups})
+        return
 
     evaluate = serve_section(times, dev)
     # the same action in float32 at use_pallas=true (kernel #2, the CLI's
@@ -610,32 +734,7 @@ def kernels_worker(mode: str, only=None):
     evaluate(model)
     times["eval_true_float32_s"] = time.time() - t0
     del model
-    # a float32 training step (host ms, ending in the loss)
-    subjects = ["S1", "S5", "S6", "S7"]
-    ds = h3wb.load_dataset(synthetic=True, subjects=tuple(subjects), seed=0)
-    kp3 = h3wb.prepare_data(ds)
-    cams, p3d, p2d = h3wb.fetch(subjects, kp3, ds)
-    sampler = ChunkedSampler(SEQS, cams, p3d, p2d, 27, shuffle=True,
-                             augment=True, flip_permutation=ds.flip_permutation)
-    model = D3DP(D3DPConfig(depth=8, drop_path_rate=0.1), device=dev,
-                 generator=torch.Generator().manual_seed(0))
-    state = tr.create_train_state(model, seed=0, device=dev)
-    step = tr.build_train_step(model, state.optimizer,
-                               weights=tr.mixste_weight_table(134))
-    batches = []
-    for batch in sampler.next_epoch():
-        batches.append(batch)
-        if len(batches) == 2 + STEPS:
-            break
-    losses = [float(step(state, 6e-5, b2d, b3d)) for _, b3d, b2d in batches[:2]]
-    t0 = time.time()
-    for _, b3d, b2d in batches[2:]:
-        losses.append(float(step(state, 6e-5, b2d, b3d)))
-    times["train_step_float32_ms"] = (time.time() - t0) * 1e3 / STEPS
-    digest("train_window", torch.tensor(losses),
-           *[q for q in model.parameters()])
-    del model, state, step, sampler, batches
-    torch.cuda.empty_cache()
+    train_step_section(times, digests, dev)
     streamed_section(times, digests, dev)
     mixste_block_section(times, dev)
     mixste_section(times, digests, dev)
@@ -781,6 +880,8 @@ def kernels_summary(results, changed=()):
         if "float32" in key:
             row["within_5_percent"] = max(chg) <= 1.05 * max(par)
         out[key] = row
+    traced = {mode: [r["traced_step_groups_ms"] for r in rs
+                     if "traced_step_groups_ms" in r] for mode, rs in runs.items()}
     keys = runs["change"][0]["float32_digests"]
     same = {k: len({r["float32_digests"][k] for rs in runs.values()
                     for r in rs}) == 1 for k in keys}
@@ -789,6 +890,7 @@ def kernels_summary(results, changed=()):
     kept = {k: v for k, v in same.items()
             if not set(digest_kernels(k)) & set(changed)}
     return {"phase": "kernels_ab", "metrics": out,
+            "traced_step_groups_ms": {k: v for k, v in traced.items() if v},
             "float32_bit_identical": all(kept.values()),
             "float32_outputs_differing": sorted(k for k, v in same.items()
                                                 if not v),
@@ -834,16 +936,21 @@ def main() -> int:
                     help="the kernel A/B against another checkout of the port")
     ap.add_argument("--changed", default="",
                     help="kernels whose hashed outputs may differ, e.g. "
-                         "'#1,#3,#4' ('bf16': the bfloat16 streamed forward)")
+                         "'#1,#3,#4' ('bf16': the bfloat16 streamed forward; "
+                         "'#6': #6's weight and bias gradients, '#6ln' its "
+                         "LayerNorm parameters' gradients, '#6dx' its input "
+                         "gradient)")
     ap.add_argument("--redesigned", default="",
                     help="names (or parts of names) of the kernels whose SASS "
                          "may differ, e.g. 'attention_stream_kernel'")
     ap.add_argument("--runs", type=int, default=3,
                     help="kernel A/B processes a tree")
-    ap.add_argument("--only", choices=("streamed", "serve"),
+    ap.add_argument("--only", choices=("streamed", "serve", "train"),
                     help="time the streamed attention kernels and MixSTE's "
-                         "steps alone, or the bfloat16 request and "
-                         "evaluation alone")
+                         "steps alone, the bfloat16 request and "
+                         "evaluation alone, or #6's weight-gradient stage, "
+                         "the H3WB step (and a profiled one) and MixSTE's "
+                         "steps (with the float32 hashes of #1-#6)")
     ap.add_argument("--alt", metavar="DIR",
                     help="with --kernels, a third checkout timed in the same "
                          "turns (e.g. this tree with one part of the change "

@@ -78,9 +78,10 @@ Phases, one JSON line each:
                composition's (layer_norm + linear + SDPA + gelu, and its
                autograd backward; a yardstick only) and the bound; and the
                backward's tensor-core GEMMs alone at each shape (its four
-               data gradients on wgmma, its four weight gradients on
-               mma.sync), their time and TFLOP/s beside cuBLAS's (a @ w,
-               d^T @ x; a yardstick only), and the forward's four GEMMs
+               data gradients on wgmma, its four weight gradients with
+               their bias gradients on wgmma), their time and TFLOP/s
+               beside cuBLAS's (a @ w, d^T @ x with d.sum(0); a yardstick
+               only), and the forward's four GEMMs
                alone (wgmma, with their epilogues) beside F.linear's; and
                at each shape the two attention stages alone in float32:
                the forward (ops.attention_core, #5's step 3) on
@@ -505,6 +506,12 @@ ATTN_CORE_TOL_BF16 = 2.0 ** -7          # x (|y| + max|v|), elementwise
 ATTN_BWD_SOURCE = "pafuse_tpu_torch/ops/csrc/attention_bwd_sm90.cuh"
 ATTN_BWD_REPLACES = "pafuse_tpu/ops/block_grad.py:203"   # _train_bwd_kernel's attention
 ATTN_BWD_RTOL = 1e-5                    # x max|plain| for each of dq, dk, dv
+WGRAD_SOURCE = "pafuse_tpu_torch/ops/csrc/wgrad_sm90.cuh"
+WGRAD_REPLACES = "pafuse_tpu/ops/block_grad.py:174"   # _train_bwd_kernel's dW, db
+WGRAD_RTOL = 1e-5                       # x max|plain| for each of dW and db
+#: phase -> launches of #6's weight-gradient kernel in its main-path run,
+#: as the block_train library counts them (run_trainer)
+WGRAD_LAUNCHES = {}
 
 
 def emit(obj):
@@ -1604,16 +1611,17 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
             y_lib = lib_fwd()
             lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
                 y_lib, [lib_x] + lib_p, gr, retain_graph=True))
+            gemms = (backward_gemm_times(B * L, params)
+                     if dtype == torch.float32 else {})
             r = {"phase": phase, "name": "block_train_bwd",
                  "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
                  "C": C, "max_abs_err": max_abs,
                  "max_rel_grad_err": max(rel.values()), "rel_grad_err": rel,
                  "deterministic": deterministic, "dx_ok": dx_ok,
                  "ok": (max(rel.values()) <= TRAIN_GRAD_RTOL and deterministic
-                        and dx_ok),
+                        and dx_ok and gemms.get("wgrad_ok", True)),
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                 **(backward_gemm_times(B * L, params)
-                    if dtype == torch.float32 else {}),
+                 **gemms,
                  **train_bound(B, L, C, x.element_size(), param_bytes,
                                backward=True)}
             emit(r)
@@ -1668,11 +1676,17 @@ def forward_gemm_times(B, L, params):
 def backward_gemm_times(M, params):
     """Kernel #6's GEMMs alone on M rows of random float32 operands, as its
     backward runs them: the four data gradients (ops.block_train.data_grad,
-    wgmma; fc2 with the GELU' epilogue) and the four weight gradients
-    (weight_grad, mma.sync, with the ordered pass), each group's ms and
-    TFLOP/s (2*M*N*K per product) beside cuBLAS's a @ w and d^T @ x."""
+    wgmma; fc2 with the GELU' epilogue) and the four weight gradients with
+    their bias gradients (weight_grads, wgmma, with the ordered pass), each
+    group's ms and TFLOP/s (2*M*N*K per product) beside cuBLAS's a @ w, and
+    d^T @ x plus d.sum(0); for the weight gradients also the plain version's
+    time (weights_grads_reference), the bound (2*M*N*K operations; d and x
+    read, dW and db written) and each product's dW and db against the plain
+    version: the largest max|got - plain| / max|plain| (wgrad_ok within
+    WGRAD_RTOL) and max abs error."""
     import torch
-    from pafuse_tpu_torch.ops.block_train import data_grad, weight_grad
+    from pafuse_tpu_torch.ops.block_train import (data_grad, weight_grads,
+                                                  weight_grads_reference)
     wqkv, wproj, wfc1, wfc2 = params[2], params[4], params[8], params[10]
     g = torch.Generator(device=wqkv.device).manual_seed(M)
     rows = lambda n: torch.randn(M, n, generator=g, device=wqkv.device)  # noqa: E731
@@ -1688,13 +1702,25 @@ def backward_gemm_times(M, params):
         "dgrad_ms": cuda_time_ms(lambda: [data_grad(*a) for a in dgrad]),
         "dgrad_library_ms": cuda_time_ms(
             lambda: [a @ w for a, w, _ in dgrad]),
-        "wgrad_ms": cuda_time_ms(lambda: [weight_grad(*a) for a in wgrad]),
+        "wgrad_ms": cuda_time_ms(lambda: [weight_grads(*a) for a in wgrad]),
         "wgrad_library_ms": cuda_time_ms(
-            lambda: [d.t() @ x for d, x in wgrad]),
+            lambda: [(d.t() @ x, d.sum(0)) for d, x in wgrad]),
     }
+    rel, err = 0.0, 0.0
+    for d, x in wgrad:
+        for a, b in zip(weight_grads(d, x), weight_grads_reference(d, x)):
+            rel = max(rel, _rel_err(a, b))
+            err = max(err, float((a - b).abs().max()))
+    plain_ms = cuda_time_ms(lambda: [weight_grads_reference(*a) for a in wgrad])
+    nbytes = sum(4 * (M * (d.shape[1] + x.shape[1]) + d.shape[1] * (x.shape[1] + 1))
+                 for d, x in wgrad)
+    wb = bound(flop, nbytes, "float32")
     del dgrad, wgrad
     return {**times, **{k.replace("_ms", "_tflops"): flop / v / 1e9
-                        for k, v in times.items()}}
+                        for k, v in times.items()},
+            "wgrad_plain_ms": plain_ms, "wgrad_max_rel_err": rel,
+            "wgrad_max_abs_err": err, "wgrad_ok": rel <= WGRAD_RTOL,
+            **{f"wgrad_{k}": v for k, v in wb.items()}}
 
 
 def _synthetic_batches(seed: int, seqs: int, frames: int):
@@ -1780,6 +1806,7 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
     from pafuse_tpu_torch import train as tr
     from pafuse_tpu_torch.diffusion import D3DP
     from pafuse_tpu_torch.models.mixste import MixSTE2
+    from pafuse_tpu_torch.ops import _build
     from pafuse_tpu_torch.ops.attention_core import stream_launches
     from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
                                                   block_train_fwd,
@@ -1807,6 +1834,7 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
     block_train_fwd.launches = block_train_bwd.launches = 0
     if dev.type == "cuda":
         stream_launches(zero=True)
+        _build.kernel_launches("block_train", zero=True)
     losses, step_s, batches = [], [], []
     while len(losses) < steps:
         for _, b3d, b2d in loader.next_epoch():
@@ -1823,6 +1851,13 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
             lr *= lr_decay
     launches = (block_train_fwd.launches, block_train_bwd.launches)
     streamed = stream_launches() if dev.type == "cuda" else {}
+    # #6's weight- and bias-gradient kernel: four launches a call
+    wgrad = (_build.kernel_launches("block_train")["wgrad_wgmma"]
+             if dev.type == "cuda" else 0)
+    WGRAD_LAUNCHES[phase] = wgrad
+    if wgrad != 4 * launches[1]:
+        raise AssertionError(f"{phase}: {wgrad} launches of the weight-"
+                             f"gradient kernel, expected {4 * launches[1]}")
     if streams is not None:
         streams.update(streamed)
     if not all(np.isfinite(losses)):
@@ -1840,7 +1875,7 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
           "frames": cfg.frames, "depth": cfg.depth, "joints": cfg.num_kps,
           "networks": part_names, "losses": losses,
           "launches_fwd": launches[0], "launches_bwd": launches[1],
-          "stream_launches": streamed, "step_s": step_s, "ms_per_step": steady * 1e3,
+          "wgrad_launches": wgrad, "stream_launches": streamed, "step_s": step_s, "ms_per_step": steady * 1e3,
           "frames_per_s": seqs * cfg.frames / steady,
           "batches_per_epoch": sampler.batch_num(),
           "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -1942,7 +1977,8 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("sm90::split_weights_t", "transposed weight splits (#6)"),
                  ("sm90::split_weights", "weight splits (#1, #3, #4)"),
                  ("sm90::row_stats", "row statistics (#1, #3, #4)"),
-                 ("wgrad_mma_kernel", "weight-gradient GEMMs (#6, mma.sync)"),
+                 ("wgrad_wgmma_kernel",
+                  "weight and bias gradients (#6, wgmma)"),
                  ("attention_bwd_tc_kernel", ATTN_BWD_GROUP),
                  ("attention_bwd_stream_[ab]_kernel", ATTN_BWD_STREAM_GROUP),
                  ("attention_tc_kernel", ATTN_CORE_GROUP),
@@ -1953,7 +1989,6 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                   "bf16 LayerNorms (#1, #3, #4: pre-passes and outer)"),
                  ("ln_bwd_kernel", "LayerNorm backward"),
                  ("ln_fwd_kernel", "LayerNorm forward"),
-                 ("colsum_kernel", "bias-gradient sums"),
                  ("reduce_partials_kernel", "ordered partial sums"),
                  ("gemm", "cuBLAS GEMMs"))
 
@@ -4513,6 +4548,19 @@ def _kernel_entry(name, route, source, replaces, launches, cases, **extra):
             **extra}
 
 
+def wgrad_cases(cases):
+    """The float32 block_train_bwd rows of ``cases`` as rows of #6's weight-
+    and bias-gradient stage alone (backward_gemm_times' wgrad_* numbers)."""
+    return [{"dtype": "float32", "kind": c.get("kind"), "B": c["B"],
+             "L": c["L"], "C": c["C"],
+             **{k: c[f"wgrad_{k}"] for k in ("max_abs_err", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "simt_bound_ms", "library_ms")},
+             "ms": c["wgrad_ms"]}
+            for c in cases
+            if c["name"] == "block_train_bwd" and c["dtype"] == "float32"]
+
+
 def _dhp3(cases, launches, windows=None):
     """The 3DHP shapes of a kernel's entry: its float32 sums over
     ``cases`` (those of ``windows`` windows when given) and its launches on
@@ -4899,8 +4947,8 @@ def main() -> int:
                               "block_train_fwd"],
                           **_packed(packed_launches, "block_train_fwd"),
                           **_dryrun(dryrun_launches, "block_train_fwd")}),
-        # with its GEMMs alone: data gradients (wgmma) and weight
-        # gradients (mma.sync), and cuBLAS's for the same products
+        # with its GEMMs alone: data gradients (wgmma) and weight and bias
+        # gradients (wgmma), and cuBLAS's (and d.sum(0)) for the same
         _kernel_entry("block_train_bwd", "cuda", TRAIN_SOURCE,
                       TRAIN_REPLACES["block_train_bwd"], train_launches[1],
                       bwd, max_rel_grad_err=max(
@@ -4925,6 +4973,27 @@ def main() -> int:
                               "block_train_bwd"],
                           **_packed(packed_launches, "block_train_bwd"),
                           **_dryrun(dryrun_launches, "block_train_bwd")}),
+        # #6's weight and bias gradients alone (wgrad_sm90.cuh's kernel and
+        # the ordered pass, ops.block_train.weight_grads) at the float32
+        # training shapes; launched four times by every call of
+        # block_train_bwd, as the block_train library counts them;
+        # library_ms: cuBLAS's d.t() @ x with d.sum(0)
+        _kernel_entry("weight_grads", "cuda", WGRAD_SOURCE, WGRAD_REPLACES,
+                      WGRAD_LAUNCHES["train"], wgrad_cases(bwd),
+                      max_rel_err=max(c["wgrad_max_rel_err"] for c in bwd
+                                      if c["dtype"] == "float32"),
+                      launched_by="block_train_bwd (block_train.cu steps 3, "
+                                  "5, 8 and 11)",
+                      mono134={**_sums(wgrad_cases(mono_cases)),
+                               "launches": WGRAD_LAUNCHES["mono134_train"]},
+                      **_dhp3(wgrad_cases(dhp3_bwd),
+                              {"dhp3_train": WGRAD_LAUNCHES["dhp3_train"]}),
+                      mixste243={**_sums(wgrad_cases(m243["trains"])),
+                                 "launches": WGRAD_LAUNCHES["mixste243_train"]},
+                      launches_by_phase={k: v for k, v in WGRAD_LAUNCHES.items()
+                                         if k not in ("train", "dhp3_train",
+                                                      "mono134_train",
+                                                      "mixste243_train")}),
         # eval shapes (window batch 64); the serve bucket-16 shapes beside;
         # its two GEMMs alone and F.linear's
         _kernel_entry("fused_attention", "cuda", ATTN_SOURCE, ATTN_REPLACES,

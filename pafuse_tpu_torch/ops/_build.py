@@ -67,11 +67,13 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         "pafuse_fwd_linear": ([_P] * 3 + [_I, _P, _I, _P, _I] + [_P] * 3
                               + [_LL, _I, _I, _P], _I),
         # the backward's GEMMs alone: A, W, aux (or NULL), Y, workspace, M,
-        # N, K, stream; the partials' float count: M, N, K; D, X, partials,
-        # dW, M, N, K, stream
+        # N, K, stream; the weight gradients' partials (float count) and
+        # rows of a chunk: M, N, K; D, X, partials, dW then db, M, N, K,
+        # stream
         "pafuse_data_grad": ([_P] * 5 + [_LL, _I, _I, _P], _I),
-        "pafuse_weight_grad_part_floats": ([_LL, _I, _I], _LL),
-        "pafuse_weight_grad": ([_P] * 4 + [_LL, _I, _I, _P], _I),
+        "pafuse_weight_grads_part_floats": ([_LL, _I, _I], _LL),
+        "pafuse_weight_grads_chunk_rows": ([_LL, _I, _I], _LL),
+        "pafuse_weight_grads": ([_P] * 4 + [_LL, _I, _I, _P], _I),
     },
     "block_temporal": {
         # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, the attention,
@@ -126,7 +128,7 @@ COMMON = {"pafuse_kernel_launches": ([_I, _I], _LL)}
 #: common.cuh's LaunchKind, in order: the kernels whose launches each
 #: library counts on the host where it launches them
 LAUNCH_KINDS = ("gemm", "gemm_bf16", "split_weights", "split_weights_t",
-                "row_stats", "wgrad_mma", "attention_tc", "attention_bwd_tc",
+                "row_stats", "wgrad_wgmma", "attention_tc", "attention_bwd_tc",
                 "attention_stream", "attention_bwd_stream_a",
                 "attention_bwd_stream_b")
 

@@ -25,11 +25,13 @@ Every GEMM runs on the tensor cores, each float32 product as three TF32
 products (``ops.gemm.split_tf32``) with partial sums over pairs of 32-deep K
 slices added in float32: the forward's four products (with their bias,
 GELU and masked-residual epilogues) and the backward's data gradients on
-the TMA + ``wgmma`` GEMM of ``csrc/gemm_sm90.cuh``, the weight gradients on
-``mma.sync`` per chunk of ``RED_ROWS`` rows, summed in chunk order.
-``fwd_linear``, ``data_grad`` and ``weight_grad`` run each alone (plain
-versions ``fwd_linear_reference``, through which the plain forward runs
-its four products, ``data_grad_reference`` and ``weight_grad_reference``).
+the TMA + ``wgmma`` GEMM of ``csrc/gemm_sm90.cuh``, the weight gradients
+and their bias gradients together on the ``wgmma`` kernel of
+``csrc/wgrad_sm90.cuh``, per chunk of :func:`weight_grad_chunk_rows` rows,
+summed in chunk order.  ``fwd_linear``, ``data_grad`` and ``weight_grads``
+run each alone (plain versions ``fwd_linear_reference``, through which the
+plain forward runs its four products, ``data_grad_reference`` and
+``weight_grads_reference``).
 The attention forward and backward run on the tensor-core kernels of
 ``ops.attention_core`` in float32 (plain ``attention_core_bwd_reference``,
 through which the plain backward runs its attention backward), which take
@@ -59,8 +61,42 @@ from pafuse_tpu_torch.ops.block import _check as _check_block
 _EPS = 1e-6
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
-#: rows per partial sum of a weight gradient (``csrc/block_train.cu``)
-RED_ROWS = 1024
+#: the weight-gradient kernel's tile rows, rows of a chunk a multiple of,
+#: SMs and cost of an item in rows, as ``csrc/wgrad_sm90.cuh`` sets them
+_WG_BM, _WG_ALIGN, _WG_WAVE, _WG_ITEM_OVERHEAD = 128, 64, 132, 64
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _wgrad_tile_n(K: int) -> int:
+    if K % 128 == 0:
+        return 128
+    return 112 if K % 112 == 0 else 96 if K % 96 == 0 else 128
+
+
+def weight_grad_chunk_rows(M: int, N: int, K: int) -> int:
+    """Rows of a chunk of the weight- and bias-gradient partials of d (M,
+    N) and x (M, K) (``wgrad::chunk_rows`` in ``csrc/wgrad_sm90.cuh``): a
+    function of the shape alone, so the summation order is too.  Over the
+    chunk counts P, the rows R = ceil(M / P) rounded up to a multiple of 64
+    (where that still makes P chunks), the R of least cost ceil(tiles * P /
+    132) * (R + 64) (tiles: 128 x BN tiles of the (N, K) output, BN 128
+    where that divides K, else 112 or 96 where one of them does, else
+    128), the fewest chunks among equals; the last chunk takes what is
+    left."""
+    bn = _wgrad_tile_n(K)
+    tiles = _ceil(N, _WG_BM) * _ceil(K, bn)
+    best = None
+    for p in range(1, _ceil(M, _WG_ALIGN) + 1):
+        r = _ceil(_ceil(M, p), _WG_ALIGN) * _WG_ALIGN
+        if _ceil(M, r) != p:
+            continue
+        cost = _ceil(tiles * p, _WG_WAVE) * (r + _WG_ITEM_OVERHEAD)
+        if best is None or cost < best[0]:
+            best = (cost, r)
+    return best[1]
 
 
 def _ln_fwd(x, s, b):
@@ -153,8 +189,14 @@ def data_grad_reference(a: torch.Tensor, w: torch.Tensor,
 
 
 def weight_grad_reference(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`weight_grad`: ``d^T x``."""
+    """The weight gradient ``d^T x``."""
     return d.t() @ x
+
+
+def weight_grads_reference(d: torch.Tensor, x: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`weight_grads`: ``(d^T x, d.sum(0))``."""
+    return weight_grad_reference(d, x), d.sum(0)
 
 
 def train_bwd_reference(x: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
@@ -177,18 +219,18 @@ def train_bwd_reference(x: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
     dm = (m2 * dx2).reshape(M, C)
     gu, u, h2 = gu.reshape(M, -1), u.reshape(M, -1), h2.reshape(M, C)
     du = data_grad_reference(dm, wfc2, u)
-    dwfc2, dbfc2 = weight_grad_reference(dm, gu), dm.sum(0)
-    dwfc1, dbfc1 = weight_grad_reference(du, h2), du.sum(0)
+    dwfc2, dbfc2 = weight_grads_reference(dm, gu)
+    dwfc1, dbfc1 = weight_grads_reference(du, h2)
     dh2 = data_grad_reference(du, wfc1).reshape(B, L, C)
     dx1_ln2, dn2s, dn2b = _ln_bwd(dh2, xhat2, inv2, n2s)
     dx1 = dx2 + dx1_ln2
     # attention branch
     da = (m1 * dx1).reshape(M, C)
-    dwproj, dbproj = weight_grad_reference(da, o.reshape(M, C)), da.sum(0)
+    dwproj, dbproj = weight_grads_reference(da, o.reshape(M, C))
     do = data_grad_reference(da, wproj).view(B, L, C)
     dqkv = attention_core_bwd_reference(qkv.view(B, L, 3 * C), do,
                                         num_heads).reshape(M, 3 * C)
-    dwqkv, dbqkv = weight_grad_reference(dqkv, h1.reshape(M, C)), dqkv.sum(0)
+    dwqkv, dbqkv = weight_grads_reference(dqkv, h1.reshape(M, C))
     dh1 = data_grad_reference(dqkv, wqkv).reshape(B, L, C)
     dx0_ln1, dn1s, dn1b = _ln_bwd(dh1, xhat1, inv1, n1s)
     dx0 = dx1 + dx0_ln1
@@ -414,36 +456,38 @@ def data_grad(a: torch.Tensor, w: torch.Tensor,
     return y
 
 
-def weight_grad(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The backward's weight-gradient GEMM alone: d (M, N)^T x (M, K) ->
-    (N, K), summed per chunk of RED_ROWS rows and then in chunk order, on
-    the tensor cores for CUDA tensors (or raise);
-    :func:`weight_grad_reference` for CPU tensors."""
+def weight_grads(d: torch.Tensor, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's weight- and bias-gradient kernel alone: (d (M, N)^T x
+    (M, K) -> (N, K), the column sums of d -> (N,)), both summed per chunk
+    of :func:`weight_grad_chunk_rows` rows and then in chunk order, on the
+    tensor cores for CUDA tensors (or raise);
+    :func:`weight_grads_reference` for CPU tensors."""
     if d.device.type == "cpu":
-        return weight_grad_reference(d, x)
+        return weight_grads_reference(d, x)
     if d.device.type != "cuda":
-        raise ValueError(f"weight_grad: unsupported device {d.device}")
-    _check_2d("weight_grad", d, x)
+        raise ValueError(f"weight_grads: unsupported device {d.device}")
+    _check_2d("weight_grads", d, x)
     (M, N), K = d.shape, x.shape[1]
     if x.shape[0] != M:
-        raise ValueError(f"weight_grad: {tuple(d.shape)} and "
+        raise ValueError(f"weight_grads: {tuple(d.shape)} and "
                          f"{tuple(x.shape)} differ in rows")
     lib = _build.load("block_train")
-    dw = d.new_empty((N, K))
-    part = d.new_empty(lib.pafuse_weight_grad_part_floats(M, N, K))
+    out = d.new_empty(N * K + N)            # dW, then db
+    part = d.new_empty(lib.pafuse_weight_grads_part_floats(M, N, K))
     with torch.cuda.device(d.device):
-        err = lib.pafuse_weight_grad(d.data_ptr(), x.data_ptr(),
-                                     part.data_ptr(), dw.data_ptr(), M, N, K,
-                                     _stream(d))
-    _raise_on(err, "weight_grad")
-    _build.count_launch(weight_grad)
-    return dw
+        err = lib.pafuse_weight_grads(d.data_ptr(), x.data_ptr(),
+                                      part.data_ptr(), out.data_ptr(), M, N,
+                                      K, _stream(d))
+    _raise_on(err, "weight_grads")
+    _build.count_launch(weight_grads)
+    return out[:N * K].view(N, K), out[N * K:]
 
 
 #: kernel launches through the GEMM wrappers (CUDA path only)
 fwd_linear.launches = 0
 data_grad.launches = 0
-weight_grad.launches = 0
+weight_grads.launches = 0
 
 
 class BlockTrainFn(torch.autograd.Function):

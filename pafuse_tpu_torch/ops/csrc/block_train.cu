@@ -56,19 +56,21 @@
 //         K-major operands only, and W is stored (K, N), so each call first
 //         splits the four weights transposed (split_weights_t_kernel) into
 //         its scratch;
-//       - the weight gradients dW = dY^T X on wgrad_mma_kernel, mma.sync
-//         m16n8k8 TF32: both of its operands have the summed row index m as
-//         their row, so neither is K-major for wgmma, while mma.sync takes
-//         fragments that threads load from shared memory in any layout (the
-//         slices arrive by cp.async as stored, 32 rows of m by 128 columns).
+//       - the weight and bias gradients dW = dY^T X, db = the column sums
+//         of dY on wgrad_sm90.cuh's wgrad_wgmma_kernel (TMA + wgmma, A = dY^T
+//         from registers, B = X^T split once a CTA into K-major tiles in
+//         shared memory; both operands have the summed row index m as their
+//         row, so neither arrives K-major), which takes the bias sums from
+//         the same reads of dY.
 //   * Deterministic parameter gradients.  The TPU grid runs in order and
 //     accumulates into revisited output blocks; CTAs here run concurrently.
-//     Each weight gradient dW = dY^T X is computed per fixed chunk of
-//     RED_ROWS rows into its own partial (the chunk's rows in order), and a
-//     second kernel sums the partials in chunk order; bias and
-//     LayerNorm-parameter gradients go the same way (column sums per chunk,
-//     then the ordered sum).  No float atomics and no split-K whose order
-//     varies: two identical calls give bit-identical gradients.
+//     Each weight gradient dW = dY^T X and its bias gradient are computed
+//     per fixed chunk of rows (wgrad::chunk_rows, a function of M, N and K
+//     alone) into their own partial, and a second kernel sums the partials
+//     in chunk order; the LayerNorm-parameter gradients go the same way
+//     (column sums per LNB_ROWS rows, then the ordered sum).  No float
+//     atomics and no split-K whose order varies: two identical calls give
+//     bit-identical gradients.
 //   * No padding in device memory: L and B are taken as they are (the TPU
 //     pads L to 8 and B to the tile, and masks the pad); the attention
 //     stages pad their shared-memory tiles with zeros and mask the padded
@@ -79,13 +81,11 @@
 // counts.  Nothing here allocates or synchronises; everything launches on
 // the caller's stream.
 
-#include "gemm_sm90.cuh"
+#include "wgrad_sm90.cuh"
 
 namespace {
 
-// rows per partial sum of a weight or bias gradient, and of a LayerNorm
-// parameter gradient
-constexpr int RED_ROWS = 1024;
+// rows per partial sum of a LayerNorm parameter gradient
 constexpr int LNB_ROWS = 64;
 
 struct Params {
@@ -160,11 +160,14 @@ struct Scratch {
 long long n_chunks(long long M, int rows) { return (M + rows - 1) / rows; }
 
 long long part_floats(long long M, int C, int hid) {
-  const long long c = C, h = hid;
-  const long long w = n_chunks(M, RED_ROWS) * (3 * c * c > h * c ? 3 * c * c : h * c);
-  const long long b = n_chunks(M, RED_ROWS) * (3 * c > h ? 3 * c : h);
-  const long long l = n_chunks(M, LNB_ROWS) * 2 * c;
-  return w > b ? (w > l ? w : l) : (b > l ? b : l);
+  // the four weight gradients (N, K): fc2, fc1, proj, qkv
+  const int shapes[4][2] = {{C, hid}, {hid, C}, {C, C}, {3 * C, C}};
+  long long most = n_chunks(M, LNB_ROWS) * 2 * C;
+  for (const auto& nk : shapes) {
+    const long long w = wgrad::part_floats(M, nk[0], nk[1]);
+    most = w > most ? w : most;
+  }
+  return most;
 }
 
 // The TF32 hi and lo halves of the four weights: the forward's (as stored)
@@ -252,230 +255,49 @@ cudaError_t data_grad(const float* A, const float* wt_hi, const float* wt_lo,
                                                   nullptr, aux, Y, M, N, K, stream);
 }
 
-// ---------------------------------------------------------------------------
-// Weight-gradient partials on the tensor cores:
-//   P[p, n, k] = sum over the rows m of chunk p (RED_ROWS rows, in order)
-//                of D[m, n] * X[m, k];  D (M, N), X (M, K) row-major.
-// A CTA of 8 warps takes a 128 (n) x 128 (k) tile of one chunk; grid: k
-// tiles on x, n tiles on y, chunks on z.  The chunk's rows go through a
-// ring of WG_STAGES shared-memory slices of 32 rows of D and of X each,
-// loaded by cp.async as stored (16 bytes a thread, zero-filled past the
-// chunk, N and K).  mma.sync.m16n8k8 (TF32) takes A = D^T and B = X: a
-// thread's fragment elements are single floats that it reads from the
-// slices (row stride WG_LD = 8 mod 32 banks, so a warp's 32 reads hit 32
-// banks) and splits into TF32 halves in registers.  Warp w owns rows
-// 64 (w / 4) and columns 32 (w % 4) of the tile: 4 x 4 fragments of 16 x 8,
-// three products each per 8 rows of m, summed in `part` over two slices and
-// then added to `acc` in f32.
-// ---------------------------------------------------------------------------
+constexpr int RED_THREADS = 128, RED_UNROLL = 32;
 
-constexpr int WG_TILE = 128;                      // n and k per CTA
-constexpr int WG_ROWS = 32;                       // rows m per slice
-constexpr int WG_LD = WG_TILE + 8;                // shared row stride (floats)
-constexpr int WG_SLICE = WG_ROWS * WG_LD;         // floats per operand slice
-constexpr int WG_STAGES = 3;
-constexpr int WG_THREADS = 256;
-constexpr int WG_SMEM = WG_STAGES * 2 * WG_SLICE * 4;
-static_assert(RED_ROWS % (2 * WG_ROWS) == 0, "a chunk is whole pairs of slices");
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(sm90::smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// The TF32 halves of v as mma.sync operands.
-__device__ __forceinline__ void split_bits(float v, uint32_t& hi, uint32_t& lo) {
-  hi = sm90::tf32_bits(v);
-  lo = sm90::tf32_bits(v - __uint_as_float(hi));
-}
-
-// d += a * b, one m16n8k8 TF32 product with f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Slice rows m0.. (< r1) of D's columns n0.. and X's columns k0.. into ds
-// and xs: 32 rows x 32 chunks of 16 bytes each, four chunks a thread.
-__device__ __forceinline__ void wgrad_load(float* ds, float* xs, const float* D, const float* X,
-                                           long long m0, long long r1, int n0, int k0, int N,
-                                           int K) {
-#pragma unroll
-  for (int j = 0; j < WG_ROWS * WG_TILE / 4 / WG_THREADS; ++j) {
-    const int c = threadIdx.x + WG_THREADS * j, row = c >> 5, col = (c & 31) * 4;
-    const long long m = m0 + row;
-    const bool vd = m < r1 && n0 + col < N, vx = m < r1 && k0 + col < K;
-    cp_async16(ds + row * WG_LD + col, vd ? D + m * N + n0 + col : D, vd);
-    cp_async16(xs + row * WG_LD + col, vx ? X + m * K + k0 + col : X, vx);
-  }
-}
-
-__global__ void __launch_bounds__(WG_THREADS, 1)
-wgrad_mma_kernel(const float* __restrict__ D, const float* __restrict__ X,
-                 float* __restrict__ P, long long M, int N, int K) {
-  extern __shared__ __align__(16) float wg_smem[];
-  const int k0 = blockIdx.x * WG_TILE, n0 = blockIdx.y * WG_TILE;
-  const long long r0 = (long long)blockIdx.z * RED_ROWS;
-  const long long r1 = r0 + RED_ROWS < M ? r0 + RED_ROWS : M;
-  const int slices = (int)((r1 - r0 + WG_ROWS - 1) / WG_ROWS);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;            // fragment row group, column
-  const int wn = (warp >> 2) * 64, wk = (warp & 3) * 32;
-  auto ds_of = [&](int s) { return wg_smem + (s % WG_STAGES) * 2 * WG_SLICE; };
-
-  float acc[4][4][4], part[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < WG_STAGES - 1; ++s) {
-    if (s < slices)
-      wgrad_load(ds_of(s), ds_of(s) + WG_SLICE, D, X, r0 + s * WG_ROWS, r1, n0, k0, N, K);
-    asm volatile("cp.async.commit_group;" ::: "memory");
-  }
-#pragma unroll 1
-  for (int s = 0; s < slices; ++s) {
-    asm volatile("cp.async.wait_group %0;" ::"n"(WG_STAGES - 2) : "memory");
-    __syncthreads();      // slice s is in; every warp is done with slice s - 1
-    const int next = s + WG_STAGES - 1;
-    if (next < slices)
-      wgrad_load(ds_of(next), ds_of(next) + WG_SLICE, D, X, r0 + next * WG_ROWS, r1, n0, k0,
-                 N, K);
-    asm volatile("cp.async.commit_group;" ::: "memory");
-
-    if (s % 2 == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
-    }
-    const float* ds = ds_of(s);
-    const float* xs = ds + WG_SLICE;
-#pragma unroll
-    for (int kk = 0; kk < WG_ROWS / 8; ++kk) {
-      // fragment rows m = 8 kk + t and 8 kk + t + 4 of the slice
-      const float* d0 = ds + (8 * kk + t) * WG_LD + wn + g;
-      const float* x0 = xs + (8 * kk + t) * WG_LD + wk + g;
-      uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        split_bits(x0[8 * j], bh[j][0], bl[j][0]);
-        split_bits(x0[8 * j + 4 * WG_LD], bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t ah[4], al[4];
-        split_bits(d0[16 * i], ah[0], al[0]);
-        split_bits(d0[16 * i + 8], ah[1], al[1]);
-        split_bits(d0[16 * i + 4 * WG_LD], ah[2], al[2]);
-        split_bits(d0[16 * i + 8 + 4 * WG_LD], ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {     // smallest products first
-          mma_tf32(part[i][j], al, bh[j]);
-          mma_tf32(part[i][j], ah, bl[j]);
-          mma_tf32(part[i][j], ah, bh[j]);
-        }
-      }
-    }
-    if (s % 2 == 1 || s == slices - 1) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
-    }
-  }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-
-  // fragment (i, j): element 2h + {0, 1} is (row 16 i + g + 8 h, col 8 j + 2 t + {0, 1})
-  float* out = P + (long long)blockIdx.z * N * K;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + wn + 16 * i + g + 8 * h;
-      if (n >= N) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + wk + 8 * j + 2 * t;
-        if (k < K)      // K % 8 == 0, so k + 1 < K as well
-          *reinterpret_cast<float2*>(out + (long long)n * K + k) =
-              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-}
-
-// Column-sum partials  P[p, n] = sum over the rows m of chunk p of D[m, n].
-constexpr int COL_THREADS = 256;
-
-__global__ void __launch_bounds__(COL_THREADS)
-colsum_kernel(const float* __restrict__ D, float* __restrict__ P, long long M, int N) {
-  const int n = blockIdx.x * COL_THREADS + threadIdx.x;
-  if (n >= N) return;
-  const long long r0 = (long long)blockIdx.y * RED_ROWS;
-  const long long r1 = r0 + RED_ROWS < M ? r0 + RED_ROWS : M;
-  float s = 0.f;
-  for (long long m = r0; m < r1; ++m) s += D[m * N + n];
-  P[(long long)blockIdx.y * N + n] = s;
-}
-
-// out[e] = sum over p = 0, 1, ... of P[p, e]: the second, ordered pass.
-__global__ void __launch_bounds__(COL_THREADS)
+// out[e] = sum over p = 0, 1, ... of P[p, e], in that order: the second,
+// ordered pass.  A thread keeps the loads of RED_UNROLL parts in flight and
+// adds them one by one, so a sum over many parts of few elements (the
+// LayerNorm parameters: E = 2C over M / LNB_ROWS parts, a few hundred
+// threads on the whole card) waits one load's latency per RED_UNROLL parts,
+// not per part; the order of the additions, and so the bits, are the same.
+__global__ void __launch_bounds__(RED_THREADS)
 reduce_partials_kernel(const float* __restrict__ P, long long nparts, long long E,
                        float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * COL_THREADS + threadIdx.x;
+  const long long e = (long long)blockIdx.x * RED_THREADS + threadIdx.x;
   if (e >= E) return;
+  const float* col = P + e;
   float s = 0.f;
-  for (long long p = 0; p < nparts; ++p) s += P[p * E + e];
+  long long p = 0;
+  for (; p + RED_UNROLL <= nparts; p += RED_UNROLL) {
+    float v[RED_UNROLL];
+#pragma unroll
+    for (int q = 0; q < RED_UNROLL; ++q) v[q] = __ldg(col + (p + q) * E);
+#pragma unroll
+    for (int q = 0; q < RED_UNROLL; ++q) s += v[q];
+  }
+  for (; p < nparts; ++p) s += __ldg(col + p * E);
   out[e] = s;
 }
 
 cudaError_t reduce_partials(const float* P, long long nparts, long long E, float* out,
                             cudaStream_t stream) {
-  reduce_partials_kernel<<<(unsigned)((E + COL_THREADS - 1) / COL_THREADS), COL_THREADS,
+  reduce_partials_kernel<<<(unsigned)((E + RED_THREADS - 1) / RED_THREADS), RED_THREADS,
                            0, stream>>>(P, nparts, E, out);
   return cudaGetLastError();
 }
 
-// dW (N, K) = D^T X in fixed order: the partials, then the ordered pass.
-// N and K multiples of 8 (the 8-byte stores of the partials).
-cudaError_t weight_grad(const float* D, const float* X, float* part, float* dW, long long M,
-                        int N, int K, cudaStream_t stream) {
-  if (M < 1 || N % 8 || K % 8) return cudaErrorInvalidValue;
-  const long long nch = n_chunks(M, RED_ROWS);
-  cudaError_t err = cudaFuncSetAttribute(
-      wgrad_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+// dW (N, K) = D^T X and db (N) = the column sums of D, both in fixed order,
+// into dwdb (dW, then db: carve_grads keeps each weight's gradient and its
+// bias's adjacent): the chunks' partials of both (wgrad_wgmma_kernel, one
+// read of D), then one ordered pass over both.  N and K multiples of 8.
+cudaError_t weight_grads(const float* D, const float* X, float* part, float* dwdb,
+                         long long M, int N, int K, cudaStream_t stream) {
+  const cudaError_t err = wgrad::partials(D, X, part, M, N, K, stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((K + WG_TILE - 1) / WG_TILE), (unsigned)((N + WG_TILE - 1) / WG_TILE),
-                  (unsigned)nch);
-  wgrad_mma_kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(D, X, part, M, N, K);
-  if ((err = counted(LAUNCH_WGRAD_MMA, cudaGetLastError())) != cudaSuccess) return err;
-  return reduce_partials(part, nch, (long long)N * K, dW, stream);
-}
-
-// dW (N, K) = D^T X and db (N) = column sums of D, both in fixed order.
-cudaError_t weight_grads(const float* D, const float* X, float* part, float* dW,
-                         float* db, long long M, int N, int K, cudaStream_t stream) {
-  cudaError_t err = weight_grad(D, X, part, dW, M, N, K, stream);
-  if (err != cudaSuccess) return err;
-  const long long nch = n_chunks(M, RED_ROWS);
-  colsum_kernel<<<dim3((unsigned)((N + COL_THREADS - 1) / COL_THREADS), (unsigned)nch),
-                  COL_THREADS, 0, stream>>>(D, part, M, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_partials(part, nch, N, db, stream);
+  return reduce_partials(part, wgrad::chunks(M, N, K), (long long)N * K + N, dwdb, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -697,11 +519,11 @@ cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
   // 2. du = (dm Wfc2) * gelu'(u)
   RETURN_IF_ERROR(data_grad<EPI_GELU_GRAD>(t.dm, hi[0], lo[0], s.u, t.du, M, hid, C, st));
   // 3. dWfc2 = dm^T gu, dbfc2 = sum of dm
-  RETURN_IF_ERROR(weight_grads(t.dm, s.gu, t.part, gr.wfc2, gr.bfc2, M, C, hid, st));
+  RETURN_IF_ERROR(weight_grads(t.dm, s.gu, t.part, gr.wfc2, M, C, hid, st));
   // 4. dh2 = du Wfc1
   RETURN_IF_ERROR(data_grad<EPI_NONE>(t.du, hi[1], lo[1], none, t.dh2, M, C, hid, st));
   // 5. dWfc1 = du^T h2, dbfc1 = sum of du
-  RETURN_IF_ERROR(weight_grads(t.du, s.h2, t.part, gr.wfc1, gr.bfc1, M, hid, C, st));
+  RETURN_IF_ERROR(weight_grads(t.du, s.h2, t.part, gr.wfc1, M, hid, C, st));
   // 6. LN2: dx1 = dx2 + LN2'(dh2), da = m1 * dx1; dn2s, dn2b
   RETURN_IF_ERROR((ln_backward<float, float, float>(t.dh2, s.x1, s.mean2, s.rstd2, p.n2s,
                                                     t.dx2, m1, L, t.dx1, t.da, t.part,
@@ -709,7 +531,7 @@ cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
   // 7. dO = da Wproj
   RETURN_IF_ERROR(data_grad<EPI_NONE>(t.da, hi[2], lo[2], none, t.dO, M, C, C, st));
   // 8. dWproj = da^T o, dbproj = sum of da
-  RETURN_IF_ERROR(weight_grads(t.da, s.o, t.part, gr.wproj, gr.bproj, M, C, C, st));
+  RETURN_IF_ERROR(weight_grads(t.da, s.o, t.part, gr.wproj, M, C, C, st));
   // 9. attention backward -> dqkv, on the tensor cores
   RETURN_IF_ERROR(
       (cudaError_t)attention_bwd(s.qkv, t.dO, t.dqkv, stats, B, L, C, H, scale, st));
@@ -717,7 +539,7 @@ cudaError_t train_bwd(const T* x, const T* g, const float* m1, const float* m2,
   RETURN_IF_ERROR(data_grad<EPI_NONE>(t.dqkv, hi[3], lo[3], none, t.dh1, M, C, 3 * C, st));
   // 11. dWqkv = dqkv^T h1, dbqkv = sum of dqkv
   RETURN_IF_ERROR(
-      weight_grads(t.dqkv, s.h1, t.part, gr.wqkv, gr.bqkv, M, 3 * C, C, st));
+      weight_grads(t.dqkv, s.h1, t.part, gr.wqkv, M, 3 * C, C, st));
   // 12. LN1: dx0 = dx1 + LN1'(dh1); dn1s, dn1b
   return ln_backward<float, T, T>(t.dh1, x, s.mean1, s.rstd1, p.n1s, t.dx1, none, L, dx,
                                   nullptr, t.part, gr.n1s, M, C, st);
@@ -773,8 +595,9 @@ extern "C" int pafuse_fwd_linear(const float* A, const float* W, const float* bi
 // The backward's two GEMMs alone (for their tests and timings):
 // Y (M, N) = A (M, K) W for W stored (K, N), times gelu'(aux) when aux is
 // not NULL, with ws (8 N K bytes) taking the split of W^T; and dW (N, K) =
-// D^T X summed in the backward's fixed order through part
-// (pafuse_weight_grad_part_floats floats).
+// D^T X with db (N) = the column sums of D, into dwdb (dW, then db), summed
+// in the backward's fixed order through part
+// (pafuse_weight_grads_part_floats floats).
 extern "C" int pafuse_data_grad(const float* A, const float* W, const float* aux, float* Y,
                                 float* ws, long long M, int N, int K, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -785,13 +608,19 @@ extern "C" int pafuse_data_grad(const float* A, const float* W, const float* aux
   return (int)data_grad<EPI_NONE>(A, ws, ws + n, nullptr, Y, M, N, K, st);
 }
 
-extern "C" long long pafuse_weight_grad_part_floats(long long M, int N, int K) {
-  return n_chunks(M, RED_ROWS) * N * K;
+extern "C" long long pafuse_weight_grads_part_floats(long long M, int N, int K) {
+  return wgrad::part_floats(M, N, K);
 }
 
-extern "C" int pafuse_weight_grad(const float* D, const float* X, float* part, float* dW,
-                                  long long M, int N, int K, void* stream) {
-  return (int)weight_grad(D, X, part, dW, M, N, K, static_cast<cudaStream_t>(stream));
+// The rows of a chunk of the weight-gradient partials for (M, N, K): the
+// rule the CPU emulation of the tests follows.
+extern "C" long long pafuse_weight_grads_chunk_rows(long long M, int N, int K) {
+  return wgrad::chunk_rows(M, N, K);
+}
+
+extern "C" int pafuse_weight_grads(const float* D, const float* X, float* part, float* dwdb,
+                                   long long M, int N, int K, void* stream) {
+  return (int)weight_grads(D, X, part, dwdb, M, N, K, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pafuse_block_train_fwd(

@@ -111,7 +111,7 @@ enum LaunchKind {
   LAUNCH_SPLIT_WEIGHTS,      // sm90::split_weights_kernel
   LAUNCH_SPLIT_WEIGHTS_T,    // sm90::split_weights_t_kernel
   LAUNCH_ROW_STATS,          // sm90::row_stats_kernel
-  LAUNCH_WGRAD_MMA,          // block_train.cu's wgrad_mma_kernel
+  LAUNCH_WGRAD_WGMMA,        // wgrad_sm90.cuh's wgrad_wgmma_kernel (block_train.cu)
   LAUNCH_ATTENTION_TC,       // attention_sm90.cuh's resident attention_tc_kernel
   LAUNCH_ATTENTION_BWD_TC,   // attention_bwd_sm90.cuh's resident attention_bwd_tc_kernel
   LAUNCH_ATTENTION_STREAM,   // attention_sm90.cuh's attention_stream_kernel

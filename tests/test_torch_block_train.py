@@ -19,8 +19,13 @@ gradients).
 
 Then the CUDA backward's arithmetic, emulated in the plain backward: every
 product of its GEMMs as three TF32 products, the weight gradients summed
-per chunk of RED_ROWS rows in partial sums of two 32-row slices and then in
-chunk order, within the same 1e-4 x max|gradient| of the plain gradients.
+per chunk of ``weight_grad_chunk_rows`` rows in partial sums of two 32-row
+slices and then in chunk order, the bias gradients per chunk as four
+row-order sums (rows m with m % 8 in {2t, 2t + 1}) added (s0 + s1) + (s2 +
+s3) and then in chunk order, within the same 1e-4 x max|gradient| of the
+plain gradients.  The chunk rule itself at every training shape of H3WB,
+3DHP and MixSTE: each row in one chunk, in order, and the last wave of
+work items at least half full.
 
 The forward's GEMM stage, ``fwd_linear_reference`` (through which the plain
 forward runs its four products), against the intermediates of the JAX
@@ -49,12 +54,12 @@ from pafuse_tpu.ops import block_grad
 from pafuse_tpu_torch import checkpoints
 from pafuse_tpu_torch.models.mixste import Block
 from pafuse_tpu_torch.ops import block_train as port_block_train
-from pafuse_tpu_torch.ops.block_train import (RED_ROWS, block_train,
-                                              block_train_bwd,
+from pafuse_tpu_torch.ops.block_train import (block_train, block_train_bwd,
                                               block_train_fwd, fwd_linear,
                                               fwd_linear_reference,
                                               train_bwd_reference,
-                                              train_fwd_reference)
+                                              train_fwd_reference,
+                                              weight_grad_chunk_rows)
 from pafuse_tpu_torch.ops.gemm import split_tf32
 
 torch.set_num_threads(2)
@@ -292,36 +297,102 @@ def _emulated_data_grad(a, w, aux=None):
 
 
 def _emulated_weight_grad(d, x):
-    """d^T x in the kernel's order: per chunk of RED_ROWS rows, partial sums
-    of two 32-row slices (three TF32 products each) added in float32, then
-    the chunks in order."""
+    """d^T x in the kernel's order: per chunk of weight_grad_chunk_rows
+    rows, partial sums of two 32-row slices (three TF32 products each)
+    added in float32, then the chunks in order."""
+    M, rows = d.shape[0], weight_grad_chunk_rows(*d.shape, x.shape[1])
     total = None
-    for r0 in range(0, d.shape[0], RED_ROWS):
+    for r0 in range(0, M, rows):
         acc = torch.zeros(d.shape[1], x.shape[1])
-        for p0 in range(r0, min(r0 + RED_ROWS, d.shape[0]), 64):
-            p1 = min(p0 + 64, r0 + RED_ROWS, d.shape[0])
+        for p0 in range(r0, min(r0 + rows, M), 64):
+            p1 = min(p0 + 64, r0 + rows, M)
             acc = acc + _three_products(d[p0:p1].t(), x[p0:p1])
         total = acc if total is None else total + acc
     return total
 
 
-@pytest.mark.parametrize("B,L,C", [(90, 27, 64), (44, 68, 32), (60, 42, 64)])
+def _emulated_bias_grad(d, width):
+    """d.sum(0) in the kernel's order for a weight gradient of ``width``
+    columns (the chunk rule's K): per chunk, the four threads of a quad sum
+    their rows in order (thread t the rows m with m % 8 in {2t, 2t + 1}),
+    the quad adds (s0 + s1) + (s2 + s3), then the chunks in order."""
+    M, N = d.shape
+    rows = weight_grad_chunk_rows(M, N, width)
+    total = None
+    for r0 in range(0, M, rows):
+        s = [torch.zeros(N) for _ in range(4)]
+        for m in range(r0, min(r0 + rows, M)):
+            s[m % 8 // 2] = s[m % 8 // 2] + d[m]
+        b = (s[0] + s[1]) + (s[2] + s[3])
+        total = b if total is None else total + b
+    return total
+
+
+def _emulated_weight_grads(d, x):
+    return _emulated_weight_grad(d, x), _emulated_bias_grad(d, x.shape[1])
+
+
+def _chunks(M, rows):
+    return [(r0, min(r0 + rows, M)) for r0 in range(0, M, rows)]
+
+
+@pytest.mark.parametrize("B,L,C", [(90, 27, 64), (44, 68, 32), (60, 42, 64),
+                                   (40, 243, 64)])
 def test_tensor_core_backward_order_keeps_the_gradient_bound(monkeypatch, B, L,
                                                              C):
-    """The plain backward with its data and weight gradients computed as
-    the CUDA kernel computes them, over 2-3 chunks of RED_ROWS rows (the
-    last one ragged), against the plain backward."""
+    """The plain backward with its data, weight and bias gradients computed
+    as the CUDA kernel computes them, over several chunks of the chunk rule
+    (the last one ragged; at 243 frames chunks of more than one pair of
+    slices), against the plain backward."""
     p, outer = _jax_block(C, seed=B + L + C)
     x, g, m1, m2 = (torch.from_numpy(a) for a in _inputs(B, L, C, seed=B))
     params = _port_params(p, outer)
-    assert B * L > 2 * RED_ROWS
+    M = B * L
+    for N, K in ((C, 2 * C), (2 * C, C), (C, C), (3 * C, C)):
+        chunks = _chunks(M, weight_grad_chunk_rows(M, N, K))
+        assert len(chunks) >= 2 and M % (chunks[0][1] - chunks[0][0])
+    if L == 243:
+        assert weight_grad_chunk_rows(M, C, 2 * C) > 64
     want_dx, want = train_bwd_reference(x, g, m1, m2, params, HEADS)
     with monkeypatch.context() as m:
         m.setattr(port_block_train, "data_grad_reference", _emulated_data_grad)
-        m.setattr(port_block_train, "weight_grad_reference",
-                  _emulated_weight_grad)
+        m.setattr(port_block_train, "weight_grads_reference",
+                  _emulated_weight_grads)
         got_dx, got = train_bwd_reference(x, g, m1, m2, params, HEADS)
     _assert_grads(got_dx, got, want_dx, want, "tensor-core order")
+
+
+#: (model, part, rows M = sequences x frames x joints, C) of every training
+#: block: H3WB's parts (37 x 27 frames), 3DHP (17 joints, model.cs 288), the
+#: monolithic 134-joint H3WB model (288) and MixSTE's (4 x 243 frames, 512)
+TRAIN_ROWS = (("h3wb", "body", 999 * 24, 384), ("h3wb", "face", 999 * 68, 224),
+              ("h3wb", "hands", 999 * 42, 256), ("3dhp", "whole_body", 999 * 17, 288),
+              ("mono134", "whole_body", 999 * 134, 288),
+              ("mixste243", "whole_body", 4 * 243 * 134, 512))
+
+
+@pytest.mark.parametrize("model,part,M,C", TRAIN_ROWS)
+def test_weight_grad_chunk_rule_covers_every_row_once(model, part, M, C):
+    """The chunk rule at each weight gradient (N, K) of a training block:
+    chunks of a multiple of 64 rows (whole pairs of 32-row slices) that take
+    every row once and in order, the last one ragged or full; the same
+    rows for the same shape whatever was asked before (a function of the
+    shape alone); and at least half of the last wave of (tile, chunk) work
+    items on 132 SMs busy."""
+    shapes = ((C, 2 * C), (2 * C, C), (C, C), (3 * C, C))
+    rows = [weight_grad_chunk_rows(M, N, K) for N, K in shapes]
+    assert rows == [weight_grad_chunk_rows(M, N, K)
+                    for N, K in reversed(shapes)][::-1]
+    for (N, K), r in zip(shapes, rows):
+        assert r % 64 == 0 and r >= 64
+        chunks = _chunks(M, r)
+        assert chunks[0][0] == 0 and chunks[-1][1] == M
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert all(0 < hi - lo <= r for lo, hi in chunks)
+        bn = port_block_train._wgrad_tile_n(K)
+        items = -(-N // 128) * -(-K // bn) * len(chunks)
+        last = items - (-(-items // 132) - 1) * 132
+        assert 2 * last >= 132, (model, part, N, K, r, items)
 
 
 def _jax_fwd_residuals(p, outer, x, m1, m2):

@@ -52,7 +52,7 @@ Bounds (those of chip_smoke.py; TF32 off on both sides):
                          product rounded before a residual add, and of
                          normalised A elements rounded on ~1e-7
                          differences of the row statistics;
-  data_grad, weight_grad 1e-5 x max|plain| (the backward's GEMMs alone:
+  data_grad, weight_grads 1e-5 x max|plain| (the backward's GEMMs alone:
                          float32 products as three TF32 products, sums in
                          another order; the backward's own bound is ten
                          times looser);
@@ -84,13 +84,15 @@ from pafuse_tpu_torch.ops.block import block_reference, fused_block
 from pafuse_tpu_torch.ops.block_temporal import (block_temporal_reference,
                                                  fused_block_temporal)
 from pafuse_tpu_torch.ops.gemm import fused_linear, linear_reference
-from pafuse_tpu_torch.ops.block_train import (RED_ROWS, block_train_bwd,
+from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
                                               block_train_fwd, data_grad,
                                               data_grad_reference,
                                               fwd_linear, fwd_linear_reference,
                                               train_bwd_reference,
-                                              train_fwd_reference, weight_grad,
-                                              weight_grad_reference)
+                                              train_fwd_reference,
+                                              weight_grad_chunk_rows,
+                                              weight_grads,
+                                              weight_grads_reference)
 from pafuse_tpu_torch.ops.layer import fused_layer, layer_reference
 from pafuse_tpu_torch.ops import _build
 
@@ -606,23 +608,43 @@ def test_kernel_5_runs_its_gemms_on_the_tensor_cores_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [2381, 30011])
 @pytest.mark.parametrize("N,K", [(384, 768), (768, 384), (384, 384),
                                  (1152, 384), (224, 448), (672, 224),
-                                 (288, 576), (576, 288), (864, 288)])
-def test_weight_grad_matches_plain_on_gpu(cuda_device, N, K):
-    """Kernel #6's weight-gradient GEMM alone (mma.sync, TF32): each weight
-    shape of the backward, over two full chunks of RED_ROWS rows and a
-    ragged one; a repeat gives the same bits."""
-    M = 2 * RED_ROWS + 333
+                                 (288, 576), (576, 288), (864, 288),
+                                 (512, 1024), (1024, 512), (1536, 512)])
+def test_weight_grad_matches_plain_on_gpu(cuda_device, M, N, K):
+    """Kernel #6's weight- and bias-gradient kernel alone (wgmma, TF32):
+    each weight shape of the H3WB, 3DHP and MixSTE backward, over 4 to 19
+    chunks of the chunk rule (192 to 7552 rows) with a ragged last one; dW
+    and db within 1e-5 x max|plain|, and a repeat gives the same bits of
+    both."""
+    assert M % weight_grad_chunk_rows(M, N, K)
     r = np.random.RandomState(N + K)
     d, x = (torch.tensor(r.randn(M, n), dtype=torch.float32,
                          device=cuda_device) for n in (N, K))
-    launches = weight_grad.launches
-    got = weight_grad(d, x)
+    launches = weight_grads.launches
+    dw, db = weight_grads(d, x)
     torch.cuda.synchronize()
-    assert weight_grad.launches == launches + 1 and got.shape == (N, K)
-    assert _rel_errs([got], [weight_grad_reference(d, x)])[0] <= 1e-5
-    assert torch.equal(got, weight_grad(d, x))
+    assert weight_grads.launches == launches + 1
+    assert dw.shape == (N, K) and db.shape == (N,)
+    errs = _rel_errs([dw, db], weight_grads_reference(d, x))
+    assert max(errs) <= 1e-5, errs
+    dw2, db2 = weight_grads(d, x)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+def test_weight_grad_chunk_rule_is_the_library_rule_on_gpu(cuda_device):
+    """ops.block_train.weight_grad_chunk_rows (which the CPU emulation
+    follows) gives the rows of a chunk that the library sums by, at every
+    training weight shape and at small and ragged M."""
+    lib = _build.load("block_train")
+    shapes = [(M, n * C, k * C) for C in (32, 64, 224, 256, 288, 384, 512)
+              for M in (1, 63, 2381, 999 * 17, 999 * 68, 130248)
+              for n, k in ((1, 2), (2, 1), (1, 1), (3, 1))]
+    got = [lib.pafuse_weight_grads_chunk_rows(*s) for s in shapes]
+    assert got == [weight_grad_chunk_rows(*s) for s in shapes]
 
 
 @pytest.mark.cuda
@@ -631,9 +653,9 @@ def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
     """One call of kernel #2 and one of kernel #6, as their libraries count
     the launches: #2 runs the wgmma GEMM twice on its two weight splits and
     the tensor-core attention once; #6 the wgmma GEMM (four data
-    gradients) on four transposed weight splits, the mma.sync
-    weight-gradient kernel four times and the tensor-core attention
-    backward once.  Under torch.profiler neither launches a scalar-FMA
+    gradients) on four transposed weight splits, the wgmma weight- and
+    bias-gradient kernel four times and the tensor-core attention backward
+    once.  Under torch.profiler neither launches a scalar-FMA
     GEMM, cuBLAS or any other PyTorch kernel.  #2's output is held against
     ``attention_reference`` (1e-5, the file's bound)."""
     params = _params(224, seed=4, device=cuda_device)
@@ -655,12 +677,12 @@ def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
     bwd = lambda: block_train_bwd(saved, g)  # noqa: E731
     counts = _launches(bwd, "block_train", "attention_core_bwd")
     assert counts["block_train"] == _counts(gemm=4, split_weights_t=4,
-                                            wgrad_mma=4), counts
+                                            wgrad_wgmma=4), counts
     assert counts["attention_core_bwd"] == _counts(attention_bwd_tc=1), counts
     names = _device_kernels(bwd)
     ours = ("sm90::gemm_kernel", "sm90::split_weights_t_kernel",
-            "wgrad_mma_kernel", "attention_bwd_tc_kernel", "ln_bwd_kernel",
-            "colsum_kernel", "reduce_partials_kernel")
+            "wgrad_wgmma_kernel", "attention_bwd_tc_kernel",
+            "ln_bwd_kernel", "reduce_partials_kernel")
     assert all(any(k in n for k in ours) for n in names), names
 
 
