@@ -39,7 +39,14 @@
    MixSTE's shapes (WGRAD_ROWS) beside cuBLAS's ``d.t() @ x`` (and with
    ``d.sum(0)``), the H3WB float32 step with one more under torch.profiler
    (its device ms by chip_smoke.py's kernel groups, reported per tree) and
-   MixSTE's steps; ``--alt DIR`` times a third tree in the same turns
+   MixSTE's steps, ``--only resident`` the float32 hashes of #1-#6, the
+   resident attention stages at their main-path shapes (RESIDENT_BWD,
+   RESIDENT_FWD: H3WB's, 3DHP's, the monolithic model's and MixSTE's
+   spatial blocks) beside their plain versions and SDPA (or its autograd),
+   each stage's bound and the launches of one call by kernel, then the
+   H3WB step with a profiled one and MixSTE's steps (the backward also
+   at RESIDENT_BWD_LONG; ``--only stages``: the resident stages alone);
+   ``--alt DIR`` times a third tree in the same turns
    (e.g. this tree with one part of the change taken out; its hashes must
    agree too, its SASS is not compared).  Beside the
    times of #1, #2, #5 and #6, the device ms of their attention stages
@@ -62,7 +69,9 @@
    kernel the two have in common equal (the float32 GEMM's instantiations
    among them), but for the kernels whose names hold one of the
    ``--redesigned`` names.
-3. **Precision witness** (``--witness``): this tree's attention backward
+3. **ptxas** (``--ptxas``): registers, spill bytes and wgmma notes of the
+   attention libraries' kernels, on this tree.
+4. **Precision witness** (``--witness``): this tree's attention backward
    and its plain version in float32, each against the plain version in
    float64, at the cuda suite's 1000-token shapes (WITNESS_BWD).
 
@@ -74,7 +83,12 @@
         --changed '#6,bf16' --redesigned attention_stream_kernel,attention_bwd_stream_
     python3 chip_ab.py --kernels build/parent --only train --changed '#6' \
         --redesigned wgrad_,reduce_partials_kernel
+    python3 chip_ab.py --kernels build/parent --only resident \
+        --changed '#2,#5,#6' 
+    python3 chip_ab.py --route-tree pack build/pack --kernels build/parent \
+        --only stages --alt build/pack --changed '#6' --redesigned attention_bwd_
     python3 chip_ab.py --witness
+    python3 chip_ab.py --ptxas
 
 Prints JSON lines; the last is ``{"ok": true, ...}``.  It exits non-zero
 without CUDA.
@@ -104,8 +118,10 @@ def digest_kernels(key):
     ``bf16``, else the key's first word."""
     if key in DIGEST_KERNELS:
         return DIGEST_KERNELS[key]
-    if key.startswith("stream_bwd"):
+    if key.startswith(("stream_bwd", "resident_bwd")):
         return ("#6",)
+    if key.startswith("resident_fwd"):
+        return ("#2", "#5")
     if key.endswith("_bfloat16") and "_fwd_" in key:
         return ("bf16",)
     return (key.split("_")[0],)
@@ -125,6 +141,34 @@ MIXSTE_WINDOWS = ((243, 10), (351, 5))
 #: and d = 128 at 243
 STREAMED_BWD = ((536, 243, 512), (536, 351, 512), (536, 243, 1024))
 MIXSTE_SEQS = 1024 // 243
+#: the resident attention backward's main-path shapes (B, L, C at 8 heads):
+#: H3WB's six training shapes (37 sequences x 27 frames, each part's
+#: spatial and temporal block), the monolithic model's pair, 3DHP's pair
+#: and MixSTE's spatial block (4 sequences x 243 frames, 134 joints)
+RESIDENT_BWD = ((999, 24, 384), (888, 27, 384), (999, 68, 224),
+                (2516, 27, 224), (999, 42, 256), (1554, 27, 256),
+                (999, 134, 288), (4958, 27, 288), (999, 17, 288),
+                (629, 27, 288), (972, 134, 512))
+#: the backward at 243 frames at each part width (d = 28, 32, 36, 48; 64
+#: sequences x 8 heads, as the cuda suite's): past one key chunk, where the
+#: routes between the wgmma, the mma.sync and the streamed kernels part
+RESIDENT_BWD_LONG = ((64, 243, 224), (64, 243, 256), (64, 243, 288),
+                     (64, 243, 384))
+#: the float32 forward's shapes at 134 keys: the monolithic model's and
+#: MixSTE's spatial blocks
+RESIDENT_FWD = ((999, 134, 288), (972, 134, 512))
+#: trees that differ from this one only in the backward's route
+#: (attention_bwd_sm90.cuh), for --route-tree: "pack" sends every unit of
+#: up to 64 keys at d <= 48 to attention_bwd_pack_kernel (one warpgroup a
+#: CTA, 64 // L-rounded-up-to-8 units a block, S and dP once), "wg" every
+#: unit of up to 256 keys at d <= 48 to attention_bwd_wg_kernel (two
+#: warpgroups a unit, 64-row blocks); each patch is (text, its replacement)
+ROUTE_PATCHES = {
+    "pack": (("constexpr bool PACK_SHORT_UNITS = false;",
+              "constexpr bool PACK_SHORT_UNITS = true;"),),
+    "wg": (("if (L <= ONE_CHUNK || L > MAX_ROWS || d < 1 || d > 48) return false;",
+            "if (L < 1 || L > MAX_ROWS || d < 1 || d > 48) return false;"),),
+}
 
 
 def emit(obj):
@@ -316,6 +360,112 @@ def streamed_section(times, digests, dev):
             lambda: attention_core_bwd_reference(qkv, do, heads))
         del qkv, do, q, k, v, o, go
         torch.cuda.empty_cache()
+
+
+def resident_section(times, digests, dev):
+    """The resident float32 attention stages at RESIDENT_BWD (the backward)
+    and RESIDENT_FWD (the forward), each on the route the library takes:
+    device ms of the kernel (``ops.attention_core``), of its plain version
+    and of SDPA's autograd (the backward) or SDPA (the forward) on the same
+    seeded inputs, the stage's bound (``attention_bound_ms``), the
+    library's launch counts of one call by kernel, and a hash of each kernel
+    output (twice: a call repeats bit for bit)."""
+    import hashlib
+    import torch
+    import torch.nn.functional as F
+    from pafuse_tpu_torch.ops import _build
+    from pafuse_tpu_torch.ops.attention_core import (
+        attention_core, attention_core_bwd, attention_core_bwd_reference,
+        attention_core_reference)
+    heads = 8
+
+    def digest(key, fn):
+        outs = [hashlib.sha256(fn().float().contiguous().cpu().numpy()
+                               .tobytes()).hexdigest()[:16] for _ in range(2)]
+        if outs[0] != outs[1]:
+            raise AssertionError(f"{key}: two calls differ")
+        digests[key] = outs[0]
+
+    def split_heads(qkv):
+        B, L, C3 = qkv.shape
+        return qkv.view(B, L, 3, heads, C3 // 3 // heads).permute(2, 0, 3, 1, 4)
+
+    def launches(fn):
+        for lib in ("attention_core", "attention_core_bwd"):
+            _build.kernel_launches(lib, zero=True)
+        fn()
+        torch.cuda.synchronize()
+        return {f"{lib}:{k}": n for lib in ("attention_core", "attention_core_bwd")
+                for k, n in _build.kernel_launches(lib).items() if n}
+
+    routes = {}
+    for i, (B, L, C) in enumerate(RESIDENT_FWD):
+        gen = torch.Generator(device=dev).manual_seed(700 + i)
+        qkv = torch.randn(B, L, 3 * C, generator=gen, device=dev)
+        key = f"resident_fwd_{B}x{L}x{C}_float32"
+        times[f"{key}_ms"] = _cuda_ms(lambda: attention_core(qkv, heads))
+        digest(key, lambda: attention_core(qkv, heads))
+        routes[key] = launches(lambda: attention_core(qkv, heads))
+        q, k, v = split_heads(qkv)
+        times[f"{key}_sdpa_ms"] = _cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v))
+        times[f"{key}_plain_ms"] = _cuda_ms(
+            lambda: attention_core_reference(qkv, heads))
+        times[f"{key}_bound_ms"] = attention_bound_ms(B, L, C, False)
+        del qkv, q, k, v
+    for i, (B, L, C) in enumerate(RESIDENT_BWD + RESIDENT_BWD_LONG):
+        gen = torch.Generator(device=dev).manual_seed(800 + i)
+        qkv = torch.randn(B, L, 3 * C, generator=gen, device=dev)
+        do = torch.randn(B, L, C, generator=gen, device=dev)
+        key = f"resident_bwd_{B}x{L}x{C}_float32"
+        times[f"{key}_ms"] = _cuda_ms(lambda: attention_core_bwd(qkv, do, heads))
+        digest(key, lambda: attention_core_bwd(qkv, do, heads))
+        routes[key] = launches(lambda: attention_core_bwd(qkv, do, heads))
+        q, k, v = (t.detach().requires_grad_() for t in split_heads(qkv))
+        o = F.scaled_dot_product_attention(q, k, v)
+        go = do.view(B, L, heads, C // heads).transpose(1, 2)
+        times[f"{key}_sdpa_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+            o, (q, k, v), go, retain_graph=True))
+        times[f"{key}_plain_ms"] = _cuda_ms(
+            lambda: attention_core_bwd_reference(qkv, do, heads))
+        times[f"{key}_bound_ms"] = attention_bound_ms(B, L, C, True)
+        del qkv, do, q, k, v, o, go
+        torch.cuda.empty_cache()
+    return routes
+
+
+def attention_bound_ms(B, L, C, backward):
+    """The least time an H100 SXM (700 W data-sheet peaks) could take for
+    one float32 attention stage: the larger of its operations (forward 4
+    B L^2 C, backward 10 B L^2 C) at 165 TFLOP/s (495 TF32 / the three
+    products float32 takes) and its bytes (qkv read and the output written
+    once, 16 B L C; the backward also dO read and dqkv written, 28 B L C) at
+    3.35 TB/s."""
+    ops = (10 if backward else 4) * B * L * L * C
+    nbytes = (28 if backward else 16) * B * L * C
+    return max(ops / 165e12, nbytes / 3.35e12) * 1e3
+
+
+def ordered_sums_bound_ms(depth=8, seqs=SEQS, frames=27):
+    """The least time an H100 SXM (3.35 TB/s at 700 W) could take for the
+    ordered partial sums of one float32 H3WB training step (#6's
+    reduce_partials_kernel): every part's spatial and temporal block at
+    ``depth`` layers, each call's four weight products (partials of
+    ``weight_grad_chunk_rows`` chunks of N K + N floats: dW and db) and
+    three LayerNorm backwards (ceil(M / 64) partials of 2C floats), each
+    partial read once and each sum written once."""
+    from pafuse_tpu_torch.models.parts import PART_CHANNELS
+    from pafuse_tpu_torch.ops.block_train import weight_grad_chunk_rows
+    from pafuse_tpu_torch.skeleton import parts_table
+    nbytes = 0
+    for name, joints in parts_table(True).items():
+        C = PART_CHANNELS[name]
+        M = seqs * frames * len(joints)
+        for N, K in ((3 * C, C), (C, C), (2 * C, C), (C, 2 * C)):
+            chunks = -(-M // weight_grad_chunk_rows(M, N, K))
+            nbytes += 2 * depth * 4 * (chunks + 1) * (N * K + N)
+        nbytes += 2 * depth * 3 * 4 * (-(-M // 64) + 1) * 2 * C
+    return nbytes / 3.35e12 * 1e3
 
 
 def _library_block(x, bp, on, heads):
@@ -597,6 +747,12 @@ def kernels_worker(mode: str, only=None):
 
     dev = resolve_device("cuda")
     _build.build_all()
+    if only == "stages":
+        times, digests = {}, {}
+        routes = resident_section(times, digests, dev)
+        emit({"kernels_ab": mode, "times": times, "float32_digests": digests,
+              "launches": routes})
+        return
     if only == "streamed":
         times, digests = {}, {}
         streamed_section(times, digests, dev)
@@ -613,7 +769,7 @@ def kernels_worker(mode: str, only=None):
     parts = [(name, len(j), PART_CHANNELS[name])
              for name, j in parts_table(True).items()]
     times, digests = {}, {}
-    timed = only != "train"
+    timed = only not in ("train", "resident")
 
     def add(key, ms):
         times[key] = times.get(key, 0.0) + ms
@@ -712,6 +868,15 @@ def kernels_worker(mode: str, only=None):
     if timed:
         times["gemm_bfloat16_tflops"] = (times.pop("gemm_bfloat16_flop")
                                          / times["gemm_bfloat16_ms"] / 1e9)
+    elif only == "resident":
+        routes = resident_section(times, digests, dev)
+        times["ordered_sums_bound_ms"] = ordered_sums_bound_ms()
+        train_step_section(times, digests, dev, traced=True)
+        mixste_section(times, digests, dev)
+        groups = times.pop("traced_step_groups_ms")
+        emit({"kernels_ab": mode, "times": times, "float32_digests": digests,
+              "traced_step_groups_ms": groups, "launches": routes})
+        return
     else:
         train_section(times, dev)
         train_step_section(times, digests, dev, traced=True)
@@ -808,6 +973,47 @@ def sass_compare(other: str):
                 differing.append(f"{name}.cu: {k}")
     return {"phase": "kernels_ab_sass", "common_kernels": common,
             "identical": identical, "differing": differing}
+
+
+def ptxas_report(sources=("attention_core", "attention_core_bwd")):
+    """Registers, spill bytes and the wgmma notes (C7517 injected waits,
+    C7518 and C7520 serialisations) that ``nvcc -Xptxas -v`` gives for each
+    kernel of ``sources`` (the build's flags, sm_90a), all compiled at
+    once."""
+    from pafuse_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    out = os.path.join(HERE, "build", "chip_ab_ptxas")
+    os.makedirs(out, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    procs = {name: subprocess.Popen(
+        [nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o",
+         os.path.join(out, f"{name}.cubin"),
+         os.path.join(HERE, "pafuse_tpu_torch", "ops", "csrc", f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in sources}
+    kernels = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed on {name}.cu:\n{log[-3000:]}")
+        cur = None
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) "
+                          r"'?_ZN\w*?(attn_\w+)", line)
+            if m:
+                cur = kernels.setdefault(m.group(1), {"notes": []})
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and cur is not None:
+                cur["spill_store_bytes"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+            m = re.search(r"\((C75(17|18|20))\).*function '_ZN\w*?(attn_\w+)'", line)
+            if m:
+                kernels.setdefault(m.group(3), {"notes": []})["notes"].append(m.group(1))
+    return {"phase": "ptxas", "kernels": kernels}
 
 
 #: (B, L, C) of the backward's precision witness: the two 1000-token shapes
@@ -929,6 +1135,26 @@ def paired(other: str, flag: str, runs: int = 2, extra=(), alt=None):
     return results
 
 
+def route_tree(name: str, dst: str):
+    """A copy of this tree at ``dst`` (but its build outputs, chiprun_out/
+    and .git) with ROUTE_PATCHES[name] applied to the backward's route;
+    raises where a patch's text is missing."""
+    import shutil
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    top = {"build", "chiprun_out", ".git"}
+    shutil.copytree(HERE, dst, ignore=lambda d, names: [
+        n for n in names if n == "__pycache__"
+        or (os.path.abspath(d) == HERE and n in top)])
+    src = os.path.join(dst, "pafuse_tpu_torch/ops/csrc/attention_bwd_sm90.cuh")
+    text = open(src).read()
+    for old, new in ROUTE_PATCHES[name]:
+        if old not in text:
+            raise AssertionError(f"route {name}: {old!r} is not in the source")
+        text = text.replace(old, new)
+    open(src, "w").write(text)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="another checkout of the port")
@@ -945,16 +1171,28 @@ def main() -> int:
                          "may differ, e.g. 'attention_stream_kernel'")
     ap.add_argument("--runs", type=int, default=3,
                     help="kernel A/B processes a tree")
-    ap.add_argument("--only", choices=("streamed", "serve", "train"),
+    ap.add_argument("--only", choices=("streamed", "serve", "train", "resident",
+                                       "stages"),
                     help="time the streamed attention kernels and MixSTE's "
                          "steps alone, the bfloat16 request and "
                          "evaluation alone, or #6's weight-gradient stage, "
                          "the H3WB step (and a profiled one) and MixSTE's "
-                         "steps (with the float32 hashes of #1-#6)")
+                         "steps (with the float32 hashes of #1-#6), or the "
+                         "resident float32 attention stages at their "
+                         "main-path shapes (RESIDENT_BWD, RESIDENT_FWD) with "
+                         "the float32 hashes of #1-#6, the H3WB step (and a "
+                         "profiled one) and MixSTE's steps; 'stages': those "
+                         "stages alone")
     ap.add_argument("--alt", metavar="DIR",
                     help="with --kernels, a third checkout timed in the same "
                          "turns (e.g. this tree with one part of the change "
                          "taken out); its SASS is not compared")
+    ap.add_argument("--route-tree", nargs=2, metavar=("NAME", "DIR"),
+                    help="write this tree with ROUTE_PATCHES[NAME] applied to "
+                         "DIR first (e.g. for --alt DIR)")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="registers, spills and wgmma notes of the attention "
+                         "kernels from nvcc -Xptxas -v, on this tree")
     ap.add_argument("--witness", action="store_true",
                     help="the attention backward's float32 results against "
                          "float64 at WITNESS_BWD, on this tree")
@@ -969,6 +1207,8 @@ def main() -> int:
         print("chip_ab: CUDA is not available; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if args.route_tree:
+        route_tree(*args.route_tree)
     if args.worker or args.kernels_worker:
         sys.path.insert(0, os.getcwd())     # the tree under test comes first
         if args.worker:
@@ -1013,6 +1253,8 @@ def main() -> int:
                                  f"{summary['float32_not_repeating']}")
     if args.witness:
         emit(witness())
+    if args.ptxas:
+        emit(ptxas_report())
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1743,30 +1743,39 @@ def _synthetic_batches(seed: int, seqs: int, frames: int):
 
 
 def train_phase(seed: int, device: str = "cuda", depth: int = 8,
-                seqs: int = TRAIN_SEQS, steps: int = TRAIN_STEPS):
+                seqs: int = TRAIN_SEQS, steps: int = TRAIN_STEPS, kinds=None):
     """The H3WB trainer at full width (the defaults; a CPU rehearsal passes
     device="cpu" and a smaller depth and batch).  Returns the kernel
-    launches of the main-path run."""
+    launches of the main-path run; the attention kernels' launches in it,
+    as their libraries count them, go into ``kinds`` when given a dict (on
+    the card the backward's mma.sync kernel must run: every H3WB shape is
+    up to 80 keys)."""
     from pafuse_tpu_torch import train as tr
     from pafuse_tpu_torch.diffusion import D3DPConfig
 
     cfg = D3DPConfig(depth=depth, drop_path_rate=0.1)
     loader, sampler = _synthetic_batches(seed, seqs, cfg.frames)
-    return run_trainer(seed, device, cfg, loader, sampler, seqs, steps,
-                       weights=tr.mixste_weight_table(cfg.num_kps),
-                       phase="train")
+    kinds = {} if kinds is None else kinds
+    launches = run_trainer(seed, device, cfg, loader, sampler, seqs, steps,
+                           weights=tr.mixste_weight_table(cfg.num_kps),
+                           phase="train", streams=kinds)
+    if device != "cpu" and not kinds["backward_tc"]:
+        raise AssertionError(f"train: the resident attention backward did "
+                             f"not run on the main path: {kinds}")
+    return launches
 
 
 def dhp3_train_phase(seed: int, device: str = "cuda", depth: int = 8,
                      seqs: int = TRAIN_SEQS, steps: int = TRAIN_STEPS,
                      train_seqs: int = DHP3_TRAIN_SEQS,
-                     frames: int = DHP3_FRAMES):
+                     frames: int = DHP3_FRAMES, kinds=None):
     """The 3DHP trainer at full width (cli.main_3dhp's model: monolithic,
     17 joints, model.cs 288, depth 8, mm_scale, unweighted MPJPE in mm) on
     dhp3.make_synthetic(num_train_seqs=16, frames=1000) through
     ChunkedSampler (augment, the 3DHP flip table) and PrefetchingLoader,
     37 sequences a step.  Returns the kernel launches of the main-path
-    run."""
+    run; the attention kernels' launches in it go into ``kinds`` (a dict;
+    on the card the backward's mma.sync kernel must run)."""
     from pafuse_tpu_torch import skeleton as sk
     from pafuse_tpu_torch.data import dhp3
     from pafuse_tpu_torch.data.prefetch import PrefetchingLoader
@@ -1780,16 +1789,21 @@ def dhp3_train_phase(seed: int, device: str = "cuda", depth: int = 8,
     p3, p2 = dhp3.train_arrays(train)
     sampler = ChunkedSampler(seqs, None, p3, p2, cfg.frames, augment=True,
                              flip_permutation=sk.FLIP_PERMUTATION_3DHP)
-    return run_trainer(seed, device, cfg, PrefetchingLoader(sampler, depth=2),
-                       sampler, seqs, steps, part_based=False,
-                       flip_permutation=sk.FLIP_PERMUTATION_3DHP,
-                       phase="dhp3_train")
+    kinds = {} if kinds is None else kinds
+    launches = run_trainer(seed, device, cfg, PrefetchingLoader(sampler, depth=2),
+                           sampler, seqs, steps, part_based=False,
+                           flip_permutation=sk.FLIP_PERMUTATION_3DHP,
+                           phase="dhp3_train", streams=kinds)
+    if device != "cpu" and not kinds["backward_tc"]:
+        raise AssertionError(f"dhp3_train: the resident attention backward "
+                             f"did not run on the main path: {kinds}")
+    return launches
 
 
 def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
                 weights=None, part_based=True, flip_permutation=None,
                 phase="train", compute_dtype="float32", profile=True,
-                streams=None, profile_groups=()):
+                streams=None, profile_groups=None):
     """The checks of a training path: ``steps`` steps through ``loader``
     (finite losses, 2 x depth launches of #5 and of #6 per network a step,
     every parameter moved; ms/step and trained frames/s), one step traced
@@ -1799,8 +1813,10 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
     falling on one repeated batch.  Returns the launches of the main-path
     run; the streamed attention kernels' launches in it, as their libraries
     count them (ops.attention_core.stream_launches), go into ``streams``
-    when given a dict.  The profiled step must also show the groups
-    ``profile_groups``."""
+    when given a dict, with the resident attention kernels' (``forward_tc``,
+    ``forward_wg``, ``backward_tc``, ``backward_wg``).  The profiled step must also show the groups
+    ``profile_groups`` (by default the resident attention backward's: a
+    model whose every backward streams, as MixSTE's, names its own)."""
     import numpy as np
     import torch
     from pafuse_tpu_torch import train as tr
@@ -1851,6 +1867,17 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
             lr *= lr_decay
     launches = (block_train_fwd.launches, block_train_bwd.launches)
     streamed = stream_launches() if dev.type == "cuda" else {}
+    # the resident attention stages, as their libraries count them: the
+    # forward (mma.sync; float32 at 81-144 keys wgmma) and the backward
+    # (mma.sync up to 80 keys, wgmma past at d <= 48)
+    if dev.type == "cuda":
+        bwd = _build.kernel_launches("attention_core_bwd")
+        fwd = _build.kernel_launches("attention_core")
+        wg = {"forward_tc": fwd["attention_tc"], "forward_wg": fwd["attention_wg"],
+              "backward_tc": bwd["attention_bwd_tc"],
+              "backward_wg": bwd["attention_bwd_wg"]}
+    else:
+        wg = {}
     # #6's weight- and bias-gradient kernel: four launches a call
     wgrad = (_build.kernel_launches("block_train")["wgrad_wgmma"]
              if dev.type == "cuda" else 0)
@@ -1859,7 +1886,7 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
         raise AssertionError(f"{phase}: {wgrad} launches of the weight-"
                              f"gradient kernel, expected {4 * launches[1]}")
     if streams is not None:
-        streams.update(streamed)
+        streams.update(streamed, **wg)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: non-finite loss {losses}")
     if launches != (per_step * steps, per_step * steps):
@@ -1875,7 +1902,8 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
           "frames": cfg.frames, "depth": cfg.depth, "joints": cfg.num_kps,
           "networks": part_names, "losses": losses,
           "launches_fwd": launches[0], "launches_bwd": launches[1],
-          "wgrad_launches": wgrad, "stream_launches": streamed, "step_s": step_s, "ms_per_step": steady * 1e3,
+          "wgrad_launches": wgrad, "stream_launches": streamed,
+          "wg_launches": wg, "step_s": step_s, "ms_per_step": steady * 1e3,
           "frames_per_s": seqs * cfg.frames / steady,
           "batches_per_epoch": sampler.batch_num(),
           "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -1883,9 +1911,9 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
     if dev.type == "cuda" and profile:
         groups = profile_step(lambda: float(step(state, lr, *batches[-1])),
                               phase=f"{phase}_profile", names=TRAIN_GROUPS)
-        missing = ({g for _, g in TRAIN_GROUPS[:2]}
-                   | {ATTN_CORE_GROUP, ATTN_BWD_GROUP}
-                   | set(profile_groups)) - set(groups)
+        expected = (ATTN_BWD_GROUP,) if profile_groups is None else profile_groups
+        missing = ({g for _, g in TRAIN_GROUPS[:2]} | {ATTN_CORE_GROUP}
+                   | set(expected)) - set(groups)
         if groups and missing:
             raise AssertionError(f"{phase}: the profile shows no {missing}: "
                                  f"{sorted(groups)}")
@@ -1979,9 +2007,9 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                  ("sm90::row_stats", "row statistics (#1, #3, #4)"),
                  ("wgrad_wgmma_kernel",
                   "weight and bias gradients (#6, wgmma)"),
-                 ("attention_bwd_tc_kernel", ATTN_BWD_GROUP),
+                 ("attention_bwd_(tc|wg)_kernel", ATTN_BWD_GROUP),
                  ("attention_bwd_stream_[ab]_kernel", ATTN_BWD_STREAM_GROUP),
-                 ("attention_tc_kernel", ATTN_CORE_GROUP),
+                 ("attention_(tc|wg)_kernel", ATTN_CORE_GROUP),
                  ("attention_stream_kernel", ATTN_STREAM_GROUP),
                  ("bf16_to_f32_kernel", "bfloat16 x to float32 (#2)"),
                  ("layernorm_kernel", "outer LayerNorm (#1, #3, #4)"),
@@ -3526,14 +3554,25 @@ def mono134_train_phase(seed: int, device: str = "cuda", depth: int = 8,
     """The monolithic 134-joint H3WB model (general.part_based_model=false,
     model.cs 288, 8 heads of 36) trained on kernels #5/#6 through
     run_trainer's checks on synthetic H3WB, 37 sequences a step, the loss
-    centred at the root as the CLI does.  Returns the main-path launches."""
+    centred at the root as the CLI does: its spatial blocks' attention runs
+    on the wgmma kernels (the float32 forward at 134 keys and the resident
+    backward), its temporal blocks' on the mma.sync ones, whose launches
+    their libraries count in the main-path run.  Returns the main-path launches and those counts (run_trainer's
+    ``streams``; none on the CPU)."""
     from pafuse_tpu_torch.diffusion import D3DPConfig
 
     cfg = D3DPConfig(depth=depth, part_based=False, cs=MONO_CS,
                      drop_path_rate=0.1)
     loader, sampler = _synthetic_batches(seed, seqs, cfg.frames)
-    return run_trainer(seed, device, cfg, loader, sampler, seqs, steps,
-                       part_based=False, phase="mono134_train", profile=False)
+    wg = {}
+    launches = run_trainer(seed, device, cfg, loader, sampler, seqs, steps,
+                           part_based=False, phase="mono134_train",
+                           profile=False, streams=wg)
+    if device != "cpu" and not (wg["forward_wg"] and wg["backward_wg"]
+                                and wg["backward_tc"]):
+        raise AssertionError(f"mono134_train: the wgmma attention kernels did "
+                             f"not run on the main path: {wg}")
+    return launches, wg
 
 
 # ---------------------------------------------------------------------------
@@ -3548,11 +3587,13 @@ def mono134_train_phase(seed: int, device: str = "cuda", depth: int = 8,
 MIXSTE_CS, MIXSTE_FRAMES = 512, 243
 MIXSTE_SEQS = 1024 // MIXSTE_FRAMES
 MIXSTE_STEPS = 3
-#: (L, d) of the attention stages alone, each streamed in both dtypes (past
-#: 144 keys, or d above 64): the model's temporal block (243 x 64), 351
-#: frames at d = 64 and 48,
-#: and d = 128 (model.cs=1024) at 243 frames and at the 134 joints
-STREAM_STAGES = ((243, 64), (351, 64), (351, 48), (243, 128), (134, 128))
+#: (L, d) of the attention stages alone: streamed in both dtypes (past 144
+#: keys, or d above 64) the model's temporal block (243 x 64), 351 frames
+#: at d = 64 and 48, and d = 128 (model.cs=1024) at 243 frames and at the
+#: 134 joints; resident the model's spatial block (134 x 64: the float32
+#: forward and the backward on wgmma, the bf16 forward on mma.sync)
+STREAM_STAGES = ((243, 64), (351, 64), (351, 48), (243, 128), (134, 128),
+                 (134, 64))
 #: its serve windows for kernel #1: (frames, hypotheses); both stream the
 #: temporal attention
 MIXSTE_WINDOWS = ((243, 10), (351, 5))
@@ -3645,9 +3686,11 @@ def mixste243_phase(seed: int, depth: int = 8, steps: int = MIXSTE_STEPS):
                            streams=trained,
                            profile_groups=(ATTN_BWD_STREAM_GROUP,))
     streams.update(backward_a=trained["backward_a"],
-                   backward_b=trained["backward_b"])
+                   backward_b=trained["backward_b"],
+                   forward_wg=trained["forward_wg"])
     if not all(streams.values()):
-        raise AssertionError(f"mixste243: the streamed kernels did not run "
+        raise AssertionError(f"mixste243: the streamed kernels or the "
+                             f"spatial blocks' wgmma forward did not run "
                              f"on the main path: {streams}")
     emit({"phase": "mixste243", "stream_launches": streams,
           "attention_bwd_stream_launches_per_step": trained["backward_a"] / steps,
@@ -4667,7 +4710,8 @@ def main() -> int:
     if bad:
         raise AssertionError(f"a training kernel disagrees with its plain "
                              f"version: {bad}")
-    train_launches = train_phase(args.seed)
+    train_kinds = {}
+    train_launches = train_phase(args.seed, kinds=train_kinds)
     attn_cases = attention_kernel_phase(args.seed, EVAL_WINDOWS, P=10,
                                         frames=27)
     serve_attn = attention_kernel_phase(args.seed, windows=16, P=10,
@@ -4728,7 +4772,9 @@ def main() -> int:
 
     dhp3_blocks, dhp3_train, dhp3_attn = timed("dhp3_kernel", dhp3_kernels)
     dhp3_attn = [c for c in dhp3_attn if c["name"] == "fused_attention"]
-    dhp3_train_launches = timed("dhp3_train", dhp3_train_phase, args.seed)
+    dhp3_kinds = {}
+    dhp3_train_launches = timed("dhp3_train", dhp3_train_phase, args.seed,
+                                kinds=dhp3_kinds)
     dhp3_launches = timed("dhp3_eval", dhp3_eval_phase, args.seed, workdir)
     # depth 4 for in_the_wild, draw, ddp_eval and packed_serve, as for
     # bf16_eval below: the run's time limit, which the attention stages'
@@ -4753,7 +4799,8 @@ def main() -> int:
     if bad:
         raise AssertionError(f"a training kernel disagrees with its plain "
                              f"version at the monolithic shapes: {bad}")
-    mono_launches = timed("mono134_train", mono134_train_phase, args.seed)
+    mono_launches, mono_wg = timed("mono134_train", mono134_train_phase,
+                                   args.seed)
     # MixSTE's 243-frame, 512-wide model: the streamed attention stages
     m243 = timed("mixste243", mixste243_phase, args.seed)
     # data parallel on torch.distributed and the CLI's observability
@@ -4810,6 +4857,12 @@ def main() -> int:
         return [c for c in m243["stages"] if c["name"] == name
                 and c["route"] == "streamed"]
 
+    def spatial(name):
+        # mixste243's spatial stage alone (134 x 64), float32
+        return [c for c in m243["stages"] if c["name"] == name
+                and c["L"] == 134 and c["C"] == 512
+                and c["dtype"] == "float32"]
+
     def _packed(launches, name):
         return {f"packed_serve_{dtype}": c[name]
                 for dtype, c in launches.items()}
@@ -4854,8 +4907,9 @@ def main() -> int:
                           "launches": train_launches[0]},
                       mono134_fwd={
                           **_sums([c for c in mono_cases
-                                   if c["name"] == "attention_core"]),
-                          "launches": mono_launches[0]}),
+                                   if c["name"] == "attention_core"
+                                   and c["L"] != 134]),
+                          "launches": mono_wg["forward_tc"]}),
         # the streamed forward (attention_sm90.cuh's attention_stream_kernel,
         # the same entry and replaces) at mixste243's stage shapes where the
         # library streams; launched by fused_block in mixste243's 351-frame
@@ -4882,20 +4936,48 @@ def main() -> int:
                       launches_pass_b=m243["streams"]["backward_b"],
                       launched_by="block_train_bwd (mixste243_train's "
                                   "temporal blocks, block_train.cu step 9)"),
-        # #6's attention backward at the training shapes (launched once by
-        # every call of block_train_bwd, block_train.cu step 9)
+        # the float32 forward at 81-144 keys on wgmma (attention_sm90.cuh's
+        # attention_wg_kernel, the same entry and replaces): MixSTE's spatial
+        # blocks (134 x 64) and the monolithic model's (134 x 36); launched
+        # by block_train_fwd in mixste243_train's spatial blocks, as its
+        # library counts
+        _kernel_entry("attention_core_wg", "cuda", ATTN_CORE_SOURCE,
+                      ATTN_CORE_REPLACES,
+                      m243["streams"]["forward_wg"] + mono_wg["forward_wg"],
+                      spatial("attention_core") + [
+                          c for c in mono_cases if c["name"] == "attention_core"
+                          and c["L"] == 134],
+                      launched_by="any wrapper of the float32 attention "
+                                  "forward at 81-144 keys (mixste243_train's "
+                                  "and mono134_train's block_train_fwd, "
+                                  "spatial blocks, block_train.cu step 3)"),
+        # the resident backward on wgmma (attention_bwd_sm90.cuh's
+        # attention_bwd_wg_kernel: past 80 keys at d <= 48) at the
+        # monolithic model's 134 joints; launched by block_train_bwd in
+        # mono134_train's spatial blocks, as its library counts
+        _kernel_entry("attention_core_bwd_wg", "cuda", ATTN_BWD_SOURCE,
+                      ATTN_BWD_REPLACES, mono_wg["backward_wg"],
+                      [c for c in mono_cases
+                       if c["name"] == "attention_core_bwd" and c["L"] == 134],
+                      launched_by="block_train_bwd (mono134_train's spatial "
+                                  "blocks, block_train.cu step 9)"),
+        # #6's attention backward at the training shapes (once a call of
+        # block_train_bwd, block_train.cu step 9): the resident mma.sync
+        # kernel (attention_bwd_tc_kernel) up to 80 keys, its launches as
+        # the library counts them in the H3WB, monolithic and 3DHP runs
         _kernel_entry("attention_core_bwd", "cuda", ATTN_BWD_SOURCE,
-                      ATTN_BWD_REPLACES, train_launches[1],
+                      ATTN_BWD_REPLACES, train_kinds["backward_tc"],
                       [c for c in train_cases
                        if c["name"] == "attention_core_bwd"],
                       launched_by="block_train_bwd (block_train.cu step 9)",
                       mono134={
                           **_sums([c for c in mono_cases
-                                   if c["name"] == "attention_core_bwd"]),
-                          "launches": mono_launches[1]},
+                                   if c["name"] == "attention_core_bwd"
+                                   and c["L"] <= 80]),
+                          "launches": mono_wg["backward_tc"]},
                       **_dhp3([c for c in dhp3_train
                                if c["name"] == "attention_core_bwd"],
-                              {"dhp3_train": dhp3_train_launches[1]})),
+                              {"dhp3_train": dhp3_kinds["backward_tc"]})),
         _kernel_entry("fused_block", "cuda", SOURCE, REPLACES, launches,
                       cases, **bf16(cases),
                       **mixste243(m243["blocks"], "fused_block",

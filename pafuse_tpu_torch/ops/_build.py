@@ -128,7 +128,8 @@ COMMON = {"pafuse_kernel_launches": ([_I, _I], _LL)}
 #: common.cuh's LaunchKind, in order: the kernels whose launches each
 #: library counts on the host where it launches them
 LAUNCH_KINDS = ("gemm", "gemm_bf16", "split_weights", "split_weights_t",
-                "row_stats", "wgrad_wgmma", "attention_tc", "attention_bwd_tc",
+                "row_stats", "wgrad_wgmma", "attention_tc", "attention_wg",
+                "attention_bwd_tc", "attention_bwd_wg", "attention_bwd_pack",
                 "attention_stream", "attention_bwd_stream_a",
                 "attention_bwd_stream_b")
 

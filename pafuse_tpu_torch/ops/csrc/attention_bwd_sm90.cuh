@@ -33,24 +33,66 @@
 //   - pass A: a warp takes a (unit, 16-query) tile.  S = Q K^T and dP = dO
 //     V^T on mma.sync m16n8k8 as three TF32 products each (x_hi = tf32(x),
 //     x_lo = tf32(x - x_hi); hi*lo + lo*hi summed apart and added to hi*hi
-//     in one FADD), 16*NKT keys at a time: the row's max m, sum l and
-//     t = sum e * dP gathered over the key chunks (rescaled by exp(m_old -
-//     m_new) when the max grows), so the row term rowsum(dP * P) = t / l
-//     needs no second pass; keys beyond L are masked to -inf.  Then dS =
-//     (e / l)(dP - t / l), repacked in registers as the A operand of dS K
-//     (the keys of an n8 tile taken as k columns t, t + 4), dq = scale *
-//     dS K written from the fragments; with more than one chunk, S and dP
-//     are computed again chunk by chunk.  The rows' m, 1 / l and t / l go
-//     to shared memory;
+//     in one FADD) over the unit's 16*NKT keys (up to 80, one chunk): the
+//     row's max m, sum l and t = sum e * dP, so the row term rowsum(dP *
+//     P) = t / l needs no second pass; keys beyond L are masked to -inf.
+//     Then dS = (e / l)(dP - t / l), repacked in registers as the A operand
+//     of dS K (the keys of an n8 tile taken as k columns t, t + 4), dq =
+//     scale * dS K written from the fragments.  The rows' m, 1 / l and t / l
+//     go to shared memory;
 //   - pass B: a warp takes a (unit, 16-key) tile, K's and V's rows split
 //     into TF32 halves once in registers, and walks the query tiles in
 //     order: S^T = K Q^T and dP^T = V dO^T (the same products as pass A),
 //     P^T from the stored row statistics, dS^T, then dv += P^T dO and dk +=
 //     dS^T Q (P^T and dS^T repacked as A operands as in pass A); dk =
 //     scale * dk and dv are written from the fragments.
+// That kernel (attention_bwd_tc_kernel, mma.sync) takes units of up to 80
+// keys (one key chunk).  Past 80 keys at d <= 48 (the monolithic model's
+// 134 joints at d = 36) the wgmma kernel (attention_bwd_wg_kernel) takes
+// the unit where its rows fit a CTA (there the mma.sync kernel computed S
+// and dP in three chunks a query tile, at 6% of its bound):
+//   - a CTA is one unit and two warpgroups; the unit's q, k, v and dO rows
+//     are copied once (cp.async, 16 bytes where aligned) into shared memory
+//     as they are, and every operand is split into TF32 hi and lo from
+//     there, once a product, into K-major tiles wgmma reads (a rows set:
+//     64 rows by d; a cols set: 64 rows transposed) that both warpgroups
+//     share; A operands are register fragments split from the raw rows;
+//   - pass A, a 64-query block a warpgroup: over the unit's 64-key chunks
+//     the rows' max m, sum l and t = sum e * dP (rescaled as the max
+//     grows), then S and dP again with dq += dS K; pass B, a 64-key block a
+//     warpgroup: S^T, dP^T, P^T and dS^T from the statistics, dv += P^T dO,
+//     dk += dS^T Q.  So S and dP are computed three times (pass A twice,
+//     pass B once): the statistics need a whole row before any dS, and a
+//     warpgroup's registers hold one 64-key chunk of S and dP (all of a
+//     134-token row would take 2 x 68 more a thread);
+//   - each B set is filled while the other's products run (two sets);
+//     S, dP, S^T and dP^T are three TF32 products a k-step (lo*hi and hi*lo
+//     summed apart, added to hi*hi in one FADD), over d rounded up to 8
+//     (5 k-steps at d = 36), dq, dk and dv three a k-step into a fresh
+//     accumulator a 64-row chunk, added in f32 in order;
+//   - e = 2^((s - m) log2 e) on ex2.approx (MUFU) instead of expf.
+// Its bound at the monolithic (999, 134, 288): 0.32 ms of bytes; it runs
+// there at 4.58 ms on an H100 80GB HBM3 at 700 W, the mma.sync kernel at
+// 5.22; at 243 frames, d = 28 and 32, 0.40 ms against 0.53 (chip_ab.py,
+// PERF.md).  At every shape up to 80 keys it measured 1.7-5.1x slower than
+// the mma.sync kernel (chip_ab.py's "wg" tree), and at d = 49..64 slower
+// than the streamed kernels, which keep those shapes (variant()).
+// A third design, attention_bwd_pack_kernel, takes units of up to 64 keys
+// at d <= 48 the way the wgmma kernel takes a 64-row block: one warpgroup
+// a CTA and 64 // (L rounded up to 8) units packed into its rows (each
+// unit's keys meet the k-steps of 8 as alone, so a unit's bits do not
+// depend on its slot), a product across two units masked to -inf, the
+// four operands copied once and split into K-major sets from there, S and
+// dP once (a row's whole softmax in registers), two or three CTAs an SM.
+// It measured 1.1-2.3x slower than the mma.sync kernel at H3WB's, 3DHP's
+// and the monolithic 27-frame shapes (each CTA's copies, splits, barriers
+// and softmax run between its products, and two or three CTAs an SM do
+// not hide them as the mma.sync kernel's 8 independent warps do), so no
+// shape routes to it (PACK_SHORT_UNITS; chip_ab.py's "pack" tree times it).
 // No atomics and a fixed order of every sum: a call repeats bit for bit.
-// Where one unit's four tiles do not fit a CTA's shared memory (float32: L
-// above 256 at d <= 48, above 192 at d = 64) or d is above 64, the
+// Past one key chunk where the wgmma kernel does not take the unit (d <= 48
+// past its shared memory: 243 frames at d = 36 and 48, faster there than
+// the mma.sync kernel's chunks were; d = 49..64) and at d above 64, the
 // streamed kernel below takes it, in two passes over chunks that stream
 // through shared memory; variant() is the rule.
 //
@@ -83,22 +125,14 @@ constexpr int SMEM_TARGET = 96 * 1024;
 constexpr int SMEM_MAX = attn_tc::SMEM_MAX;
 constexpr int MAX_HEAD_DIM = attn_tc::MAX_HEAD_DIM;
 
-// Key tiles (16 keys each) a chunk: all keys in one chunk up to 80, beyond
-// that chunks of 48 or 64 keys, whichever pads L less.
-__host__ __device__ constexpr int key_tiles(int L) {
-  return L <= 32 ? 2
-       : L <= 48 ? 3
-       : L <= 80 ? 5
-       : (L + 47) / 48 * 48 <= (L + 63) / 64 * 64 ? 3 : 4;
-}
+// Key tiles (16 keys each) of a unit of up to 80 keys, all in one chunk.
+__host__ __device__ constexpr int key_tiles(int L) { return L <= 32 ? 2 : L <= 48 ? 3 : 5; }
 
-// Shared memory of one (sequence, head): q, k, v and dO tiles of LP rows (L
-// rounded up to the key chunk) and the rows' three statistics; 0 when d is
-// above MAX_HEAD_DIM.
+// Shared memory of one (sequence, head) of up to 80 keys: q, k, v and dO
+// tiles of LP rows (L rounded up to the key chunk) and the rows' three
+// statistics.
 inline long long unit_bytes(int L, int d) {
-  if (d < 1 || d > MAX_HEAD_DIM || L < 1) return 0;
-  const int kc = 16 * key_tiles(L);
-  const long long lp = (long long)((L + kc - 1) / kc) * kc;
+  const long long lp = 16 * key_tiles(L);
   return 4LL * (4LL * lp * row_stride(padded_dim(d), 4) + 3LL * lp);
 }
 
@@ -249,73 +283,54 @@ __device__ __forceinline__ void a_fragments(uint32_t (&h)[KS][4], uint32_t (&l)[
 }
 
 // Pass A: one warp's (unit, 16-query) tile.  q, g: the tile's first rows of
-// Q and dO; k, v: the unit's K and V tiles; st: the unit's statistics (m,
-// 1 / l, row term; LP each) from the tile's first row; dq: global row 0 of
-// the head's q columns in dqkv.
+// Q and dO; k, v: the unit's K and V tiles (its NKT key tiles, one chunk);
+// st: the unit's statistics (m, 1 / l, row term; LP each) from the tile's
+// first row; dq: global row 0 of the head's q columns in dqkv.
 template <int DP, int NKT>
 __device__ __forceinline__ void query_tile(const float* q, const float* g, const float* k,
                                            const float* v, float* st, int lp, float* dq,
-                                           long long ld, int row0, int L, int d, int nc,
-                                           float scale) {
-  constexpr int STRIDE = row_stride(DP, 4), KC = 16 * NKT, KS = DP / 8;
+                                           long long ld, int row0, int L, int d, float scale) {
+  constexpr int STRIDE = row_stride(DP, 4), KS = DP / 8;
   const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
   uint32_t qh[KS][4], ql[KS][4], gh[KS][4], gl[KS][4];
   a_fragments<KS, STRIDE>(qh, ql, q);
   a_fragments<KS, STRIDE>(gh, gl, g);
 
   float s[NKT][2][4], dp[NKT][2][4];       // logits then e, and dP: key tile, n8 half
-  auto products = [&](int c) {
 #pragma unroll
-    for (int j = 0; j < NKT; ++j)
+  for (int j = 0; j < NKT; ++j)
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int key0 = c * KC + 16 * j + 8 * n;
-        row_products<KS, STRIDE>(s[j][n], qh, ql, k + key0 * STRIDE);
-        row_products<KS, STRIDE>(dp[j][n], gh, gl, v + key0 * STRIDE);
+    for (int n = 0; n < 2; ++n) {
+      const int key0 = 16 * j + 8 * n;
+      row_products<KS, STRIDE>(s[j][n], qh, ql, k + key0 * STRIDE);
+      row_products<KS, STRIDE>(dp[j][n], gh, gl, v + key0 * STRIDE);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][n][e] = key0 + 2 * t + (e & 1) < L ? s[j][n][e] * scale : -INFINITY;
-      }
-  };
+      for (int e = 0; e < 4; ++e)
+        s[j][n][e] = key0 + 2 * t + (e & 1) < L ? s[j][n][e] * scale : -INFINITY;
+    }
 
-  // the row's max, sum of e and sum of e * dP over the chunks (rows gr, gr + 8)
-  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, tot[2] = {0.f, 0.f};
-  for (int c = 0; c < nc; ++c) {
-    products(c);
-    float cm[2] = {-INFINITY, -INFINITY};
+  // the row's max, sum of e and sum of e * dP (rows gr, gr + 8)
+  float mx[2] = {-INFINITY, -INFINITY}, cs[2] = {0.f, 0.f}, ct[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < NKT; ++j)
+  for (int j = 0; j < NKT; ++j)
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], s[j][n][e]);
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][n][e]);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m = fmaxf(mx[r], quad_max(cm[r]));
-      const float alpha = expf(mx[r] - m);     // 0 on the first chunk
-      sum[r] *= alpha;
-      tot[r] *= alpha;
-      mx[r] = m;
-    }
-    float cs[2] = {0.f, 0.f}, ct[2] = {0.f, 0.f};
+  for (int r = 0; r < 2; ++r) mx[r] = quad_max(mx[r]);
 #pragma unroll
-    for (int j = 0; j < NKT; ++j)
+  for (int j = 0; j < NKT; ++j)
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][n][e] = expf(s[j][n][e] - mx[e >> 1]);
-          cs[e >> 1] += s[j][n][e];
-          ct[e >> 1] += s[j][n][e] * dp[j][n][e];
-        }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += quad_sum(cs[r]);
-      tot[r] += quad_sum(ct[r]);
-    }
-  }
-  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
-  const float rt[2] = {tot[0] * inv[0], tot[1] * inv[1]};
+      for (int e = 0; e < 4; ++e) {
+        s[j][n][e] = expf(s[j][n][e] - mx[e >> 1]);
+        cs[e >> 1] += s[j][n][e];
+        ct[e >> 1] += s[j][n][e] * dp[j][n][e];
+      }
+  const float inv[2] = {1.f / quad_sum(cs[0]), 1.f / quad_sum(cs[1])};
+  const float rt[2] = {quad_sum(ct[0]) * inv[0], quad_sum(ct[1]) * inv[1]};
   if (t == 0)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -330,27 +345,16 @@ __device__ __forceinline__ void query_tile(const float* q, const float* g, const
   for (int n = 0; n < KS; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    if (nc > 1) {
-      products(c);
 #pragma unroll
-      for (int j = 0; j < NKT; ++j)
+  for (int j = 0; j < NKT; ++j)
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+    for (int n = 0; n < 2; ++n) {
+      float ds[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][n][e] = expf(s[j][n][e] - mx[e >> 1]);
+      for (int e = 0; e < 4; ++e)
+        ds[e] = (s[j][n][e] * inv[e >> 1]) * (dp[j][n][e] - rt[e >> 1]);
+      fragment_times_rows<KS, STRIDE>(acc, ds, k + (16 * j + 8 * n) * STRIDE);
     }
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[e] = (s[j][n][e] * inv[e >> 1]) * (dp[j][n][e] - rt[e >> 1]);
-        fragment_times_rows<KS, STRIDE>(acc, ds, k + (c * KC + 16 * j + 8 * n) * STRIDE);
-      }
-  }
   store_rows<KS>(dq, ld, acc, scale, row0, L, d);
 }
 
@@ -395,17 +399,17 @@ __device__ __forceinline__ void key_tile(const float* k, const float* v, const f
   store_rows<KS>(dk + C, ld, dva, 1.f, row0, L, d);
 }
 
-// One CTA: the group of U units from unit blockIdx.x * U on.  nc key chunks
-// of 16 * NKT keys; vb the copy width in bytes.
+// One CTA: the group of U units from unit blockIdx.x * U on, each in one key
+// chunk of 16 * NKT keys; vb the copy width in bytes.
 template <int DP, int NKT>
 __global__ void __launch_bounds__(MAX_THREADS)
 attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
                         float* __restrict__ dqkv, long long seqs, int L, int C, int H, int d,
-                        float scale, int U, int nc, int vb) {
+                        float scale, int U, int vb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   constexpr int STRIDE = row_stride(DP, 4);
-  const int lp = nc * 16 * NKT, tiles = (L + 15) / 16;
+  const int lp = 16 * NKT, tiles = (L + 15) / 16;
   const Group u((long long)blockIdx.x * U, U, seqs * H, H, L, 1);
   const int n = u.G * u.HG;
   const long long tile = (long long)lp * STRIDE;
@@ -427,7 +431,7 @@ attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__
     const float* ut = sm + (long long)ul * 4 * tile;
     query_tile<DP, NKT>(ut + qb * 16 * STRIDE, ut + 3 * tile + qb * 16 * STRIDE, ut + tile,
                         ut + 2 * tile, stats + (long long)ul * 3 * lp + qb * 16, lp, out_of(ul),
-                        3LL * C, 16 * qb, L, d, nc, scale);
+                        3LL * C, 16 * qb, L, d, scale);
   }
   __syncthreads();
   for (int w = warp; w < n * tiles; w += warps) {
@@ -441,8 +445,7 @@ attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__
 
 template <int DP, int NKT>
 cudaError_t launch(const float* qkv, const float* dO, float* dqkv, long long seqs, int L, int C,
-                   int H, int d, float scale, int U, int nc, int vb, size_t smem,
-                   cudaStream_t stream) {
+                   int H, int d, float scale, int U, int vb, size_t smem, cudaStream_t stream) {
   const auto kernel = attention_bwd_tc_kernel<DP, NKT>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -453,21 +456,603 @@ cudaError_t launch(const float* qkv, const float* dO, float* dqkv, long long seq
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int threads = 2 * smem > (size_t)SMEM_MAX ? MAX_THREADS : THREADS;
   kernel<<<(unsigned)grid, threads, smem, stream>>>(qkv, dO, dqkv, seqs, L, C, H, d, scale, U,
-                                                    nc, vb);
+                                                    vb);
   return counted(LAUNCH_ATTENTION_BWD_TC, cudaGetLastError());
 }
 
 template <int DP>
 cudaError_t launch_dp(int nkt, const float* qkv, const float* dO, float* dqkv, long long seqs,
-                      int L, int C, int H, int d, float scale, int U, int nc, int vb,
-                      size_t smem, cudaStream_t stream) {
+                      int L, int C, int H, int d, float scale, int U, int vb, size_t smem,
+                      cudaStream_t stream) {
   switch (nkt) {
-    case 2: return launch<DP, 2>(qkv, dO, dqkv, seqs, L, C, H, d, scale, U, nc, vb, smem, stream);
-    case 3: return launch<DP, 3>(qkv, dO, dqkv, seqs, L, C, H, d, scale, U, nc, vb, smem, stream);
-    case 4: return launch<DP, 4>(qkv, dO, dqkv, seqs, L, C, H, d, scale, U, nc, vb, smem, stream);
-    default:
-      return launch<DP, 5>(qkv, dO, dqkv, seqs, L, C, H, d, scale, U, nc, vb, smem, stream);
+    case 2: return launch<DP, 2>(qkv, dO, dqkv, seqs, L, C, H, d, scale, U, vb, smem, stream);
+    case 3: return launch<DP, 3>(qkv, dO, dqkv, seqs, L, C, H, d, scale, U, vb, smem, stream);
+    default: return launch<DP, 5>(qkv, dO, dqkv, seqs, L, C, H, d, scale, U, vb, smem, stream);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The resident backward on wgmma, for units of 81-256 tokens at d <= 48
+// whose raw rows fit one CTA (see the note at the top)
+// ---------------------------------------------------------------------------
+
+using attn_tc::acc_fragment;
+using attn_tc::async_proxy_fence;
+using attn_tc::chunk_fragments;
+using attn_tc::cols_from;
+using attn_tc::half_fragments;
+using attn_tc::reg_products;
+using attn_tc::rows_from;
+using attn_tc::set_ready;
+using attn_tc::set_times;
+using attn_tc::store_set;
+using attn_tc::wg_ksteps;
+using attn_tc::wg_wait0;
+using attn_tc::WG_ROWS;
+using attn_tc::WgSet;
+
+// the most rows of a unit: L up to 256, four 64-row blocks
+constexpr int MAX_ROWS = 256;
+// the longest unit the mma.sync kernel takes in one key chunk (key_tiles 5)
+constexpr int ONE_CHUNK = 80;
+
+// A CTA is one (sequence, head) unit: two warpgroups share the unit's raw
+// rows (the last block's only as many as it holds, rounded up to 8) and two
+// sets the B operands take in turn, each filled once for both while the
+// other's products run; in pass A warpgroup w takes query blocks w, w + 2,
+// ..., in pass B key blocks w, w + 2, ... (a warpgroup without a block of
+// its own computes on the last block's rows and stores nothing: a branch
+// around its wgmmas would serialise them).
+template <int KS> struct BwdWg {
+  static constexpr int RW = attn_tc::RawChunk<KS>::RW;
+  // two B sets, the rows' statistics and 1 KB to align the tiles
+  static constexpr int FIXED = 2 * WgSet<KS>::BIG + 3 * MAX_ROWS * 4 + 1024;
+  __host__ __device__ static constexpr int last_rows(int L) {
+    return (L - WG_ROWS * ((L - 1) / WG_ROWS) + 7) / 8 * 8;
+  }
+  __host__ __device__ static constexpr int smem(int L) {
+    return 4 * (((L - 1) / WG_ROWS) * WG_ROWS + last_rows(L)) * RW * 4 + FIXED;
+  }
+};
+
+// e^x as 2^(x log2 e) on the MUFU (ex2.approx: ~2 ulp, 0 at -inf; the
+// product's rounding adds ~|x| 2^-24 relative)
+__device__ __forceinline__ float exp_mufu(float x) { return attn_tc::ex2(x * 1.4426950408889634f); }
+
+template <int KS>
+__global__ void __launch_bounds__(256, 1)
+attention_bwd_wg_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
+                         float* __restrict__ dqkv, int L, int C, int H, int d, float scale,
+                         int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using W = WgSet<KS>;
+  constexpr int NO = 4 * KS, NT = 256, RW = attn_tc::RawChunk<KS>::RW;
+  constexpr int CH = attn_tc::RawChunk<KS>::FLOATS;
+  uint8_t* sm = smem_raw + ((1024 - (attn_tc::saddr(smem_raw) & 1023)) & 1023);
+  uint8_t *g0 = sm, *g1 = sm + W::BIG;
+  float* st = reinterpret_cast<float*>(sm + 2 * W::BIG);
+  float* raw = st + 3 * MAX_ROWS;
+  const long long seq = blockIdx.x / H;
+  const int h = (int)(blockIdx.x - seq * H), R = L, nb = (L + WG_ROWS - 1) / WG_ROWS;
+  const int lr = BwdWg<KS>::last_rows(L);
+  const int C3 = 3 * C, lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  const int warp = (threadIdx.x >> 5) & 3, wg = threadIdx.x >> 7;
+  const float* q = qkv + seq * L * C3 + (long long)h * d;
+  const float* g = dO + seq * L * C + (long long)h * d;
+  float* out = dqkv + seq * L * C3 + (long long)h * d;
+  // chunk of operand p (0 q, 1 dO, 2 k, 3 v) of block blk, and its rows
+  auto chunk = [&](int p, int blk) -> float* {
+    return raw + (blk < nb - 1 ? (4 * blk + p) * CH : 4 * (nb - 1) * CH + p * lr * RW);
+  };
+  auto rows = [&](int blk) { return blk < nb - 1 ? WG_ROWS : lr; };
+  for (int blk = 0; blk < nb; ++blk) {
+    const int r0 = WG_ROWS * blk, n = rows(blk);
+    attn_tc::fetch_rows<KS, NT>(chunk(0, blk), q, C3, r0, R, d, vec, n);
+    attn_tc::fetch_rows<KS, NT>(chunk(1, blk), g, C, r0, R, d, vec, n);
+    attn_tc::fetch_rows<KS, NT>(chunk(2, blk), q + C, C3, r0, R, d, vec, n);
+    attn_tc::fetch_rows<KS, NT>(chunk(3, blk), q + 2 * C, C3, r0, R, d, vec, n);
+  }
+  attn_tc::copies_commit();
+  attn_tc::copies_wait0();
+  __syncthreads();
+  const int rounds = (nb + 1) / 2;
+  const float one[2] = {1.f, 1.f};
+
+  // pass A: the rows' statistics over the 64-key chunks, then S and dP
+  // again for dq
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int b = 2 * rd + wg, bb = min(b, nb - 1), q0 = WG_ROWS * b;
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, tot[2] = {0.f, 0.f};
+    float inv[2] = {0.f, 0.f}, rt[2] = {0.f, 0.f}, dq[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) dq[e] = 0.f;
+    for (int sweep = 0; sweep < 2; ++sweep)
+      for (int c = 0; c < nb; ++c) {
+        const int k0 = WG_ROWS * c;
+        // S = Q K^T (K's rows in g0) while V's rows fill g1, then dP = dO
+        // V^T while K^T fills g0 (the dq sweep); keys past L at -inf
+        float s[32], dp[32];
+        {
+          float small[32];
+          uint32_t xh[KS][4], xl[KS][4];
+          __syncthreads();             // every wgmma that read g0 and g1 is waited for
+          rows_from<KS, NT>(g0, chunk(2, c), rows(c));
+          chunk_fragments<KS>(xh, xl, chunk(0, bb), rows(bb));
+          set_ready();
+          reg_products<KS>(s, small, xh, xl, g0);
+          rows_from<KS, NT>(g1, chunk(3, c), rows(c));
+          set_ready();
+          wg_wait0();
+#pragma unroll
+          for (int e = 0; e < 32; ++e) s[e] += small[e];
+          chunk_fragments<KS>(xh, xl, chunk(1, bb), rows(bb));
+          reg_products<KS>(dp, small, xh, xl, g1);
+          if (sweep == 1) {
+            __syncthreads();           // both warpgroups' S is done with g0
+            cols_from<KS, NT>(g0, chunk(2, c), rows(c));
+            set_ready();
+          }
+          wg_wait0();
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dp[e] += small[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+          s[e] = key < R ? s[e] * scale : -INFINITY;
+        }
+        if (sweep == 0) {
+          // the rows' max, sum of e and sum of e * dP over one more chunk
+          float cm[2] = {-INFINITY, -INFINITY}, cs[2] = {0.f, 0.f}, ct[2] = {0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < 32; ++e) cm[(e >> 1) & 1] = fmaxf(cm[(e >> 1) & 1], s[e]);
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            const float m = fmaxf(mx[qq], quad_max(cm[qq]));
+            const float alpha = exp_mufu(mx[qq] - m);     // 0 on the first chunk
+            sum[qq] *= alpha;
+            tot[qq] *= alpha;
+            mx[qq] = m;
+          }
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const float x = exp_mufu(s[e] - mx[(e >> 1) & 1]);
+            cs[(e >> 1) & 1] += x;
+            ct[(e >> 1) & 1] += x * dp[e];
+          }
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            sum[qq] += quad_sum(cs[qq]);
+            tot[qq] += quad_sum(ct[qq]);
+          }
+          continue;
+        }
+        if (c == 0) {
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            inv[qq] = 1.f / sum[qq];
+            rt[qq] = tot[qq] * inv[qq];
+            const int row = q0 + 16 * warp + gr + 8 * qq;
+            if (t == 0 && row < R) {
+              st[row] = mx[qq];
+              st[MAX_ROWS + row] = inv[qq];
+              st[2 * MAX_ROWS + row] = rt[qq];
+            }
+          }
+        }
+        // dS = P (dP - t / l) (into dp), then dq += dS K over the chunk in a
+        // fresh accumulator (part), added in f32
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int qq = (e >> 1) & 1;
+          dp[e] = (exp_mufu(s[e] - mx[qq]) * inv[qq]) * (dp[e] - rt[qq]);
+        }
+        float part[NO];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if (hh == 1 && k0 + 32 >= R) break;
+          uint32_t ah[4][4], al[4][4];
+          half_fragments(dp, hh, one, ah, al);
+          set_times<KS, 4>(part, ah, al, g0 + hh * 2 * W::CB, hh);
+          wg_wait0();
+        }
+#pragma unroll
+        for (int e = 0; e < NO; ++e) dq[e] += part[e];
+      }
+    store_set<KS>(out, C3, dq, scale, q0, R, d, (d & 1) == 0);
+  }
+  __syncthreads();                   // the statistics are whole
+
+  // pass B: S^T = K Q^T while dO's rows fill g1, dP^T = V dO^T while dO^T
+  // fills g0, dv += P^T dO while Q^T fills g1, then dk += dS^T Q; each
+  // chunk's products in a fresh accumulator added in f32
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int c = 2 * rd + wg, cc = min(c, nb - 1), k0 = WG_ROWS * c;
+    float dk[NO], dv[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) dk[e] = dv[e] = 0.f;
+    for (int b = 0; b < nb; ++b) {
+      const int q0 = WG_ROWS * b;
+      float s[32], dp[32];
+      {
+        float small[32];
+        uint32_t xh[KS][4], xl[KS][4];
+        __syncthreads();
+        rows_from<KS, NT>(g0, chunk(0, b), rows(b));
+        chunk_fragments<KS>(xh, xl, chunk(2, cc), rows(cc));
+        set_ready();
+        reg_products<KS>(s, small, xh, xl, g0);
+        rows_from<KS, NT>(g1, chunk(1, b), rows(b));
+        set_ready();
+        wg_wait0();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] += small[e];
+        chunk_fragments<KS>(xh, xl, chunk(3, cc), rows(cc));
+        reg_products<KS>(dp, small, xh, xl, g1);
+        __syncthreads();               // both warpgroups' S^T is done with g0
+        cols_from<KS, NT>(g0, chunk(1, b), rows(b));
+        set_ready();
+        wg_wait0();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dp[e] += small[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int query = q0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        const bool in = query < R;
+        const float p = in ? exp_mufu(s[e] * scale - st[query]) * st[MAX_ROWS + query] : 0.f;
+        s[e] = p;
+        dp[e] = p * (dp[e] - (in ? st[2 * MAX_ROWS + query] : 0.f));
+      }
+      const bool both = q0 + 32 < R;
+      float part[NO];
+      {
+        uint32_t ah[2][4][4], al[2][4][4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) half_fragments(s, hh, one, ah[hh], al[hh]);
+        set_times<KS, 4>(part, ah[0], al[0], g0, 0);
+        if (both) set_times<KS, 4>(part, ah[1], al[1], g0 + 2 * W::CB, 1);
+        __syncthreads();               // both warpgroups' dP^T is done with g1
+        cols_from<KS, NT>(g1, chunk(0, b), rows(b));
+        set_ready();
+        wg_wait0();
+      }
+#pragma unroll
+      for (int e = 0; e < NO; ++e) dv[e] += part[e];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (hh == 1 && !both) break;
+        uint32_t ah[4][4], al[4][4];
+        half_fragments(dp, hh, one, ah, al);
+        set_times<KS, 4>(part, ah, al, g1 + hh * 2 * W::CB, hh);
+        wg_wait0();
+      }
+#pragma unroll
+      for (int e = 0; e < NO; ++e) dk[e] += part[e];
+    }
+    store_set<KS>(out + C, C3, dk, scale, k0, R, d, (d & 1) == 0);
+    store_set<KS>(out + 2 * C, C3, dv, 1.f, k0, R, d, (d & 1) == 0);
+  }
+}
+
+// The wgmma kernel's launch: one CTA a (sequence, head) unit.
+template <int KS>
+cudaError_t launch_wg(const float* qkv, const float* dO, float* dqkv, long long seqs, int L,
+                      int C, int H, int d, float scale, int vec, cudaStream_t stream) {
+  const auto kernel = attention_bwd_wg_kernel<KS>;
+  const int smem = BwdWg<KS>::smem(L);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long grid = seqs * H;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)grid, 256, smem, stream>>>(qkv, dO, dqkv, L, C, H, d, scale, vec);
+  return counted(LAUNCH_ATTENTION_BWD_WG, cudaGetLastError());
+}
+
+// Whether the wgmma kernel takes (L, d): past one key chunk of the mma.sync
+// kernel, d <= 48, the unit's raw rows in one CTA.  Measured against the
+// mma.sync kernel's chunks at the monolithic (999, 134, 288), 4.58 ms
+// against 5.22, and at 243 frames, (64, 243, 224) and (64, 243, 256) at d =
+// 28 and 32, 0.40 against 0.53; past the fit (243 frames at d = 36 and 48)
+// the streamed kernels, 0.72 and 0.74 against 0.85 and 0.90 (H100 80GB
+// HBM3 at 700 W, chip_ab.py --only stages, PERF.md).
+inline bool wg_takes(int L, int d) {
+  if (L <= ONE_CHUNK || L > MAX_ROWS || d < 1 || d > 48) return false;
+  switch (wg_ksteps(d)) {
+    case 4: return BwdWg<4>::smem(L) <= SMEM_MAX;
+    case 5: return BwdWg<5>::smem(L) <= SMEM_MAX;
+    default: return BwdWg<6>::smem(L) <= SMEM_MAX;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The resident backward on wgmma for short units (L <= 64 at d <= 48: H3WB's,
+// 3DHP's and the monolithic model's 27-frame shapes), units packed into one
+// warpgroup's 64 rows (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// A unit's slot in a packed block: L rounded up to 8, so each unit's keys
+// meet the k-steps of 8 as they do alone; the units a block.
+__host__ __device__ constexpr int pack_slot(int L) { return (L + 7) / 8 * 8; }
+__host__ __device__ constexpr int pack_units(int L) { return WG_ROWS / pack_slot(L); }
+
+template <int KS> struct BwdPack {
+  // two sets, the rows' statistics, the four raw operands of the block's
+  // rows and 1 KB to align the sets
+  __host__ __device__ static constexpr int smem(int L) {
+    return 2 * WgSet<KS>::BIG + 3 * WG_ROWS * 4 +
+           4 * pack_units(L) * pack_slot(L) * attn_tc::RawChunk<KS>::RW * 4 + 1024;
+  }
+};
+
+// The first element of slot row `row`'s token in qkv (its q columns) and in
+// dO, or false where the row holds no unit's token: slot s row j is unit u0
+// + s's token j; (seq0, h0) is unit u0's (sequence, head).
+__device__ __forceinline__ bool slot_row(int row, int SL, int nu, int L, long long seq0, int h0,
+                                         int C, int H, int d, long long& oq, long long& og) {
+  const int s = row / SL, j = row - s * SL;
+  if (s >= nu || j >= L) return false;
+  const int h = h0 + s, ds = h / H;
+  const long long tok = (seq0 + ds) * L + j, col = (long long)(h - ds * H) * d;
+  oq = tok * 3 * C + col;
+  og = tok * C + col;
+  return true;
+}
+
+// The block's rows of q, dO, k and v (raw chunks of `rows` rows, in that
+// order) by the CTA's cp.async, zeros past the units' tokens and from column
+// d on; vec: 16 bytes a copy (see fetch_rows).
+template <int KS>
+__device__ __forceinline__ void fetch_packed(float* raw, const float* qkv, const float* dO,
+                                             int SL, int nu, int L, long long seq0, int h0,
+                                             int rows, int C, int H, int d, int vec) {
+  constexpr int RW = attn_tc::RawChunk<KS>::RW;
+  const int n = rows * RW, step = vec ? 4 : 1;
+  for (int i = step * threadIdx.x; i < n; i += step * 128) {
+    const int row = i / RW, c = i - row * RW;
+    long long oq = 0, og = 0;
+    const bool in = slot_row(row, SL, nu, L, seq0, h0, C, H, d, oq, og) && c < d;
+    if (vec) {
+      const int bytes = in ? 16 : 0;
+      attn_tc::copy16_zfill(raw + i, qkv + oq + c, bytes);
+      attn_tc::copy16_zfill(raw + n + i, dO + og + c, bytes);
+      attn_tc::copy16_zfill(raw + 2 * n + i, qkv + oq + C + c, bytes);
+      attn_tc::copy16_zfill(raw + 3 * n + i, qkv + oq + 2 * C + c, bytes);
+    } else {
+      const int bytes = in ? 4 : 0;
+      attn_tc::copy4_zfill(raw + i, qkv + oq + c, bytes);
+      attn_tc::copy4_zfill(raw + n + i, dO + og + c, bytes);
+      attn_tc::copy4_zfill(raw + 2 * n + i, qkv + oq + C + c, bytes);
+      attn_tc::copy4_zfill(raw + 3 * n + i, qkv + oq + 2 * C + c, bytes);
+    }
+  }
+}
+
+// Rows 16 warp + g (+ 8) of a packed 64 x 8 KS accumulator times scale into
+// out (dqkv's q columns; + C: k's, + 2C: v's), the units' tokens only.
+template <int KS>
+__device__ __forceinline__ void store_packed(float* out, const float (&acc)[4 * KS], float scale,
+                                             int SL, int nu, int L, long long seq0, int h0,
+                                             int C, int H, int d) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    long long oq, og;
+    if (!slot_row(16 * warp + g + 8 * q, SL, nu, L, seq0, h0, C, H, d, oq, og)) continue;
+    float* o = out + oq;
+#pragma unroll
+    for (int m = 0; m < KS; ++m) {
+      const int col = 8 * m + 2 * t;
+      const float a = acc[4 * m + 2 * q] * scale, b = acc[4 * m + 2 * q + 1] * scale;
+      if ((d & 1) == 0) {
+        if (col < d) *reinterpret_cast<float2*>(o + col) = make_float2(a, b);
+      } else {
+        if (col < d) o[col] = a;
+        if (col + 1 < d) o[col + 1] = b;
+      }
+    }
+  }
+}
+
+// A CTA is one warpgroup and one block of pack_units(L) units.  Pass A: S =
+// Q K^T and dP = dO V^T over the block (A fragments from the raw rows, K's
+// and V's rows sets), a key outside the row's own unit at -inf; the row's
+// whole softmax in registers; dq = dS K (K's cols set).  Pass B: S^T = K
+// Q^T and dP^T = V dO^T (Q's and dO's rows sets), P^T and dS^T from the
+// rows' statistics, dv = P^T dO and dk = dS^T Q (dO's and Q's cols sets).
+// Each set is filled while the products on the other run.
+template <int KS, int MINB>
+__global__ void __launch_bounds__(128, MINB)
+attention_bwd_pack_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
+                          float* __restrict__ dqkv, long long units, int L, int C, int H, int d,
+                          float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using W = WgSet<KS>;
+  constexpr int NO = 4 * KS, RW = attn_tc::RawChunk<KS>::RW;
+  uint8_t* sm = smem_raw + ((1024 - (attn_tc::saddr(smem_raw) & 1023)) & 1023);
+  uint8_t *g0 = sm, *g1 = sm + W::BIG;
+  float* st = reinterpret_cast<float*>(sm + 2 * W::BIG);
+  float* raw = st + 3 * WG_ROWS;
+  const int SL = pack_slot(L), P = WG_ROWS / SL, rows = P * SL;
+  const long long u0 = (long long)blockIdx.x * P, seq0 = u0 / H;
+  const int nu = (int)min((long long)P, units - u0), h0 = (int)(u0 - seq0 * H);
+  float *rq = raw, *rg = raw + rows * RW, *rk = raw + 2 * rows * RW, *rv = raw + 3 * rows * RW;
+  fetch_packed<KS>(raw, qkv, dO, SL, nu, L, seq0, h0, rows, C, H, d, vec);
+  attn_tc::copies_commit();
+  attn_tc::copies_wait0();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+  // this thread's two rows and the keys of each one's unit: [lo, lo + L)
+  int lo[2];
+#pragma unroll
+  for (int qq = 0; qq < 2; ++qq) {
+    const int row = 16 * warp + gr + 8 * qq;
+    lo[qq] = row / SL * SL;
+  }
+  auto in = [&](int e) {
+    const int c = 8 * (e >> 2) + 2 * t + (e & 1), b = lo[(e >> 1) & 1];
+    return c >= b && c < b + L;
+  };
+  const float one[2] = {1.f, 1.f};
+  float s[32], dp[32], small[32];
+  uint32_t xh[KS][4], xl[KS][4];
+
+  // pass A
+  rows_from<KS>(g0, rk, rows);
+  set_ready();
+  chunk_fragments<KS>(xh, xl, rq, rows);
+  reg_products<KS>(s, small, xh, xl, g0);
+  rows_from<KS>(g1, rv, rows);
+  set_ready();
+  wg_wait0();
+  attn_tc::fence_regs(s);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] += small[e];
+  chunk_fragments<KS>(xh, xl, rg, rows);
+  reg_products<KS>(dp, small, xh, xl, g1);
+  // the rows' softmax while dP runs: m, e = 2^((s - m) log2 e), l
+  float mx[2] = {-INFINITY, -INFINITY}, inv[2], rt[2];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[e] = in(e) ? s[e] * scale : -INFINITY;
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+  }
+  {
+    float cs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int qq = 0; qq < 2; ++qq) mx[qq] = quad_max(mx[qq]);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[e] = exp_mufu(s[e] - mx[(e >> 1) & 1]);
+      cs[(e >> 1) & 1] += s[e];
+    }
+#pragma unroll
+    for (int qq = 0; qq < 2; ++qq) inv[qq] = 1.f / quad_sum(cs[qq]);
+  }
+  __syncthreads();                   // every warp's S is done with g0
+  cols_from<KS>(g0, rk, rows);
+  set_ready();
+  wg_wait0();
+  attn_tc::fence_regs(dp);
+  {
+    float ct[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      dp[e] += small[e];
+      ct[(e >> 1) & 1] += s[e] * dp[e];
+    }
+#pragma unroll
+    for (int qq = 0; qq < 2; ++qq) {
+      rt[qq] = quad_sum(ct[qq]) * inv[qq];
+      const int row = 16 * warp + gr + 8 * qq;
+      if (t == 0) {
+        st[row] = mx[qq];
+        st[WG_ROWS + row] = inv[qq];
+        st[2 * WG_ROWS + row] = rt[qq];
+      }
+    }
+  }
+  // dS = P (dP - t / l), then dq = dS K over the block's 64 keys
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int qq = (e >> 1) & 1;
+    dp[e] = (s[e] * inv[qq]) * (dp[e] - rt[qq]);
+  }
+  {
+    float dq[NO];
+    uint32_t ah[2][4][4], al[2][4][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) half_fragments(dp, hh, one, ah[hh], al[hh]);
+    set_times<KS, 4>(dq, ah[0], al[0], g0, 0);
+    if (rows > 32) set_times<KS, 4>(dq, ah[1], al[1], g0 + 2 * W::CB, 1);
+    __syncthreads();                 // every warp's dP is done with g1
+    rows_from<KS>(g1, rq, rows);
+    set_ready();                     // and the statistics are whole
+    wg_wait0();
+    attn_tc::fence_regs(dq);
+    store_packed<KS>(dqkv, dq, scale, SL, nu, L, seq0, h0, C, H, d);
+  }
+
+  // pass B: this thread's two rows are keys now, the columns queries
+  chunk_fragments<KS>(xh, xl, rk, rows);
+  reg_products<KS>(s, small, xh, xl, g1);
+  __syncthreads();                   // every warp's dq is done with g0
+  rows_from<KS>(g0, rg, rows);
+  set_ready();
+  wg_wait0();
+  attn_tc::fence_regs(s);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] += small[e];
+  chunk_fragments<KS>(xh, xl, rv, rows);
+  reg_products<KS>(dp, small, xh, xl, g0);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int query = 8 * (e >> 2) + 2 * t + (e & 1);
+    s[e] = in(e) ? exp_mufu(s[e] * scale - st[query]) * st[WG_ROWS + query] : 0.f;
+  }
+  __syncthreads();                   // every warp's S^T is done with g1
+  cols_from<KS>(g1, rg, rows);
+  set_ready();
+  wg_wait0();
+  attn_tc::fence_regs(dp);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int query = 8 * (e >> 2) + 2 * t + (e & 1);
+    dp[e] = s[e] * (dp[e] + small[e] - (in(e) ? st[2 * WG_ROWS + query] : 0.f));
+  }
+  float dk[NO], dv[NO];
+  {
+    uint32_t ah[2][4][4], al[2][4][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) half_fragments(s, hh, one, ah[hh], al[hh]);
+    set_times<KS, 4>(dv, ah[0], al[0], g1, 0);
+    if (rows > 32) set_times<KS, 4>(dv, ah[1], al[1], g1 + 2 * W::CB, 1);
+    __syncthreads();                 // every warp's dP^T is done with g0
+    cols_from<KS>(g0, rq, rows);
+    set_ready();
+    wg_wait0();
+  }
+  {
+    uint32_t ah[2][4][4], al[2][4][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) half_fragments(dp, hh, one, ah[hh], al[hh]);
+    set_times<KS, 4>(dk, ah[0], al[0], g0, 0);
+    if (rows > 32) set_times<KS, 4>(dk, ah[1], al[1], g0 + 2 * W::CB, 1);
+    wg_wait0();
+  }
+  attn_tc::fence_regs(dv);
+  attn_tc::fence_regs(dk);
+  store_packed<KS>(dqkv + C, dk, scale, SL, nu, L, seq0, h0, C, H, d);
+  store_packed<KS>(dqkv + 2 * C, dv, 1.f, SL, nu, L, seq0, h0, C, H, d);
+}
+
+// The packed kernel's launch: one CTA a block of pack_units(L) units.
+template <int KS, int MINB>
+cudaError_t launch_pack(const float* qkv, const float* dO, float* dqkv, long long seqs, int L,
+                        int C, int H, int d, float scale, int vec, cudaStream_t stream) {
+  const auto kernel = attention_bwd_pack_kernel<KS, MINB>;
+  const int smem = BwdPack<KS>::smem(L);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long units = seqs * H, grid = (units + pack_units(L) - 1) / pack_units(L);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)grid, 128, smem, stream>>>(qkv, dO, dqkv, units, L, C, H, d, scale, vec);
+  return counted(LAUNCH_ATTENTION_BWD_PACK, cudaGetLastError());
+}
+
+// Whether the packed kernel takes (L, d): a unit in one block of 64 rows at
+// d <= 48, while PACK_SHORT_UNITS.  It does not: on an H100 80GB HBM3 at
+// 700 W it measured 1.1-2.3x slower than the mma.sync kernel at every such
+// main-path shape (chip_ab.py --route-tree pack, PERF.md), so those stay on
+// mma.sync; chip_ab.py's "pack" tree sets it to time the kernel again.
+constexpr bool PACK_SHORT_UNITS = false;
+inline bool pack_takes(int L, int d) {
+  return PACK_SHORT_UNITS && L >= 1 && L <= WG_ROWS && d >= 1 && d <= 48;
 }
 
 // ---------------------------------------------------------------------------
@@ -525,8 +1110,6 @@ constexpr int STREAM_WARPS = 8;                   // 16-row tiles a CTA: two war
 constexpr int STREAM_THREADS = 32 * STREAM_WARPS;
 constexpr int STREAM_KC = 32;                     // keys of pass A's statistics chunk
 
-using attn_tc::acc_fragment;
-using attn_tc::async_proxy_fence;
 using attn_tc::load_operand;
 using attn_tc::split_col_tile;
 using attn_tc::split_row_tiles;
@@ -536,16 +1119,20 @@ using attn_tc::swz16;
 using attn_tc::tile_desc;
 using attn_tc::wg_commit;
 using attn_tc::wg_fence;
-using attn_tc::wg_wait0;
-using attn_tc::WG_ROWS;
 using attn_tc::WgTf32;
 using attn_tc::zero_smem;
 
-// 1: the resident kernel takes (L, d); 2: the streamed one; 0: neither.
+// 1: a resident kernel takes (L, d): the packed wgmma one where
+// pack_takes(L, d), the wgmma one where wg_takes(L, d), else the mma.sync
+// one up to one key chunk (80 keys); 2: the streamed one; 0: neither.
+// Past one key chunk at d = 49..64 the streamed kernels are the faster
+// (MixSTE's spatial (972, 134, 512) on an H100 80GB HBM3 at 700 W,
+// chip_ab.py: 7.36 ms against the mma.sync kernel's 9.47; the wgmma
+// kernel measured slower there too) (PERF.md).
 inline int variant(int L, int d) {
   if (L < 1 || d < 1 || d > attn_tc::MAX_STREAM_DIM) return 0;
-  const long long ub = unit_bytes(L, d);
-  return ub != 0 && ub <= SMEM_MAX ? 1 : 2;
+  if (d > MAX_HEAD_DIM) return 2;
+  return pack_takes(L, d) || wg_takes(L, d) || L <= ONE_CHUNK ? 1 : 2;
 }
 
 // ---------------------------------------------------------------------------
@@ -1424,20 +2011,36 @@ inline cudaError_t launch_attention_bwd_tc(const float* qkv, const float* dO, fl
     return stream_dim(d) == 64
                ? launch_stream<64>(qkv, dO, dqkv, stats, seqs, L, C, H, d, scale, vb, stream)
                : launch_stream<128>(qkv, dO, dqkv, stats, seqs, L, C, H, d, scale, vb, stream);
+  // 16-byte copies where every row and head start is 16-byte aligned
+  const int vec = d % 4 == 0 && C % 4 == 0 && reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(dO) % 16 == 0;
+  if (pack_takes(L, d)) {
+    switch (wg_ksteps(d)) {
+      case 4: return launch_pack<4, 3>(qkv, dO, dqkv, seqs, L, C, H, d, scale, vec, stream);
+      case 5: return launch_pack<5, 2>(qkv, dO, dqkv, seqs, L, C, H, d, scale, vec, stream);
+      default: return launch_pack<6, 2>(qkv, dO, dqkv, seqs, L, C, H, d, scale, vec, stream);
+    }
+  }
+  if (wg_takes(L, d)) {
+    switch (wg_ksteps(d)) {
+      case 4: return launch_wg<4>(qkv, dO, dqkv, seqs, L, C, H, d, scale, vec, stream);
+      case 5: return launch_wg<5>(qkv, dO, dqkv, seqs, L, C, H, d, scale, vec, stream);
+      default: return launch_wg<6>(qkv, dO, dqkv, seqs, L, C, H, d, scale, vec, stream);
+    }
+  }
   const long long ub = unit_bytes(L, d);
   // U: the most units (U | H or H | U) in SMEM_TARGET
   int U = 1;
   for (int u = 2; u * ub <= SMEM_TARGET; ++u)
     if (H % u == 0 || u % H == 0) U = u;
-  const int nkt = key_tiles(L), kc = 16 * nkt, nc = (L + kc - 1) / kc;
+  const int nkt = key_tiles(L), dp = padded_dim(d);
   const size_t smem = (size_t)(U * ub);
-  const int dp = padded_dim(d);
-  return dp == 32   ? launch_dp<32>(nkt, qkv, dO, dqkv, seqs, L, C, H, d, scale, U, nc, vb,
-                                    smem, stream)
-         : dp == 48 ? launch_dp<48>(nkt, qkv, dO, dqkv, seqs, L, C, H, d, scale, U, nc, vb,
-                                    smem, stream)
-                    : launch_dp<64>(nkt, qkv, dO, dqkv, seqs, L, C, H, d, scale, U, nc, vb,
-                                    smem, stream);
+  return dp == 32   ? launch_dp<32>(nkt, qkv, dO, dqkv, seqs, L, C, H, d, scale, U, vb, smem,
+                                    stream)
+         : dp == 48 ? launch_dp<48>(nkt, qkv, dO, dqkv, seqs, L, C, H, d, scale, U, vb, smem,
+                                    stream)
+                    : launch_dp<64>(nkt, qkv, dO, dqkv, seqs, L, C, H, d, scale, U, vb, smem,
+                                    stream);
 }
 
 }  // namespace

@@ -597,7 +597,10 @@ cudaError_t launch_dp(int nkt, const Launch<T>& a, cudaStream_t stream) {
       if constexpr (sizeof(T) == 2 || DP == 64) return cudaErrorInvalidValue;
       else return launch<T, DP, CHUNK_TILES>(a, stream);
     case 5: return launch<T, DP, 5>(a, stream);
-    default: return launch<T, DP, 9>(a, stream);
+    default:
+      // float32 at 81-144 keys runs on attention_wg_kernel (launch_attention_tc)
+      if constexpr (sizeof(T) == 4) return cudaErrorInvalidValue;
+      else return launch<T, DP, 9>(a, stream);
   }
 }
 
@@ -820,6 +823,33 @@ template <> struct WgTf32<64> {
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(one));
+  }
+};
+
+template <> struct WgTf32<40> {
+  static __device__ __forceinline__ void rs(float (&d)[20], const uint32_t (&a)[4], uint64_t b, int one) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(one));
+  }
+};
+
+template <> struct WgTf32<48> {
+  static __device__ __forceinline__ void ss(float (&d)[24], uint64_t a, uint64_t b, int one) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(one));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[24], const uint32_t (&a)[4], uint64_t b, int one) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(one));
   }
 };
@@ -1112,6 +1142,483 @@ __device__ __forceinline__ void stream_f32(const float* __restrict__ qkv, float*
         if (col + 1 < d) y[col + 1] = o[4 * n + 2 * q + 1];
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Float32 units on wgmma (the forward at 81-144 keys below and
+// attention_bwd_sm90.cuh's resident backward past 80 keys).  Each operand
+// is split into K-major TF32 tiles of 64 rows, hi and lo, in the layouts
+// the streamed kernels use: a rows set (64 rows by d, the B of X Y^T or the
+// A of an SS product) or a cols set (64 rows transposed into two tiles of
+// 32, a row per value of d, the B of an RS product whose A is a repacked
+// accumulator); the forward reads the rows from global memory (the unit
+// stays in L2 across its CTAs), the backward from a raw copy of the unit in
+// shared memory.  KS: k-steps of 8 over d (d padded with zeros to 8 KS); no
+// product runs over the padding beyond it.
+// ---------------------------------------------------------------------------
+
+template <int KS> struct WgSet {
+  static constexpr int NSL = (KS + 3) / 4;              // 32-value slices of d
+  static constexpr int TB = WG_ROWS * 128;              // a rows tile
+  static constexpr int ROWS = 2 * NSL * TB;             // a rows set, hi and lo
+  static constexpr int CB = 8 * KS * 128;               // a cols tile (32 rows)
+  static constexpr int COLS = 2 * 2 * CB;               // a cols set: two tiles, hi and lo
+  static constexpr int BIG = ROWS > COLS ? ROWS : COLS;
+};
+
+// Four values from columns c..c + 3 of a row at p (zeros from d on); vec:
+// p 16-byte aligned and d a multiple of 4, so one 16-byte load.
+__device__ __forceinline__ float4 load4(const float* p, int c, int d, int vec) {
+  if (vec) return c < d ? __ldg(reinterpret_cast<const float4*>(p + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  return make_float4(c < d ? __ldg(p + c) : 0.f, c + 1 < d ? __ldg(p + c + 1) : 0.f,
+                     c + 2 < d ? __ldg(p + c + 2) : 0.f, c + 3 < d ? __ldg(p + c + 3) : 0.f);
+}
+
+// Rows r0..r0 + 63 of x (row r at x + r * rs; zeros from row n on and past
+// d) split into a rows set at tiles (slice sl's hi tile at tiles + 2 sl TB,
+// its lo tile TB further; split_row_tiles' layout), by the warpgroup's 128
+// threads.
+template <int KS>
+__device__ __forceinline__ void rows_set(uint8_t* tiles, const float* x, long long rs, int r0,
+                                         int n, int d, int vec) {
+  using W = WgSet<KS>;
+  // 16-byte chunks a row, a thread; loads in batches of 4 at d > 48, else
+  // all at once
+  constexpr int CPR = 2 * KS, IT = WG_ROWS * CPR / 128, BT = IT > 6 ? 4 : IT;
+#pragma unroll
+  for (int j0 = 0; j0 < IT; j0 += BT) {
+    float4 v[BT];
+#pragma unroll
+    for (int j = 0; j < BT; ++j) {
+      const int i = threadIdx.x + 128 * (j0 + j), row = i / CPR, cc = i - row * CPR;
+      v[j] = j0 + j < IT && r0 + row < n ? load4(x + (long long)(r0 + row) * rs, 4 * cc, d, vec)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < BT; ++j) {
+      if (j0 + j >= IT) break;
+      const int i = threadIdx.x + 128 * (j0 + j), row = i / CPR, cc = i - row * CPR;
+      uint4 hi, lo;
+      split4(v[j], hi, lo);
+      uint8_t* tile = tiles + (cc / 8) * 2 * W::TB + swz16(row, cc % 8);
+      *reinterpret_cast<uint4*>(tile) = hi;
+      *reinterpret_cast<uint4*>(tile + W::TB) = lo;
+    }
+  }
+}
+
+// The same rows transposed into a cols set at tiles: tile ks (rows 32 ks..)
+// hi at tiles + 2 ks CB, lo CB further, a row per value of d, the rows in
+// the order a repacked accumulator fragment meets them (split_col_tile's
+// layout: chunk c of dim m holds rows 8 (c / 2) + c % 2 + 2u).
+template <int KS>
+__device__ __forceinline__ void cols_set(uint8_t* tiles, const float* x, long long rs, int r0,
+                                         int n, int d) {
+  using W = WgSet<KS>;
+  // loads in batches of 4 a thread at d > 48 (8 float4s in flight beside a
+  // CTA's 3 chunks of logits would spill), else all at once
+  constexpr int ND = 8 * KS, IT = 2 * ND * 8 / 128, BT = IT > 6 ? 4 : IT;
+#pragma unroll
+  for (int j0 = 0; j0 < IT; j0 += BT) {
+    float4 v[BT];
+#pragma unroll
+    for (int j = 0; j < BT; ++j) {
+      const int i = threadIdx.x + 128 * (j0 + j), ks = i / (ND * 8), w = i - ks * ND * 8;
+      const int m = w % ND, c = w / ND, k = r0 + 32 * ks + 8 * (c >> 1) + (c & 1);
+      const float* p = x + m + (long long)k * rs;
+      const bool in = m < d && j0 + j < IT;
+      v[j] = make_float4(in && k < n ? __ldg(p) : 0.f, in && k + 2 < n ? __ldg(p + 2 * rs) : 0.f,
+                         in && k + 4 < n ? __ldg(p + 4 * rs) : 0.f,
+                         in && k + 6 < n ? __ldg(p + 6 * rs) : 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < BT; ++j) {
+      if (j0 + j >= IT) break;
+      const int i = threadIdx.x + 128 * (j0 + j), ks = i / (ND * 8), w = i - ks * ND * 8;
+      const int m = w % ND, c = w / ND;
+      uint4 hi, lo;
+      split4(v[j], hi, lo);
+      uint8_t* tile = tiles + ks * 2 * W::CB + swz16(m, c);
+      *reinterpret_cast<uint4*>(tile) = hi;
+      *reinterpret_cast<uint4*>(tile + W::CB) = lo;
+    }
+  }
+}
+
+// A 64-row chunk of one operand as copied: [64][8 KS + 4] floats (the 4
+// spread a warp's fragment reads over the banks), zeros past the rows and
+// columns it holds.
+template <int KS> struct RawChunk {
+  static constexpr int RW = 8 * KS + 4, FLOATS = WG_ROWS * RW;
+};
+
+// cp.async of `bytes` (16 or 4 at most) of src into dst, zeros for the rest
+// of the 16 (or 4) bytes; bytes = 0 reads nothing.
+__device__ __forceinline__ void copy16_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(saddr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void copy4_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(saddr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// Rows r0..r0 + rows - 1 of x (row r at x + r * ld) into a raw chunk by
+// the CTA's cp.async (one commit group is the caller's), zeros from row n
+// on and from column d on; vec: 16 bytes a copy (x 16-byte aligned, d and
+// ld multiples of 4), else 4.
+template <int KS, int NT = 128>
+__device__ __forceinline__ void fetch_rows(float* chunk, const float* x, long long ld, int r0,
+                                           int n, int d, int vec, int rows = WG_ROWS) {
+  constexpr int RW = RawChunk<KS>::RW;
+  if (vec) {
+    constexpr int CPR = RW / 4;
+    for (int i = threadIdx.x; i < rows * CPR; i += NT) {
+      const int row = i / CPR, c = 4 * (i - row * CPR);
+      const bool in = r0 + row < n && c < d;
+      copy16_zfill(chunk + 4 * i, in ? x + (long long)(r0 + row) * ld + c : x, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * RW; i += NT) {
+      const int row = i / RW, c = i - row * RW;
+      const bool in = r0 + row < n && c < d;
+      copy4_zfill(chunk + i, in ? x + (long long)(r0 + row) * ld + c : x, in ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void copies_wait0() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// This thread's A fragments of its warp's 16 rows of a raw chunk (zeros
+// from row `rows` on), split: rows 16 warp + g (+ 8), columns 8 kk + t (+
+// 4) of each k-step (mma.sync m16n8k8's A layout, which wgmma's register A
+// takes a warp at a time).
+template <int KS>
+__device__ __forceinline__ void chunk_fragments(uint32_t (&h)[KS][4], uint32_t (&l)[KS][4],
+                                                const float* chunk, int rows = WG_ROWS) {
+  constexpr int RW = RawChunk<KS>::RW;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = (threadIdx.x >> 5) & 3;
+  const int r = 16 * warp + g;
+  const float* x = chunk + r * RW + t;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split(r + 8 * (e & 1) < rows ? x[8 * (e & 1) * RW + 8 * kk + 4 * (e >> 1)] : 0.f, h[kk][e],
+            l[kk][e]);
+}
+
+// acc = X Y^T over d (64 x 64 a warpgroup, 32 values a thread): X from
+// registers (h, l: chunk_fragments), Y a rows set at y; row_products'
+// three TF32 products a k-step (lo*hi and hi*lo into small, hi*hi into
+// acc), one commit group; the caller waits and adds small to acc.
+template <int KS>
+__device__ __forceinline__ void reg_products(float (&acc)[32], float (&small)[32],
+                                             const uint32_t (&h)[KS][4],
+                                             const uint32_t (&l)[KS][4], const uint8_t* y) {
+  using W = WgSet<KS>;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = small[e] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int sl = 0; sl < W::NSL; ++sl) {
+    const uint64_t yh = tile_desc(y + 2 * sl * W::TB), yl = yh + (W::TB >> 4);
+#pragma unroll
+    for (int kk = 0; kk < 4 && 4 * sl + kk < KS; ++kk) {
+      WgTf32<64>::rs(small, l[4 * sl + kk], yh + 2 * kk, 1);
+      WgTf32<64>::rs(small, h[4 * sl + kk], yl + 2 * kk, 1);
+      WgTf32<64>::rs(acc, h[4 * sl + kk], yh + 2 * kk, 1);
+    }
+  }
+  wg_commit();
+}
+
+// A raw chunk (zeros from row `rows` on) split into a rows set (rows_set's
+// layout), from shared memory.
+template <int KS, int NT = 128>
+__device__ __forceinline__ void rows_from(uint8_t* tiles, const float* chunk,
+                                          int rows = WG_ROWS) {
+  using W = WgSet<KS>;
+  constexpr int CPR = 2 * KS;
+#pragma unroll
+  for (int j = 0; j < (WG_ROWS * CPR + NT - 1) / NT; ++j) {
+    const int i = threadIdx.x + NT * j, row = i / CPR, cc = i - row * CPR;
+    if ((WG_ROWS * CPR) % NT && i >= WG_ROWS * CPR) break;
+    uint4 hi, lo;
+    split4(row < rows ? *reinterpret_cast<const float4*>(chunk + row * RawChunk<KS>::RW + 4 * cc)
+                      : make_float4(0.f, 0.f, 0.f, 0.f),
+           hi, lo);
+    uint8_t* tile = tiles + (cc / 8) * 2 * W::TB + swz16(row, cc % 8);
+    *reinterpret_cast<uint4*>(tile) = hi;
+    *reinterpret_cast<uint4*>(tile + W::TB) = lo;
+  }
+}
+
+// A raw chunk (zeros from row `rows` on) split into a cols set (cols_set's
+// layout), from shared memory.
+template <int KS, int NT = 128>
+__device__ __forceinline__ void cols_from(uint8_t* tiles, const float* chunk,
+                                          int rows = WG_ROWS) {
+  using W = WgSet<KS>;
+  constexpr int ND = 8 * KS, RW = RawChunk<KS>::RW;
+#pragma unroll
+  for (int j = 0; j < (2 * ND * 8 + NT - 1) / NT; ++j) {
+    const int i = threadIdx.x + NT * j, ks = i / (ND * 8), w = i - ks * ND * 8;
+    if ((2 * ND * 8) % NT && i >= 2 * ND * 8) break;
+    const int m = w % ND, c = w / ND, k = 32 * ks + 8 * (c >> 1) + (c & 1);
+    const float* v = chunk + k * RW + m;
+    uint4 hi, lo;
+    split4(make_float4(k < rows ? v[0] : 0.f, k + 2 < rows ? v[2 * RW] : 0.f,
+                       k + 4 < rows ? v[4 * RW] : 0.f, k + 6 < rows ? v[6 * RW] : 0.f),
+           hi, lo);
+    uint8_t* tile = tiles + ks * 2 * W::CB + swz16(m, c);
+    *reinterpret_cast<uint4*>(tile) = hi;
+    *reinterpret_cast<uint4*>(tile + W::CB) = lo;
+  }
+}
+
+// The CTA's generic-proxy writes to a set made visible to its wgmmas (a
+// barrier follows the fence).
+__device__ __forceinline__ void set_ready() {
+  async_proxy_fence();
+  __syncthreads();
+}
+
+// acc = X Y^T over d (64 x 64 a warpgroup, 32 values a thread), X and Y
+// rows sets at x and y: row_products' three TF32 products a k-step (lo*hi
+// and hi*lo into small, hi*hi into acc; the k-steps of d only), one commit
+// group; the caller waits and adds small to acc.
+template <int KS, int N = 64>
+__device__ __forceinline__ void set_products(float (&acc)[N / 2], float (&small)[N / 2],
+                                             const uint8_t* x, const uint8_t* y) {
+  using W = WgSet<KS>;
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) acc[e] = small[e] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int sl = 0; sl < W::NSL; ++sl) {
+    const uint64_t xh = tile_desc(x + 2 * sl * W::TB), xl = xh + (W::TB >> 4);
+    const uint64_t yh = tile_desc(y + 2 * sl * W::TB), yl = yh + (W::TB >> 4);
+#pragma unroll
+    for (int kk = 0; kk < 4 && 4 * sl + kk < KS; ++kk) {
+      WgTf32<N>::ss(small, xl + 2 * kk, yh + 2 * kk, 1);
+      WgTf32<N>::ss(small, xh + 2 * kk, yl + 2 * kk, 1);
+      WgTf32<N>::ss(acc, xh + 2 * kk, yh + 2 * kk, 1);
+    }
+  }
+  wg_commit();
+}
+
+// acc = X Y^T over N of Y's rows (N / 2 values a thread), waited for, the
+// small products added.
+template <int KS, int N = 64>
+__device__ __forceinline__ void set_products_wait(float (&acc)[N / 2], const uint8_t* x,
+                                                  const uint8_t* y) {
+  float small[N / 2];
+  set_products<KS, N>(acc, small, x, y);
+  wg_wait0();
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) acc[e] += small[e];
+}
+
+// acc (64 x 8 KS) = A Z over the first NK k-steps (of 4) of one 32-row tile
+// of a cols set (z its hi tile, the lo tile CB further), plus acc where
+// `keep` is 1 (the first wgmma's scale-d; 0: a fresh accumulator): A's
+// fragments (ah, al) repacked from an accumulator; lo*hi, hi*lo, hi*hi a
+// k-step, one commit group.
+template <int KS, int NK>
+__device__ __forceinline__ void set_times(float (&acc)[4 * KS], const uint32_t (&ah)[4][4],
+                                          const uint32_t (&al)[4][4], const uint8_t* z,
+                                          int keep) {
+  const uint64_t zh = tile_desc(z), zl = zh + (WgSet<KS>::CB >> 4);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    WgTf32<8 * KS>::rs(acc, al[j], zh + 2 * j, j == 0 ? keep : 1);
+    WgTf32<8 * KS>::rs(acc, ah[j], zl + 2 * j, 1);
+    WgTf32<8 * KS>::rs(acc, ah[j], zh + 2 * j, 1);
+  }
+  wg_commit();
+}
+
+// The A fragments of up to 32 keys (half hh of an accumulator f of NV / 4
+// n8 tiles, each value times mul[its row]), split as tile_f32 splits p;
+// hh a constant where it is inlined.
+template <int NV>
+__device__ __forceinline__ void half_fragments(const float (&f)[NV], int hh, const float (&mul)[2],
+                                               uint32_t (&ah)[4][4], uint32_t (&al)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int e = 16 * hh + 4 * j;
+    if (e + 3 >= NV) break;
+    const float v[4] = {f[e] * mul[0], f[e + 1] * mul[0], f[e + 2] * mul[1], f[e + 3] * mul[1]};
+    acc_fragment(v, ah[j], al[j]);
+  }
+}
+
+// Rows row0 + 16 warp + g (+ 8), columns < d, of a 64 x 8 KS accumulator
+// (value 4n + 2q + {0, 1}: row + 8q, column 8n + 2t + {0, 1}) times scale
+// into out (row r at out + r * rs), rows below n only; vo: two values a
+// store.
+template <int KS>
+__device__ __forceinline__ void store_set(float* out, long long rs, const float (&acc)[4 * KS],
+                                          float scale, int row0, int n, int d, int vo) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int row = row0 + 16 * warp + g + 8 * q;
+    if (row >= n) continue;
+    float* o = out + (long long)row * rs;
+#pragma unroll
+    for (int m = 0; m < KS; ++m) {
+      const int col = 8 * m + 2 * t;
+      const float a = acc[4 * m + 2 * q] * scale, b = acc[4 * m + 2 * q + 1] * scale;
+      if (vo) {
+        if (col < d) *reinterpret_cast<float2*>(o + col) = make_float2(a, b);
+      } else {
+        if (col < d) o[col] = a;
+        if (col + 1 < d) o[col + 1] = b;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The float32 forward at 81-144 keys (key_tiles(L) == 9, where tile_f32's
+// one pass kept 9 key tiles of logits a warp) on wgmma: a CTA is one
+// warpgroup and one 64-query block of one (sequence, head) unit, NB = 2 or
+// 3 blocks a unit.  Q's rows set is split once; each chunk of K (64 keys,
+// 48 where three are needed at d = 49..64) is split into the CTA's one further
+// set, and S = Q K^T (three TF32 products, the small two summed apart)
+// kept: all NB chunks' logits stay in registers (32 or 24 a chunk), so the
+// row's max and sum come from one pass over the keys, in tile_f32's order
+// (keys ascending in each thread, then the quad); p = e * (1 / sum) after
+// the full sum, repacked as register A fragments, and O += p V over each
+// chunk of V's cols set, O in one f32 accumulator (the rounding points of
+// _block_body and tile_f32).  What bounds it on an H100 at these shapes is
+// the bytes (4*B*L^2*C operations against 16*B*L*C bytes: L / 4 a byte,
+// far below the ~50 of float32 as three TF32 products; 0.32 ms at MixSTE's
+// spatial (972, 134, 512), 0.18 at the monolithic (999, 134, 288)); the
+// design reads each unit from L2 once a block and keeps three CTAs an SM
+// (shared memory 2 sets), so one CTA's loads and splits overlap the
+// others' products.
+// ---------------------------------------------------------------------------
+
+template <int KS> struct FwdWg {
+  static constexpr int A = 0, R = WgSet<KS>::BIG, SMEM = 2 * WgSet<KS>::BIG + 1024;
+};
+
+template <int KS, int NB>
+__global__ void __launch_bounds__(128, 2)
+attention_wg_kernel(const float* __restrict__ qkv, float* __restrict__ out, int L, int S, int C,
+                    int H, int d, float scale, int vec, int vo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using W = WgSet<KS>;
+  // keys a chunk: 64, or 48 for three chunks at d = 49..64 (up to 144
+  // keys: three chunks of 64 logits a thread beside O's 32 do not fit the
+  // registers); NV logits a thread
+  constexpr int KC = NB == 3 && KS == 8 ? 48 : 64, NV = KC / 2;
+  uint8_t* sm = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = sm + FwdWg<KS>::A;
+  uint8_t* rg = sm + FwdWg<KS>::R;
+  const long long unit = blockIdx.x / NB, seq = unit / H;
+  const int b = (int)(blockIdx.x - unit * NB), h = (int)(unit - seq * H);
+  const int lane = threadIdx.x & 31, t = lane & 3, C3 = 3 * C;
+  const long long base = seq / S * L * S + seq % S, rs = (long long)S * C3;
+  const float* src = qkv + base * C3 + (long long)h * d;      // q of token 0
+  const int q0 = WG_ROWS * b;
+
+  rows_set<KS>(qs, src, rs, q0, L, d, vec);
+  // the logits of every chunk, keys past L at -inf
+  float s[NB][NV];
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    if (c > 0) __syncthreads();       // the last chunk's products have been waited for
+    rows_set<KS>(rg, src + C, rs, KC * c, L, d, vec);
+    set_ready();
+    set_products_wait<KS, KC>(s[c], qs, rg);
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      const int key = KC * c + 8 * (e >> 2) + 2 * t + (e & 1);
+      s[c][e] = key < L ? s[c][e] * scale : -INFINITY;
+    }
+  }
+  // the row's max and sum over all keys (rows g and g + 8: values (e >> 1) & 1)
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int e = 0; e < NV; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[c][e]);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) mx[q] = quad_max(mx[q]);
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      s[c][e] = expf(s[c][e] - mx[(e >> 1) & 1]);
+      sum[(e >> 1) & 1] += s[c][e];
+    }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) inv[q] = 1.f / quad_sum(sum[q]);
+  // O += T(p) V, chunk by chunk (a 32-key half wholly past L skipped)
+  float o[4 * KS];
+#pragma unroll
+  for (int e = 0; e < 4 * KS; ++e) o[e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    __syncthreads();                   // every wgmma that read the set is waited for
+    cols_set<KS>(rg, src + 2 * C, rs, KC * c, L, d);
+    set_ready();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (hh == 1 && KC * c + 32 >= L) break;
+      uint32_t ah[4][4], al[4][4];
+      half_fragments(s[c], hh, inv, ah, al);
+      if (KC == 48 && hh == 1)
+        set_times<KS, 2>(o, ah, al, rg + 2 * W::CB, 1);     // keys 32..47 of the chunk
+      else
+        set_times<KS, 4>(o, ah, al, rg + hh * 2 * W::CB, 1);
+      wg_wait0();
+    }
+  }
+  store_set<KS>(out + base * C + (long long)h * d, (long long)S * C, o, 1.f, q0, L, d, vo);
+}
+
+template <int KS, int NB>
+cudaError_t launch_wg(const float* qkv, float* out, long long seqs, int L, int S, int C, int H,
+                      int d, float scale, int vec, int vo, cudaStream_t stream) {
+  const auto kernel = attention_wg_kernel<KS, NB>;
+  constexpr int smem = FwdWg<KS>::SMEM;
+  static_assert(smem <= SMEM_MAX, "a CTA's shared memory");
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long grid = seqs * H * NB;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)grid, 128, smem, stream>>>(qkv, out, L, S, C, H, d, scale, vec, vo);
+  return counted(LAUNCH_ATTENTION_WG, cudaGetLastError());
+}
+
+// The head size's k-steps a set takes: 4 (d <= 32), 5, 6 or 8 (d = 49..64,
+// padded).
+__host__ __device__ constexpr int wg_ksteps(int d) { return d <= 32 ? 4 : d <= 40 ? 5 : d <= 48 ? 6 : 8; }
+
+template <int NB>
+cudaError_t launch_wg_nb(const float* qkv, float* out, long long seqs, int L, int S, int C,
+                         int H, int d, float scale, int vec, int vo, cudaStream_t stream) {
+  switch (wg_ksteps(d)) {
+    case 4: return launch_wg<4, NB>(qkv, out, seqs, L, S, C, H, d, scale, vec, vo, stream);
+    case 5: return launch_wg<5, NB>(qkv, out, seqs, L, S, C, H, d, scale, vec, vo, stream);
+    case 6: return launch_wg<6, NB>(qkv, out, seqs, L, S, C, H, d, scale, vec, vo, stream);
+    default: return launch_wg<8, NB>(qkv, out, seqs, L, S, C, H, d, scale, vec, vo, stream);
   }
 }
 
@@ -1674,12 +2181,24 @@ cudaError_t launch_attention_tc(const T* qkv, T* out, long long seqs, int L, int
                                                       stream)
                                : launch_stream<T, 128>(qkv, out, seqs, L, S, C, H, d, scale,
                                                        vb, stream);
+  const int nkt = key_tiles(L);
+  if constexpr (sizeof(T) == 4) {
+    if (nkt == 9) {
+      // 81-144 keys on wgmma: 16-byte loads where every row and head start
+      // is 16-byte aligned, two values a store where d and out allow
+      const int vec = d % 4 == 0 && C % 4 == 0 && reinterpret_cast<uintptr_t>(qkv) % 16 == 0;
+      const int vo = d % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+      return L <= 2 * WG_ROWS
+                 ? launch_wg_nb<2>(qkv, out, seqs, L, S, C, H, d, scale, vec, vo, stream)
+                 : launch_wg_nb<3>(qkv, out, seqs, L, S, C, H, d, scale, vec, vo, stream);
+    }
+  }
   const long long ub = unit_bytes(size, L, d);
   // U: the most units (U | H or H | U) in SMEM_TARGET
   int U = 1;
   for (int u = 2; u * ub <= SMEM_TARGET; ++u)
     if (H % u == 0 || u % H == 0) U = u;
-  const int nkt = key_tiles(L), kc = 16 * nkt;
+  const int kc = 16 * nkt;
   const Launch<T> a{qkv, out, seqs, L, S, C, H, d, scale, U, (L + kc - 1) / kc, vb,
                     (size_t)(U * ub)};
   switch (padded_dim(d)) {

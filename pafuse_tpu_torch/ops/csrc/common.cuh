@@ -113,7 +113,10 @@ enum LaunchKind {
   LAUNCH_ROW_STATS,          // sm90::row_stats_kernel
   LAUNCH_WGRAD_WGMMA,        // wgrad_sm90.cuh's wgrad_wgmma_kernel (block_train.cu)
   LAUNCH_ATTENTION_TC,       // attention_sm90.cuh's resident attention_tc_kernel
+  LAUNCH_ATTENTION_WG,       // attention_sm90.cuh's attention_wg_kernel (float32, 81-144 keys)
   LAUNCH_ATTENTION_BWD_TC,   // attention_bwd_sm90.cuh's resident attention_bwd_tc_kernel
+  LAUNCH_ATTENTION_BWD_WG,   // attention_bwd_sm90.cuh's resident attention_bwd_wg_kernel
+  LAUNCH_ATTENTION_BWD_PACK,  // attention_bwd_sm90.cuh's resident attention_bwd_pack_kernel
   LAUNCH_ATTENTION_STREAM,   // attention_sm90.cuh's attention_stream_kernel
   LAUNCH_ATTENTION_BWD_STREAM_A,  // attention_bwd_sm90.cuh's attention_bwd_stream_a_kernel
   LAUNCH_ATTENTION_BWD_STREAM_B,  // and attention_bwd_stream_b_kernel

@@ -18,15 +18,25 @@ tests against the TPU kernels in interpret mode and ``jax.grad``
   products a product with ``split_tf32``, the two small ones summed apart
   in S and dP; head size padded with zeros to 32/48/64; keys padded to the
   key chunks and masked to -inf; pass A's row max, sum and sum of e * dP
-  gathered chunk by chunk, chunks of 48 or 64 keys past 80 keys; pass B's
-  dk and dv summed over 16-query tiles in order) stays within
+  gathered chunk by chunk; the mma.sync kernel up to 80 keys, its dk and
+  dv summed over 16-query tiles in order; the wgmma kernel past 80 keys at
+  d <= 48,
+  over 64-key chunks, dq, dk and dv each summed over 64-key or 64-query
+  chunks in a fresh sum added in order) stays within
   ATTN_BWD_RTOL = 1e-5 x max|plain| of the plain version for each of dq,
   dk and dv, on the qkv the training forward computes (LN1(x) @ Wqkv +
   bqkv) and a unit-variance dO, at every training shape's L and d, at the
-  monolithic model's L = 134 and at L = 243; and inside the whole plain
-  backward it keeps the block's bound, 1e-4 x max|gradient|;
-- so does the streamed kernel's order (it takes a head size above 64 or a
-  unit beyond a CTA's shared memory: d padded to 64 or 128, pass A's row
+  monolithic model's L = 134, at MixSTE's spatial 134 x 64 (streamed) and
+  at L = 243; and inside the whole plain backward it keeps the block's
+  bound, 1e-4 x max|gradient|;
+- the packed wgmma kernel's order (attention_bwd_pack_kernel, which the
+  library routes no shape to while it is slower than the mma.sync kernel:
+  units in slots of L rounded up to 8 rows a 64-row block, a product
+  across two units masked, each sum over the block in one) stays within
+  ATTN_BWD_RTOL of the plain version and gives two sequences whose units
+  share blocks what each gets alone;
+- so does the streamed kernel's order (it takes a head size above 64, or
+  a unit past 80 keys the wgmma kernel does not take: d padded to 64 or 128, pass A's row
   statistics gathered over chunks of 32 keys; dq, dk and dv each summed
   chunk by chunk in f32, every chunk's products in a fresh tensor-core
   accumulator: on wgmma (d = 64) dq over 64-key and dk, dv over 32-query
@@ -254,7 +264,7 @@ def _jax_attention(qkv, num_heads):
 
 @pytest.mark.parametrize("L,d", [(24, 48), (27, 28), (68, 28), (42, 32),
                                  (17, 36), (134, 36), (243, 64), (351, 64),
-                                 (243, 128)])
+                                 (243, 128), (134, 64)])
 def test_float32_matches_jax_vjp(L, d):
     qkv, do = _qkv_do(4, L, d, L * d)
     with jax.default_matmul_precision("highest"):
@@ -267,14 +277,10 @@ def test_float32_matches_jax_vjp(L, d):
 
 
 def _bwd_key_tiles(L):
-    """Key tiles of 16 a chunk of the backward (attention_bwd_sm90.cuh)."""
-    if L <= 32:
-        return 2
-    if L <= 48:
-        return 3
-    if L <= 80:
-        return 5
-    return 3 if -(-L // 48) * 48 <= -(-L // 64) * 64 else 4
+    """Key tiles of 16 of the mma.sync backward's one key chunk (up to 80
+    keys; attention_bwd_sm90.cuh)."""
+    assert L <= ONE_CHUNK
+    return 2 if L <= 32 else 3 if L <= 48 else 5
 
 
 def _three(a, b):
@@ -294,21 +300,51 @@ def _logits(a, b):
 #: the resident kernel's largest shared memory a CTA, and the streamed
 #: kernel's keys a chunk of pass A's row statistics (attention_bwd_sm90.cuh
 #: STREAM_KC; its ring chunks of 32 keys or queries, 16 at d = 128, do not
-#: move the order)
+#: move the order); the mma.sync kernel's longest unit in one key chunk,
+#: and the wgmma kernel's rows a block (a warpgroup's 64)
 SMEM_MAX = 227 * 1024
 STREAM_KC = 32
+ONE_CHUNK = 80
+BLOCK = 64
+
+
+def _wgmma(L, d):
+    """Whether the resident wgmma kernel takes (L, d)
+    (attention_bwd_sm90.cuh's wg_takes: past one key chunk at d <= 48, up
+    to 256 tokens, the unit's raw rows (the last block's rounded up to 8,
+    each row 8 ks + 4 floats), two B sets and the statistics in a CTA)."""
+    if not (ONE_CHUNK < L <= 256 and d <= 48):
+        return False
+    ks = -(-d // 8) if d > 32 else 4
+    ks = 5 if ks == 5 else 6 if ks == 6 else 4
+    rw = 8 * ks + 4
+    last = -(-(L - BLOCK * ((L - 1) // BLOCK)) // 8) * 8
+    rows_set = 2 * -(-ks // 4) * 64 * 128
+    big = max(rows_set, 4 * 8 * ks * 128)
+    smem = 4 * ((L - 1) // BLOCK * BLOCK + last) * rw * 4 + 2 * big + 3 * 256 * 4 + 1024
+    return smem <= SMEM_MAX
+
+
+#: attention_bwd_sm90.cuh's PACK_SHORT_UNITS: the packed kernel takes no
+#: shape (it measured slower than the mma.sync kernel at every main-path
+#: shape up to 64 keys; chip_ab.py's "pack" tree routes to it)
+PACK_SHORT_UNITS = False
+
+
+def _packed(L, d):
+    """Whether the packed wgmma kernel takes (L, d) (attention_bwd_sm90.cuh's
+    pack_takes: a unit in one block of 64 rows at d <= 48, while
+    PACK_SHORT_UNITS)."""
+    return PACK_SHORT_UNITS and L <= BLOCK and d <= 48
 
 
 def _streamed(L, d):
     """Whether the streamed backward takes (L, d) (attention_bwd_sm90.cuh's
-    variant(): d above 64, or one unit's q, k, v and dO tiles and its
-    statistics beyond SMEM_MAX)."""
+    variant(): d above 64, or past one key chunk (80 keys) where the wgmma
+    kernel does not take the unit)."""
     if d > 64:
         return True
-    kc = 16 * _bwd_key_tiles(L)
-    lp = -(-L // kc) * kc
-    dp = 32 if d <= 32 else 48 if d <= 48 else 64
-    return 4 * (4 * lp * (dp + 4) + 3 * lp) > SMEM_MAX
+    return not (_packed(L, d) or _wgmma(L, d) or L <= ONE_CHUNK)
 
 
 def _stream_smem(dp, pass_b):
@@ -346,13 +382,24 @@ def test_streamed_shared_memory_fits_a_cta(dp, pass_b, want):
 
 
 def test_the_rule_streams_the_shapes_past_the_resident_kernel():
-    """L up to 256 at d <= 48 and 192 at d = 64 resident (the monolithic
-    model's 134 among them); 243 frames at d = 64 and any d above 64
-    streamed."""
-    assert not _streamed(256, 48) and _streamed(257, 48)
-    assert not _streamed(192, 64) and _streamed(193, 64)
+    """Up to 80 keys the mma.sync kernel (H3WB's, 3DHP's and the
+    monolithic 27-frame shapes, the face's 68; the packed wgmma kernel
+    takes none), past 80 keys at d <= 48 the wgmma kernel
+    where the unit's rows fit a CTA (the monolithic model's 134 at d = 36,
+    243 frames at d = 28 and 32), else (243 frames at d = 36 and 48) and at
+    d = 49..64 past 80 keys (MixSTE's spatial 134 and temporal 243) and
+    any d above 64 the streamed kernels."""
+    assert not _packed(24, 48) and not _streamed(24, 48)
+    assert not _packed(24, 64) and not _streamed(24, 64)
+    assert not _streamed(80, 64) and _streamed(81, 64)
+    assert not _streamed(68, 28) and not _wgmma(68, 28) and not _packed(68, 28)
+    assert _wgmma(134, 36) and _wgmma(81, 28) and not _wgmma(80, 48)
+    assert _wgmma(243, 28) and _wgmma(243, 32) and not _wgmma(243, 36)
+    assert _wgmma(256, 32) and not _wgmma(257, 32) and _streamed(257, 32)
+    assert _streamed(243, 36) and _streamed(243, 48)
     assert not _streamed(134, 36) and _streamed(243, 64)
-    assert _streamed(1, 65) and _streamed(17, 128)
+    assert _streamed(134, 64) and _streamed(1, 65) and _streamed(17, 128)
+    assert not _wgmma(134, 64)
 
 
 def _stream_chunks(d):
@@ -372,13 +419,124 @@ def _chunked(a, b, rows):
     return total
 
 
-def _emulate(qkv, do, num_heads, streamed=None):
-    """The tensor-core backward's arithmetic on qkv (B, L, 3C), do (B, L,
-    C), the resident or the streamed kernel's as the rule picks (or the
-    streamed one where ``streamed``): returns dqkv (B, L, 3C)."""
+def _emulate_wgmma(qkv, do, num_heads):
+    """The resident wgmma kernel's arithmetic (attention_bwd_sm90.cuh's
+    attention_bwd_wg_kernel) on qkv (B, L, 3C), do (B, L, C): pass A's row
+    max, sum and sum of e * dP gathered over 64-key chunks, then dq summed
+    over 64-key chunks; pass B's dk and dv over 64-query chunks; each
+    chunk's three products (lo*hi, hi*lo, hi*hi) in a fresh sum added in
+    order.  The kernel's exponent (2^(x log2 e) on the MUFU's ex2.approx)
+    is not modelled: torch.exp stands for it.  Returns dqkv (B, L, 3C)."""
     B, L, C3 = qkv.shape
     C = C3 // 3
     d = C // num_heads
+    scale = d ** -0.5
+    lp = -(-L // BLOCK) * BLOCK
+    q, k, v = qkv.view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    g = do.view(B, L, num_heads, d).transpose(1, 2)
+    q, k, v, g = (torch.nn.functional.pad(t, (0, 0, 0, lp - L))
+                  for t in (q, k, v, g))
+    s = _logits(q, k) * scale
+    s[..., L:] = -math.inf
+    dP = _logits(g, v)
+    mx = torch.full(s.shape[:-1] + (1,), -math.inf)
+    total = torch.zeros_like(mx)
+    tot = torch.zeros_like(mx)
+    for c in range(lp // BLOCK):
+        part = s[..., c * BLOCK:(c + 1) * BLOCK]
+        m = torch.maximum(mx, part.amax(-1, keepdim=True))
+        alpha = torch.exp(mx - m)
+        e = torch.exp(part - m)
+        total = total * alpha + e.sum(-1, keepdim=True)
+        tot = tot * alpha + (e * dP[..., c * BLOCK:(c + 1) * BLOCK]).sum(
+            -1, keepdim=True)
+        mx = m
+    inv = 1 / total
+    rt = tot * inv
+    dS = torch.exp(s - mx) * inv * (dP - rt)
+    dq = _chunked(dS, k, BLOCK) * scale
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    for b in range(lp // BLOCK):
+        rows = slice(BLOCK * b, BLOCK * (b + 1))
+        st = _logits(k, q[..., rows, :]) * scale      # (keys, the chunk's queries)
+        pt = torch.exp(st - mx[..., rows, 0].unsqueeze(-2)) * inv[
+            ..., rows, 0].unsqueeze(-2)
+        pt = torch.where(torch.arange(BLOCK * b, BLOCK * (b + 1)) < L, pt, 0.0)
+        dpt = _logits(v, g[..., rows, :])
+        dst = pt * (dpt - rt[..., rows, 0].unsqueeze(-2))
+        dv = dv + _three(pt, g[..., rows, :])
+        dk = dk + _three(dst, q[..., rows, :])
+    dk = dk * scale
+    out = torch.stack([dq, dk, dv], dim=2)[..., :L, :]   # (B, H, 3, L, d)
+    return out.permute(0, 3, 2, 1, 4).reshape(B, L, 3 * C)
+
+
+def _emulate_packed(qkv, do, num_heads):
+    """The packed wgmma kernel's arithmetic (attention_bwd_sm90.cuh's
+    attention_bwd_pack_kernel) on qkv (B, L, 3C), do (B, L, C), L <= 64:
+    the (sequence, head) units in slots of L rounded up to 8 rows, 64 // slot
+    of them a block of 64 rows (zeros past the units); S and dP over the
+    block, a key outside the row's own unit at -inf; the rows' max, sum and
+    sum of e * dP over the whole row; dq = dS K over the block's 64 keys,
+    then S^T, dP^T, P^T and dS^T, dv = P^T dO and dk = dS^T Q over its 64
+    queries, each in one sum of three products; torch.exp stands for the
+    kernel's ex2.approx.  Returns dqkv (B, L, 3C)."""
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    d = C // num_heads
+    scale = d ** -0.5
+    sl = -(-L // 8) * 8
+    per = BLOCK // sl
+    units = B * num_heads
+    nblk = -(-units // per)
+    q, k, v = (t.reshape(units, L, d) for t in
+               qkv.view(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4))
+    g = do.view(B, L, num_heads, d).transpose(1, 2).reshape(units, L, d)
+
+    def pack(t):
+        t = torch.nn.functional.pad(t, (0, 0, 0, sl - L, 0, nblk * per - units))
+        t = t.reshape(nblk, per * sl, d)
+        return torch.nn.functional.pad(t, (0, 0, 0, BLOCK - per * sl))
+
+    q, k, v, g = (pack(t) for t in (q, k, v, g))
+    row = torch.arange(BLOCK)
+    lo = row // sl * sl
+    same = (row[None, :] >= lo[:, None]) & (row[None, :] < lo[:, None] + L)
+    s = torch.where(same, _logits(q, k) * scale, -math.inf)
+    dP = _logits(g, v)
+    mx = s.amax(-1, keepdim=True)
+    e = torch.exp(s - mx)
+    inv = 1 / e.sum(-1, keepdim=True)
+    rt = (e * dP).sum(-1, keepdim=True) * inv
+    dS = e * inv * (dP - rt)
+    dq = _three(dS, k) * scale
+    st = _logits(k, q) * scale                        # (keys, queries)
+    pt = torch.where(same, torch.exp(st - mx.mT) * inv.mT, 0.0)
+    dst = pt * (_logits(v, g) - torch.where(same, rt.mT, 0.0))
+    dv = _three(pt, g)
+    dk = _three(dst, q) * scale
+
+    def unpack(t):
+        t = t[:, :per * sl].reshape(nblk * per, sl, d)[:units, :L]
+        return t.reshape(B, num_heads, L, d)
+
+    out = torch.stack([unpack(t) for t in (dq, dk, dv)], dim=2)  # (B, H, 3, L, d)
+    return out.permute(0, 3, 2, 1, 4).reshape(B, L, 3 * C)
+
+
+def _emulate(qkv, do, num_heads, streamed=None):
+    """The tensor-core backward's arithmetic on qkv (B, L, 3C), do (B, L,
+    C), the resident (mma.sync or wgmma) or the streamed kernel's as the
+    rule picks (or the streamed one where ``streamed``): returns dqkv (B,
+    L, 3C)."""
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    d = C // num_heads
+    if not streamed and _packed(L, d):
+        return _emulate_packed(qkv, do, num_heads)
+    if not streamed and _wgmma(L, d):
+        return _emulate_wgmma(qkv, do, num_heads)
     scale = d ** -0.5
     stream = bool(streamed or _streamed(L, d))
     if stream:
@@ -464,12 +622,33 @@ def _rel_errs(got, want, C):
 
 @pytest.mark.parametrize("L", TOKENS + (243,))
 def test_tensor_core_arithmetic_within_bound(L):
-    for d in HEAD_SIZES:
+    # d = 64 at 134 tokens: MixSTE's spatial blocks (cs 512, 134 joints)
+    for d in HEAD_SIZES + ((64,) if L == 134 else ()):
         qkv, do = _train_qkv_do(2, L, d, L * 100 + d)
         got = _emulate(qkv, do, HEADS)
         want = attention_core_bwd_reference(qkv, do, HEADS)
         errs = _rel_errs(got, want, HEADS * d)
         assert max(errs) <= ATTN_BWD_RTOL, (L, d, errs)
+
+
+@pytest.mark.parametrize("L,d,heads", [(27, 48, 8), (17, 36, 3), (5, 20, 3),
+                                       (42, 32, 2)])
+def test_packed_units_equal_each_unit_alone(L, d, heads):
+    """The packed kernel's order (_emulate_packed) on two sequences, whose
+    units share blocks (at 3 heads a block holds units of both sequences,
+    and a unit sits in another slot than alone), gives each sequence what
+    it gets alone, and stays within ATTN_BWD_RTOL of the plain version:
+    the mask keeps every product within its own unit."""
+    r = np.random.RandomState(L + d)
+    qkv, do = (torch.tensor(r.randn(2, L, n * heads * d), dtype=torch.float32)
+               for n in (3, 1))
+    both = _emulate_packed(qkv, do, heads)
+    for i in range(2):
+        alone = _emulate_packed(qkv[i:i + 1], do[i:i + 1], heads)
+        assert (both[i:i + 1] - alone).abs().max() <= 1e-7 * alone.abs().max()
+    errs = _rel_errs(both, attention_core_bwd_reference(qkv, do, heads),
+                     heads * d)
+    assert max(errs) <= ATTN_BWD_RTOL, errs
 
 
 #: the shapes the streamed backward takes on the main paths (as

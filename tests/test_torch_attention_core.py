@@ -14,8 +14,10 @@ test_torch_block_temporal.py) hold it inside the whole block.  Here:
   set to the identity), whose rounding points are ``_block_body``'s there;
 - the tensor-core kernels' arithmetic, emulated on the CPU (head size
   padded with zeros to 32/48/64, keys padded to the kernel's key chunks and
-  masked to -inf, the row's max and sum gathered chunk by chunk past 144
-  keys; the streamed kernel, which takes a head size above 64, bf16 (and
+  masked to -inf, the row's max and sum over the whole row up to 144 keys
+  (float32 at 81-144 keys on wgmma: chunks of 64 keys, 48 at d > 48, all
+  their logits kept, the sums in the same order) and gathered chunk by
+  chunk past 144 keys; the streamed kernel, which takes a head size above 64, bf16 (and
   float32 at d = 49..64) past 144 keys, or a unit beyond a CTA's shared
   memory, with d padded to 64 or 128 and its keys in chunks of 64 at any
   L), stays within its bounds of the plain version:
@@ -150,7 +152,7 @@ def test_temporal_layout_equals_transposed_sequences(dtype, F, N):
 
 @pytest.mark.parametrize("L,d", [(24, 48), (27, 28), (68, 28), (42, 32),
                                  (17, 36), (134, 36), (243, 64), (351, 64),
-                                 (243, 128)])
+                                 (243, 128), (134, 64)])
 def test_float32_matches_jax_attention(L, d):
     C = HEADS * d
     r = np.random.RandomState(L * d)
@@ -326,7 +328,8 @@ def _chain_qkv(L, d, seed, dtype):
 
 @pytest.mark.parametrize("L", TOKENS + (243,))
 def test_float32_three_tf32_products_within_bound(L):
-    for d in HEAD_SIZES:
+    # d = 64 at 134 tokens: MixSTE's spatial blocks (cs 512, 134 joints)
+    for d in HEAD_SIZES + ((64,) if L == 134 else ()):
         qkv = _chain_qkv(L, d, L * 100 + d, torch.float32)
         got, _ = _emulate(qkv, HEADS)
         err = (got - attention_core_reference(qkv, HEADS)).abs().max()

@@ -1039,7 +1039,7 @@ ATTN_CORE_SHAPES = [(24, 384), (27, 384), (68, 224), (27, 224), (42, 256),
                     (243, 224), (1, 384), (243, 512), (351, 512), (351, 384),
                     (243, 1024), (134, 1024), (1, 1024), (300, 520),
                     (257, 512), (1000, 512), (1000, 1024), (144, 512),
-                    (145, 512)]
+                    (145, 512), (134, 512)]
 
 
 def _attention_core_ok(got, want, qkv):
@@ -1199,6 +1199,77 @@ def test_streamed_kernels_run_past_the_resident_shapes_on_gpu(cuda_device):
 
 ATTN_BWD_RTOL = 1e-5
 
+#: the attention backward's main-path shapes (B, L, C) and the kernel that
+#: takes each: H3WB's six training shapes, the monolithic model's pair,
+#: 3DHP's pair (the resident mma.sync kernel up to 80 keys, the monolithic
+#: 134 joints the resident wgmma kernel) and MixSTE's spatial blocks (cs
+#: 512, 134 joints: the streamed kernel's two passes); chip_ab.py's
+#: RESIDENT_BWD
+RESIDENT_BWD = [((999, 24, 384), "attention_bwd_tc"),
+                ((888, 27, 384), "attention_bwd_tc"),
+                ((999, 68, 224), "attention_bwd_tc"),
+                ((2516, 27, 224), "attention_bwd_tc"),
+                ((999, 42, 256), "attention_bwd_tc"),
+                ((1554, 27, 256), "attention_bwd_tc"),
+                ((999, 134, 288), "attention_bwd_wg"),
+                ((4958, 27, 288), "attention_bwd_tc"),
+                ((999, 17, 288), "attention_bwd_tc"),
+                ((629, 27, 288), "attention_bwd_tc"),
+                ((972, 134, 512), "attention_bwd_stream")]
+
+
+@pytest.mark.cuda
+def test_resident_stages_route_as_measured_on_gpu(cuda_device):
+    """At every main-path shape of the attention backward, one call
+    launches the kernel its route names once and nothing else, as its
+    library counts the launches (the streamed route: each of its two passes
+    once); the float32 forward at 134 keys (the monolithic model's and
+    MixSTE's spatial blocks) launches attention_wg_kernel once, and in
+    bfloat16 the resident attention_tc_kernel."""
+    for (B, L, C), kind in RESIDENT_BWD:
+        qkv = torch.randn(B, L, 3 * C, device=cuda_device)
+        do = torch.randn(B, L, C, device=cuda_device)
+        counts = _launches(lambda: attention_core_bwd(qkv, do, HEADS),
+                           "attention_core_bwd")["attention_core_bwd"]
+        want = (_counts(attention_bwd_stream_a=1, attention_bwd_stream_b=1)
+                if kind == "attention_bwd_stream" else _counts(**{kind: 1}))
+        assert counts == want, (B, L, C, counts)
+        del qkv, do
+    for C in (288, 512):
+        qkv = torch.randn(64, 134, 3 * C, device=cuda_device)
+        for dtype, kind in ((torch.float32, "attention_wg"),
+                            (torch.bfloat16, "attention_tc")):
+            x = qkv.to(dtype)
+            counts = _launches(lambda: attention_core(x, HEADS),
+                               "attention_core")["attention_core"]
+            assert counts == _counts(**{kind: 1}), (C, dtype, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,C,heads", [(27, 384, HEADS), (17, 288, HEADS),
+                                       (134, 288, HEADS), (24, 384, HEADS),
+                                       (42, 256, HEADS), (27, 120, 3),
+                                       (5, 60, 3), (9, 21, 3)])
+def test_units_sharing_a_cta_equal_each_unit_alone_on_gpu(cuda_device, L, C,
+                                                          heads):
+    """The resident backward's CTAs take several (sequence, head) units
+    (the mma.sync kernel: U of them, each product within one unit) or one
+    (the wgmma kernel): two sequences at once give each sequence, bit for
+    bit, what it gets alone, within ATTN_BWD_RTOL of the plain version; at
+    3 heads a CTA's units belong to both sequences (odd d = 7: 4-byte
+    copies)."""
+    r = np.random.RandomState(L + C)
+    qkv, do = (torch.tensor(r.randn(2, L, n), dtype=torch.float32,
+                            device=cuda_device) for n in (3 * C, C))
+    both = attention_core_bwd(qkv, do, heads)
+    for i in range(2):
+        alone = attention_core_bwd(qkv[i:i + 1].contiguous(),
+                                   do[i:i + 1].contiguous(), heads)
+        assert torch.equal(both[i:i + 1], alone), (L, C, heads, i)
+    errs = _attention_bwd_errs(both, attention_core_bwd_reference(qkv, do,
+                                                                  heads))
+    assert max(errs) <= ATTN_BWD_RTOL, errs
+
 #: (B, L, C) of the attention backward: each part's spatial and temporal
 #: training shape (37 sequences of 27 frames), 3DHP's, the monolithic
 #: model's 134 joints, and 243 frames at each part width; then the shapes
@@ -1214,7 +1285,7 @@ ATTN_BWD_SHAPES = [(999, 24, 384), (888, 27, 384), (999, 68, 224),
                    (64, 351, 512), (64, 351, 384), (32, 243, 1024),
                    (64, 134, 1024), (256, 17, 1024), (32, 300, 520),
                    (32, 257, 512), (8, 1000, 512), (4, 1000, 1024),
-                   (16, 257, 1024)]
+                   (16, 257, 1024), (972, 134, 512)]
 
 
 def _attention_bwd_errs(got, want):
@@ -1249,8 +1320,8 @@ def test_attention_core_bwd_matches_plain_on_gpu(cuda_device, B, L, C):
                                    (8, 243, 512), (4, 243, 1024),
                                    (8, 134, 1024), (16, 27, 1024)])
 def test_block_train_at_243_frames_on_gpu(cuda_device, B, L, C):
-    """Kernels #5/#6 at 243 tokens (MixSTE's receptive field; head sizes 32
-    and 48 resident, 64 and 128 streamed) and at C = 1024 (the LayerNorm
+    """Kernels #5/#6 at 243 tokens (MixSTE's receptive field; the backward
+    at head size 32 resident, 48, 64 and 128 streamed) and at C = 1024 (the LayerNorm
     backward's wide rows), against their plain versions; a second backward
     gives the same bits."""
     params = _params(C, seed=L + C, device=cuda_device)
