@@ -37,9 +37,13 @@
    evaluation alone, ``--only train`` the float32 hashes of #1-#6 (no
    times), #6's weight- and bias-gradient stage alone at H3WB's and
    MixSTE's shapes (WGRAD_ROWS) beside cuBLAS's ``d.t() @ x`` (and with
-   ``d.sum(0)``), the H3WB float32 step with one more under torch.profiler
-   (its device ms by chip_smoke.py's kernel groups, reported per tree) and
-   MixSTE's steps, ``--only resident`` the float32 hashes of #1-#6, the
+   ``d.sum(0)``), #6's LayerNorm backward alone in its three forms at
+   LN_ROWS (ln_section: device ms beside ln_bwd_bound_ms and aten's
+   ``native_layer_norm_backward`` with the residual add and the mask
+   multiply; ``F.layer_norm`` beside #5's forward LayerNorm's bound), the
+   ordered sums' bound, the H3WB float32 step with one more under
+   torch.profiler and MixSTE's steps with one more (their device ms by
+   chip_smoke.py's kernel groups, reported per tree), ``--only resident`` the float32 hashes of #1-#6, the
    resident attention stages at their main-path shapes (RESIDENT_BWD,
    RESIDENT_FWD: H3WB's, 3DHP's, the monolithic model's and MixSTE's
    spatial blocks) beside their plain versions and SDPA (or its autograd),
@@ -70,7 +74,9 @@
    among them), but for the kernels whose names hold one of the
    ``--redesigned`` names.
 3. **ptxas** (``--ptxas``): registers, spill bytes and wgmma notes of the
-   attention libraries' kernels, on this tree.
+   kernels of PTXAS_SOURCES (the attention libraries, #6's library with the
+   LayerNorm and weight-gradient kernels, the GEMM, #1's chain), on this
+   tree.
 4. **Precision witness** (``--witness``): this tree's attention backward
    and its plain version in float32, each against the plain version in
    float64, at the cuda suite's 1000-token shapes (WITNESS_BWD).
@@ -83,6 +89,8 @@
         --changed '#6,bf16' --redesigned attention_stream_kernel,attention_bwd_stream_
     python3 chip_ab.py --kernels build/parent --only train --changed '#6' \
         --redesigned wgrad_,reduce_partials_kernel
+    python3 chip_ab.py --kernels build/parent --only train \
+        --changed '#6,#6dx,#6ln' --redesigned ln_bwd_kernel,ln_sums_kernel
     python3 chip_ab.py --kernels build/parent --only resident \
         --changed '#2,#5,#6' 
     python3 chip_ab.py --route-tree pack build/pack --kernels build/parent \
@@ -286,6 +294,35 @@ def _cuda_ms(fn, reps=5, warm=2):
     return start.elapsed_time(stop) / reps
 
 
+def _device_ms(fn, reps=10, warm=2):
+    """The device time of one ``fn()`` call, for a wrapper whose host work
+    is about as long as its kernels (where back-to-back CUDA events would
+    time the host): the ``reps`` calls are queued behind a spin of the
+    device (``torch.cuda._sleep``), so the events around them see the
+    device alone; the spin grows until the first event is still pending
+    when the last call has been queued."""
+    import torch
+    for _ in range(warm):
+        fn()
+    cycles = 1 << 24                # ~9 ms at the H100's clock
+    while cycles <= 1 << 32:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        queued = not start.query()
+        stop.record()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(stop) / reps
+        cycles *= 4
+    raise RuntimeError("_device_ms: the host could not queue the calls ahead "
+                       "of the device")
+
+
 def _block_params(C, seed, device):
     """The 14 block tensors, Linear weights U(+-1/sqrt(in)), LayerNorm
     affines near (1, 0), from a numpy seed (the same in every tree)."""
@@ -464,8 +501,105 @@ def ordered_sums_bound_ms(depth=8, seqs=SEQS, frames=27):
         for N, K in ((3 * C, C), (C, C), (2 * C, C), (C, 2 * C)):
             chunks = -(-M // weight_grad_chunk_rows(M, N, K))
             nbytes += 2 * depth * 4 * (chunks + 1) * (N * K + N)
-        nbytes += 2 * depth * 3 * 4 * (-(-M // 64) + 1) * 2 * C
+        nbytes += 2 * depth * 3 * 4 * (ln_partials(M, C) + 1) * 2 * C
     return nbytes / 3.35e12 * 1e3
+
+
+def ln_partials(M, C):
+    """The LayerNorm backward's partials of 2C floats in a call over M rows
+    of C: one a CTA of the tree's ``ln_backward_rows(M, C)`` rows, or, in a
+    tree without that rule, one a 64 rows."""
+    from pafuse_tpu_torch.ops import block_train as bt
+    rows = getattr(bt, "ln_backward_rows", None)
+    return -(-M // (rows(M, C) if rows else 64))
+
+
+def ln_bwd_bound_ms(M, C, form, seq_len=1):
+    """The least time an H100 SXM (3.35 TB/s at 700 W) could take for one
+    float32 LayerNorm backward of #6 over M rows of C, by its bytes: g and
+    x read and dx written (16 B an element), the LN2 form ("ln2") also the
+    residual read and the outer and LN2 forms dxm = mask * dx written; the
+    row statistics (8 B a row), the mask (4 B a sequence of seq_len rows),
+    the scale read and dscale, dbias written (12 B a column), and the
+    tree's partials written and read once (16 B a column a partial)."""
+    per = {"outer": 16, "ln2": 20, "ln1": 16}[form]
+    nbytes = (per * M * C + 8 * M + (4 * (M // seq_len) if form != "ln1" else 0)
+              + 12 * C + 16 * ln_partials(M, C) * C)
+    return nbytes / 3.35e12 * 1e3
+
+
+#: (rows M, width C, sequence length L) of #6's LayerNorm backward: H3WB's
+#: three parts (37 sequences x 27 frames x their joints) and MixSTE's
+#: (model.cs 512: 4 x 243 frames x 134 joints); a part's spatial and
+#: temporal blocks have the same M and C, and each block of the 16 a step
+#: (8 layers, two kinds) calls it three times, once in each form
+LN_ROWS = {"h3wb": ((999 * 24, 384, 27), (999 * 68, 224, 27), (999 * 42, 256, 27)),
+           "mixste": ((4 * 243 * 134, 512, 243),)}
+LN_BLOCKS = 16
+
+
+def ln_section(times, dev):
+    """#6's LayerNorm backward alone on seeded float32 inputs at LN_ROWS,
+    in its three forms (outer: g and x, dx and dxm = mask * dx; LN2: the
+    residual as well; LN1: the residual, no mask): the tree's own call
+    (``ops.block_train.ln_backward``; a tree without one has no such time:
+    its kernel's time is the profiled step's "LayerNorm backward" group),
+    and the library composition of the same function (aten's
+    ``native_layer_norm_backward``, the residual add and the mask multiply),
+    device ms per form and width (``ln_bwd_<form>_<C>_*``) and summed as a
+    step launches them (``ln_bwd_<model>_*``, x LN_BLOCKS), beside
+    ln_bwd_bound_ms; device ms of the calls (_device_ms: the wrapper's
+    host work is about as long as its kernels).  Then #5's forward
+    LayerNorm's yardstick at the same shapes: ``F.layer_norm``, three a
+    block, and its bound (x read and y written, 8 B an element, and the row
+    statistics written)."""
+    import torch
+    import torch.nn.functional as F
+    from pafuse_tpu_torch.ops import block_train as bt
+    fn = getattr(bt, "ln_backward", None)
+    for model, shapes in LN_ROWS.items():
+        for i, (M, C, L) in enumerate(shapes):
+            gen = torch.Generator(device=dev).manual_seed(700 + i)
+            x, g, r = (torch.randn(M, C, generator=gen, device=dev) for _ in range(3))
+            scale = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+            bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+            mean = x.mean(1)
+            rstd = torch.rsqrt(x.var(1, unbiased=False) + 1e-6)
+            B = M // L
+            mask = torch.tensor([0.0, 1 / 0.9, 1.0], device=dev)[
+                torch.arange(B, device=dev) % 3]
+            for form, kw in (("outer", {"mask": mask}),
+                             ("ln2", {"residual": r, "mask": mask}),
+                             ("ln1", {"residual": r})):
+                def library():
+                    dx, ds, db = torch.ops.aten.native_layer_norm_backward(
+                        g, x, [C], mean[:, None], rstd[:, None], scale, bias,
+                        [True, True, True])
+                    if "residual" in kw:
+                        dx = r + dx
+                    if "mask" in kw:
+                        return dx, dx.view(B, L, C) * mask[:, None, None], ds, db
+                    return dx, ds, db
+
+                timed = {"library_ms": _device_ms(library),
+                         "bound_ms": ln_bwd_bound_ms(M, C, form, L)}
+                if fn is not None:
+                    timed["ms"] = _device_ms(lambda: fn(g, x, mean, rstd, scale,
+                                                        seq_len=L, **kw))
+                for k, v in timed.items():
+                    times[f"ln_bwd_{form}_{C}_{k}"] = v
+                    key = f"ln_bwd_{model}_{k}"
+                    times[key] = times.get(key, 0.0) + LN_BLOCKS * v
+            ms = _device_ms(lambda: F.layer_norm(x, (C,), scale, bias, 1e-6))
+            for k, v in (("library_ms", ms),
+                         ("bound_ms", (8 * M * C + 8 * M) / 3.35e12 * 1e3)):
+                key = f"ln_fwd_{model}_{k}"
+                times[key] = times.get(key, 0.0) + 3 * LN_BLOCKS * v
+            del x, g, r
+            torch.cuda.empty_cache()
+        if fn is not None:
+            times[f"ln_bwd_{model}_share_of_bound"] = (
+                times[f"ln_bwd_{model}_bound_ms"] / times[f"ln_bwd_{model}_ms"])
 
 
 def _library_block(x, bp, on, heads):
@@ -515,11 +649,13 @@ def mixste_block_section(times, dev):
         torch.cuda.empty_cache()
 
 
-def mixste_section(times, digests, dev):
+def mixste_section(times, digests, dev, traced=False):
     """3 training steps (after 2 warm ones) of MixSTE's model at depth 8
     (``model.cs=512 model.number_of_frames=243``, monolithic, 4 sequences
     a step, as chip_smoke.py's mixste243 phase): host ms a step, ending in
-    its loss, and a hash of the losses and parameters."""
+    its loss, and a hash of the losses and parameters; with ``traced``, one
+    more step under torch.profiler, its device ms by kernel group in
+    times["traced_mixste_groups_ms"] (after the hash)."""
     import hashlib
     import torch
     from pafuse_tpu_torch import train as tr
@@ -554,6 +690,10 @@ def mixste_section(times, digests, dev):
     for q in model.parameters():
         h.update(q.detach().float().contiguous().cpu().numpy().tobytes())
     digests["mixste_window"] = h.hexdigest()[:16]
+    if traced:
+        b2d, b3d = batches[-1]
+        times["traced_mixste_groups_ms"] = traced_groups(
+            lambda: float(step(state, 6e-5, b2d, b3d)))
     del model, state, step
     torch.cuda.empty_cache()
 
@@ -660,6 +800,28 @@ def train_section(times, dev):
                 flop / times[f"wgrad_{model}{what}_ms"] / 1e9)
 
 
+def traced_groups(run):
+    """``run()`` (a training step ending in its loss) once under
+    torch.profiler: its device ms by the tree's chip_smoke.py kernel groups
+    (TRAIN_GROUPS, then KERNEL_GROUPS), largest first, and their sum as
+    "device"."""
+    import chip_smoke
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    groups = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            g = chip_smoke.kernel_group(e.key, chip_smoke.TRAIN_GROUPS,
+                                        "PyTorch (embedding, head, loss, AdamW)")
+            groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    groups["device"] = sum(groups.values())
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
 def train_step_section(times, digests, dev, traced=False):
     """A float32 H3WB training step (depth 8, 37 sequences; host ms over
     STEPS steps after 2 warm ones, ending in the loss) and a hash of the
@@ -699,21 +861,9 @@ def train_step_section(times, digests, dev, traced=False):
         h.update(q.detach().float().contiguous().cpu().numpy().tobytes())
     digests["train_window"] = h.hexdigest()[:16]
     if traced:
-        import chip_smoke
-        from torch.profiler import ProfilerActivity, profile
         _, b3d, b2d = batches[-1]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            float(step(state, 6e-5, b2d, b3d))
-        groups = {}
-        for e in prof.key_averages():
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.self_device_time_total > 0):
-                g = chip_smoke.kernel_group(e.key, chip_smoke.TRAIN_GROUPS,
-                                            "PyTorch (embedding, head, loss, AdamW)")
-                groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
-        groups["device"] = sum(groups.values())
-        times["traced_step_groups_ms"] = dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+        times["traced_step_groups_ms"] = traced_groups(
+            lambda: float(step(state, 6e-5, b2d, b3d)))
     del model, state, step, sampler, batches
     torch.cuda.empty_cache()
 
@@ -873,17 +1023,18 @@ def kernels_worker(mode: str, only=None):
         times["ordered_sums_bound_ms"] = ordered_sums_bound_ms()
         train_step_section(times, digests, dev, traced=True)
         mixste_section(times, digests, dev)
-        groups = times.pop("traced_step_groups_ms")
         emit({"kernels_ab": mode, "times": times, "float32_digests": digests,
-              "traced_step_groups_ms": groups, "launches": routes})
+              **{k: times.pop(k) for k in TRACED if k in times},
+              "launches": routes})
         return
     else:
         train_section(times, dev)
+        ln_section(times, dev)
+        times["ordered_sums_bound_ms"] = ordered_sums_bound_ms()
         train_step_section(times, digests, dev, traced=True)
-        mixste_section(times, digests, dev)
-        groups = times.pop("traced_step_groups_ms")
+        mixste_section(times, digests, dev, traced=True)
         emit({"kernels_ab": mode, "times": times, "float32_digests": digests,
-              "traced_step_groups_ms": groups})
+              **{k: times.pop(k) for k in TRACED}})
         return
 
     evaluate = serve_section(times, dev)
@@ -975,11 +1126,42 @@ def sass_compare(other: str):
             "identical": identical, "differing": differing}
 
 
-def ptxas_report(sources=("attention_core", "attention_core_bwd")):
+#: the sources whose kernels --ptxas reports: the attention libraries, #6's
+#: (block_train.cu: the LayerNorm kernels, the weight-gradient kernel and
+#: the GEMM's instantiations it holds), the GEMM alone and #1's chain
+PTXAS_SOURCES = ("attention_core", "attention_core_bwd", "block_train", "gemm",
+                 "block")
+
+
+def _kernel_names(nvcc, mangled):
+    """Readable names of the ``mangled`` kernel names, by cu++filt: the
+    function with its template arguments, without the anonymous namespace,
+    the return type and the parameters; a name cu++filt does not take stays
+    as it is."""
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if not mangled or not os.path.exists(filt):
+        return {m: m for m in mangled}
+    out = subprocess.run([filt], input="\n".join(mangled), capture_output=True,
+                         text=True).stdout.splitlines()
+    names = {}
+    for m, d in zip(mangled, out):
+        d = re.sub(r"^void ", "", re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", d))
+        depth = 0
+        for i, ch in enumerate(d):           # cut the parameter list
+            depth += ch == "<"
+            depth -= ch == ">"
+            if ch == "(" and depth == 0:
+                d = d[:i]
+                break
+        names[m] = d or m
+    return names
+
+
+def ptxas_report(sources=PTXAS_SOURCES):
     """Registers, spill bytes and the wgmma notes (C7517 injected waits,
     C7518 and C7520 serialisations) that ``nvcc -Xptxas -v`` gives for each
-    kernel of ``sources`` (the build's flags, sm_90a), all compiled at
-    once."""
+    kernel of ``sources`` (the build's flags, sm_90a), all compiled at once;
+    keyed "<source>.cu: <kernel>"."""
     from pafuse_tpu_torch.ops import _build
 
     nvcc = _build._nvcc()
@@ -993,7 +1175,7 @@ def ptxas_report(sources=("attention_core", "attention_core_bwd")):
          os.path.join(HERE, "pafuse_tpu_torch", "ops", "csrc", f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name in sources}
-    kernels = {}
+    found = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -1001,19 +1183,22 @@ def ptxas_report(sources=("attention_core", "attention_core_bwd")):
         cur = None
         for line in log.splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties for) "
-                          r"'?_ZN\w*?(attn_\w+)", line)
+                          r"'?(_Z\w+)", line)
             if m:
-                cur = kernels.setdefault(m.group(1), {"notes": []})
+                cur = found.setdefault((name, m.group(1)), {"notes": []})
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and cur is not None:
                 cur["spill_store_bytes"] = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and cur is not None:
                 cur["registers"] = int(m.group(1))
-            m = re.search(r"\((C75(17|18|20))\).*function '_ZN\w*?(attn_\w+)'", line)
+            m = re.search(r"\((C75(17|18|20))\).*function '(_Z\w+)'", line)
             if m:
-                kernels.setdefault(m.group(3), {"notes": []})["notes"].append(m.group(1))
-    return {"phase": "ptxas", "kernels": kernels}
+                found.setdefault((name, m.group(3)), {"notes": []})["notes"].append(
+                    m.group(1))
+    names = _kernel_names(nvcc, sorted({k for _, k in found}))
+    return {"phase": "ptxas",
+            "kernels": {f"{src}.cu: {names[k]}": v for (src, k), v in sorted(found.items())}}
 
 
 #: (B, L, C) of the backward's precision witness: the two 1000-token shapes
@@ -1058,6 +1243,11 @@ def witness():
     return {"phase": "witness_bwd", "rows": rows}
 
 
+#: the profiled steps' device ms by kernel group that a worker reports:
+#: the H3WB step's and (``--only train``) MixSTE's
+TRACED = ("traced_step_groups_ms", "traced_mixste_groups_ms")
+
+
 def kernels_summary(results, changed=()):
     """Per metric: the parent's and the change's readings, each tree's
     spread, the change over the parent, and whether the change is faster
@@ -1069,8 +1259,11 @@ def kernels_summary(results, changed=()):
         runs.setdefault(res["kernels_ab"], []).append(res)
     out = {}
     for key in runs["change"][0]["times"]:
-        par = [r["times"][key] for r in runs["parent"]]
+        par = [r["times"][key] for r in runs["parent"] if key in r["times"]]
         chg = [r["times"][key] for r in runs["change"]]
+        if not par:             # a call the other tree does not have
+            out[key] = {"change": chg, "spread": max(chg) - min(chg)}
+            continue
         higher_better = key.endswith("tflops")
         row = {"parent": par, "change": chg,
                "change_over_parent": (sum(chg) / len(chg)) / (sum(par) / len(par)),
@@ -1086,8 +1279,8 @@ def kernels_summary(results, changed=()):
         if "float32" in key:
             row["within_5_percent"] = max(chg) <= 1.05 * max(par)
         out[key] = row
-    traced = {mode: [r["traced_step_groups_ms"] for r in rs
-                     if "traced_step_groups_ms" in r] for mode, rs in runs.items()}
+    traced = {name: {mode: [r[name] for r in rs if name in r]
+                     for mode, rs in runs.items()} for name in TRACED}
     keys = runs["change"][0]["float32_digests"]
     same = {k: len({r["float32_digests"][k] for rs in runs.values()
                     for r in rs}) == 1 for k in keys}
@@ -1096,7 +1289,8 @@ def kernels_summary(results, changed=()):
     kept = {k: v for k, v in same.items()
             if not set(digest_kernels(k)) & set(changed)}
     return {"phase": "kernels_ab", "metrics": out,
-            "traced_step_groups_ms": {k: v for k, v in traced.items() if v},
+            **{name: {k: v for k, v in t.items() if v}
+               for name, t in traced.items()},
             "float32_bit_identical": all(kept.values()),
             "float32_outputs_differing": sorted(k for k, v in same.items()
                                                 if not v),
@@ -1191,8 +1385,8 @@ def main() -> int:
                     help="write this tree with ROUTE_PATCHES[NAME] applied to "
                          "DIR first (e.g. for --alt DIR)")
     ap.add_argument("--ptxas", action="store_true",
-                    help="registers, spills and wgmma notes of the attention "
-                         "kernels from nvcc -Xptxas -v, on this tree")
+                    help="registers, spills and wgmma notes of the kernels of "
+                         "PTXAS_SOURCES from nvcc -Xptxas -v, on this tree")
     ap.add_argument("--witness", action="store_true",
                     help="the attention backward's float32 results against "
                          "float64 at WITNESS_BWD, on this tree")

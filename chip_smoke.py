@@ -512,6 +512,14 @@ WGRAD_RTOL = 1e-5                       # x max|plain| for each of dW and db
 #: phase -> launches of #6's weight-gradient kernel in its main-path run,
 #: as the block_train library counts them (run_trainer)
 WGRAD_LAUNCHES = {}
+LNB_REPLACES = "pafuse_tpu/ops/block_grad.py:55"     # _ln_bwd, at :166, :188, :237
+# #6's LayerNorm backward alone against its plain version: float32 sums
+# over C columns (the two row means) and over the rows (dscale, dbias) in
+# another order; 1e-5 x max|plain| for each of dx, dxm, dscale and dbias
+LNB_RTOL = 1e-5
+#: phase -> launches of #6's LayerNorm backward (ln_bwd_kernel) in its
+#: main-path run, as the block_train library counts them (run_trainer)
+LNB_LAUNCHES = {}
 
 
 def emit(obj):
@@ -523,6 +531,36 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def device_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """The device time of one ``fn()`` call, for a call whose host work (a
+    wrapper's checks, allocations and ctypes call) is about as long as its
+    kernels, where back-to-back CUDA events would time the host: the
+    ``reps`` calls are queued behind a spin of the device
+    (``torch.cuda._sleep``), so the events around them see the device
+    alone.  The spin grows until the first event is still pending when the
+    last call has been queued."""
+    import torch
+    for _ in range(warm):
+        fn()
+    cycles = 1 << 24                # ~9 ms at the H100's clock
+    while cycles <= 1 << 32:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        queued = not start.query()
+        stop.record()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(stop) / reps
+        cycles *= 4
+    raise RuntimeError("device_ms: the host could not queue the calls ahead "
+                       "of the device")
 
 
 def cuda_time_ms(fn, reps: int = 5, warm: int = 2) -> float:
@@ -1611,7 +1649,8 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
             y_lib = lib_fwd()
             lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
                 y_lib, [lib_x] + lib_p, gr, retain_graph=True))
-            gemms = (backward_gemm_times(B * L, params)
+            gemms = ({**backward_gemm_times(B * L, params),
+                      **ln_backward_times(B, L, params)}
                      if dtype == torch.float32 else {})
             r = {"phase": phase, "name": "block_train_bwd",
                  "part": part, "kind": kind, "dtype": name, "B": B, "L": L,
@@ -1619,7 +1658,8 @@ def train_kernel_phase(seed: int, seqs: int, frames: int, keep: float = 0.9,
                  "max_rel_grad_err": max(rel.values()), "rel_grad_err": rel,
                  "deterministic": deterministic, "dx_ok": dx_ok,
                  "ok": (max(rel.values()) <= TRAIN_GRAD_RTOL and deterministic
-                        and dx_ok and gemms.get("wgrad_ok", True)),
+                        and dx_ok and gemms.get("wgrad_ok", True)
+                        and gemms.get("lnb_ok", True)),
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                  **gemms,
                  **train_bound(B, L, C, x.element_size(), param_bytes,
@@ -1721,6 +1761,90 @@ def backward_gemm_times(M, params):
             "wgrad_plain_ms": plain_ms, "wgrad_max_rel_err": rel,
             "wgrad_max_abs_err": err, "wgrad_ok": rel <= WGRAD_RTOL,
             **{f"wgrad_{k}": v for k, v in wb.items()}}
+
+
+def ln_backward_times(B, L, params):
+    """Kernel #6's LayerNorm backward alone on B*L rows of random float32
+    operands, in the three forms its backward runs (ops.block_train.
+    ln_backward): the outer norm (g, x2, dx2 and dm = m2 * dx2), LN2 (the
+    residual dx2 added, da = m1 * dx1) and LN1 (the residual dx1 added);
+    the three calls' device ms (device_ms) beside the plain version's
+    (ln_backward_reference) and the library composition's (aten's
+    native_layer_norm_backward, the residual add and the mask multiply;
+    CUDA events),
+    the bound (bytes: g, x, the residual read, dx and dxm written, the row
+    statistics, the mask, the scale and the partials), every output's
+    largest max|got - plain| / max|plain| (lnb_ok within LNB_RTOL), max
+    abs error and whether a repeat gives the same bits."""
+    import torch
+    from pafuse_tpu_torch.ops.block_train import (ln_backward,
+                                                  ln_backward_reference,
+                                                  ln_backward_rows)
+    M, C = B * L, params[0].shape[0]
+    dev = params[0].device
+    g = torch.Generator(device=dev).manual_seed(M + 2)
+    rows = lambda: torch.randn(M, C, generator=g, device=dev)  # noqa: E731
+    x, gr, res = rows(), rows(), rows()
+    mean, rstd = x.mean(1), torch.rsqrt(x.var(1, unbiased=False) + 1e-6)
+    mask = (torch.rand(B, generator=g, device=dev) < 0.9).float() / 0.9
+    calls = [((gr, x, mean, rstd, params[12]), {"mask": mask}),
+             ((gr, x, mean, rstd, params[6]), {"residual": res, "mask": mask}),
+             ((gr, x, mean, rstd, params[0]), {"residual": res})]
+    zero = torch.zeros(C, device=dev)
+
+    def library(a, kw):
+        dx, ds, db = torch.ops.aten.native_layer_norm_backward(
+            a[0], a[1], [C], mean[:, None], rstd[:, None], a[4], zero,
+            [True, True, True])
+        if "residual" in kw:
+            dx = kw["residual"] + dx
+        if "mask" in kw:
+            return dx, dx.view(B, L, C) * kw["mask"][:, None, None], ds, db
+        return dx, ds, db
+
+    rel, err, repeat = 0.0, 0.0, True
+    for a, kw in calls:
+        got = ln_backward(*a, seq_len=L, **kw)
+        again = ln_backward(*a, seq_len=L, **kw)
+        want = ln_backward_reference(*a, seq_len=L, **kw)
+        for u, v, w in zip(got, again, want):
+            if w is not None:
+                rel = max(rel, _rel_err(u, w))
+                err = max(err, float((u - w).abs().max()))
+                repeat = repeat and bool(torch.equal(u, v))
+    # the kernels' device time (the wrapper's host work is about as long
+    # as its kernels); the plain version's and the library's few large
+    # PyTorch calls keep the device busy, so CUDA events time them
+    times = {
+        "lnb_ms": device_ms(lambda: [ln_backward(*a, seq_len=L, **kw)
+                                     for a, kw in calls]),
+        "lnb_plain_ms": cuda_time_ms(lambda: [ln_backward_reference(
+            *a, seq_len=L, **kw) for a, kw in calls]),
+        "lnb_library_ms": cuda_time_ms(lambda: [library(a, kw)
+                                                for a, kw in calls]),
+    }
+    parts = -(-M // ln_backward_rows(M, C))
+    nbytes = ((16 + 20 + 16) * M * C + 3 * (8 * M + 12 * C + 16 * parts * C)
+              + 2 * 4 * B)
+    del x, gr, res, calls
+    return {**times, "lnb_max_rel_err": rel, "lnb_max_abs_err": err,
+            "lnb_deterministic": repeat,
+            "lnb_ok": rel <= LNB_RTOL and repeat,
+            **{f"lnb_{k}": v for k, v in bound(3 * 14 * M * C, nbytes,
+                                                "float32").items()}}
+
+
+def lnb_cases(cases):
+    """The float32 block_train_bwd rows of ``cases`` as rows of #6's
+    LayerNorm backward alone (ln_backward_times' lnb_* numbers)."""
+    return [{"dtype": "float32", "kind": c.get("kind"), "B": c["B"],
+             "L": c["L"], "C": c["C"],
+             **{k: c[f"lnb_{k}"] for k in ("max_abs_err", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "simt_bound_ms", "library_ms")},
+             "ms": c["lnb_ms"]}
+            for c in cases
+            if c["name"] == "block_train_bwd" and c["dtype"] == "float32"]
 
 
 def _synthetic_batches(seed: int, seqs: int, frames: int):
@@ -1878,13 +2002,19 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
               "backward_wg": bwd["attention_bwd_wg"]}
     else:
         wg = {}
-    # #6's weight- and bias-gradient kernel: four launches a call
-    wgrad = (_build.kernel_launches("block_train")["wgrad_wgmma"]
-             if dev.type == "cuda" else 0)
-    WGRAD_LAUNCHES[phase] = wgrad
+    # #6's weight- and bias-gradient kernel: four launches a call; its
+    # LayerNorm backward and that one's ordered pass: three each
+    ours = (_build.kernel_launches("block_train") if dev.type == "cuda"
+            else dict.fromkeys(_build.LAUNCH_KINDS, 0))
+    wgrad = WGRAD_LAUNCHES[phase] = ours["wgrad_wgmma"]
+    lnb = LNB_LAUNCHES[phase] = ours["ln_bwd"]
     if wgrad != 4 * launches[1]:
         raise AssertionError(f"{phase}: {wgrad} launches of the weight-"
                              f"gradient kernel, expected {4 * launches[1]}")
+    if lnb != 3 * launches[1] or ours["ln_sums"] != lnb:
+        raise AssertionError(f"{phase}: {lnb} launches of the LayerNorm "
+                             f"backward and {ours['ln_sums']} of its ordered "
+                             f"pass, expected {3 * launches[1]} of each")
     if streams is not None:
         streams.update(streamed, **wg)
     if not all(np.isfinite(losses)):
@@ -2017,7 +2147,8 @@ KERNEL_GROUPS = (("copy_kernel", COPY_GROUP),
                   "bf16 LayerNorms (#1, #3, #4: pre-passes and outer)"),
                  ("ln_bwd_kernel", "LayerNorm backward"),
                  ("ln_fwd_kernel", "LayerNorm forward"),
-                 ("reduce_partials_kernel", "ordered partial sums"),
+                 ("reduce_partials_kernel|ln_sums_kernel",
+                  "ordered partial sums"),
                  ("gemm", "cuBLAS GEMMs"))
 
 
@@ -5073,6 +5204,30 @@ def main() -> int:
                       mixste243={**_sums(wgrad_cases(m243["trains"])),
                                  "launches": WGRAD_LAUNCHES["mixste243_train"]},
                       launches_by_phase={k: v for k, v in WGRAD_LAUNCHES.items()
+                                         if k not in ("train", "dhp3_train",
+                                                      "mono134_train",
+                                                      "mixste243_train")}),
+        # #6's LayerNorm backward alone (ln_bwd_kernel and its ordered pass
+        # ln_sums_kernel, ops.block_train.ln_backward) in its three forms at
+        # the float32 training shapes; launched three times by every call
+        # of block_train_bwd, as the block_train library counts them;
+        # library_ms: aten's native_layer_norm_backward with the residual
+        # add and the mask multiply
+        _kernel_entry("ln_backward", "cuda", TRAIN_SOURCE, LNB_REPLACES,
+                      LNB_LAUNCHES["train"], lnb_cases(bwd),
+                      max_rel_err=max(c["lnb_max_rel_err"] for c in bwd
+                                      if c["dtype"] == "float32"),
+                      ok=all(c["lnb_ok"] for c in bwd
+                             if c["dtype"] == "float32"),
+                      launched_by="block_train_bwd (block_train.cu steps 1, "
+                                  "6 and 12)",
+                      mono134={**_sums(lnb_cases(mono_cases)),
+                               "launches": LNB_LAUNCHES["mono134_train"]},
+                      **_dhp3(lnb_cases(dhp3_bwd),
+                              {"dhp3_train": LNB_LAUNCHES["dhp3_train"]}),
+                      mixste243={**_sums(lnb_cases(m243["trains"])),
+                                 "launches": LNB_LAUNCHES["mixste243_train"]},
+                      launches_by_phase={k: v for k, v in LNB_LAUNCHES.items()
                                          if k not in ("train", "dhp3_train",
                                                       "mono134_train",
                                                       "mixste243_train")}),

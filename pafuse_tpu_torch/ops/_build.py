@@ -74,6 +74,14 @@ KERNELS: Dict[str, Dict[str, Tuple[list, type]]] = {
         "pafuse_weight_grads_part_floats": ([_LL, _I, _I], _LL),
         "pafuse_weight_grads_chunk_rows": ([_LL, _I, _I], _LL),
         "pafuse_weight_grads": ([_P] * 4 + [_LL, _I, _I, _P], _I),
+        # the LayerNorm backward alone: rows of a CTA and partials (float
+        # count): M, C; g_bf16, x_bf16, G, X, mean, rstd, scale, R (or
+        # NULL), mask (or NULL), L, DX, DXM (or NULL), partials, dscale
+        # then dbias, M, C, stream
+        "pafuse_ln_backward_rows": ([_LL, _I], _LL),
+        "pafuse_ln_backward_part_floats": ([_LL, _I], _LL),
+        "pafuse_ln_backward": ([_I, _I] + [_P] * 7 + [_I] + [_P] * 4
+                               + [_LL, _I, _P], _I),
     },
     "block_temporal": {
         # is_bf16, x, out, qkv, attn, x1, hidden, 14 params, the attention,
@@ -131,7 +139,7 @@ LAUNCH_KINDS = ("gemm", "gemm_bf16", "split_weights", "split_weights_t",
                 "row_stats", "wgrad_wgmma", "attention_tc", "attention_wg",
                 "attention_bwd_tc", "attention_bwd_wg", "attention_bwd_pack",
                 "attention_stream", "attention_bwd_stream_a",
-                "attention_bwd_stream_b")
+                "attention_bwd_stream_b", "ln_bwd", "ln_sums")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

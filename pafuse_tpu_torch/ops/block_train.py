@@ -31,7 +31,11 @@ and their bias gradients together on the ``wgmma`` kernel of
 summed in chunk order.  ``fwd_linear``, ``data_grad`` and ``weight_grads``
 run each alone (plain versions ``fwd_linear_reference``, through which the
 plain forward runs its four products, ``data_grad_reference`` and
-``weight_grads_reference``).
+``weight_grads_reference``).  The backward's three LayerNorm backwards run
+on ``ln_bwd_kernel`` (a warp a row, 16-byte vectors, one wave of CTAs of
+:func:`ln_backward_rows` rows) and the parameter partials' fixed two-level
+sum ``ln_sums_kernel``; ``ln_backward`` runs them alone (plain
+``ln_backward_reference``).
 The attention forward and backward run on the tensor-core kernels of
 ``ops.attention_core`` in float32 (plain ``attention_core_bwd_reference``,
 through which the plain backward runs its attention backward), which take
@@ -99,6 +103,25 @@ def weight_grad_chunk_rows(M: int, N: int, K: int) -> int:
     return best[1]
 
 
+#: the LayerNorm backward's SMs a wave and warps a CTA, and its ordered
+#: pass's split (partials p = s, s + LN_SUM_SPLIT, ... summed apart, then the
+#: LN_SUM_SPLIT sums in s order), as ``csrc/block_train.cu`` sets them
+_LNB_SMS, LN_BWD_WARPS, LN_SUM_SPLIT = 132, 8, 32
+
+
+def ln_backward_rows(M: int, C: int) -> int:
+    """Rows of a CTA of the LayerNorm backward (``ln_rows`` in
+    ``csrc/block_train.cu``), a function of (M, C) alone, so the order of
+    its sums is too: a lane holds ceil(C / 128) 4-column chunks (6 or 8
+    past 512), which lets 3 CTAs share an SM up to 256 columns, 2 up to 512
+    and 1 beyond; the grid is one wave of them on 132 SMs, ceil(M / (132 *
+    CTAs)) rows each, the last CTA taking what is left."""
+    chunks = next(n for n, w in ((1, 128), (2, 256), (3, 384), (4, 512),
+                                 (6, 768), (8, 1024)) if C <= w)
+    ctas = 3 if chunks <= 2 else 2 if chunks <= 4 else 1
+    return _ceil(M, _LNB_SMS * ctas)
+
+
 def _ln_fwd(x, s, b):
     mu = x.mean(-1, keepdim=True)
     var = (x - mu).square().mean(-1, keepdim=True)
@@ -114,6 +137,26 @@ def _ln_bwd(dy, xhat, inv, s):
                 - xhat * (g * xhat).mean(-1, keepdim=True))
     rows = tuple(range(dy.dim() - 1))
     return dx, (dy * xhat).sum(rows), dy.sum(rows)
+
+
+def ln_backward_reference(g: torch.Tensor, x: torch.Tensor,
+                          mean: torch.Tensor, rstd: torch.Tensor,
+                          scale: torch.Tensor,
+                          residual: Optional[torch.Tensor] = None,
+                          mask: Optional[torch.Tensor] = None,
+                          seq_len: int = 1):
+    """Plain version of :func:`ln_backward`: ``_ln_bwd`` on the (M, C) rows
+    with xhat = (x - mean) * rstd from the saved row statistics, plus the
+    residual; returns (dx in x's dtype, dxm = mask[m // seq_len] * dx in
+    float32 or None, dscale, dbias), all arithmetic in float32."""
+    inv = rstd.float()[:, None]
+    xhat = (x.float() - mean.float()[:, None]) * inv
+    dx, ds, db = _ln_bwd(g.float(), xhat, inv, scale.float())
+    if residual is not None:
+        dx = residual.float() + dx
+    dxm = (None if mask is None
+           else mask.float().repeat_interleave(seq_len)[:, None] * dx)
+    return dx.to(x.dtype), dxm, ds, db
 
 
 def _gelu(u):
@@ -484,10 +527,90 @@ def weight_grads(d: torch.Tensor, x: torch.Tensor
     return out[:N * K].view(N, K), out[N * K:]
 
 
-#: kernel launches through the GEMM wrappers (CUDA path only)
+def _check_ln(g, x, mean, rstd, scale, residual, mask, seq_len) -> None:
+    if g.dim() != 2 or tuple(g.shape) != tuple(x.shape):
+        raise ValueError(f"ln_backward: g {tuple(g.shape)} and x "
+                         f"{tuple(x.shape)} must be the same (M, C)")
+    M, C = x.shape
+    if not 1 <= M < 2 ** 31:
+        raise ValueError(f"ln_backward: M={M} rows; the kernel takes 1 to "
+                         f"2^31 - 1")
+    want = [(g, (M, C), (torch.float32, torch.bfloat16)),
+            (x, (M, C), (torch.float32, torch.bfloat16)),
+            (mean, (M,), (torch.float32,)), (rstd, (M,), (torch.float32,)),
+            (scale, (C,), (torch.float32,))]
+    if residual is not None:
+        want.append((residual, (M, C), (torch.float32,)))
+    if mask is not None:
+        if seq_len < 1 or M % seq_len:
+            raise ValueError(f"ln_backward: seq_len {seq_len} does not divide "
+                             f"{M} rows")
+        want.append((mask, (M // seq_len,), (torch.float32,)))
+    if g.dtype == x.dtype == torch.bfloat16:
+        raise ValueError("ln_backward: g and x are not both bfloat16 in any "
+                         "call of the block's backward; one of them is "
+                         "float32")
+    for t, shape, dtypes in want:
+        if (tuple(t.shape) != shape or t.dtype not in dtypes
+                or t.device != x.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"ln_backward: expected a contiguous {shape} "
+                             f"tensor of {dtypes} on {x.device}, 16-byte "
+                             f"aligned; got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+
+
+def ln_backward(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                rstd: torch.Tensor, scale: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None, seq_len: int = 1):
+    """The backward's LayerNorm backward alone, as ``block_train.cu``'s
+    ``train_bwd`` runs it three times: (dx in x's dtype, dxm = mask[m //
+    seq_len] * dx in float32 or None, dscale, dbias) for g and x (M, C) in
+    float32 or one of them in bfloat16 (the outer norm's g and LN1's x in a
+    bfloat16 block), the row statistics mean and rstd (M,), the scale
+    (C,), a float32 residual (M, C) added to dx and a float32 mask a
+    sequence of seq_len rows.  dscale and dbias are summed per CTA of
+    :func:`ln_backward_rows` rows and then in a fixed order.  On the
+    kernels for CUDA tensors (or raise); :func:`ln_backward_reference` for
+    CPU tensors.  C must be a multiple of 8 up to 1024 on either device."""
+    C = x.shape[-1]
+    if C % 8 or C > 1024:
+        raise ValueError(f"ln_backward: C={C} must be a multiple of 8 up to "
+                         f"1024 (the kernel holds 4-column chunks of at most "
+                         f"1024 columns a row)")
+    if x.device.type == "cpu":
+        return ln_backward_reference(g, x, mean, rstd, scale, residual, mask,
+                                     seq_len)
+    if x.device.type != "cuda":
+        raise ValueError(f"ln_backward: unsupported device {x.device}")
+    _check_ln(g, x, mean, rstd, scale, residual, mask, seq_len)
+    M, C = x.shape
+    lib = _build.load("block_train")
+    dx = torch.empty_like(x)
+    dxm = None if mask is None else torch.empty(M, C, device=x.device)
+    out = torch.empty(2 * C, device=x.device)     # dscale, then dbias
+    part = torch.empty(lib.pafuse_ln_backward_part_floats(M, C),
+                       device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(x.device):
+        err = lib.pafuse_ln_backward(
+            int(g.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
+            g.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            scale.data_ptr(), ptr(residual), ptr(mask), seq_len,
+            dx.data_ptr(), ptr(dxm), part.data_ptr(), out.data_ptr(), M, C,
+            _stream(x))
+    _raise_on(err, "ln_backward")
+    _build.count_launch(ln_backward)
+    return dx, dxm, out[:C], out[C:]
+
+
+#: kernel launches through the GEMM and LayerNorm-backward wrappers (CUDA
+#: path only)
 fwd_linear.launches = 0
 data_grad.launches = 0
 weight_grads.launches = 0
+ln_backward.launches = 0
 
 
 class BlockTrainFn(torch.autograd.Function):

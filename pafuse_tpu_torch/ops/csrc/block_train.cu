@@ -68,9 +68,9 @@
 //     per fixed chunk of rows (wgrad::chunk_rows, a function of M, N and K
 //     alone) into their own partial, and a second kernel sums the partials
 //     in chunk order; the LayerNorm-parameter gradients go the same way
-//     (column sums per LNB_ROWS rows, then the ordered sum).  No float
-//     atomics and no split-K whose order varies: two identical calls give
-//     bit-identical gradients.
+//     (column sums per CTA over ln_rows(M, C) rows, then ln_sums_kernel's
+//     fixed two-level order).  No float atomics and no split-K whose order
+//     varies: two identical calls give bit-identical gradients.
 //   * No padding in device memory: L and B are taken as they are (the TPU
 //     pads L to 8 and B to the tile, and masks the pad); the attention
 //     stages pad their shared-memory tiles with zeros and mask the padded
@@ -84,9 +84,6 @@
 #include "wgrad_sm90.cuh"
 
 namespace {
-
-// rows per partial sum of a LayerNorm parameter gradient
-constexpr int LNB_ROWS = 64;
 
 struct Params {
   const float *n1s, *n1b, *wqkv, *bqkv, *wproj, *bproj, *n2s, *n2b, *wfc1, *bfc1,
@@ -157,12 +154,36 @@ struct Scratch {
   float *dx2, *dm, *du, *dh2, *dx1, *da, *dO, *dqkv, *dh1, *part, *wt;
 };
 
-long long n_chunks(long long M, int rows) { return (M + rows - 1) / rows; }
+long long n_chunks(long long M, long long rows) { return (M + rows - 1) / rows; }
+
+// ---------------------------------------------------------------------------
+// The LayerNorm backward's rows rule (ops/block_train.py's
+// ln_backward_rows is its twin).  A lane holds NCH chunks of 4 columns of a
+// row: the width class, 1, 2, 3, 4, 6 or 8 chunks for C up to 128, 256,
+// 384, 512, 768 or 1024.  lnb_ctas(NCH) CTAs of a class fit an SM (its
+// launch bound), and the grid is one wave of them on the card's 132 SMs:
+// each CTA takes ln_rows(M, C) consecutive rows, the last what is left, so
+// a call writes ln_parts(M, C) <= 396 partials whatever M is.
+// ---------------------------------------------------------------------------
+
+constexpr int LNB_THREADS = 256, LNB_WARPS = LNB_THREADS / 32, LNB_SMS = 132;
+
+constexpr int lnb_chunks(int C) {
+  return C <= 128 ? 1 : C <= 256 ? 2 : C <= 384 ? 3 : C <= 512 ? 4 : C <= 768 ? 6 : 8;
+}
+
+constexpr int lnb_ctas(int nch) { return nch <= 2 ? 3 : nch <= 4 ? 2 : 1; }
+
+long long ln_rows(long long M, int C) {
+  return n_chunks(M, (long long)LNB_SMS * lnb_ctas(lnb_chunks(C)));
+}
+
+long long ln_parts(long long M, int C) { return n_chunks(M, ln_rows(M, C)); }
 
 long long part_floats(long long M, int C, int hid) {
   // the four weight gradients (N, K): fc2, fc1, proj, qkv
   const int shapes[4][2] = {{C, hid}, {hid, C}, {C, C}, {3 * C, C}};
-  long long most = n_chunks(M, LNB_ROWS) * 2 * C;
+  long long most = ln_parts(M, C) * 2 * C;
   for (const auto& nk : shapes) {
     const long long w = wgrad::part_floats(M, nk[0], nk[1]);
     most = w > most ? w : most;
@@ -257,12 +278,11 @@ cudaError_t data_grad(const float* A, const float* wt_hi, const float* wt_lo,
 
 constexpr int RED_THREADS = 128, RED_UNROLL = 32;
 
-// out[e] = sum over p = 0, 1, ... of P[p, e], in that order: the second,
-// ordered pass.  A thread keeps the loads of RED_UNROLL parts in flight and
-// adds them one by one, so a sum over many parts of few elements (the
-// LayerNorm parameters: E = 2C over M / LNB_ROWS parts, a few hundred
-// threads on the whole card) waits one load's latency per RED_UNROLL parts,
-// not per part; the order of the additions, and so the bits, are the same.
+// out[e] = sum over p = 0, 1, ... of P[p, e], in that order: the weight
+// gradients' second, ordered pass.  A thread keeps the loads of RED_UNROLL
+// parts in flight and adds them one by one, so it waits one load's latency
+// per RED_UNROLL parts, not per part; the order of the additions, and so
+// the bits, are the same.
 __global__ void __launch_bounds__(RED_THREADS)
 reduce_partials_kernel(const float* __restrict__ P, long long nparts, long long E,
                        float* __restrict__ out) {
@@ -301,130 +321,239 @@ cudaError_t weight_grads(const float* D, const float* X, float* part, float* dwd
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm backward, LNB_ROWS rows per CTA, one warp per row at a time:
+// LayerNorm backward (block_grad.py's _ln_bwd, :55, at the TPU kernel's
+// :166, :188 and :237), one warp a row:
 //   DX = R + rstd * (g*s - mean_C(g*s) - xhat * mean_C(g*s*xhat)),
 //   DXM = mask[m / L] * DX (the masked branch gradient, when asked for),
 // and per-CTA partials P[p, 0, c] = sum of g*xhat, P[p, 1, c] = sum of g
-// over the CTA's rows (warps in fixed order), for the scale and bias
-// gradients.  xhat is recomputed from X and the saved row statistics.  A
-// lane holds MAXJ columns of a row: C <= 512 at LNB_MAXJ, C <= 1024 at
-// LNB_WIDE_MAXJ, whose warps' partials go through one shared buffer twice
-// (the scale sums, then the bias sums: the same order) to stay within the
-// 48 KB of static shared memory.
+// over the CTA's rows, for the scale and bias gradients.  xhat is
+// recomputed from X and the saved row statistics.  f32 arithmetic whatever
+// TG, TX and TO; only DX is rounded to TO.
+//
+// What bounds it: bytes.  Per element it reads G and X (and R) and writes
+// DX (and DXM), 16-20 bytes in float32, for ~12 FLOPs.  The design:
+//   * a lane owns contiguous 4-column chunks c4 = lane + 32 q (q < NCH), so
+//     every access is one 16-byte (float32) or 8-byte (bfloat16) vector, and
+//     a row's G, X and R loads are all issued before its two warp sums;
+//   * the width class NCH is a template argument: a 224- or 256-column row
+//     holds 2 chunks a lane, not 512 columns' worth of registers, and
+//     lnb_ctas(NCH) CTAs of 256 threads fit an SM (the launch bound);
+//   * one wave of ln_parts(M, C) CTAs, each ln_rows(M, C) consecutive rows,
+//     so no partly empty last wave, and at most 396 partials of 2C floats;
+//   * the scale in shared memory, read from device memory once a CTA.
+// Two rows in flight a warp, or a ring of shared memory filled by bulk
+// copies (TMA) a stage of eight rows at a time from a producer warp, were
+// no faster on the H100 (PERF.md §6); a copy of the same bytes takes ~93%
+// of its time there.  A warp takes the CTA's rows
+// warp, warp + 8, ... and sums its columns over them in that order; the
+// CTA adds its warps' sums in warp order (through shared memory: the scale
+// sums, then the bias sums).  C % 8 == 0, the tensors 16-byte aligned.
 // ---------------------------------------------------------------------------
 
-constexpr int LNB_THREADS = 256, LNB_WARPS = LNB_THREADS / 32;
-constexpr int LNB_MAXJ = 16;          // C <= 32 * LNB_MAXJ = 512
-constexpr int LNB_WIDE_MAXJ = 32;     // C <= 1024
+// 4 consecutive values of a row to and from f32: one 16-byte float32 or
+// 8-byte bfloat16 access.
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
 
-template <typename TG, typename TX, typename TO, int MAXJ>
-__global__ void __launch_bounds__(LNB_THREADS)
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
+  uint2 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+  h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+template <typename TG, typename TX, typename TO, int NCH>
+__global__ void __launch_bounds__(LNB_THREADS, lnb_ctas(NCH))
 ln_bwd_kernel(const TG* __restrict__ G, const TX* __restrict__ X,
               const float* __restrict__ mean, const float* __restrict__ rstd,
               const float* __restrict__ scale, const float* __restrict__ R,
               const float* __restrict__ mask, int L, TO* __restrict__ DX,
-              float* __restrict__ DXM, float* __restrict__ P, long long M, int C) {
-  constexpr int MAXC = 32 * MAXJ, PARTS = MAXJ > LNB_MAXJ ? 1 : 2;
-  __shared__ float red[LNB_WARPS][PARTS][MAXC];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long r0 = (long long)blockIdx.x * LNB_ROWS;
-  float ps[MAXJ], pb[MAXJ];
-#pragma unroll
-  for (int j = 0; j < MAXJ; ++j) ps[j] = pb[j] = 0.f;
+              float* __restrict__ DXM, float* __restrict__ P, long long M, int C,
+              long long rows) {
+  constexpr int W = 128 * NCH;            // the class's widest row
+  __shared__ __align__(16) float sc[W];
+  __shared__ __align__(16) float red[LNB_WARPS][W];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, chunks = C >> 2;
+  const long long r0 = (long long)blockIdx.x * rows;
+  const long long r1 = r0 + rows < M ? r0 + rows : M;
+  for (int c = threadIdx.x; c < C; c += LNB_THREADS) sc[c] = scale[c];
+  __syncthreads();
 
-  for (int r = warp; r < LNB_ROWS; r += LNB_WARPS) {
-    const long long m = r0 + r;
-    if (m >= M) break;
-    const float mu = mean[m], inv = rstd[m];
-    float gv[MAXJ], xh[MAXJ];
+  float ps[NCH][4], pb[NCH][4];
+#pragma unroll
+  for (int q = 0; q < NCH; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ps[q][e] = pb[q][e] = 0.f;
+
+  for (long long m = r0 + warp; m < r1; m += LNB_WARPS) {
+    const float mu = __ldg(mean + m), inv = __ldg(rstd + m);
+    const float mk = DXM != nullptr ? __ldg(mask + (unsigned)m / (unsigned)L) : 0.f;
+    float g[NCH][4], xh[NCH][4], rv[NCH][4];
+#pragma unroll
+    for (int q = 0; q < NCH; ++q) {
+      const int c4 = lane + 32 * q;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g[q][e] = xh[q][e] = rv[q][e] = 0.f;
+      if (c4 < chunks) {
+        load4(G + m * C + 4 * c4, g[q]);
+        load4(X + m * C + 4 * c4, xh[q]);
+        if (R != nullptr) load4(R + m * C + 4 * c4, rv[q]);
+      }
+    }
+    // g -> g*s and x -> xhat in place; the row sums and the column partials
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) {
-      const int c = lane + 32 * j;
-      gv[j] = xh[j] = 0.f;
-      if (c < C) {
-        const float dy = to_f32<TG>(G[m * C + c]);
-        const float xhat = (to_f32<TX>(X[m * C + c]) - mu) * inv;
-        const float gs = dy * scale[c];
-        gv[j] = dy;
-        xh[j] = xhat;
+    for (int q = 0; q < NCH; ++q) {
+      if (lane + 32 * q >= chunks) continue;
+      const float4 s4 = *reinterpret_cast<const float4*>(sc + 4 * (lane + 32 * q));
+      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dy = g[q][e];
+        const float xhat = (xh[q][e] - mu) * inv;
+        const float gs = dy * s[e];
+        g[q][e] = gs;
+        xh[q][e] = xhat;
         s1 += gs;
         s2 += gs * xhat;
-        ps[j] += dy * xhat;
-        pb[j] += dy;
+        ps[q][e] += dy * xhat;
+        pb[q][e] += dy;
       }
     }
     s1 = warp_sum(s1) / (float)C;
     s2 = warp_sum(s2) / (float)C;
-    const float mk = DXM != nullptr ? mask[m / L] : 0.f;
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) {
-      const int c = lane + 32 * j;
-      if (c < C) {
-        float dx = inv * (gv[j] * scale[c] - s1 - xh[j] * s2);
-        if (R != nullptr) dx += R[m * C + c];
-        DX[m * C + c] = from_f32<TO>(dx);
-        if (DXM != nullptr) DXM[m * C + c] = mk * dx;
+    for (int q = 0; q < NCH; ++q) {
+      const int c4 = lane + 32 * q;
+      if (c4 >= chunks) continue;
+      float dx[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dx[e] = inv * (g[q][e] - s1 - xh[q][e] * s2);
+        if (R != nullptr) dx[e] += rv[q][e];
+      }
+      store4(DX + m * C + 4 * c4, dx);
+      if (DXM != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dx[e] *= mk;
+        store4(DXM + m * C + 4 * c4, dx);
       }
     }
   }
 
   float* out = P + (long long)blockIdx.x * 2 * C;
-  if constexpr (PARTS == 2) {
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) {
-      const int c = lane + 32 * j;
-      if (c < C) {
-        red[warp][0][c] = ps[j];
-        red[warp][1][c] = pb[j];
-      }
+  for (int part = 0; part < 2; ++part) {
+#pragma unroll
+    for (int q = 0; q < NCH; ++q) {
+      const int c4 = lane + 32 * q;
+      if (c4 < chunks) store4(&red[warp][4 * c4], part == 0 ? ps[q] : pb[q]);
     }
     __syncthreads();
     for (int c = threadIdx.x; c < C; c += LNB_THREADS) {
-      float a = 0.f, b = 0.f;
-      for (int w = 0; w < LNB_WARPS; ++w) {
-        a += red[w][0][c];
-        b += red[w][1][c];
-      }
-      out[c] = a;
-      out[C + c] = b;
-    }
-  } else {
-    for (int part = 0; part < 2; ++part) {
+      float a = 0.f;
 #pragma unroll
-      for (int j = 0; j < MAXJ; ++j) {
-        const int c = lane + 32 * j;
-        if (c < C) red[warp][0][c] = part == 0 ? ps[j] : pb[j];
-      }
-      __syncthreads();
-      for (int c = threadIdx.x; c < C; c += LNB_THREADS) {
-        float a = 0.f;
-        for (int w = 0; w < LNB_WARPS; ++w) a += red[w][0][c];
-        out[part * C + c] = a;
-      }
-      __syncthreads();     // read before the bias sums overwrite it
+      for (int w = 0; w < LNB_WARPS; ++w) a += red[w][c];
+      out[part * C + c] = a;
     }
+    __syncthreads();     // read before the bias sums overwrite it
   }
 }
 
-// LayerNorm backward over all rows, then (dscale, dbias) into ds_db (2C
-// adjacent floats) by the ordered second pass.
+// The ordered sum of the LayerNorm partials, out[e] = the sum over p of
+// P[p, e] for E = 2C columns (dscale, then dbias), in a fixed two-level
+// order: thread (s, col) of a CTA's 32 columns adds the partials p = s, s +
+// LNS_SPLIT, s + 2 LNS_SPLIT, ... in that order, LNS_LOADS loads in flight;
+// then thread (0, col) adds the LNS_SPLIT sums in s order.  A CTA of 1024
+// threads a 32 columns: at most 396 partials make 13 loads a thread, one
+// round trip, where one thread a column waited for hundreds.
+constexpr int LNS_SPLIT = 32, LNS_THREADS = 32 * LNS_SPLIT, LNS_LOADS = 16;
+
+__global__ void __launch_bounds__(LNS_THREADS)
+ln_sums_kernel(const float* __restrict__ P, int nparts, int E, float* __restrict__ out) {
+  __shared__ float sub[LNS_SPLIT][32];
+  const int col = threadIdx.x & 31, s = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + col;
+  float acc = 0.f;
+  if (e < E) {
+    for (int p0 = s; p0 < nparts; p0 += LNS_SPLIT * LNS_LOADS) {
+      float v[LNS_LOADS];
+#pragma unroll
+      for (int u = 0; u < LNS_LOADS; ++u) {
+        const int p = p0 + u * LNS_SPLIT;
+        v[u] = p < nparts ? __ldg(P + (long long)p * E + e) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < LNS_LOADS; ++u)
+        if (p0 + u * LNS_SPLIT < nparts) acc += v[u];
+    }
+  }
+  sub[s][col] = acc;
+  __syncthreads();
+  if (s == 0 && e < E) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < LNS_SPLIT; ++k) t += sub[k][col];
+    out[e] = t;
+  }
+}
+
+template <typename TG, typename TX, typename TO, int NCH>
+cudaError_t ln_backward_n(const TG* G, const TX* X, const float* mean, const float* rstd,
+                          const float* scale, const float* R, const float* mask, int L,
+                          TO* DX, float* DXM, float* part, float* ds_db, long long M,
+                          int C, cudaStream_t stream) {
+  const long long rows = ln_rows(M, C), parts = n_chunks(M, rows);
+  ln_bwd_kernel<TG, TX, TO, NCH><<<(unsigned)parts, LNB_THREADS, 0, stream>>>(
+      G, X, mean, rstd, scale, R, mask, L, DX, DXM, part, M, C, rows);
+  const cudaError_t err = counted(LAUNCH_LN_BWD, cudaGetLastError());
+  if (err != cudaSuccess) return err;
+  ln_sums_kernel<<<(unsigned)((2 * C + 31) / 32), LNS_THREADS, 0, stream>>>(
+      part, (int)parts, 2 * C, ds_db);
+  return counted(LAUNCH_LN_SUMS, cudaGetLastError());
+}
+
+// LayerNorm backward over all M (1 to 2^31 - 1) rows of C (a multiple of
+// 8, at most 1024), then (dscale, dbias) into ds_db (2C adjacent floats)
+// by the ordered second pass; part takes ln_parts(M, C) * 2C floats.
 template <typename TG, typename TX, typename TO>
 cudaError_t ln_backward(const TG* G, const TX* X, const float* mean, const float* rstd,
                         const float* scale, const float* R, const float* mask, int L,
                         TO* DX, float* DXM, float* part, float* ds_db, long long M,
                         int C, cudaStream_t stream) {
-  const long long nch = n_chunks(M, LNB_ROWS);
-  if (C > 32 * LNB_WIDE_MAXJ) return cudaErrorInvalidValue;
-  if (C <= 32 * LNB_MAXJ)
-    ln_bwd_kernel<TG, TX, TO, LNB_MAXJ><<<(unsigned)nch, LNB_THREADS, 0, stream>>>(
-        G, X, mean, rstd, scale, R, mask, L, DX, DXM, part, M, C);
-  else
-    ln_bwd_kernel<TG, TX, TO, LNB_WIDE_MAXJ><<<(unsigned)nch, LNB_THREADS, 0, stream>>>(
-        G, X, mean, rstd, scale, R, mask, L, DX, DXM, part, M, C);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_partials(part, nch, 2LL * C, ds_db, stream);
+  if (M < 1 || M > 0x7fffffffLL || C < 8 || C % 8 || C > 1024) return cudaErrorInvalidValue;
+#define LN_BACKWARD(NCH)                                                               \
+  ln_backward_n<TG, TX, TO, NCH>(G, X, mean, rstd, scale, R, mask, L, DX, DXM, part, \
+                                 ds_db, M, C, stream)
+  switch (lnb_chunks(C)) {
+    case 1: return LN_BACKWARD(1);
+    case 2: return LN_BACKWARD(2);
+    case 3: return LN_BACKWARD(3);
+    case 4: return LN_BACKWARD(4);
+    case 6: return LN_BACKWARD(6);
+    default: return LN_BACKWARD(8);
+  }
+#undef LN_BACKWARD
 }
 
 // ---------------------------------------------------------------------------
@@ -621,6 +750,42 @@ extern "C" long long pafuse_weight_grads_chunk_rows(long long M, int N, int K) {
 extern "C" int pafuse_weight_grads(const float* D, const float* X, float* part, float* dwdb,
                                    long long M, int N, int K, void* stream) {
   return (int)weight_grads(D, X, part, dwdb, M, N, K, static_cast<cudaStream_t>(stream));
+}
+
+// The LayerNorm backward alone (for its tests and timings), in the dtypes
+// of its three calls in train_bwd: G and X float32, or one of them (g_bf16
+// or x_bf16, not both) bfloat16, DX in X's type; R (or NULL) and DXM (or
+// NULL; then mask is not read) float32; part takes
+// pafuse_ln_backward_part_floats floats, ds_db the 2C of (dscale, dbias).
+// pafuse_ln_backward_rows: the rows of a CTA, the rule the CPU emulation of
+// the tests follows.
+extern "C" long long pafuse_ln_backward_rows(long long M, int C) { return ln_rows(M, C); }
+
+extern "C" long long pafuse_ln_backward_part_floats(long long M, int C) {
+  return ln_parts(M, C) * 2 * C;
+}
+
+extern "C" int pafuse_ln_backward(int g_bf16, int x_bf16, const void* G, const void* X,
+                                  const float* mean, const float* rstd, const float* scale,
+                                  const float* R, const float* mask, int L, void* DX,
+                                  float* DXM, float* part, float* ds_db, long long M, int C,
+                                  void* stream) {
+  using B = __nv_bfloat16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g_bf16 && x_bf16) return (int)cudaErrorInvalidValue;
+  if (g_bf16)
+    return (int)ln_backward<B, float, float>(static_cast<const B*>(G),
+                                             static_cast<const float*>(X), mean, rstd, scale,
+                                             R, mask, L, static_cast<float*>(DX), DXM, part,
+                                             ds_db, M, C, st);
+  if (x_bf16)
+    return (int)ln_backward<float, B, B>(static_cast<const float*>(G), static_cast<const B*>(X),
+                                         mean, rstd, scale, R, mask, L, static_cast<B*>(DX),
+                                         DXM, part, ds_db, M, C, st);
+  return (int)ln_backward<float, float, float>(static_cast<const float*>(G),
+                                               static_cast<const float*>(X), mean, rstd, scale,
+                                               R, mask, L, static_cast<float*>(DX), DXM, part,
+                                               ds_db, M, C, st);
 }
 
 extern "C" int pafuse_block_train_fwd(

@@ -120,6 +120,8 @@ enum LaunchKind {
   LAUNCH_ATTENTION_STREAM,   // attention_sm90.cuh's attention_stream_kernel
   LAUNCH_ATTENTION_BWD_STREAM_A,  // attention_bwd_sm90.cuh's attention_bwd_stream_a_kernel
   LAUNCH_ATTENTION_BWD_STREAM_B,  // and attention_bwd_stream_b_kernel
+  LAUNCH_LN_BWD,             // block_train.cu's ln_bwd_kernel
+  LAUNCH_LN_SUMS,            // and its ordered pass, ln_sums_kernel
   LAUNCH_KINDS
 };
 

@@ -88,6 +88,9 @@ from pafuse_tpu_torch.ops.block_train import (block_train_bwd,
                                               block_train_fwd, data_grad,
                                               data_grad_reference,
                                               fwd_linear, fwd_linear_reference,
+                                              ln_backward,
+                                              ln_backward_reference,
+                                              ln_backward_rows,
                                               train_bwd_reference,
                                               train_fwd_reference,
                                               weight_grad_chunk_rows,
@@ -647,6 +650,78 @@ def test_weight_grad_chunk_rule_is_the_library_rule_on_gpu(cuda_device):
     assert got == [weight_grad_chunk_rows(*s) for s in shapes]
 
 
+#: the LayerNorm backward's three forms in train_bwd, with the dtypes a
+#: bfloat16 block gives them: the outer norm (g in bfloat16, x2 float32;
+#: dxm = mask * dx), LN2 (float32, the residual and the mask), LN1 (x and
+#: dx in bfloat16, the residual)
+LN_FORMS = {"outer": (torch.bfloat16, torch.float32, ("mask",)),
+            "ln2": (torch.float32, torch.float32, ("residual", "mask")),
+            "ln1": (torch.float32, torch.bfloat16, ("residual",))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 63, 65, 23976])
+@pytest.mark.parametrize("C", [224, 256, 288, 384, 512, 1024])
+def test_ln_backward_matches_plain_on_gpu(cuda_device, C, M):
+    """#6's LayerNorm backward alone (ln_bwd_kernel and ln_sums_kernel) in
+    each form, in float32 and in the form's bfloat16 dtypes, at every width
+    class and at M from one row to one of two CTAs a row to H3WB's body:
+    each output within 1e-5 x max|plain| (float32 sums over the row and over
+    the rows in another order), a bfloat16 dx within one bfloat16 ulp of
+    the plain value (2^-7 |plain|) plus that bound (both round float32
+    values ~1e-6 apart); each call counted once; a repeat gives the same
+    bits."""
+    L = 27 if M % 27 == 0 else 1
+    r = np.random.RandomState(C + M)
+    x, g, res = (torch.tensor(r.randn(M, C), dtype=torch.float32,
+                              device=cuda_device) for _ in range(3))
+    x = 2 * x + 0.5
+    mean, rstd = x.mean(1), torch.rsqrt(x.var(1, unbiased=False) + 1e-6)
+    scale = torch.tensor(1 + 0.1 * r.randn(C), dtype=torch.float32,
+                         device=cuda_device)
+    mask = torch.tensor(np.array([0.0, 1 / 0.9, 1.0], np.float32)[
+        np.arange(M // L) % 3], device=cuda_device)
+    for form, (gd, xd, kws) in LN_FORMS.items():
+        kw = {k: {"residual": res, "mask": mask}[k] for k in kws}
+        for dtypes in ((torch.float32, torch.float32), (gd, xd)):
+            args = (g.to(dtypes[0]), x.to(dtypes[1]), mean, rstd, scale)
+            launches = ln_backward.launches
+            got = ln_backward(*args, seq_len=L, **kw)
+            torch.cuda.synchronize()
+            assert ln_backward.launches == launches + 1
+            want = ln_backward_reference(*args, seq_len=L, **kw)
+            assert (got[1] is None) == ("mask" not in kw)
+            for i, (a, b) in enumerate(zip(got, want)):
+                if b is None:
+                    continue
+                assert a.dtype == b.dtype and a.shape == b.shape
+                d, b = (a.float() - b.float()).abs(), b.float()
+                tol = 1e-5 * float(b.abs().max())
+                if a.dtype == torch.bfloat16:
+                    assert bool(torch.all(d <= 2.0 ** -7 * b.abs() + tol)), \
+                        (form, i, float(d.max()))
+                else:
+                    assert float(d.max()) <= tol, (form, dtypes, i,
+                                                   float(d.max()) / tol)
+            again = ln_backward(*args, seq_len=L, **kw)
+            assert all(a is None or torch.equal(a, b)
+                       for a, b in zip(got, again)), (form, dtypes)
+
+
+@pytest.mark.cuda
+def test_ln_backward_rows_rule_is_the_library_rule_on_gpu(cuda_device):
+    """ops.block_train.ln_backward_rows (which the CPU emulation follows)
+    gives the rows of a CTA that the library sums by, at every width class
+    and at small, ragged and main-path M."""
+    lib = _build.load("block_train")
+    shapes = [(M, C) for C in (8, 32, 128, 136, 224, 256, 288, 384, 512, 520,
+                               768, 776, 1024)
+              for M in (1, 63, 131, 396, 397, 2381, 999 * 17, 999 * 68,
+                        130248)]
+    got = [lib.pafuse_ln_backward_rows(*s) for s in shapes]
+    assert got == [ln_backward_rows(*s) for s in shapes]
+
+
 @pytest.mark.cuda
 def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
         cuda_device):
@@ -654,8 +729,9 @@ def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
     the launches: #2 runs the wgmma GEMM twice on its two weight splits and
     the tensor-core attention once; #6 the wgmma GEMM (four data
     gradients) on four transposed weight splits, the wgmma weight- and
-    bias-gradient kernel four times and the tensor-core attention backward
-    once.  Under torch.profiler neither launches a scalar-FMA
+    bias-gradient kernel four times, the LayerNorm backward and its ordered
+    pass three times each and the tensor-core attention backward once.
+    Under torch.profiler neither launches a scalar-FMA
     GEMM, cuBLAS or any other PyTorch kernel.  #2's output is held against
     ``attention_reference`` (1e-5, the file's bound)."""
     params = _params(224, seed=4, device=cuda_device)
@@ -677,12 +753,13 @@ def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
     bwd = lambda: block_train_bwd(saved, g)  # noqa: E731
     counts = _launches(bwd, "block_train", "attention_core_bwd")
     assert counts["block_train"] == _counts(gemm=4, split_weights_t=4,
-                                            wgrad_wgmma=4), counts
+                                            wgrad_wgmma=4, ln_bwd=3,
+                                            ln_sums=3), counts
     assert counts["attention_core_bwd"] == _counts(attention_bwd_tc=1), counts
     names = _device_kernels(bwd)
     ours = ("sm90::gemm_kernel", "sm90::split_weights_t_kernel",
             "wgrad_wgmma_kernel", "attention_bwd_tc_kernel",
-            "ln_bwd_kernel", "reduce_partials_kernel")
+            "ln_bwd_kernel", "ln_sums_kernel", "reduce_partials_kernel")
     assert all(any(k in n for k in ours) for n in names), names
 
 
