@@ -73,10 +73,10 @@
    kernel the two have in common equal (the float32 GEMM's instantiations
    among them), but for the kernels whose names hold one of the
    ``--redesigned`` names.
-3. **ptxas** (``--ptxas``): registers, spill bytes and wgmma notes of the
-   kernels of PTXAS_SOURCES (the attention libraries, #6's library with the
-   LayerNorm and weight-gradient kernels, the GEMM, #1's chain), on this
-   tree.
+3. **ptxas** (``--ptxas [DIR]``): registers, spill bytes and wgmma notes
+   of the kernels of PTXAS_SOURCES (the attention libraries, #6's library
+   with the LayerNorm and weight-gradient kernels, the GEMM, #1's chain,
+   #2's), on this tree or on the checkout DIR.
 4. **Precision witness** (``--witness``): this tree's attention backward
    and its plain version in float32, each against the plain version in
    float64, at the cuda suite's 1000-token shapes (WITNESS_BWD).
@@ -723,19 +723,18 @@ def _eval_action():
     return evaluate
 
 
-def serve_section(times, dev):
-    """The bfloat16 host-clock paths: a 405-frame request of the service
-    (depth 8, P=10, T=5, buckets 1..16; the median of 3 after a warm one)
-    and the use_pallas=auto evaluation of the 76-window action (one after a
-    warm one).  Returns the evaluation of ``_eval_action()``."""
+def serve_405_ms(dev, compute_dtype="float32"):
+    """A 405-frame request of a ``LiftingService`` in ``compute_dtype``
+    (depth 8, P=10, T=5, buckets 1..16): host ms, the median of 3 after a
+    warm one."""
     import numpy as np
     import torch
     from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
     from pafuse_tpu_torch.serve import LiftingService
 
-    cfg = D3DPConfig(depth=8)
-    model = D3DP(cfg, device=dev, generator=torch.Generator().manual_seed(0),
-                 compute_dtype="bfloat16")
+    model = D3DP(D3DPConfig(depth=8), device=dev,
+                 generator=torch.Generator().manual_seed(0),
+                 compute_dtype=compute_dtype)
     svc = LiftingService(model, buckets=(1, 2, 4, 8, 16), device=dev)
     svc.warmup()
     kp = np.random.RandomState(0).uniform(-1, 1, (405, 134, 2)).astype(
@@ -747,9 +746,21 @@ def serve_section(times, dev):
         svc.lift(kp, seed=0)
         torch.cuda.synchronize()
         lat.append((time.time() - t0) * 1e3)
-    times["bf16_serve_405_ms"] = float(np.median(lat))
     svc.close()
     del svc, model
+    torch.cuda.empty_cache()
+    return float(np.median(lat))
+
+
+def serve_section(times, dev):
+    """The bfloat16 host-clock paths: a 405-frame request of the service
+    (serve_405_ms) and the use_pallas=auto evaluation of the 76-window
+    action (one after a warm one).  Returns the evaluation of
+    ``_eval_action()``."""
+    import torch
+    from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
+
+    times["bf16_serve_405_ms"] = serve_405_ms(dev, "bfloat16")
     evaluate = _eval_action()
     model = D3DP(D3DPConfig(depth=8), device=dev,
                  generator=torch.Generator().manual_seed(0),
@@ -800,26 +811,153 @@ def train_section(times, dev):
                 flop / times[f"wgrad_{model}{what}_ms"] / 1e9)
 
 
+#: the float32 GEMM's main-path shapes, (rows M, width C) a part: serve
+#: bucket 16 (16 windows x P=10 x flip x 27 frames x the part's joints; #1's
+#: spatial and temporal blocks have the same rows) and the training step's
+#: blocks (37 sequences x 27 frames x the joints; MixSTE: 4 x 243 frames x
+#: 134 joints at model.cs 512)
+GEMM_ROWS = {"serve16": ((16 * 10 * 2 * 27 * 24, 384), (16 * 10 * 2 * 27 * 68, 224),
+                         (16 * 10 * 2 * 27 * 42, 256)),
+             "h3wb": ((999 * 24, 384), (999 * 68, 224), (999 * 42, 256)),
+             "mixste": ((4 * 243 * 134, 512),)}
+
+
+def gemm_section(times, digests, dev):
+    """The float32 wgmma GEMM alone (gemm_sm90.cuh's gemm_kernel, with the
+    weight split and row statistics its wrappers launch) on seeded inputs at
+    GEMM_ROWS: ``ops.gemm.fused_linear`` at serve bucket 16's four stages of
+    each part (qkv with the LayerNorm, proj + residual, fc1 with the
+    LayerNorm and GELU, fc2 + residual: the chain's products of #1, #3, #4),
+    ``ops.block_train.fwd_linear`` at the training shapes' four forward
+    products (#5: store, mask-scaled residual, the pair (u, gelu(u)),
+    residual) and ``data_grad`` at their four data gradients (#6: fc2's
+    with gelu'(u), fc1's, proj's, qkv's).  Each stage: device ms, TFLOP/s (2
+    M N K, three TF32 products counted once), the bound (max of the FLOPs at
+    165 TFLOP/s and the bytes at 3.35 TB/s: A, W, b, R and the outputs once)
+    and cuBLAS's float32 ``F.linear`` (or ``a @ w``) at the same shape; the
+    sums a group; a hash of each output (one seeded call)."""
+    import hashlib
+    import torch
+    import torch.nn.functional as F
+    from pafuse_tpu_torch.ops.block_train import data_grad, fwd_linear
+    from pafuse_tpu_torch.ops.gemm import fused_linear
+
+    def row(key, fn, lib, M, N, K, extra_mn):
+        """extra_mn: the M x N arrays besides Y (R, aux, Y2)"""
+        out = fn()
+        h = hashlib.sha256()
+        for t in out if isinstance(out, tuple) else (out,):
+            h.update(t.float().contiguous().cpu().numpy().tobytes())
+        digests[key] = h.hexdigest()[:16]
+        del out
+        flop = 2 * M * N * K
+        nbytes = 4 * (M * K + N * K + N + (1 + extra_mn) * M * N)
+        ms, lib_ms = _cuda_ms(fn), _cuda_ms(lib)
+        bound = max(flop / 165e12, nbytes / 3.35e12) * 1e3
+        group = key.rsplit("_", 2)[0]
+        for k, v in (("ms", ms), ("cublas_ms", lib_ms), ("bound_ms", bound),
+                     ("flop", flop)):
+            times[f"{key}_{k}"] = v
+            times[f"{group}_{k}"] = times.get(f"{group}_{k}", 0.0) + v
+        times[f"{key}_tflops"] = flop / ms / 1e9
+
+    for model, rows in GEMM_ROWS.items():
+        for i, (M, C) in enumerate(rows):
+            part = ("body", "face", "hands")[i] if model != "mixste" else "block"
+            gen = torch.Generator(device=dev).manual_seed(1100 + 10 * i + len(model))
+            p = _block_params(C, 1200 + 10 * i + len(model), dev)
+            a = {K: torch.randn(M, K, generator=gen, device=dev) for K in (C, 2 * C, 3 * C)}
+            r = torch.randn(M, C, generator=gen, device=dev)
+            if model == "serve16":
+                for stage, w, b, ln, epi in (("qkv", p[2], p[3], p[0:2], "store"),
+                                             ("proj", p[4], p[5], None, "residual"),
+                                             ("fc1", p[8], p[9], p[6:8], "gelu"),
+                                             ("fc2", p[10], p[11], None, "residual")):
+                    N, K = w.shape
+                    res = r if epi == "residual" else None
+                    row(f"gemm_serve16_{part}_{stage}",
+                        lambda: fused_linear(a[K], w, b, ln, epi, res),
+                        lambda: F.linear(a[K], w, b), M, N, K, epi == "residual")
+            else:
+                mask = torch.tensor([0.0, 1 / 0.9, 1.0], device=dev)[
+                    torch.arange(M // 27 if model == "h3wb" else M // 134, device=dev) % 3]
+                L = 27 if model == "h3wb" else 134
+                for stage, w, b, epi in (("qkv", p[2], p[3], "store"),
+                                         ("proj", p[4], p[5], "residual"),
+                                         ("fc1", p[8], p[9], "gelu"),
+                                         ("fc2", p[10], p[11], "residual")):
+                    N, K = w.shape
+                    res = r if epi == "residual" else None
+                    row(f"gemm_{model}fwd_{part}_{stage}",
+                        lambda: fwd_linear(a[K], w, b, epi, res, mask, L),
+                        lambda: F.linear(a[K], w, b), M, N, K,
+                        {"store": 0, "residual": 1, "gelu": 1}[epi])
+                u = torch.randn(M, 2 * C, generator=gen, device=dev)
+                for stage, w, aux in (("fc2", p[10], u), ("fc1", p[8], None),
+                                      ("proj", p[4], None), ("qkv", p[2], None)):
+                    K, N = w.shape
+                    row(f"gemm_{model}dgrad_{part}_{stage}",
+                        lambda: data_grad(a[K], w, aux), lambda: a[K] @ w, M, N, K,
+                        aux is not None)
+                del u, mask
+            del a, r
+            torch.cuda.empty_cache()
+    for key in [k for k in times if k.startswith("gemm_") and k.endswith("_flop")]:
+        base = key[:-len("_flop")]
+        flop = times.pop(key)
+        if f"{base}_tflops" not in times:           # a group's sums
+            times[f"{base}_tflops"] = flop / times[f"{base}_ms"] / 1e9
+            times[f"{base}_cublas_tflops"] = flop / times[f"{base}_cublas_ms"] / 1e9
+
+
+def _tracer():
+    """This tree's chip_smoke.py as a module of its own name (a worker's
+    ``import chip_smoke`` finds the tree under test's, whose groups name
+    its kernels; the tracer is this tree's)."""
+    import importlib.util
+    mod = sys.modules.get("chip_ab_tracer")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "chip_ab_tracer", os.path.join(HERE, "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["chip_ab_tracer"] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
 def traced_groups(run):
     """``run()`` (a training step ending in its loss) once under
-    torch.profiler: its device ms by the tree's chip_smoke.py kernel groups
-    (TRAIN_GROUPS, then KERNEL_GROUPS), largest first, and their sum as
-    "device"."""
+    torch.profiler, read by this tree's chip_smoke.traced (device kernels,
+    copies and fills, not the GPU user annotations; each kind of the port's
+    kernels against its libraries' counts, every launch call against the
+    kernels): its device ms by the tree's chip_smoke.py kernel groups
+    (TRAIN_GROUPS, then KERNEL_GROUPS), largest first, their sum as
+    "device", the idle share of the run's host time, and beside them what
+    the reading before this tracer added (the annotations' ms and the idle
+    share with them counted).  A profile that dropped kernels is taken once
+    more; if that one drops kernels too, only {"dropped": ...} is
+    returned."""
     import chip_smoke
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+    tracer = _tracer()
+    for _ in range(2):
+        events, dropped, wall_ms, annotations = tracer.traced(run)
+        if not dropped:
+            break
+    if dropped:
+        return {"dropped": dropped}
     groups = {}
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0):
-            g = chip_smoke.kernel_group(e.key, chip_smoke.TRAIN_GROUPS,
-                                        "PyTorch (embedding, head, loss, AdamW)")
-            groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    for key, (ms, _) in events.items():
+        g = chip_smoke.kernel_group(key, chip_smoke.TRAIN_GROUPS,
+                                    "PyTorch (embedding, head, loss, AdamW)")
+        groups[g] = groups.get(g, 0.0) + ms
+    groups = dict(sorted(groups.items(), key=lambda kv: -kv[1]))
     groups["device"] = sum(groups.values())
-    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+    groups["idle_share"] = 1 - groups["device"] / wall_ms
+    # the reading before the repair counted the annotations as device time
+    groups["user_annotations"] = sum(ms for ms, _ in annotations.values())
+    groups["idle_share_with_annotations"] = 1 - (
+        groups["device"] + groups["user_annotations"]) / wall_ms
+    return groups
 
 
 def train_step_section(times, digests, dev, traced=False):
@@ -919,7 +1057,7 @@ def kernels_worker(mode: str, only=None):
     parts = [(name, len(j), PART_CHANNELS[name])
              for name, j in parts_table(True).items()]
     times, digests = {}, {}
-    timed = only not in ("train", "resident")
+    timed = only not in ("train", "resident", "gemm")
 
     def add(key, ms):
         times[key] = times.get(key, 0.0) + ms
@@ -1018,6 +1156,14 @@ def kernels_worker(mode: str, only=None):
     if timed:
         times["gemm_bfloat16_tflops"] = (times.pop("gemm_bfloat16_flop")
                                          / times["gemm_bfloat16_ms"] / 1e9)
+    elif only == "gemm":
+        gemm_section(times, digests, dev)
+        times["serve_405_float32_ms"] = serve_405_ms(dev)
+        train_step_section(times, digests, dev, traced=True)
+        mixste_section(times, digests, dev, traced=True)
+        emit({"kernels_ab": mode, "times": times, "float32_digests": digests,
+              **{k: times.pop(k) for k in TRACED}})
+        return
     elif only == "resident":
         routes = resident_section(times, digests, dev)
         times["ordered_sums_bound_ms"] = ordered_sums_bound_ms()
@@ -1128,9 +1274,10 @@ def sass_compare(other: str):
 
 #: the sources whose kernels --ptxas reports: the attention libraries, #6's
 #: (block_train.cu: the LayerNorm kernels, the weight-gradient kernel and
-#: the GEMM's instantiations it holds), the GEMM alone and #1's chain
+#: the GEMM's instantiations it holds), the GEMM alone, #1's chain and #2's
+#: (attention.cu: the GEMM with a bf16 output of a float32 A)
 PTXAS_SOURCES = ("attention_core", "attention_core_bwd", "block_train", "gemm",
-                 "block")
+                 "block", "attention")
 
 
 def _kernel_names(nvcc, mangled):
@@ -1157,22 +1304,24 @@ def _kernel_names(nvcc, mangled):
     return names
 
 
-def ptxas_report(sources=PTXAS_SOURCES):
+def ptxas_report(sources=PTXAS_SOURCES, root=HERE):
     """Registers, spill bytes and the wgmma notes (C7517 injected waits,
     C7518 and C7520 serialisations) that ``nvcc -Xptxas -v`` gives for each
-    kernel of ``sources`` (the build's flags, sm_90a), all compiled at once;
-    keyed "<source>.cu: <kernel>"."""
+    kernel of ``sources`` of the tree at ``root`` (the build's flags,
+    sm_90a), all compiled at once; keyed "<source>.cu: <kernel>"."""
     from pafuse_tpu_torch.ops import _build
 
     nvcc = _build._nvcc()
-    out = os.path.join(HERE, "build", "chip_ab_ptxas")
+    root = os.path.abspath(root)
+    out = os.path.join(HERE, "build", "chip_ab_ptxas",
+                       "change" if root == HERE else os.path.basename(root))
     os.makedirs(out, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     procs = {name: subprocess.Popen(
         [nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o",
          os.path.join(out, f"{name}.cubin"),
-         os.path.join(HERE, "pafuse_tpu_torch", "ops", "csrc", f"{name}.cu")],
+         os.path.join(root, "pafuse_tpu_torch", "ops", "csrc", f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name in sources}
     found = {}
@@ -1197,7 +1346,7 @@ def ptxas_report(sources=PTXAS_SOURCES):
                 found.setdefault((name, m.group(3)), {"notes": []})["notes"].append(
                     m.group(1))
     names = _kernel_names(nvcc, sorted({k for _, k in found}))
-    return {"phase": "ptxas",
+    return {"phase": "ptxas", "tree": root,
             "kernels": {f"{src}.cu: {names[k]}": v for (src, k), v in sorted(found.items())}}
 
 
@@ -1281,6 +1430,16 @@ def kernels_summary(results, changed=()):
         out[key] = row
     traced = {name: {mode: [r[name] for r in rs if name in r]
                      for mode, rs in runs.items()} for name in TRACED}
+    # each group's median over a tree's profiles that dropped no kernel
+    medians = {}
+    for name, t in traced.items():
+        for mode, profiles in t.items():
+            whole = [g for g in profiles if "dropped" not in g]
+            for group in {k for g in whole for k in g}:
+                vals = sorted(g.get(group, 0.0) for g in whole)
+                medians.setdefault(f"{name}_median", {}).setdefault(mode, {})[group] = (
+                    vals[len(vals) // 2] if len(vals) % 2
+                    else (vals[len(vals) // 2 - 1] + vals[len(vals) // 2]) / 2)
     keys = runs["change"][0]["float32_digests"]
     same = {k: len({r["float32_digests"][k] for rs in runs.values()
                     for r in rs}) == 1 for k in keys}
@@ -1291,6 +1450,7 @@ def kernels_summary(results, changed=()):
     return {"phase": "kernels_ab", "metrics": out,
             **{name: {k: v for k, v in t.items() if v}
                for name, t in traced.items()},
+            **medians,
             "float32_bit_identical": all(kept.values()),
             "float32_outputs_differing": sorted(k for k, v in same.items()
                                                 if not v),
@@ -1366,7 +1526,7 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3,
                     help="kernel A/B processes a tree")
     ap.add_argument("--only", choices=("streamed", "serve", "train", "resident",
-                                       "stages"),
+                                       "stages", "gemm"),
                     help="time the streamed attention kernels and MixSTE's "
                          "steps alone, the bfloat16 request and "
                          "evaluation alone, or #6's weight-gradient stage, "
@@ -1376,7 +1536,11 @@ def main() -> int:
                          "main-path shapes (RESIDENT_BWD, RESIDENT_FWD) with "
                          "the float32 hashes of #1-#6, the H3WB step (and a "
                          "profiled one) and MixSTE's steps; 'stages': those "
-                         "stages alone")
+                         "stages alone; 'gemm': the float32 GEMM alone at "
+                         "GEMM_ROWS beside cuBLAS, with the float32 hashes of "
+                         "#1-#6, the float32 405-frame serve request, the "
+                         "H3WB step (and a profiled one) and MixSTE's steps "
+                         "(and a profiled one)")
     ap.add_argument("--alt", metavar="DIR",
                     help="with --kernels, a third checkout timed in the same "
                          "turns (e.g. this tree with one part of the change "
@@ -1384,9 +1548,10 @@ def main() -> int:
     ap.add_argument("--route-tree", nargs=2, metavar=("NAME", "DIR"),
                     help="write this tree with ROUTE_PATCHES[NAME] applied to "
                          "DIR first (e.g. for --alt DIR)")
-    ap.add_argument("--ptxas", action="store_true",
+    ap.add_argument("--ptxas", nargs="?", const=HERE, metavar="DIR",
                     help="registers, spills and wgmma notes of the kernels of "
-                         "PTXAS_SOURCES from nvcc -Xptxas -v, on this tree")
+                         "PTXAS_SOURCES from nvcc -Xptxas -v, on this tree "
+                         "(or on the checkout DIR)")
     ap.add_argument("--witness", action="store_true",
                     help="the attention backward's float32 results against "
                          "float64 at WITNESS_BWD, on this tree")
@@ -1448,7 +1613,7 @@ def main() -> int:
     if args.witness:
         emit(witness())
     if args.ptxas:
-        emit(ptxas_report())
+        emit(ptxas_report(root=args.ptxas))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1403,7 +1403,7 @@ def serve_profile_phase(svc, modes, seed: int):
                               request="405 frames", service=label)
         if service.device.type == "cuda" and fused_block.launches == 0:
             raise AssertionError("serve_profile: kernel #1 did not launch")
-        if (service.device.type == "cuda"
+        if (service.device.type == "cuda" and groups is not None
                 and groups.get(ATTN_CORE_GROUP, 0.0) <= 0.0):
             raise AssertionError(f"serve_profile: kernel #1's attention is "
                                  f"not the tensor-core kernel: {groups}")
@@ -2043,7 +2043,7 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
                               phase=f"{phase}_profile", names=TRAIN_GROUPS)
         expected = (ATTN_BWD_GROUP,) if profile_groups is None else profile_groups
         missing = ({g for _, g in TRAIN_GROUPS[:2]} | {ATTN_CORE_GROUP}
-                   | set(expected)) - set(groups)
+                   | set(expected)) - set(groups or {})
         if groups and missing:
             raise AssertionError(f"{phase}: the profile shows no {missing}: "
                                  f"{sorted(groups)}")
@@ -2173,39 +2173,117 @@ def kernel_group(key, names=(), rest=None):
                  if re.search(pat, key)), rest)
 
 
-def profile_step(run_step, phase="train_profile",
-                 rest="PyTorch (embedding, head, loss, AdamW)", names=(),
-                 **fields):
-    """``run_step`` under torch.profiler: device time by kernel group (the
-    port's kernels by source pattern, ``names`` before KERNEL_GROUPS,
-    PyTorch's copy kernels, cuBLAS, the rest as ``rest``), the copies'
-    device time and the device's idle share of its wall time (host clock,
-    profiler overhead included), emitted with ``fields``.  ``run_step``
-    ends by reading a result from the device."""
+#: the CUDA runtime and driver calls that launch a kernel, as the profiler
+#: names them on the host
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+
+
+def library_launches():
+    """The kernel launches that the port's libraries counted where they
+    launched them, by kind (``ops._build.LAUNCH_KINDS``), summed over every
+    library."""
+    from pafuse_tpu_torch.ops import _build
+    total = {}
+    for name in _build.KERNELS:
+        for kind, n in _build.kernel_launches(name).items():
+            total[kind] = total.get(kind, 0) + n
+    return total
+
+
+def traced(run):
+    """``run()`` once under torch.profiler (host and device): returns (the
+    profile's device events by name as {name: (device ms, count)}, what it
+    dropped, the host ms of the run, profiler overhead included, and the
+    annotations left out, as the events).
+
+    The device events are kernels, copies and fills; not the GPU user
+    annotations (a host range such as ``Optimizer.step#AdamW.step`` drawn
+    on the device's timeline, which holds no work of its own).  A profile
+    can lose kernel records (late profiles of a long process do), so each
+    is counted against an independent tally: what the port's libraries counted during the run
+    (library_launches, read before and after; the counts are not zeroed),
+    kind by kind against the profile's kernels of that name; and every
+    launch call the host made (the port's, PyTorch's and cuBLAS's) against
+    the profile's kernels (dropped_kernels: {} when the profile is
+    whole)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
+    before = library_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run_step()
+        run()
+        torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    counted = {k: n - before[k] for k, n in library_launches().items()}
+    avgs = prof.key_averages()
+    host = {e.key for e in avgs if e.device_type == cpu}
+    events, annotations = {}, {}
+    for e in avgs:
+        if e.device_type == cuda and e.self_device_time_total > 0:
+            into = (annotations if getattr(e, "is_user_annotation", False)
+                    or e.key in host else events)
+            into[e.key] = (e.self_device_time_total / 1e3, e.count)
+    calls = sum(e.count for e in avgs
+                if e.device_type == cpu and e.key in LAUNCH_CALLS)
+    return events, dropped_kernels(events, counted, calls), wall_ms, annotations
+
+
+def dropped_kernels(events, counted, calls):
+    """What a profile dropped: for each kind of ``counted`` (the launches
+    the port's libraries counted, by ``ops._build.LAUNCH_KINDS``), the
+    launches beyond the profile's kernels named "<kind>_kernel", and the
+    host's ``calls`` of LAUNCH_CALLS beyond all its kernels ("launch
+    calls"); ``events``: {name: (device ms, count)}, whose copies and fills
+    (Memcpy, Memset) are no kernels.  {} when nothing is missing."""
+    kernels = {k: c for k, (_, c) in events.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    dropped = {}
+    for kind, n in counted.items():
+        seen = sum(c for k, c in kernels.items()
+                   if re.search(rf"\b{kind}_kernel\b", k))
+        if seen < n:
+            dropped[kind] = n - seen
+    if sum(kernels.values()) < calls:
+        dropped["launch calls"] = calls - sum(kernels.values())
+    return dropped
+
+
+def profile_step(run_step, phase="train_profile",
+                 rest="PyTorch (embedding, head, loss, AdamW)", names=(),
+                 **fields):
+    """``run_step`` under torch.profiler (``traced``): device time by kernel
+    group (the port's kernels by source pattern, ``names`` before
+    KERNEL_GROUPS, PyTorch's copy kernels, cuBLAS, the rest as ``rest``),
+    the copies' device time and the device's idle share of its wall time
+    (host clock, profiler overhead included), emitted with ``fields``.  A
+    profile that dropped kernels is taken once more; if that one drops
+    kernels too, it is reported as such, unread, and None is returned.
+    ``run_step`` ends by reading a result from the device."""
+    for attempt in range(2):
+        events, dropped, wall_ms, _ = traced(run_step)
+        if not dropped:
+            break
+        emit({"phase": phase, **fields, "attempt": attempt,
+              "profile": "dropped kernels", "dropped": dropped})
+    if dropped:
+        return None
     groups = {}
-    for e in kernels:
-        group = kernel_group(e.key, names, rest)
-        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+    for key, (ms, _) in events.items():
+        group = kernel_group(key, names, rest)
+        groups[group] = groups.get(group, 0.0) + ms
     device_ms = sum(groups.values())
     emit({"phase": phase, **fields, "wall_ms": wall_ms,
-          "device_ms": device_ms if kernels else "not measured",
-          "copies_ms": groups.get(COPY_GROUP, 0.0) if kernels
+          "device_ms": device_ms if events else "not measured",
+          "copies_ms": groups.get(COPY_GROUP, 0.0) if events
           else "not measured",
-          "idle_share": 1 - device_ms / wall_ms if kernels else "not measured",
+          "idle_share": 1 - device_ms / wall_ms if events else "not measured",
           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-          "kernel_launches": sum(e.count for e in kernels)})
+          "kernel_launches": sum(c for _, c in events.values())})
     return groups
 
 

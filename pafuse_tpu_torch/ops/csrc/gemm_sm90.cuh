@@ -37,27 +37,41 @@
 //
 // Design, float32 (gemm_kernel).  A persistent CTA per SM walks 128 x BN
 // output tiles (BN = 128, or 112 where N is a multiple of 112 and not of
-// 128: the face widths 224, 448, 672 tile without waste) with 288 threads:
-// two consumer warpgroups of 64 rows each and one producer warp.  The
-// producer's lane 0 keeps a ring of three stages of 128-byte-swizzled
-// shared-memory slices full with TMA loads (the A slice, 128 rows x 128
-// bytes, and the weight slices' hi and lo, BN rows x 128 bytes each),
-// completed on mbarriers, running ahead into the next tile while the
-// consumers store.  A consumer warpgroup makes its 64 rows of each A slice
-// the product's operand in shared memory (the LayerNorm from a pre-pass's
-// row statistics, row_stats_kernel, and the TF32 split: hi in place, lo
-// beside it), then issues shared-memory wgmmas into partial sums,
-// preparing the next slice while they run.  The partial sums of each pair
-// of slices (24 TF32 wgmmas) are added to the accumulators in f32 FADDs,
-// because the tensor cores' f32 accumulation truncates: summed over a
-// whole K of 768 in the tensor cores, the error reached ~1e-5 of O(1)
-// outputs on an H100 80GB HBM3 (700 W).  With 288 threads a thread may
-// hold 224 registers; the accumulators and partial sums take 128 (BN =
-// 128), and nothing spills.  The epilogue stores from the accumulators and
-// masks rows >= M and columns >= N.
-//
-// Design, bfloat16 (gemm_bf16_kernel, below): the same CTA and ring, but
-// a pure TMA -> wgmma loop (a LayerNorm is a rounding pre-pass, ln_gemm),
+// 128: the face widths 224, 448, 672 tile without waste) with 384 threads:
+// two consumer warpgroups of 64 rows each at 232 registers a thread and a
+// producer warpgroup at 40 (setmaxnreg; a 288-thread CTA gets 168 a thread,
+// and the accumulators, the partial sums and the fragments spilled there).
+// The producer's thread 256 keeps a ring of three 48 KB stages full with
+// TMA loads, completed on mbarriers and running ahead into the next tile:
+// the raw A slice (128 rows x 128 bytes) and the weight slices' TF32 hi and
+// lo (BN rows x 128 bytes each), 128-byte swizzled.  A consumer reads its
+// wgmma A fragments straight from the raw slice into registers (rows g and
+// g + 8 at k columns t and t + 4 of a k-step: 32 distinct banks under the
+// swizzle), applies the LayerNorm of its two rows (row_stats_kernel's
+// statistics), splits hi and lo in registers and issues the register-A
+// (RS) form of the TF32 wgmma against the weight tiles: three products a
+// k-step, smallest first, one commit group a k-step, two in flight (the
+// fragment sets alternate).  A slice then moves 48 KB in by TMA, 16 KB of
+// fragment reads and 96 KB of weight reads by the wgmmas (~1250 cycles at
+// 128 bytes a cycle, under its 1536 tensor-core cycles), where the split in
+// shared memory moved ~240 KB.  The partial sums of each pair of slices
+// (24 TF32 wgmmas) are added to the accumulators in f32 FADDs, because the
+// tensor cores' f32 accumulation truncates: summed over a whole K of 768
+// in the tensor cores, the error reached ~1e-5 of O(1) outputs on an H100
+// 80GB HBM3 (700 W).  No branch on the thread lies between a wgmma's issue
+// and its wait (the stages go back by predicated arrivals) and no control
+// flow joins while one is in flight (the pairs and an odd last slice each
+// end in their drain), so ptxas serialises none of them (no C7517, C7518
+// or C7520).  The epilogue writes the tile, biased, activated and rounded
+// to TY, into a 64 KB shared buffer (16-column blocks, 64- or 32-byte
+// swizzled); one thread of each warpgroup stores its 64 rows with TMA bulk
+// stores, clipped at M and N, which drain while the next tile's products
+// run.  R, which a residual or GELU' epilogue reads, is fetched into L2
+// when the tile starts and read by the consumers where they add it.
+
+// Design, bfloat16 (gemm_bf16_kernel, below): the same tiles and ring on
+// 288 threads (a producer warp), as many stages as fit beside the output
+// tile, a pure TMA -> wgmma loop (a LayerNorm is a rounding pre-pass, ln_gemm),
 // one f32 accumulator over the whole K with one wgmma group in flight
 // (the truncating accumulation's ~1e-5 at K = 768 is under 1/700 of a
 // bf16 ulp at 1.0),
@@ -73,18 +87,16 @@
 // is linked) and passed as __grid_constant__ parameters; a failed encode is
 // returned as an error.
 //
-// What it reaches (chip_smoke.py's gemm_kernel phase, the four stages of
-// each part at serve bucket 16, summed; H100 80GB HBM3 at 700 W): float32
-// ~45-74 TFLOP/s of float32-accurate products, a third to a half of the
-// 165 TFLOP/s bound, ahead of cuBLAS SGEMM (~47 TFLOP/s); bf16 ~255
-// TFLOP/s with the weight split and the LayerNorm pre-passes (113 before
-// this design; chip_ab.py's kernel A/B), ~315 for the GEMM kernels alone
-// (kernel #1's four GEMMs in chip_smoke.py's kernel_stages), four fifths
-// of cuBLAS's F.linear (PERF.md section 6).
-// By count, a CTA's f32 slice moves ~240 KB through shared memory (TMA,
-// the split, wgmma reading both operands): ~1900 cycles at 128 bytes a
-// cycle, more than the slice's 1536 tensor-core cycles, so A taken from
-// registers is the next step there.
+// What it reaches (the four stages of each part at serve bucket 16,
+// summed; H100 80GB HBM3 at 700 W): float32 94 TFLOP/s of float32-accurate
+// products (56 in the design before, which split A in shared memory on 288
+// threads), 57% of the 165 TFLOP/s bound, 2x cuBLAS SGEMM (47 TFLOP/s);
+// #5's and #6's training products 84-122 (chip_ab.py --only gemm, PERF.md
+// section 6); ptxas reports no serialised wgmma, and 4-8 spill bytes only
+// in the two EPI_NONE instantiations.  bf16 ~255 TFLOP/s with the weight split
+// and the LayerNorm pre-passes (113 before this design; chip_ab.py's kernel
+// A/B), ~315 for the GEMM kernels alone (kernel #1's four GEMMs in
+// chip_smoke.py's kernel_stages), four fifths of cuBLAS's F.linear.
 
 #pragma once
 
@@ -98,25 +110,36 @@ namespace {
 namespace sm90 {
 
 constexpr int BM = 128;               // rows per CTA: two consumer warpgroups
-constexpr int THREADS = 288;          // two consumer warpgroups + producer warp
+constexpr int THREADS = 288;          // bf16: two consumer warpgroups + producer warp
+// f32: two consumer warpgroups at CONSUMER_REGS registers and a producer
+// warpgroup at PRODUCER_REGS (setmaxnreg; 256 x 232 + 128 x 40 <= 64K): a
+// 288-thread CTA is allotted registers as 384 threads, 168 a thread
+constexpr int F32_THREADS = 384;
+constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
 constexpr int SLICE_BYTES = 128;      // K bytes per slice: one swizzle row
 constexpr int A_TILE = BM * SLICE_BYTES;        // 16 KB
 constexpr int W_TILE = 128 * SLICE_BYTES;       // room for BN <= 128 rows
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_LN_K = 1024;        // LayerNorm prologue: K <= MAX_LN_K
+constexpr int SMEM_LIMIT = 232448;    // shared memory a CTA may use on sm_90
 
-// A stage of the f32 kernel holds the A slice (its TF32 hi half in place of
-// the values and the lo half beside it) and the weight slices (hi and lo);
-// for bf16 only BK and NT are read (the operand maps, the weight split).
+// A stage of the f32 kernel holds the raw A slice and the weight slices (hi
+// and lo); for bf16 only BK and NT are read (the operand maps, the weight
+// split).
 template <typename T> struct Cfg {
   static constexpr int BK = SLICE_BYTES / (int)sizeof(T);   // 32 f32, 64 bf16
-  static constexpr int NT = sizeof(T) == 4 ? 2 : 1;         // tiles per operand
-  static constexpr int W_OFF = NT * A_TILE;
-  static constexpr int STAGE = NT * (A_TILE + W_TILE);
+  static constexpr int NT = sizeof(T) == 4 ? 2 : 1;         // weight tiles: hi (and lo)
+  static constexpr int W_OFF = A_TILE;
+  static constexpr int STAGE = A_TILE + NT * W_TILE;         // f32: 48 KB
   static constexpr int STAGES = 3;
-  // stages, LayerNorm scale and bias, barriers, 1 KB for the alignment
-  static constexpr int SMEM = STAGES * STAGE + 2 * MAX_LN_K * 4 + 2 * MAX_STAGES * 8 + 1024;
+  static constexpr int BUF = BM * 128 * 4;                   // the output tile: 64 KB
+  // stages, the output tile, LayerNorm scale and bias, barriers, 1 KB for
+  // the alignment
+  static constexpr int SMEM =
+      STAGES * STAGE + BUF + 2 * MAX_LN_K * 4 + 2 * MAX_STAGES * 8 + 1024;
 };
+
+static_assert(Cfg<float>::SMEM <= SMEM_LIMIT, "the f32 ring and tile must fit a CTA");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -140,6 +163,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// mbar_arrive when p, predicated rather than branched on the thread: a
+// branch on the lane between a wgmma's issue and its wait makes ptxas
+// serialise the wgmmas (C7518)
+__device__ __forceinline__ void arrive_if(uint64_t* bar, bool p) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}" ::"r"(smem_u32(bar)),
+      "r"((int)p)
+      : "memory");
 }
 
 // Wait for the phase of `parity` to complete.  A wait that lasts ~10 s
@@ -170,12 +204,42 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// the committed bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
 // wgmma descriptor of a K-major operand tile in 128-byte-swizzled shared
 // memory: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the tile
 // 1024-byte aligned; stepping 32 bytes along K adds 2 to the address field.
-__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+__device__ __forceinline__ uint64_t smem_desc_u32(uint32_t tile) {
+  return (uint64_t)((tile & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
+  return smem_desc_u32(smem_u32(tile));
+}
+
+// a float from shared memory at a 32-bit shared address, in program order
+// with the wgmmas and their waits (volatile asm is not moved across them)
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+  return v;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -192,38 +256,57 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-#define PAFUSE_D56                                                                     \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
-  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
-  "%50, %51, %52, %53, %54, %55"
+// d[BN/2] = A(64 x 8) * B(8 x BN) + (scale_d ? d : 0) in TF32 (m64nBNk8): A
+// from this thread's registers a0..a3 (mma.sync m16n8k8's A layout on its
+// warp's 16 rows: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// for lane 4 g + t), B K-major in 128-byte-swizzled shared memory (b): the
+// f32 GEMM's product and the weight gradients' (wgrad_sm90.cuh).
+template <int BN> struct WgmmaRs;
 
-// d[BN/2] = A(64 x 8) * B(8 x BN) + (scale_d ? d : 0) in TF32 (m64nBNk8),
-// both operands K-major in 128-byte-swizzled shared memory (descriptors a
-// and b): the f32 kernel's product.
-template <int BN> struct Wgmma;
-
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void tf32(float* d, uint64_t a, uint64_t b, int scale_d) {
+template <> struct WgmmaRs<128> {
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t (&a)[4], uint64_t b,
+                                              int scale_d) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " PAFUSE_D56
-        ", %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}"
-        : PAFUSE_F8(0), PAFUSE_F8(8), PAFUSE_F8(16), PAFUSE_F8(24), PAFUSE_F8(32),
-          PAFUSE_F8(40), PAFUSE_F8(48), PAFUSE_F8(56)
-        : "l"(a), "l"(b), "r"(scale_d));
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+        "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}"
+        : PAFUSE_F8(0), PAFUSE_F8(8), PAFUSE_F8(16), PAFUSE_F8(24),
+          PAFUSE_F8(32), PAFUSE_F8(40), PAFUSE_F8(48), PAFUSE_F8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
-template <> struct Wgmma<112> {
-  static __device__ __forceinline__ void tf32(float* d, uint64_t a, uint64_t b, int scale_d) {
+template <> struct WgmmaRs<112> {
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t (&a)[4], uint64_t b,
+                                              int scale_d) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 " PAFUSE_D56
-        "}, %56, %57, p, 1, 1;\n}"
-        : PAFUSE_F8(0), PAFUSE_F8(8), PAFUSE_F8(16), PAFUSE_F8(24), PAFUSE_F8(32),
-          PAFUSE_F8(40), PAFUSE_F8(48)
-        : "l"(a), "l"(b), "r"(scale_d));
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+        "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, "
+        "%57, %58, %59}, %60, p, 1, 1;\n}"
+        : PAFUSE_F8(0), PAFUSE_F8(8), PAFUSE_F8(16), PAFUSE_F8(24),
+          PAFUSE_F8(32), PAFUSE_F8(40), PAFUSE_F8(48)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaRs<96> {
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t (&a)[4], uint64_t b,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+        "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}"
+        : PAFUSE_F8(0), PAFUSE_F8(8), PAFUSE_F8(16), PAFUSE_F8(24),
+          PAFUSE_F8(32), PAFUSE_F8(40)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
@@ -292,7 +375,6 @@ PAFUSE_WGMMA_BF16(192, PAFUSE_R64 ", "
 #undef PAFUSE_R16
 #undef PAFUSE_F16
 #undef PAFUSE_F8
-#undef PAFUSE_D56
 
 // ---------------------------------------------------------------------------
 // The weights in the product's operand type, once per call: f32 -> TF32 hi
@@ -392,8 +474,6 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16*
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float tf32_round(float v) { return __uint_as_float(tf32_bits(v)); }
-
 // Operands of the training forward's epilogues, unread by the others:
 // EPI_MASK_RESIDUAL scales row m's product by mask[m / L], EPI_STORE_GELU
 // stores gelu(Y) into Y2 (M, N) f32.
@@ -403,90 +483,95 @@ struct EpiExtra {
   int L = 1;
 };
 
-// Make one consumer warpgroup's 64 rows of an f32 A slice in shared memory
-// the product's operand: the LayerNorm (PRO_LAYERNORM) and the TF32 split,
-// hi in place and lo into the stage's second A tile.  Thread i of the warpgroup takes the 16-byte chunks i + 128 j
-// (j < 4): row (i + 128 j) / 8 of the 64, physical chunk i % 8, which
-// holds K columns (i % 8 ^ row % 8) * 16 bytes on (the 128-byte swizzle).
-// st[j]: that row's (mean, rstd).  Ends with the proxy fence and the
-// warpgroup's barrier that make the tiles visible to its wgmmas.
-template <int PRO>
-__device__ __forceinline__ void transform_slice(uint8_t* stage, int wg, int tid,
-                                                const float2 (&st)[4], const float* lns,
-                                                const float* lnb, int kb) {
-  uint8_t* a = stage + wg * (A_TILE / 2);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int idx = tid + 128 * j, row = idx >> 3, phys = idx & 7;
-    const int chunk = phys ^ (row & 7);
-    uint8_t* p = a + row * SLICE_BYTES + phys * 16;
-    float v[4];
-    *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(p);
-    if (PRO == PRO_LAYERNORM) {
-      const int k = kb + chunk * 4;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = ln_apply(v[q], st[j], lns[k + q], lnb[k + q]);
-    }
-    float hi[4], lo[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      hi[q] = tf32_round(v[q]);
-      lo[q] = tf32_round(v[q] - hi[q]);
-    }
-    *reinterpret_cast<float4*>(p) = *reinterpret_cast<const float4*>(hi);
-    *reinterpret_cast<float4*>(p + A_TILE) = *reinterpret_cast<const float4*>(lo);
-  }
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+// Byte offset of the pair at (row r, even column c) in the f32 kernel's
+// output tile: 16-column blocks of 128 rows, each row 16 TY (64 bytes of f32,
+// 32 of bf16), as TMA stores a box of 16 columns x 64 rows swizzled by 64
+// bytes (f32: 16-byte chunk q of row r at q ^ ((r >> 1) & 3)) or by 32
+// (bf16: q ^ ((r >> 2) & 1)), so a warp's pairs of 8 rows spread over the
+// banks.
+template <typename TY>
+__device__ __forceinline__ int tile_offset(int r, int c) {
+  constexpr int ROW = 16 * (int)sizeof(TY);
+  const int byte = (c % 16) * (int)sizeof(TY);
+  const int sw = sizeof(TY) == 4 ? (r >> 1) & 3 : (r >> 2) & 1;
+  return (c / 16) * (BM * ROW) + r * ROW + (((byte >> 4) ^ sw) << 4) + (byte & 15);
 }
 
-// Issue one f32 slice's wgmmas for a warpgroup's 64 rows into part (the
-// first overwrites it when `fresh`, else they add to it), smallest products
-// first, as one commit group.
-template <int BN>
-__device__ __forceinline__ void issue_slice(float (&part)[BN / 2], const uint8_t* stage,
-                                            int wg, bool fresh) {
-  const uint8_t* a = stage + wg * (A_TILE / 2);
-  const uint8_t* w = stage + Cfg<float>::W_OFF;
-  wgmma_fence();
+// One f32 slice's products for a consumer warpgroup's 64 rows, A from
+// registers: for each k-step kk, this thread's A fragment (rows r and r + 8
+// of the tile, k columns t and t + 4 of the k-step: a0..a3 as WgmmaRs takes
+// them) is read straight from the raw TMA slice of A (row r's 16-byte chunk
+// c sits at chunk c ^ (r % 8), the 128-byte swizzle, so a warp's 32 reads
+// fall in 32 distinct banks), normalised (PRO_LAYERNORM: the rows' (mean,
+// rstd) in st), split into its TF32 hi and lo halves in registers, and
+// multiplied with the weight slices' hi and lo in three RS wgmmas into part,
+// smallest first (a_lo*w_hi, a_hi*w_lo, a_hi*w_hi), one commit group a
+// k-step.  Two fragment sets alternate: set kk & 1 is overwritten only once
+// the group two back, the last to read it, is done.  FRESH: the slice's
+// first wgmma overwrites part.  REL_PREV: at k-step 1 every wgmma of the
+// previous slice is done, so its stage goes back to the producer (prev).
+// The reads of a k-step are issued before its wait, the split after it.
+template <int BN, int PRO, bool FRESH, bool REL_PREV>
+__device__ __forceinline__ void slice_products(float (&part)[BN / 2], uint32_t (&ah)[2][4],
+                                               uint32_t (&al)[2][4], uint32_t stage,
+                                               uint32_t a_off, const float2 (&st)[2],
+                                               uint32_t ln_off, uint64_t* prev, bool lane0) {
+  // a_off = r0 * 128 + 16 g + 4 t: chunk c of row r0 is at a ^ (c << 4) (the
+  // stage is 1024-byte aligned, so the XOR only swaps the chunk bits)
+  const uint32_t a = stage + a_off;
+  const uint64_t bh = smem_desc_u32(stage + Cfg<float>::W_OFF);
+  const uint64_t bl = smem_desc_u32(stage + Cfg<float>::W_OFF + W_TILE);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t da = smem_desc(a) + 2 * kk, dw = smem_desc(w) + 2 * kk;
-    const uint64_t dal = smem_desc(a + A_TILE) + 2 * kk;
-    const uint64_t dwl = smem_desc(w + W_TILE) + 2 * kk;
-    Wgmma<BN>::tf32(part, dal, dw, kk > 0 || !fresh);     // a_lo * w_hi
-    Wgmma<BN>::tf32(part, da, dwl, 1);          // a_hi * w_lo
-    Wgmma<BN>::tf32(part, da, dw, 1);           // a_hi * w_hi
+    float v[4];                         // e: row r0 + 8 (e & 1), column t + 4 (e >> 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = lds_f32((a ^ ((2 * kk + (e >> 1)) << 4)) + (e & 1) * 8 * SLICE_BYTES);
+    if (PRO == PRO_LAYERNORM) {
+      // ln_off: the scale of this slice's column t; the bias MAX_LN_K floats on
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t k = ln_off + 4 * (8 * kk + 4 * (e >> 1));
+        v[e] = ln_apply(v[e], st[e & 1], lds_f32(k), lds_f32(k + 4 * MAX_LN_K));
+      }
+    }
+    wgmma_wait<1>();
+    if (REL_PREV && kk == 1) arrive_if(prev, lane0);
+    uint32_t(&h)[4] = ah[kk & 1];
+    uint32_t(&l)[4] = al[kk & 1];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = tf32_bits(v[e]);
+      l[e] = tf32_bits(v[e] - __uint_as_float(h[e]));
+    }
+    wgmma_fence();
+    WgmmaRs<BN>::tf32(part, l, bh + 2 * kk, !FRESH || kk > 0);   // a_lo * w_hi
+    WgmmaRs<BN>::tf32(part, h, bl + 2 * kk, 1);                  // a_hi * w_lo
+    WgmmaRs<BN>::tf32(part, h, bh + 2 * kk, 1);                  // a_hi * w_hi
+    wgmma_commit();
   }
-  wgmma_commit();
 }
 
 template <typename T, typename TY, typename TR, int BN, int PRO, int EPI>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(F32_THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
-            const __grid_constant__ CUtensorMap tm_wlo, const float* __restrict__ bias,
-            const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-            const float2* __restrict__ stats, const TR* __restrict__ R, TY* __restrict__ Y,
-            int M, int N, int K, const EpiExtra ex) {
+            const __grid_constant__ CUtensorMap tm_wlo, const __grid_constant__ CUtensorMap tm_y,
+            const float* __restrict__ bias, const float* __restrict__ ln_s,
+            const float* __restrict__ ln_b, const float2* __restrict__ stats,
+            const TR* __restrict__ R, int M, int N, int K, const EpiExtra ex) {
   static_assert(sizeof(T) == 4, "bf16 A runs on gemm_bf16_kernel");
   using Cf = Cfg<T>;
   constexpr int STAGES = Cf::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  float* lns = reinterpret_cast<float*>(smem + STAGES * Cf::STAGE);
+  uint8_t* buf = smem + STAGES * Cf::STAGE;            // the output tile
+  float* lns = reinterpret_cast<float*>(buf + Cf::BUF);
   float* lnb = lns + MAX_LN_K;
   uint64_t* full = reinterpret_cast<uint64_t*>(lnb + MAX_LN_K);
   uint64_t* empty = full + MAX_STAGES;
 
   const int nk = (K + Cf::BK - 1) / Cf::BK;
   const int n_tiles = (N + BN - 1) / BN, tiles = n_tiles * ((M + BM - 1) / BM);
-  if (PRO == PRO_LAYERNORM) {
-    // zero past K, where TMA zero-fills A and W: the padded columns stay 0
-    for (int k = threadIdx.x; k < nk * Cf::BK; k += THREADS) {
-      lns[k] = k < K ? ln_s[k] : 0.f;
-      lnb[k] = k < K ? ln_b[k] : 0.f;
-    }
-  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -501,7 +586,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
   // L2); it counts slices over all its tiles for the ring's stages and
   // phases, so the producer loads the next tile while the consumers store.
   if (threadIdx.x >= 256) {
-    // producer warp: lane 0 keeps the ring full
+    // the producer warpgroup: thread 256 keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 256) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -510,69 +596,98 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
           uint8_t* st = smem + s * Cf::STAGE;
-          mbar_expect_tx(&full[s], A_TILE + Cf::NT * BN * SLICE_BYTES);
+          mbar_expect_tx(&full[s], A_TILE + 2 * BN * SLICE_BYTES);
           tma_load_2d(st, &tm_a, &full[s], ks * Cf::BK, m0);
           tma_load_2d(st + Cf::W_OFF, &tm_w, &full[s], ks * Cf::BK, n0);
-          if (Cf::NT == 2)
-            tma_load_2d(st + Cf::W_OFF + W_TILE, &tm_wlo, &full[s], ks * Cf::BK, n0);
+          tma_load_2d(st + Cf::W_OFF + W_TILE, &tm_wlo, &full[s], ks * Cf::BK, n0);
         }
       }
     }
     return;
   }
 
+  // The consumers: no branch on the thread between a wgmma's issue and its
+  // wait (ptxas would serialise the wgmmas: C7518), so the stages are handed
+  // back by predicated arrivals; and no control flow joins while a wgmma
+  // that writes part is in flight (an injected wait: C7517), so the pairs of
+  // slices and the odd last slice each end in their drain and FADDs.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  if (PRO == PRO_LAYERNORM) {
+    // The LayerNorm's scale and bias into shared memory, zero past K, where
+    // TMA zero-fills A and W: the padded columns stay 0.  Here, after
+    // setmaxnreg: in the code before it (168 registers) the same loop made
+    // ptxas spill 32-36 bytes of the BN = 128 LayerNorm instantiations.
+    for (int k = threadIdx.x; k < nk * Cf::BK; k += 256) {
+      lns[k] = k < K ? ln_s[k] : 0.f;
+      lnb[k] = k < K ? ln_b[k] : 0.f;
+    }
+    asm volatile("bar.sync 3, 256;" ::: "memory");     // both consumer warpgroups
+  }
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
-  // the accumulator rows of this thread (wgmma's layout): r0 and r0 + 8
-  const int r0 = wg * 64 + (tid / 32) * 16 + lane / 4, t = lane % 4;
+  const int g = lane / 4, t = lane % 4;
+  // the accumulator rows of this thread (wgmma's layout), and its A
+  // fragments' rows: r0 and r0 + 8
+  const int r0 = wg * 64 + (tid / 32) * 16 + g;
+  const uint32_t smem_base = smem_u32(smem);
+  const uint32_t a_off = r0 * SLICE_BYTES + 16 * g + 4 * t;     // see slice_products
+  const uint32_t ln_off = smem_u32(lns) + 4 * t;
+  constexpr bool READS_R =
+      EPI == EPI_RESIDUAL || EPI == EPI_GELU_GRAD || EPI == EPI_MASK_RESIDUAL;
   float acc[BN / 2], part[BN / 2];
+  uint32_t ah[2][4], al[2][4];
   int it = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, it += nk) {
+  for (int tile = blockIdx.x, jj = 0; tile < tiles; tile += gridDim.x, it += nk, ++jj) {
     const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * BM;
-    float2 st[4];                       // the rows transform_slice takes
+    float2 st[2];                       // the LayerNorm of rows r0 and r0 + 8
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + wg * 64 + tid / 8 + 16 * j;
-      st[j] = PRO == PRO_LAYERNORM && m < M ? stats[m] : make_float2(0.f, 0.f);
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + r0 + 8 * h;
+      st[h] = PRO == PRO_LAYERNORM && m < M ? stats[m] : make_float2(0.f, 0.f);
+      // the epilogue's R rows into L2 while the products run: the 128-byte
+      // line of thread t
+      const int n = n0 + t * (128 / (int)sizeof(TR));
+      if (READS_R && m < M && n < N)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(R + (long long)m * N + n));
     }
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    // Slices go to the tensor cores in pairs summed in part: slice ks + 1
-    // is prepared while slice ks's wgmmas run and chained onto them, slice
-    // ks + 2 while those of ks + 1 run; each stage is handed back as soon
-    // as its wgmmas are done.  Then part is added to acc in f32 (round to
-    // nearest: the tensor cores' own accumulation truncates, so each
-    // partial sum spans at most two slices).
-    auto stage = [&](int i) { return smem + (i % STAGES) * Cf::STAGE; };
-    auto ready = [&](int i, int ks) {
-      mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
-      transform_slice<PRO>(stage(i), wg, tid, st, lns, lnb, ks * Cf::BK);
-    };
-    auto release = [&](int i) {
-      if (lane == 0) mbar_arrive(&empty[i % STAGES]);
-    };
-    ready(it, 0);
-    issue_slice<BN>(part, stage(it), wg, true);
+    // Slices go to the tensor cores in pairs summed in part (slice ks + 1
+    // chained onto ks), then part is added to acc in f32 (round to nearest:
+    // the tensor cores' own accumulation truncates, so each partial sum
+    // spans at most two slices); an odd K ends in a slice alone.
+    auto stage = [&](int i) { return smem_base + (i % STAGES) * Cf::STAGE; };
+    auto wait_full = [&](int i) { mbar_wait(&full[i % STAGES], (i / STAGES) & 1); };
 #pragma unroll 1
-    for (int ks = 0; ks < nk; ks += 2) {
+    for (int ks = 0; ks + 1 < nk; ks += 2) {
       const int i = it + ks;
-      if (ks + 1 < nk) {
-        ready(i + 1, ks + 1);
-        issue_slice<BN>(part, stage(i + 1), wg, false);
-        wgmma_wait<1>();
-        release(i);
-        if (ks + 2 < nk) ready(i + 2, ks + 2);
-        wgmma_wait<0>();
-        release(i + 1);
-      } else {
-        wgmma_wait<0>();
-        release(i);
-      }
+      wait_full(i);
+      slice_products<BN, PRO, true, false>(part, ah, al, stage(i), a_off, st,
+                                           ln_off + 4 * ks * Cf::BK, nullptr, false);
+      wait_full(i + 1);
+      slice_products<BN, PRO, false, true>(part, ah, al, stage(i + 1), a_off, st,
+                                           ln_off + 4 * (ks + 1) * Cf::BK, &empty[i % STAGES],
+                                           lane == 0);
+      wgmma_wait<0>();
+      arrive_if(&empty[(i + 1) % STAGES], lane == 0);
 #pragma unroll
       for (int q = 0; q < BN / 2; ++q) acc[q] += part[q];
-      if (ks + 2 < nk) issue_slice<BN>(part, stage(i + 2), wg, true);
+    }
+    if (nk & 1) {
+      const int i = it + nk - 1;
+      wait_full(i);
+      slice_products<BN, PRO, true, false>(part, ah, al, stage(i), a_off, st,
+                                           ln_off + 4 * (nk - 1) * Cf::BK, nullptr, false);
+      wgmma_wait<0>();
+      arrive_if(&empty[i % STAGES], lane == 0);
+#pragma unroll
+      for (int q = 0; q < BN / 2; ++q) acc[q] += part[q];
     }
 
-    // epilogue: accumulator 4j + 2h + {0, 1} is (row r0 + 8h, col 8j + 2t + {0, 1})
+    // Epilogue: accumulator 4j + 2h + {0, 1} is (row r0 + 8h, col 8j + 2t +
+    // {0, 1}).  The pairs, biased, activated and rounded to TY, go into the
+    // output tile in shared memory; one thread of each warpgroup then stores
+    // its 64 rows with TMA bulk stores (clipped at M and N), which drain
+    // while the next tile's products run.
     constexpr bool BIAS = EPI == EPI_STORE || EPI == EPI_GELU || EPI == EPI_RESIDUAL ||
                           EPI == EPI_MASK_RESIDUAL || EPI == EPI_STORE_GELU;
     float mk[2] = {0.f, 0.f};           // the rows' branch masks
@@ -583,15 +698,24 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
         mk[h] = m < M ? ex.mask[m / ex.L] : 0.f;
       }
     }
+    if (jj > 0) {
+      if (tid == 0) bulk_wait_read();   // the last tile's stores have read the tile
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    }
+    // this thread's pairs sit at out[j & 1] + (j / 2) blocks + h rows of 8
+    // (the swizzle of rows r0 and r0 + 8 is one): two offsets, not 32
+    // loop-invariant addresses held across the products
+    const int out[2] = {tile_offset<TY>(r0, 2 * t), tile_offset<TY>(r0, 8 + 2 * t)};
+    constexpr int ROW = 16 * (int)sizeof(TY);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * t;
-      if (n >= N) continue;             // N % 8 == 0, so n + 1 < N as well
-      const float b0 = BIAS ? bias[n] : 0.f, b1 = BIAS ? bias[n + 1] : 0.f;
+      const bool n_in = n < N;          // N % 8 == 0, so n + 1 < N as well
+      const float b0 = BIAS && n_in ? bias[n] : 0.f, b1 = BIAS && n_in ? bias[n + 1] : 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const long long m = (long long)m0 + r0 + 8 * h;
-        if (m >= M) continue;
+        const bool in = n_in && m < M;
         float y0 = acc[4 * j + 2 * h], y1 = acc[4 * j + 2 * h + 1];
         if (BIAS) {
           y0 += b0;
@@ -601,26 +725,36 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
           y0 = gelu(y0);
           y1 = gelu(y1);
         }
+        float2 r = make_float2(0.f, 0.f);
+        if (READS_R && in) r = load2<TR>(R + m * N + n);
         if (EPI == EPI_RESIDUAL) {
-          const float2 r = load2<TR>(R + m * N + n);
           y0 = r.x + round_to<TY>(y0);
           y1 = r.y + round_to<TY>(y1);
         }
         if (EPI == EPI_GELU_GRAD) {
-          const float2 u = load2<TR>(R + m * N + n);
-          y0 *= gelu_grad(u.x);
-          y1 *= gelu_grad(u.y);
+          y0 *= gelu_grad(r.x);
+          y1 *= gelu_grad(r.y);
         }
         if constexpr (EPI == EPI_MASK_RESIDUAL) {
-          const float2 r = load2<TR>(R + m * N + n);
           y0 = r.x + mk[h] * y0;
           y1 = r.y + mk[h] * y1;
         }
-        if constexpr (EPI == EPI_STORE_GELU) store2<float>(ex.Y2 + m * N + n, gelu(y0), gelu(y1));
-        store2<TY>(Y + m * N + n, y0, y1);
+        if constexpr (EPI == EPI_STORE_GELU) {
+          if (in) store2<float>(ex.Y2 + m * N + n, gelu(y0), gelu(y1));
+        }
+        store2<TY>(reinterpret_cast<TY*>(buf + out[j & 1] + (j / 2) * BM * ROW + h * 8 * ROW),
+                   y0, y1);
       }
     }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    if (tid == 0) {
+      for (int b = 0; b < BN / 16 && n0 + 16 * b < N; ++b)
+        tma_store_2d(&tm_y, buf + (b * BM + 64 * wg) * ROW, n0 + 16 * b, m0 + 64 * wg);
+      bulk_commit();
+    }
   }
+  if (tid == 0) bulk_wait();            // shared memory outlives the stores
 }
 
 // ---------------------------------------------------------------------------
@@ -643,7 +777,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
 // have read it), and each thread reads its pairs where it then writes.
 // ---------------------------------------------------------------------------
 
-constexpr int SMEM_LIMIT = 232448;     // shared memory a CTA may use on sm_90
 constexpr int BF16_MAX_STAGES = 8;
 constexpr int EPI_BLOCK = BM * 64;     // 32 bf16 columns x 128 rows
 
@@ -656,25 +789,6 @@ template <int BN> struct Bf16Cfg {
   // stages, the tile buffer, barriers and 1 KB for the alignment
   static constexpr int SMEM = STAGES * STAGE + BUF + 2048;
 };
-
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// the committed bulk stores have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
 
 template <int BN, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -901,11 +1015,15 @@ cudaError_t launch_gemm_bn(const T* A, const T* w_hi, const T* w_lo, const float
                            const float* ln_s, const float* ln_b, const float2* stats,
                            const TR* R, TY* Y, long long M, int N, int K, cudaStream_t stream,
                            const EpiExtra& ex) {
-  CUtensorMap ma, mw, mwl;
+  CUtensorMap ma, mw, mwl, my;
   cudaError_t e;
   if ((e = encode_tile<T>(&ma, A, M, K, BM)) != cudaSuccess) return e;
   if ((e = encode_tile<T>(&mw, w_hi, N, K, BN)) != cudaSuccess) return e;
   if ((e = encode_tile<T>(&mwl, w_lo != nullptr ? w_lo : w_hi, N, K, BN)) != cudaSuccess)
+    return e;
+  if ((e = encode_box<TY>(&my, Y, M, N, 16, 64,
+                          sizeof(TY) == 4 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                          : CU_TENSOR_MAP_SWIZZLE_32B)) != cudaSuccess)
     return e;
   auto kernel = gemm_kernel<T, TY, TR, BN, PRO, EPI>;
   constexpr int smem = Cfg<T>::SMEM;
@@ -918,8 +1036,8 @@ cudaError_t launch_gemm_bn(const T* A, const T* w_hi, const T* w_lo, const float
     return e;
   const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);    // persistent
-  kernel<<<grid, THREADS, smem, stream>>>(ma, mw, mwl, bias, ln_s, ln_b, stats, R, Y, (int)M,
-                                          N, K, ex);
+  kernel<<<grid, F32_THREADS, smem, stream>>>(ma, mw, mwl, my, bias, ln_s, ln_b, stats, R,
+                                              (int)M, N, K, ex);
   return counted(LAUNCH_GEMM, cudaGetLastError());
 }
 

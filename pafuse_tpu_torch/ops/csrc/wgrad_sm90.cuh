@@ -101,64 +101,6 @@ constexpr int SMEM =
     RAW_STAGES * RAW_STAGE + CONV_BUFS * CONV + (RAW_STAGES + 2 * CONV_BUFS) * 8 + 1024;
 static_assert(SMEM <= sm90::SMEM_LIMIT, "the ring must fit one CTA's shared memory");
 
-#define PAFUSE_WG_F8(i)                                                               \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[BN/2] = A(64 x 8) * B(8 x BN) + (scale_d ? d : 0) in TF32 (m64nBNk8): A
-// from this thread's registers a0..a3 (mma.sync m16n8k8's A layout on its
-// warp's 16 rows), B K-major in 128-byte-swizzled shared memory (b).
-template <int BN> struct WgmmaRs;
-
-template <> struct WgmmaRs<128> {
-  static __device__ __forceinline__ void tf32(float* d, const uint32_t (&a)[4], uint64_t b,
-                                              int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
-        "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-        "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}"
-        : PAFUSE_WG_F8(0), PAFUSE_WG_F8(8), PAFUSE_WG_F8(16), PAFUSE_WG_F8(24),
-          PAFUSE_WG_F8(32), PAFUSE_WG_F8(40), PAFUSE_WG_F8(48), PAFUSE_WG_F8(56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
-template <> struct WgmmaRs<112> {
-  static __device__ __forceinline__ void tf32(float* d, const uint32_t (&a)[4], uint64_t b,
-                                              int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
-        "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, "
-        "%57, %58, %59}, %60, p, 1, 1;\n}"
-        : PAFUSE_WG_F8(0), PAFUSE_WG_F8(8), PAFUSE_WG_F8(16), PAFUSE_WG_F8(24),
-          PAFUSE_WG_F8(32), PAFUSE_WG_F8(40), PAFUSE_WG_F8(48)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
-template <> struct WgmmaRs<96> {
-  static __device__ __forceinline__ void tf32(float* d, const uint32_t (&a)[4], uint64_t b,
-                                              int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
-        "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}"
-        : PAFUSE_WG_F8(0), PAFUSE_WG_F8(8), PAFUSE_WG_F8(16), PAFUSE_WG_F8(24),
-          PAFUSE_WG_F8(32), PAFUSE_WG_F8(40)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
-#undef PAFUSE_WG_F8
-
 // The tile width along K: 128 where that tiles K, else 112 or 96 where
 // one of them does (the face widths 224 and 448; the 3DHP and monolithic
 // widths 288 and 576), else 128.
@@ -265,14 +207,6 @@ __device__ __forceinline__ Item item_of(long long item, long long per_chunk, int
   const long long n = M - w.r0 < rows ? M - w.r0 : rows;
   w.slices = (int)(2 * ((n + 2 * ROWS - 1) / (2 * ROWS)));
   return w;
-}
-
-__device__ __forceinline__ void arrive_if(uint64_t* bar, bool p) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}" ::"r"(
-          sm90::smem_u32(bar)),
-      "r"((int)p)
-      : "memory");
 }
 
 template <int BN>
@@ -411,7 +345,8 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
           // free
           sm90::wgmma_wait<1>();
           if (kk == 1)
-            arrive_if(&split_free[(it + CONV_BUFS - 1) % CONV_BUFS], lane == 0 && it > 0);
+            sm90::arrive_if(&split_free[(it + CONV_BUFS - 1) % CONV_BUFS],
+                            lane == 0 && it > 0);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float v = pv[e];
@@ -420,9 +355,9 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
             bs[e & 1] += v;
           }
           sm90::wgmma_fence();
-          WgmmaRs<BN>::tf32(part, al[kk & 1], bh + 2 * kk, half || kk);   // lo * hi
-          WgmmaRs<BN>::tf32(part, ah[kk & 1], bl + 2 * kk, 1);            // hi * lo
-          WgmmaRs<BN>::tf32(part, ah[kk & 1], bh + 2 * kk, 1);            // hi * hi
+          sm90::WgmmaRs<BN>::tf32(part, al[kk & 1], bh + 2 * kk, half || kk);   // lo * hi
+          sm90::WgmmaRs<BN>::tf32(part, ah[kk & 1], bl + 2 * kk, 1);           // hi * lo
+          sm90::WgmmaRs<BN>::tf32(part, ah[kk & 1], bh + 2 * kk, 1);           // hi * hi
           sm90::wgmma_commit();
         }
         if (half) {

@@ -578,6 +578,84 @@ def test_fwd_linear_matches_plain_on_gpu(cuda_device, C, stage, r_dtype):
         got, (again,) if epilogue != "gelu" else again))
 
 
+#: the float32 GEMM's persistent walk: (entry point, epilogue, LayerNorm,
+#: N, K) on 128 * 150 + 45 rows, more 128-row tiles than an H100's 132 SMs
+#: (each CTA takes one to four tiles, the last ragged); K = 224 is 7 slices
+#: (the unpaired last slice), N = 224, 448, 672 the BN = 112 tiles
+F32_WALK = [("fused_linear", "store", True, 448, 224),
+            ("fused_linear", "store", False, 384, 384),
+            ("fused_linear", "gelu", True, 768, 384),
+            ("fused_linear", "residual", False, 224, 448),
+            ("fwd_linear", "store", False, 672, 224),
+            ("fwd_linear", "residual", False, 384, 768),
+            ("fwd_linear", "gelu", False, 448, 224),
+            ("data_grad", "none", False, 224, 448),
+            ("data_grad", "gelu_grad", False, 448, 224)]
+
+
+def _f32_gemm_call(entry, epilogue, ln, M, N, K, seed, device):
+    """The GEMM call and its plain version, on seeded inputs: the product
+    of A (M, K) with a (N, K) weight (a (K, N) one for data_grad)."""
+    r = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    a = t(r.randn(M, K))
+    if entry == "data_grad":
+        w = t(r.uniform(-1, 1, (K, N)) / np.sqrt(K))
+        aux = t(r.randn(M, N)) if epilogue == "gelu_grad" else None
+        return (lambda: data_grad(a, w, aux)), (lambda: data_grad_reference(a, w, aux))
+    w, b = t(r.uniform(-1, 1, (N, K)) / np.sqrt(K)), t(r.uniform(-1, 1, N) / np.sqrt(K))
+    res = t(r.randn(M, N)) if epilogue == "residual" else None
+    if entry == "fused_linear":
+        norm = (t(1 + 0.1 * r.randn(K)), t(0.1 * r.randn(K))) if ln else None
+        return ((lambda: fused_linear(a, w, b, norm, epilogue, res)),
+                (lambda: linear_reference(a, w, b, norm, epilogue, res)))
+    L = 15                              # 128 * 150 + 45 rows: 1283 sequences
+    mask = t(np.array([0.0, 1.0 / 0.9, 1.0])[np.arange(M // L) % 3])
+    args = (a, w, b, epilogue, res, mask, L)
+    return (lambda: fwd_linear(*args)), (lambda: fwd_linear_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,epilogue,ln,N,K", F32_WALK)
+def test_f32_gemm_walks_several_tiles_a_cta_on_gpu(cuda_device, entry, epilogue,
+                                                   ln, N, K):
+    """Each float32 GEMM entry point and epilogue where every CTA walks
+    several tiles, through a ragged last row tile: one gemm_kernel launch
+    (the library's count), within 1e-5 x max|plain| of the plain version,
+    and a second call gives the same bits."""
+    M = 128 * 150 + 45
+    call, plain = _f32_gemm_call(entry, epilogue, ln, M, N, K, N + K + len(epilogue),
+                                 cuda_device)
+    lib = {"data_grad": "block_train", "fwd_linear": "block_train"}.get(entry, "gemm")
+    before = _build.kernel_launches(lib)["gemm"]
+    got = call()
+    torch.cuda.synchronize()
+    assert _build.kernel_launches(lib)["gemm"] == before + 1
+    got, want = (got, plain()) if isinstance(got, tuple) else ((got,), (plain(),))
+    assert all(g.shape == (M, N) and g.dtype == torch.float32 for g in got)
+    assert max(_rel_errs(got, want)) <= 1e-5
+    again = call()
+    again = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 32, 40, 96, 224, 1000])
+@pytest.mark.parametrize("ln", [False, True])
+def test_f32_gemm_any_slice_count_on_gpu(cuda_device, K, ln):
+    """The float32 GEMM at 1, 1, 2, 3, 7 and 32 slices of 32 columns (K =
+    8 and 40 ragged: TMA zero-fills the slice past K, the LayerNorm's
+    padded columns stay 0), an odd count ending in a slice alone: within
+    1e-5 x max|plain| and the same bits twice."""
+    M, N = 128 * 3 + 5, 256
+    call, plain = _f32_gemm_call("fused_linear", "store", ln, M, N, K, K + ln,
+                                 cuda_device)
+    got = call()
+    torch.cuda.synchronize()
+    assert _rel_errs([got], [plain()])[0] <= 1e-5
+    assert torch.equal(got, call())
+
+
 @pytest.mark.cuda
 def test_kernel_5_runs_its_gemms_on_the_tensor_cores_on_gpu(cuda_device):
     """One call of kernel #5 launches the wgmma GEMM (its four products),
