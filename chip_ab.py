@@ -36,8 +36,9 @@
    serve`` the bfloat16 request and
    evaluation alone, ``--only train`` the float32 hashes of #1-#6 (no
    times), #6's weight- and bias-gradient stage alone at H3WB's and
-   MixSTE's shapes (WGRAD_ROWS) beside cuBLAS's ``d.t() @ x`` (and with
-   ``d.sum(0)``), #6's LayerNorm backward alone in its three forms at
+   MixSTE's shapes (WGRAD_ROWS), product by product and summed, beside its
+   bound and cuBLAS's ``d.t() @ x`` (and with ``d.sum(0)``), with its
+   ordered pass's own time, #6's LayerNorm backward alone in its three forms at
    LN_ROWS (ln_section: device ms beside ln_bwd_bound_ms and aten's
    ``native_layer_norm_backward`` with the residual add and the mask
    multiply; ``F.layer_norm`` beside #5's forward LayerNorm's bound), the
@@ -779,33 +780,72 @@ def serve_section(times, dev):
 #: fc1, proj, qkv)
 WGRAD_ROWS = {"h3wb": ((999 * 24, 384), (999 * 68, 224), (999 * 42, 256)),
               "mixste": ((4 * 243 * 134, 512), (4 * 243 * 134, 512))}
+WGRAD_BLOCKS = {"h3wb": ("body", "face", "hands"), "mixste": ("block0", "block1")}
+
+
+def _pass_ms(calls):
+    """The device ms of the ordered pass (``reduce_partials_kernel``) of
+    each of ``calls``, run once each in order under one torch.profiler
+    session (each call launches one pass; a tree without the pass reads
+    0)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    ms = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "reduce_partials_kernel" in e.name)
+    return [t for _, t in ms] if len(ms) == len(calls) else [0.0] * len(calls)
 
 
 def train_section(times, dev):
     """#6's weight- and bias-gradient stage alone on seeded float32 d and x
-    at WGRAD_ROWS: the tree's own call (``ops.block_train.weight_grads``,
-    dW and db; a tree that has only ``weight_grad`` takes dW alone, its
-    bias sums ran apart in the backward), cuBLAS's ``d.t() @ x`` and that
-    with ``d.sum(0)``, device ms summed over each model's products and
-    TFLOP/s (2 M N K a product)."""
+    at WGRAD_ROWS, product by product (``wgrad_<model>_<block>_<stage>_*``)
+    and summed over each model's (``wgrad_<model>_*``): the tree's own call
+    (``ops.block_train.weight_grads``, dW and db; a tree that has only
+    ``weight_grad`` takes dW alone, its bias sums ran apart in the
+    backward), its device ms and TFLOP/s (2 M N K), the bound (the larger
+    of 2 M N K at 165 TFLOP/s and the bytes, d and x read and dW and db
+    written, at 3.35 TB/s), cuBLAS's ``d.t() @ x`` and that with
+    ``d.sum(0)``, and the ordered pass's device ms alone (``pass_ms``,
+    torch.profiler)."""
     import torch
     from pafuse_tpu_torch.ops import block_train as bt
     stage = getattr(bt, "weight_grads", None) or bt.weight_grad
     for model, blocks in WGRAD_ROWS.items():
         flop = 0
+        calls, keys = [], []
         for i, (M, C) in enumerate(blocks):
-            for j, (N, K) in enumerate(((C, 2 * C), (2 * C, C), (C, C), (3 * C, C))):
+            for j, (name, (N, K)) in enumerate(zip(
+                    ("fc2", "fc1", "proj", "qkv"),
+                    ((C, 2 * C), (2 * C, C), (C, C), (3 * C, C)))):
                 gen = torch.Generator(device=dev).manual_seed(900 + 10 * i + j)
                 d = torch.randn(M, N, generator=gen, device=dev)
                 x = torch.randn(M, K, generator=gen, device=dev)
-                for key, fn in (("ms", lambda: stage(d, x)),
-                                ("cublas_ms", lambda: d.t() @ x),
-                                ("cublas_sum_ms", lambda: (d.t() @ x, d.sum(0)))):
-                    times[f"wgrad_{model}_{key}"] = (times.get(f"wgrad_{model}_{key}", 0.0)
-                                                     + _cuda_ms(fn))
-                flop += 2 * M * N * K
-                del d, x
-                torch.cuda.empty_cache()
+                key = f"wgrad_{model}_{WGRAD_BLOCKS[model][i]}_{name}"
+                f = 2 * M * N * K
+                times[f"{key}_bound_ms"] = max(
+                    f / 165e12, 4 * (M * (N + K) + N * K + N) / 3.35e12) * 1e3
+                for what, fn in (("ms", lambda: stage(d, x)),
+                                 ("cublas_ms", lambda: d.t() @ x),
+                                 ("cublas_sum_ms", lambda: (d.t() @ x, d.sum(0)))):
+                    times[f"{key}_{what}"] = _cuda_ms(fn)
+                times[f"{key}_tflops"] = f / times[f"{key}_ms"] / 1e9
+                for what in ("ms", "cublas_ms", "cublas_sum_ms", "bound_ms"):
+                    times[f"wgrad_{model}_{what}"] = (times.get(f"wgrad_{model}_{what}", 0.0)
+                                                     + times[f"{key}_{what}"])
+                calls.append(lambda d=d, x=x: stage(d, x))
+                keys.append(key)
+                flop += f
+        for key, ms in zip(keys, _pass_ms(calls)):
+            times[f"{key}_pass_ms"] = ms
+            times[f"wgrad_{model}_pass_ms"] = times.get(f"wgrad_{model}_pass_ms", 0.0) + ms
+        del calls
+        torch.cuda.empty_cache()
         for what in ("", "_cublas", "_cublas_sum"):
             times[f"wgrad_{model}{what}_tflops"] = (
                 flop / times[f"wgrad_{model}{what}_ms"] / 1e9)

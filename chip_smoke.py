@@ -2002,15 +2002,18 @@ def run_trainer(seed, device, cfg, loader, sampler, seqs, steps, *,
               "backward_wg": bwd["attention_bwd_wg"]}
     else:
         wg = {}
-    # #6's weight- and bias-gradient kernel: four launches a call; its
-    # LayerNorm backward and that one's ordered pass: three each
+    # #6's weight- and bias-gradient kernel and its ordered pass: four
+    # launches each a call; its LayerNorm backward and that one's ordered
+    # pass: three each
     ours = (_build.kernel_launches("block_train") if dev.type == "cuda"
             else dict.fromkeys(_build.LAUNCH_KINDS, 0))
     wgrad = WGRAD_LAUNCHES[phase] = ours["wgrad_wgmma"]
     lnb = LNB_LAUNCHES[phase] = ours["ln_bwd"]
-    if wgrad != 4 * launches[1]:
+    if wgrad != 4 * launches[1] or ours["reduce_partials"] != wgrad:
         raise AssertionError(f"{phase}: {wgrad} launches of the weight-"
-                             f"gradient kernel, expected {4 * launches[1]}")
+                             f"gradient kernel and {ours['reduce_partials']} of "
+                             f"its ordered pass, expected {4 * launches[1]} "
+                             f"of each")
     if lnb != 3 * launches[1] or ours["ln_sums"] != lnb:
         raise AssertionError(f"{phase}: {lnb} launches of the LayerNorm "
                              f"backward and {ours['ln_sums']} of its ordered "

@@ -1,0 +1,436 @@
+// The weight-gradient kernel with the splitting warpgroup reading X's raw
+// slice as 16-byte vectors (a thread four columns of a chunk's four rows)
+// instead of a column a thread, for experiments/wgrad/run.py (the tree spec
+// NAME=DIR+split128).
+
+#pragma once
+
+#include "gemm_sm90.cuh"
+
+namespace {
+
+namespace wgrad {
+
+constexpr int BM = 128;                         // n rows of a tile: two warpgroups
+constexpr int ROWS = 32;                        // rows m of a slice
+constexpr int BOX = 32 * ROWS * 4;              // a 32-column box of a slice: 4 KB
+constexpr int RAW_OPERAND = 4 * BOX;            // 128 columns of D or of X
+constexpr int RAW_STAGE = 2 * RAW_OPERAND;      // D's, then X's
+constexpr int RAW_STAGES = 4;
+constexpr int B_TILE = 128 * 128;               // room for BN <= 128 rows of 128 bytes
+constexpr int CONV = 2 * B_TILE;                // X's split slice: hi, then lo
+constexpr int CONV_BUFS = 3;                    // split slices in flight
+// two product warpgroups, the splitting one and the copying one
+constexpr int THREADS = 512;
+// setmaxnreg: 256 x 216 + 128 x 40 + 128 x 40 = the 512 x 128 a CTA is
+// launched with (224 a product thread would leave the copying thread 24,
+// and it spills there)
+constexpr int PRODUCT_REGS = 216, SPLIT_REGS = 40, COPY_REGS = 40;
+constexpr int CHUNK_ALIGN = 64;                 // a chunk is whole pairs of slices
+constexpr int WAVE = 132;                       // the rule's SMs (an H100 SXM)
+constexpr int ITEM_OVERHEAD = 64;               // the rule's cost of an item, in rows
+// stages, split slices, barriers, 1 KB for the alignment
+constexpr int SMEM =
+    RAW_STAGES * RAW_STAGE + CONV_BUFS * CONV + 2 * (RAW_STAGES + CONV_BUFS) * 8 + 1024;
+static_assert(SMEM <= sm90::SMEM_LIMIT, "the ring must fit one CTA's shared memory");
+
+// The tile width along K: 128 where that tiles K, else 112 or 96 where
+// one of them does (the face widths 224 and 448; the 3DHP and monolithic
+// widths 288 and 576), else 128.
+inline int tile_n(int K) {
+  if (K % 128 == 0) return 128;
+  return K % 112 == 0 ? 112 : K % 96 == 0 ? 96 : 128;
+}
+
+inline long long tiles(int N, int K) {
+  const int bn = tile_n(K);
+  return (long long)((N + BM - 1) / BM) * ((K + bn - 1) / bn);
+}
+
+// Rows of a chunk for (M, N, K): over the chunk counts P, the rows R =
+// ceil(M / P) rounded up to CHUNK_ALIGN (where that still gives P chunks),
+// the R with the least cost ceil(tiles * P / WAVE) * (R + ITEM_OVERHEAD),
+// the fewest chunks among equals.
+inline long long chunk_rows(long long M, int N, int K) {
+  const long long t = tiles(N, K);
+  long long best_rows = CHUNK_ALIGN, best_cost = -1;
+  for (long long p = 1; p <= (M + CHUNK_ALIGN - 1) / CHUNK_ALIGN; ++p) {
+    const long long r = ((M + p - 1) / p + CHUNK_ALIGN - 1) / CHUNK_ALIGN * CHUNK_ALIGN;
+    if ((M + r - 1) / r != p) continue;
+    const long long cost = (t * p + WAVE - 1) / WAVE * (r + ITEM_OVERHEAD);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best_rows = r;
+    }
+  }
+  return best_rows;
+}
+
+inline long long chunks(long long M, int N, int K) {
+  const long long r = chunk_rows(M, N, K);
+  return (M + r - 1) / r;
+}
+
+// Floats of the partials: a chunk's N x K products, then its N column sums.
+inline long long part_floats(long long M, int N, int K) {
+  return chunks(M, N, K) * ((long long)N * K + N);
+}
+
+// Byte offset of value j (0..31) of row r in a 128-byte-swizzled box or
+// tile: 16-byte chunk j / 4 at chunk (j / 4) ^ (r % 8).
+__device__ __forceinline__ int swz(int r, int j) {
+  return r * 128 + ((((j >> 2) ^ r) & 7) << 4) + (j & 3) * 4;
+}
+
+// The copies of one raw slice into the stage at shared address dst, by the
+// one thread that calls it: the transaction's bytes on the stage's barrier
+// (bar), then D's and X's four boxes.
+__device__ __forceinline__ void load_slice(uint32_t dst, const CUtensorMap* tm_d,
+                                           const CUtensorMap* tm_x, uint32_t bar, int n0,
+                                           int k0, int m) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(RAW_STAGE)
+               : "memory");
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst + b * BOX),
+        "l"(reinterpret_cast<uint64_t>(b < 4 ? tm_d : tm_x)), "r"(bar),
+        "r"((b < 4 ? n0 : k0) + 32 * (b & 3)), "r"(m)
+        : "memory");
+}
+
+// mbar_wait on the barrier at shared address bar
+__device__ __forceinline__ void wait_u32(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred P;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
+  } while (!done);
+}
+
+// v[0..3] from shared memory at the 32-bit address a
+__device__ __forceinline__ void lds128(uint32_t a, float (&v)[4]) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(a));
+}
+
+// v[0..3] into shared memory at the 32-bit address a
+__device__ __forceinline__ void sts128(uint32_t a, const float (&v)[4]) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a), "f"(v[0]), "f"(v[1]),
+               "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+// *p = (a, b) when pred, as a predicated store
+__device__ __forceinline__ void store2_if(float* p, float a, float b, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n@p st.global.v2.f32 [%0], {%1, %2};\n}" ::"l"(p),
+      "f"(a), "f"(b), "r"((int)pred)
+      : "memory");
+}
+__device__ __forceinline__ void store_if(float* p, float a, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.f32 [%0], %1;\n}" ::"l"(p),
+               "f"(a), "r"((int)pred)
+               : "memory");
+}
+
+// A work item: chunk (slowest), n tile, k tile; its first row and slices,
+// whole pairs of them (past M a slice is zeros: the last chunk's odd slice
+// adds nothing).
+struct Item {
+  long long chunk, r0;
+  int n0, k0, slices;
+};
+
+template <int BN>
+__device__ __forceinline__ Item item_of(long long item, long long per_chunk, int k_tiles,
+                                        long long M, long long rows) {
+  Item w;
+  w.chunk = item / per_chunk;
+  const int tile = (int)(item - w.chunk * per_chunk);
+  w.n0 = (tile / k_tiles) * BM;
+  w.k0 = (tile % k_tiles) * BN;
+  w.r0 = w.chunk * rows;
+  const long long n = M - w.r0 < rows ? M - w.r0 : rows;
+  w.slices = (int)(2 * ((n + 2 * ROWS - 1) / (2 * ROWS)));
+  return w;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
+                   const __grid_constant__ CUtensorMap tm_x, float* __restrict__ P,
+                   long long M, int N, int K, long long rows, long long chunks) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* raw = smem;                                    // [RAW_STAGES][D | X]
+  uint8_t* conv = smem + RAW_STAGES * RAW_STAGE;          // [CONV_BUFS][hi | lo]
+  uint64_t* full = reinterpret_cast<uint64_t*>(conv + CONV_BUFS * CONV);   // a stage landed
+  uint64_t* raw_free = full + RAW_STAGES;                 // and read by every warp that reads it
+  uint64_t* split_full = raw_free + RAW_STAGES;           // a split buffer is whole
+  uint64_t* split_free = split_full + CONV_BUFS;          // and read by every wgmma
+
+  const int k_tiles = (K + BN - 1) / BN;
+  const long long per_chunk = (long long)((N + BM - 1) / BM) * k_tiles;
+  const long long n_items = per_chunk * chunks;
+  const long long E = (long long)N * K + N;               // floats of a chunk's partial
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RAW_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&raw_free[s], 12);      // a lane of each product and splitting warp
+    }
+    for (int b = 0; b < CONV_BUFS; ++b) {
+      sm90::mbar_init(&split_full[b], 128);   // every splitting thread
+      sm90::mbar_init(&split_free[b], 8);     // a lane of each product warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 384) {
+    // The copying warpgroup: one thread copies the CTA's slices in order
+    // (its items blockIdx.x, + gridDim.x, ...; each item's slices), slice j
+    // into stage j % RAW_STAGES once every warp that read the slice that
+    // stage held is done with it (raw_free), so the product warps issue no
+    // copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(COPY_REGS));
+    if (threadIdx.x == 384) {
+      // 32-bit shared addresses and rows (M < 2^31), the items walked by
+      // carrying the grid's stride from the tile into the chunk: no 64-bit
+      // division, so COPY_REGS registers hold the loop
+      const uint32_t raw_u = sm90::smem_u32(raw), full_u = sm90::smem_u32(full),
+                     free_u = sm90::smem_u32(raw_free);
+      const int per = (int)per_chunk;
+      int tile = (int)(blockIdx.x % per), j = 0;
+      uint32_t r0 = (blockIdx.x / per) * (uint32_t)rows;     // wraps only past the last item
+#pragma unroll 1
+      for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int n0 = (tile / k_tiles) * BM, k0 = (tile % k_tiles) * BN;
+        const int left = (int)M - (int)r0, n = left < (int)rows ? left : (int)rows;
+        const int slices = 2 * ((n + 2 * ROWS - 1) / (2 * ROWS));
+#pragma unroll 1
+        for (int s = 0; s < slices; ++s, ++j) {
+          const uint32_t st = j % RAW_STAGES;
+          if (j >= RAW_STAGES) wait_u32(free_u + 8 * st, (j / RAW_STAGES - 1) & 1);
+          load_slice(raw_u + st * RAW_STAGE, &tm_d, &tm_x, full_u + 8 * st, n0, k0,
+                     (int)r0 + ROWS * s);
+        }
+        for (tile += gridDim.x; tile >= per; tile -= per) r0 += (uint32_t)rows;
+      }
+    }
+    return;
+  }
+
+  if (threadIdx.x >= 256) {
+    // The splitting warpgroup: X of each of the CTA's slices i, in order,
+    // into the K-major hi and lo tiles of buffer i % CONV_BUFS (up to
+    // CONV_BUFS - 1 slices ahead of the products).  Thread k takes column k
+    // of the 128 copied (rows k >= BN of a tile are room no wgmma reads)
+    // and the tile's 16-byte chunks c, each of the 4 rows m of its k-step
+    // that sit at the chunk's fragment columns.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SPLIT_REGS));
+    // thread: 16-byte chunk cg (columns 4 cg .. 4 cg + 3) of the raw box w
+    // (columns 32 w ..), and the split tiles' chunks c = cl, cl + 4 of those
+    // columns' rows
+    const int k = threadIdx.x - 256, w = k >> 5, cg = k & 7, cl = (k >> 3) & 3;
+    const uint32_t raw_u = sm90::smem_u32(raw), conv_u = sm90::smem_u32(conv);
+    int i = 0;
+#pragma unroll 1
+    for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int slices = item_of<BN>(item, per_chunk, k_tiles, M, rows).slices;
+#pragma unroll 1
+      for (int s = 0; s < slices; ++s, ++i) {
+        sm90::mbar_wait(&full[i % RAW_STAGES], (i / RAW_STAGES) & 1);
+        if (i >= CONV_BUFS) sm90::mbar_wait(&split_free[i % CONV_BUFS], (i / CONV_BUFS - 1) & 1);
+        const uint32_t box = raw_u + (i % RAW_STAGES) * RAW_STAGE + RAW_OPERAND + w * BOX;
+        const uint32_t tile = conv_u + (i % CONV_BUFS) * CONV + (32 * w + 4 * cg) * 128;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int c = cl + 4 * h2;
+          float v[4][4];                      // rows m of chunk c (u), columns 4 cg + j
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int m = 8 * (c >> 1) + (c & 1) + 2 * u;
+            lds128(box + m * 128 + (((cg ^ m) & 7) << 4), v[u]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float h[4], l[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) sm90::split_tf32(v[u][j], h[u], l[u]);
+            const uint32_t off = j * 128 + (((c ^ (4 * cg + j)) & 7) << 4);
+            sts128(tile + off, h);
+            sts128(tile + B_TILE + off, l);
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        sm90::mbar_arrive(&split_full[i % CONV_BUFS]);
+        // this warp has read slice i's X
+        __syncwarp();
+        if ((k & 31) == 0) sm90::mbar_arrive(&raw_free[i % RAW_STAGES]);
+      }
+    }
+    return;
+  }
+
+  // The two product warpgroups: no branch on the thread around a wgmma
+  // (ptxas would serialise them: C7518), so the barrier arrivals are
+  // predicated instead.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(PRODUCT_REGS));
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's A rows (n, the D columns, of the tile) nn and nn + 8
+  const int nn = 64 * wg + 16 * warp + g;
+  // A fragment e's shared offset in a raw stage at k-step 0: row nn + 8 (e
+  // & 1), k column t + 4 (e >> 1), which holds row m = 2 t + (e >> 1) of the
+  // slice; k-step kk is 8 kk rows, 1024 bytes, on (the swizzle's XOR takes
+  // m % 8 alone)
+  uint32_t frag[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int n = nn + 8 * (e & 1);
+    frag[e] = (n >> 5) * BOX + swz(2 * t + (e >> 1), n & 31);
+  }
+  const uint32_t raw_u = sm90::smem_u32(raw);
+
+  float acc[BN / 2], part[BN / 2];
+  int it = 0;
+#pragma unroll 1
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const Item w = item_of<BN>(item, per_chunk, k_tiles, M, rows);
+#pragma unroll
+    for (int q = 0; q < BN / 2; ++q) acc[q] = 0.f;
+    float bs[2] = {0.f, 0.f};             // the bias sums of rows nn, nn + 8
+    // a pair of slices a step: the pair's drain and FADDs are straight-line
+    // code after its second slice, so no control flow joins while a wgmma
+    // that writes part is in flight (ptxas would wait there: C7517)
+#pragma unroll 1
+    for (int s = 0; s < w.slices; s += 2) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half, ++it) {
+        const uint32_t ds = raw_u + (it % RAW_STAGES) * RAW_STAGE;
+        const uint8_t* bt = conv + (it % CONV_BUFS) * CONV;
+        const uint64_t bh = sm90::smem_desc(bt), bl = sm90::smem_desc(bt + B_TILE);
+        sm90::mbar_wait(&full[it % RAW_STAGES], (it / RAW_STAGES) & 1);
+        sm90::mbar_wait(&split_full[it % CONV_BUFS], (it / CONV_BUFS) & 1);
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // A fragments of k-step kk, read before the wait, split after it
+          float pv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[e] = sm90::lds_f32(ds + frag[e] + 1024 * kk);
+          // the group two back (the last to read set kk & 1) is done; from
+          // kk = 1 on, every wgmma of slice it - 1 is: its split buffer is
+          // free
+          sm90::wgmma_wait<1>();
+          if (kk == 1)
+            sm90::arrive_if(&split_free[(it + CONV_BUFS - 1) % CONV_BUFS],
+                            lane == 0 && it > 0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = pv[e];
+            ah[kk & 1][e] = sm90::tf32_bits(v);
+            al[kk & 1][e] = sm90::tf32_bits(v - __uint_as_float(ah[kk & 1][e]));
+            bs[e & 1] += v;
+          }
+          sm90::wgmma_fence();
+          sm90::WgmmaRs<BN>::tf32(part, al[kk & 1], bh + 2 * kk, half || kk);   // lo * hi
+          sm90::WgmmaRs<BN>::tf32(part, ah[kk & 1], bl + 2 * kk, 1);           // hi * lo
+          sm90::WgmmaRs<BN>::tf32(part, ah[kk & 1], bh + 2 * kk, 1);           // hi * hi
+          sm90::wgmma_commit();
+        }
+        // this warp has read its D of slice it
+        sm90::arrive_if(&raw_free[it % RAW_STAGES], lane == 0);
+        if (half) {
+          sm90::wgmma_wait<0>();
+#pragma unroll
+          for (int q = 0; q < BN / 2; ++q) acc[q] += part[q];
+        }
+      }
+    }
+
+    // epilogue: accumulator 4j + 2h + {0, 1} is (row nn + 8h, col 8j + 2t + {0, 1})
+    float* out = P + w.chunk * E;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int k = w.k0 + 8 * j + 2 * t;        // K % 8 == 0: k < K means k + 1 < K
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = w.n0 + nn + 8 * h;
+        store2_if(out + (long long)n * K + k, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1],
+                  n < N && k < K);
+      }
+    }
+    if (w.k0 == 0) {
+      // the quad's four row-order sums of each column: (s0 + s1) + (s2 + s3)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = bs[h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const int n = w.n0 + nn + 8 * h;
+        store_if(out + (long long)N * K + n, v, t == 0 && n < N);
+      }
+    }
+  }
+}
+
+template <int BN>
+cudaError_t launch_bn(const float* D, const float* X, float* P, long long M, int N, int K,
+                      cudaStream_t stream) {
+  CUtensorMap md, mx;
+  cudaError_t e;
+  if ((e = sm90::encode_tile<float>(&md, D, M, N, ROWS)) != cudaSuccess ||
+      (e = sm90::encode_tile<float>(&mx, X, M, K, ROWS)) != cudaSuccess)
+    return e;
+  const auto kernel = wgrad_wgmma_kernel<BN>;
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  // the SM count, and the kernel's shared-memory attribute set, once a
+  // device (of the first 16) and instantiation
+  static std::atomic<int> sms_of[16];
+  int sms = dev < 16 ? sms_of[dev].load(std::memory_order_relaxed) : 0;
+  if (sms == 0) {
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  SMEM)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    if (dev < 16) sms_of[dev].store(sms, std::memory_order_relaxed);
+  }
+  const long long rows = chunk_rows(M, N, K), nch = (M + rows - 1) / rows;
+  const long long items = tiles(N, K) * nch;
+  const unsigned grid = (unsigned)(items < sms ? items : sms);    // persistent
+  kernel<<<grid, THREADS, SMEM, stream>>>(md, mx, P, M, N, K, rows, nch);
+  return counted(LAUNCH_WGRAD_WGMMA, cudaGetLastError());
+}
+
+// The partials of D (M, N)^T X (M, K) and of D's column sums into P
+// (part_floats(M, N, K) floats): N and K multiples of 8, 1 <= M < 2^31.
+inline cudaError_t partials(const float* D, const float* X, float* P, long long M, int N,
+                            int K, cudaStream_t stream) {
+  if (M < 1 || M >= (1LL << 31) - ROWS || N < 8 || K < 8 || N % 8 || K % 8)
+    return cudaErrorInvalidValue;
+  switch (tile_n(K)) {
+    case 112:
+      return launch_bn<112>(D, X, P, M, N, K, stream);
+    case 96:
+      return launch_bn<96>(D, X, P, M, N, K, stream);
+    default:
+      return launch_bn<128>(D, X, P, M, N, K, stream);
+  }
+}
+
+}  // namespace wgrad
+
+}  // namespace

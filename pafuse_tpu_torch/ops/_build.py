@@ -139,7 +139,8 @@ LAUNCH_KINDS = ("gemm", "gemm_bf16", "split_weights", "split_weights_t",
                 "row_stats", "wgrad_wgmma", "attention_tc", "attention_wg",
                 "attention_bwd_tc", "attention_bwd_wg", "attention_bwd_pack",
                 "attention_stream", "attention_bwd_stream_a",
-                "attention_bwd_stream_b", "ln_bwd", "ln_sums")
+                "attention_bwd_stream_b", "ln_bwd", "ln_sums",
+                "reduce_partials")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

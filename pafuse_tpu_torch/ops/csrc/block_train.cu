@@ -306,7 +306,7 @@ cudaError_t reduce_partials(const float* P, long long nparts, long long E, float
                             cudaStream_t stream) {
   reduce_partials_kernel<<<(unsigned)((E + RED_THREADS - 1) / RED_THREADS), RED_THREADS,
                            0, stream>>>(P, nparts, E, out);
-  return cudaGetLastError();
+  return counted(LAUNCH_REDUCE_PARTIALS, cudaGetLastError());
 }
 
 // dW (N, K) = D^T X and db (N) = the column sums of D, both in fixed order,

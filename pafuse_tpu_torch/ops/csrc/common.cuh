@@ -122,6 +122,7 @@ enum LaunchKind {
   LAUNCH_ATTENTION_BWD_STREAM_B,  // and attention_bwd_stream_b_kernel
   LAUNCH_LN_BWD,             // block_train.cu's ln_bwd_kernel
   LAUNCH_LN_SUMS,            // and its ordered pass, ln_sums_kernel
+  LAUNCH_REDUCE_PARTIALS,    // block_train.cu's reduce_partials_kernel (the weight gradients')
   LAUNCH_KINDS
 };
 

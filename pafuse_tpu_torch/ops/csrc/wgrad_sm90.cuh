@@ -24,14 +24,20 @@
 //   * A persistent CTA per SM walks work items (chunk, 128 x BN tile), the
 //     tiles of one chunk next to each other (they share the chunk's rows in
 //     L2).  BN = 128, or 112 or 96 where that tiles K and 128 does not
-//     (the face widths; 3DHP's and the monolithic model's).  384 threads:
-//     two product warpgroups of 64 n-rows each (setmaxnreg 232 registers)
-//     and one splitting warpgroup (40).
+//     (the face widths; 3DHP's and the monolithic model's).  512 threads:
+//     two product warpgroups of 64 n-rows each, a splitting warpgroup and a
+//     copying one (setmaxnreg PRODUCT_REGS, SPLIT_REGS, COPY_REGS).
 //   * A ring of RAW_STAGES raw slices, copied by TMA: 32 rows of D's 128
 //     columns and of X's 128 columns, in 32-column 128-byte-swizzled boxes
 //     of 2-D maps over the row-major arrays, so one thread issues the
-//     copies and the hardware zero-fills past M, N and K.  Thread 0 issues
-//     them, predicated, when both product warpgroups are done with a stage.
+//     copies and the hardware zero-fills past M, N and K.  One thread of
+//     the copying warpgroup issues them once every warp that read a stage
+//     is done with it (raw_free: a lane of each product and splitting warp
+//     arrives).  The product warps issue no copy and wait on no barrier of
+//     each other's: where every product thread issued the copies predicated
+//     (the design before this one), ptxas's loop around each TMA instruction cost
+//     each product warp ~20% of its cycles, and the barrier that ended each
+//     slice held both warpgroups together.
 //   * A = D^T comes from registers (wgmma's RS form): each product thread
 //     reads its A fragments straight from the raw D slice and splits them,
 //     so every element of D is read and split once per CTA and never
@@ -39,13 +45,16 @@
 //     warpgroup into a K-major hi and lo tile (a row of 32 m-values per
 //     column k: one 128-byte swizzle row, the layout smem_desc reads), up to
 //     CONV_BUFS - 1 slices ahead of the products, on mbarriers (a buffer
-//     whole; its wgmmas done).  The k-columns of a k-step hold the rows m =
-//     8 kk + 2 t + u at fragment column t + 4 u (the A fragment's (g, t)
-//     takes rows 2t and 2t + 1 of each 8): with the swizzle, both the
-//     fragment reads of D and the column reads of X are free of bank
-//     conflicts, and a k-step still sums the same 8 rows.
+//     whole; its wgmmas done, an arrival from a lane of each product warp).
+//     The k-columns of a k-step hold the rows m = 8 kk + 2 t + u at
+//     fragment column t + 4 u (the A fragment's (g, t) takes rows 2t and
+//     2t + 1 of each 8): with the swizzle, both the fragment reads of D and
+//     the column reads of X are free of bank conflicts, and a k-step still
+//     sums the same 8 rows.  Both read at 32-bit shared addresses whose
+//     swizzle is a per-thread offset and an XOR with a constant (the
+//     generic pointers before cost the products ~6% in address arithmetic).
 //   * Three products a k-step, smallest first (lo*hi, hi*lo, hi*hi), as
-//     gemm_sm90.cuh's issue_slice orders them, two k-steps in flight; each
+//     gemm_sm90.cuh's slice_products orders them, two k-steps in flight; each
 //     pair of slices goes into a fresh accumulator (scale-d 0), added to the
 //     f32 total with FADDs in order (the tensor cores' own accumulation
 //     truncates).
@@ -65,14 +74,17 @@
 // branch around them is uniform across the product warpgroups.
 //
 // What it reaches (chip_ab.py --only train, H100 80GB HBM3 at 700 W, with
-// the ordered pass): 78 TFLOP/s over H3WB's twelve products (the face
-// widths 224, 448 and 672 fill 7/8 of the 128-row tiles), 95 over MixSTE's
-// eight, 47% and 57% of the 165 TFLOP/s bound, against cuBLAS's d^T x at
-// 44 and 54 without the bias sums (PERF.md section 6).  Shared memory a
-// slice: 32 KB written by TMA, 16 KB read and 32 KB written by the split,
-// 16 KB of A fragments read, 96 KB of B read by the wgmmas, ~1500 cycles
-// at 128 bytes a cycle against the tensor cores' 1536: the two bounds
-// coincide, and at half the tensor cores' rate neither is saturated.
+// the ordered pass; PERF.md section 6): 92 TFLOP/s over H3WB's twelve
+// products (the face widths 224, 448 and 672 fill 7/8 of the 128-row
+// tiles), 111 over MixSTE's eight, 56% and 67% of the 165 TFLOP/s bound
+// (the design before this one: 77 and 94), against cuBLAS's d^T x at 45 and 54
+// without the bias sums.  What holds it (experiments/wgrad/run.py, whose
+// patches take one cost out at a time): not shared memory (a slice moves
+// ~192 KB, ~1500 cycles at 128 bytes a cycle, and taking the split's 32 KB
+// of stores out saves nothing); the splitting warpgroup's work (15-18%)
+// and the product threads' TF32 splits (5-7%), which share the SMs' issue
+// slots with the wgmmas, and the ordered pass (3-4%).  Without the first
+// two the loop reaches 117 and 129 TFLOP/s.
 
 #pragma once
 
@@ -91,14 +103,18 @@ constexpr int RAW_STAGES = 4;
 constexpr int B_TILE = 128 * 128;               // room for BN <= 128 rows of 128 bytes
 constexpr int CONV = 2 * B_TILE;                // X's split slice: hi, then lo
 constexpr int CONV_BUFS = 3;                    // split slices in flight
-constexpr int THREADS = 384;                    // two product warpgroups + the splitting one
-constexpr int PRODUCT_REGS = 232, SPLIT_REGS = 40;     // setmaxnreg: 256 x 232 + 128 x 40 <= 64K
+// two product warpgroups, the splitting one and the copying one
+constexpr int THREADS = 512;
+// setmaxnreg: 256 x 216 + 128 x 40 + 128 x 40 = the 512 x 128 a CTA is
+// launched with (224 a product thread would leave the copying thread 24,
+// and it spills there)
+constexpr int PRODUCT_REGS = 216, SPLIT_REGS = 40, COPY_REGS = 40;
 constexpr int CHUNK_ALIGN = 64;                 // a chunk is whole pairs of slices
 constexpr int WAVE = 132;                       // the rule's SMs (an H100 SXM)
 constexpr int ITEM_OVERHEAD = 64;               // the rule's cost of an item, in rows
 // stages, split slices, barriers, 1 KB for the alignment
 constexpr int SMEM =
-    RAW_STAGES * RAW_STAGE + CONV_BUFS * CONV + (RAW_STAGES + 2 * CONV_BUFS) * 8 + 1024;
+    RAW_STAGES * RAW_STAGE + CONV_BUFS * CONV + 2 * (RAW_STAGES + CONV_BUFS) * 8 + 1024;
 static_assert(SMEM <= sm90::SMEM_LIMIT, "the ring must fit one CTA's shared memory");
 
 // The tile width along K: 128 where that tiles K, else 112 or 96 where
@@ -149,29 +165,46 @@ __device__ __forceinline__ int swz(int r, int j) {
   return r * 128 + ((((j >> 2) ^ r) & 7) << 4) + (j & 3) * 4;
 }
 
-// The copies of one raw slice when p (thread 0): the transaction's bytes
-// on the stage's barrier, then D's and X's four boxes.  Predicated rather
-// than branched on the thread, so no divergent path crosses the wgmmas in
-// flight.
-__device__ __forceinline__ void load_slice(uint8_t* dst, const CUtensorMap* tm_d,
-                                           const CUtensorMap* tm_x, uint64_t* bar, int n0,
-                                           int k0, int m, int p) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
-      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}" ::"r"(sm90::smem_u32(bar)),
-      "r"(RAW_STAGE), "r"(p)
-      : "memory");
+// The copies of one raw slice into the stage at shared address dst, by the
+// one thread that calls it: the transaction's bytes on the stage's barrier
+// (bar), then D's and X's four boxes.
+__device__ __forceinline__ void load_slice(uint32_t dst, const CUtensorMap* tm_d,
+                                           const CUtensorMap* tm_x, uint32_t bar, int n0,
+                                           int k0, int m) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(RAW_STAGE)
+               : "memory");
 #pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const CUtensorMap* map = b < 4 ? tm_d : tm_x;
-    const int c0 = (b < 4 ? n0 : k0) + 32 * (b & 3);
+  for (int b = 0; b < 8; ++b)
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
-        "@p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4}], [%2];\n}" ::"r"(sm90::smem_u32(dst + b * BOX)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90::smem_u32(bar)), "r"(c0), "r"(m), "r"(p)
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst + b * BOX),
+        "l"(reinterpret_cast<uint64_t>(b < 4 ? tm_d : tm_x)), "r"(bar),
+        "r"((b < 4 ? n0 : k0) + 32 * (b & 3)), "r"(m)
         : "memory");
-  }
+}
+
+// mbar_wait on the barrier at shared address bar
+__device__ __forceinline__ void wait_u32(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred P;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
+  } while (!done);
+}
+
+// v[0..3] into shared memory at the 32-bit address a
+__device__ __forceinline__ void sts128(uint32_t a, const float (&v)[4]) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a), "f"(v[0]), "f"(v[1]),
+               "f"(v[2]), "f"(v[3])
+               : "memory");
 }
 
 // *p = (a, b) when pred, as a predicated store
@@ -219,7 +252,8 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
   uint8_t* raw = smem;                                    // [RAW_STAGES][D | X]
   uint8_t* conv = smem + RAW_STAGES * RAW_STAGE;          // [CONV_BUFS][hi | lo]
   uint64_t* full = reinterpret_cast<uint64_t*>(conv + CONV_BUFS * CONV);   // a stage landed
-  uint64_t* split_full = full + RAW_STAGES;               // a split buffer is whole
+  uint64_t* raw_free = full + RAW_STAGES;                 // and read by every warp that reads it
+  uint64_t* split_full = raw_free + RAW_STAGES;           // a split buffer is whole
   uint64_t* split_free = split_full + CONV_BUFS;          // and read by every wgmma
 
   const int k_tiles = (K + BN - 1) / BN;
@@ -227,7 +261,10 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
   const long long n_items = per_chunk * chunks;
   const long long E = (long long)N * K + N;               // floats of a chunk's partial
   if (threadIdx.x == 0) {
-    for (int s = 0; s < RAW_STAGES; ++s) sm90::mbar_init(&full[s], 1);
+    for (int s = 0; s < RAW_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&raw_free[s], 12);      // a lane of each product and splitting warp
+    }
     for (int b = 0; b < CONV_BUFS; ++b) {
       sm90::mbar_init(&split_full[b], 128);   // every splitting thread
       sm90::mbar_init(&split_free[b], 8);     // a lane of each product warp
@@ -235,6 +272,40 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+
+  if (threadIdx.x >= 384) {
+    // The copying warpgroup: one thread copies the CTA's slices in order
+    // (its items blockIdx.x, + gridDim.x, ...; each item's slices), slice j
+    // into stage j % RAW_STAGES once every warp that read the slice that
+    // stage held is done with it (raw_free), so the product warps issue no
+    // copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(COPY_REGS));
+    if (threadIdx.x == 384) {
+      // 32-bit shared addresses and rows (M < 2^31), the items walked by
+      // carrying the grid's stride from the tile into the chunk: no 64-bit
+      // division, so COPY_REGS registers hold the loop
+      const uint32_t raw_u = sm90::smem_u32(raw), full_u = sm90::smem_u32(full),
+                     free_u = sm90::smem_u32(raw_free);
+      const int per = (int)per_chunk;
+      int tile = (int)(blockIdx.x % per), j = 0;
+      uint32_t r0 = (blockIdx.x / per) * (uint32_t)rows;     // wraps only past the last item
+#pragma unroll 1
+      for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int n0 = (tile / k_tiles) * BM, k0 = (tile % k_tiles) * BN;
+        const int left = (int)M - (int)r0, n = left < (int)rows ? left : (int)rows;
+        const int slices = 2 * ((n + 2 * ROWS - 1) / (2 * ROWS));
+#pragma unroll 1
+        for (int s = 0; s < slices; ++s, ++j) {
+          const uint32_t st = j % RAW_STAGES;
+          if (j >= RAW_STAGES) wait_u32(free_u + 8 * st, (j / RAW_STAGES - 1) & 1);
+          load_slice(raw_u + st * RAW_STAGE, &tm_d, &tm_x, full_u + 8 * st, n0, k0,
+                     (int)r0 + ROWS * s);
+        }
+        for (tile += gridDim.x; tile >= per; tile -= per) r0 += (uint32_t)rows;
+      }
+    }
+    return;
+  }
 
   if (threadIdx.x >= 256) {
     // The splitting warpgroup: X of each of the CTA's slices i, in order,
@@ -244,7 +315,8 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
     // and the tile's 16-byte chunks c, each of the 4 rows m of its k-step
     // that sit at the chunk's fragment columns.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SPLIT_REGS));
-    const int k = threadIdx.x - 256;
+    const int k = threadIdx.x - 256, kq = (k >> 2) & 7;
+    const uint32_t raw_u = sm90::smem_u32(raw), conv_u = sm90::smem_u32(conv);
     int i = 0;
 #pragma unroll 1
     for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
@@ -253,60 +325,54 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
       for (int s = 0; s < slices; ++s, ++i) {
         sm90::mbar_wait(&full[i % RAW_STAGES], (i / RAW_STAGES) & 1);
         if (i >= CONV_BUFS) sm90::mbar_wait(&split_free[i % CONV_BUFS], (i / CONV_BUFS - 1) & 1);
-        const uint8_t* col = raw + (i % RAW_STAGES) * RAW_STAGE + RAW_OPERAND + (k >> 5) * BOX;
-        uint8_t* hi = conv + (i % CONV_BUFS) * CONV;
+        // 32-bit shared addresses: column k of the raw X slice (row m's
+        // value in 16-byte chunk (k % 32) / 4 ^ m % 8 of its row) and row k
+        // of the split tiles
+        const uint32_t col =
+            raw_u + (i % RAW_STAGES) * RAW_STAGE + RAW_OPERAND + (k >> 5) * BOX + (k & 3) * 4;
+        const uint32_t hi = conv_u + (i % CONV_BUFS) * CONV + k * 128;
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           float h[4], l[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            const int m = 8 * (c >> 1) + (c & 1) + 2 * u;
-            sm90::split_tf32(*reinterpret_cast<const float*>(col + swz(m, k & 31)), h[u], l[u]);
+            const int j = (c & 1) + 2 * u;          // m % 8 of row m = 8 (c >> 1) + j
+            sm90::split_tf32(sm90::lds_f32(col + 1024 * (c >> 1) + 128 * j + ((kq ^ j) << 4)),
+                             h[u], l[u]);
           }
-          const int off = k * 128 + (((c ^ k) & 7) << 4);
-          *reinterpret_cast<float4*>(hi + off) = *reinterpret_cast<const float4*>(h);
-          *reinterpret_cast<float4*>(hi + B_TILE + off) = *reinterpret_cast<const float4*>(l);
+          const uint32_t off = ((c ^ k) & 7) << 4;
+          sts128(hi + off, h);
+          sts128(hi + B_TILE + off, l);
         }
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         sm90::mbar_arrive(&split_full[i % CONV_BUFS]);
+        // this warp has read slice i's X
+        __syncwarp();
+        if ((k & 31) == 0) sm90::mbar_arrive(&raw_free[i % RAW_STAGES]);
       }
     }
     return;
   }
 
   // The two product warpgroups: no branch on the thread around a wgmma
-  // (ptxas would serialise them: C7518), so the copies and the barrier
-  // arrivals are predicated instead.
+  // (ptxas would serialise them: C7518), so the barrier arrivals are
+  // predicated instead.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(PRODUCT_REGS));
-  // The copies run RAW_STAGES slices ahead of the products, along the CTA's
-  // slices in order (its items blockIdx.x, + gridDim.x, ...; each item's
-  // slices): slice i into stage i % RAW_STAGES, issued by thread 0 once the
-  // product warps are done with the slice that stage held (the barrier
-  // that ends each slice; its X was split before its products began).  lp:
-  // the next slice to copy, lw its item.
-  long long lp_item = blockIdx.x;
-  int lp_s = 0, lp_i = 0;
-  Item lw = item_of<BN>(lp_item, per_chunk, k_tiles, M, rows);
-  auto load_next = [&]() {
-    if (lp_item < n_items) {
-      const int st = lp_i % RAW_STAGES;
-      load_slice(raw + st * RAW_STAGE, &tm_d, &tm_x, &full[st], lw.n0, lw.k0,
-                 (int)(lw.r0 + (long long)ROWS * lp_s), threadIdx.x == 0);
-      ++lp_i;
-      if (++lp_s == lw.slices) {
-        lp_s = 0;
-        lp_item += gridDim.x;
-        if (lp_item < n_items) lw = item_of<BN>(lp_item, per_chunk, k_tiles, M, rows);
-      }
-    }
-  };
-#pragma unroll 1
-  for (int i = 0; i < RAW_STAGES; ++i) load_next();
-
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   // this thread's A rows (n, the D columns, of the tile) nn and nn + 8
   const int nn = 64 * wg + 16 * warp + g;
+  // A fragment e's shared offset in a raw stage at k-step 0: row nn + 8 (e
+  // & 1), k column t + 4 (e >> 1), which holds row m = 2 t + (e >> 1) of the
+  // slice; k-step kk is 8 kk rows, 1024 bytes, on (the swizzle's XOR takes
+  // m % 8 alone)
+  uint32_t frag[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int n = nn + 8 * (e & 1);
+    frag[e] = (n >> 5) * BOX + swz(2 * t + (e >> 1), n & 31);
+  }
+  const uint32_t raw_u = sm90::smem_u32(raw);
 
   float acc[BN / 2], part[BN / 2];
   int it = 0;
@@ -323,7 +389,7 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
     for (int s = 0; s < w.slices; s += 2) {
 #pragma unroll
       for (int half = 0; half < 2; ++half, ++it) {
-        const uint8_t* ds = raw + (it % RAW_STAGES) * RAW_STAGE;
+        const uint32_t ds = raw_u + (it % RAW_STAGES) * RAW_STAGE;
         const uint8_t* bt = conv + (it % CONV_BUFS) * CONV;
         const uint64_t bh = sm90::smem_desc(bt), bl = sm90::smem_desc(bt + B_TILE);
         sm90::mbar_wait(&full[it % RAW_STAGES], (it / RAW_STAGES) & 1);
@@ -331,15 +397,10 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
         uint32_t ah[2][4], al[2][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          // A fragment e: row nn + 8 (e & 1), k column t + 4 (e >> 1), which
-          // holds row m = 8 kk + 2 t + (e >> 1) of the slice; read before
-          // the wait, split after it
+          // A fragments of k-step kk, read before the wait, split after it
           float pv[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int n = nn + 8 * (e & 1), m = 8 * kk + 2 * t + (e >> 1);
-            pv[e] = *reinterpret_cast<const float*>(ds + (n >> 5) * BOX + swz(m, n & 31));
-          }
+          for (int e = 0; e < 4; ++e) pv[e] = sm90::lds_f32(ds + frag[e] + 1024 * kk);
           // the group two back (the last to read set kk & 1) is done; from
           // kk = 1 on, every wgmma of slice it - 1 is: its split buffer is
           // free
@@ -360,16 +421,13 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_d,
           sm90::WgmmaRs<BN>::tf32(part, ah[kk & 1], bh + 2 * kk, 1);           // hi * hi
           sm90::wgmma_commit();
         }
+        // this warp has read its D of slice it
+        sm90::arrive_if(&raw_free[it % RAW_STAGES], lane == 0);
         if (half) {
           sm90::wgmma_wait<0>();
 #pragma unroll
           for (int q = 0; q < BN / 2; ++q) acc[q] += part[q];
         }
-        // both product warpgroups are done with slice it's raw stage (its
-        // X was split before its products began): the stage takes slice it
-        // + RAW_STAGES
-        asm volatile("bar.sync 1, 256;" ::: "memory");
-        load_next();
       }
     }
 
@@ -407,14 +465,20 @@ cudaError_t launch_bn(const float* D, const float* X, float* P, long long M, int
   if ((e = sm90::encode_tile<float>(&md, D, M, N, ROWS)) != cudaSuccess ||
       (e = sm90::encode_tile<float>(&mx, X, M, K, ROWS)) != cudaSuccess)
     return e;
-  auto kernel = wgrad_wgmma_kernel<BN>;
-  if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM)) !=
-      cudaSuccess)
-    return e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
+  const auto kernel = wgrad_wgmma_kernel<BN>;
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  // the SM count, and the kernel's shared-memory attribute set, once a
+  // device (of the first 16) and instantiation
+  static std::atomic<int> sms_of[16];
+  int sms = dev < 16 ? sms_of[dev].load(std::memory_order_relaxed) : 0;
+  if (sms == 0) {
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  SMEM)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    if (dev < 16) sms_of[dev].store(sms, std::memory_order_relaxed);
+  }
   const long long rows = chunk_rows(M, N, K), nch = (M + rows - 1) / rows;
   const long long items = tiles(N, K) * nch;
   const unsigned grid = (unsigned)(items < sms ? items : sms);    // persistent

@@ -728,6 +728,63 @@ def test_weight_grad_chunk_rule_is_the_library_rule_on_gpu(cuda_device):
     assert got == [weight_grad_chunk_rows(*s) for s in shapes]
 
 
+#: (M, N, K) at the edges of the weight-gradient kernel's work split: M
+#: below one 32-row slice; a last chunk whose rows end in the first slice of
+#: its pair (M = 2381: 77, 77 and 141 rows, the pair's second slice all
+#: past M), at each tile width BN the kernel takes by K (128, 112, 96) with N
+#: not a multiple of the 128-row tile; more (chunk, tile) items than the
+#: card has SMs, so a CTA takes several in turn (H3WB's body qkv, 378 items;
+#: MixSTE's fc2, 1056)
+WGRAD_EDGES = [(1, 224, 512), (31, 672, 224), (31, 864, 288), (1, 8, 8),
+               (2381, 224, 512), (2381, 672, 224), (2381, 864, 288),
+               (999 * 24, 1152, 384), (4 * 243 * 134, 512, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", WGRAD_EDGES)
+def test_weight_grad_edges_of_the_work_split_on_gpu(cuda_device, M, N, K):
+    """The weight- and bias-gradient kernel at WGRAD_EDGES: dW and db within
+    1e-5 x max|plain| (rows past M read as zeros, columns past N unused), one
+    launch of the kernel and one of its ordered pass a call, and a repeat
+    gives the same bits."""
+    r = np.random.RandomState(M + N + K)
+    d, x = (torch.tensor(r.randn(M, n), dtype=torch.float32,
+                         device=cuda_device) for n in (N, K))
+    before = _build.kernel_launches("block_train")
+    dw, db = weight_grads(d, x)
+    torch.cuda.synchronize()
+    after = _build.kernel_launches("block_train")
+    assert {k: after[k] - before[k] for k in after} == _counts(
+        wgrad_wgmma=1, reduce_partials=1)
+    errs = _rel_errs([dw, db], weight_grads_reference(d, x))
+    assert max(errs) <= 1e-5, errs
+    dw2, db2 = weight_grads(d, x)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+def test_weight_grads_on_two_streams_at_once_on_gpu(cuda_device):
+    """Calls on two streams at once, each with its own partials, give the
+    bits of the same calls made alone: no state shared between calls."""
+    r = np.random.RandomState(7)
+    ins = [tuple(torch.tensor(r.randn(M, n), dtype=torch.float32,
+                              device=cuda_device) for n in (N, K))
+           for M, N, K in ((999 * 24, 1152, 384), (999 * 68, 224, 448))]
+    alone = [weight_grads(d, x) for d, x in ins]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=cuda_device) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for rep in range(3):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs.append(((rep + k) % 2, weight_grads(*ins[(rep + k) % 2])))
+    torch.cuda.synchronize()
+    for i, (dw, db) in outs:
+        assert torch.equal(dw, alone[i][0]) and torch.equal(db, alone[i][1]), i
+
+
 #: the LayerNorm backward's three forms in train_bwd, with the dtypes a
 #: bfloat16 block gives them: the outer norm (g in bfloat16, x2 float32;
 #: dxm = mask * dx), LN2 (float32, the residual and the mask), LN1 (x and
@@ -832,7 +889,8 @@ def test_kernels_2_and_6_run_their_gemms_on_the_tensor_cores_on_gpu(
     counts = _launches(bwd, "block_train", "attention_core_bwd")
     assert counts["block_train"] == _counts(gemm=4, split_weights_t=4,
                                             wgrad_wgmma=4, ln_bwd=3,
-                                            ln_sums=3), counts
+                                            ln_sums=3,
+                                            reduce_partials=4), counts
     assert counts["attention_core_bwd"] == _counts(attention_bwd_tc=1), counts
     names = _device_kernels(bwd)
     ours = ("sm90::gemm_kernel", "sm90::split_weights_t_kernel",
