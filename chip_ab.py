@@ -51,6 +51,13 @@
    each stage's bound and the launches of one call by kernel, then the
    H3WB step with a profiled one and MixSTE's steps (the backward also
    at RESIDENT_BWD_LONG; ``--only stages``: the resident stages alone);
+   ``--only fwd`` the float32 hashes of #1-#6, the float32 attention
+   forward alone at its main-path shapes (fwd_section: #1's six stages at
+   serve bucket 16, #2's at window batch 64 and FWD_GROUPS) beside SDPA, its
+   plain version and its bound, #1's stages at bucket 16 (chain_section,
+   with the LayerNorms' bounds and F.layer_norm's time), float32 serve
+   requests at SERVE_FRAMES, the float32 ``auto`` and ``true`` evaluation
+   and the H3WB step with a profiled one;
    ``--alt DIR`` times a third tree in the same turns
    (e.g. this tree with one part of the change taken out; its hashes must
    agree too, its SASS is not compared).  Beside the
@@ -94,6 +101,7 @@
         --changed '#6,#6dx,#6ln' --redesigned ln_bwd_kernel,ln_sums_kernel
     python3 chip_ab.py --kernels build/parent --only resident \
         --changed '#2,#5,#6' 
+    python3 chip_ab.py --kernels build/parent --only fwd
     python3 chip_ab.py --route-tree pack build/pack --kernels build/parent \
         --only stages --alt build/pack --changed '#6' --redesigned attention_bwd_
     python3 chip_ab.py --witness
@@ -166,6 +174,16 @@ RESIDENT_BWD_LONG = ((64, 243, 224), (64, 243, 256), (64, 243, 288),
 #: the float32 forward's shapes at 134 keys: the monolithic model's and
 #: MixSTE's spatial blocks
 RESIDENT_FWD = ((999, 134, 288), (972, 134, 512))
+#: the float32 resident forward's shapes by group (B, L, C at 8 heads):
+#: #1's six stages at serve bucket 16 and #2's at window batch 64
+#: (chip_smoke.block_cases: 16 or 64 windows x P=10 x flip, 27 frames, each
+#: part's spatial and temporal block), #5's six at the H3WB step
+#: (RESIDENT_BWD's first six), 3DHP's pair, and 243 frames at each part
+#: width (past 144 keys: resident at d <= 32, streamed at d = 36, 48)
+FWD_GROUPS = {"h3wb": RESIDENT_BWD[:6], "dhp3": RESIDENT_BWD[8:10],
+              "long": RESIDENT_BWD_LONG}
+#: requests of the float32 serve A/B (frames)
+SERVE_FRAMES = (27, 100, 405)
 #: trees that differ from this one only in the backward's route
 #: (attention_bwd_sm90.cuh), for --route-tree: "pack" sends every unit of
 #: up to 64 keys at d <= 48 to attention_bwd_pack_kernel (one warpgroup a
@@ -472,6 +490,91 @@ def resident_section(times, digests, dev):
     return routes
 
 
+def fwd_section(times, digests, dev):
+    """The float32 attention forward alone at FWD_GROUPS and #1's and #2's
+    stages (serve bucket 16, window batch 64), each on the route the
+    library takes: device ms of the kernel (``ops.attention_core``), of SDPA
+    and of the plain version on the same seeded inputs, the stage's bound
+    (``attention_bound_ms``), each group's sums, the library's launch counts
+    of one call by kernel, and a hash of each output (twice: a call repeats
+    bit for bit).  Returns the launch counts by stage."""
+    import hashlib
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke
+    from pafuse_tpu_torch.ops import _build
+    from pafuse_tpu_torch.ops.attention_core import (attention_core,
+                                                     attention_core_reference)
+    heads = 8
+    groups = {"serve16": tuple(c[2:] for c in chip_smoke.block_cases(16, 10, 27)),
+              "eval64": tuple(c[2:] for c in chip_smoke.block_cases(64, 10, 27)),
+              **FWD_GROUPS}
+    routes = {}
+    for g, shapes in groups.items():
+        for key in ("ms", "sdpa_ms", "plain_ms", "bound_ms"):
+            times[f"fwd_{g}_{key}"] = 0.0
+        for i, (B, L, C) in enumerate(shapes):
+            gen = torch.Generator(device=dev).manual_seed(900 + i)
+            qkv = torch.randn(B, L, 3 * C, generator=gen, device=dev)
+            key = f"resident_fwd_{g}_{B}x{L}x{C}_float32"
+            outs = [hashlib.sha256(attention_core(qkv, heads).cpu().numpy().tobytes())
+                    .hexdigest()[:16] for _ in range(2)]
+            if outs[0] != outs[1]:
+                raise AssertionError(f"{key}: two calls differ")
+            digests[key] = outs[0]
+            _build.kernel_launches("attention_core", zero=True)
+            attention_core(qkv, heads)
+            torch.cuda.synchronize()
+            routes[key] = {k: n for k, n in
+                           _build.kernel_launches("attention_core").items() if n}
+            q, k, v = qkv.view(B, L, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+            row = {"ms": _cuda_ms(lambda: attention_core(qkv, heads)),
+                   "sdpa_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   "plain_ms": _cuda_ms(lambda: attention_core_reference(qkv, heads)),
+                   "bound_ms": attention_bound_ms(B, L, C, False)}
+            for name, ms in row.items():
+                times[f"{key}_{name}"] = ms
+                times[f"fwd_{g}_{name}"] += ms
+            del qkv, q, k, v
+            torch.cuda.empty_cache()
+    return routes
+
+
+def chain_section(times, dev):
+    """Kernel #1 in float32 at serve bucket 16 (chip_smoke.block_cases), one
+    profiled call a shape (chip_smoke.chain_stages): device ms by stage
+    summed over the six calls (``chain_<stage>_ms``: the attention, the
+    outer LayerNorm ``layernorm_kernel``, LN1's and LN2's row statistics
+    ``row_stats_kernel``, the GEMMs, the weight split), the LayerNorms'
+    bounds (the outer one reads x and writes y once, 8 M C bytes; each row
+    statistics pass reads x once and writes two floats a row, 4 M C + 8 M;
+    at 3.35 TB/s) and F.layer_norm's ms for the three LayerNorms of each
+    call on the same rows (the library's call for what the chain does in
+    three kernels, two of them inside GEMM prologues)."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke
+    from pafuse_tpu_torch.ops.block import fused_block
+    heads = 8
+    times["chain_ln_bound_ms"] = times["chain_row_stats_bound_ms"] = 0.0
+    times["chain_layer_norm_library_ms"] = 0.0
+    for i, (part, kind, B, L, C) in enumerate(chip_smoke.block_cases(16, 10, 27)):
+        p = _block_params(C, 100 + i, dev)
+        gen = torch.Generator(device=dev).manual_seed(500 + i)
+        x = torch.randn(B, L, C, generator=gen, device=dev)
+        for stage, ms in chip_smoke.chain_stages(
+                lambda: fused_block(x, p[:12], p[12:], heads)).items():
+            times[f"chain_{stage}_ms"] = times.get(f"chain_{stage}_ms", 0.0) + ms
+        M = B * L
+        times["chain_ln_bound_ms"] += 8 * M * C / 3.35e12 * 1e3
+        times["chain_row_stats_bound_ms"] += 2 * (4 * M * C + 8 * M) / 3.35e12 * 1e3
+        rows = x.view(M, C)
+        times["chain_layer_norm_library_ms"] += 3 * _cuda_ms(
+            lambda: F.layer_norm(rows, (C,), p[0], p[1]))
+        del x, rows
+        torch.cuda.empty_cache()
+
+
 def attention_bound_ms(B, L, C, backward):
     """The least time an H100 SXM (700 W data-sheet peaks) could take for
     one float32 attention stage: the larger of its operations (forward 4
@@ -724,10 +827,11 @@ def _eval_action():
     return evaluate
 
 
-def serve_405_ms(dev, compute_dtype="float32"):
-    """A 405-frame request of a ``LiftingService`` in ``compute_dtype``
-    (depth 8, P=10, T=5, buckets 1..16): host ms, the median of 3 after a
-    warm one."""
+def serve_405_ms(dev, compute_dtype="float32", frames=(405,)):
+    """A request of each of ``frames`` frames to a ``LiftingService`` in
+    ``compute_dtype`` (depth 8, P=10, T=5, buckets 1..16): host ms, the
+    median of 3 after a warm one (a list where several lengths are asked,
+    a number for one)."""
     import numpy as np
     import torch
     from pafuse_tpu_torch.diffusion import D3DP, D3DPConfig
@@ -738,19 +842,22 @@ def serve_405_ms(dev, compute_dtype="float32"):
                  compute_dtype=compute_dtype)
     svc = LiftingService(model, buckets=(1, 2, 4, 8, 16), device=dev)
     svc.warmup()
-    kp = np.random.RandomState(0).uniform(-1, 1, (405, 134, 2)).astype(
-        np.float32)
-    svc.lift(kp, seed=0)
-    lat = []
-    for _ in range(3):
-        t0 = time.time()
+    got = []
+    for n in frames:
+        kp = np.random.RandomState(0).uniform(-1, 1, (n, 134, 2)).astype(
+            np.float32)
         svc.lift(kp, seed=0)
-        torch.cuda.synchronize()
-        lat.append((time.time() - t0) * 1e3)
+        lat = []
+        for _ in range(3):
+            t0 = time.time()
+            svc.lift(kp, seed=0)
+            torch.cuda.synchronize()
+            lat.append((time.time() - t0) * 1e3)
+        got.append(float(np.median(lat)))
     svc.close()
     del svc, model
     torch.cuda.empty_cache()
-    return float(np.median(lat))
+    return got if len(got) > 1 else got[0]
 
 
 def serve_section(times, dev):
@@ -1097,7 +1204,7 @@ def kernels_worker(mode: str, only=None):
     parts = [(name, len(j), PART_CHANNELS[name])
              for name, j in parts_table(True).items()]
     times, digests = {}, {}
-    timed = only not in ("train", "resident", "gemm")
+    timed = only not in ("train", "resident", "gemm", "fwd")
 
     def add(key, ms):
         times[key] = times.get(key, 0.0) + ms
@@ -1203,6 +1310,31 @@ def kernels_worker(mode: str, only=None):
         mixste_section(times, digests, dev, traced=True)
         emit({"kernels_ab": mode, "times": times, "float32_digests": digests,
               **{k: times.pop(k) for k in TRACED}})
+        return
+    elif only == "fwd":
+        # the profiled step first: a process's later profiles drop kernels
+        train_step_section(times, digests, dev, traced=True)
+        routes = fwd_section(times, digests, dev)
+        chain_section(times, dev)
+        for n, ms in zip(SERVE_FRAMES, serve_405_ms(dev, frames=SERVE_FRAMES)):
+            times[f"serve_{n}_float32_ms"] = ms
+        # the 76-window action in float32 at use_pallas=auto (#1) and true
+        # (#2), host s
+        evaluate = _eval_action()
+        for pallas in ("auto", "true"):
+            model = D3DP(D3DPConfig(depth=8), device=dev,
+                         generator=torch.Generator().manual_seed(0))
+            for m in model.modules():
+                if isinstance(m, MixSTE2):
+                    m.set_use_pallas(pallas)
+            evaluate(model)
+            t0 = time.time()
+            evaluate(model)
+            times[f"eval_{pallas}_float32_s"] = time.time() - t0
+            del model
+        emit({"kernels_ab": mode, "times": times, "float32_digests": digests,
+              **{k: times.pop(k) for k in TRACED if k in times},
+              "launches": routes})
         return
     elif only == "resident":
         routes = resident_section(times, digests, dev)
@@ -1566,7 +1698,7 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3,
                     help="kernel A/B processes a tree")
     ap.add_argument("--only", choices=("streamed", "serve", "train", "resident",
-                                       "stages", "gemm"),
+                                       "stages", "gemm", "fwd"),
                     help="time the streamed attention kernels and MixSTE's "
                          "steps alone, the bfloat16 request and "
                          "evaluation alone, or #6's weight-gradient stage, "
@@ -1580,7 +1712,13 @@ def main() -> int:
                          "GEMM_ROWS beside cuBLAS, with the float32 hashes of "
                          "#1-#6, the float32 405-frame serve request, the "
                          "H3WB step (and a profiled one) and MixSTE's steps "
-                         "(and a profiled one)")
+                         "(and a profiled one); 'fwd': the float32 attention "
+                         "forward alone at its main-path shapes (fwd_section) "
+                         "and #1's stages at serve bucket 16 (chain_section) "
+                         "with the float32 hashes of #1-#6, the float32 serve "
+                         "requests at SERVE_FRAMES, the float32 auto and true "
+                         "evaluation and the H3WB step (and a profiled one, "
+                         "first)")
     ap.add_argument("--alt", metavar="DIR",
                     help="with --kernels, a third checkout timed in the same "
                          "turns (e.g. this tree with one part of the change "

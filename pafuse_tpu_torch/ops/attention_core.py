@@ -15,8 +15,9 @@ in bfloat16, three TF32 products a product in float32); for CPU tensors it
 uses :func:`attention_core_reference`, the same function in plain PyTorch
 ops, through which ``ops.block.block_reference`` runs its attention.  A
 (sequence, head) of up to 144 tokens at a head size up to 64 (float32 up
-to 320 at d <= 48) goes through the resident kernel (``mma.sync``); any
-other L, and head sizes up to 128, through the streamed one on ``wgmma``,
+to 512 at d <= 32) goes through the resident kernels (``mma.sync``;
+float32 at 81-144 tokens ``wgmma``); any other L, and head sizes up to
+128, through the streamed one on ``wgmma``,
 whose key chunks stream through shared memory (bf16: TMA, a producer warp
 and persistent CTAs, with e = 2^(s c - m), c = d^-1/2 log2 e, in one FMA
 before ``ex2.approx``).  A head size above 128 raises ``ValueError``.

@@ -26,9 +26,16 @@
 // What bounds it on an H100 (data-sheet peaks at 700 W): 4*B*L^2*C
 // operations against 4*B*L*C*sizeof(T) bytes (qkv read once, out written
 // once), i.e. L operations a byte in bf16 and L / 2 in f32: at the chain's L
-// <= 68 (134 for the monolithic model) far below the ~295 a byte where the
-// tensor cores become the limit.  So it is bound by the bytes, and the
-// design moves each byte once and keeps the arithmetic short:
+// <= 68 below the ~49 a byte (165 TFLOP/s for float32 as three TF32
+// products, 3.35 TB/s) and the ~295 (bf16) where the tensor cores become the
+// limit, so the bound is the bytes.  On the card, though, float32 meets
+// mma.sync's TF32 rate first: ~112 TFLOP/s, 23% of the 495 of wgmma
+// (experiments/attention_fwd/run.py's `nomma` tree on an H100 80GB HBM3 at
+// 700 W: taking the 9.6 M m16n8k8 products out of H3WB's face stage saves
+// 0.176 of its 0.271 ms), so at 68 keys the products alone take twice the
+// bytes' time (the face's stage at serve bucket 16: ~1.37 ms of products
+// against a 0.63 ms bound), at 24-42 keys 60-90% of it.  The design moves
+// each byte once and keeps the products' issue dense:
 //   - a CTA takes a group of U (sequence, head) units, U | H or H | U: U
 //     heads of one sequence, or all heads of U / H sequences, so it reads
 //     HG*d contiguous values of each token's q, k and v (whole rows when HG
@@ -37,39 +44,60 @@
 //     2 otherwise), into one padded [token][DP + pad] tile a unit and part;
 //     a thread keeps one vector position of every few rows, so its index
 //     arithmetic is one division a row (64-bit divisions a vector made the
-//     stage 2.6x slower).  U is as large as ~48 KB allow, so four CTAs
-//     share an SM and one's copies overlap the others' arithmetic (two
-//     buffers in a persistent CTA halve U at the same shared memory and
-//     measured slower; PERF.md);
-//   - a warp takes one (unit, 16-query block) tile at a time.  S = Q K^T on
-//     mma.sync: bf16 as m16n8k16 with ldmatrix fragments; f32 as three TF32
-//     m16n8k8 products hi*hi + hi*lo + lo*hi (x_hi = tf32(x), x_lo =
-//     tf32(x - x_hi), as gemm_sm90.cuh splits them), the two small ones
-//     summed apart from hi*hi and added in one FADD, since the tensor
+//     stage 2.6x slower).  U is as large as ~48 KB allow, so several CTAs
+//     share an SM and one's copies overlap the others' arithmetic;
+//   - a warp takes one (unit, 16-query block) tile at a time (float32: a
+//     CTA of as many warps as its group has tiles, at most f32_warps).  S =
+//     Q K^T on mma.sync: bf16 as m16n8k16 with ldmatrix fragments; f32 as
+//     three TF32 m16n8k8 products hi*hi + hi*lo + lo*hi (x_hi = tf32(x),
+//     x_lo = tf32(x - x_hi), as gemm_sm90.cuh splits them), the two small
+//     ones summed apart from hi*hi and added in one FADD, since the tensor
 //     cores' accumulation truncates.  A row's logits stay in registers,
 //     16*NKT keys at a time: up to L = 144 all of them in one pass, beyond
 //     it chunks of 64 keys in two passes (the row's max and sum over the
-//     chunks, then the products);
+//     chunks, then the products).  Float32 skips the last n8 tile of keys
+//     where it lies wholly past L (the kernel's DEAD argument: 24 of 32
+//     keys, 17 of 32, 68 of 80), whose logits would be -inf and whose p
+//     exact zeros, so the bits are those of the tile computed;
 //   - the softmax runs on the accumulator fragments, each row's max and sum
 //     across its quad by shuffles; p = T(e * (1 / sum)) is repacked in
 //     registers as the A operand of P V (bf16: two n8 tiles of S are one
 //     k16 A fragment; f32: the keys of an n8 tile taken in the order
 //     2t, 2t + 1 -> k columns t, t + 4, with V's rows read in that order),
 //     V by ldmatrix.trans in bf16;
-//   - O, rounded to T, goes into the tile's own q rows (only its warp reads
-//     them), and the CTA writes its units' output rows with the vector
-//     width of the copies.
+//   - bf16: O, rounded to T, goes into the tile's own q rows (only its warp
+//     reads them), and the CTA writes its units' output rows with the
+//     vector width of the copies after a second barrier; float32: each lane
+//     stores its output fragments straight to global memory (two values a
+//     store where d is even), with no pass through shared memory and no
+//     second barrier.
+// Float32, the stage of kernels #1-#5 (experiments/attention_fwd/run.py,
+// H100 80GB HBM3 at 700 W).  What the former design (the same products,
+// every warp of a 4-warp CTA, the output through the q tiles) spent at #1's
+// six bucket-16 stages: its products 44% of 5.99 ms, K and V's TF32 splits
+// 20% (each warp split them again for its tile), the copies in 16%, the
+// output pass 15%, expf 6%, Q's splits 5% (each taken out in a tree of its
+// own; the shares overlap).  Measured against it and dropped: persistent
+// CTAs with a producer warp filling a ring of groups completed on
+// mbarriers (cp.async by one warp: the copies' issue bound it, 1.6-2x
+// slower at 24-27 keys; by four: as fast as the former design, its
+// consumer warps alone 4.8 ms; cp.async.bulk a (token, part, head) row:
+// ~70 cycles a copy an SM, 3x slower); two query tiles a warp (spills, or
+// too few warps to hide mma.sync's latency); 5-8 warps a CTA at 68 keys;
+// launch bounds of one CTA an SM (no spills, more registers: 12% slower).
+// This design: 5.26-5.30 ms against 5.95-5.98 (-12%), 1.84 ms at the face.
 // Padding: keys beyond L are masked to -inf (their v rows zeroed, so p = 0
 // multiplies finite values), d is padded to DP in {32, 48, 64} with zeros in
 // q and k, padded query rows are computed and dropped.  p = e * (1 /
 // sum) differs from e / sum by at most one f32 ulp.
 //
 // Where one (sequence, head) does not fit a CTA's shared memory (float32 L
-// above 320 at d <= 48) or d is above 64, in float32 past 144 keys at d =
-// 49..64 and in bf16 past 144 keys at any d, the streamed kernel below
+// above 512 at d <= 32) or d is above 64, in float32 past 144 keys at d =
+// 33..64 and in bf16 past 144 keys at any d, the streamed kernel below
 // takes the unit instead, with the same rounding points on key chunks that
 // stream through shared memory; variant() is the rule.  (The chunked path
-// here, past 144 keys, is left to float32 at d <= 48.)
+// here, past 144 keys, is left to float32 at d <= 32, where the streamed
+// kernel pads d to 64.)
 //
 // Everything launches on the caller's stream; nothing allocates.
 
@@ -407,135 +435,13 @@ __device__ __forceinline__ void tile_bf16(__nv_bfloat16* q, const __nv_bfloat16*
           __floats2bfloat162_rn(o[n][2 * r], o[n][2 * r + 1]);
 }
 
-// The same tile in f32, each product as three TF32 products.
-template <int DP, int NKT>
-__device__ __forceinline__ void tile_f32(float* q, const float* k, const float* v, int L, int nc,
-                                         float scale) {
-  constexpr int STRIDE = row_stride(DP, 4), KC = 16 * NKT, KS = DP / 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-
-  // A fragments of Q: (row g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-  uint32_t qh[KS][4], ql[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      split(q[(g + 8 * (i & 1)) * STRIDE + 8 * kk + t + 4 * (i >> 1)], qh[kk][i], ql[kk][i]);
-
-  float s[NKT][2][4];
-  auto logits = [&](int c) {
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int key0 = c * KC + 16 * j + 8 * n;
-        float small[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          // B fragment of K^T: (dim t, key g), (dim t + 4, key g)
-          const float* kr = k + (key0 + g) * STRIDE + 8 * kk + t;
-          uint32_t bh0, bl0, bh1, bl1;
-          split(kr[0], bh0, bl0);
-          split(kr[4], bh1, bl1);
-          mma_tf32(small, ql[kk], bh0, bh1);
-          mma_tf32(small, qh[kk], bl0, bl1);
-          mma_tf32(s[j][n], qh[kk], bh0, bh1);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 2 * t + (e & 1);
-          s[j][n][e] = key < L ? (s[j][n][e] + small[e]) * scale : -INFINITY;
-        }
-      }
-  };
-
-  const int chunks = NKT == CHUNK_TILES ? nc : 1;
-  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
-  for (int c = 0; c < chunks; ++c) {
-    logits(c);
-    float cm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], s[j][n][e]);
-    float cs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m = fmaxf(mx[r], quad_max(cm[r]));
-      sum[r] *= expf(mx[r] - m);
-      mx[r] = m;
-    }
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][n][e] = expf(s[j][n][e] - mx[e >> 1]);
-          cs[e >> 1] += s[j][n][e];
-        }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) sum[r] += quad_sum(cs[r]);
-  }
-
-  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
-  float o[KS][4];
-#pragma unroll
-  for (int n = 0; n < KS; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  for (int c = 0; c < chunks; ++c) {
-    if constexpr (NKT == CHUNK_TILES) {
-      logits(c);
-#pragma unroll
-      for (int j = 0; j < NKT; ++j)
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][n][e] = expf(s[j][n][e] - mx[e >> 1]);
-    }
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        // keys key0 + 2t and key0 + 2t + 1 as k columns t and t + 4
-        const int key0 = c * KC + 16 * j + 8 * n;
-        uint32_t ah[4], al[4];
-        split(s[j][n][0] * inv[0], ah[0], al[0]);
-        split(s[j][n][2] * inv[1], ah[1], al[1]);
-        split(s[j][n][1] * inv[0], ah[2], al[2]);
-        split(s[j][n][3] * inv[1], ah[3], al[3]);
-        const float* vr = v + (key0 + 2 * t) * STRIDE + g;
-#pragma unroll
-        for (int nd = 0; nd < KS; ++nd) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split(vr[8 * nd], bh0, bl0);
-          split(vr[8 * nd + STRIDE], bh1, bl1);
-          mma_tf32(o[nd], al, bh0, bh1);
-          mma_tf32(o[nd], ah, bl0, bl1);
-          mma_tf32(o[nd], ah, bh0, bh1);
-        }
-      }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < KS; ++n)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(q + (g + 8 * r) * STRIDE + 8 * n + 2 * t) =
-          make_float2(o[n][2 * r], o[n][2 * r + 1]);
-}
-
-// One CTA: the group of U units from unit blockIdx.x * U on.  nc key chunks
-// of 16 * NKT keys; vb the copy width in bytes.
+// One CTA of the bf16 kernel: the group of U units from unit blockIdx.x * U
+// on.  nc key chunks of 16 * NKT keys; vb the copy width in bytes.
 template <typename T, int DP, int NKT>
 __global__ void __launch_bounds__(THREADS)
 attention_tc_kernel(const T* __restrict__ qkv, T* __restrict__ out, long long seqs, int L,
                     int S, int C, int H, int d, float scale, int U, int nc, int vb) {
+  static_assert(sizeof(T) == 2, "float32 runs on the overload below");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   constexpr int STRIDE = row_stride(DP, (int)sizeof(T));
@@ -550,18 +456,14 @@ attention_tc_kernel(const T* __restrict__ qkv, T* __restrict__ out, long long se
   for (int tile = threadIdx.x >> 5; tile < n * qbs; tile += blockDim.x >> 5) {
     const int ul = tile / qbs, qb = tile - ul * qbs;
     T* qt = sm + (long long)ul * 3 * lpa * STRIDE;
-    if constexpr (sizeof(T) == 2)
-      tile_bf16<DP, NKT>(qt + qb * 16 * STRIDE, qt + lpa * STRIDE, qt + 2 * lpa * STRIDE, L, nc,
-                         scale);
-    else
-      tile_f32<DP, NKT>(qt + qb * 16 * STRIDE, qt + lpa * STRIDE, qt + 2 * lpa * STRIDE, L, nc,
-                        scale);
+    tile_bf16<DP, NKT>(qt + qb * 16 * STRIDE, qt + lpa * STRIDE, qt + 2 * lpa * STRIDE, L, nc,
+                       scale);
   }
   __syncthreads();
   move_rows<false>(vb, u, qkv, out, sm, C, d, lpa, STRIDE);
 }
 
-// The kernel's arguments and its shared memory.
+// The bf16 kernel's arguments and its shared memory.
 template <typename T> struct Launch {
   const T* qkv;
   T* out;
@@ -574,7 +476,8 @@ template <typename T> struct Launch {
 
 template <typename T, int DP, int NKT>
 cudaError_t launch(const Launch<T>& a, cudaStream_t stream) {
-  const auto kernel = attention_tc_kernel<T, DP, NKT>;
+  using Fn = void (*)(const T*, T*, long long, int, int, int, int, int, float, int, int, int);
+  const Fn kernel = attention_tc_kernel<T, DP, NKT>;
   if (a.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
@@ -592,17 +495,17 @@ cudaError_t launch_dp(int nkt, const Launch<T>& a, cudaStream_t stream) {
   switch (nkt) {
     case 2: return launch<T, DP, 2>(a, stream);
     case 3: return launch<T, DP, 3>(a, stream);
-    case CHUNK_TILES:
-      // bf16, and float32 at d = 49..64, past 144 keys stream (variant())
-      if constexpr (sizeof(T) == 2 || DP == 64) return cudaErrorInvalidValue;
-      else return launch<T, DP, CHUNK_TILES>(a, stream);
     case 5: return launch<T, DP, 5>(a, stream);
-    default:
-      // float32 at 81-144 keys runs on attention_wg_kernel (launch_attention_tc)
-      if constexpr (sizeof(T) == 4) return cudaErrorInvalidValue;
-      else return launch<T, DP, 9>(a, stream);
+    case 9: return launch<T, DP, 9>(a, stream);
+    default: return cudaErrorInvalidValue;    // past 144 keys bf16 streams (variant())
   }
 }
+
+// The float32 kernel's most warps a CTA: 4 (a CTA's tiles beyond them
+// wait a round; 5 or 8 warps, fewer CTAs an SM, measured slower at 68
+// keys), 8 on the chunked path (16 tiles a 243-token unit: 0.184 against
+// 0.207 ms at 4 warps, (64, 243, 224)).
+__host__ __device__ constexpr int f32_warps(int nkt) { return nkt == CHUNK_TILES ? 8 : 4; }
 
 // ---------------------------------------------------------------------------
 // The streamed forward, for the units the resident kernel above does not
@@ -695,14 +598,19 @@ inline int stream_wgs(int dp, int L) {
 // < 1, or d outside 1..MAX_STREAM_DIM).
 inline int variant(int size, int L, int d) {
   if (L < 1 || d < 1 || d > MAX_STREAM_DIM) return 0;
-  // past 144 keys, bf16 at any d and float32 at d = 49..64: both kernels
-  // take 64-key chunks with the same rounding points (in float32 the same
-  // products, the same bits), and the streamed one on wgmma is the faster
-  // (MixSTE's temporal (536, 243, 512) on an H100 80GB HBM3 at 700 W,
-  // chip_ab.py: float32 2.28 against 3.74 ms; bf16 0.373 against 0.682)
-  if (key_tiles(L) == CHUNK_TILES && (size == 2 || d > 48)) return 2;
-  const long long ub = unit_bytes(size, L, d);
-  return ub != 0 && ub <= SMEM_MAX ? 1 : 2;
+  const long long ub = unit_bytes(size, L, d);      // 0 past d = 64
+  if (ub == 0) return 2;
+  if (key_tiles(L) != CHUNK_TILES) return 1;          // float32 81-144 keys on wgmma
+  // past 144 keys: bf16 at any d and float32 at d = 33..64 stream (both
+  // kernels take 64-key chunks with the same rounding points; in float32
+  // the same products, the same bits), as does a float32 unit whose ring
+  // of two stages would not fit.  On an H100 80GB HBM3 at 700 W the
+  // streamed kernel on wgmma is the faster there: MixSTE's temporal (536,
+  // 243, 512) float32 2.28 against 3.74 ms, bf16 0.373 against 0.682
+  // (chip_ab.py); (64, 243, 384) 0.267 against the resident 0.396, (64,
+  // 243, 288) 0.253 against 0.390; it loses at d = 28, 32 (0.252 against
+  // 0.202: d pads to 64 there; experiments/attention_fwd/run.py)
+  return size == 4 && d <= 32 && ub <= SMEM_MAX ? 1 : 2;
 }
 
 // Shared memory of a streamed CTA: bf16 (Bf16Ring, at the most consumer
@@ -2154,6 +2062,252 @@ cudaError_t launch_stream(const T* qkv, T* out, long long seqs, int L, int S, in
   return counted(LAUNCH_ATTENTION_STREAM, cudaGetLastError());
 }
 
+// One warp's 16-query tile in float32: q its first row, k and v the unit's
+// tiles (nc key chunks of 16 * NKT keys); o: this lane's output fragments,
+// (row g + 8r, columns 8n + 2t, + 1) at o[n][2r], o[n][2r + 1].  S = Q K^T
+// as three TF32 m16n8k8 products hi*hi + (lo*hi + hi*lo) (x_hi = tf32(x),
+// x_lo = tf32(x - x_hi), as gemm_sm90.cuh splits them; the two small ones
+// summed apart and added in one FADD, since the tensor cores' accumulation
+// truncates); the softmax on the fragments, a row's max and sum across its
+// quad; p = T(e * (1 / sum)) repacked as the A operand of P V (keys 2t, 2t
+// + 1 of an n8 tile as k columns t, t + 4, V's rows read in that order),
+// three products again.  DEAD: the last n8 tile of keys lies wholly past L
+// and is skipped (its logits would be -inf and its p exact zeros, so every
+// accumulator sees the same products in the same order either way).
+template <int DP, int NKT, bool DEAD>
+__device__ __forceinline__ void tile_f32(float (&o)[DP / 8][4], const float* q, const float* k,
+                                         const float* v, int L, int nc, float scale) {
+  constexpr int STRIDE = row_stride(DP, 4), KC = 16 * NKT, KS = DP / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  auto dead = [](int j, int n) { return DEAD && j == NKT - 1 && n == 1; };
+
+  // A fragments of Q: (row g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+  uint32_t qh[KS][4], ql[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split(q[(g + 8 * (i & 1)) * STRIDE + 8 * kk + t + 4 * (i >> 1)], qh[kk][i], ql[kk][i]);
+
+  float s[NKT][2][4];
+  auto logits = [&](int c) {
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int key0 = c * KC + 16 * j + 8 * n;
+        float small[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][n][e] = 0.f;
+        if (!dead(j, n))
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            // B fragment of K^T: (dim t, key g), (dim t + 4, key g)
+            const float* kr = k + (key0 + g) * STRIDE + 8 * kk + t;
+            uint32_t bh0, bl0, bh1, bl1;
+            split(kr[0], bh0, bl0);
+            split(kr[4], bh1, bl1);
+            mma_tf32(small, ql[kk], bh0, bh1);
+            mma_tf32(small, qh[kk], bl0, bl1);
+            mma_tf32(s[j][n], qh[kk], bh0, bh1);
+          }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 2 * t + (e & 1);
+          s[j][n][e] = key < L ? (s[j][n][e] + small[e]) * scale : -INFINITY;
+        }
+      }
+  };
+  // e = exp(s - max) over the live n8 tiles, and their sums cs
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  auto exps = [&](float (&cs)[2]) {
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        if (!dead(j, n))
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][n][e] = expf(s[j][n][e] - mx[e >> 1]);
+            cs[e >> 1] += s[j][n][e];
+          }
+  };
+
+  // beyond one chunk: the rows' max and sum over the chunks, then the
+  // products with the logits computed again
+  const int chunks = NKT == CHUNK_TILES ? nc : 1;
+  for (int c = 0; c < chunks; ++c) {
+    logits(c);
+    float cm[2] = {-INFINITY, -INFINITY}, cs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], s[j][n][e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m = fmaxf(mx[r], quad_max(cm[r]));
+      sum[r] *= expf(mx[r] - m);     // 0 on the first chunk
+      mx[r] = m;
+    }
+    exps(cs);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) sum[r] += quad_sum(cs[r]);
+  }
+
+  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    if constexpr (NKT == CHUNK_TILES) {
+      logits(c);
+      float cs[2] = {0.f, 0.f};
+      exps(cs);
+    }
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        if (!dead(j, n)) {
+          // keys key0 + 2t and key0 + 2t + 1 as k columns t and t + 4
+          const int key0 = c * KC + 16 * j + 8 * n;
+          uint32_t ah[4], al[4];
+          split(s[j][n][0] * inv[0], ah[0], al[0]);
+          split(s[j][n][2] * inv[1], ah[1], al[1]);
+          split(s[j][n][1] * inv[0], ah[2], al[2]);
+          split(s[j][n][3] * inv[1], ah[3], al[3]);
+          const float* vr = v + (key0 + 2 * t) * STRIDE + g;
+#pragma unroll
+          for (int nd = 0; nd < KS; ++nd) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(vr[8 * nd], bh0, bl0);
+            split(vr[8 * nd + STRIDE], bh1, bl1);
+            mma_tf32(o[nd], al, bh0, bh1);
+            mma_tf32(o[nd], ah, bl0, bl1);
+            mma_tf32(o[nd], ah, bh0, bh1);
+          }
+        }
+  }
+}
+
+// This lane's output rows of a tile (queries q0..q0 + 15) straight from its
+// fragments: row l of the unit at y0 + l * S * C; two values a store where
+// vo (d even, out 8-byte aligned), else one.
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], float* y0, int S, int C,
+                                           int L, int q0, int d, int vo) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int l = q0 + g + 8 * r;
+    if (l >= L) continue;
+    float* y = y0 + (long long)l * S * C;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (vo) {
+        if (col < d)
+          *reinterpret_cast<float2*>(y + col) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+      } else {
+        if (col < d) y[col] = o[n][2 * r];
+        if (col + 1 < d) y[col + 1] = o[n][2 * r + 1];
+      }
+    }
+  }
+}
+
+// The float32 kernel (the same name as the bf16 one, told apart by its
+// arguments): the group of U units from unit blockIdx.x * U on, copied in as
+// the bf16 kernel copies (cp.async by every thread, vb bytes a copy), then
+// one 16-query tile a warp at a time, its output stored from the fragments
+// (vo: two values a store); nc key chunks of 16 * NKT keys; DEAD: the last
+// n8 tile of keys lies wholly past L (tile_f32).
+template <typename T, int DP, int NKT, bool DEAD>
+__global__ void __launch_bounds__(32 * f32_warps(NKT))
+attention_tc_kernel(const T* __restrict__ qkv, T* __restrict__ out, long long seqs, int L,
+                    int S, int C, int H, int d, float scale, int U, int nc, int vb, int vo) {
+  static_assert(sizeof(T) == 4, "bf16 runs on the kernel above");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  constexpr int STRIDE = row_stride(DP, 4), KS = DP / 8;
+  const int lpa = nc * 16 * NKT, qbs = (L + 15) / 16;
+  const Group u((long long)blockIdx.x * U, U, seqs * H, H, L, S);
+  const int n = u.G * u.HG;
+
+  move_rows<true>(vb, u, qkv, out, sm, C, d, lpa, STRIDE);
+  zero_pads<float, DP>(sm, n, L, d, lpa);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  for (int tile = threadIdx.x >> 5; tile < n * qbs; tile += blockDim.x >> 5) {
+    const int ul = tile / qbs, q0 = (tile - ul * qbs) * 16;
+    const float* ut = sm + (long long)ul * 3 * lpa * STRIDE;
+    const int sl = ul / u.HG, hl = ul - sl * u.HG;
+    float o[KS][4];
+    tile_f32<DP, NKT, DEAD>(o, ut + q0 * STRIDE, ut + lpa * STRIDE, ut + 2 * lpa * STRIDE, L, nc,
+                            scale);
+    store_rows<DP>(o, out + u.row(sl, 0) * C + (long long)(u.h0 + hl) * d, S, C, L, q0, d, vo);
+  }
+}
+
+// The float32 kernel's launch: U the most units (U | H or H | U) in
+// SMEM_TARGET, a warp a tile of the group (at most f32_warps(NKT)).
+template <int DP, int NKT, bool DEAD>
+cudaError_t launch_f32(const float* qkv, float* out, long long seqs, int L, int S, int C, int H,
+                       int d, float scale, int vb, cudaStream_t stream) {
+  using Fn = void (*)(const float*, float*, long long, int, int, int, int, int, float, int, int,
+                      int, int);
+  const Fn kernel = attention_tc_kernel<float, DP, NKT, DEAD>;
+  const long long ub = unit_bytes(4, L, d);
+  int U = 1;
+  for (int u = 2; u * ub <= SMEM_TARGET; ++u)
+    if (H % u == 0 || u % H == 0) U = u;
+  const size_t smem = (size_t)(U * ub);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long long grid = (seqs * H + U - 1) / U;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int kc = 16 * NKT, tiles = U * ((L + 15) / 16);
+  const int vo = d % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  const int warps = tiles < f32_warps(NKT) ? tiles : f32_warps(NKT);
+  kernel<<<(unsigned)grid, 32 * warps, smem, stream>>>(qkv, out, seqs, L, S, C, H, d, scale, U,
+                                                       (L + kc - 1) / kc, vb, vo);
+  return counted(LAUNCH_ATTENTION_TC, cudaGetLastError());
+}
+
+// dead: the last n8 tile of keys lies wholly past L (L 8 or more short of
+// the 16-key tiles; never on the chunked path)
+template <int DP, int NKT>
+cudaError_t launch_f32_nkt(const float* qkv, float* out, long long seqs, int L, int S, int C,
+                           int H, int d, float scale, int vb, cudaStream_t stream) {
+  if (NKT != CHUNK_TILES && (L + 7) / 8 < 2 * NKT)
+    return launch_f32<DP, NKT, true>(qkv, out, seqs, L, S, C, H, d, scale, vb, stream);
+  return launch_f32<DP, NKT, false>(qkv, out, seqs, L, S, C, H, d, scale, vb, stream);
+}
+
+template <int DP>
+cudaError_t launch_f32_dp(int nkt, const float* qkv, float* out, long long seqs, int L, int S,
+                          int C, int H, int d, float scale, int vb, cudaStream_t stream) {
+  switch (nkt) {
+    case 2: return launch_f32_nkt<DP, 2>(qkv, out, seqs, L, S, C, H, d, scale, vb, stream);
+    case 3: return launch_f32_nkt<DP, 3>(qkv, out, seqs, L, S, C, H, d, scale, vb, stream);
+    case 5: return launch_f32_nkt<DP, 5>(qkv, out, seqs, L, S, C, H, d, scale, vb, stream);
+    case CHUNK_TILES:
+      // past 144 keys only d <= 32 stays resident (variant())
+      if constexpr (DP == 32)
+        return launch_f32<DP, CHUNK_TILES, false>(qkv, out, seqs, L, S, C, H, d, scale, vb,
+                                                  stream);
+      else
+        return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace attn_tc
 
 // seqs sequences of L tokens, laid out with S as above (S = 1: contiguous):
@@ -2192,19 +2346,25 @@ cudaError_t launch_attention_tc(const T* qkv, T* out, long long seqs, int L, int
                  ? launch_wg_nb<2>(qkv, out, seqs, L, S, C, H, d, scale, vec, vo, stream)
                  : launch_wg_nb<3>(qkv, out, seqs, L, S, C, H, d, scale, vec, vo, stream);
     }
-  }
-  const long long ub = unit_bytes(size, L, d);
-  // U: the most units (U | H or H | U) in SMEM_TARGET
-  int U = 1;
-  for (int u = 2; u * ub <= SMEM_TARGET; ++u)
-    if (H % u == 0 || u % H == 0) U = u;
-  const int kc = 16 * nkt;
-  const Launch<T> a{qkv, out, seqs, L, S, C, H, d, scale, U, (L + kc - 1) / kc, vb,
-                    (size_t)(U * ub)};
-  switch (padded_dim(d)) {
-    case 32: return launch_dp<T, 32>(nkt, a, stream);
-    case 48: return launch_dp<T, 48>(nkt, a, stream);
-    default: return launch_dp<T, 64>(nkt, a, stream);
+    switch (padded_dim(d)) {
+      case 32: return launch_f32_dp<32>(nkt, qkv, out, seqs, L, S, C, H, d, scale, vb, stream);
+      case 48: return launch_f32_dp<48>(nkt, qkv, out, seqs, L, S, C, H, d, scale, vb, stream);
+      default: return launch_f32_dp<64>(nkt, qkv, out, seqs, L, S, C, H, d, scale, vb, stream);
+    }
+  } else {
+    const long long ub = unit_bytes(size, L, d);
+    // U: the most units (U | H or H | U) in SMEM_TARGET
+    int U = 1;
+    for (int u = 2; u * ub <= SMEM_TARGET; ++u)
+      if (H % u == 0 || u % H == 0) U = u;
+    const int kc = 16 * nkt;
+    const Launch<T> a{qkv, out, seqs, L, S, C, H, d, scale, U, (L + kc - 1) / kc, vb,
+                      (size_t)(U * ub)};
+    switch (padded_dim(d)) {
+      case 32: return launch_dp<T, 32>(nkt, a, stream);
+      case 48: return launch_dp<T, 48>(nkt, a, stream);
+      default: return launch_dp<T, 64>(nkt, a, stream);
+    }
   }
 }
 

@@ -152,7 +152,7 @@ def test_temporal_layout_equals_transposed_sequences(dtype, F, N):
 
 @pytest.mark.parametrize("L,d", [(24, 48), (27, 28), (68, 28), (42, 32),
                                  (17, 36), (134, 36), (243, 64), (351, 64),
-                                 (243, 128), (134, 64)])
+                                 (243, 128), (134, 64), (243, 28), (243, 48)])
 def test_float32_matches_jax_attention(L, d):
     C = HEADS * d
     r = np.random.RandomState(L * d)
@@ -186,9 +186,9 @@ STREAM_KC = 64
 def _streamed(size, L, d):
     """Whether the streamed kernel takes (L, d) (attention_sm90.cuh's
     variant(): d above 64; past 144 keys (the resident kernel's 64-key
-    chunks, the same arithmetic) bf16 at any d and float32 at d = 49..64;
+    chunks, the same arithmetic) bf16 at any d and float32 at d = 33..64;
     or one unit's q, k, v tiles beyond SMEM_MAX)."""
-    if d > 64 or (_key_tiles(L) == 4 and (size == 2 or d > 48)):
+    if d > 64 or (_key_tiles(L) == 4 and (size == 2 or d > 32)):
         return True
     kc = 16 * _key_tiles(L)
     dp = 32 if d <= 32 else 48 if d <= 48 else 64
@@ -223,12 +223,14 @@ def test_streamed_shared_memory_fits_a_cta(size, dp, want):
 
 
 def test_the_rule_streams_the_shapes_past_the_resident_kernel():
-    """float32: L up to 144 at d = 64 (one pass) and 320 at d <= 48
+    """float32: L up to 144 at d = 33..64 (one pass) and 512 at d <= 32
     resident, beyond them streamed; bf16 up to 144 at every d (one pass)
     resident, beyond it streamed; any d above 64 streamed."""
     assert not _streamed(4, 144, 64) and _streamed(4, 145, 64)
     assert _streamed(4, 243, 64) and _streamed(4, 243, 49)
-    assert not _streamed(4, 320, 48) and _streamed(4, 321, 48)
+    assert not _streamed(4, 144, 48) and _streamed(4, 145, 48)
+    assert _streamed(4, 243, 48) and _streamed(4, 243, 33)
+    assert not _streamed(4, 512, 32) and _streamed(4, 513, 32)
     for d in (28, 32, 36, 48, 64):
         assert not _streamed(2, 144, d) and _streamed(2, 145, d)
     assert _streamed(2, 243, 48) and _streamed(2, 351, 48)

@@ -1456,6 +1456,102 @@ def test_resident_stages_route_as_measured_on_gpu(cuda_device):
             counts = _launches(lambda: attention_core(x, HEADS),
                                "attention_core")["attention_core"]
             assert counts == _counts(**{kind: 1}), (C, dtype, counts)
+    # the float32 forward up to 80 keys: H3WB's and 3DHP's training shapes
+    for (B, L, C), _ in RESIDENT_BWD:
+        if L > 80:
+            continue
+        qkv = torch.randn(B, L, 3 * C, device=cuda_device)
+        counts = _launches(lambda: attention_core(qkv, HEADS),
+                           "attention_core")["attention_core"]
+        assert counts == _counts(attention_tc=1), (B, L, C, counts)
+
+
+def _block_cases(windows, P=10, frames=27):
+    """(B, L, C) of each H3WB part's spatial and temporal block at
+    ``windows`` windows x P x flip (chip_smoke.block_cases)."""
+    seqs = windows * P * 2
+    return [c for N, C in ((24, 384), (68, 224), (42, 256))
+            for c in ((seqs * frames, N, C), (seqs * N, frames, C))]
+
+
+#: the float32 forward's main-path shapes (B, L, C) and the kernel that
+#: takes each: #1's six stages at serve bucket 16 and #2's at window batch
+#: 64, H3WB's six training shapes and 3DHP's pair (the resident
+#: attention_tc_kernel up to 80 keys), and 243 frames at each part width
+#: (past 144 keys the resident kernel's chunks at d <= 32, the streamed
+#: kernel at d = 36, 48); chip_ab.py's fwd_section
+RESIDENT_FWD = ([(shape, "attention_tc") for shape in
+                 _block_cases(16) + _block_cases(64)]
+                + [(shape, "attention_tc") for shape, _ in RESIDENT_BWD
+                   if shape[1] <= 80]
+                + [((64, 243, 224), "attention_tc"),
+                   ((64, 243, 256), "attention_tc"),
+                   ((64, 243, 288), "attention_stream"),
+                   ((64, 243, 384), "attention_stream")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kind", RESIDENT_FWD)
+def test_float32_forward_routes_as_measured_on_gpu(cuda_device, shape, kind):
+    """At every main-path shape of the float32 attention forward one call
+    launches the kernel its route names once and nothing else, as the
+    library counts the launches, and a repeat gives the same bits."""
+    B, L, C = shape
+    qkv = torch.randn(B, L, 3 * C, device=cuda_device)
+    counts = _launches(lambda: attention_core(qkv, HEADS),
+                       "attention_core")["attention_core"]
+    assert counts == _counts(**{kind: 1}), (shape, counts)
+    got = attention_core(qkv, HEADS)
+    assert torch.equal(got, attention_core(qkv, HEADS))
+    ok, err = _attention_core_ok(got[:64], attention_core_reference(
+        qkv[:64], HEADS), qkv)
+    assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,C,heads", [(1, 68, 224, HEADS), (33, 27, 384, HEADS),
+                                         (999, 17, 288, HEADS), (4, 27, 24, 1),
+                                         (7, 9, 16, 1), (5, 200, 96, 3)])
+def test_float32_groups_of_units_equal_each_sequence_alone_on_gpu(
+        cuda_device, B, L, C, heads):
+    """The float32 resident kernel's CTAs take groups of U (sequence, head)
+    units (U | H or H | U): with few groups, with as many as the card has
+    SMs (33 x 8 units in twos on an H100), and with a last group short of U
+    (one head a sequence, three or seven sequences in threes), each sequence
+    gets bit for bit what it gets alone, within ATTN_CORE_TOL_F32 of the
+    plain version; 200 tokens at d = 32 runs the chunked path."""
+    r = np.random.RandomState(B + L + C)
+    qkv = torch.tensor(r.randn(B, L, 3 * C), dtype=torch.float32,
+                       device=cuda_device)
+    both = attention_core(qkv, heads)
+    ok, err = _attention_core_ok(both, attention_core_reference(qkv, heads),
+                                 qkv)
+    assert ok, err
+    for i in sorted({0, B // 2, B - 1}):
+        alone = attention_core(qkv[i:i + 1].contiguous(), heads)
+        assert torch.equal(alone[0], both[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["S=1", "S=N"])
+@pytest.mark.parametrize("L", [17, 27, 68, 200])
+def test_float32_head_rows_off_16_bytes_on_gpu(cuda_device, layout, L):
+    """A head of d = 17 (C = 136: 68-byte head rows, so 4-byte copies) in
+    both layouts, up to 80 keys and on the chunked path past 144: one
+    launch of attention_tc_kernel, within ATTN_CORE_TOL_F32 of the plain
+    version, and a repeat gives the same bits."""
+    r = np.random.RandomState(L)
+    shape = (24, L) if layout == "S=1" else (2, L, 12)
+    qkv = torch.tensor(r.randn(*shape, 3 * 136), dtype=torch.float32,
+                       device=cuda_device)
+    counts = _launches(lambda: attention_core(qkv, HEADS),
+                       "attention_core")["attention_core"]
+    assert counts == _counts(attention_tc=1), counts
+    got = attention_core(qkv, HEADS)
+    ok, err = _attention_core_ok(got, attention_core_reference(qkv, HEADS),
+                                 qkv)
+    assert ok, err
+    assert torch.equal(got, attention_core(qkv, HEADS))
 
 
 @pytest.mark.cuda
